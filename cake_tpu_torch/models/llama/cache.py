@@ -1,0 +1,80 @@
+"""Preallocated dense KV cache (port of ``cake_tpu/models/llama/cache.py``).
+
+Layout [n_layers, batch, n_kv_heads, max_seq, head_dim], head-major: each KV
+head's sequence is contiguous, which is what the decode and chunked-prefill
+kernels stream. Unlike the JAX package, whose arrays are immutable and whose
+cache is donated back to each step, the port writes the cache IN PLACE: a
+step's K/V land in the preallocated tensors with a slice assignment, and
+nothing is copied or reallocated per token.
+
+The rolling ring cache for sliding-window models is not ported yet
+(ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class KVCache(NamedTuple):
+    """Fixed-shape KV storage for a contiguous run of layers."""
+
+    k: torch.Tensor  # [n_layers, batch, n_kv_heads, max_seq, head_dim]
+    v: torch.Tensor
+
+    @property
+    def n_layers(self) -> int:
+        return self.k.shape[0]
+
+    @property
+    def batch_size(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def max_seq_len(self) -> int:
+        return self.k.shape[3]
+
+
+# Kept from the JAX package so both caches have the same padded length; on
+# the GPU it also keeps every head's rows 16-byte aligned.
+SEQ_MULTIPLE = 128
+
+
+def init_cache(
+    n_layers: int,
+    batch: int,
+    max_seq_len: int,
+    n_kv_heads: int,
+    head_dim: int,
+    dtype: torch.dtype = torch.bfloat16,
+    device: torch.device | str = "cpu",
+) -> KVCache:
+    """Allocate a zeroed cache; the seq axis is rounded up to SEQ_MULTIPLE."""
+    padded = -(-max_seq_len // SEQ_MULTIPLE) * SEQ_MULTIPLE
+    shape = (n_layers, batch, n_kv_heads, padded, head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def write_layer(
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    pos: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write a [batch, chunk, n_kv, hd] chunk at sequence offset ``pos`` into
+    one layer's [batch, n_kv, max_seq, hd] cache, in place. Returns the same
+    two tensors."""
+    chunk = k_new.shape[1]
+    if pos < 0 or pos + chunk > k_cache.shape[2]:
+        raise ValueError(
+            f"cache write [{pos}, {pos + chunk}) outside [0, {k_cache.shape[2]})"
+        )
+    k_cache[:, :, pos : pos + chunk] = k_new.transpose(1, 2)
+    v_cache[:, :, pos : pos + chunk] = v_new.transpose(1, 2)
+    return k_cache, v_cache

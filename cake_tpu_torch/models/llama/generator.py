@@ -1,0 +1,344 @@
+"""Autoregressive generation loop (port of
+``cake_tpu/models/llama/generator.py``, single-host path).
+
+Chat history, prefill (power-of-two buckets, optional fixed-size chunks),
+the per-token decode loop, sampling with the repeat penalty, incremental
+detokenization, EOS detection, and KV prefix reuse across ``reset()``.
+Fused multi-token decode, speculative decoding, failure recovery and the
+metrics calls are not ported yet (ROADMAP.md).
+
+The seam is the same as the JAX package's: the generator needs a step
+``(tokens, pos, seq_len) -> logits``; :class:`LocalForwardStep` runs the
+model on one device with the weights resident and the KV cache written in
+place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+from typing import Callable, Protocol
+
+import numpy as np
+import torch
+
+from cake_tpu_torch.device import resolve_device
+from cake_tpu_torch.models.llama import model as M
+from cake_tpu_torch.models.llama.cache import init_cache
+from cake_tpu_torch.models.llama.chat import Message, encode_dialog
+from cake_tpu_torch.models.llama.config import LlamaConfig
+from cake_tpu_torch.models.llama.tokenizer import Tokenizer, load_tokenizer
+from cake_tpu_torch.ops.fuse import fuse_params
+from cake_tpu_torch.ops.rope import model_rope_tables
+from cake_tpu_torch.ops.sampling import DEFAULT_SEED, apply_repeat_penalty, sample
+
+@dataclasses.dataclass
+class Token:
+    """One generated token."""
+
+    id: int
+    text: str
+    is_end_of_stream: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingConfig:
+    """Sampling knobs (the reference CLI's defaults)."""
+
+    temperature: float = 1.0
+    top_k: int | None = None
+    top_p: float | None = None
+    repeat_penalty: float = 1.1
+    repeat_last_n: int = 128
+    seed: int = DEFAULT_SEED
+
+
+def decode_delta(tokenizer: Tokenizer, ids: list[int], decoded_len: int) -> tuple[str, int]:
+    """Incremental detokenization: (newly stabilized text, new stable length).
+    A trailing replacement char is held back: the next token may complete a
+    partial UTF-8 sequence."""
+    full = tokenizer.decode(ids)
+    stable = len(full)
+    if full.endswith("�"):
+        stable -= 1
+    return full[decoded_len:stable], stable
+
+
+class ForwardStep(Protocol):
+    """One model step over a token chunk; implementations own their KV."""
+
+    def __call__(self, tokens: np.ndarray, pos: int, seq_len: int) -> torch.Tensor:
+        ...  # [batch, vocab] f32 logits at the last valid position
+
+    def reset(self) -> None: ...
+
+    @property
+    def max_seq_len(self) -> int: ...
+
+
+class LocalForwardStep:
+    """Single-device step: fused weights resident on ``device``, a dense KV
+    cache written in place, rope tables built once."""
+
+    def __init__(
+        self,
+        config: LlamaConfig,
+        params: M.Params,
+        *,
+        max_seq_len: int | None = None,
+        batch_size: int = 1,
+        cache_dtype: torch.dtype = torch.bfloat16,
+        device: torch.device | str = "cuda",
+    ):
+        self.config = config
+        self.device = resolve_device(device)
+        self.params = fuse_params(params)
+        self._max_seq = int(max_seq_len or config.max_position_embeddings)
+        self._batch = batch_size
+        self._cache_dtype = cache_dtype
+        self._kv = None
+        self.reset()
+        self._rope = model_rope_tables(config, self._kv.max_seq_len, self.device)
+
+    @property
+    def max_seq_len(self) -> int:
+        return self._max_seq
+
+    def reset(self) -> None:
+        if self._kv is None:
+            self._kv = init_cache(
+                self.config.num_hidden_layers, self._batch, self._max_seq,
+                self.config.num_key_value_heads, self.config.head_dim,
+                self._cache_dtype, self.device,
+            )
+        # Nothing to clear: slots past the live prefix are never read (the
+        # decode kernel's lengths and the causal mask bound every read).
+
+    @torch.inference_mode()
+    def __call__(self, tokens: np.ndarray, pos: int, seq_len: int) -> torch.Tensor:
+        toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int64).to(self.device)
+        logits, self._kv = M.forward(
+            self.params, toks, self._kv, int(pos), int(seq_len), self.config,
+            cached_prefill=M.is_cached_prefill(pos, toks.shape[1]), rope=self._rope,
+        )
+        return logits
+
+
+def prefill_bucket(n: int, max_seq_len: int, minimum: int = 16) -> int:
+    """Power-of-two padding bucket (the JAX package compiles once per bucket;
+    the port keeps the same chunk shapes so both run the same arithmetic)."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return min(b, max_seq_len)
+
+
+class LlamaGenerator:
+    """Chat-aware token generator."""
+
+    def __init__(
+        self,
+        config: LlamaConfig,
+        step: ForwardStep,
+        tokenizer: Tokenizer,
+        sampling: SamplingConfig = SamplingConfig(),
+        prefill_chunk: int | None = None,
+        prefix_cache: bool = False,
+    ):
+        self.config = config
+        self.step = step
+        self.tokenizer = tokenizer
+        self.sampling = sampling
+        # Reuse the KV prefix across reset(): a new dialog sharing a token
+        # prefix with the previous one prefills only the new suffix.
+        self.prefix_cache = prefix_cache
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        self.prefill_chunk = prefill_chunk
+        self.last_finish_reason: str = "stop"
+        self.reset()
+
+    @classmethod
+    def load(
+        cls,
+        model_dir: str | Path,
+        *,
+        dtype: torch.dtype = torch.bfloat16,
+        max_seq_len: int | None = None,
+        sampling: SamplingConfig = SamplingConfig(),
+        prefill_chunk: int | None = None,
+        prefix_cache: bool = False,
+        device: torch.device | str | None = None,
+    ) -> "LlamaGenerator":
+        """Config, weights and tokenizer from a checkpoint directory, on
+        ``device`` (default CUDA; raises when there is none)."""
+        from cake_tpu_torch.io.safetensors_io import load_params
+
+        dev = resolve_device(device)
+        config = LlamaConfig.from_model_dir(model_dir)
+        params = load_params(model_dir, config, dtype, dev)
+        step = LocalForwardStep(
+            config, params, max_seq_len=max_seq_len, cache_dtype=dtype, device=dev
+        )
+        return cls(
+            config, step, load_tokenizer(model_dir), sampling,
+            prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
+        )
+
+    # ------------------------------------------------------------- chat state
+
+    def reset(self) -> None:
+        """Clear dialog and counters. With ``prefix_cache`` the step's KV
+        survives as a snapshot of the tokens it is valid for, bounded by the
+        last sampled token (never fed back) and by ``_kv_high``, the
+        high-water mark of successful step calls."""
+        if self.prefix_cache and getattr(self, "_started", False):
+            bound = min(self._kv_high, max(0, len(self._tokens) - 1))
+            self._reusable = self._tokens[:bound]
+        else:
+            self._reusable = []
+            if getattr(self, "step", None) is not None:
+                self.step.reset()
+        self._kv_high = 0
+        self.messages: list[Message] = []
+        self._tokens: list[int] = []
+        self._n_prompt = 0
+        self._decoded_len = 0
+        self._started = False
+        self._prompt_cache: tuple[str, list[int]] | None = None
+        self._rng: torch.Generator | None = None
+        self.last_prefill_tokens = 0
+
+    def add_message(self, message: Message) -> None:
+        self.messages.append(message)
+
+    @property
+    def generated_count(self) -> int:
+        return len(self._tokens) - self._n_prompt if self._started else 0
+
+    @property
+    def generated_token_ids(self) -> list[int]:
+        return self._tokens[self._n_prompt :]
+
+    @property
+    def prompt_tokens(self) -> int:
+        return self._n_prompt
+
+    def prompt_token_count(self) -> int:
+        """Token count of the current dialog's rendered prompt."""
+        return len(self._encode_prompt())
+
+    def _encode_prompt(self) -> list[int]:
+        prompt = encode_dialog(self.messages, self.config.dialog_template)
+        if self._prompt_cache is None or self._prompt_cache[0] != prompt:
+            self._prompt_cache = (prompt, self.tokenizer.encode(prompt))
+        return self._prompt_cache[1]
+
+    # ------------------------------------------------------------- sampling
+
+    def _penalty_window(self) -> np.ndarray:
+        n = self.sampling.repeat_last_n
+        w = np.full((1, n), -1, np.int64)
+        if n > 0 and self._tokens:
+            recent = self._tokens[-n:]
+            w[0, : len(recent)] = recent
+        return w
+
+    def _sample(self, logits: torch.Tensor) -> int:
+        s = self.sampling
+        if s.repeat_penalty != 1.0:
+            window = torch.from_numpy(self._penalty_window()).to(logits.device)
+            logits = apply_repeat_penalty(logits, s.repeat_penalty, window)
+        if self._rng is None:  # seeded at the first draw of each dialog
+            self._rng = torch.Generator(device=logits.device)
+            self._rng.manual_seed(s.seed)
+        ids = sample(
+            logits, self._rng, temperature=s.temperature, top_k=s.top_k, top_p=s.top_p
+        )
+        return int(ids[0])
+
+    # ------------------------------------------------------------- decoding
+
+    def _prefill(self, ids: list[int], start: int = 0) -> torch.Tensor:
+        """Run ``ids`` (positions [start, start + len)) through the step and
+        return the last token's logits: full ``prefill_chunk``-sized chunks,
+        then one power-of-two-bucketed tail chunk (one shot without a cap)."""
+        cap = self.prefill_chunk
+        off = start
+        end = start + len(ids)
+        if cap is not None:
+            while end - off > cap:
+                chunk = np.asarray([ids[off - start : off - start + cap]], np.int64)
+                self.step(chunk, off, cap)  # logits discarded mid-prompt
+                off += cap
+                self._kv_high = max(self._kv_high, off)
+        rem = ids[off - start :]
+        bucket = prefill_bucket(len(rem), self.step.max_seq_len if cap is None else cap)
+        # A bucket at offset `off` must stay inside the cache.
+        bucket = min(bucket, self.step.max_seq_len - off)
+        chunk = np.zeros((1, bucket), np.int64)
+        chunk[0, : len(rem)] = rem
+        logits = self.step(chunk, off, len(rem))
+        self._kv_high = max(self._kv_high, off + len(rem))
+        return logits
+
+    def next_token(self) -> Token:
+        """Generate one token."""
+        if not self._started:
+            ids = self._encode_prompt()
+            if len(ids) >= self.step.max_seq_len:
+                raise ValueError(
+                    f"prompt length {len(ids)} exceeds max_seq_len {self.step.max_seq_len}"
+                )
+            self._tokens = list(ids)
+            self._n_prompt = len(ids)
+            self._started = True
+            # Prefix reuse: skip tokens whose KV the step already holds; the
+            # last prompt token is always fed (its logits are needed).
+            lcp = 0
+            if self._reusable:
+                cap_lcp = min(len(ids) - 1, len(self._reusable))
+                while lcp < cap_lcp and ids[lcp] == self._reusable[lcp]:
+                    lcp += 1
+                self._reusable = []
+            self.last_prefill_tokens = len(ids) - lcp
+            logits = self._prefill(ids[lcp:], start=lcp)
+        else:
+            pos = len(self._tokens) - 1
+            if pos >= self.step.max_seq_len:
+                raise ValueError(
+                    f"sequence length {pos + 1} exceeds max_seq_len {self.step.max_seq_len}"
+                )
+            logits = self.step(np.array([[self._tokens[-1]]], np.int64), pos, 1)
+            self._kv_high = max(self._kv_high, pos + 1)
+        return self._materialize(self._sample(logits))
+
+    def _materialize(self, tid: int) -> Token:
+        """Append one id and produce its Token (EOS, incremental text)."""
+        self._tokens.append(tid)
+        is_eos = tid in self.config.eos_token_ids
+        text = ""
+        if not is_eos:
+            text, self._decoded_len = decode_delta(
+                self.tokenizer, self.generated_token_ids, self._decoded_len
+            )
+        return Token(id=tid, text=text, is_end_of_stream=is_eos)
+
+    def generate(
+        self, max_new_tokens: int, on_token: Callable[[Token], None] | None = None
+    ) -> str:
+        """Decode up to ``max_new_tokens``, streaming through ``on_token``.
+        Sets ``last_finish_reason``: "stop" at EOS, else "length"."""
+        out: list[str] = []
+        self.last_finish_reason = "length"
+        for _ in range(max_new_tokens):
+            if len(self._tokens) >= self.step.max_seq_len:
+                break
+            tok = self.next_token()
+            if on_token is not None:
+                on_token(tok)
+            if tok.is_end_of_stream:
+                self.last_finish_reason = "stop"
+                break
+            out.append(tok.text)
+        return "".join(out)

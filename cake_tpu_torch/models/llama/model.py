@@ -1,0 +1,292 @@
+"""Llama-family decoder as plain functions over a dict of tensors.
+
+Port of ``cake_tpu/models/llama/model.py`` for the dense families: Llama,
+Qwen2 (QKV bias), Qwen3 (q/k RMSNorm), Mistral (window, decoupled head_dim)
+and the Gemma family (scaled embeddings, (1+w) norms, GeGLU, score scale and
+soft-caps, per-layer window flags, Gemma-3's dual rope). Sparse MoE layers
+and the rolling window cache raise NotImplementedError (ROADMAP.md).
+
+The param tree keeps the JAX package's layout so the two can be compared
+leaf for leaf: linear weights are [in, out] and applied as ``x @ w``, and
+per-layer weights are stacked along a leading layer axis. Where the JAX
+package scans the stack with ``lax.scan``, the port walks it with a Python
+loop over per-layer views.
+
+Attention dispatch is by the tensors' device: the wrappers in ops/ launch
+the CUDA kernels for CUDA tensors and run their plain versions for CPU
+tensors. The KV cache is written in place (models/llama/cache.py).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from cake_tpu_torch.models.llama.cache import KVCache, write_layer
+from cake_tpu_torch.models.llama.config import LlamaConfig
+from cake_tpu_torch.ops.chunk_prefill import chunk_prefill_attention
+from cake_tpu_torch.ops.decode_attention import decode_attention
+from cake_tpu_torch.ops.flash_attention import flash_attention
+from cake_tpu_torch.ops.mlp import swiglu, swiglu_gu
+from cake_tpu_torch.ops.norm import rms_norm
+from cake_tpu_torch.ops.rope import apply_rope, model_rope_tables
+
+Params = dict[str, Any]
+
+_MOE_TODO = "sparse MoE layers are not ported yet (ROADMAP.md queue A, item 9)"
+_ROLLING_TODO = "the rolling window cache is not ported yet (ROADMAP.md queue A, item 3)"
+
+
+def init_params(
+    config: LlamaConfig,
+    generator: torch.Generator,
+    dtype: torch.dtype = torch.bfloat16,
+    device: torch.device | str = "cpu",
+) -> Params:
+    """Random params drawn from ``generator`` (which must live on ``device``),
+    N(0, fan_in**-0.5) like the JAX package's init; norms start at identity."""
+    if config.num_local_experts:
+        raise NotImplementedError(_MOE_TODO)
+    h, inter, v = config.hidden_size, config.intermediate_size, config.vocab_size
+    hd, n_q, n_kv = config.head_dim, config.num_attention_heads, config.num_key_value_heads
+    n = config.num_hidden_layers
+
+    def w(*shape):
+        fan_in = shape[-2] if len(shape) > 1 else shape[-1]
+        t = torch.empty(shape, dtype=dtype, device=device)
+        return t.normal_(0.0, fan_in**-0.5, generator=generator)
+
+    def norm(*shape):
+        fill = 0.0 if config.rmsnorm_offset else 1.0
+        return torch.full(shape, fill, dtype=dtype, device=device)
+
+    layers = {
+        "wq": w(n, h, n_q * hd),
+        "wk": w(n, h, n_kv * hd),
+        "wv": w(n, h, n_kv * hd),
+        "wo": w(n, n_q * hd, h),
+        "w_gate": w(n, h, inter),
+        "w_up": w(n, h, inter),
+        "w_down": w(n, inter, h),
+        "ln_attn": norm(n, h),
+        "ln_mlp": norm(n, h),
+    }
+    if config.post_block_norms:
+        layers["ln_post_attn"] = norm(n, h)
+        layers["ln_post_mlp"] = norm(n, h)
+    if config.qk_norm:
+        layers["q_norm"] = norm(n, hd)
+        layers["k_norm"] = norm(n, hd)
+    if config.sliding_pattern is not None:
+        layers["win_flag"] = torch.tensor(config.sliding_pattern, device=device)
+    if config.rope_local_base_freq is not None:
+        if config.sliding_pattern is None:
+            raise ValueError("rope_local_base_freq needs sliding_pattern")
+        layers["rope_sel"] = torch.tensor(
+            config.sliding_pattern, dtype=torch.int32, device=device
+        )
+    if config.alt_sliding_window:
+        layers["win_flag"] = (torch.arange(n, device=device) % 2) == 0
+    if config.attention_bias:
+        layers["bq"] = w(n, 1, n_q * hd)[:, 0]
+        layers["bk"] = w(n, 1, n_kv * hd)[:, 0]
+        layers["bv"] = w(n, 1, n_kv * hd)[:, 0]
+    return {
+        "embed": w(v, h),
+        "layers": layers,
+        "ln_f": norm(h),
+        "lm_head": w(h, v),
+    }
+
+
+def _to_torch(leaf, device) -> torch.Tensor:
+    a = np.asarray(leaf)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: no numpy-native bf16
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_jax(tree: Params, device: torch.device | str = "cpu") -> Params:
+    """The port's param tree from a JAX package param tree whose leaves are
+    numpy arrays (or anything ``np.asarray`` takes). Layouts are the same
+    ([in, out] linear weights, stacked layers), so this only moves data."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    return _to_torch(tree, device)
+
+
+def embed_tokens(tree: Params, tokens: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
+    """Embedding lookup; Gemma scales by sqrt(hidden), the factor cast to the
+    embedding dtype first."""
+    x = tree["embed"][tokens.long()]
+    if config.embedding_scale is not None:
+        x = x * torch.tensor(config.embedding_scale, dtype=x.dtype, device=x.device)
+    return x
+
+
+def is_cached_prefill(pos: int, width: int) -> bool:
+    """A multi-token chunk at a nonzero offset attends the cache prefix."""
+    return pos > 0 and width > 1
+
+
+def block_qkv(lp, x, cos, sin, positions, config: LlamaConfig):
+    """rms_1 -> QKV projection (+bias) -> q/k norm -> RoPE on q/k."""
+    b, chunk, _ = x.shape
+    hd = config.head_dim
+    n_q, n_kv = config.num_attention_heads, config.num_key_value_heads
+    if "rope_sel" in lp:  # Gemma-3: plane 0 global rope, plane 1 local
+        cos, sin = cos[lp["rope_sel"]], sin[lp["rope_sel"]]
+    h = rms_norm(x, lp["ln_attn"], config.rms_norm_eps, config.rmsnorm_offset)
+    if "wqkv" in lp:
+        qkv = h @ lp["wqkv"]
+        if "bqkv" in lp:
+            qkv = qkv + lp["bqkv"].to(qkv.dtype)
+        qw, kw = n_q * hd, n_kv * hd
+        q, k, v = qkv[..., :qw], qkv[..., qw : qw + kw], qkv[..., qw + kw :]
+    else:
+        q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+        if "bq" in lp:
+            q = q + lp["bq"].to(q.dtype)
+            k = k + lp["bk"].to(k.dtype)
+            v = v + lp["bv"].to(v.dtype)
+    q = q.reshape(b, chunk, n_q, hd)
+    k = k.reshape(b, chunk, n_kv, hd)
+    v = v.reshape(b, chunk, n_kv, hd)
+    if "q_norm" in lp:
+        q = rms_norm(q, lp["q_norm"], config.rms_norm_eps, config.rmsnorm_offset)
+        k = rms_norm(k, lp["k_norm"], config.rms_norm_eps, config.rmsnorm_offset)
+    return apply_rope(q, cos, sin, positions), apply_rope(k, cos, sin, positions), v
+
+
+def block_finish(lp, x, attn, config: LlamaConfig):
+    """Out-projection + residual, rms_2 -> gated MLP + residual."""
+    if "router" in lp:
+        raise NotImplementedError(_MOE_TODO)
+    b, chunk, _ = x.shape
+    off = config.rmsnorm_offset
+    o = (attn.reshape(b, chunk, -1) @ lp["wo"]).to(x.dtype)
+    if "ln_post_attn" in lp:
+        o = rms_norm(o, lp["ln_post_attn"], config.rms_norm_eps, off)
+    x = x + o
+    h = rms_norm(x, lp["ln_mlp"], config.rms_norm_eps, off)
+    if "w_gu" in lp:
+        mlp = swiglu_gu(h, lp["w_gu"], lp["w_down"], config.hidden_activation)
+    else:
+        mlp = swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"], config.hidden_activation)
+    mlp = mlp.to(x.dtype)
+    if "ln_post_mlp" in lp:
+        mlp = rms_norm(mlp, lp["ln_post_mlp"], config.rms_norm_eps, off)
+    return x + mlp
+
+
+def attention_rows(b: int, pos: int, chunk: int, device) -> dict[str, torch.Tensor]:
+    """Per-row int32 bounds the attention kernels take, built once per step:
+    decode lengths (pos + 1) or the continuation's q_starts and lengths."""
+    if chunk == 1:
+        return {"lengths": torch.full((b,), pos + 1, dtype=torch.int32, device=device)}
+    q_starts = torch.full((b,), pos, dtype=torch.int32, device=device)
+    return {"q_starts": q_starts, "lengths": q_starts + chunk}
+
+
+def block_forward(
+    lp, x, k_cache, v_cache, cos, sin, positions, pos: int, config: LlamaConfig,
+    cached_prefill: bool = False, rolling: bool = False, rows=None,
+):
+    """One decoder block over a token chunk; writes this chunk's K/V into the
+    layer's cache in place. Returns (x_out, k_cache, v_cache)."""
+    if rolling:
+        raise NotImplementedError(_ROLLING_TODO)
+    b, chunk, _ = x.shape
+    q, k, v = block_qkv(lp, x, cos, sin, positions, config)
+    write_layer(k_cache, v_cache, k, v, pos)
+    if rows is None:
+        rows = attention_rows(b, pos, chunk, x.device)
+    kw = dict(
+        window=config.sliding_window,
+        window_flag=lp.get("win_flag"),
+        scale=config.attn_scale,
+        softcap=config.attn_logit_softcap,
+    )
+    if chunk > 1 and cached_prefill:
+        # Continuation chunk: attend the live cache prefix, which already
+        # holds this chunk's keys.
+        attn = chunk_prefill_attention(
+            q, k_cache, v_cache, rows["q_starts"], rows["lengths"], **kw
+        )
+    elif chunk > 1:
+        # Prefill from offset 0: the chunk attends only within itself.
+        attn = flash_attention(q, k, v, **kw)
+    else:
+        attn = decode_attention(q, k_cache, v_cache, rows["lengths"], None, **kw)
+    return block_finish(lp, x, attn, config), k_cache, v_cache
+
+
+def blocks_forward(
+    layers: Params, x, kv: KVCache, cos, sin, pos: int, config: LlamaConfig,
+    cached_prefill: bool = False,
+):
+    """Run the stacked layers in order (the JAX package's ``lax.scan``)."""
+    b, chunk, _ = x.shape
+    positions = pos + torch.arange(chunk, device=x.device)[None, :].expand(b, chunk)
+    # Positions are layer-invariant: gather the rope rows once per step.
+    if cos.dim() == 3:
+        cos, sin = cos[:, positions], sin[:, positions]
+    else:
+        cos, sin = cos[positions], sin[positions]
+    rows = attention_rows(b, pos, chunk, x.device)
+    for i in range(kv.n_layers):
+        lp = {name: w[i] for name, w in layers.items()}
+        x, _, _ = block_forward(
+            lp, x, kv.k[i], kv.v[i], cos, sin, positions, pos, config,
+            cached_prefill=cached_prefill, rows=rows,
+        )
+    return x, kv
+
+
+def _final_softcap(logits, config: LlamaConfig):
+    cap = config.final_logit_softcap
+    return logits if cap is None else cap * torch.tanh(logits / cap)
+
+
+def head_forward(params: Params, x, seq_len: int, config: LlamaConfig):
+    """Final norm + LM head at the last valid position -> [b, vocab] f32."""
+    x_last = x[:, seq_len - 1]
+    x_last = rms_norm(x_last, params["ln_f"], config.rms_norm_eps, config.rmsnorm_offset)
+    lm_head = params["embed"].T if config.tie_word_embeddings else params["lm_head"]
+    return _final_softcap((x_last @ lm_head).float(), config)
+
+
+def forward(
+    params: Params, tokens, kv: KVCache, pos: int, seq_len: int, config: LlamaConfig,
+    cached_prefill: bool = False, rolling: bool = False, rope=None,
+):
+    """embed -> blocks -> ln_f -> lm_head at position seq_len - 1.
+
+    Args:
+      tokens: [b, chunk] int (the chunk may be padded past seq_len).
+      kv: full-depth cache, updated in place.
+      pos: offset of tokens[:, 0]; seq_len: count of valid tokens.
+      cached_prefill: chunk > 1 at pos > 0 attends the cache prefix.
+      rope: precomputed (cos, sin) tables (default: built for kv's length).
+
+    Returns (logits [b, vocab] f32, kv).
+    """
+    if rolling:
+        raise NotImplementedError(_ROLLING_TODO)
+    if rope is None:
+        rope = model_rope_tables(config, kv.max_seq_len, tokens.device)
+    cos, sin = rope
+    x = embed_tokens(params, tokens, config)
+    x, kv = blocks_forward(
+        params["layers"], x, kv, cos, sin, pos, config, cached_prefill=cached_prefill
+    )
+    return head_forward(params, x, seq_len, config), kv
+
+
+def count_params(params: Params) -> int:
+    total = 0
+    for leaf in params.values():
+        total += count_params(leaf) if isinstance(leaf, dict) else leaf.numel()
+    return total

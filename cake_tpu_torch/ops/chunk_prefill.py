@@ -1,0 +1,176 @@
+"""Chunked-prefill attention: a chunk of queries over the live KV prefix.
+
+Replaces the Pallas TPU kernel ``cake_tpu/ops/pallas/chunk_prefill.py``
+(``chunk_prefill_attention``) with a CUDA kernel written for Hopper,
+``ops/csrc/chunk_prefill.cu``. The position-0 prefill reaches the same
+kernel through ``ops/flash_attention.py``.
+
+What bounds it on the H100: at the main path's chunk sizes (hundreds to
+thousands of queries over a prefix of the same order) the products, about
+4*head_dim FLOPs per (query, key) pair, outweigh the bytes; the kernel is
+compute-bound and, running its products on the CUDA cores in f32, far from
+the tensor-core peak.
+
+What the design does about it: one block per (32-query tile, query head,
+row) keeps its Q tile and a 64-key K/V tile in shared memory, so each K/V
+row is read once per query tile and every score stays on chip; the key loop
+starts at the first key any row of the tile needs (``k_starts``, the window)
+and stops at the last (the causal end, ``lengths``), so masked-out blocks
+cost nothing, as the reference's block pruning. Tensor-core tiles are the
+next step.
+
+For a tensor on the CPU the wrapper runs :func:`chunk_prefill_attention_plain`;
+for a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cake_tpu_torch.ops import _build
+from cake_tpu_torch.ops.attention import causal_mask, masked_gqa_attention_hm
+
+_KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+_HEAD_DIMS = (64, 128, 256)
+
+
+def _as_rows(x, b, device, default=0):
+    if x is None:
+        return torch.full((b,), default, dtype=torch.int32, device=device)
+    return torch.as_tensor(x, dtype=torch.int32, device=device).reshape(b)
+
+
+def chunk_prefill_attention_plain(
+    q, k_cache, v_cache, q_starts, lengths, window_flag=None, k_starts=None, *,
+    window=None, scale=None, softcap=None,
+):
+    """Plain PyTorch version over the whole cache: row r's query i at
+    position q_starts[r] + i sees slots j with k_starts[r] <= j <= its
+    position and j < lengths[r] (and inside the window when gated on)."""
+    chunk_prefill_attention_plain.launches += 1
+    b, chunk = q.shape[:2]
+    dev = q.device
+    q_starts = _as_rows(q_starts, b, dev)
+    lengths = _as_rows(lengths, b, dev)
+    k_starts = _as_rows(k_starts, b, dev)
+    qpos = q_starts[:, None] + torch.arange(chunk, device=dev, dtype=torch.int32)[None]
+    kpos = torch.arange(k_cache.shape[2], device=dev, dtype=torch.int32)[None].expand(b, -1)
+    mask = causal_mask(qpos, kpos, window, window_flag)
+    live = (kpos >= k_starts[:, None]) & (kpos < lengths[:, None])
+    return masked_gqa_attention_hm(
+        q, k_cache, v_cache, mask & live[:, None, :], scale=scale, softcap=softcap
+    )
+
+
+chunk_prefill_attention_plain.launches = 0
+
+
+def _check_operand(name, t, dtype, device):
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"chunk_prefill_attention: {name} must be {dtype} on {device}")
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
+        (s * t.element_size()) % 16 for s in t.stride()[:-1]
+    ):
+        raise ValueError(
+            f"chunk_prefill_attention: {name} needs a contiguous head_dim axis and "
+            f"16-byte aligned rows (strides {t.stride()})"
+        )
+
+
+def launch_chunk_kernel(
+    q, k, v, k_layout, q_starts, lengths, k_starts, window_flag, *,
+    window, scale, softcap,
+):
+    """Launch the CUDA kernel. ``k_layout`` names the K/V axes: "bhsd" for
+    the head-major cache, "bshd" for fresh seq-major projections (read
+    through strides, never copied)."""
+    b, chunk, n_q, hd = q.shape
+    if k_layout == "bhsd":
+        _, n_kv, kv_len, _ = k.shape
+        ksb, ksh, kss = k.stride(0), k.stride(1), k.stride(2)
+        vsb, vsh, vss = v.stride(0), v.stride(1), v.stride(2)
+    else:
+        _, kv_len, n_kv, _ = k.shape
+        ksb, kss, ksh = k.stride(0), k.stride(1), k.stride(2)
+        vsb, vss, vsh = v.stride(0), v.stride(1), v.stride(2)
+    if torch.float8_e4m3fn in (k.dtype, v.dtype):
+        raise NotImplementedError(
+            "chunk_prefill_attention: f8 KV caches are not ported yet (ROADMAP.md)"
+        )
+    if q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"chunk_prefill_attention: unsupported dtype {q.dtype}")
+    if hd not in _HEAD_DIMS or k.shape[-1] != hd or n_q % n_kv or k.shape != v.shape:
+        raise ValueError(
+            f"chunk_prefill_attention: q {tuple(q.shape)} does not fit k/v "
+            f"{tuple(k.shape)}/{tuple(v.shape)} (head_dim must be one of {_HEAD_DIMS})"
+        )
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_operand(name, t, q.dtype, q.device)
+    out = torch.empty((b, chunk, n_q, hd), dtype=q.dtype, device=q.device)
+    if b == 0 or chunk == 0:
+        return out
+    dev = q.device
+    q_starts = _as_rows(q_starts, b, dev)
+    lengths = _as_rows(lengths, b, dev)
+    k_starts = _as_rows(k_starts, b, dev)
+    flag = None
+    if window is not None and window_flag is not None:
+        flag = torch.as_tensor(window_flag, device=dev).to(torch.int32).reshape(1)
+    strides = (ctypes.c_longlong * 12)(
+        q.stride(0), q.stride(1), q.stride(2),
+        ksb, ksh, kss, vsb, vsh, vss,
+        out.stride(0), out.stride(1), out.stride(2),
+    )
+    lib = _build.library()
+    err = lib.cake_chunk_prefill_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q_starts.data_ptr(), lengths.data_ptr(), k_starts.data_ptr(),
+        None if flag is None else flag.data_ptr(),
+        b, chunk, n_q, n_kv, kv_len, hd,
+        _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
+        strides,
+        int(window or 0),
+        float(hd**-0.5 if scale is None else scale),
+        float(softcap or 0.0),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    _build.check(err, "chunk_prefill_attention")
+    chunk_prefill_attention.launches += 1
+    return out
+
+
+def chunk_prefill_attention(
+    q, k_cache, v_cache, q_starts, lengths, window_flag=None, k_starts=None, *,
+    window=None, scale=None, softcap=None,
+):
+    """Chunk-of-queries GQA attention against the live cache prefix.
+
+    Args:
+      q: [b, chunk, n_q, hd]; row r's token i sits at q_starts[r] + i.
+      k_cache/v_cache: [b, n_kv, max_seq, hd] head-major, the chunk's own
+        keys already written.
+      q_starts, lengths: [b] int32; lengths >= q_starts + valid chunk.
+      window_flag: optional bool / 0-dim bool tensor gating ``window``.
+      k_starts: optional [b] int32 first live key slot (left-padded rows).
+      window/scale/softcap: attention knobs (see decode_attention).
+
+    Returns [b, chunk, n_q, hd] in q's dtype.
+    """
+    if q.device.type == "cpu":
+        return chunk_prefill_attention_plain(
+            q, k_cache, v_cache, q_starts, lengths, window_flag, k_starts,
+            window=window, scale=scale, softcap=softcap,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"chunk_prefill_attention: unsupported device {q.device}")
+    if k_cache.dim() != 4 or q.dim() != 4:
+        raise ValueError("chunk_prefill_attention: q and the cache must be 4-D")
+    return launch_chunk_kernel(
+        q, k_cache, v_cache, "bhsd", q_starts, lengths, k_starts, window_flag,
+        window=window, scale=scale, softcap=softcap,
+    )
+
+
+chunk_prefill_attention.launches = 0

@@ -1,0 +1,31 @@
+"""Gated feed-forward (port of ``cake_tpu/ops/mlp.py``):
+``down(act(gate(x)) * up(x))`` with SiLU (SwiGLU) or tanh-GELU (GeGLU).
+Weights are [in, out], applied as ``x @ w``."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _act(g: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "silu":
+        return F.silu(g)
+    if activation == "gelu_tanh":
+        return F.gelu(g, approximate="tanh")
+    raise ValueError(f"unknown MLP activation {activation!r}")
+
+
+def swiglu(x, w_gate, w_up, w_down, activation: str = "silu") -> torch.Tensor:
+    return (_act(x @ w_gate, activation) * (x @ w_up)) @ w_down
+
+
+def swiglu_gu(x, w_gu, w_down, activation: str = "silu") -> torch.Tensor:
+    """SwiGLU over the fused gate|up projection [hidden, 2*inter] (ops/fuse.py)."""
+    return swiglu_gu_from(x @ w_gu, w_down, activation)
+
+
+def swiglu_gu_from(gu, w_down, activation: str = "silu") -> torch.Tensor:
+    """The tail of ``swiglu_gu`` after the gate|up projection."""
+    gate, up = gu.chunk(2, dim=-1)
+    return (_act(gate, activation) * up) @ w_down

@@ -1,0 +1,303 @@
+"""OpenAI-compatible REST API, serialized path (port of
+``cake_tpu/runtime/api.py``).
+
+Routes: ``POST /api/v1/chat/completions`` (JSON, or SSE with
+``"stream": true`` and ``stream_options.include_usage``; per-request
+temperature / top_k / top_p / seed / max_tokens overrides), ``GET /health``
+and ``GET /api/v1/models``. Requests run one at a time under a lock around
+the single generator, which is reset per request. The batch engine and the
+observability routes are not ported yet (ROADMAP.md).
+
+Built on http.server's ThreadingHTTPServer: no third-party server.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import threading
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from cake_tpu_torch.models.llama.chat import Message
+from cake_tpu_torch.models.llama.generator import LlamaGenerator, SamplingConfig, Token
+
+log = logging.getLogger("cake_tpu_torch.api")
+
+CHAT_ROUTE = "/api/v1/chat/completions"
+
+
+class ApiError(Exception):
+    def __init__(self, code: int, message: str):
+        super().__init__(message)
+        self.code = code
+
+
+@dataclasses.dataclass
+class ApiServer:
+    generator: LlamaGenerator
+    model_name: str = "llama3"
+    default_max_tokens: int = 256
+    # Max seconds one SSE write may block on a client that stopped reading
+    # (the generator lock is held while streaming).
+    stream_write_timeout: float = 30.0
+
+    def __post_init__(self) -> None:
+        self._lock = threading.Lock()
+        self._started = int(time.time())
+
+    def handle_chat(self, body: dict, handler: BaseHTTPRequestHandler) -> dict | None:
+        """Run one chat completion; returns the JSON response, or None when
+        the reply was streamed to ``handler``."""
+
+        def opt(key, default, cast):
+            """Request field, JSON null = unset; a bad type is a 400."""
+            v = body.get(key)
+            if v is None:
+                return default
+            try:
+                return cast(v)
+            except (TypeError, ValueError) as e:
+                raise ApiError(400, f"invalid {key!r}: {e}") from e
+
+        raw_messages = body.get("messages", [])
+        if not isinstance(raw_messages, list) or not raw_messages:
+            raise ApiError(400, "messages must be a non-empty list")
+        try:
+            messages = [Message.from_dict(m) for m in raw_messages]
+        except (KeyError, ValueError, TypeError, AttributeError) as e:
+            raise ApiError(400, f"invalid message: {e}") from e
+        max_tokens = opt("max_tokens", None, int)
+        if max_tokens is None:
+            max_tokens = opt("max_completion_tokens", None, int)
+        if max_tokens is None:
+            max_tokens = self.default_max_tokens
+        elif max_tokens < 1:
+            raise ApiError(400, f"max_tokens must be >= 1, got {max_tokens}")
+        stream = bool(body.get("stream", False))
+        stream_options = body.get("stream_options")
+        if stream_options is not None and not isinstance(stream_options, dict):
+            raise ApiError(400, "stream_options must be an object")
+        include_usage = bool((stream_options or {}).get("include_usage"))
+
+        with self._lock:
+            gen = self.generator
+            base = gen.sampling
+            gen.sampling = SamplingConfig(
+                temperature=opt("temperature", base.temperature, float),
+                top_k=opt("top_k", base.top_k, int),
+                top_p=opt("top_p", base.top_p, float),
+                repeat_penalty=base.repeat_penalty,
+                repeat_last_n=base.repeat_last_n,
+                seed=opt("seed", base.seed, int),
+            )
+            try:
+                gen.reset()
+                for m in messages:
+                    gen.add_message(m)
+                n_prompt = gen.prompt_token_count()
+                if n_prompt >= gen.step.max_seq_len:
+                    raise ApiError(
+                        400,
+                        f"prompt is {n_prompt} tokens but the context window "
+                        f"is {gen.step.max_seq_len}",
+                    )
+                rid = f"chatcmpl-{uuid.uuid4()}"
+                created = int(time.time())
+                if stream:
+
+                    def produce(on_token) -> str:
+                        gen.generate(max_tokens, on_token=on_token)
+                        return gen.last_finish_reason
+
+                    usage_fn = None
+                    if include_usage:
+                        usage_fn = lambda: (gen.prompt_tokens, gen.generated_count)  # noqa: E731
+                    _SseStream(self, produce, rid, created, usage_fn).run(handler)
+                    return None
+                text = gen.generate(max_tokens)
+                return self._completion_response(
+                    rid, created, text, gen.last_finish_reason,
+                    gen.prompt_tokens, gen.generated_count,
+                )
+            finally:
+                gen.sampling = base
+
+    def _completion_response(
+        self, rid, created, text, finish_reason, n_prompt, n_generated
+    ) -> dict:
+        return {
+            "id": rid,
+            "object": "chat.completion",
+            "created": created,
+            "model": self.model_name,
+            "choices": [
+                {
+                    "index": 0,
+                    "message": {"role": "assistant", "content": text},
+                    "finish_reason": finish_reason,
+                }
+            ],
+            "usage": {
+                "prompt_tokens": n_prompt,
+                "completion_tokens": n_generated,
+                "total_tokens": n_prompt + n_generated,
+            },
+        }
+
+    def make_server(self, host: str, port: int) -> ThreadingHTTPServer:
+        api = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, fmt, *args):
+                log.debug("%s " + fmt, self.client_address[0], *args)
+
+            def _json(self, code: int, obj: dict) -> None:
+                data = json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):
+                route = self.path.split("?", 1)[0]
+                if route == "/health":
+                    self._json(200, {"status": "ok", "model": api.model_name})
+                elif route == "/api/v1/models":
+                    self._json(200, {
+                        "object": "list",
+                        "data": [{
+                            "id": api.model_name,
+                            "object": "model",
+                            "created": api._started,
+                            "owned_by": "cake-tpu",
+                        }],
+                    })
+                else:
+                    self._json(404, {"error": "not found"})
+
+            def do_POST(self):
+                if self.path != CHAT_ROUTE:
+                    self._json(404, {"error": "not found"})
+                    return
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                    body = json.loads(self.rfile.read(length) or b"{}")
+                except (ValueError, json.JSONDecodeError) as e:
+                    self._json(400, {"error": f"bad request body: {e}"})
+                    return
+                if not isinstance(body, dict):
+                    self._json(400, {"error": "request body must be a JSON object"})
+                    return
+                try:
+                    response = api.handle_chat(body, self)
+                except ApiError as e:
+                    self._json(e.code, {"error": str(e)})
+                    return
+                except Exception as e:  # noqa: BLE001 - the server keeps serving; surface as 500
+                    log.exception("chat handler failed")
+                    self._json(500, {"error": str(e)})
+                    return
+                if response is not None:
+                    self._json(200, response)
+
+        server = ThreadingHTTPServer((host, port), Handler)
+        server.daemon_threads = True
+        return server
+
+    def serve_forever(self, host: str, port: int) -> None:
+        server = self.make_server(host, port)
+        log.info("API listening on http://%s:%d%s", host, server.server_port, CHAT_ROUTE)
+        try:
+            server.serve_forever()
+        finally:
+            server.server_close()
+
+
+class _SseStream:
+    """SSE emitter for chat.completion.chunk events; ``produce(on_token)``
+    drives generation and returns the finish reason."""
+
+    def __init__(self, api: ApiServer, produce, rid: str, created: int, usage_fn=None):
+        self.api = api
+        self.produce = produce
+        self.rid = rid
+        self.created = created
+        self.usage_fn = usage_fn
+
+    def _payload(self, choices: list, **extra) -> bytes:
+        payload = {
+            "id": self.rid,
+            "object": "chat.completion.chunk",
+            "created": self.created,
+            "model": self.api.model_name,
+            "choices": choices,
+            **extra,
+        }
+        return f"data: {json.dumps(payload)}\n\n".encode()
+
+    def _chunk(self, delta: dict, finish: str | None = None) -> bytes:
+        return self._payload([{"index": 0, "delta": delta, "finish_reason": finish}])
+
+    def run(self, handler: BaseHTTPRequestHandler) -> None:
+        """Stream the completion under a per-write socket timeout, restored
+        afterwards so keep-alive reuse is unaffected."""
+        prev_timeout = handler.connection.gettimeout()
+        handler.connection.settimeout(self.api.stream_write_timeout)
+        try:
+            self._run_stream(handler)
+        finally:
+            try:
+                handler.connection.settimeout(prev_timeout)
+            except OSError:
+                pass
+
+    def _run_stream(self, handler: BaseHTTPRequestHandler) -> None:
+        handler.send_response(200)
+        handler.send_header("Content-Type", "text/event-stream")
+        handler.send_header("Cache-Control", "no-cache")
+        handler.send_header("Transfer-Encoding", "chunked")
+        handler.end_headers()
+
+        def write(data: bytes) -> None:
+            handler.wfile.write(f"{len(data):X}\r\n".encode() + data + b"\r\n")
+
+        try:
+            write(self._chunk({"role": "assistant", "content": ""}))
+
+            def on_token(tok: Token) -> None:
+                if tok.text:
+                    write(self._chunk({"content": tok.text}))
+
+            finish = self.produce(on_token)
+            write(self._chunk({}, finish=finish))
+            if self.usage_fn is not None:
+                n_prompt, n_completion = self.usage_fn()
+                write(self._payload([], usage={
+                    "prompt_tokens": n_prompt,
+                    "completion_tokens": n_completion,
+                    "total_tokens": n_prompt + n_completion,
+                }))
+        except (BrokenPipeError, ConnectionResetError, TimeoutError):
+            # The client left or stopped reading: the chunked stream was never
+            # terminated, so the connection cannot be reused.
+            log.warning("client %s stalled or disconnected mid-stream", handler.client_address)
+            handler.close_connection = True
+            return
+        except Exception as e:  # noqa: BLE001 - headers are out: report in-band
+            log.exception("generation failed mid-stream")
+            try:
+                write(f"data: {json.dumps({'error': str(e)})}\n\n".encode())
+            except (BrokenPipeError, ConnectionResetError, TimeoutError, OSError):
+                handler.close_connection = True
+                return
+        try:
+            write(b"data: [DONE]\n\n")
+            handler.wfile.write(b"0\r\n\r\n")
+        except (BrokenPipeError, ConnectionResetError, TimeoutError):
+            handler.close_connection = True
