@@ -2,6 +2,7 @@
 
     python -m cake_tpu_torch.cli --model DIR --prompt "..." -n 100
     python -m cake_tpu_torch.cli --model DIR --api 127.0.0.1:8080
+    python -m cake_tpu_torch.cli --model DIR --api 127.0.0.1:8080 --api-batch 8 --kv-mode paged
 
 Single-host generation on one CUDA device (``--device cpu`` runs the plain
 PyTorch versions of the kernels on the CPU instead; without a CUDA device
@@ -37,6 +38,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--prefill-chunk", type=int, default=None,
         help="prefill long prompts in chunks of at most N tokens",
+    )
+    p.add_argument(
+        "--api-batch", type=int, default=1,
+        help="serve up to N API requests as one lockstep decode batch with continuous "
+        "admission (runtime/serving.py); 1 = serialized",
+    )
+    p.add_argument(
+        "--kv-mode", choices=("dense", "paged"), default="dense",
+        help="KV storage of the --api-batch engine: a [max_seq] strip per lane, or a "
+        "shared page pool admitted by free pages",
+    )
+    p.add_argument(
+        "--page-size", type=int, default=128,
+        help="tokens per KV page under --kv-mode paged (the CUDA kernels take multiples "
+        "of 128)",
+    )
+    p.add_argument(
+        "--max-pages", type=int, default=None,
+        help="KV pool size in pages under --kv-mode paged; default = --api-batch lanes x "
+        "pages per sequence",
+    )
+    p.add_argument(
+        "--prefix-cache", choices=("on", "off", "auto"), default="auto",
+        help="KV prefix reuse across API requests: the serialized path reuses the previous "
+        "dialog's prefix; the --kv-mode paged engine keeps finished prompts' prefix pages "
+        "in a radix cache. auto = on for --api (the engine: on under --kv-mode paged)",
+    )
+    p.add_argument(
+        "--prefix-cache-pages", type=int, default=0, metavar="N",
+        help="prefix-cache budget in KV pages; 0 = half the pool",
+    )
+    p.add_argument(
+        "--decode-chunk", type=int, default=8,
+        help="decode steps per engine dispatch; the tokens are read back once per chunk",
     )
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--top-k", type=int, default=None)
@@ -76,19 +111,49 @@ def main(argv: list[str] | None = None) -> int:
         repeat_last_n=args.repeat_last_n,
         **({"seed": args.seed} if args.seed is not None else {}),
     )
+    engine_serves = bool(args.api) and args.api_batch > 1
+    if engine_serves and args.prefix_cache == "on" and args.kv_mode != "paged":
+        raise SystemExit(
+            "--prefix-cache on shares physical KV pages across requests and therefore "
+            "needs --kv-mode paged"
+        )
+    if args.prefix_cache == "auto":
+        prefix_cache = bool(args.api)
+    else:
+        prefix_cache = args.prefix_cache == "on"
     generator = LlamaGenerator.load(
         args.model,
         dtype=DTYPES[args.dtype],
         max_seq_len=args.max_seq_len,
         sampling=sampling,
         prefill_chunk=args.prefill_chunk,
+        prefix_cache=prefix_cache and not engine_serves,
         device=args.device,
     )
     if args.api:
         from cake_tpu_torch.runtime.api import ApiServer
 
+        engine = None
+        if engine_serves:
+            from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+
+            serve = ServeConfig(
+                max_batch=args.api_batch,
+                decode_chunk_size=args.decode_chunk,
+                kv_mode=args.kv_mode,
+                page_size=args.page_size,
+                max_pages=args.max_pages,
+                prefix_cache=args.kv_mode == "paged" and args.prefix_cache != "off",
+                prefix_cache_pages=args.prefix_cache_pages,
+            )
+            step = generator.step
+            engine = BatchEngine(
+                generator.config, step.params, generator.tokenizer,
+                max_seq_len=step.max_seq_len, cache_dtype=DTYPES[args.dtype],
+                serve=serve, device=step.device,
+            )
         host, port = _parse_address(args.api)
-        ApiServer(generator).serve_forever(host, port)
+        ApiServer(generator, engine=engine).serve_forever(host, port)
         return 0
     if args.system_prompt:
         generator.add_message(Message.system(args.system_prompt))

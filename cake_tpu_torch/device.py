@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
@@ -20,3 +21,16 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def upload(array, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A host array as a new tensor on ``device`` (never a view of the array,
+    which its owner may mutate later). To a CUDA device the copy goes
+    through pinned memory without blocking the host on the stream: a plain
+    copy from pageable memory would wait for every kernel queued before it."""
+    t = torch.as_tensor(np.ascontiguousarray(array))
+    if dtype is not None:
+        t = t.to(dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone()

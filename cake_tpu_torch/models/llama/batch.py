@@ -1,0 +1,403 @@
+"""Lockstep batch forward over the dense and the paged KV cache (port of
+``cake_tpu/models/llama/batch.py``, the serving engine's device half).
+
+B independent dialogs decode in lockstep:
+
+  * Prompts are **left-padded** to one 16-multiple bucket, so every row's
+    last prompt token sits at the same slot and prefill/decode keep SCALAR
+    slot offsets.
+  * Slot s of row r holds rope position ``s - pad_r``. Pad query rows clamp
+    to position 0 (garbage nobody reads).
+  * Decode runs the whole batch one token per step, ``n`` steps per chunk:
+    forward -> per-row repeat penalty -> per-row sampling -> feed back, all
+    on the device; the chunk's ids are read back once (the JAX package's
+    fused ``lax.scan``, here a Python loop of one-token steps).
+
+Masks live in SLOT space. The JAX package's XLA attention masks with a key
+position grid (pad slots carry a sentinel position); its kernels, and every
+attention path of the port (CUDA kernel or plain version), take per-row
+bounds instead: ``pads`` (first live key slot), ``lengths`` (live prefix),
+``q_starts`` and causality. Left-padding shifts a row's queries and keys
+equally, so the two masks admit the same keys (tests/test_torch_batch.py
+holds them equal); the position helpers below therefore return the query
+(rope) positions and the per-row lengths, not the key grid.
+
+The per-row int32 operands (pads, lengths, q_starts, write bounds, the block
+table) and the gathered rope rows are built once per dispatch, never once
+per layer. Keys rope at their query positions (the same for every live
+slot; pad and dead slots get finite garbage that no mask admits).
+
+Tensor parallelism, the 1F1B row window, ragged pipeline stages, MoE layers
+and the decode fusions are not ported yet: they raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cake_tpu_torch.models.llama import model as M
+from cake_tpu_torch.models.llama.cache import KVCache, write_layer
+from cake_tpu_torch.models.llama.config import LlamaConfig
+from cake_tpu_torch.models.llama.paged_cache import PagedKVCache, write_pages, write_plan
+from cake_tpu_torch.ops.chunk_prefill import chunk_prefill_attention
+from cake_tpu_torch.ops.decode_attention import decode_attention
+from cake_tpu_torch.ops.paged_attention import paged_decode_attention
+from cake_tpu_torch.ops.paged_prefill import paged_chunk_attention
+from cake_tpu_torch.ops.rope import model_rope_tables
+from cake_tpu_torch.ops.sampling import apply_repeat_penalty, sample_per_row, sample_step, split_keys
+
+BUCKET_MULTIPLE = 16
+_NOT_PORTED = "is not ported yet (ROADMAP.md queue A)"
+
+
+def prompt_bucket(longest: int, max_seq_len: int) -> int:
+    """The shared left-pad bucket for a batch whose longest prompt is
+    ``longest``: a 16-multiple (admission uses the same helper, so refusal
+    agrees with the real layout)."""
+    return min(-(-longest // BUCKET_MULTIPLE) * BUCKET_MULTIPLE, max_seq_len)
+
+
+def layout_prompts(
+    ids_list: list[list[int]], max_seq_len: int
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """Left-pad prompts into one shared bucket: (tokens [B, bucket], pads [B], bucket)."""
+    longest = max(len(i) for i in ids_list)
+    bucket = prompt_bucket(longest, max_seq_len)
+    b = len(ids_list)
+    tokens = np.zeros((b, bucket), np.int32)
+    pads = np.zeros((b,), np.int32)
+    for r, ids in enumerate(ids_list):
+        pads[r] = bucket - len(ids)
+        tokens[r, pads[r] :] = ids
+    return tokens, pads, bucket
+
+
+def seed_rings(ids_list: list[list[int]], window: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-row repeat-penalty rings seeded from each prompt's tail:
+    (ring [B, window], ring_idx [B]), each row's circular window as in its
+    single-sequence run."""
+    b = len(ids_list)
+    ring = np.full((b, max(window, 0)), -1, np.int32)
+    ring_idx = np.zeros((b,), np.int32)
+    if window > 0:
+        for r, ids in enumerate(ids_list):
+            recent = ids[-window:]
+            ring[r, : len(recent)] = recent
+            ring_idx[r] = min(window, len(ids)) % window
+    return ring, ring_idx
+
+
+def first_sample(logits: torch.Tensor, s, ring: np.ndarray, ring_idx: np.ndarray, keys):
+    """Penalize + sample the FIRST post-prefill token and advance the rings:
+    the one definition of the first-token arithmetic, shared by the epoch
+    start and the joins. ``keys`` [B, 2] gives each row its own stream.
+
+    Returns (first [B] np.int32, keys, ring, ring_idx)."""
+    penalized = apply_repeat_penalty(
+        logits, s.repeat_penalty, torch.as_tensor(ring, device=logits.device)
+    )
+    keys, sub = split_keys(keys)
+    first = sample_per_row(penalized, sub, s.temperature, s.top_k, s.top_p)
+    first = first.cpu().numpy().astype(np.int32)
+    window = ring.shape[1]
+    if window > 0:
+        ring[np.arange(first.shape[0]), ring_idx] = first
+        ring_idx = (ring_idx + 1) % window
+    return first, keys, ring, ring_idx
+
+
+# ---------------------------------------------------------------- positions
+
+
+def prefill_positions(
+    width: int, pads: torch.Tensor, ends: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The left-padded PREFILL layout over [B, width] slots: (q_pos [B, width]
+    rope positions, lengths [B]). Pad slots and, with ``ends`` (a join's
+    window), dead tail slots get position 0; lengths are ``ends`` or width."""
+    slots = torch.arange(width, device=pads.device, dtype=torch.int64)[None, :]
+    q_pos = (slots - pads.long()[:, None]).clamp(min=0)
+    if ends is None:
+        lengths = torch.full((pads.shape[0],), width, dtype=torch.int32, device=pads.device)
+        return q_pos, lengths
+    q_pos = torch.where(slots >= ends.long()[:, None], 0, q_pos)
+    return q_pos, ends.to(torch.int32)
+
+
+def decode_positions(slot: int, pads: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One token at shared ``slot``: (q_pos [B, 1], lengths [B] = slot + 1)."""
+    q_pos = (slot - pads.long())[:, None]
+    lengths = torch.full((pads.shape[0],), slot + 1, dtype=torch.int32, device=pads.device)
+    return q_pos, lengths
+
+
+def verify_positions(
+    width: int, pads: torch.Tensor, slot: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """A cached chunk at slots [slot, slot + width): (q_pos [B, width],
+    lengths [B] = slot + width). Rows whose window starts below their own
+    pad get negative positions there; their queries see no key."""
+    grid = slot + torch.arange(width, device=pads.device, dtype=torch.int64)[None, :]
+    q_pos = grid - pads.long()[:, None]
+    lengths = torch.full((pads.shape[0],), slot + width, dtype=torch.int32, device=pads.device)
+    return q_pos, lengths
+
+
+# ---------------------------------------------------------------- forward
+
+
+def batched_blocks_forward(
+    layers: M.Params,
+    x: torch.Tensor,
+    kv: KVCache | PagedKVCache,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    q_pos: torch.Tensor,
+    config: LlamaConfig,
+    *,
+    decode: bool,
+    pads: torch.Tensor,
+    lengths: torch.Tensor,
+    write_pos: int,
+    cached_chunk: bool = False,
+    block_tables: torch.Tensor | None = None,
+    write_starts: torch.Tensor | None = None,
+    valid=None,
+    tp_axis=None,
+    row_offset=None,
+):
+    """THE pad-aware layer walk for left-padded batches, dense or paged.
+
+    Args:
+      x: [B, W, hidden]; its tokens sit at slots [write_pos, write_pos + W).
+      kv: the dense cache or (with ``block_tables``) the page pool, written
+        in place.
+      cos/sin: rope tables covering every position of the dispatch.
+      q_pos: [B, W] rope positions (negative entries clamp to 0).
+      decode: one token per row at slot ``write_pos``.
+      pads: [B] int32 first live key slot per row (the left pads).
+      lengths: [B] int32 live prefix per row (the kernels' pruning bound).
+      cached_chunk: a multi-token chunk at ``write_pos`` > 0 attends the live
+        cache prefix (the prefix-cache suffix prefill); otherwise a chunk is
+        a fresh prefill from slot 0 (``q_starts = 0``).
+      block_tables: [B, n_p] int32 on the device: PAGED mode. Writes go
+        through the table (unmapped and past-the-table writes sink); decode
+        reads run paged_decode_attention, chunks paged_chunk_attention.
+      write_starts: [B] int32, paged only: row b's writes below
+        ``write_starts[b]`` sink, so forked shared prefix pages stay
+        byte-stable.
+    """
+    if valid is not None:
+        raise NotImplementedError(f"ragged pipeline stages (valid=) {_NOT_PORTED}")
+    if tp_axis is not None:
+        raise NotImplementedError(f"tensor-parallel batch bodies {_NOT_PORTED}")
+    if row_offset is not None:
+        raise NotImplementedError(f"the 1F1B row-window decode {_NOT_PORTED}")
+    paged = block_tables is not None
+    if write_starts is not None and not paged:
+        raise ValueError("write_starts is a paged-only mode")
+    b, width, _ = x.shape
+    q_pos = q_pos.clamp(min=0)
+    # Layer-invariant: the rope rows, the query starts and the write plan.
+    if cos.dim() == 3:  # dual-rope tables [2, seq, hd/2]; block_qkv selects
+        cos, sin = cos[:, q_pos], sin[:, q_pos]
+    else:
+        cos, sin = cos[q_pos], sin[q_pos]
+    q_starts = torch.full((b,), write_pos if cached_chunk else 0, dtype=torch.int32,
+                          device=x.device)
+    if paged:
+        plan = write_plan(
+            write_pos, width, block_tables, kv.n_pages, kv.page_size, write_starts
+        )
+    kw = dict(
+        window=config.sliding_window,
+        scale=config.attn_scale,
+        softcap=config.attn_logit_softcap,
+    )
+    for i in range(kv.n_layers):
+        lp = {name: w[i] for name, w in layers.items()}
+        win_flag = lp.get("win_flag")
+        q, k, v = M.block_qkv(lp, x, cos, sin, None, config)
+        k_c, v_c = kv.k[i], kv.v[i]
+        if paged:
+            write_pages(k_c, v_c, k, v, plan)
+            if decode:
+                attn = paged_decode_attention(
+                    q, k_c, v_c, lengths, block_tables, pads, win_flag, **kw
+                )
+            else:
+                attn = paged_chunk_attention(
+                    q, k_c, v_c, q_starts, lengths, pads, block_tables, win_flag, **kw
+                )
+        else:
+            write_layer(k_c, v_c, k, v, write_pos)
+            if decode:
+                attn = decode_attention(q, k_c, v_c, lengths, pads, win_flag, **kw)
+            else:
+                attn = chunk_prefill_attention(
+                    q, k_c, v_c, q_starts, lengths, win_flag, pads, **kw
+                )
+        x = M.block_finish(lp, x, attn, config)
+    return x, kv
+
+
+def _rope(rope, config: LlamaConfig, n_slots: int, device):
+    return rope if rope is not None else model_rope_tables(config, n_slots, device)
+
+
+def batched_prefill(
+    params: M.Params,
+    tokens: torch.Tensor,  # [B, L] left-padded
+    kv: KVCache,
+    pads: torch.Tensor,  # [B] int32 left-pad counts
+    config: LlamaConfig,
+    ends: torch.Tensor | None = None,  # [B] int32 end slot per row (< L ok)
+    seq_len: int | None = None,  # logits slot + 1; default L
+    rope=None,
+):
+    """Prefill the padded batch at slots [0, L) of the dense cache; logits
+    at slot ``seq_len - 1``. A continuous-batching JOIN prefills one row
+    whose prompt ENDS at the running batch's shared slot: its window is
+    wider than the prompt, so ends < L and seq_len = ends."""
+    b, l = tokens.shape
+    cos, sin = _rope(rope, config, kv.max_seq_len, tokens.device)
+    x = M.embed_tokens(params, tokens, config)
+    q_pos, lengths = prefill_positions(l, pads, ends)
+    x, kv = batched_blocks_forward(
+        params["layers"], x, kv, cos, sin, q_pos, config,
+        decode=False, pads=pads, lengths=lengths, write_pos=0,
+    )
+    return M.head_forward(params, x, l if seq_len is None else seq_len, config), kv
+
+
+def paged_prefill(
+    params: M.Params,
+    tokens: torch.Tensor,  # [B, L] left-padded
+    kv: PagedKVCache,
+    pads: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, n_p] int32
+    config: LlamaConfig,
+    ends: torch.Tensor | None = None,
+    seq_len: int | None = None,
+    write_starts: torch.Tensor | None = None,
+    rope=None,
+):
+    """batched_prefill through the page pool: row r's prompt KV lands in
+    the pages its table row maps; the chunk attends what its own writes
+    just put there (paged_chunk_attention, ``q_starts = 0``)."""
+    b, l = tokens.shape
+    cos, sin = _rope(rope, config, block_tables.shape[1] * kv.page_size, tokens.device)
+    x = M.embed_tokens(params, tokens, config)
+    q_pos, lengths = prefill_positions(l, pads, ends)
+    x, kv = batched_blocks_forward(
+        params["layers"], x, kv, cos, sin, q_pos, config,
+        decode=False, pads=pads, lengths=lengths, write_pos=0,
+        block_tables=block_tables, write_starts=write_starts,
+    )
+    return M.head_forward(params, x, l if seq_len is None else seq_len, config), kv
+
+
+def paged_suffix_prefill(
+    params: M.Params,
+    tokens: torch.Tensor,  # [B, W] window covering slots [start, start + W)
+    kv: PagedKVCache,
+    pads: torch.Tensor,  # [B] TRUE left pads (may lie outside the window)
+    write_starts: torch.Tensor,  # [B] first slot each row may write
+    block_tables: torch.Tensor,
+    config: LlamaConfig,
+    start: int,  # the window's first slot
+    rope=None,
+):
+    """Warm-path prefill: compute ONLY the window [start, start + W), each
+    row's prefix below ``write_starts[b]`` served from forked prefix-cache
+    pages instead of recomputed. Queries carry their absolute-slot rope
+    positions and attend the live pool prefix (cached pages plus their own
+    writes); writes below each row's threshold sink. Logits land at the
+    window's last slot, where the cold path reads them."""
+    b, w = tokens.shape
+    cos, sin = _rope(rope, config, block_tables.shape[1] * kv.page_size, tokens.device)
+    x = M.embed_tokens(params, tokens, config)
+    q_pos, lengths = verify_positions(w, pads, start)
+    x, kv = batched_blocks_forward(
+        params["layers"], x, kv, cos, sin, q_pos, config,
+        decode=False, cached_chunk=True, pads=pads, lengths=lengths,
+        write_pos=start, block_tables=block_tables, write_starts=write_starts,
+    )
+    return M.head_forward(params, x, w, config), kv
+
+
+def batched_forward_one(params: M.Params, pads: torch.Tensor, config: LlamaConfig, rope):
+    """The one-token dense forward ``(tok [B, 1], kv, slot) -> (logits, kv)``
+    for sampled_decode_loop; ``slot`` is the shared slot of the fed token."""
+    cos, sin = rope
+
+    def forward_one(tok, kv, slot: int):
+        x = M.embed_tokens(params, tok, config)
+        q_pos, lengths = decode_positions(slot, pads)
+        x, kv = batched_blocks_forward(
+            params["layers"], x, kv, cos, sin, q_pos, config,
+            decode=True, pads=pads, lengths=lengths, write_pos=slot,
+        )
+        return M.head_forward(params, x, 1, config), kv
+
+    return forward_one
+
+
+def paged_forward_one(
+    params: M.Params, pads: torch.Tensor, block_tables: torch.Tensor, config: LlamaConfig, rope
+):
+    """The one-token paged forward, twin of batched_forward_one."""
+    cos, sin = rope
+
+    def forward_one(tok, kv, slot: int):
+        x = M.embed_tokens(params, tok, config)
+        q_pos, lengths = decode_positions(slot, pads)
+        x, kv = batched_blocks_forward(
+            params["layers"], x, kv, cos, sin, q_pos, config,
+            decode=True, pads=pads, lengths=lengths, write_pos=slot,
+            block_tables=block_tables,
+        )
+        return M.head_forward(params, x, 1, config), kv
+
+    return forward_one
+
+
+def sampled_decode_loop(forward_one, kv, tok, slot: int, keys, ring, ring_idx, *, n_steps, s):
+    """``n_steps`` one-token steps, forward -> sample_step -> feed back, all
+    on the device (port of ``fused.sampled_decode_scan``).
+
+    ``tok`` [B] is the most recent token at shared ``slot``; its KV is
+    written there and the logits predict slot + 1. Returns (tokens [B,
+    n_steps] on the device, kv, keys, ring, ring_idx); the caller reads the
+    tokens back once per chunk."""
+    toks = []
+    for i in range(n_steps):
+        logits, kv = forward_one(tok[:, None], kv, slot + i)
+        tok, keys, ring, ring_idx = sample_step(
+            logits, keys, ring, ring_idx,
+            temperature=s.temperature, top_k=s.top_k, top_p=s.top_p,
+            repeat_penalty=s.repeat_penalty,
+        )
+        toks.append(tok)
+    return torch.stack(toks, dim=1), kv, keys, ring, ring_idx
+
+
+def decode_chunk(params, kv, tok, slot, pads, keys, ring, ring_idx, config, n, s, rope):
+    """One dense decode chunk of ``n`` lockstep steps (the JAX package's
+    ``_decode_fn``)."""
+    return sampled_decode_loop(
+        batched_forward_one(params, pads, config, rope),
+        kv, tok, slot, keys, ring, ring_idx, n_steps=n, s=s,
+    )
+
+
+def paged_decode_chunk(
+    params, kv, tok, slot, pads, block_tables, keys, ring, ring_idx, config, n, s, rope
+):
+    """One paged decode chunk of ``n`` lockstep steps (the JAX package's
+    ``_paged_decode_fn``); the block table holds for the whole chunk."""
+    return sampled_decode_loop(
+        paged_forward_one(params, pads, block_tables, config, rope),
+        kv, tok, slot, keys, ring, ring_idx, n_steps=n, s=s,
+    )

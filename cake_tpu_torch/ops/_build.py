@@ -41,6 +41,7 @@ _lib: ctypes.CDLL | None = None
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
+_LONG = ctypes.c_longlong
 _FLOAT = ctypes.c_float
 _SIGNATURES = {
     "cake_decode_attention": (
@@ -53,6 +54,21 @@ _SIGNATURES = {
         _VOID, _VOID, _VOID, _VOID,                  # q_starts lengths k_starts flag
         _INT, _INT, _INT, _INT, _INT, _INT, _INT,    # b chunk n_q n_kv kv_len hd dtype
         ctypes.POINTER(ctypes.c_longlong),           # strides[12]
+        _INT, _FLOAT, _FLOAT, _VOID,                 # window scale softcap stream
+    ),
+    "cake_paged_decode_attention": (
+        _VOID, _VOID, _VOID, _VOID,                  # q k v out
+        _VOID, _VOID, _VOID,                         # lengths starts tables
+        _INT, _INT, _INT, _INT, _INT,                # b n_kv group page_size n_p
+        _LONG, _INT, _INT,                           # table_stride hd dtype
+        _FLOAT, _FLOAT, _VOID,                       # scale softcap stream
+    ),
+    "cake_paged_chunk_attention": (
+        _VOID, _VOID, _VOID, _VOID,                  # q k v out
+        _VOID, _VOID, _VOID, _VOID, _VOID,           # q_starts lengths k_starts tables flag
+        _INT, _INT, _INT, _INT, _INT, _INT,          # b chunk n_q n_kv page_size n_p
+        _LONG, _INT, _INT,                           # table_stride hd dtype
+        _LONG, _LONG, _LONG, _LONG, _LONG, _LONG,    # qsb qss qsh osb oss osh
         _INT, _FLOAT, _FLOAT, _VOID,                 # window scale softcap stream
     ),
 }

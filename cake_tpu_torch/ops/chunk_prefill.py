@@ -36,31 +36,41 @@ _KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
 
 
-def _as_rows(x, b, device, default=0):
+def as_rows(x, b, device, default=0):
     if x is None:
         return torch.full((b,), default, dtype=torch.int32, device=device)
     return torch.as_tensor(x, dtype=torch.int32, device=device).reshape(b)
+
+
+def chunk_masked(q, k, v, q_starts, lengths, window_flag, k_starts, *, window, scale, softcap):
+    """The plain chunk arithmetic over a dense head-major view
+    [b, n_kv, kv_len, hd]: row r's query i at position q_starts[r] + i sees
+    slots j with k_starts[r] <= j <= its position and j < lengths[r] (and
+    inside the window when gated on). Shared with the paged plain version,
+    which gathers its pages into that view first."""
+    b, chunk = q.shape[:2]
+    dev = q.device
+    q_starts = as_rows(q_starts, b, dev)
+    lengths = as_rows(lengths, b, dev)
+    k_starts = as_rows(k_starts, b, dev)
+    qpos = q_starts[:, None] + torch.arange(chunk, device=dev, dtype=torch.int32)[None]
+    kpos = torch.arange(k.shape[2], device=dev, dtype=torch.int32)[None].expand(b, -1)
+    mask = causal_mask(qpos, kpos, window, window_flag)
+    live = (kpos >= k_starts[:, None]) & (kpos < lengths[:, None])
+    return masked_gqa_attention_hm(
+        q, k, v, mask & live[:, None, :], scale=scale, softcap=softcap
+    )
 
 
 def chunk_prefill_attention_plain(
     q, k_cache, v_cache, q_starts, lengths, window_flag=None, k_starts=None, *,
     window=None, scale=None, softcap=None,
 ):
-    """Plain PyTorch version over the whole cache: row r's query i at
-    position q_starts[r] + i sees slots j with k_starts[r] <= j <= its
-    position and j < lengths[r] (and inside the window when gated on)."""
+    """Plain PyTorch version over the whole cache (``chunk_masked``)."""
     chunk_prefill_attention_plain.launches += 1
-    b, chunk = q.shape[:2]
-    dev = q.device
-    q_starts = _as_rows(q_starts, b, dev)
-    lengths = _as_rows(lengths, b, dev)
-    k_starts = _as_rows(k_starts, b, dev)
-    qpos = q_starts[:, None] + torch.arange(chunk, device=dev, dtype=torch.int32)[None]
-    kpos = torch.arange(k_cache.shape[2], device=dev, dtype=torch.int32)[None].expand(b, -1)
-    mask = causal_mask(qpos, kpos, window, window_flag)
-    live = (kpos >= k_starts[:, None]) & (kpos < lengths[:, None])
-    return masked_gqa_attention_hm(
-        q, k_cache, v_cache, mask & live[:, None, :], scale=scale, softcap=softcap
+    return chunk_masked(
+        q, k_cache, v_cache, q_starts, lengths, window_flag, k_starts,
+        window=window, scale=scale, softcap=softcap,
     )
 
 
@@ -112,9 +122,9 @@ def launch_chunk_kernel(
     if b == 0 or chunk == 0:
         return out
     dev = q.device
-    q_starts = _as_rows(q_starts, b, dev)
-    lengths = _as_rows(lengths, b, dev)
-    k_starts = _as_rows(k_starts, b, dev)
+    q_starts = as_rows(q_starts, b, dev)
+    lengths = as_rows(lengths, b, dev)
+    k_starts = as_rows(k_starts, b, dev)
     flag = None
     if window is not None and window_flag is not None:
         flag = torch.as_tensor(window_flag, device=dev).to(torch.int32).reshape(1)

@@ -50,7 +50,9 @@ def fold_window(starts, lengths, window, window_flag):
     return torch.where(flag, w_start, starts)
 
 
-def _row_bounds(q, lengths, starts, window, window_flag):
+def row_bounds(q, lengths, starts, window, window_flag):
+    """[b] int32 (lengths, starts) on q's device, the window folded into
+    starts. A no-op on tensors the caller already built once per dispatch."""
     b = q.shape[0]
     dev = q.device
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev).reshape(b)
@@ -61,6 +63,19 @@ def _row_bounds(q, lengths, starts, window, window_flag):
     return lengths, fold_window(starts, lengths, window, window_flag)
 
 
+def decode_masked(q, k, v, lengths, starts, window_flag, *, window, scale, softcap):
+    """The plain decode arithmetic over a dense head-major view
+    [b, n_kv, kv_len, hd]: masked softmax, keys in ``[start, length)`` only
+    (the window folded into ``start``). Shared with the paged plain version,
+    which gathers its pages into that view first."""
+    if q.shape[1] != 1:
+        raise ValueError(f"decode attention takes one position, got q_len={q.shape[1]}")
+    lengths, starts = row_bounds(q, lengths, starts, window, window_flag)
+    kpos = torch.arange(k.shape[2], device=q.device, dtype=torch.int32)
+    live = (kpos[None, :] >= starts[:, None]) & (kpos[None, :] < lengths[:, None])
+    return masked_gqa_attention_hm(q, k, v, live[:, None, :], scale=scale, softcap=softcap)
+
+
 def decode_attention_plain(
     q, k_cache, v_cache, lengths, starts=None, window_flag=None, *,
     window=None, scale=None, softcap=None,
@@ -68,13 +83,9 @@ def decode_attention_plain(
     """Plain PyTorch version: masked softmax over the whole cache, keys in
     ``[start, length)`` only (the window folded into ``start``)."""
     decode_attention_plain.launches += 1
-    if q.shape[1] != 1:
-        raise ValueError(f"decode_attention takes one position, got q_len={q.shape[1]}")
-    lengths, starts = _row_bounds(q, lengths, starts, window, window_flag)
-    kpos = torch.arange(k_cache.shape[2], device=q.device, dtype=torch.int32)
-    live = (kpos[None, :] >= starts[:, None]) & (kpos[None, :] < lengths[:, None])
-    return masked_gqa_attention_hm(
-        q, k_cache, v_cache, live[:, None, :], scale=scale, softcap=softcap
+    return decode_masked(
+        q, k_cache, v_cache, lengths, starts, window_flag,
+        window=window, scale=scale, softcap=softcap,
     )
 
 
@@ -132,7 +143,7 @@ def decode_attention(
             raise ValueError(
                 f"decode_attention: {name} must be contiguous and 16-byte aligned on {q.device}"
             )
-    lengths, starts = _row_bounds(q, lengths, starts, window, window_flag)
+    lengths, starts = row_bounds(q, lengths, starts, window, window_flag)
     out = torch.empty_like(q)
     if b == 0:
         return out

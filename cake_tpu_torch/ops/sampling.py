@@ -5,9 +5,10 @@ temperature, top-k, top-p and the repeat penalty over the last
 A draw is the gumbel-argmax identity ``argmax(logits + g)`` with
 ``g = -log(-log(u))``. The uniform ``u`` comes from an explicit
 ``torch.Generator`` or, so that tests can feed the port and the JAX package
-the same noise, from a caller-supplied gumbel tensor. The JAX package draws
-its noise from threefry keys, so a seeded sampled stream differs between the
-two packages; greedy streams are equal.
+the same noise, from a caller-supplied gumbel tensor; the batch engine's
+per-row draws hash a per-row key instead (``sample_per_row``). The JAX
+package draws its noise from threefry keys, so a seeded sampled stream
+differs between the two packages; greedy streams are equal.
 """
 
 from __future__ import annotations
@@ -84,3 +85,83 @@ def sample(
             raise ValueError("sample: temperature > 0 needs a generator or noise")
         noise = gumbel_noise(scaled.shape, generator, scaled.device)
     return torch.argmax(scaled + noise, dim=-1)
+
+
+# ------------------------------------------------------------- per-row keys
+#
+# The batch engine gives every row its own random stream, so a row's sampled
+# tokens do not depend on what else shares the batch (the JAX package's
+# per-row threefry keys). A key here is a row of a [b, 2] int64 tensor,
+# (seed, counter), kept on the device; a draw hashes (seed, counter, vocab
+# index) into a uniform with integer ops, the same bits on the CPU and the
+# card, and a split advances the counter. The streams are not threefry's, so
+# seeded sampled streams differ from the JAX package's (greedy ones do not).
+
+_M32 = 0xFFFFFFFF
+
+
+def row_keys(seeds, device) -> torch.Tensor:
+    """[b, 2] int64 keys (seed mod 2**32, counter 0), one per row."""
+    seeds = torch.as_tensor([int(s) & _M32 for s in seeds], dtype=torch.int64)
+    return torch.stack([seeds, torch.zeros_like(seeds)], dim=1).to(device)
+
+
+def split_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(next keys, the keys to draw with now): the counter advances."""
+    nxt = keys.clone()
+    nxt[:, 1] += 1
+    return nxt, keys
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (xorshift-multiply rounds) on int64 values in
+    [0, 2**32); multipliers below 2**31 keep every product inside int64."""
+    for mul in (0x7FEB352D, 0x68E31DA5, 0x2C1B3C6D):
+        x = ((x ^ (x >> 16)) * mul) & _M32
+    return x ^ (x >> 16)
+
+
+def uniform_per_row(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """[b, n] f32 uniforms in (0, 1) from each row's (seed, counter) key."""
+    idx = torch.arange(n, device=keys.device, dtype=torch.int64)[None, :]
+    h = _mix32(keys[:, :1] ^ 0x9E3779B9)
+    h = _mix32(h ^ keys[:, 1:2])
+    h = _mix32(h ^ idx)
+    return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def sample_per_row(
+    logits: torch.Tensor,
+    keys: torch.Tensor,
+    temperature: float = 1.0,
+    top_k: int | None = None,
+    top_p: float | None = None,
+) -> torch.Tensor:
+    """``sample`` with an independent key per row (``keys``: [b, 2]): row
+    r's draw depends only on its own key, so its sampled stream equals a
+    single-row run with that key whatever shares the batch."""
+    if temperature is None or temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    scaled = _filter(logits, temperature, top_k, top_p)
+    u = uniform_per_row(keys, scaled.shape[-1])
+    return torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
+
+
+def sample_step(logits, keys, ring, ring_idx, *, temperature, top_k, top_p, repeat_penalty):
+    """ONE decode sampling step for a batch of rows (port of
+    ``cake_tpu/models/llama/fused.py`` ``sample_step``, per-row keys):
+    repeat penalty over each row's ring -> key split -> sample -> ring update.
+
+    Args: logits [b, vocab] f32; keys [b, 2]; ring [b, window] int64 recent
+    ids (-1 = empty), updated in place; ring_idx [b] int64 next circular
+    slot. All on the device; nothing is read back.
+
+    Returns (next ids [b] int64, keys, ring, ring_idx)."""
+    logits = apply_repeat_penalty(logits, repeat_penalty, ring)
+    keys, sub = split_keys(keys)
+    nxt = sample_per_row(logits, sub, temperature, top_k, top_p)
+    window = ring.shape[1]
+    if window > 0:
+        ring[torch.arange(nxt.shape[0], device=nxt.device), ring_idx] = nxt
+        ring_idx = (ring_idx + 1) % window
+    return nxt, keys, ring, ring_idx

@@ -1,12 +1,15 @@
-"""OpenAI-compatible REST API, serialized path (port of
-``cake_tpu/runtime/api.py``).
+"""OpenAI-compatible REST API (port of ``cake_tpu/runtime/api.py``).
 
 Routes: ``POST /api/v1/chat/completions`` (JSON, or SSE with
 ``"stream": true`` and ``stream_options.include_usage``; per-request
-temperature / top_k / top_p / seed / max_tokens overrides), ``GET /health``
-and ``GET /api/v1/models``. Requests run one at a time under a lock around
-the single generator, which is reset per request. The batch engine and the
-observability routes are not ported yet (ROADMAP.md).
+temperature / top_k / top_p / seed / max_tokens overrides), ``GET /health``,
+``GET /api/v1/models`` and ``GET /stats``. Without an engine, requests run
+one at a time under a lock around the single generator, which is reset per
+request. With a batch engine (runtime/serving.py, ``--api-batch``) chat
+requests bypass that lock: they are submitted to the engine and decode
+concurrently as lockstep batches, and a client that disconnects mid-stream
+cancels its request. The other observability routes are not ported yet
+(ROADMAP.md).
 
 Built on http.server's ThreadingHTTPServer: no third-party server.
 """
@@ -43,10 +46,31 @@ class ApiServer:
     # Max seconds one SSE write may block on a client that stopped reading
     # (the generator lock is held while streaming).
     stream_write_timeout: float = 30.0
+    # Optional batch engine (runtime/serving.BatchEngine): chat requests go
+    # to it instead of the generator.
+    engine: "object | None" = None
 
     def __post_init__(self) -> None:
         self._lock = threading.Lock()
         self._started = int(time.time())
+        if self.engine is not None:
+            self.engine.start()
+
+    def close(self) -> None:
+        """Stop the engine thread (if any)."""
+        if self.engine is not None:
+            self.engine.stop()
+
+    def _sampling(self, opt, base: SamplingConfig) -> SamplingConfig:
+        """Per-request overrides over the server's base sampling."""
+        return SamplingConfig(
+            temperature=opt("temperature", base.temperature, float),
+            top_k=opt("top_k", base.top_k, int),
+            top_p=opt("top_p", base.top_p, float),
+            repeat_penalty=base.repeat_penalty,
+            repeat_last_n=base.repeat_last_n,
+            seed=opt("seed", base.seed, int),
+        )
 
     def handle_chat(self, body: dict, handler: BaseHTTPRequestHandler) -> dict | None:
         """Run one chat completion; returns the JSON response, or None when
@@ -81,18 +105,15 @@ class ApiServer:
         if stream_options is not None and not isinstance(stream_options, dict):
             raise ApiError(400, "stream_options must be an object")
         include_usage = bool((stream_options or {}).get("include_usage"))
+        if self.engine is not None:
+            return self._handle_chat_batched(
+                messages, max_tokens, stream, include_usage, opt, handler
+            )
 
         with self._lock:
             gen = self.generator
             base = gen.sampling
-            gen.sampling = SamplingConfig(
-                temperature=opt("temperature", base.temperature, float),
-                top_k=opt("top_k", base.top_k, int),
-                top_p=opt("top_p", base.top_p, float),
-                repeat_penalty=base.repeat_penalty,
-                repeat_last_n=base.repeat_last_n,
-                seed=opt("seed", base.seed, int),
-            )
+            gen.sampling = self._sampling(opt, base)
             try:
                 gen.reset()
                 for m in messages:
@@ -124,6 +145,42 @@ class ApiServer:
                 )
             finally:
                 gen.sampling = base
+
+    def _handle_chat_batched(
+        self, messages, max_tokens: int, stream: bool, include_usage: bool, opt, handler
+    ) -> dict | None:
+        """Engine path: no generator lock; submit and consume a stream. The
+        response id is the engine's request id, so a client that goes away
+        cancels exactly its own request."""
+        sampling = self._sampling(opt, self.generator.sampling)
+        rid = f"chatcmpl-{uuid.uuid4()}"
+        try:
+            h = self.engine.submit(messages, max_tokens, sampling, request_id=rid)
+        except ValueError as e:  # a prompt the engine can never serve: 400 before any header
+            raise ApiError(400, str(e)) from e
+        created = int(time.time())
+        if stream:
+
+            def produce(on_token) -> str:
+                for tok in h.tokens():
+                    on_token(tok)
+                return h.finish_reason
+
+            usage_fn = None
+            if include_usage:
+                usage_fn = lambda: (h.prompt_tokens, h.completion_tokens)  # noqa: E731
+            _SseStream(self, produce, rid, created, usage_fn).run(handler)
+            return None
+        text = h.text()
+        return self._completion_response(
+            rid, created, text, h.finish_reason, h.prompt_tokens, h.completion_tokens
+        )
+
+    def _client_gone(self, rid: str) -> None:
+        """A client left mid-stream: cancel its engine request so its lane
+        stops decoding and its pages return to the pool."""
+        if self.engine is not None and self.engine.cancel(rid):
+            log.info("cancelled %s: its client disconnected", rid)
 
     def _completion_response(
         self, rid, created, text, finish_reason, n_prompt, n_generated
@@ -168,6 +225,9 @@ class ApiServer:
                 route = self.path.split("?", 1)[0]
                 if route == "/health":
                     self._json(200, {"status": "ok", "model": api.model_name})
+                elif route == "/stats":
+                    engine = api.engine.snapshot() if api.engine is not None else None
+                    self._json(200, {"model": api.model_name, "engine": engine})
                 elif route == "/api/v1/models":
                     self._json(200, {
                         "object": "list",
@@ -217,6 +277,7 @@ class ApiServer:
             server.serve_forever()
         finally:
             server.server_close()
+            self.close()
 
 
 class _SseStream:
@@ -285,8 +346,10 @@ class _SseStream:
                 }))
         except (BrokenPipeError, ConnectionResetError, TimeoutError):
             # The client left or stopped reading: the chunked stream was never
-            # terminated, so the connection cannot be reused.
+            # terminated, so the connection cannot be reused; an engine request
+            # is cancelled so its lane stops decoding.
             log.warning("client %s stalled or disconnected mid-stream", handler.client_address)
+            self.api._client_gone(self.rid)
             handler.close_connection = True
             return
         except Exception as e:  # noqa: BLE001 - headers are out: report in-band

@@ -1,0 +1,296 @@
+"""Batch execution backends: the device seam under the serving engine (port
+of ``cake_tpu/runtime/batch_backend.py``, the single-device backends).
+
+The engine (runtime/serving.py) drives one of two backends through the same
+operations over the left-padded lockstep layout (models/llama/batch.py):
+
+  * ``LocalBatchBackend``: a dense KV cache, one ``[max_seq]`` strip per
+    lane; attention through the dense decode and chunk kernels.
+  * ``PagedLocalBackend``: a shared page pool and a host-side
+    ``PageAllocator``; attention through the paged decode and chunk
+    kernels. With a prefix cache attached the pool persists across epochs.
+
+Both keep the weights resident (fused once) and the rope tables built once;
+every per-row operand a dispatch needs (pads, write thresholds, the block
+table) is uploaded once per dispatch. The tensor-parallel, pipelined and TCP
+backends, speculative verify and the kernel-fallback flight event are not
+ported (ROADMAP.md): the port has no quiet fallback, and a page size the
+paged kernels do not take raises on the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cake_tpu_torch.device import resolve_device, upload
+from cake_tpu_torch.models.llama import batch as B
+from cake_tpu_torch.models.llama import model as M
+from cake_tpu_torch.models.llama.cache import SEQ_MULTIPLE, KVCache, init_cache
+from cake_tpu_torch.models.llama.config import LlamaConfig
+from cake_tpu_torch.models.llama.paged_cache import PageAllocator, copy_pages, init_paged_cache
+from cake_tpu_torch.ops.fuse import fuse_params
+from cake_tpu_torch.ops.paged_prefill import paged_kernel_supported
+from cake_tpu_torch.ops.rope import model_rope_tables
+
+
+def _rows(x, device) -> torch.Tensor:
+    """A [b] int32 per-row operand on ``device`` (one upload)."""
+    return upload(np.asarray(x, np.int32).reshape(-1), device)
+
+
+def _tokens(x, device) -> torch.Tensor:
+    return upload(np.asarray(x, np.int64), device)
+
+
+class LocalBatchBackend:
+    """Single-device batch ops over the dense KV cache: the engine's default."""
+
+    kv_mode = "dense"
+
+    def __init__(
+        self,
+        config: LlamaConfig,
+        params: M.Params,
+        *,
+        max_seq_len: int,
+        cache_dtype: torch.dtype,
+        device: torch.device | str | None = None,
+    ):
+        self.config = config
+        self.device = resolve_device(device)
+        self.params = fuse_params(params)
+        self.max_seq_len = max_seq_len
+        self.cache_dtype = cache_dtype
+        padded = -(-max_seq_len // SEQ_MULTIPLE) * SEQ_MULTIPLE  # the cache's length
+        self.rope = model_rope_tables(config, padded, self.device)
+
+    def init_kv(self, b: int) -> KVCache:
+        c = self.config
+        return init_cache(
+            c.num_hidden_layers, b, self.max_seq_len, c.num_key_value_heads, c.head_dim,
+            self.cache_dtype, self.device,
+        )
+
+    @torch.inference_mode()
+    def prefill(self, tokens, kv, pads):
+        """The whole left-padded batch at slots [0, width): (logits, kv)."""
+        return B.batched_prefill(
+            self.params, _tokens(tokens, self.device), kv, _rows(pads, self.device),
+            self.config, rope=self.rope,
+        )
+
+    @torch.inference_mode()
+    def decode(self, kv, tok, slot, pads, keys, ring, ring_idx, n, s):
+        """``n`` lockstep steps; the tokens stay on the device."""
+        return B.decode_chunk(
+            self.params, kv, tok, slot, pads, keys, ring, ring_idx, self.config, n, s, self.rope
+        )
+
+    @torch.inference_mode()
+    def join(self, kv, row_tokens, pad: int, end: int, lane: int):
+        """A continuous-batching join: one row whose prompt ends at the
+        epoch's shared slot ``end`` prefills straight into ``lane``'s strip
+        of the cache (a view, written in place). Stale slots outside
+        ``[pad, end)`` stay, and no read reaches them: keys below the pad
+        are masked by ``starts``, and decode writes each later slot before
+        ``lengths`` admits it."""
+        lane_kv = KVCache(kv.k[:, lane : lane + 1], kv.v[:, lane : lane + 1])
+        ends = _rows([end], self.device)
+        logits, _ = B.batched_prefill(
+            self.params, _tokens(row_tokens, self.device), lane_kv, _rows([pad], self.device),
+            self.config, ends=ends, seq_len=end, rope=self.rope,
+        )
+        return logits, kv
+
+
+class PagedLocalBackend:
+    """Single-device batch ops over the paged KV pool (``kv_mode="paged"``).
+
+    HBM is committed per live page from one pool; the engine owns the
+    allocation protocol (map at layout and join, extend at page boundaries,
+    release on finish) and this backend uploads the allocator's block
+    tables at each dispatch.
+
+    **One capacity per epoch** (``set_epoch_capacity``): the engine sets
+    ONE bucketed live capacity per epoch, and every dispatch slices the
+    block table to it, so the plain versions' gathered views and every
+    kernel's table cover the live capacity, never the full ``max_seq``
+    table. It is backend state, not a per-op argument: every prefill, join
+    and decode of an epoch must run under the same capacity, or the plain
+    path's reduction widths (and so its last bits) change mid-epoch, and a
+    smaller per-op capacity would drop live keys. A write past it raises
+    (``_check_write_bound``) instead of sinking silently.
+
+    With a prefix cache attached (``attach_prefix_cache``) the pool is
+    PERSISTENT: ``init_kv`` hands back the pool retained at the previous
+    epoch's end and releases only the lane mappings, so cached chains keep
+    their bytes.
+    """
+
+    kv_mode = "paged"
+
+    def __init__(
+        self,
+        config: LlamaConfig,
+        params: M.Params,
+        *,
+        max_seq_len: int,
+        cache_dtype: torch.dtype,
+        page_size: int = 128,
+        max_pages: int | None = None,
+        page_reserve: int = 1,
+        device: torch.device | str | None = None,
+    ):
+        self.config = config
+        self.device = resolve_device(device)
+        if page_size <= 0:
+            raise ValueError(f"page_size must be positive, got {page_size}")
+        if self.device.type == "cuda" and not paged_kernel_supported(page_size):
+            raise ValueError(
+                f"page_size {page_size}: the paged CUDA kernels take multiples of 128"
+            )
+        self.params = fuse_params(params)
+        self.max_seq_len = max_seq_len
+        self.cache_dtype = cache_dtype
+        self.page_size = page_size
+        self.pages_per_seq = -(-max_seq_len // page_size)
+        self.padded_seq = self.pages_per_seq * page_size
+        self.max_pages = max_pages or 8 * self.pages_per_seq
+        self.allocator = PageAllocator(
+            self.max_pages, page_size, batch=1,
+            max_pages_per_seq=self.pages_per_seq, reserve_pages=page_reserve,
+        )
+        self.rope = model_rope_tables(config, self.padded_seq, self.device)
+        self.prefix_cache = None
+        self._retained_kv = None
+        self._cap_pages: int | None = None
+
+    # --------------------------------------------------- bounded capacity
+
+    def set_epoch_capacity(self, capacity_slots: int | None) -> None:
+        """Bound every dispatch's block table to ``capacity_slots`` (whole
+        pages); None restores the full table. Called once per epoch."""
+        if capacity_slots is None:
+            self._cap_pages = None
+            return
+        pages = -(-int(capacity_slots) // self.page_size)
+        self._cap_pages = max(1, min(pages, self.pages_per_seq))
+
+    def capacity_slots(self) -> int:
+        """The slot capacity every dispatch's table currently covers."""
+        if self._cap_pages is None:
+            return self.padded_seq
+        return self._cap_pages * self.page_size
+
+    def _check_write_bound(self, op: str, end_slot: int) -> None:
+        if end_slot > self.capacity_slots():
+            raise ValueError(
+                f"paged {op} writes through slot {end_slot} but the epoch capacity is "
+                f"{self.capacity_slots()} slots: the one-capacity-per-epoch bound was violated"
+            )
+
+    def _tables(self, lanes: slice = slice(None)) -> torch.Tensor:
+        """The block table rows of ``lanes`` sliced to the epoch capacity,
+        uploaded as one contiguous int32 tensor."""
+        tables = self.allocator.block_tables[lanes]
+        if self._cap_pages is not None:
+            tables = tables[:, : self._cap_pages]
+        return upload(tables, self.device)
+
+    def _lane_table(self, lane: int) -> torch.Tensor:
+        return self._tables(slice(lane, lane + 1))
+
+    # --------------------------------------------------- pool lifetime
+
+    def attach_prefix_cache(self, cache) -> None:
+        """Make the pool persistent for the engine's prefix cache."""
+        self.prefix_cache = cache
+
+    def retain_kv(self, kv) -> None:
+        """Epoch end (persistent mode): keep the pool for the next epoch."""
+        self._retained_kv = kv
+
+    def drop_retained_kv(self) -> None:
+        self._retained_kv = None
+
+    def init_kv(self, b: int):
+        """The new epoch's pool. Without a prefix cache: allocator reset and
+        a zeroed pool. Persistent: lane mappings release (cached chains keep
+        their pages) and the retained pool is reused; it is rebuilt zeroed
+        only when nothing was retained (the first epoch, or a failed one,
+        after which the engine has cleared the cache)."""
+        if self.prefix_cache is not None:
+            self.allocator.release_lanes(batch=b)
+            kv, self._retained_kv = self._retained_kv, None
+            if kv is not None:
+                return kv
+        else:
+            self.allocator.reset(batch=b)
+        c = self.config
+        return init_paged_cache(
+            c.num_hidden_layers, self.max_pages, c.num_key_value_heads, self.page_size,
+            c.head_dim, self.cache_dtype, self.device,
+        )
+
+    # --------------------------------------------------- dispatches
+
+    @torch.inference_mode()
+    def prefill(self, tokens, kv, pads):
+        """The whole left-padded batch at slots [0, width) through the
+        lanes' block tables (paged_chunk_attention with ``q_starts = 0``)."""
+        self._check_write_bound("prefill", int(np.shape(tokens)[1]))
+        return B.paged_prefill(
+            self.params, _tokens(tokens, self.device), kv, _rows(pads, self.device),
+            self._tables(), self.config, rope=self.rope,
+        )
+
+    @torch.inference_mode()
+    def suffix_prefill(self, tokens, kv, pads, write_starts, start: int):
+        """Prefix-cache prefill of the window [start, start + W) over the
+        live pool prefix, each row's writes below its threshold sunk. EVERY
+        cache-enabled prefill goes here, cold epochs included, so warm and
+        cold runs share one attention arithmetic."""
+        self._check_write_bound("suffix_prefill", int(start) + int(np.shape(tokens)[1]))
+        return B.paged_suffix_prefill(
+            self.params, _tokens(tokens, self.device), kv, _rows(pads, self.device),
+            _rows(write_starts, self.device), self._tables(), self.config, int(start),
+            rope=self.rope,
+        )
+
+    @torch.inference_mode()
+    def suffix_join(self, kv, row_tokens, pad: int, write_start: int, lane: int, start: int):
+        """A join on the prefix-cache arithmetic: one row's window
+        [start, slot) over its lane's table, sliced to the same capacity."""
+        self._check_write_bound("suffix_join", int(start) + int(np.shape(row_tokens)[1]))
+        return B.paged_suffix_prefill(
+            self.params, _tokens(row_tokens, self.device), kv, _rows([pad], self.device),
+            _rows([write_start], self.device), self._lane_table(lane), self.config, int(start),
+            rope=self.rope,
+        )
+
+    @torch.inference_mode()
+    def cow_copy(self, kv, src: list[int], dst: list[int]):
+        """Device half of the copy-on-write split (``copy_pages``)."""
+        return copy_pages(kv, src, dst)
+
+    @torch.inference_mode()
+    def decode(self, kv, tok, slot, pads, keys, ring, ring_idx, n, s):
+        """``n`` lockstep steps; the block table holds for the whole chunk."""
+        self._check_write_bound("decode", int(slot) + n)
+        return B.paged_decode_chunk(
+            self.params, kv, tok, slot, pads, self._tables(), keys, ring, ring_idx,
+            self.config, n, s, self.rope,
+        )
+
+    @torch.inference_mode()
+    def join(self, kv, row_tokens, pad: int, end: int, lane: int):
+        """A join without the prefix cache: the row prefills straight
+        through its lane's freshly mapped pages."""
+        self._check_write_bound("join", end)
+        logits, kv = B.paged_prefill(
+            self.params, _tokens(row_tokens, self.device), kv, _rows([pad], self.device),
+            self._lane_table(lane), self.config, ends=_rows([end], self.device), seq_len=end,
+            rope=self.rope,
+        )
+        return logits, kv

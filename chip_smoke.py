@@ -13,7 +13,11 @@ nonzero exit and no final result line:
                Llama-3-8B attention shapes (n_q 32, n_kv 8, head_dim 128):
                max-abs error (tolerance TOL), kernel / plain /
                scaled_dot_product_attention ms, and the bound (the larger of
-               bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s).
+               bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s). The paged kernels
+               read a pool of 128-slot pages through shuffled block tables
+               (one entry unmapped); their SDPA time is over a dense view
+               gathered beforehand (the gather is not timed). The dense
+               kernels' "main_path" cases have the generate phase's shapes.
   4. generate  Llama-3-8B at full width and depth, random bf16 weights drawn
                on the card from a seeded torch.Generator: a ~700 byte-token
                prompt prefilled in 256-token chunks (the position-0 and the
@@ -22,11 +26,36 @@ nonzero exit and no final result line:
                versions must not run.
   5. api       the port's ApiServer over that generator answers a JSON chat,
                an SSE chat with usage, and a seeded sampled chat.
-  6. cli       ``python -m cake_tpu_torch.cli`` on a small checkpoint written
-               by the port's save_tiny_checkpoint.
-  7.           ``{"kernels": [...]}``: one entry per kernel with its launches
+  6. engine    the batch serving engine over the generate phase's weights,
+               at the CLI's default admission window: paged KV (page 128,
+               max_seq 2048), prefix cache on, 8 lanes. Two waves of 8
+               concurrent greedy requests, each a shared system prompt
+               longer than two pages plus its own user turn of one common
+               length, 64 tokens out, then a ragged wave of 12 requests
+               whose turns differ in length (several page-alignment classes,
+               more requests than lanes: joins must happen): TTFT, decode
+               tok/s, ms per decode step, prefix hits in wave 2 (must be
+               > 0); the paged kernels' launch counters must equal n_layers
+               x their dispatches (epoch starts and joins) and every other
+               counter must stay 0. Then wave 1 and the ragged wave through
+               the dense engine, with the same launch gate on the dense
+               kernels (how many streams equal the paged ones is reported,
+               not gated: cuBLAS may pick other GEMM kernels for other row
+               counts), a profiled wave for the device idle share and the
+               device time by kernel family, and the full-width paged and
+               dense lockstep forwards through the kernels against the plain
+               versions. The operands the engine hands each kernel (its
+               first prefill, a mid-wave decode step) are recorded, and
+               each kernel is then timed and checked at exactly those
+               shapes: the paged kernels' "main_path", the dense kernels'
+               "dense_engine" cases.
+  7. api_engine the ApiServer with that engine answers 4 concurrent SSE chats.
+  8. cli       ``python -m cake_tpu_torch.cli`` on a small checkpoint written
+               by the port's save_tiny_checkpoint: one prompt, then a
+               ``--api-batch 4 --kv-mode paged`` server that answers a chat.
+  9.           ``{"kernels": [...]}``: one entry per kernel with its launches
                on the main path and its timings at the main path's shapes.
-  8.           ``{"ok": true, "device": {...}}`` as the last line.
+ 10.           ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits nonzero without a result when no CUDA device is present or when run
 outside a checkout of the repository.
@@ -34,11 +63,15 @@ outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import socket
+import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 TOL = 2e-2  # bf16 outputs of f32-accumulated attention, max-abs vs the plain version
@@ -49,6 +82,40 @@ MAX_SEQ = 8192
 PROMPT_TOKENS = 700
 PREFILL_CHUNK = 256
 DECODE_TOKENS = 64
+# The engine phase: Llama-3-8B served by the paged batch engine.
+ENGINE_MAX_SEQ = 2048
+ENGINE_PAGE = 128
+ENGINE_BATCH = 8
+ENGINE_TOKENS = 64
+SYSTEM_PROMPT = (
+    "You are the assistant of a small bakery. Answer questions about cakes, breads and "
+    "pastries in a friendly, concise way. Give quantities in grams and temperatures in "
+    "degrees Celsius, name the tools a home baker needs, and say when a step can be done "
+    "a day ahead. If a question is not about baking, say so politely and steer back."
+)
+# Equal lengths: every prompt gets the same left pad, so all eight share one
+# page-alignment class of the prefix cache (a chain is reusable only at the
+# pad it was written at, modulo the page size).
+USER_TURNS = [
+    f"Question {i}: how do I make a {what:<15} that stays moist for two days, and what "
+    f"is the most common mistake?"
+    for i, what in enumerate(
+        ["sponge cake", "carrot cake", "lemon drizzle", "banana bread", "brioche loaf",
+         "chocolate torte", "apple strudel", "cheesecake"]
+    )
+]
+# Ragged lengths, so the prompts fall in several alignment classes, and more
+# requests than lanes: cache-aware admission opens an epoch for the head's
+# class and the rest join it as lanes free.
+RAGGED_TURNS = [
+    f"Question {i}: how do I make a {what} that stays moist for two days, and what is "
+    f"the most common mistake?"
+    for i, what in enumerate(
+        ["sponge cake", "carrot cake", "lemon drizzle", "banana bread", "brioche loaf",
+         "chocolate torte", "apple strudel", "cheesecake", "scone", "croissant", "pavlova",
+         "focaccia"]
+    )
+]
 
 
 def emit(obj) -> None:
@@ -95,6 +162,30 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# Timing a bytes-bound kernel on one small operand set measures the 50 MB
+# L2, not device memory: the main-path cases of the decode kernels rotate
+# over copies of their operands worth at least this many bytes in all, as a
+# model's walk over its layers does.
+COLD_BYTES = 200e6
+
+
+def copies_for(live_bytes: float) -> int:
+    """How many operand copies a cold-cache timing rotates over."""
+    return max(1, min(64, -(-int(COLD_BYTES) // max(1, int(live_bytes)))))
+
+
+def rotating(fns):
+    """One callable running ``fns`` in turn, a different copy each call."""
+    state = {"i": 0}
+
+    def call():
+        fn = fns[state["i"] % len(fns)]
+        state["i"] += 1
+        return fn()
+
+    return call
 
 
 # ---------------------------------------------------------------- phase 1-2
@@ -153,7 +244,7 @@ def _sdpa(torch, q, k, v, mask=None, scale=None, causal=False):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale, is_causal=causal)
 
 
-def _check(torch, name, case, out, ref, ms, plain_ms, nbytes, flops, library_ms):
+def _check(torch, name, case, out, ref, ms, plain_ms, nbytes, flops, library_ms, copies=1):
     err = (out.float() - ref.float()).abs().max().item()
     finite = bool(torch.isfinite(out.float()).all().item())
     b_ms, b_by = bound(nbytes, flops)
@@ -161,7 +252,7 @@ def _check(torch, name, case, out, ref, ms, plain_ms, nbytes, flops, library_ms)
         "phase": "kernels", "kernel": name, "case": case,
         "max_abs_err": err, "tol": TOL, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-        "bytes": nbytes, "flops": flops,
+        "bytes": nbytes, "flops": flops, "operand_copies": copies,
     }
     emit(row)
     if not finite or not err <= TOL:
@@ -169,96 +260,115 @@ def _check(torch, name, case, out, ref, ms, plain_ms, nbytes, flops, library_ms)
     return row
 
 
-def decode_cases(torch, dev):
+def _decode_case(torch, dev, g, case, lens, starts, kw, max_seq=MAX_SEQ, cold=False):
+    """One decode_attention case over a [b, n_kv, max_seq, hd] cache; a cold
+    case rotates over copies of its cache, one per call."""
     from cake_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_plain, fold_window,
     )
 
-    g = torch.Generator(device=dev).manual_seed(1)
     bf = torch.bfloat16
-    rows = []
+    b, kw = len(lens), dict(kw)
+    live0 = sum(max(0, ln - s0) for ln, s0 in zip(lens, starts or [0] * b))
+    n_copy = copies_for(live0 * N_KV * HD * 2 * 2) if cold else 1
+    q = torch.randn(b, 1, N_Q, HD, generator=g, device=dev, dtype=bf)
+    k = torch.randn(b * n_copy, N_KV, max_seq, HD, generator=g, device=dev, dtype=bf)
+    v = torch.randn(b * n_copy, N_KV, max_seq, HD, generator=g, device=dev, dtype=bf)
+    kvs = [(k[c * b : (c + 1) * b], v[c * b : (c + 1) * b]) for c in range(n_copy)]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    window_flag = kw.pop("window_flag", None)
+    runs = [lambda kc=kc, vc=vc: decode_attention(q, kc, vc, lengths, st, window_flag, **kw)
+            for kc, vc in kvs]
+    plains = [lambda kc=kc, vc=vc: decode_attention_plain(
+        q, kc, vc, lengths, st, window_flag, **kw) for kc, vc in kvs]
+    out, ref = runs[0](), plains[0]()
+    torch.cuda.synchronize()
+    st0 = torch.zeros_like(lengths) if st is None else st
+    eff = fold_window(st0, lengths, kw.get("window"), window_flag)
+    live = int((lengths - eff).clamp(min=0).sum().item())
+    nbytes = 2 * q.numel() * 2 + live * N_KV * HD * 2 * 2
+    flops = 4.0 * live * N_Q * HD
+    library_ms = None
+    if "softcap" not in kw:
+        kpos = torch.arange(max_seq, device=dev)
+        mask = ((kpos[None] >= eff[:, None]) & (kpos[None] < lengths[:, None]))[:, None, None, :]
+        qh = q.transpose(1, 2)
+        libs = [lambda kc=kc, vc=vc: _sdpa(torch, qh, kc, vc, mask, kw.get("scale"))
+                for kc, vc in kvs]
+        library_ms = cuda_ms(torch, rotating(libs), 10 * n_copy)
+    return _check(
+        torch, "decode_attention", case, out, ref,
+        cuda_ms(torch, rotating(runs), 50 * n_copy), cuda_ms(torch, rotating(plains), 5),
+        nbytes, flops, library_ms, copies=n_copy,
+    )
+
+
+def decode_cases(torch, dev):
+    g = torch.Generator(device=dev).manual_seed(1)
     cases = [
-        ("lengths", 4, [1, 300, 4097, 8192], None, {}),
-        ("starts", 4, [300, 4097, 8192, 8192], [0, 100, 4000, 8191], {}),
-        ("window", 4, [1, 300, 4097, 8192], None,
+        ("lengths", [1, 300, 4097, 8192], None, {}),
+        ("starts", [300, 4097, 8192, 8192], [0, 100, 4000, 8191], {}),
+        ("window", [1, 300, 4097, 8192], None,
          {"window": 1024, "window_flag": torch.tensor(True, device=dev)}),
-        ("softcap", 4, [1, 300, 4097, 8192], None, {"softcap": 50.0, "scale": 0.1}),
-        ("main_path", 1, [733], None, {}),
+        ("softcap", [1, 300, 4097, 8192], None, {"softcap": 50.0, "scale": 0.1}),
     ]
-    for case, b, lens, starts, kw in cases:
-        q = torch.randn(b, 1, N_Q, HD, generator=g, device=dev, dtype=bf)
-        k = torch.randn(b, N_KV, MAX_SEQ, HD, generator=g, device=dev, dtype=bf)
-        v = torch.randn(b, N_KV, MAX_SEQ, HD, generator=g, device=dev, dtype=bf)
-        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-        st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
-        window_flag = kw.pop("window_flag", None)
-        run = lambda: decode_attention(q, k, v, lengths, st, window_flag, **kw)  # noqa: E731
-        plain = lambda: decode_attention_plain(q, k, v, lengths, st, window_flag, **kw)  # noqa: E731
-        out, ref = run(), plain()
-        torch.cuda.synchronize()
-        st0 = torch.zeros_like(lengths) if st is None else st
-        eff = fold_window(st0, lengths, kw.get("window"), window_flag)
-        live = int((lengths - eff).clamp(min=0).sum().item())
-        nbytes = 2 * q.numel() * 2 + live * N_KV * HD * 2 * 2
-        flops = 4.0 * live * N_Q * HD
-        library_ms = None
-        if "softcap" not in kw:
-            kpos = torch.arange(MAX_SEQ, device=dev)
-            mask = ((kpos[None] >= eff[:, None]) & (kpos[None] < lengths[:, None]))[:, None, None, :]
-            qh = q.transpose(1, 2)
-            library_ms = cuda_ms(torch, lambda: _sdpa(torch, qh, k, v, mask, kw.get("scale")), 10)
-        rows.append(_check(
-            torch, "decode_attention", case, out, ref,
-            cuda_ms(torch, run, 50), cuda_ms(torch, plain, 5), nbytes, flops, library_ms,
-        ))
+    rows = [_decode_case(torch, dev, g, *c) for c in cases]
+    # The generate phase's decode reads its cache cold.
+    rows.append(_decode_case(torch, dev, g, "main_path", [733], None, {}, cold=True))
     return rows
 
 
-def chunk_cases(torch, dev):
+def _chunk_case(torch, dev, g, case, chunk, q_starts, k_starts, kw, max_seq=MAX_SEQ,
+                lens=None):
+    """One chunk_prefill_attention case over a [b, n_kv, max_seq, hd] cache;
+    ``lens`` defaults to each row's chunk end."""
     from cake_tpu_torch.ops.chunk_prefill import (
         chunk_prefill_attention, chunk_prefill_attention_plain,
     )
 
-    g = torch.Generator(device=dev).manual_seed(2)
     bf = torch.bfloat16
-    rows = []
+    b, kw = len(q_starts), dict(kw)
+    q = torch.randn(b, chunk, N_Q, HD, generator=g, device=dev, dtype=bf)
+    k = torch.randn(b, N_KV, max_seq, HD, generator=g, device=dev, dtype=bf)
+    v = torch.randn(b, N_KV, max_seq, HD, generator=g, device=dev, dtype=bf)
+    qs = torch.tensor(q_starts, dtype=torch.int32, device=dev)
+    lengths = qs + chunk if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
+    ks = None if k_starts is None else torch.tensor(k_starts, dtype=torch.int32, device=dev)
+    window_flag = kw.pop("window_flag", None)
+    run = lambda: chunk_prefill_attention(q, k, v, qs, lengths, window_flag, ks, **kw)  # noqa: E731
+    plain = lambda: chunk_prefill_attention_plain(q, k, v, qs, lengths, window_flag, ks, **kw)  # noqa: E731
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    # The pairs (query, key) this run's masks admit, and the key rows read.
+    qpos = qs[:, None] + torch.arange(chunk, device=dev)[None]
+    kpos = torch.arange(max_seq, device=dev)[None, None]
+    k0 = torch.zeros_like(qs) if ks is None else ks
+    mask = (kpos <= qpos[:, :, None]) & (kpos >= k0[:, None, None]) & (kpos < lengths[:, None, None])
+    if kw.get("window") is not None:
+        mask &= kpos > qpos[:, :, None] - kw["window"]
+    pairs = int(mask.sum().item())
+    keys = int(mask.any(dim=1).sum().item())
+    nbytes = 2 * q.numel() * 2 + keys * N_KV * HD * 2 * 2
+    flops = 4.0 * pairs * N_Q * HD
+    qh = q.transpose(1, 2)
+    library_ms = cuda_ms(torch, lambda: _sdpa(torch, qh, k, v, mask[:, None], kw.get("scale")), 5)
+    return _check(
+        torch, "chunk_prefill_attention", case, out, ref,
+        cuda_ms(torch, run, 20), cuda_ms(torch, plain, 3), nbytes, flops, library_ms,
+    )
+
+
+def chunk_cases(torch, dev):
+    g = torch.Generator(device=dev).manual_seed(2)
     cases = [
-        ("q_starts", 2, 512, [0, 1024], None, {}),
-        ("k_starts", 2, 512, [0, 1024], [0, 300], {}),
-        ("window", 2, 512, [0, 1024], None,
+        ("q_starts", 512, [0, 1024], None, {}),
+        ("k_starts", 512, [0, 1024], [0, 300], {}),
+        ("window", 512, [0, 1024], None,
          {"window": 256, "window_flag": torch.tensor(True, device=dev)}),
-        ("main_path", 1, PREFILL_CHUNK, [2 * PREFILL_CHUNK], None, {}),
+        ("main_path", PREFILL_CHUNK, [2 * PREFILL_CHUNK], None, {}),
     ]
-    for case, b, chunk, q_starts, k_starts, kw in cases:
-        q = torch.randn(b, chunk, N_Q, HD, generator=g, device=dev, dtype=bf)
-        k = torch.randn(b, N_KV, MAX_SEQ, HD, generator=g, device=dev, dtype=bf)
-        v = torch.randn(b, N_KV, MAX_SEQ, HD, generator=g, device=dev, dtype=bf)
-        qs = torch.tensor(q_starts, dtype=torch.int32, device=dev)
-        lengths = qs + chunk
-        ks = None if k_starts is None else torch.tensor(k_starts, dtype=torch.int32, device=dev)
-        window_flag = kw.pop("window_flag", None)
-        run = lambda: chunk_prefill_attention(q, k, v, qs, lengths, window_flag, ks, **kw)  # noqa: E731
-        plain = lambda: chunk_prefill_attention_plain(q, k, v, qs, lengths, window_flag, ks, **kw)  # noqa: E731
-        out, ref = run(), plain()
-        torch.cuda.synchronize()
-        # The pairs (query, key) this run's masks admit, and the key rows read.
-        qpos = qs[:, None] + torch.arange(chunk, device=dev)[None]
-        kpos = torch.arange(MAX_SEQ, device=dev)[None, None]
-        k0 = torch.zeros_like(qs) if ks is None else ks
-        mask = (kpos <= qpos[:, :, None]) & (kpos >= k0[:, None, None]) & (kpos < lengths[:, None, None])
-        if kw.get("window") is not None:
-            mask &= kpos > qpos[:, :, None] - kw["window"]
-        pairs = int(mask.sum().item())
-        keys = int(mask.any(dim=1).sum().item())
-        nbytes = 2 * q.numel() * 2 + keys * N_KV * HD * 2 * 2
-        flops = 4.0 * pairs * N_Q * HD
-        qh = q.transpose(1, 2)
-        library_ms = cuda_ms(torch, lambda: _sdpa(torch, qh, k, v, mask[:, None], kw.get("scale")), 5)
-        rows.append(_check(
-            torch, "chunk_prefill_attention", case, out, ref,
-            cuda_ms(torch, run, 20), cuda_ms(torch, plain, 3), nbytes, flops, library_ms,
-        ))
-    return rows
+    return [_chunk_case(torch, dev, g, *c) for c in cases]
 
 
 def flash_cases(torch, dev):
@@ -290,9 +400,158 @@ def flash_cases(torch, dev):
     return rows
 
 
+def engine_messages(turns=USER_TURNS):
+    from cake_tpu_torch.models.llama.chat import Message
+
+    return [[Message.system(SYSTEM_PROMPT), Message.user(u)] for u in turns]
+
+
+def _paged_pool(torch, dev, g, seed, n_rows, n_p):
+    """A bf16 pool of n_rows * n_p pages (+ the write sink) and block tables
+    [n_rows, n_p] naming them in a shuffled order."""
+    n_pages = n_rows * n_p
+    shape = (n_pages + 1, N_KV, ENGINE_PAGE, HD)
+    k = torch.randn(*shape, generator=g, device=dev, dtype=torch.bfloat16)
+    v = torch.randn(*shape, generator=g, device=dev, dtype=torch.bfloat16)
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(seed))
+    return k, v, perm.view(n_rows, n_p).to(torch.int32).to(dev)
+
+
+def _table_bytes(starts, lengths) -> int:
+    """Bytes of the block-table entries a walk of [start, length) reads."""
+    return 4 * sum(max(0, -(-ln // ENGINE_PAGE) - st // ENGINE_PAGE) for st, ln in zip(starts, lengths))
+
+
+def _paged_decode_case(torch, dev, g, seed, case, lens, starts, npp, cold=False,
+                       unmapped=None):
+    """One paged_decode_attention case over tables of ``npp`` pages a row.
+    A cold case's pool holds disjoint page sets, one block table each, and
+    each call reads the next set. ``unmapped`` (row, column) marks one
+    table entry -1."""
+    from cake_tpu_torch.models.llama.paged_cache import gather_pages
+    from cake_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain,
+    )
+
+    b = len(lens)
+    live = sum(max(0, ln - s0) for s0, ln in zip(starts, lens))
+    n_copy = copies_for(live * N_KV * HD * 2 * 2) if cold else 1
+    k, v, all_tables = _paged_pool(torch, dev, g, seed, b * n_copy, npp)
+    tables = [all_tables[c * b : (c + 1) * b] for c in range(n_copy)]
+    if unmapped is not None:
+        tables[0][unmapped] = -1
+    q = torch.randn(b, 1, N_Q, HD, generator=g, device=dev, dtype=torch.bfloat16)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    runs = [lambda t=t: paged_decode_attention(q, k, v, lengths, t, st) for t in tables]
+    plains = [lambda t=t: paged_decode_attention_plain(q, k, v, lengths, t, st)
+              for t in tables]
+    out, ref = runs[0](), plains[0]()
+    torch.cuda.synchronize()
+    nbytes = 2 * q.numel() * 2 + live * N_KV * HD * 2 * 2 + _table_bytes(starts, lens)
+    flops = 4.0 * live * N_Q * HD
+    # The yardstick reads dense views gathered here, outside the timing.
+    views = [(gather_pages(k, t), gather_pages(v, t)) for t in tables]
+    kpos = torch.arange(views[0][0].shape[2], device=dev)
+    mask = ((kpos[None] >= st[:, None]) & (kpos[None] < lengths[:, None]))[:, None, None, :]
+    qh = q.transpose(1, 2)
+    libs = [lambda dk=dk, dv=dv: _sdpa(torch, qh, dk, dv, mask) for dk, dv in views]
+    library_ms = cuda_ms(torch, rotating(libs), 10 * n_copy)
+    return _check(
+        torch, "paged_decode_attention", case, out, ref,
+        cuda_ms(torch, rotating(runs), 50 * n_copy), cuda_ms(torch, rotating(plains), 5),
+        nbytes, flops, library_ms, copies=n_copy,
+    )
+
+
+def paged_decode_cases(torch, dev):
+    g = torch.Generator(device=dev).manual_seed(4)
+    n_p = ENGINE_MAX_SEQ // ENGINE_PAGE
+    return [
+        # Column 5 of row 0 lies past its live range.
+        _paged_decode_case(torch, dev, g, 10, "lengths", [1, 130, 700, 2047, 256, 1000, 1500, 64],
+                           [0] * 8, n_p, unmapped=(0, 5)),
+        _paged_decode_case(torch, dev, g, 11, "starts",
+                           [300, 700, 2047, 1000, 129, 640, 1500, 2000],
+                           [0, 100, 1000, 513, 0, 200, 64, 1999], n_p),
+    ]
+
+
+def _paged_chunk_case(torch, dev, g, seed, case, chunk, q_starts, lens, k_starts, npp):
+    """One paged_chunk_attention case over tables of ``npp`` pages a row."""
+    from cake_tpu_torch.models.llama.paged_cache import gather_pages
+    from cake_tpu_torch.ops.paged_prefill import (
+        paged_chunk_attention, paged_chunk_attention_plain,
+    )
+
+    b = len(lens)
+    k, v, tables = _paged_pool(torch, dev, g, seed, b, npp)
+    q = torch.randn(b, chunk, N_Q, HD, generator=g, device=dev, dtype=torch.bfloat16)
+    qs = torch.tensor(q_starts, dtype=torch.int32, device=dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    ks = torch.tensor(k_starts, dtype=torch.int32, device=dev)
+    run = lambda: paged_chunk_attention(q, k, v, qs, lengths, ks, tables)  # noqa: E731
+    plain = lambda: paged_chunk_attention_plain(q, k, v, qs, lengths, ks, tables)  # noqa: E731
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    dk, dv = gather_pages(k, tables), gather_pages(v, tables)
+    qpos = qs[:, None] + torch.arange(chunk, device=dev)[None]
+    kpos = torch.arange(dk.shape[2], device=dev)[None, None]
+    mask = (kpos <= qpos[:, :, None]) & (kpos >= ks[:, None, None]) & (kpos < lengths[:, None, None])
+    pairs = int(mask.sum().item())
+    keys = int(mask.any(dim=1).sum().item())
+    nbytes = 2 * q.numel() * 2 + keys * N_KV * HD * 2 * 2 + _table_bytes(k_starts, lens)
+    flops = 4.0 * pairs * N_Q * HD
+    qh = q.transpose(1, 2)
+    library_ms = cuda_ms(torch, lambda: _sdpa(torch, qh, dk, dv, mask[:, None]), 5)
+    return _check(
+        torch, "paged_chunk_attention", case, out, ref,
+        cuda_ms(torch, run, 20), cuda_ms(torch, plain, 3), nbytes, flops, library_ms,
+    )
+
+
+def paged_chunk_cases(torch, dev):
+    g = torch.Generator(device=dev).manual_seed(5)
+    pads4 = [0, 17, 100, 200]
+    return [
+        _paged_chunk_case(torch, dev, g, 20, "cold", 256, [0] * 4, [256] * 4, pads4, 2),
+        _paged_chunk_case(torch, dev, g, 21, "suffix", 64, [300] * 4, [364] * 4, pads4, 3),
+    ]
+
+
 def phase_kernels(torch) -> dict:
     dev = torch.device("cuda")
     rows = decode_cases(torch, dev) + chunk_cases(torch, dev) + flash_cases(torch, dev)
+    rows += paged_decode_cases(torch, dev) + paged_chunk_cases(torch, dev)
+    torch.cuda.empty_cache()
+    return {(r["kernel"], r["case"]): r for r in rows}
+
+
+def engine_kernel_cases(torch, engine_path: dict) -> dict:
+    """Each kernel at the operands the engine handed it in phase engine:
+    the paged kernels' main path (the cold wave's prefill window and a
+    mid-wave decode step) and the dense kernels under the dense engine."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    paged, dense = engine_path["dispatches"]["paged"], engine_path["dispatches"]["dense"]
+    for shapes in (paged, dense):
+        for name, d in shapes.items():
+            if d["q"][2:] != (N_Q, HD):
+                raise AssertionError(f"{name}: the engine's q is {d['q']}, not [.., {N_Q}, {HD}]")
+    d, c = paged["paged_decode_attention"], paged["paged_chunk_attention"]
+    rows = [
+        _paged_decode_case(torch, dev, g, 30, "main_path", d["lengths"], d["starts"], d["n_p"],
+                           cold=True),
+        _paged_chunk_case(torch, dev, g, 31, "main_path", c["q"][1], c["q_starts"],
+                          c["lengths"], c["k_starts"], c["n_p"]),
+    ]
+    d, c = dense["decode_attention"], dense["chunk_prefill_attention"]
+    rows += [
+        _decode_case(torch, dev, g, "dense_engine", d["lengths"], d["starts"], {},
+                     max_seq=d["kv"][2], cold=True),
+        _chunk_case(torch, dev, g, "dense_engine", c["q"][1], c["q_starts"], c["k_starts"], {},
+                    max_seq=c["kv"][2], lens=c["lengths"]),
+    ]
     torch.cuda.empty_cache()
     return {(r["kernel"], r["case"]): r for r in rows}
 
@@ -377,6 +636,8 @@ def _sync(torch, dev) -> None:
 
 
 def _kernel_family(name: str) -> str:
+    if "PagedLayout" in name:
+        return "paged_decode_attention" if "decode_kernel" in name else "paged_chunk_attention"
     if "decode_kernel" in name:
         return "decode_attention"
     if "chunk_kernel" in name:
@@ -648,6 +909,422 @@ def phase_api(main_path: dict) -> None:
 # ---------------------------------------------------------------- phase 6
 
 
+def _paged_counters():
+    from cake_tpu_torch.ops import paged_attention, paged_prefill
+
+    return _counters() + (
+        paged_attention.paged_decode_attention,
+        paged_prefill.paged_chunk_attention,
+        paged_attention.paged_decode_attention_plain,
+        paged_prefill.paged_chunk_attention_plain,
+    )
+
+
+def _zero_counters():
+    counters = _paged_counters()
+    for c in counters:
+        c.launches = 0
+    return counters
+
+
+def _expected_launches(counters, waves, decode: str, chunk: str, n_layers: int, on_card: bool):
+    """(launches, expected) after ``waves``: n_layers per decode step on the
+    decode kernel and per prefill (epoch starts and joins) on the chunk
+    kernel, or on their plain versions off the card; every other count 0."""
+    launches = {c.__name__: c.launches for c in counters}
+    expected = dict.fromkeys(launches, 0)
+    suffix = "" if on_card else "_plain"
+    expected[decode + suffix] = n_layers * sum(w["decode_steps"] for w in waves)
+    expected[chunk + suffix] = n_layers * sum(w["batches"] + w["joins"] for w in waves)
+    return launches, expected
+
+
+# batch.py's attention calls: the positional index of each int32 operand.
+_RECORDED = {
+    "decode_attention": {"lengths": 3, "starts": 4},
+    "chunk_prefill_attention": {"q_starts": 3, "lengths": 4, "k_starts": 6},
+    "paged_decode_attention": {"lengths": 3, "starts": 5},
+    "paged_chunk_attention": {"q_starts": 3, "lengths": 4, "k_starts": 5},
+}
+_TABLE_ARG = {"paged_decode_attention": 4, "paged_chunk_attention": 6}
+
+
+@contextlib.contextmanager
+def recording(decode_call: int):
+    """Record the operands the engine hands batch.py's attention wrappers:
+    each chunk kernel's first call and each decode kernel's call number
+    ``decode_call`` (0-based). Yields {kernel: operands}; read it with
+    ``dispatch_shapes`` once the wave is over. The wrappers underneath
+    launch, and count their launches, as they do without it."""
+    from unittest import mock
+
+    from cake_tpu_torch.models.llama import batch as B
+
+    seen: dict = {}
+    calls = dict.fromkeys(_RECORDED, -1)
+
+    def wrap(name, fn):
+        pick = decode_call if "decode" in name else 0
+
+        def call(*args, **kw):
+            calls[name] += 1
+            if calls[name] == pick:
+                rec = {"q": tuple(args[0].shape), "kv": tuple(args[1].shape)}
+                rec.update({k: args[i].clone() for k, i in _RECORDED[name].items()})
+                if name in _TABLE_ARG:
+                    rec["n_p"] = args[_TABLE_ARG[name]].shape[1]
+                seen[name] = rec
+            return fn(*args, **kw)
+
+        return call
+
+    with mock.patch.multiple(B, **{n: wrap(n, getattr(B, n)) for n in _RECORDED}):
+        yield seen
+
+
+def dispatch_shapes(seen: dict) -> dict:
+    """``recording``'s operands as plain lists."""
+    return {name: {k: v.tolist() if hasattr(v, "tolist") else v for k, v in rec.items()}
+            for name, rec in seen.items()}
+
+
+def _wave(engine, n_tokens: int, messages=None) -> dict:
+    """Submit one wave of concurrent greedy requests, read every stream, and
+    wait for the epoch to end. TTFT is the engine's submit-to-first-token
+    time; decode tok/s counts the tokens after each stream's first over the
+    engine's decode-chunk wall time (device work plus the chunk's readback)."""
+    from cake_tpu_torch.models.llama.generator import SamplingConfig
+
+    greedy = SamplingConfig(temperature=0.0, repeat_penalty=1.0)
+    before = dict(engine.stats)
+    t0 = time.perf_counter()
+    handles = [engine.submit(m, n_tokens, greedy) for m in (messages or engine_messages())]
+    streams = [[t.id for t in h.tokens()] for h in handles]
+    wall = time.perf_counter() - t0
+    if not engine.wait_idle(600):
+        raise AssertionError("the engine did not go idle after a wave")
+    after = engine.snapshot()
+    delta = {k: after[k] - before[k] for k in (
+        "batches", "joins", "decode_s", "decode_steps", "decode_chunks", "prefill_s",
+        "prefix_hits", "prefix_misses",
+    )}
+    ttft = [h.ttft_s for h in handles]
+    decoded = sum(h.completion_tokens - 1 for h in handles)
+    return {
+        "streams": streams, "wall_s": wall,
+        "ttft_p50_s": statistics.median(ttft), "ttft_max_s": max(ttft),
+        "completion_tokens": [h.completion_tokens for h in handles],
+        "finish_reasons": [h.finish_reason for h in handles],
+        "decode_tok_s": decoded / delta["decode_s"] if delta["decode_s"] else None,
+        "decode_ms_per_step": (
+            1e3 * delta["decode_s"] / delta["decode_steps"] if delta["decode_steps"] else None
+        ),
+        "aggregate_tok_s": sum(h.completion_tokens for h in handles) / wall,
+        **delta,
+    }
+
+
+def _batch_model_check(torch, config, params, dev, kv_mode: str) -> dict:
+    """The full-width lockstep forward through the kernels against the same
+    forward with their plain versions: paged (a cold prefill through the
+    block tables, a suffix window over it, two decode steps) or dense (a
+    left-padded prefill, two decode steps)."""
+    from unittest import mock
+
+    from cake_tpu_torch.models.llama import batch as B
+    from cake_tpu_torch.models.llama.cache import init_cache
+    from cake_tpu_torch.models.llama.paged_cache import PageAllocator, init_paged_cache
+    from cake_tpu_torch.ops.chunk_prefill import chunk_prefill_attention_plain
+    from cake_tpu_torch.ops.decode_attention import decode_attention_plain
+    from cake_tpu_torch.ops.paged_attention import paged_decode_attention_plain
+    from cake_tpu_torch.ops.paged_prefill import paged_chunk_attention_plain
+    from cake_tpu_torch.ops.rope import model_rope_tables
+
+    g = torch.Generator().manual_seed(6)
+    ids = [torch.randint(0, config.vocab_size, (n,), generator=g).tolist() for n in (48, 30)]
+    tokens, pads, bucket = B.layout_prompts(ids, 256)
+    alloc = PageAllocator(4, ENGINE_PAGE, 2, 2)
+    for r, p in enumerate(pads):
+        alloc.map_range(r, int(p), 256)
+    tables = torch.as_tensor(alloc.block_tables).to(dev)
+    pads_t = torch.as_tensor(pads).to(dev)
+    tokens_t = torch.as_tensor(tokens).long().to(dev)
+    feed = torch.randint(0, config.vocab_size, (2, 2), generator=g).to(dev)
+    rope = model_rope_tables(config, 256, dev)
+    start = bucket - 16
+
+    def run_paged():
+        kv = init_paged_cache(config.num_hidden_layers, 4, config.num_key_value_heads,
+                              ENGINE_PAGE, config.head_dim, torch.bfloat16, dev)
+        with torch.inference_mode():
+            logits, kv = B.paged_prefill(params, tokens_t, kv, pads_t, tables, config, rope=rope)
+            outs = [logits]
+            ws = torch.full((2,), start, dtype=torch.int32, device=dev)
+            logits, kv = B.paged_suffix_prefill(params, tokens_t[:, start:], kv, pads_t, ws,
+                                                tables, config, start, rope=rope)
+            outs.append(logits)
+            fwd = B.paged_forward_one(params, pads_t, tables, config, rope)
+            for i in range(2):
+                logits, kv = fwd(feed[:, i : i + 1], kv, bucket + i)
+                outs.append(logits)
+        return torch.stack(outs)
+
+    def run_dense():
+        kv = init_cache(config.num_hidden_layers, 2, 256, config.num_key_value_heads,
+                        config.head_dim, torch.bfloat16, dev)
+        with torch.inference_mode():
+            logits, kv = B.batched_prefill(params, tokens_t, kv, pads_t, config, rope=rope)
+            outs = [logits]
+            fwd = B.batched_forward_one(params, pads_t, config, rope)
+            for i in range(2):
+                logits, kv = fwd(feed[:, i : i + 1], kv, bucket + i)
+                outs.append(logits)
+        return torch.stack(outs)
+
+    if kv_mode == "paged":
+        run = run_paged
+        plains = {"paged_decode_attention": paged_decode_attention_plain,
+                  "paged_chunk_attention": paged_chunk_attention_plain}
+    else:
+        run = run_dense
+        plains = {"decode_attention": decode_attention_plain,
+                  "chunk_prefill_attention": chunk_prefill_attention_plain}
+    got = run()
+    with mock.patch.multiple(B, **plains):
+        want = run()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(got.flatten(1), want.flatten(1), dim=-1).min().item()
+    row = {"phase": f"{kv_mode}_model_check", "max_abs_err": err, "ref_max_abs": scale,
+           "min_cosine": cos, "tol_rel": 0.05, "tol_cosine": 0.999}
+    emit(row)
+    if not (torch.isfinite(got).all().item() and err <= 0.05 * scale and cos >= 0.999):
+        raise AssertionError(f"{kv_mode} full-model logits: {row}")
+    return row
+
+
+def phase_engine(torch, main_path: dict) -> dict:
+    """Serve three waves through the paged engine over the generate phase's
+    weights (no second copy), two through the dense engine, then the
+    profile and the full-width forward checks. Returns the row, with the
+    running paged engine under "engine" and the operands recorded from
+    each engine's first wave under "dispatches"."""
+    from cake_tpu_torch.models.llama.chat import Message
+    from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+
+    gen = main_path["generator"]
+    config, params, dev = gen.config, gen.step.params, gen.step.device
+    n_layers = config.num_hidden_layers
+    on_card = dev.type == "cuda"
+    mid_decode = n_layers * (ENGINE_TOKENS // 2)  # layer 0 of a mid-wave decode step
+
+    def make(**kw):
+        # ServeConfig's admission window: the one the CLI serves with.
+        serve = ServeConfig(max_batch=ENGINE_BATCH, decode_chunk_size=8, **kw)
+        eng = BatchEngine(config, params, gen.tokenizer, max_seq_len=ENGINE_MAX_SEQ,
+                          cache_dtype=torch.bfloat16, serve=serve, device=dev)
+        eng.start()
+        return eng
+
+    def strip(w):
+        return {k: v for k, v in w.items() if k != "streams"}
+
+    def equal(a, b):
+        return sum(x == y for x, y in zip(a["streams"], b["streams"]))
+
+    engine = make(kv_mode="paged", page_size=ENGINE_PAGE, prefix_cache=True)
+    # Warm-up on another prompt (its chain does not serve the waves' prefix).
+    _wave(engine, 4, [[Message.user("warm up the engine")]])
+    counters = _zero_counters()
+    with recording(mid_decode) as seen:
+        waves = [_wave(engine, ENGINE_TOKENS)]
+    dispatches = {"paged": dispatch_shapes(seen)}
+    waves.append(_wave(engine, ENGINE_TOKENS))
+    waves.append(_wave(engine, ENGINE_TOKENS, engine_messages(RAGGED_TURNS)))
+    launches, expected = _expected_launches(
+        counters, waves, "paged_decode_attention", "paged_chunk_attention", n_layers, on_card
+    )
+
+    dense = make()
+    try:
+        counters = _zero_counters()
+        with recording(mid_decode) as seen:
+            dense_waves = [_wave(dense, ENGINE_TOKENS)]
+        dispatches["dense"] = dispatch_shapes(seen)
+        dense_waves.append(_wave(dense, ENGINE_TOKENS, engine_messages(RAGGED_TURNS)))
+        dense_launches, dense_expected = _expected_launches(
+            counters, dense_waves, "decode_attention", "chunk_prefill_attention", n_layers,
+            on_card,
+        )
+    finally:
+        dense.stop()
+    del dense
+    if on_card:
+        torch.cuda.empty_cache()
+    # The profile: one short wave unprofiled (its wall time), then the same
+    # wave under torch.profiler (its device time by kernel family). The
+    # engine sleeps one admission window before the wave's epoch: not idle
+    # time of the device's making, so the share leaves it out.
+    timed = _wave(engine, 16)
+    profile = _device_profile(torch, lambda: _wave(engine, 16)) if on_card else None
+    busy = profile["device_ms"] if profile else None
+    window_ms = 1e3 * engine.admission_window
+    row = {
+        "phase": "engine",
+        "card": main_path["card"],
+        "config": {"kv_mode": "paged", "page_size": ENGINE_PAGE, "max_seq": ENGINE_MAX_SEQ,
+                   "max_batch": ENGINE_BATCH, "prefix_cache": True, "decode_chunk": 8,
+                   "admission_window_s": engine.admission_window,
+                   "tokens_out": ENGINE_TOKENS, "layers": n_layers},
+        "waves": [strip(w) for w in waves],
+        "prefix_hits_wave2": waves[1]["prefix_hits"],
+        "launches": launches,
+        "expected_launches": expected,
+        "dense_waves": [strip(w) for w in dense_waves],
+        "dense_launches": dense_launches,
+        "dense_expected_launches": dense_expected,
+        "dense_equal_streams": equal(dense_waves[0], waves[0]),
+        "ragged_dense_equal_streams": equal(dense_waves[1], waves[2]),
+        "wave2_equal_streams": equal(waves[1], waves[0]),
+        "dispatches": dispatches,
+        "profile_wave_wall_ms": 1e3 * timed["wall_s"],
+        "profile": profile,
+        "device_idle_share": (
+            1.0 - busy / (1e3 * timed["wall_s"] - window_ms) if busy else None
+        ),
+        "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+    }
+    emit(row)
+    if launches != expected:
+        raise AssertionError(f"engine launch counts {launches} != expected {expected}")
+    if dense_launches != dense_expected:
+        raise AssertionError(
+            f"dense engine launch counts {dense_launches} != expected {dense_expected}"
+        )
+    if waves[1]["prefix_hits"] <= 0:
+        raise AssertionError("wave 2 took no prefix-cache hit")
+    if waves[2]["joins"] <= 0 or dense_waves[1]["joins"] <= 0:
+        raise AssertionError("the ragged wave drove no join")
+    for w in waves + dense_waves:
+        if not all(1 <= len(ids) <= ENGINE_TOKENS and all(0 <= t < config.vocab_size for t in ids)
+                   for ids in w["streams"]):
+            raise AssertionError(f"engine streams out of range: {w['completion_tokens']}")
+    row["check"] = _batch_model_check(torch, config, params, dev, "paged")
+    row["dense_check"] = _batch_model_check(torch, config, params, dev, "dense")
+    row["engine"] = engine
+    return row
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def phase_api_engine(main_path: dict, engine_path: dict) -> None:
+    """The ApiServer with the engine answers 4 concurrent SSE chats; each
+    gets its own stream and a correct usage block. Stops the engine."""
+    from cake_tpu_torch.runtime.api import ApiServer
+
+    api = ApiServer(main_path["generator"], default_max_tokens=16, engine=engine_path["engine"])
+    server = api.make_server("127.0.0.1", 0)
+    port = server.server_port
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    replies: dict[int, tuple] = {}
+
+    def client(i: int) -> None:
+        msgs = [{"role": "system", "content": SYSTEM_PROMPT},
+                {"role": "user", "content": USER_TURNS[i]}]
+        replies[i] = _post(port, {"messages": msgs, "max_tokens": 16, "stream": True,
+                                  "stream_options": {"include_usage": True}})
+
+    t0 = time.perf_counter()
+    try:
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=300)
+        if any(c.is_alive() for c in clients) or len(replies) != 4:
+            raise AssertionError("api_engine: a client did not finish")
+        results = []
+        for i, (status, body) in sorted(replies.items()):
+            events = [line[6:] for line in body.splitlines() if line.startswith("data: ")]
+            if status != 200 or not events or events[-1] != "[DONE]":
+                raise AssertionError(f"api_engine chat {i}: {status} {body[:500]}")
+            chunks = [json.loads(e) for e in events[:-1]]
+            ids = {c["id"] for c in chunks}
+            if any("error" in c for c in chunks) or len(ids) != 1:
+                raise AssertionError(f"api_engine chat {i}: {chunks[:3]}")
+            finish = [c["choices"][0]["finish_reason"] for c in chunks
+                      if c.get("choices") and c["choices"][0]["finish_reason"]]
+            if finish[-1:] not in (["stop"], ["length"]) or "usage" not in chunks[-1]:
+                raise AssertionError(f"api_engine chat {i} without finish/usage: {chunks[-2:]}")
+            _check_usage(chunks[-1]["usage"], 16)
+            results.append({"id": ids.pop(), "finish_reason": finish[-1],
+                            "usage": chunks[-1]["usage"]})
+        if len({r["id"] for r in results}) != 4:
+            raise AssertionError("api_engine: streams share an id")
+    finally:
+        server.shutdown()
+        server.server_close()
+        api.close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("api server thread did not stop")
+    emit({"phase": "api_engine", "s": time.perf_counter() - t0, "requests": results,
+          "engine_stats": {k: v for k, v in engine_path["engine"].snapshot().items()
+                           if k != "prefix"}})
+
+
+# ---------------------------------------------------------------- phase 8
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _serve_and_chat(cmd: list[str], cwd: str) -> dict:
+    """Start ``cmd`` (a CLI API server), wait for /health, answer one chat,
+    and stop the server."""
+    import http.client
+
+    port = _free_port()
+    with tempfile.TemporaryFile(mode="w+") as errs:
+        proc = subprocess.Popen([*cmd, "--api", f"127.0.0.1:{port}"], cwd=cwd,
+                                stdout=subprocess.DEVNULL, stderr=errs, text=True)
+        try:
+            deadline = time.monotonic() + 600
+            while True:
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    errs.seek(0)
+                    raise AssertionError(f"cli server did not come up: {errs.read()[-2000:]}")
+                try:
+                    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=5)
+                    conn.request("GET", "/health")
+                    up = conn.getresponse().status == 200
+                    conn.close()
+                    if up:
+                        break
+                except (OSError, http.client.HTTPException):
+                    time.sleep(0.5)
+            status, body = _post(port, {"messages": [{"role": "user", "content": "hi"}],
+                                        "max_tokens": 8})
+            reply = json.loads(body)
+            if status != 200:
+                raise AssertionError(f"cli server chat: {status} {body[:500]}")
+            _check_usage(reply["usage"], 8)
+            return {"status": status, "usage": reply["usage"],
+                    "finish_reason": reply["choices"][0]["finish_reason"]}
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+
+
 def phase_cli(torch, extra_args=()) -> None:
     from cake_tpu_torch.io.safetensors_io import save_tiny_checkpoint
     from cake_tpu_torch.models.llama import model as M
@@ -659,27 +1336,34 @@ def phase_cli(torch, extra_args=()) -> None:
         num_attention_heads=4, num_key_value_heads=1, max_position_embeddings=1024,
     )
     params = M.init_params(config, torch.Generator().manual_seed(3), torch.float32)
+    here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         save_tiny_checkpoint(tmp, params, config, dtype=torch.bfloat16)
+        cli = [sys.executable, "-m", "cake_tpu_torch.cli", "--model", tmp]
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-m", "cake_tpu_torch.cli", "--model", tmp,
-             "--prompt", "hi", "-n", "8", *extra_args],
-            cwd=os.path.dirname(os.path.abspath(__file__)),
-            capture_output=True, text=True, timeout=600,
+            [*cli, "--prompt", "hi", "-n", "8", *extra_args],
+            cwd=here, capture_output=True, text=True, timeout=600,
         )
-    row = {"phase": "cli", "returncode": proc.returncode, "s": time.perf_counter() - t0,
-           "stdout_chars": len(proc.stdout), "stdout": proc.stdout[-200:]}
+        row = {"phase": "cli", "returncode": proc.returncode, "s": time.perf_counter() - t0,
+               "stdout_chars": len(proc.stdout), "stdout": proc.stdout[-200:]}
+        if proc.returncode != 0 or not proc.stdout:
+            emit(row)
+            raise AssertionError(f"cli failed: {proc.stderr[-2000:]}")
+        t0 = time.perf_counter()
+        row["api_batch"] = _serve_and_chat(
+            [*cli, "--api-batch", "4", "--kv-mode", "paged", *extra_args], here
+        )
+        row["api_batch"]["s"] = time.perf_counter() - t0
     emit(row)
-    if proc.returncode != 0 or not proc.stdout:
-        raise AssertionError(f"cli failed: {proc.stderr[-2000:]}")
 
 
-# ---------------------------------------------------------------- phase 7
+# ---------------------------------------------------------------- phase 9
 
 
-def kernel_summary(rows: dict, main_path: dict) -> dict:
-    launches = main_path["launches"]
+def kernel_summary(rows: dict, main_path: dict, engine_path: dict) -> dict:
+    # The generate phase counted the dense kernels, the engine phase the paged ones.
+    launches = {**engine_path["launches"], **main_path["launches"]}
     spec = [
         ("decode_attention", "cake_tpu_torch/ops/csrc/decode_attention.cu",
          "cake_tpu/ops/pallas/decode_attention.py:106", ("decode_attention",),
@@ -687,6 +1371,12 @@ def kernel_summary(rows: dict, main_path: dict) -> dict:
         ("chunk_prefill_attention", "cake_tpu_torch/ops/csrc/chunk_prefill.cu",
          "cake_tpu/ops/pallas/chunk_prefill.py:151", ("chunk_prefill_attention", "flash_attention"),
          ("chunk_prefill_attention", "main_path")),
+        ("paged_decode_attention", "cake_tpu_torch/ops/csrc/paged_decode_attention.cu",
+         "cake_tpu/ops/pallas/paged_attention.py:130", ("paged_decode_attention",),
+         ("paged_decode_attention", "main_path")),
+        ("paged_chunk_attention", "cake_tpu_torch/ops/csrc/paged_chunk_attention.cu",
+         "cake_tpu/ops/pallas/paged_prefill.py:173", ("paged_chunk_attention",),
+         ("paged_chunk_attention", "main_path")),
     ]
     out = []
     for name, source, replaces, families, timed in spec:
@@ -716,8 +1406,11 @@ def main() -> int:
     kernel_rows = phase_kernels(torch)
     main_path = phase_generate(torch, env["nvidia_smi"])
     phase_api(main_path)
+    engine_path = phase_engine(torch, main_path)
+    kernel_rows.update(engine_kernel_cases(torch, engine_path))
+    phase_api_engine(main_path, engine_path)
     phase_cli(torch)
-    emit(kernel_summary(kernel_rows, main_path))
+    emit(kernel_summary(kernel_rows, main_path, engine_path))
     emit({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 
 On the card the script drives the port at Llama-3-8B width. Here its phases
 run at a tiny config with CPU tensors, so every attention call takes the
-plain version: this checks the control flow, the launch-count bookkeeping,
-the API and CLI drives and the shape of the kernels line. Without CUDA, or
-outside a checkout of the repo, the script must fail and print no result.
+plain version: this checks the control flow, the launch-count bookkeeping
+of the generator and of the batch engine, the API (serialized and engine)
+and CLI drives and the shape of the kernels line. Without CUDA, or outside
+a checkout of the repo, the script must fail and print no result.
 """
 
 import importlib.util
@@ -43,15 +44,88 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
     assert row["prompt_tokens"] == smoke.PROMPT_TOKENS
     assert row["check"]["max_abs_err"] == 0.0  # on the CPU both runs are the plain path
     smoke.phase_api(row)
+    engine = smoke.phase_engine(torch, row)
+    assert engine["launches"] == engine["expected_launches"]
+    assert engine["launches"]["paged_decode_attention_plain"] > 0
+    assert engine["launches"]["paged_chunk_attention_plain"] > 0
+    assert engine["dense_launches"] == engine["dense_expected_launches"]
+    assert engine["dense_launches"]["decode_attention_plain"] > 0
+    assert engine["dense_launches"]["chunk_prefill_attention_plain"] > 0
+    assert engine["prefix_hits_wave2"] > 0
+    assert engine["waves"][2]["joins"] > 0 and engine["dense_waves"][1]["joins"] > 0
+    # Both runs of each check are the plain path here.
+    assert engine["check"]["max_abs_err"] == 0.0
+    assert engine["dense_check"]["max_abs_err"] == 0.0
+    # On the CPU every path is the plain arithmetic: paged equals dense.
+    assert engine["dense_equal_streams"] == smoke.ENGINE_BATCH
+    assert engine["ragged_dense_equal_streams"] == len(smoke.RAGGED_TURNS)
+    for mode, names in (("paged", ("paged_decode_attention", "paged_chunk_attention")),
+                        ("dense", ("decode_attention", "chunk_prefill_attention"))):
+        assert set(engine["dispatches"][mode]) == set(names)
+    smoke.phase_api_engine(row, engine)
     smoke.phase_cli(torch, ("--device", "cpu"))
     timed = {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5,
              "bound_by": "bytes", "library_ms": None}
-    rows = {("decode_attention", "main_path"): timed, ("chunk_prefill_attention", "main_path"): timed}
-    summary = smoke.kernel_summary(rows, row)
-    assert [k["name"] for k in summary["kernels"]] == ["decode_attention", "chunk_prefill_attention"]
+    names = ["decode_attention", "chunk_prefill_attention", "paged_decode_attention",
+             "paged_chunk_attention"]
+    rows = {(name, "main_path"): timed for name in names}
+    summary = smoke.kernel_summary(rows, row, engine)
+    assert [k["name"] for k in summary["kernels"]] == names
     assert all(set(k) == KERNEL_KEYS for k in summary["kernels"])
     phases = [json.loads(line)["phase"] for line in capsys.readouterr().out.splitlines()]
-    assert phases == ["generate", "full_model_check", "api", "cli"]
+    assert phases == ["generate", "full_model_check", "api", "engine", "paged_model_check",
+                      "dense_model_check", "api_engine", "cli"]
+
+
+@pytest.mark.parametrize("kv_mode", ["paged", "dense"])
+def test_engine_layout_follows_the_engine(smoke, kv_mode):
+    """The operands chip_smoke times the kernels at are the ones a real
+    engine dispatch hands them: ``recording`` against a spy on the plain
+    versions the wrappers run on the CPU, over one cold wave."""
+    from unittest import mock
+
+    from cake_tpu_torch.models.llama import model as M
+    from cake_tpu_torch.models.llama.chat import Message
+    from cake_tpu_torch.models.llama.tokenizer import ByteTokenizer
+    from cake_tpu_torch.ops import chunk_prefill, decode_attention, paged_attention, paged_prefill
+    from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+
+    config = LlamaConfig.tiny(num_hidden_layers=2)
+    params = M.init_params(config, torch.Generator().manual_seed(0), torch.float32)
+    paged = kv_mode == "paged"
+    serve = ServeConfig(max_batch=4, decode_chunk_size=2, kv_mode=kv_mode, page_size=16,
+                        prefix_cache=paged)
+    engine = BatchEngine(config, params, ByteTokenizer(), max_seq_len=256,
+                         cache_dtype=torch.float32, serve=serve, device="cpu")
+    plains = ((paged_prefill, "paged_chunk_attention_plain"),
+              (paged_attention, "paged_decode_attention_plain")) if paged else (
+              (chunk_prefill, "chunk_prefill_attention_plain"),
+              (decode_attention, "decode_attention_plain"))
+    spies = [mock.patch.object(mod, name, wraps=getattr(mod, name)) for mod, name in plains]
+    decode_call = 2 * config.num_hidden_layers  # layer 0 of the third decode step
+    engine.start()
+    try:
+        with spies[0] as chunk_spy, spies[1] as decode_spy:
+            with smoke.recording(decode_call) as seen:
+                messages = [[Message.system("share this prefix"), Message.user("q" * n)]
+                            for n in (3, 20, 9)]
+                smoke._wave(engine, 8, messages)
+    finally:
+        engine.stop()
+    shapes = smoke.dispatch_shapes(seen)
+    names = (("paged_chunk_attention", "paged_decode_attention") if paged
+             else ("chunk_prefill_attention", "decode_attention"))
+    for name, spy, call in zip(names, (chunk_spy, decode_spy), (0, decode_call)):
+        args = spy.call_args_list[call].args
+        got = shapes[name]
+        assert got["q"] == tuple(args[0].shape) and got["kv"] == tuple(args[1].shape)
+        for key, index in smoke._RECORDED[name].items():
+            assert got[key] == args[index].tolist(), (name, key)
+        if paged:
+            assert got["n_p"] == args[smoke._TABLE_ARG[name]].shape[1]
+    # The prefill covers every lane at once, the decode call one token each.
+    assert shapes[names[0]]["q"][0] == shapes[names[1]]["q"][0] == 4
+    assert shapes[names[1]]["q"][1] == 1
 
 
 def test_bound_takes_the_larger_of_bytes_and_operations(smoke):
@@ -64,6 +138,12 @@ def test_bound_takes_the_larger_of_bytes_and_operations(smoke):
     [
         ("void cake::decode_kernel<__nv_bfloat16, 128, 4>(...)", "decode_attention"),
         ("void cake::chunk_kernel<__nv_bfloat16, 128>(...)", "chunk_prefill_attention"),
+        ("void cake::decode_kernel<__nv_bfloat16, 128, 4, cake::StridedLayout>(...)",
+         "decode_attention"),
+        ("void cake::decode_kernel<__nv_bfloat16, 128, 4, cake::PagedLayout>(...)",
+         "paged_decode_attention"),
+        ("void cake::chunk_kernel<__nv_bfloat16, 128, cake::PagedLayout>(...)",
+         "paged_chunk_attention"),
         ("nvjet_tst_128x64_64x8_1x2_h_bz_TNN", "matmul"),
         ("void gemv2T_kernel_val<int, int, __nv_bfloat16>(...)", "matmul"),
         ("void at::native::vectorized_elementwise_kernel<4, ...>(...)", "other"),

@@ -29,6 +29,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import sys\n"
         "import cake_tpu_torch, cake_tpu_torch.cli, cake_tpu_torch.runtime.api\n"
         "import cake_tpu_torch.models.llama.generator, cake_tpu_torch.io.safetensors_io\n"
+        "import cake_tpu_torch.runtime.serving, cake_tpu_torch.runtime.batch_backend\n"
+        "import cake_tpu_torch.models.llama.batch, cake_tpu_torch.runtime.prefix_cache\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'cake_tpu' or m.startswith('cake_tpu.'))\n"
         "print(bad)\n"
