@@ -71,7 +71,17 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--decode-chunk", type=int, default=8,
-        help="decode steps per engine dispatch; the tokens are read back once per chunk",
+        help="fused decode granularity: N tokens per device dispatch, read back once, for "
+        "the local generator (--prompt, serialized --api) and the --api-batch engine; "
+        "1 = per-token. Streaming emits in bursts of N",
+    )
+    p.add_argument(
+        "--fusion", default="none", metavar="SPEC",
+        help="decode op fusion: 'none', 'all', or a comma list from {norm,ingest,tail}; "
+        "norm folds RMSNorm into the projection it feeds, ingest fuses head split + rope + "
+        "the KV cache write, tail fuses the repeat-penalty/temperature/top-k/draw chain. "
+        "Each runs its CUDA kernel on the card and its plain PyTorch version on --device "
+        "cpu. top-p keeps the plain sort path",
     )
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--top-k", type=int, default=None)
@@ -96,6 +106,13 @@ def _parse_address(addr: str) -> tuple[str, int]:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    from cake_tpu_torch.ops.fuse import parse_fusion_spec
+
+    try:
+        parse_fusion_spec(args.fusion)
+    except ValueError as e:
+        print(f"--fusion: {e}", file=sys.stderr)
+        return 2
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="[%(asctime)s %(levelname)s %(name)s] %(message)s",
@@ -129,6 +146,8 @@ def main(argv: list[str] | None = None) -> int:
         prefill_chunk=args.prefill_chunk,
         prefix_cache=prefix_cache and not engine_serves,
         device=args.device,
+        decode_chunk_size=args.decode_chunk,
+        fusion_impl=args.fusion,  # on the config before any step or engine is built
     )
     if args.api:
         from cake_tpu_torch.runtime.api import ApiServer
@@ -145,6 +164,7 @@ def main(argv: list[str] | None = None) -> int:
                 max_pages=args.max_pages,
                 prefix_cache=args.kv_mode == "paged" and args.prefix_cache != "off",
                 prefix_cache_pages=args.prefix_cache_pages,
+                fusion_impl=args.fusion,
             )
             step = generator.step
             engine = BatchEngine(

@@ -105,7 +105,8 @@ class SafetensorsReader:
     def torch(
         self, name: str, dtype: torch.dtype, device="cpu", transpose: bool = False
     ) -> torch.Tensor:
-        """One tensor as ``dtype`` on ``device`` ([in, out] when transposed)."""
+        """One tensor as ``dtype`` on ``device`` ([in, out] when transposed,
+        laid out row-major: the fused norm-matmul kernel streams rows of W)."""
         arr = self.numpy(name)
         # Copy out of the read-only memmap; the cast happens on the device.
         if self.st_dtype(name) == "BF16":
@@ -114,7 +115,7 @@ class SafetensorsReader:
             t = torch.from_numpy(np.array(arr))
         t = t.to(device)
         if transpose:
-            t = t.T
+            t = t.T.contiguous()
         return t.to(dtype)
 
 

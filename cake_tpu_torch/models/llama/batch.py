@@ -27,8 +27,14 @@ table) and the gathered rope rows are built once per dispatch, never once
 per layer. Keys rope at their query positions (the same for every live
 slot; pad and dead slots get finite garbage that no mask admits).
 
-Tensor parallelism, the 1F1B row window, ragged pipeline stages, MoE layers
-and the decode fusions are not ported yet: they raise NotImplementedError.
+The decode fusions (``LlamaConfig.fusion_impl``, ops/fuse.py) are resolved
+once per dispatch: "norm" at the model's three norm sites, "ingest" on the
+decode step (split + rope + the one-slot K/V write in one kernel, dense or
+through the block table; Qwen3's q/k-norm trees keep the unfused path) and
+"tail" in ``sampled_decode_loop``.
+
+Tensor parallelism, the 1F1B row window, ragged pipeline stages and MoE
+layers are not ported yet: they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -39,13 +45,16 @@ import torch
 from cake_tpu_torch.models.llama import model as M
 from cake_tpu_torch.models.llama.cache import KVCache, write_layer
 from cake_tpu_torch.models.llama.config import LlamaConfig
+from cake_tpu_torch.models.llama.fused import sampled_decode_loop
 from cake_tpu_torch.models.llama.paged_cache import PagedKVCache, write_pages, write_plan
 from cake_tpu_torch.ops.chunk_prefill import chunk_prefill_attention
 from cake_tpu_torch.ops.decode_attention import decode_attention
+from cake_tpu_torch.ops.fuse import resolve_fusion
+from cake_tpu_torch.ops.fused_ingest import fused_qkv_ingest
 from cake_tpu_torch.ops.paged_attention import paged_decode_attention
 from cake_tpu_torch.ops.paged_prefill import paged_chunk_attention
 from cake_tpu_torch.ops.rope import model_rope_tables
-from cake_tpu_torch.ops.sampling import apply_repeat_penalty, sample_per_row, sample_step, split_keys
+from cake_tpu_torch.ops.sampling import apply_repeat_penalty, sample_per_row, split_keys
 
 BUCKET_MULTIPLE = 16
 _NOT_PORTED = "is not ported yet (ROADMAP.md queue A)"
@@ -166,6 +175,7 @@ def batched_blocks_forward(
     valid=None,
     tp_axis=None,
     row_offset=None,
+    fusion=None,
 ):
     """THE pad-aware layer walk for left-padded batches, dense or paged.
 
@@ -187,6 +197,8 @@ def batched_blocks_forward(
       write_starts: [B] int32, paged only: row b's writes below
         ``write_starts[b]`` sink, so forked shared prefix pages stay
         byte-stable.
+      fusion: the enabled fusions, from ``resolve_fusion`` (None: from the
+        config).
     """
     if valid is not None:
         raise NotImplementedError(f"ragged pipeline stages (valid=) {_NOT_PORTED}")
@@ -197,6 +209,8 @@ def batched_blocks_forward(
     paged = block_tables is not None
     if write_starts is not None and not paged:
         raise ValueError("write_starts is a paged-only mode")
+    if fusion is None:
+        fusion = resolve_fusion(config)
     b, width, _ = x.shape
     q_pos = q_pos.clamp(min=0)
     # Layer-invariant: the rope rows, the query starts and the write plan.
@@ -206,10 +220,7 @@ def batched_blocks_forward(
         cos, sin = cos[q_pos], sin[q_pos]
     q_starts = torch.full((b,), write_pos if cached_chunk else 0, dtype=torch.int32,
                           device=x.device)
-    if paged:
-        plan = write_plan(
-            write_pos, width, block_tables, kv.n_pages, kv.page_size, write_starts
-        )
+    plan = None
     kw = dict(
         window=config.sliding_window,
         scale=config.attn_scale,
@@ -218,10 +229,30 @@ def batched_blocks_forward(
     for i in range(kv.n_layers):
         lp = {name: w[i] for name, w in layers.items()}
         win_flag = lp.get("win_flag")
-        q, k, v = M.block_qkv(lp, x, cos, sin, None, config)
         k_c, v_c = kv.k[i], kv.v[i]
+        if (decode and "ingest" in fusion and "wqkv" in lp and "q_norm" not in lp
+                and write_starts is None):
+            # Fused decode ingest (ops/fused_ingest.py): the flat projection
+            # row is split, roped and its K/V written in one kernel; the
+            # dual-rope layers (Gemma-3) select their plane as block_qkv does.
+            qkv = M.block_qkv_flat(lp, x, config, fusion)
+            cos_l, sin_l = (cos[lp["rope_sel"]], sin[lp["rope_sel"]]) if "rope_sel" in lp \
+                else (cos, sin)
+            q = fused_qkv_ingest(
+                qkv, cos_l, sin_l, write_pos, k_c, v_c, n_q=config.num_attention_heads,
+                n_kv=config.num_key_value_heads, block_tables=block_tables,
+            )
+        else:
+            q, k, v = M.block_qkv(lp, x, cos, sin, None, config, fusion)
+            if not paged:
+                write_layer(k_c, v_c, k, v, write_pos)
+            else:
+                if plan is None:
+                    plan = write_plan(
+                        write_pos, width, block_tables, kv.n_pages, kv.page_size, write_starts
+                    )
+                write_pages(k_c, v_c, k, v, plan)
         if paged:
-            write_pages(k_c, v_c, k, v, plan)
             if decode:
                 attn = paged_decode_attention(
                     q, k_c, v_c, lengths, block_tables, pads, win_flag, **kw
@@ -231,14 +262,13 @@ def batched_blocks_forward(
                     q, k_c, v_c, q_starts, lengths, pads, block_tables, win_flag, **kw
                 )
         else:
-            write_layer(k_c, v_c, k, v, write_pos)
             if decode:
                 attn = decode_attention(q, k_c, v_c, lengths, pads, win_flag, **kw)
             else:
                 attn = chunk_prefill_attention(
                     q, k_c, v_c, q_starts, lengths, win_flag, pads, **kw
                 )
-        x = M.block_finish(lp, x, attn, config)
+        x = M.block_finish(lp, x, attn, config, fusion)
     return x, kv
 
 
@@ -262,13 +292,14 @@ def batched_prefill(
     wider than the prompt, so ends < L and seq_len = ends."""
     b, l = tokens.shape
     cos, sin = _rope(rope, config, kv.max_seq_len, tokens.device)
+    fusion = resolve_fusion(config)
     x = M.embed_tokens(params, tokens, config)
     q_pos, lengths = prefill_positions(l, pads, ends)
     x, kv = batched_blocks_forward(
         params["layers"], x, kv, cos, sin, q_pos, config,
-        decode=False, pads=pads, lengths=lengths, write_pos=0,
+        decode=False, pads=pads, lengths=lengths, write_pos=0, fusion=fusion,
     )
-    return M.head_forward(params, x, l if seq_len is None else seq_len, config), kv
+    return M.head_forward(params, x, l if seq_len is None else seq_len, config, fusion), kv
 
 
 def paged_prefill(
@@ -288,14 +319,15 @@ def paged_prefill(
     just put there (paged_chunk_attention, ``q_starts = 0``)."""
     b, l = tokens.shape
     cos, sin = _rope(rope, config, block_tables.shape[1] * kv.page_size, tokens.device)
+    fusion = resolve_fusion(config)
     x = M.embed_tokens(params, tokens, config)
     q_pos, lengths = prefill_positions(l, pads, ends)
     x, kv = batched_blocks_forward(
         params["layers"], x, kv, cos, sin, q_pos, config,
         decode=False, pads=pads, lengths=lengths, write_pos=0,
-        block_tables=block_tables, write_starts=write_starts,
+        block_tables=block_tables, write_starts=write_starts, fusion=fusion,
     )
-    return M.head_forward(params, x, l if seq_len is None else seq_len, config), kv
+    return M.head_forward(params, x, l if seq_len is None else seq_len, config, fusion), kv
 
 
 def paged_suffix_prefill(
@@ -317,29 +349,32 @@ def paged_suffix_prefill(
     window's last slot, where the cold path reads them."""
     b, w = tokens.shape
     cos, sin = _rope(rope, config, block_tables.shape[1] * kv.page_size, tokens.device)
+    fusion = resolve_fusion(config)
     x = M.embed_tokens(params, tokens, config)
     q_pos, lengths = verify_positions(w, pads, start)
     x, kv = batched_blocks_forward(
         params["layers"], x, kv, cos, sin, q_pos, config,
         decode=False, cached_chunk=True, pads=pads, lengths=lengths,
-        write_pos=start, block_tables=block_tables, write_starts=write_starts,
+        write_pos=start, block_tables=block_tables, write_starts=write_starts, fusion=fusion,
     )
-    return M.head_forward(params, x, w, config), kv
+    return M.head_forward(params, x, w, config, fusion), kv
 
 
 def batched_forward_one(params: M.Params, pads: torch.Tensor, config: LlamaConfig, rope):
     """The one-token dense forward ``(tok [B, 1], kv, slot) -> (logits, kv)``
-    for sampled_decode_loop; ``slot`` is the shared slot of the fed token."""
+    for sampled_decode_loop; ``slot`` is the shared slot of the fed token.
+    The fusions are resolved once, for every step of the chunk."""
     cos, sin = rope
+    fusion = resolve_fusion(config)
 
     def forward_one(tok, kv, slot: int):
         x = M.embed_tokens(params, tok, config)
         q_pos, lengths = decode_positions(slot, pads)
         x, kv = batched_blocks_forward(
             params["layers"], x, kv, cos, sin, q_pos, config,
-            decode=True, pads=pads, lengths=lengths, write_pos=slot,
+            decode=True, pads=pads, lengths=lengths, write_pos=slot, fusion=fusion,
         )
-        return M.head_forward(params, x, 1, config), kv
+        return M.head_forward(params, x, 1, config, fusion), kv
 
     return forward_one
 
@@ -349,6 +384,7 @@ def paged_forward_one(
 ):
     """The one-token paged forward, twin of batched_forward_one."""
     cos, sin = rope
+    fusion = resolve_fusion(config)
 
     def forward_one(tok, kv, slot: int):
         x = M.embed_tokens(params, tok, config)
@@ -356,31 +392,11 @@ def paged_forward_one(
         x, kv = batched_blocks_forward(
             params["layers"], x, kv, cos, sin, q_pos, config,
             decode=True, pads=pads, lengths=lengths, write_pos=slot,
-            block_tables=block_tables,
+            block_tables=block_tables, fusion=fusion,
         )
-        return M.head_forward(params, x, 1, config), kv
+        return M.head_forward(params, x, 1, config, fusion), kv
 
     return forward_one
-
-
-def sampled_decode_loop(forward_one, kv, tok, slot: int, keys, ring, ring_idx, *, n_steps, s):
-    """``n_steps`` one-token steps, forward -> sample_step -> feed back, all
-    on the device (port of ``fused.sampled_decode_scan``).
-
-    ``tok`` [B] is the most recent token at shared ``slot``; its KV is
-    written there and the logits predict slot + 1. Returns (tokens [B,
-    n_steps] on the device, kv, keys, ring, ring_idx); the caller reads the
-    tokens back once per chunk."""
-    toks = []
-    for i in range(n_steps):
-        logits, kv = forward_one(tok[:, None], kv, slot + i)
-        tok, keys, ring, ring_idx = sample_step(
-            logits, keys, ring, ring_idx,
-            temperature=s.temperature, top_k=s.top_k, top_p=s.top_p,
-            repeat_penalty=s.repeat_penalty,
-        )
-        toks.append(tok)
-    return torch.stack(toks, dim=1), kv, keys, ring, ring_idx
 
 
 def decode_chunk(params, kv, tok, slot, pads, keys, ring, ring_idx, config, n, s, rope):
@@ -389,6 +405,7 @@ def decode_chunk(params, kv, tok, slot, pads, keys, ring, ring_idx, config, n, s
     return sampled_decode_loop(
         batched_forward_one(params, pads, config, rope),
         kv, tok, slot, keys, ring, ring_idx, n_steps=n, s=s,
+        fused_tail="tail" in resolve_fusion(config),
     )
 
 
@@ -400,4 +417,5 @@ def paged_decode_chunk(
     return sampled_decode_loop(
         paged_forward_one(params, pads, block_tables, config, rope),
         kv, tok, slot, keys, ring, ring_idx, n_steps=n, s=s,
+        fused_tail="tail" in resolve_fusion(config),
     )

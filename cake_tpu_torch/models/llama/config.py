@@ -106,6 +106,9 @@ class LlamaConfig:
     query_pre_attn_scalar: int | None = None
     post_block_norms: bool = False
     alt_sliding_window: bool = False
+    # Decode op fusion (ops/fuse.py parse_fusion_spec): "none", "all", or a
+    # comma list from {norm, ingest, tail}. A runtime knob, never an HF field.
+    fusion_impl: str = "none"
     # Chat-template override (--chat-template; not an HF field). None = pick
     # by model_type. Needed for Llama-2-chat checkpoints, whose config.json
     # is indistinguishable from base Llama (chat.DIALOG_ENCODERS keys).

@@ -2,10 +2,11 @@
 ``cake_tpu/models/llama/generator.py``, single-host path).
 
 Chat history, prefill (power-of-two buckets, optional fixed-size chunks),
-the per-token decode loop, sampling with the repeat penalty, incremental
-detokenization, EOS detection, and KV prefix reuse across ``reset()``.
-Fused multi-token decode, speculative decoding, failure recovery and the
-metrics calls are not ported yet (ROADMAP.md).
+the per-token decode loop, fused multi-token decode (``decode_chunk_size``
+tokens per device dispatch, models/llama/fused.py), sampling with the repeat
+penalty, incremental detokenization, EOS detection, and KV prefix reuse
+across ``reset()``. Speculative decoding, failure recovery and the metrics
+calls are not ported yet (ROADMAP.md).
 
 The seam is the same as the JAX package's: the generator needs a step
 ``(tokens, pos, seq_len) -> logits``; :class:`LocalForwardStep` runs the
@@ -27,8 +28,9 @@ from cake_tpu_torch.models.llama import model as M
 from cake_tpu_torch.models.llama.cache import init_cache
 from cake_tpu_torch.models.llama.chat import Message, encode_dialog
 from cake_tpu_torch.models.llama.config import LlamaConfig
+from cake_tpu_torch.models.llama.fused import sampled_decode_loop
 from cake_tpu_torch.models.llama.tokenizer import Tokenizer, load_tokenizer
-from cake_tpu_torch.ops.fuse import fuse_params
+from cake_tpu_torch.ops.fuse import fuse_params, parse_fusion_spec, resolve_fusion
 from cake_tpu_torch.ops.rope import model_rope_tables
 from cake_tpu_torch.ops.sampling import DEFAULT_SEED, apply_repeat_penalty, sample
 
@@ -78,7 +80,8 @@ class ForwardStep(Protocol):
 
 class LocalForwardStep:
     """Single-device step: fused weights resident on ``device``, a dense KV
-    cache written in place, rope tables built once."""
+    cache written in place, rope tables built once; ``decode_chunk`` runs
+    multi-token decode on the device."""
 
     def __init__(
         self,
@@ -123,6 +126,41 @@ class LocalForwardStep:
         )
         return logits
 
+    @torch.inference_mode()
+    def decode_chunk(
+        self,
+        last_token: np.ndarray,
+        pos: int,
+        n_steps: int,
+        sampling,
+        rng: torch.Generator,
+        ring: np.ndarray,
+        ring_idx: int,
+    ) -> np.ndarray:
+        """Decode ``n_steps`` tokens on the device (port of the JAX package's
+        ``FusedDecodeCapability.decode_chunk``); returns their ids [batch,
+        n_steps], read back once.
+
+        ``last_token`` [batch] sits at position ``pos``. ``rng`` is the
+        dialog's sampling generator, advanced in place exactly as the
+        per-step path advances it. The penalty ring ([batch, window], -1 =
+        empty) and its next slot are values: the caller reseeds them from
+        its token history each call, so an EOS truncation leaves no stale
+        ring state behind."""
+        params, config, rope, dev = self.params, self.config, self._rope, self.device
+
+        def forward_one(tok, kv, p):
+            return M.forward(params, tok, kv, p, 1, config, rope=rope)
+
+        tok = torch.as_tensor(np.asarray(last_token, np.int64)).to(dev)
+        ring_t = torch.as_tensor(np.asarray(ring, np.int64)).to(dev)
+        ring_idx_t = torch.full((tok.shape[0],), int(ring_idx), dtype=torch.int64, device=dev)
+        toks, self._kv, _, _, _ = sampled_decode_loop(
+            forward_one, self._kv, tok, int(pos), rng, ring_t, ring_idx_t,
+            n_steps=n_steps, s=sampling, fused_tail="tail" in resolve_fusion(config),
+        )
+        return toks.cpu().numpy()
+
 
 def prefill_bucket(n: int, max_seq_len: int, minimum: int = 16) -> int:
     """Power-of-two padding bucket (the JAX package compiles once per bucket;
@@ -144,6 +182,7 @@ class LlamaGenerator:
         sampling: SamplingConfig = SamplingConfig(),
         prefill_chunk: int | None = None,
         prefix_cache: bool = False,
+        decode_chunk_size: int = 1,
     ):
         self.config = config
         self.step = step
@@ -155,6 +194,8 @@ class LlamaGenerator:
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         self.prefill_chunk = prefill_chunk
+        # Tokens per fused decode dispatch (1 = per-token decode).
+        self.decode_chunk_size = max(1, int(decode_chunk_size))
         self.last_finish_reason: str = "stop"
         self.reset()
 
@@ -169,13 +210,19 @@ class LlamaGenerator:
         prefill_chunk: int | None = None,
         prefix_cache: bool = False,
         device: torch.device | str | None = None,
+        decode_chunk_size: int = 1,
+        fusion_impl: str = "none",
     ) -> "LlamaGenerator":
         """Config, weights and tokenizer from a checkpoint directory, on
-        ``device`` (default CUDA; raises when there is none)."""
+        ``device`` (default CUDA; raises when there is none). ``fusion_impl``
+        is set on the config before the step is built."""
         from cake_tpu_torch.io.safetensors_io import load_params
 
         dev = resolve_device(device)
         config = LlamaConfig.from_model_dir(model_dir)
+        if fusion_impl != "none":
+            parse_fusion_spec(fusion_impl)
+            config = dataclasses.replace(config, fusion_impl=fusion_impl)
         params = load_params(model_dir, config, dtype, dev)
         step = LocalForwardStep(
             config, params, max_seq_len=max_seq_len, cache_dtype=dtype, device=dev
@@ -183,6 +230,7 @@ class LlamaGenerator:
         return cls(
             config, step, load_tokenizer(model_dir), sampling,
             prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
+            decode_chunk_size=decode_chunk_size,
         )
 
     # ------------------------------------------------------------- chat state
@@ -249,13 +297,19 @@ class LlamaGenerator:
         if s.repeat_penalty != 1.0:
             window = torch.from_numpy(self._penalty_window()).to(logits.device)
             logits = apply_repeat_penalty(logits, s.repeat_penalty, window)
-        if self._rng is None:  # seeded at the first draw of each dialog
-            self._rng = torch.Generator(device=logits.device)
-            self._rng.manual_seed(s.seed)
         ids = sample(
-            logits, self._rng, temperature=s.temperature, top_k=s.top_k, top_p=s.top_p
+            logits, self._dialog_rng(logits.device), temperature=s.temperature, top_k=s.top_k,
+            top_p=s.top_p,
         )
         return int(ids[0])
+
+    def _dialog_rng(self, device) -> torch.Generator:
+        """The dialog's sampling generator, seeded at its first draw; the
+        per-step and the fused paths draw from it in the same order."""
+        if self._rng is None:
+            self._rng = torch.Generator(device=device)
+            self._rng.manual_seed(self.sampling.seed)
+        return self._rng
 
     # ------------------------------------------------------------- decoding
 
@@ -324,21 +378,57 @@ class LlamaGenerator:
             )
         return Token(id=tid, text=text, is_end_of_stream=is_eos)
 
+    def _next_tokens_fused(self, n_steps: int) -> list[Token]:
+        """Decode ``n_steps`` tokens in one fused device dispatch (the step's
+        ``decode_chunk``), after the prefill. The penalty ring is reseeded
+        from the token history each call, so chunks compose exactly with
+        per-step decoding; an EOS truncates the chunk (the tail past it is
+        dropped, its KV writes past the live length)."""
+        window = self.sampling.repeat_last_n
+        ring = self._penalty_window()
+        ring_idx = min(len(self._tokens), window) % window if window > 0 else 0
+        pos = len(self._tokens) - 1
+        toks = self.step.decode_chunk(
+            np.asarray([self._tokens[-1]], np.int64), pos, n_steps, self.sampling,
+            self._dialog_rng(self.step.device), ring, ring_idx,
+        )
+        # Every fed position was written; reset()'s len - 1 bound drops the
+        # slots of tokens an EOS below discards.
+        self._kv_high = max(self._kv_high, pos + n_steps)
+        out: list[Token] = []
+        for tid in toks[0].tolist():
+            tok = self._materialize(int(tid))
+            out.append(tok)
+            if tok.is_end_of_stream:
+                break
+        return out
+
     def generate(
         self, max_new_tokens: int, on_token: Callable[[Token], None] | None = None
     ) -> str:
         """Decode up to ``max_new_tokens``, streaming through ``on_token``.
-        Sets ``last_finish_reason``: "stop" at EOS, else "length"."""
+        Sets ``last_finish_reason``: "stop" at EOS, else "length".
+
+        With ``decode_chunk_size`` > 1 the tokens after the first come in
+        fused chunks of that size (``_next_tokens_fused``); the first token
+        (prefill) and a tail shorter than a chunk go per step."""
+        chunk = self.decode_chunk_size
         out: list[str] = []
         self.last_finish_reason = "length"
-        for _ in range(max_new_tokens):
+        produced = 0
+        while produced < max_new_tokens:
             if len(self._tokens) >= self.step.max_seq_len:
                 break
-            tok = self.next_token()
-            if on_token is not None:
-                on_token(tok)
-            if tok.is_end_of_stream:
-                self.last_finish_reason = "stop"
-                break
-            out.append(tok.text)
+            budget = min(max_new_tokens - produced, self.step.max_seq_len - len(self._tokens))
+            fused = chunk > 1 and budget >= chunk and self._started and hasattr(
+                self.step, "decode_chunk"
+            )
+            for tok in self._next_tokens_fused(chunk) if fused else [self.next_token()]:
+                produced += 1
+                if on_token is not None:
+                    on_token(tok)
+                if tok.is_end_of_stream:
+                    self.last_finish_reason = "stop"
+                    return "".join(out)
+                out.append(tok.text)
         return "".join(out)

@@ -15,6 +15,14 @@ loop over per-layer views.
 Attention dispatch is by the tensors' device: the wrappers in ops/ launch
 the CUDA kernels for CUDA tensors and run their plain versions for CPU
 tensors. The KV cache is written in place (models/llama/cache.py).
+
+The "norm" decode fusion (``LlamaConfig.fusion_impl``, ops/fuse.py) folds
+RMSNorm into the projection it feeds at three sites: the input norm ->
+``wqkv`` (``block_qkv_flat``), the post-attention norm -> ``w_gu``
+(``block_finish``; never for a router layer) and the final norm ->
+``lm_head`` (``head_forward``, unless the embeddings are tied). A
+``fusion`` argument, resolved once per dispatch (``resolve_fusion``), is
+handed down to every site; None resolves it from the config.
 """
 
 from __future__ import annotations
@@ -29,7 +37,9 @@ from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.ops.chunk_prefill import chunk_prefill_attention
 from cake_tpu_torch.ops.decode_attention import decode_attention
 from cake_tpu_torch.ops.flash_attention import flash_attention
-from cake_tpu_torch.ops.mlp import swiglu, swiglu_gu
+from cake_tpu_torch.ops.fuse import resolve_fusion
+from cake_tpu_torch.ops.fused_norm_matmul import fused_norm_matmul
+from cake_tpu_torch.ops.mlp import swiglu, swiglu_gu_from
 from cake_tpu_torch.ops.norm import rms_norm
 from cake_tpu_torch.ops.rope import apply_rope, model_rope_tables
 
@@ -131,21 +141,35 @@ def is_cached_prefill(pos: int, width: int) -> bool:
     return pos > 0 and width > 1
 
 
-def block_qkv(lp, x, cos, sin, positions, config: LlamaConfig):
+def block_qkv_flat(lp, x, config: LlamaConfig, fusion=None):
+    """rms_1 -> the fused QKV projection (+bias), UNSPLIT: [b, chunk,
+    (n_q + 2 n_kv) hd]. With "norm" the input norm folds into the
+    projection (ops/fused_norm_matmul.py)."""
+    fusion = resolve_fusion(config) if fusion is None else fusion
+    if "norm" in fusion:
+        qkv = fused_norm_matmul(
+            x, lp["ln_attn"], lp["wqkv"], eps=config.rms_norm_eps, offset=config.rmsnorm_offset
+        )
+    else:
+        qkv = rms_norm(x, lp["ln_attn"], config.rms_norm_eps, config.rmsnorm_offset) @ lp["wqkv"]
+    if "bqkv" in lp:
+        qkv = qkv + lp["bqkv"].to(qkv.dtype)
+    return qkv
+
+
+def block_qkv(lp, x, cos, sin, positions, config: LlamaConfig, fusion=None):
     """rms_1 -> QKV projection (+bias) -> q/k norm -> RoPE on q/k."""
     b, chunk, _ = x.shape
     hd = config.head_dim
     n_q, n_kv = config.num_attention_heads, config.num_key_value_heads
     if "rope_sel" in lp:  # Gemma-3: plane 0 global rope, plane 1 local
         cos, sin = cos[lp["rope_sel"]], sin[lp["rope_sel"]]
-    h = rms_norm(x, lp["ln_attn"], config.rms_norm_eps, config.rmsnorm_offset)
     if "wqkv" in lp:
-        qkv = h @ lp["wqkv"]
-        if "bqkv" in lp:
-            qkv = qkv + lp["bqkv"].to(qkv.dtype)
+        qkv = block_qkv_flat(lp, x, config, fusion)
         qw, kw = n_q * hd, n_kv * hd
         q, k, v = qkv[..., :qw], qkv[..., qw : qw + kw], qkv[..., qw + kw :]
     else:
+        h = rms_norm(x, lp["ln_attn"], config.rms_norm_eps, config.rmsnorm_offset)
         q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
         if "bq" in lp:
             q = q + lp["bq"].to(q.dtype)
@@ -160,20 +184,26 @@ def block_qkv(lp, x, cos, sin, positions, config: LlamaConfig):
     return apply_rope(q, cos, sin, positions), apply_rope(k, cos, sin, positions), v
 
 
-def block_finish(lp, x, attn, config: LlamaConfig):
-    """Out-projection + residual, rms_2 -> gated MLP + residual."""
+def block_finish(lp, x, attn, config: LlamaConfig, fusion=None):
+    """Out-projection + residual, rms_2 -> gated MLP + residual. With
+    "norm" and the fused ``w_gu``, rms_2 folds into the gate|up product."""
     if "router" in lp:
         raise NotImplementedError(_MOE_TODO)
+    fusion = resolve_fusion(config) if fusion is None else fusion
     b, chunk, _ = x.shape
     off = config.rmsnorm_offset
     o = (attn.reshape(b, chunk, -1) @ lp["wo"]).to(x.dtype)
     if "ln_post_attn" in lp:
         o = rms_norm(o, lp["ln_post_attn"], config.rms_norm_eps, off)
     x = x + o
-    h = rms_norm(x, lp["ln_mlp"], config.rms_norm_eps, off)
     if "w_gu" in lp:
-        mlp = swiglu_gu(h, lp["w_gu"], lp["w_down"], config.hidden_activation)
+        if "norm" in fusion:
+            gu = fused_norm_matmul(x, lp["ln_mlp"], lp["w_gu"], eps=config.rms_norm_eps, offset=off)
+        else:
+            gu = rms_norm(x, lp["ln_mlp"], config.rms_norm_eps, off) @ lp["w_gu"]
+        mlp = swiglu_gu_from(gu, lp["w_down"], config.hidden_activation)
     else:
+        h = rms_norm(x, lp["ln_mlp"], config.rms_norm_eps, off)
         mlp = swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"], config.hidden_activation)
     mlp = mlp.to(x.dtype)
     if "ln_post_mlp" in lp:
@@ -192,14 +222,16 @@ def attention_rows(b: int, pos: int, chunk: int, device) -> dict[str, torch.Tens
 
 def block_forward(
     lp, x, k_cache, v_cache, cos, sin, positions, pos: int, config: LlamaConfig,
-    cached_prefill: bool = False, rolling: bool = False, rows=None,
+    cached_prefill: bool = False, rolling: bool = False, rows=None, fusion=None,
 ):
     """One decoder block over a token chunk; writes this chunk's K/V into the
     layer's cache in place. Returns (x_out, k_cache, v_cache)."""
     if rolling:
         raise NotImplementedError(_ROLLING_TODO)
+    if fusion is None:
+        fusion = resolve_fusion(config)
     b, chunk, _ = x.shape
-    q, k, v = block_qkv(lp, x, cos, sin, positions, config)
+    q, k, v = block_qkv(lp, x, cos, sin, positions, config, fusion)
     write_layer(k_cache, v_cache, k, v, pos)
     if rows is None:
         rows = attention_rows(b, pos, chunk, x.device)
@@ -220,14 +252,16 @@ def block_forward(
         attn = flash_attention(q, k, v, **kw)
     else:
         attn = decode_attention(q, k_cache, v_cache, rows["lengths"], None, **kw)
-    return block_finish(lp, x, attn, config), k_cache, v_cache
+    return block_finish(lp, x, attn, config, fusion), k_cache, v_cache
 
 
 def blocks_forward(
     layers: Params, x, kv: KVCache, cos, sin, pos: int, config: LlamaConfig,
-    cached_prefill: bool = False,
+    cached_prefill: bool = False, fusion=None,
 ):
     """Run the stacked layers in order (the JAX package's ``lax.scan``)."""
+    if fusion is None:
+        fusion = resolve_fusion(config)
     b, chunk, _ = x.shape
     positions = pos + torch.arange(chunk, device=x.device)[None, :].expand(b, chunk)
     # Positions are layer-invariant: gather the rope rows once per step.
@@ -240,7 +274,7 @@ def blocks_forward(
         lp = {name: w[i] for name, w in layers.items()}
         x, _, _ = block_forward(
             lp, x, kv.k[i], kv.v[i], cos, sin, positions, pos, config,
-            cached_prefill=cached_prefill, rows=rows,
+            cached_prefill=cached_prefill, rows=rows, fusion=fusion,
         )
     return x, kv
 
@@ -250,9 +284,19 @@ def _final_softcap(logits, config: LlamaConfig):
     return logits if cap is None else cap * torch.tanh(logits / cap)
 
 
-def head_forward(params: Params, x, seq_len: int, config: LlamaConfig):
-    """Final norm + LM head at the last valid position -> [b, vocab] f32."""
+def head_forward(params: Params, x, seq_len: int, config: LlamaConfig, fusion=None):
+    """Final norm + LM head at the last valid position -> [b, vocab] f32.
+    With "norm" the final norm folds into the lm_head product; tied
+    embeddings keep the unfused path (the transposed embedding is not the
+    kernel's [in, out] layout)."""
+    fusion = resolve_fusion(config) if fusion is None else fusion
     x_last = x[:, seq_len - 1]
+    if "norm" in fusion and not config.tie_word_embeddings:
+        logits = fused_norm_matmul(
+            x_last[:, None], params["ln_f"], params["lm_head"], eps=config.rms_norm_eps,
+            offset=config.rmsnorm_offset,
+        )[:, 0]
+        return _final_softcap(logits.float(), config)
     x_last = rms_norm(x_last, params["ln_f"], config.rms_norm_eps, config.rmsnorm_offset)
     lm_head = params["embed"].T if config.tie_word_embeddings else params["lm_head"]
     return _final_softcap((x_last @ lm_head).float(), config)
@@ -278,11 +322,13 @@ def forward(
     if rope is None:
         rope = model_rope_tables(config, kv.max_seq_len, tokens.device)
     cos, sin = rope
+    fusion = resolve_fusion(config)
     x = embed_tokens(params, tokens, config)
     x, kv = blocks_forward(
-        params["layers"], x, kv, cos, sin, pos, config, cached_prefill=cached_prefill
+        params["layers"], x, kv, cos, sin, pos, config, cached_prefill=cached_prefill,
+        fusion=fusion,
     )
-    return head_forward(params, x, seq_len, config), kv
+    return head_forward(params, x, seq_len, config, fusion), kv
 
 
 def count_params(params: Params) -> int:

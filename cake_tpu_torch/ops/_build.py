@@ -71,6 +71,23 @@ _SIGNATURES = {
         _LONG, _LONG, _LONG, _LONG, _LONG, _LONG,    # qsb qss qsh osb oss osh
         _INT, _FLOAT, _FLOAT, _VOID,                 # window scale softcap stream
     ),
+    "cake_fused_norm_matmul": (
+        _VOID, _VOID, _VOID, _VOID, _VOID,           # x norm_w w out h (NULL: GEMV)
+        _INT, _INT, _INT, _INT,                      # rows hidden out dtype
+        _FLOAT, _INT, _VOID,                         # eps offset stream
+    ),
+    "cake_fused_qkv_ingest": (
+        _VOID, _VOID, _VOID, _VOID,                  # qkv cos sin q_out
+        _VOID, _VOID, _VOID,                         # k_cache v_cache tables (NULL: dense)
+        _INT, _INT, _INT, _INT, _INT,                # b n_q n_kv hd slot
+        _INT, _INT, _LONG, _INT, _VOID,              # seq_stride n_p table_stride dtype stream
+    ),
+    "cake_fused_sample_tail": (
+        _VOID, _VOID, _VOID, _VOID,                  # logits ring noise (NULL: greedy) out
+        _INT, _INT, _INT, _INT,                      # b vocab window penalize
+        _FLOAT, _FLOAT, _FLOAT,                      # penalty 1/penalty 1/temperature
+        _INT, _VOID,                                 # top_k stream
+    ),
 }
 
 

@@ -8,6 +8,18 @@ tensor-parallel shard-major order waits for the distributed slice).
 Fusing a tree in memory holds the fused and the unfused projections at once
 until the caller drops the unfused tree; ``io/safetensors_io.load_params``
 fuses while it reads a checkpoint instead, so loaded weights never are.
+
+It also holds the grammar of the decode op fusions (``--fusion``,
+``LlamaConfig.fusion_impl``, ``ServeConfig.fusion_impl``): three hand-written
+kernels that each replace a run of small ops on the decode path:
+
+  "norm"    ops/fused_norm_matmul.py: RMSNorm folded into the projection it
+            feeds (input norm -> wqkv, post-attention norm -> w_gu, final
+            norm -> lm_head).
+  "ingest"  ops/fused_ingest.py: head split + RoPE on q/k + the one-slot
+            K/V write, dense or through the block table (engine decode).
+  "tail"    ops/fused_sample_tail.py: repeat penalty + temperature + top-k
+            + the gumbel-argmax draw in one pass over the vocab.
 """
 
 from __future__ import annotations
@@ -17,6 +29,46 @@ import torch
 FUSED_QKV = "wqkv"
 FUSED_QKV_BIAS = "bqkv"
 FUSED_GU = "w_gu"
+
+FUSION_NAMES = ("norm", "ingest", "tail")
+
+
+def parse_fusion_spec(spec: str) -> frozenset:
+    """Parse a fusion spec -> the set of enabled fusions.
+
+    Grammar: ``none`` | ``all`` | a comma list drawn from {norm, ingest,
+    tail}. Examples: ``all``, ``norm,tail``. The JAX package's ``@impl``
+    suffix has no counterpart: each fused wrapper launches its CUDA kernel
+    for a CUDA tensor and runs its plain version for a CPU one, so a spec
+    carrying one is refused with the port's spelling."""
+    spec = (spec or "none").strip()
+    if "@" in spec:
+        names, impl = spec.split("@", 1)
+        raise ValueError(
+            f"fusion spec {spec!r}: the port takes no '@{impl}' suffix (the fused wrappers pick "
+            f"the CUDA kernel or the plain version by the tensor's device); write "
+            f"{names.strip() or 'none'!r}"
+        )
+    if spec == "none":
+        return frozenset()
+    if spec == "all":
+        return frozenset(FUSION_NAMES)
+    names = [n.strip() for n in spec.split(",") if n.strip()]
+    for n in names:
+        if n not in FUSION_NAMES:
+            raise ValueError(
+                f"unknown fusion {n!r} (expected 'none', 'all', or a comma "
+                f"list from {'/'.join(FUSION_NAMES)})"
+            )
+    if not names:
+        raise ValueError(f"empty fusion spec {spec!r}")
+    return frozenset(names)
+
+
+def resolve_fusion(config) -> frozenset:
+    """The enabled fusions of a config, resolved once per dispatch and
+    handed down to every site."""
+    return parse_fusion_spec(getattr(config, "fusion_impl", "none"))
 
 
 def fuse_layer_tree(layers: dict) -> dict:

@@ -1,0 +1,152 @@
+"""Fused decode ingest: head split + RoPE on q/k + the one-slot K/V write.
+
+Replaces the Pallas TPU kernel ``cake_tpu/ops/pallas/fused_ingest.py``
+(``fused_qkv_ingest``) with a CUDA kernel written for Hopper,
+``ops/csrc/fused_ingest.cu``. It serves the batch engine's decode step: one
+token per row, the flat ``[b, 1, (n_q + 2 n_kv) hd]`` projection row in,
+roped q out, the row's K/V written into the cache in place.
+
+What bounds it on the H100: nothing but its launch. At Llama-3-8B a row is
+12 KB of projection in, 8 KB of q out and 4 KB of K/V written: ~24 KB a
+row, microseconds of bytes even at 64 rows. The unfused step spends ~20
+small ops on the same work (the head split, rope's upcast, products,
+concatenation and cast on q and on k, the write plan and two scatters).
+
+What the design does about it: one block per row. Each thread ropes one
+(head, pair) of q or k in f32 with the plain path's rounding, every product
+and sum rounded on its own (``__fmul_rn``, ``__fsub_rn``, ``__fadd_rn``; a
+contracted FMA would differ in the last bit), casts back with
+round-to-nearest-even, and stores q, or k at the row's cache slot; v is
+copied. So q and the written K/V are the plain path's bits. The paged
+variant resolves the slot through the block table like ``write_plan``: the
+logical page is clamped into the table before the lookup, and an unmapped
+(< 0) or past-the-table entry drops the write, where the plain path sends
+it to the pool's sink page.
+
+For tensors on the CPU the wrapper runs :func:`fused_qkv_ingest_plain`; for
+CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cake_tpu_torch.models.llama.cache import write_layer
+from cake_tpu_torch.models.llama.paged_cache import paged_write_layer
+from cake_tpu_torch.ops import _build
+from cake_tpu_torch.ops.rope import apply_rope
+
+_KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+
+
+def fused_qkv_ingest_plain(qkv, cos, sin, slot: int, k_cache, v_cache, *, n_q: int, n_kv: int,
+                           block_tables=None):
+    """Plain PyTorch version: split, ``apply_rope`` on q and k, then
+    ``write_layer`` (dense) or ``paged_write_layer`` (through the table;
+    dropped writes land on the sink page)."""
+    fused_qkv_ingest_plain.launches += 1
+    b = qkv.shape[0]
+    hd = qkv.shape[-1] // (n_q + 2 * n_kv)
+    qw, kw = n_q * hd, n_kv * hd
+    q = qkv[..., :qw].reshape(b, 1, n_q, hd)
+    k = qkv[..., qw : qw + kw].reshape(b, 1, n_kv, hd)
+    v = qkv[..., qw + kw :].reshape(b, 1, n_kv, hd)
+    q = apply_rope(q, cos, sin, None)
+    k = apply_rope(k, cos, sin, None)
+    if block_tables is None:
+        write_layer(k_cache, v_cache, k, v, slot)
+    else:
+        paged_write_layer(k_cache, v_cache, k, v, slot, block_tables)
+    return q
+
+
+fused_qkv_ingest_plain.launches = 0
+
+
+def fused_qkv_ingest(qkv, cos, sin, slot: int, k_cache, v_cache, *, n_q: int, n_kv: int,
+                     block_tables=None):
+    """Split heads + rope + cache write for ONE decode token per row.
+
+    Args:
+      qkv: [b, 1, (n_q + 2 n_kv) hd], the bias already added.
+      cos/sin: [b, 1, hd/2] f32 rope rows gathered at each row's position.
+      slot: the shared write slot.
+      k_cache/v_cache: one layer's dense cache [b, n_kv, max_seq, hd], or
+        with ``block_tables`` ([b, n_p] int32) its page pool
+        [n_pages + 1, n_kv, page_size, hd]; written in place.
+
+    Returns q [b, 1, n_q, hd] roped, in qkv's dtype."""
+    if qkv.device.type == "cpu":
+        return fused_qkv_ingest_plain(
+            qkv, cos, sin, slot, k_cache, v_cache, n_q=n_q, n_kv=n_kv, block_tables=block_tables
+        )
+    if qkv.device.type != "cuda":
+        raise ValueError(f"fused_qkv_ingest: unsupported device {qkv.device}")
+    if k_cache.dtype == torch.float8_e4m3fn or v_cache.dtype == torch.float8_e4m3fn:
+        raise NotImplementedError("fused_qkv_ingest: f8 KV caches are not ported yet (ROADMAP.md)")
+    b, one, width = qkv.shape
+    heads = n_q + 2 * n_kv
+    hd = width // heads
+    if one != 1 or width != heads * hd or hd % 2:
+        raise ValueError(
+            f"fused_qkv_ingest: qkv {tuple(qkv.shape)} is not one token of {heads} heads"
+        )
+    if qkv.dtype not in _KERNEL_DTYPES or k_cache.dtype != qkv.dtype or v_cache.dtype != qkv.dtype:
+        raise ValueError(
+            f"fused_qkv_ingest: qkv/k/v dtypes {qkv.dtype}/{k_cache.dtype}/{v_cache.dtype} must "
+            f"match and be one of {_KERNEL_DTYPES}"
+        )
+    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape or k_cache.shape[1] != n_kv \
+            or k_cache.shape[3] != hd:
+        raise ValueError(
+            f"fused_qkv_ingest: cache {tuple(k_cache.shape)} / {tuple(v_cache.shape)} does not "
+            f"hold {n_kv} heads of {hd}"
+        )
+    cos = cos.reshape(b, hd // 2)
+    sin = sin.reshape(b, hd // 2)
+    tables, n_p, table_stride = None, 0, 0
+    if block_tables is None:
+        if k_cache.shape[0] != b:
+            raise ValueError(f"fused_qkv_ingest: cache batch {k_cache.shape[0]} != {b}")
+        if not 0 <= slot < k_cache.shape[2]:
+            raise ValueError(f"fused_qkv_ingest: slot {slot} outside [0, {k_cache.shape[2]})")
+    else:
+        if block_tables.dtype != torch.int32 or block_tables.dim() != 2 \
+                or block_tables.shape[0] != b or block_tables.stride(1) != 1:
+            raise ValueError(
+                f"fused_qkv_ingest: block_tables must be [b, n_p] int32 with unit column "
+                f"stride, got {tuple(block_tables.shape)} {block_tables.dtype}"
+            )
+        if slot < 0:
+            raise ValueError(f"fused_qkv_ingest: slot {slot} < 0")
+        tables, n_p, table_stride = block_tables, block_tables.shape[1], block_tables.stride(0)
+    operands = {"cos": cos, "sin": sin, "k_cache": k_cache, "v_cache": v_cache}
+    if tables is not None:
+        operands["block_tables"] = tables
+    for name, tn in operands.items():
+        if tn.device != qkv.device:
+            raise ValueError(f"fused_qkv_ingest: {name} is on {tn.device}, not {qkv.device}")
+    if cos.dtype != torch.float32 or sin.dtype != torch.float32:
+        raise ValueError("fused_qkv_ingest: cos/sin must be f32")
+    qkv, cos, sin = qkv.contiguous(), cos.contiguous(), sin.contiguous()
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError("fused_qkv_ingest: the cache must be contiguous (it is written in place)")
+    q = torch.empty((b, 1, n_q, hd), dtype=qkv.dtype, device=qkv.device)
+    if b == 0:
+        return q
+    err = _build.library().cake_fused_qkv_ingest(
+        qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), q.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(),
+        None if tables is None else tables.data_ptr(),
+        b, n_q, n_kv, hd, int(slot), k_cache.shape[2], n_p, table_stride,
+        _build.DTYPE_CODES[str(qkv.dtype).removeprefix("torch.")],
+        ctypes.c_void_p(torch.cuda.current_stream(qkv.device).cuda_stream),
+    )
+    _build.check(err, "fused_qkv_ingest")
+    fused_qkv_ingest.launches += 1
+    return q
+
+
+fused_qkv_ingest.launches = 0

@@ -121,13 +121,21 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def unit_float(h: torch.Tensor) -> torch.Tensor:
+    """f32 in (0, 1) from int64 hash values in [0, 2**32): the top 23 bits
+    plus a half, every step exact, so the largest is 1 - 2**-24. (24 bits
+    plus a half round the top value up to exactly 1.0, where the gumbel
+    noise -log(-log(u)) is infinite.)"""
+    return ((h >> 9).float() + 0.5) * (1.0 / (1 << 23))
+
+
 def uniform_per_row(keys: torch.Tensor, n: int) -> torch.Tensor:
     """[b, n] f32 uniforms in (0, 1) from each row's (seed, counter) key."""
     idx = torch.arange(n, device=keys.device, dtype=torch.int64)[None, :]
     h = _mix32(keys[:, :1] ^ 0x9E3779B9)
     h = _mix32(h ^ keys[:, 1:2])
     h = _mix32(h ^ idx)
-    return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+    return unit_float(h)
 
 
 def sample_per_row(
@@ -147,19 +155,55 @@ def sample_per_row(
     return torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
 
 
-def sample_step(logits, keys, ring, ring_idx, *, temperature, top_k, top_p, repeat_penalty):
-    """ONE decode sampling step for a batch of rows (port of
-    ``cake_tpu/models/llama/fused.py`` ``sample_step``, per-row keys):
-    repeat penalty over each row's ring -> key split -> sample -> ring update.
+def gumbel_per_row(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """[b, n] gumbel rows from each row's key: ``-log(-log(u))`` of
+    ``uniform_per_row``, so ``scaled + g`` is ``sample_per_row``'s
+    ``scaled - log(-log(u))`` to the bit."""
+    return -torch.log(-torch.log(uniform_per_row(keys, n)))
 
-    Args: logits [b, vocab] f32; keys [b, 2]; ring [b, window] int64 recent
-    ids (-1 = empty), updated in place; ring_idx [b] int64 next circular
-    slot. All on the device; nothing is read back.
+
+def sample_step(
+    logits, keys, ring, ring_idx, *, temperature, top_k, top_p, repeat_penalty, fused_tail=False
+):
+    """ONE decode sampling step for a batch of rows (port of
+    ``cake_tpu/models/llama/fused.py`` ``sample_step``): repeat penalty over
+    each row's ring -> key split -> sample -> ring update.
+
+    Args: logits [b, vocab] f32; keys [b, 2] per-row keys, or a
+    ``torch.Generator`` whose one stream the rows share (the generator's
+    ``decode_chunk``: the draws of its per-step ``sample``, in the same
+    order); ring [b, window] int64 recent ids (-1 = empty), updated in
+    place; ring_idx [b] int64 next circular slot. All on the device;
+    nothing is read back.
+
+    ``fused_tail`` routes penalty, temperature, top-k and the draw through
+    the fused sampling tail (ops/fused_sample_tail.py). The key split and the
+    noise stay here either way, so the fused and unfused steps walk one
+    random stream and give the same ids.
 
     Returns (next ids [b] int64, keys, ring, ring_idx)."""
-    logits = apply_repeat_penalty(logits, repeat_penalty, ring)
-    keys, sub = split_keys(keys)
-    nxt = sample_per_row(logits, sub, temperature, top_k, top_p)
+    shared = isinstance(keys, torch.Generator)
+    if fused_tail:
+        from cake_tpu_torch.ops.fused_sample_tail import fused_sample_tail
+
+        sub = keys
+        if not shared:
+            keys, sub = split_keys(keys)
+        noise = None
+        if temperature is not None and temperature > 0.0:
+            noise = (gumbel_noise(logits.shape, sub, logits.device) if shared
+                     else gumbel_per_row(sub, logits.shape[-1]))
+        nxt = fused_sample_tail(
+            logits, ring, noise, temperature=temperature, top_k=top_k, top_p=top_p,
+            repeat_penalty=repeat_penalty,
+        )
+    else:
+        logits = apply_repeat_penalty(logits, repeat_penalty, ring)
+        if shared:
+            nxt = sample(logits, keys, temperature, top_k, top_p)
+        else:
+            keys, sub = split_keys(keys)
+            nxt = sample_per_row(logits, sub, temperature, top_k, top_p)
     window = ring.shape[1]
     if window > 0:
         ring[torch.arange(nxt.shape[0], device=nxt.device), ring_idx] = nxt

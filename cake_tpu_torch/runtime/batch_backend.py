@@ -12,7 +12,9 @@ operations over the left-padded lockstep layout (models/llama/batch.py):
 
 Both keep the weights resident (fused once) and the rope tables built once;
 every per-row operand a dispatch needs (pads, write thresholds, the block
-table) is uploaded once per dispatch. The tensor-parallel, pipelined and TCP
+table) is uploaded once per dispatch. The decode fusions ride the config
+(``LlamaConfig.fusion_impl``): each dispatch resolves them once, and the
+decode chunks sample through the fused tail when "tail" is on. The tensor-parallel, pipelined and TCP
 backends, speculative verify and the kernel-fallback flight event are not
 ported (ROADMAP.md): the port has no quiet fallback, and a page size the
 paged kernels do not take raises on the card.
@@ -82,7 +84,8 @@ class LocalBatchBackend:
 
     @torch.inference_mode()
     def decode(self, kv, tok, slot, pads, keys, ring, ring_idx, n, s):
-        """``n`` lockstep steps; the tokens stay on the device."""
+        """``n`` lockstep steps; the tokens stay on the device. The sampling
+        tail follows the config's fusions (``batch.decode_chunk``)."""
         return B.decode_chunk(
             self.params, kv, tok, slot, pads, keys, ring, ring_idx, self.config, n, s, self.rope
         )
@@ -276,7 +279,8 @@ class PagedLocalBackend:
 
     @torch.inference_mode()
     def decode(self, kv, tok, slot, pads, keys, ring, ring_idx, n, s):
-        """``n`` lockstep steps; the block table holds for the whole chunk."""
+        """``n`` lockstep steps; the block table holds for the whole chunk.
+        The sampling tail follows the config's fusions."""
         self._check_write_bound("decode", int(slot) + n)
         return B.paged_decode_chunk(
             self.params, kv, tok, slot, pads, self._tables(), keys, ring, ring_idx,

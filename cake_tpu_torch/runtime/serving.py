@@ -46,6 +46,7 @@ from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.generator import SamplingConfig, Token, decode_delta
 from cake_tpu_torch.models.llama.paged_cache import PageExhausted
 from cake_tpu_torch.models.llama.tokenizer import Tokenizer
+from cake_tpu_torch.ops.fuse import parse_fusion_spec
 from cake_tpu_torch.ops.sampling import row_keys
 
 __all__ = ["BatchEngine", "ServeConfig", "StreamHandle"]
@@ -74,6 +75,8 @@ class ServeConfig:
     ``prefix_cache_pages`` pages (0 = half the pool), serving prefixes of at
     least ``prefix_min_tokens`` tokens; ``cache_aware_order`` groups queued
     requests that extend the same cached chain into one epoch.
+    ``fusion_impl`` (ops/fuse.py ``parse_fusion_spec``), when not "none",
+    overrides the model config's decode fusions for the engine's backend.
     """
 
     max_batch: int = 8
@@ -88,8 +91,10 @@ class ServeConfig:
     prefix_cache: bool = False
     prefix_cache_pages: int = 0
     prefix_min_tokens: int = 0
+    fusion_impl: str = "none"
 
     def __post_init__(self):
+        parse_fusion_spec(self.fusion_impl)
         if self.scheduler == "continuous":
             raise NotImplementedError(
                 "the continuous scheduler is not ported yet (ROADMAP.md queue A)"
@@ -186,6 +191,9 @@ class BatchEngine:
         if speculative_k:
             raise NotImplementedError("speculative decoding is not ported yet (ROADMAP.md)")
         serve = serve or ServeConfig()
+        if serve.fusion_impl != "none" and serve.fusion_impl != config.fusion_impl:
+            # Before the backend is built: it closes over this config.
+            config = dataclasses.replace(config, fusion_impl=serve.fusion_impl)
         self.config = config
         self.tokenizer = tokenizer
         self.max_seq_len = int(max_seq_len or config.max_position_embeddings)

@@ -18,6 +18,19 @@ nonzero exit and no final result line:
                (one entry unmapped); their SDPA time is over a dense view
                gathered beforehand (the gather is not timed). The dense
                kernels' "main_path" cases have the generate phase's shapes.
+               The decode fusions at Llama-3-8B widths: fused_norm_matmul at
+               1 to MAX_ROWS rows into wqkv, w_gu and lm_head (the GEMV up
+               to GEMV_ROWS, the tensor cores past it), and a
+               Gemma (1 + w) case (max-abs <= TOL or one bf16 rounding
+               step at the output's magnitude, whichever is larger, and
+               cosine >= 0.9999);
+               fused_qkv_ingest dense b=1 and b=8, paged b=8 over shuffled
+               pages with an unmapped entry, and a slot past the table (q
+               and every page but the sink bitwise); fused_sample_tail
+               greedy b=1/8, sampled b=8 (temperature 0.7, top_k 40,
+               repeat_penalty 1.1, ring 128) and a row all -inf beside a
+               NaN row (ids equal). Their library_ms is the unfused PyTorch
+               composition, not one call.
   4. generate  Llama-3-8B at full width and depth, random bf16 weights drawn
                on the card from a seeded torch.Generator: a ~700 byte-token
                prompt prefilled in 256-token chunks (the position-0 and the
@@ -50,12 +63,33 @@ nonzero exit and no final result line:
                shapes: the paged kernels' "main_path", the dense kernels'
                "dense_engine" cases.
   7. api_engine the ApiServer with that engine answers 4 concurrent SSE chats.
-  8. cli       ``python -m cake_tpu_torch.cli`` on a small checkpoint written
-               by the port's save_tiny_checkpoint: one prompt, then a
-               ``--api-batch 4 --kv-mode paged`` server that answers a chat.
-  9.           ``{"kernels": [...]}``: one entry per kernel with its launches
-               on the main path and its timings at the main path's shapes.
- 10.           ``{"ok": true, "device": {...}}`` as the last line.
+  8. generate_fused  the generator with ``fusion_impl="all"`` and
+               ``decode_chunk_size=8`` over the generate phase's weights, the
+               same prompt, 64 greedy tokens: fused_norm_matmul and
+               fused_sample_tail launches must equal the counts derived from
+               the forwards and chunked steps that ran, every plain version
+               0; ms/token and device ops/token beside the generate phase's;
+               full-width logits with "norm" against the plain path (cosine
+               >= 0.999).
+  9. engine_fused  the paged engine (prefix cache on) serves wave 1 and a
+               seeded sampled wave of 8 (top_k 40, repeat_penalty 1.1) three
+               ways: fusion "none", "ingest,tail" and "all", one engine at a
+               time; "ingest,tail" streams must equal "none"'s 8/8, greedy
+               and sampled; fused_qkv_ingest = n_layers x decode steps,
+               fused_sample_tail = decode steps, fused_norm_matmul = the
+               derived count, the attention gates as before, every plain
+               version 0. Then one wave through the dense engine with "all",
+               and the full-width paged and dense forwards with "all"
+               against the plain path (cosine >= 0.999). TTFT, ms per decode
+               step, device ops per step and the device idle share of each.
+ 10. cli       ``python -m cake_tpu_torch.cli`` on a small checkpoint written
+               by the port's save_tiny_checkpoint: one prompt, the same with
+               ``--fusion all --decode-chunk 4``, then a ``--api-batch 4
+               --kv-mode paged`` server that answers a chat.
+ 11.           ``{"kernels": [...]}``: one entry per kernel with its launches
+               on the main path (the fused phases for the fused kernels) and
+               its timings at the main path's shapes.
+ 12.           ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits nonzero without a result when no CUDA device is present or when run
 outside a checkout of the repository.
@@ -64,6 +98,7 @@ outside a checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import socket
@@ -78,6 +113,8 @@ TOL = 2e-2  # bf16 outputs of f32-accumulated attention, max-abs vs the plain ve
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 N_Q, N_KV, HD = 32, 8, 128  # Llama-3-8B attention shapes
+HIDDEN, INTER, VOCAB = 4096, 14336, 128256  # Llama-3-8B widths
+FUSED_CHUNK = 8  # the generator's decode chunk in phase generate_fused
 MAX_SEQ = 8192
 PROMPT_TOKENS = 700
 PREFILL_CHUNK = 256
@@ -244,19 +281,48 @@ def _sdpa(torch, q, k, v, mask=None, scale=None, causal=False):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale, is_causal=causal)
 
 
-def _check(torch, name, case, out, ref, ms, plain_ms, nbytes, flops, library_ms, copies=1):
-    err = (out.float() - ref.float()).abs().max().item()
-    finite = bool(torch.isfinite(out.float()).all().item())
+COS_TOL = 0.9999  # fused_norm_matmul's cosine to its plain version
+
+
+def bf16_ulp(ref) -> float:
+    """One bf16 rounding step at the largest magnitude of ``ref``: a product
+    summed in another order than cuBLAS's may round its last bit the other
+    way, and fused_norm_matmul's outputs reach ~6, where that step (1/32)
+    exceeds TOL."""
+    import math
+
+    top = ref.float().abs().max().item()
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def _check(torch, name, case, out, ref, ms, plain_ms, nbytes, flops, library_ms, copies=1,
+           exact=False, cosine=False, tol=TOL):
+    """Emit a kernel case's row and hold ``out`` to ``ref``: within ``tol``
+    max-abs (and, with ``cosine``, at cosine >= COS_TOL), or with ``exact``
+    equal to the bit (fused_qkv_ingest's outputs, fused_sample_tail's ids,
+    whose rows may hold NaN and -inf by design)."""
+    err = (out.float() - ref.float()).abs().max().item() if out.numel() else 0.0
+    finite = exact or bool(torch.isfinite(out.float()).all().item())
     b_ms, b_by = bound(nbytes, flops)
     row = {
         "phase": "kernels", "kernel": name, "case": case,
-        "max_abs_err": err, "tol": TOL, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "tol": 0.0 if exact else tol, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
         "bytes": nbytes, "flops": flops, "operand_copies": copies,
     }
+    if cosine:
+        row["cosine"] = torch.nn.functional.cosine_similarity(
+            out.float().flatten(), ref.float().flatten(), dim=0).item()
+    if exact:
+        row["equal"] = out.shape == ref.shape and bool(torch.equal(out, ref))
+        row["max_abs_err"] = 0.0 if row["equal"] else float("inf")
     emit(row)
-    if not finite or not err <= TOL:
-        raise AssertionError(f"{name}/{case}: max-abs error {err} (finite={finite}) > {TOL}")
+    if exact and not row["equal"]:
+        raise AssertionError(f"{name}/{case}: not equal to its plain version")
+    if not exact and (not finite or not err <= tol):
+        raise AssertionError(f"{name}/{case}: max-abs error {err} (finite={finite}) > {tol}")
+    if cosine and not row["cosine"] >= COS_TOL:
+        raise AssertionError(f"{name}/{case}: cosine {row['cosine']} < {COS_TOL}")
     return row
 
 
@@ -519,10 +585,182 @@ def paged_chunk_cases(torch, dev):
     ]
 
 
+# The decode fusions' main-path cases: the kernels line reports these.
+FUSED_MAIN = {
+    "fused_norm_matmul": "w_gu_rows8",
+    "fused_qkv_ingest": "paged_b8",
+    "fused_sample_tail": "greedy_b8",
+}
+
+
+def norm_matmul_cases(torch, dev):
+    """fused_norm_matmul into each site's weight from 1 to MAX_ROWS rows
+    (both sides of GEMV_ROWS), and a Gemma (1 + w) case; the weights read
+    cold (wqkv rotates over copies, the others exceed the L2 alone)."""
+    from cake_tpu_torch.ops.fused_norm_matmul import (
+        MAX_ROWS, _unfused, fused_norm_matmul, fused_norm_matmul_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    bf = torch.bfloat16
+    rows_out = []
+    sites = (("wqkv", (N_Q + 2 * N_KV) * HD), ("w_gu", 2 * INTER), ("lm_head", VOCAB))
+    cases = [(site, n, r, False) for site, n in sites for r in (1, 4, 8, 16, 64, 128, MAX_ROWS)]
+    cases.append(("wqkv", sites[0][1], 8, True))
+    weights = {}
+    for site, out_dim, n_rows, offset in cases:
+        if site not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            n_copy = copies_for(HIDDEN * out_dim * 2)
+            weights[site] = [
+                torch.randn(HIDDEN, out_dim, generator=g, device=dev, dtype=bf) * HIDDEN**-0.5
+                for _ in range(n_copy)
+            ]
+        ws = weights[site]
+        x = (3.0 * torch.randn(n_rows, 1, HIDDEN, generator=g, device=dev)).to(bf)
+        nw = (0.1 * torch.randn(HIDDEN, generator=g, device=dev) + (0.0 if offset else 1.0)).to(bf)
+        kw = dict(eps=1e-5, offset=offset)
+        runs = [lambda w=w: fused_norm_matmul(x, nw, w, **kw) for w in ws]
+        plains = [lambda w=w: fused_norm_matmul_plain(x, nw, w, **kw) for w in ws]
+        libs = [lambda w=w: _unfused(x, nw, w, 1e-5, offset) for w in ws]
+        out, ref = runs[0](), plains[0]()
+        torch.cuda.synchronize()
+        nbytes = 2 * (n_rows * HIDDEN + HIDDEN + HIDDEN * out_dim + n_rows * out_dim)
+        flops = 2.0 * n_rows * HIDDEN * out_dim
+        case = f"{site}_rows{n_rows}" + ("_offset" if offset else "")
+        rows_out.append(_check(
+            torch, "fused_norm_matmul", case, out, ref,
+            cuda_ms(torch, rotating(runs), 20 * len(ws)),
+            cuda_ms(torch, rotating(plains), 10 * len(ws)), nbytes, flops,
+            cuda_ms(torch, rotating(libs), 10 * len(ws)), copies=len(ws), cosine=True,
+            tol=max(TOL, bf16_ulp(ref)),
+        ))
+    weights.clear()
+    return rows_out
+
+
+def _ingest_case(torch, dev, g, case, b, slot, paged, unmapped=None):
+    """One fused_qkv_ingest case at Llama-3-8B heads: the kernel and the
+    plain version each write their own copy of the cache; q and every page
+    but the sink must be equal. The library time is the unfused step as the
+    engine runs it (split, rope on q and k, the write through a plan built
+    once per dispatch)."""
+    from cake_tpu_torch.models.llama.cache import write_layer
+    from cake_tpu_torch.models.llama.paged_cache import write_pages, write_plan
+    from cake_tpu_torch.ops.fused_ingest import fused_qkv_ingest, fused_qkv_ingest_plain
+    from cake_tpu_torch.ops.rope import apply_rope
+
+    bf = torch.bfloat16
+    n_p = ENGINE_MAX_SEQ // ENGINE_PAGE
+    qkv = torch.randn(b, 1, (N_Q + 2 * N_KV) * HD, generator=g, device=dev, dtype=bf)
+    cos = torch.randn(b, 1, HD // 2, generator=g, device=dev)
+    sin = torch.randn(b, 1, HD // 2, generator=g, device=dev)
+    tables = None
+    if paged:
+        k0, v0, tables = _paged_pool(torch, dev, g, 40 + b, b, n_p)
+        if unmapped is not None:
+            tables[unmapped] = -1
+    else:
+        k0 = torch.randn(b, N_KV, ENGINE_MAX_SEQ, HD, generator=g, device=dev, dtype=bf)
+        v0 = torch.randn(b, N_KV, ENGINE_MAX_SEQ, HD, generator=g, device=dev, dtype=bf)
+    kw = dict(n_q=N_Q, n_kv=N_KV, block_tables=tables)
+    k1, v1, k2, v2 = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+    q1 = fused_qkv_ingest(qkv, cos, sin, slot, k1, v1, **kw)
+    q2 = fused_qkv_ingest_plain(qkv, cos, sin, slot, k2, v2, **kw)
+    torch.cuda.synchronize()
+    live = slice(None, -1) if paged else slice(None)  # every page but the sink
+    out = torch.cat([q1.flatten(), k1[live].flatten(), v1[live].flatten()])
+    ref = torch.cat([q2.flatten(), k2[live].flatten(), v2[live].flatten()])
+    plan = write_plan(slot, 1, tables, k0.shape[0] - 1, ENGINE_PAGE) if paged else None
+
+    def unfused():
+        qw, kw_ = N_Q * HD, N_KV * HD
+        q = apply_rope(qkv[..., :qw].reshape(b, 1, N_Q, HD), cos, sin, None)
+        k = apply_rope(qkv[..., qw : qw + kw_].reshape(b, 1, N_KV, HD), cos, sin, None)
+        v = qkv[..., qw + kw_ :].reshape(b, 1, N_KV, HD)
+        if paged:
+            write_pages(k2, v2, k, v, plan)
+        else:
+            write_layer(k2, v2, k, v, slot)
+        return q
+
+    n_written = 0 if paged and slot // ENGINE_PAGE >= n_p else b - (unmapped is not None)
+    nbytes = (b * (N_Q + 2 * N_KV) * HD * 2 + 2 * b * HD // 2 * 4 + b * N_Q * HD * 2
+              + n_written * 2 * N_KV * HD * 2 + (4 * b if paged else 0))
+    flops = 6.0 * b * (N_Q + N_KV) * HD // 2
+    return _check(
+        torch, "fused_qkv_ingest", case, out, ref,
+        cuda_ms(torch, lambda: fused_qkv_ingest(qkv, cos, sin, slot, k1, v1, **kw), 200),
+        cuda_ms(torch, lambda: fused_qkv_ingest_plain(qkv, cos, sin, slot, k2, v2, **kw), 50),
+        nbytes, flops, cuda_ms(torch, unfused, 50), exact=True,
+    )
+
+
+def ingest_cases(torch, dev):
+    g = torch.Generator(device=dev).manual_seed(9)
+    n_p = ENGINE_MAX_SEQ // ENGINE_PAGE
+    return [
+        _ingest_case(torch, dev, g, "dense_b1", 1, 733, paged=False),
+        _ingest_case(torch, dev, g, "dense_b8", 8, 505, paged=False),
+        # slot 505 is logical page 3: row 5's entry there is unmapped.
+        _ingest_case(torch, dev, g, "paged_b8", 8, 505, paged=True, unmapped=(5, 3)),
+        _ingest_case(torch, dev, g, "paged_past_table", 8, n_p * ENGINE_PAGE + 5, paged=True),
+    ]
+
+
+def _tail_case(torch, dev, g, case, b, knobs, guards=False):
+    """One fused_sample_tail case over Llama-3's vocab: logits as the model
+    hands them over (bf16 products cast to f32, many duplicates), a ring of
+    128 recent ids, gumbel noise when sampled; the ids must equal the plain
+    version's."""
+    from cake_tpu_torch.ops.fused_sample_tail import (
+        _composition, fused_sample_tail, fused_sample_tail_plain,
+    )
+
+    window = 128
+    logits = (2.0 * torch.randn(b, VOCAB, generator=g, device=dev)).to(torch.bfloat16).float()
+    if guards:
+        logits[0] = float("-inf")
+        logits[1, VOCAB // 3] = float("nan")
+    ring = torch.randint(-1, VOCAB, (b, window), generator=g, device=dev)
+    sampled = knobs["temperature"] > 0
+    noise = None
+    if sampled:
+        u = torch.rand(b, VOCAB, generator=g, device=dev)
+        noise = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+    kw = dict(top_p=None, **knobs)
+    run = lambda: fused_sample_tail(logits, ring, noise, **kw)  # noqa: E731
+    plain = lambda: fused_sample_tail_plain(logits, ring, noise, **kw)  # noqa: E731
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    nbytes = b * VOCAB * 4 * (2 if sampled else 1) + b * window * 8 + b * 8
+    lib = lambda: _composition(logits, ring, noise, knobs["temperature"], knobs["top_k"], None,  # noqa: E731
+                               knobs["repeat_penalty"])
+    return _check(
+        torch, "fused_sample_tail", case, out, ref, cuda_ms(torch, run, 50),
+        cuda_ms(torch, plain, 20), nbytes, 0.0, cuda_ms(torch, lib, 20), exact=True,
+    )
+
+
+def tail_cases(torch, dev):
+    g = torch.Generator(device=dev).manual_seed(10)
+    greedy = dict(temperature=0.0, top_k=None, repeat_penalty=1.0)
+    sampled = dict(temperature=0.7, top_k=40, repeat_penalty=1.1)
+    return [
+        _tail_case(torch, dev, g, "greedy_b1", 1, greedy),
+        _tail_case(torch, dev, g, "greedy_b8", 8, greedy),
+        _tail_case(torch, dev, g, "sampled_b8", 8, sampled),
+        _tail_case(torch, dev, g, "guards_b8", 8, sampled, guards=True),
+    ]
+
+
 def phase_kernels(torch) -> dict:
     dev = torch.device("cuda")
     rows = decode_cases(torch, dev) + chunk_cases(torch, dev) + flash_cases(torch, dev)
     rows += paged_decode_cases(torch, dev) + paged_chunk_cases(torch, dev)
+    torch.cuda.empty_cache()
+    rows += norm_matmul_cases(torch, dev) + ingest_cases(torch, dev) + tail_cases(torch, dev)
     torch.cuda.empty_cache()
     return {(r["kernel"], r["case"]): r for r in rows}
 
@@ -589,10 +827,11 @@ def _plain_attention(M):
     return stack
 
 
-def _full_model_check(torch, M, config, params, dev) -> dict:
+def _full_model_check(torch, M, config, params, dev, phase: str = "full_model_check") -> dict:
     """Full-width logits through the kernels against the same forward with
-    the plain attention versions, on a short input (prefill at 0, a
-    continuation chunk, two decode steps)."""
+    the plain attention versions and, for a fused config, unfused (the
+    composition each fused plain version is), on a short input (prefill at
+    0, a continuation chunk, two decode steps)."""
     from cake_tpu_torch.models.llama.cache import init_cache
     from cake_tpu_torch.ops.rope import model_rope_tables
 
@@ -617,12 +856,13 @@ def _full_model_check(torch, M, config, params, dev) -> dict:
         return torch.stack(outs)
 
     got = run()
+    config = dataclasses.replace(config, fusion_impl="none")
     with _plain_attention(M):
         want = run()
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
     cos = torch.nn.functional.cosine_similarity(got.flatten(1), want.flatten(1), dim=-1).min().item()
-    row = {"phase": "full_model_check", "max_abs_err": err, "ref_max_abs": scale,
+    row = {"phase": phase, "max_abs_err": err, "ref_max_abs": scale,
            "min_cosine": cos, "tol_rel": 0.05, "tol_cosine": 0.999}
     emit(row)
     if not (torch.isfinite(got).all().item() and err <= 0.05 * scale and cos >= 0.999):
@@ -636,6 +876,13 @@ def _sync(torch, dev) -> None:
 
 
 def _kernel_family(name: str) -> str:
+    for kernel, family in (("norm_matmul_kernel", "fused_norm_matmul"),
+                           ("norm_matmul_wgmma_kernel", "fused_norm_matmul"),
+                           ("norm_rows_kernel", "fused_norm_matmul"),
+                           ("ingest_kernel", "fused_qkv_ingest"),
+                           ("tail_kernel", "fused_sample_tail")):
+        if kernel in name:
+            return family
     if "PagedLayout" in name:
         return "paged_decode_attention" if "decode_kernel" in name else "paged_chunk_attention"
     if "decode_kernel" in name:
@@ -672,7 +919,8 @@ def _device_profile(torch, run) -> dict:
     return {"device_ms": sum(by_family.values()), "device_ops": count, "by_family_ms": by_family}
 
 
-def _profile_main_path(torch, gen, text: str, decode_ms_per_token: float | None) -> dict:
+def _profile_main_path(torch, gen, text: str, decode_ms_per_token: float | None,
+                       phase: str = "profile") -> dict:
     """Device time of one prefill and of 16 decode steps, by kernel family,
     beside the unprofiled decode time per token (the device idle share)."""
     from cake_tpu_torch.models.llama.chat import Message
@@ -685,7 +933,7 @@ def _profile_main_path(torch, gen, text: str, decode_ms_per_token: float | None)
     per_token = {k: v / n_decode for k, v in decode["by_family_ms"].items()}
     busy = decode["device_ms"] / n_decode
     row = {
-        "phase": "profile",
+        "phase": phase,
         "prefill_device_ms": prefill["device_ms"],
         "prefill_device_ops": prefill["device_ops"],
         "prefill_by_family_ms": prefill["by_family_ms"],
@@ -820,6 +1068,8 @@ def phase_generate(torch, card: str, dev=None, config=None) -> dict:
         row["profile"] = _profile_main_path(torch, gen, text, row["decode_ms_per_token"])
     row["check"] = _full_model_check(torch, M, config, step.params, dev)
     row["generator"] = gen
+    row["text"] = text
+    row["generated_ids"] = ids
     return row
 
 
@@ -909,6 +1159,19 @@ def phase_api(main_path: dict) -> None:
 # ---------------------------------------------------------------- phase 6
 
 
+def _fused_counters():
+    from cake_tpu_torch.ops import fused_ingest, fused_norm_matmul, fused_sample_tail
+
+    return (
+        fused_norm_matmul.fused_norm_matmul,
+        fused_norm_matmul.fused_norm_matmul_plain,
+        fused_ingest.fused_qkv_ingest,
+        fused_ingest.fused_qkv_ingest_plain,
+        fused_sample_tail.fused_sample_tail,
+        fused_sample_tail.fused_sample_tail_plain,
+    )
+
+
 def _paged_counters():
     from cake_tpu_torch.ops import paged_attention, paged_prefill
 
@@ -917,21 +1180,31 @@ def _paged_counters():
         paged_prefill.paged_chunk_attention,
         paged_attention.paged_decode_attention_plain,
         paged_prefill.paged_chunk_attention_plain,
-    )
+    ) + _fused_counters()
 
 
 def _zero_counters():
     counters = _paged_counters()
     for c in counters:
         c.launches = 0
+        if hasattr(c, "unfused"):
+            c.unfused = 0
     return counters
+
+
+def _counts(counters) -> dict:
+    """Each counter's launches, and the calls a fused wrapper left to the
+    unfused composition (``name.unfused``)."""
+    out = {c.__name__: c.launches for c in counters}
+    out.update({f"{c.__name__}.unfused": c.unfused for c in counters if hasattr(c, "unfused")})
+    return out
 
 
 def _expected_launches(counters, waves, decode: str, chunk: str, n_layers: int, on_card: bool):
     """(launches, expected) after ``waves``: n_layers per decode step on the
     decode kernel and per prefill (epoch starts and joins) on the chunk
     kernel, or on their plain versions off the card; every other count 0."""
-    launches = {c.__name__: c.launches for c in counters}
+    launches = _counts(counters)
     expected = dict.fromkeys(launches, 0)
     suffix = "" if on_card else "_plain"
     expected[decode + suffix] = n_layers * sum(w["decode_steps"] for w in waves)
@@ -988,17 +1261,19 @@ def dispatch_shapes(seen: dict) -> dict:
             for name, rec in seen.items()}
 
 
-def _wave(engine, n_tokens: int, messages=None) -> dict:
-    """Submit one wave of concurrent greedy requests, read every stream, and
-    wait for the epoch to end. TTFT is the engine's submit-to-first-token
-    time; decode tok/s counts the tokens after each stream's first over the
-    engine's decode-chunk wall time (device work plus the chunk's readback)."""
+def _wave(engine, n_tokens: int, messages=None, samplings=None) -> dict:
+    """Submit one wave of concurrent requests (greedy, or one
+    ``samplings`` entry each), read every stream, and wait for the epoch to
+    end. TTFT is the engine's submit-to-first-token time; decode tok/s
+    counts the tokens after each stream's first over the engine's
+    decode-chunk wall time (device work plus the chunk's readback)."""
     from cake_tpu_torch.models.llama.generator import SamplingConfig
 
-    greedy = SamplingConfig(temperature=0.0, repeat_penalty=1.0)
+    messages = messages or engine_messages()
+    samplings = samplings or [SamplingConfig(temperature=0.0, repeat_penalty=1.0)] * len(messages)
     before = dict(engine.stats)
     t0 = time.perf_counter()
-    handles = [engine.submit(m, n_tokens, greedy) for m in (messages or engine_messages())]
+    handles = [engine.submit(m, n_tokens, s) for m, s in zip(messages, samplings)]
     streams = [[t.id for t in h.tokens()] for h in handles]
     wall = time.perf_counter() - t0
     if not engine.wait_idle(600):
@@ -1024,11 +1299,12 @@ def _wave(engine, n_tokens: int, messages=None) -> dict:
     }
 
 
-def _batch_model_check(torch, config, params, dev, kv_mode: str) -> dict:
+def _batch_model_check(torch, config, params, dev, kv_mode: str, phase: str | None = None) -> dict:
     """The full-width lockstep forward through the kernels against the same
-    forward with their plain versions: paged (a cold prefill through the
-    block tables, a suffix window over it, two decode steps) or dense (a
-    left-padded prefill, two decode steps)."""
+    forward with the attention kernels' plain versions, unfused (the
+    composition each fused plain version is): paged (a cold prefill
+    through the block tables, a suffix window over it, two decode steps) or
+    dense (a left-padded prefill, two decode steps)."""
     from unittest import mock
 
     from cake_tpu_torch.models.llama import batch as B
@@ -1090,12 +1366,13 @@ def _batch_model_check(torch, config, params, dev, kv_mode: str) -> dict:
         plains = {"decode_attention": decode_attention_plain,
                   "chunk_prefill_attention": chunk_prefill_attention_plain}
     got = run()
+    config = dataclasses.replace(config, fusion_impl="none")
     with mock.patch.multiple(B, **plains):
         want = run()
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
     cos = torch.nn.functional.cosine_similarity(got.flatten(1), want.flatten(1), dim=-1).min().item()
-    row = {"phase": f"{kv_mode}_model_check", "max_abs_err": err, "ref_max_abs": scale,
+    row = {"phase": phase or f"{kv_mode}_model_check", "max_abs_err": err, "ref_max_abs": scale,
            "min_cosine": cos, "tol_rel": 0.05, "tol_cosine": 0.999}
     emit(row)
     if not (torch.isfinite(got).all().item() and err <= 0.05 * scale and cos >= 0.999):
@@ -1278,6 +1555,347 @@ def phase_api_engine(main_path: dict, engine_path: dict) -> None:
 # ---------------------------------------------------------------- phase 8
 
 
+def _norm_sites(groups, n_layers: int):
+    """(kernel launches, unfused calls) of fused_norm_matmul over forwards
+    given as (rows through the blocks, rows through the head, count): per
+    forward 2 x n_layers block sites and the head, each on the kernel up to
+    MAX_ROWS rows and on the unfused composition past it."""
+    from cake_tpu_torch.ops.fused_norm_matmul import MAX_ROWS
+
+    kernel = unfused = 0
+    for block_rows, head_rows, count in groups:
+        for sites, rows in ((2 * n_layers, block_rows), (1, head_rows)):
+            if rows <= MAX_ROWS:
+                kernel += sites * count
+            else:
+                unfused += sites * count
+    return kernel, unfused
+
+
+@contextlib.contextmanager
+def step_recorder(step_cls):
+    """Record the generator's forwards: each step call's (batch, width,
+    pos) and each ``decode_chunk``'s (batch, n_steps)."""
+    from unittest import mock
+
+    import numpy as np
+
+    rec = {"calls": [], "chunks": []}
+    call0, chunk0 = step_cls.__call__, step_cls.decode_chunk
+
+    def call(self, tokens, pos, seq_len):
+        rec["calls"].append((*np.shape(tokens), int(pos)))
+        return call0(self, tokens, pos, seq_len)
+
+    def chunk(self, last_token, pos, n_steps, *args):
+        rec["chunks"].append((int(np.size(last_token)), int(n_steps)))
+        return chunk0(self, last_token, pos, n_steps, *args)
+
+    with mock.patch.object(step_cls, "__call__", call), \
+            mock.patch.object(step_cls, "decode_chunk", chunk):
+        yield rec
+
+
+def _generator_expected(counters, rec, n_layers: int, on_card: bool):
+    """(launches, expected) of a fused ("all") generator run recorded by
+    ``step_recorder``: the attention kernels per forward as in phase
+    generate, fused_norm_matmul per ``_norm_sites`` and fused_sample_tail
+    once per chunked step; off the card the plain versions take every call."""
+    launches = _counts(counters)
+    expected = dict.fromkeys(launches, 0)
+    decode = sum(n for _, n in rec["chunks"]) + sum(1 for _, w, _ in rec["calls"] if w == 1)
+    first = sum(1 for _, w, p in rec["calls"] if w > 1 and p == 0)
+    cont = sum(1 for _, w, p in rec["calls"] if w > 1 and p > 0)
+    groups = [(b * w, b, 1) for b, w, _ in rec["calls"]] + [(b, b, n) for b, n in rec["chunks"]]
+    kernel, unfused = _norm_sites(groups, n_layers)
+    tail = sum(n for _, n in rec["chunks"])
+    if on_card:
+        expected.update({
+            "decode_attention": n_layers * decode,
+            "chunk_prefill_attention": n_layers * (first + cont),
+            "fused_norm_matmul": kernel, "fused_norm_matmul.unfused": unfused,
+            "fused_sample_tail": tail,
+        })
+    else:
+        expected.update({
+            "decode_attention_plain": n_layers * decode,
+            "chunk_prefill_attention_plain": n_layers * cont,
+            "flash_attention_plain": n_layers * first,
+            "fused_norm_matmul_plain": kernel + unfused,
+            "fused_sample_tail_plain": tail,
+        })
+    return launches, expected
+
+
+def phase_generate_fused(torch, main_path: dict) -> dict:
+    """The generator with every decode fusion and fused multi-token decode
+    over the generate phase's weights (no second copy), its prompt and 64
+    greedy tokens, gated on the launches its forwards imply."""
+    from cake_tpu_torch.models.llama import model as M
+    from cake_tpu_torch.models.llama.chat import Message
+    from cake_tpu_torch.models.llama.generator import LlamaGenerator, LocalForwardStep
+
+    gen0, text = main_path["generator"], main_path["text"]
+    step0 = gen0.step
+    dev = step0.device
+    config = dataclasses.replace(gen0.config, fusion_impl="all")
+    n_layers = config.num_hidden_layers
+    step = LocalForwardStep(config, step0.params, max_seq_len=MAX_SEQ,
+                            cache_dtype=torch.bfloat16, device=dev)
+    gen = LlamaGenerator(config, step, gen0.tokenizer, gen0.sampling,
+                         prefill_chunk=PREFILL_CHUNK, decode_chunk_size=FUSED_CHUNK)
+    gen.add_message(Message.user(text))
+    gen.generate(FUSED_CHUNK + 2)  # warm-up: the fused kernels' first launches
+    _sync(torch, dev)
+
+    counters = _zero_counters()
+    gen.reset()
+    gen.add_message(Message.user(text))
+    stamps = []
+    with step_recorder(LocalForwardStep) as rec:
+        t_start = time.perf_counter()
+        gen.generate(DECODE_TOKENS, on_token=lambda tok: stamps.append(time.perf_counter()))
+        _sync(torch, dev)
+    launches, expected = _generator_expected(counters, rec, n_layers, dev.type == "cuda")
+    ids, ids0 = gen.generated_token_ids, main_path["generated_ids"]
+    n_gen = len(ids)
+    decode_s = stamps[-1] - stamps[0] if n_gen > 1 else float("nan")
+    same = 0
+    while same < min(len(ids), len(ids0)) and ids[same] == ids0[same]:
+        same += 1
+    row = {
+        "phase": "generate_fused",
+        "card": main_path["card"],
+        "fusion": config.fusion_impl,
+        "decode_chunk": FUSED_CHUNK,
+        "generated_tokens": n_gen,
+        "chunks": rec["chunks"],
+        "step_calls": len(rec["calls"]),
+        "prefill_s": stamps[0] - t_start,
+        "decode_ms_per_token": 1e3 * decode_s / (n_gen - 1) if n_gen > 1 else None,
+        "unfused_decode_ms_per_token": main_path["decode_ms_per_token"],
+        "tokens_equal_to_unfused": same,
+        "launches": launches,
+        "expected_launches": expected,
+    }
+    emit(row)
+    if launches != expected:
+        raise AssertionError(f"fused generator launch counts {launches} != expected {expected}")
+    row["fused_launches"] = {name: launches[name] for name in FUSED_MAIN}
+    if n_gen < 1 or not all(0 <= t < config.vocab_size for t in ids):
+        raise AssertionError(f"generated ids out of range: {ids}")
+    if dev.type == "cuda":
+        row["profile"] = _profile_main_path(torch, gen, text, row["decode_ms_per_token"],
+                                            phase="profile_fused")
+    row["check"] = _full_model_check(
+        torch, M, dataclasses.replace(config, fusion_impl="norm"), step.params, dev,
+        phase="fused_model_check",
+    )
+    del gen, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------- phase 9
+
+# The sampled wave of phase engine_fused: one seed per request, shared knobs.
+SAMPLED_KNOBS = dict(temperature=0.7, top_k=40, repeat_penalty=1.1)
+
+
+@contextlib.contextmanager
+def dispatch_recorder(backend):
+    """Record an engine backend's dispatches: each prefill's (rows, lanes)
+    (epoch prefills, suffix windows and joins) and each decode chunk's
+    (lanes, steps). The backend runs as it does without it."""
+    import numpy as np
+
+    rec = {"prefills": [], "decodes": []}
+    token_arg = {"prefill": 0, "suffix_prefill": 0, "join": 1, "suffix_join": 1}
+    patched = []
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            if name == "decode":
+                rec["decodes"].append((int(args[1].shape[0]), int(args[7])))
+            else:
+                b, w = np.shape(args[token_arg[name]])
+                rec["prefills"].append((b * w, b))
+            return fn(*args, **kw)
+
+        return call
+
+    for name in ("decode", *token_arg):
+        if hasattr(backend, name):
+            setattr(backend, name, wrap(name, getattr(backend, name)))
+            patched.append(name)
+    try:
+        yield rec
+    finally:
+        for name in patched:
+            delattr(backend, name)
+
+
+def _engine_fused_expected(counters, rec, fusions, kv_mode: str, n_layers: int, on_card: bool):
+    """(launches, expected) of engine dispatches recorded by
+    ``dispatch_recorder``: the attention gates of phase engine, and per
+    enabled fusion fused_qkv_ingest = n_layers x decode steps,
+    fused_sample_tail = decode steps, fused_norm_matmul per ``_norm_sites``;
+    off the card the plain versions take every call."""
+    launches = _counts(counters)
+    expected = dict.fromkeys(launches, 0)
+    decode, chunk = (("paged_decode_attention", "paged_chunk_attention") if kv_mode == "paged"
+                     else ("decode_attention", "chunk_prefill_attention"))
+    steps = sum(n for _, n in rec["decodes"])
+    sfx = "" if on_card else "_plain"
+    expected[decode + sfx] = n_layers * steps
+    expected[chunk + sfx] = n_layers * len(rec["prefills"])
+    if "norm" in fusions:
+        groups = [(r, b, 1) for r, b in rec["prefills"]] + [(b, b, n) for b, n in rec["decodes"]]
+        kernel, unfused = _norm_sites(groups, n_layers)
+        if on_card:
+            expected["fused_norm_matmul"] = kernel
+            expected["fused_norm_matmul.unfused"] = unfused
+        else:
+            expected["fused_norm_matmul_plain"] = kernel + unfused
+    if "ingest" in fusions:
+        expected["fused_qkv_ingest" + sfx] = n_layers * steps
+    if "tail" in fusions:
+        expected["fused_sample_tail" + sfx] = steps
+    return launches, expected
+
+
+def _fused_engine_run(torch, make, spec: str, kv_mode: str, n_layers: int, on_card: bool,
+                      sampled: bool) -> dict:
+    """One engine with fusion ``spec``: a warm-up wave, then wave 1 (and the
+    sampled wave) under the launch gate, then two warm profiled waves of 16
+    and 32 tokens: their difference gives the device ops and ms of 16 decode
+    steps, the prefill being the same in both."""
+    from cake_tpu_torch.models.llama.chat import Message
+    from cake_tpu_torch.models.llama.generator import SamplingConfig
+    from cake_tpu_torch.ops.fuse import parse_fusion_spec
+
+    kw = {"kv_mode": "paged", "page_size": ENGINE_PAGE, "prefix_cache": True} \
+        if kv_mode == "paged" else {}
+    eng = make(fusion_impl=spec, **kw)
+    try:
+        _wave(eng, 4, [[Message.user("warm up the engine")]])
+        counters = _zero_counters()
+        with dispatch_recorder(eng.backend) as rec:
+            waves = [_wave(eng, ENGINE_TOKENS)]
+            if sampled:
+                waves.append(_wave(eng, ENGINE_TOKENS, samplings=[
+                    SamplingConfig(seed=100 + i, **SAMPLED_KNOBS) for i in range(ENGINE_BATCH)
+                ]))
+        launches, expected = _engine_fused_expected(
+            counters, rec, parse_fusion_spec(spec), kv_mode, n_layers, on_card)
+        timed = _wave(eng, 16)
+        profile = None
+        if on_card:
+            short = _device_profile(torch, lambda: _wave(eng, 16))
+            long = _device_profile(torch, lambda: _wave(eng, 32))
+            busy = short["device_ms"]
+            profile = {
+                "device_ms_16": short["device_ms"], "device_ops_16": short["device_ops"],
+                "device_ms_32": long["device_ms"], "device_ops_32": long["device_ops"],
+                "device_ops_per_step": (long["device_ops"] - short["device_ops"]) / 16,
+                "device_ms_per_step": (long["device_ms"] - short["device_ms"]) / 16,
+                "by_family_ms_16": short["by_family_ms"],
+                "device_idle_share": 1.0 - busy / (1e3 * timed["wall_s"] - 1e3 * eng.admission_window),
+            }
+    finally:
+        eng.stop()
+    return {"spec": spec, "kv_mode": kv_mode, "waves": waves, "launches": launches,
+            "expected_launches": expected, "profile_wave_wall_ms": 1e3 * timed["wall_s"],
+            "profile": profile}
+
+
+def phase_engine_fused(torch, main_path: dict) -> dict:
+    """The paged engine three ways (fusion none, ingest+tail, all) over wave
+    1 and a seeded sampled wave, then the dense engine with all; one engine
+    at a time, each freed before the next. Gates: the exact fusions keep the
+    unfused streams, every launch count is derived from the dispatches."""
+    from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+
+    gen = main_path["generator"]
+    config, params, dev = gen.config, gen.step.params, gen.step.device
+    n_layers = config.num_hidden_layers
+    on_card = dev.type == "cuda"
+
+    def make(**kw):
+        serve = ServeConfig(max_batch=ENGINE_BATCH, decode_chunk_size=8, **kw)
+        eng = BatchEngine(config, params, gen.tokenizer, max_seq_len=ENGINE_MAX_SEQ,
+                          cache_dtype=torch.bfloat16, serve=serve, device=dev)
+        eng.start()
+        return eng
+
+    runs = []
+    for spec, kv_mode in (("none", "paged"), ("ingest,tail", "paged"), ("all", "paged"),
+                          ("all", "dense")):
+        runs.append(_fused_engine_run(torch, make, spec, kv_mode, n_layers, on_card,
+                                      sampled=kv_mode == "paged"))
+        if on_card:
+            torch.cuda.empty_cache()
+    none, exact, fused, dense = runs
+
+    def equal(a, b):
+        return [sum(x == y for x, y in zip(wa["streams"], wb["streams"]))
+                for wa, wb in zip(a["waves"], b["waves"])]
+
+    def summary(r):
+        w = r["waves"][0]
+        out = {"spec": r["spec"], "kv_mode": r["kv_mode"], "ttft_p50_s": w["ttft_p50_s"],
+               "ttft_max_s": w["ttft_max_s"], "decode_ms_per_step": w["decode_ms_per_step"],
+               "decode_tok_s": w["decode_tok_s"], "profile_wave_wall_ms": r["profile_wave_wall_ms"],
+               "profile": r["profile"], "launches": r["launches"],
+               "expected_launches": r["expected_launches"]}
+        if len(r["waves"]) > 1:
+            s = r["waves"][1]
+            out.update(sampled_ttft_p50_s=s["ttft_p50_s"],
+                       sampled_decode_ms_per_step=s["decode_ms_per_step"],
+                       sampled_prefix_hits=s["prefix_hits"])
+        return out
+
+    row = {
+        "phase": "engine_fused",
+        "card": main_path["card"],
+        "config": {"page_size": ENGINE_PAGE, "max_seq": ENGINE_MAX_SEQ, "max_batch": ENGINE_BATCH,
+                   "decode_chunk": 8, "tokens_out": ENGINE_TOKENS, "layers": n_layers,
+                   "sampled": SAMPLED_KNOBS},
+        "runs": [summary(r) for r in runs],
+        # [greedy, sampled] streams equal to the unfused engine's, of 8 each
+        "ingest_tail_equal_streams": equal(exact, none),
+        "all_equal_streams": equal(fused, none),
+        "dense_all_equal_paged_all": equal(dense, fused)[0],
+    }
+    emit(row)
+    for r in runs:
+        if r["launches"] != r["expected_launches"]:
+            raise AssertionError(
+                f"{r['kv_mode']} engine with fusion {r['spec']}: launch counts {r['launches']} "
+                f"!= expected {r['expected_launches']}")
+        for w in r["waves"]:
+            if not all(1 <= len(ids) <= ENGINE_TOKENS and all(0 <= t < config.vocab_size for t in ids)
+                       for ids in w["streams"]):
+                raise AssertionError(f"engine streams out of range: {w['completion_tokens']}")
+    if row["ingest_tail_equal_streams"] != [ENGINE_BATCH, ENGINE_BATCH]:
+        raise AssertionError(
+            f"ingest,tail streams differ from the unfused ones: {row['ingest_tail_equal_streams']}")
+    fused_config = dataclasses.replace(config, fusion_impl="all")
+    row["check"] = _batch_model_check(torch, fused_config, params, dev, "paged",
+                                      phase="paged_fused_model_check")
+    row["dense_check"] = _batch_model_check(torch, fused_config, params, dev, "dense",
+                                            phase="dense_fused_model_check")
+    row["fused_launches"] = {
+        name: sum(r["launches"][name] for r in runs)
+        for name in ("fused_norm_matmul", "fused_qkv_ingest", "fused_sample_tail")
+    }
+    return row
+
+
+# ---------------------------------------------------------------- phase 10
+
+
 def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -1340,16 +1958,18 @@ def phase_cli(torch, extra_args=()) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         save_tiny_checkpoint(tmp, params, config, dtype=torch.bfloat16)
         cli = [sys.executable, "-m", "cake_tpu_torch.cli", "--model", tmp]
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [*cli, "--prompt", "hi", "-n", "8", *extra_args],
-            cwd=here, capture_output=True, text=True, timeout=600,
-        )
-        row = {"phase": "cli", "returncode": proc.returncode, "s": time.perf_counter() - t0,
-               "stdout_chars": len(proc.stdout), "stdout": proc.stdout[-200:]}
-        if proc.returncode != 0 or not proc.stdout:
-            emit(row)
-            raise AssertionError(f"cli failed: {proc.stderr[-2000:]}")
+        row = {"phase": "cli"}
+        for key, flags in (("prompt", ()), ("fused", ("--fusion", "all", "--decode-chunk", "4"))):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [*cli, "--prompt", "hi", "-n", "8", *flags, *extra_args],
+                cwd=here, capture_output=True, text=True, timeout=600,
+            )
+            row[key] = {"returncode": proc.returncode, "s": time.perf_counter() - t0,
+                        "stdout_chars": len(proc.stdout), "stdout": proc.stdout[-200:]}
+            if proc.returncode != 0 or not proc.stdout:
+                emit(row)
+                raise AssertionError(f"cli {key} failed: {proc.stderr[-2000:]}")
         t0 = time.perf_counter()
         row["api_batch"] = _serve_and_chat(
             [*cli, "--api-batch", "4", "--kv-mode", "paged", *extra_args], here
@@ -1361,9 +1981,12 @@ def phase_cli(torch, extra_args=()) -> None:
 # ---------------------------------------------------------------- phase 9
 
 
-def kernel_summary(rows: dict, main_path: dict, engine_path: dict) -> dict:
-    # The generate phase counted the dense kernels, the engine phase the paged ones.
+def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=()) -> dict:
+    # The generate phase counted the dense kernels, the engine phase the paged
+    # ones, the fused phases (generate_fused, engine_fused) the fused ones.
     launches = {**engine_path["launches"], **main_path["launches"]}
+    for name in FUSED_MAIN:
+        launches[name] = sum(p["fused_launches"][name] for p in fused_paths)
     spec = [
         ("decode_attention", "cake_tpu_torch/ops/csrc/decode_attention.cu",
          "cake_tpu/ops/pallas/decode_attention.py:106", ("decode_attention",),
@@ -1377,6 +2000,15 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict) -> dict:
         ("paged_chunk_attention", "cake_tpu_torch/ops/csrc/paged_chunk_attention.cu",
          "cake_tpu/ops/pallas/paged_prefill.py:173", ("paged_chunk_attention",),
          ("paged_chunk_attention", "main_path")),
+        ("fused_norm_matmul", "cake_tpu_torch/ops/csrc/fused_norm_matmul.cu",
+         "cake_tpu/ops/pallas/fused_norm_matmul.py:107", ("fused_norm_matmul",),
+         ("fused_norm_matmul", FUSED_MAIN["fused_norm_matmul"])),
+        ("fused_qkv_ingest", "cake_tpu_torch/ops/csrc/fused_ingest.cu",
+         "cake_tpu/ops/pallas/fused_ingest.py:197", ("fused_qkv_ingest",),
+         ("fused_qkv_ingest", FUSED_MAIN["fused_qkv_ingest"])),
+        ("fused_sample_tail", "cake_tpu_torch/ops/csrc/fused_sample_tail.cu",
+         "cake_tpu/ops/pallas/fused_sample_tail.py:172", ("fused_sample_tail",),
+         ("fused_sample_tail", FUSED_MAIN["fused_sample_tail"])),
     ]
     out = []
     for name, source, replaces, families, timed in spec:
@@ -1409,8 +2041,9 @@ def main() -> int:
     engine_path = phase_engine(torch, main_path)
     kernel_rows.update(engine_kernel_cases(torch, engine_path))
     phase_api_engine(main_path, engine_path)
+    fused_paths = (phase_generate_fused(torch, main_path), phase_engine_fused(torch, main_path))
     phase_cli(torch)
-    emit(kernel_summary(kernel_rows, main_path, engine_path))
+    emit(kernel_summary(kernel_rows, main_path, engine_path, fused_paths))
     emit({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

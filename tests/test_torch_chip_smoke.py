@@ -63,18 +63,37 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
                         ("dense", ("decode_attention", "chunk_prefill_attention"))):
         assert set(engine["dispatches"][mode]) == set(names)
     smoke.phase_api_engine(row, engine)
+    fused_gen = smoke.phase_generate_fused(torch, row)
+    assert fused_gen["launches"] == fused_gen["expected_launches"]
+    assert fused_gen["launches"]["fused_sample_tail_plain"] > 0
+    assert fused_gen["launches"]["fused_norm_matmul_plain"] > 0
+    assert fused_gen["check"]["max_abs_err"] == 0.0  # on the CPU both runs are plain
+    fused_engine = smoke.phase_engine_fused(torch, row)
+    assert [r["spec"] for r in fused_engine["runs"]] == ["none", "ingest,tail", "all", "all"]
+    for r in fused_engine["runs"]:
+        assert r["launches"] == r["expected_launches"]
+    all_paged = fused_engine["runs"][2]["launches"]
+    assert all_paged["fused_qkv_ingest_plain"] > 0 and all_paged["fused_sample_tail_plain"] > 0
+    # On the CPU every fusion is the plain arithmetic: all streams agree.
+    assert fused_engine["ingest_tail_equal_streams"] == [smoke.ENGINE_BATCH] * 2
+    assert fused_engine["all_equal_streams"] == [smoke.ENGINE_BATCH] * 2
+    assert fused_engine["check"]["max_abs_err"] == fused_engine["dense_check"]["max_abs_err"] == 0.0
     smoke.phase_cli(torch, ("--device", "cpu"))
     timed = {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5,
              "bound_by": "bytes", "library_ms": None}
     names = ["decode_attention", "chunk_prefill_attention", "paged_decode_attention",
-             "paged_chunk_attention"]
-    rows = {(name, "main_path"): timed for name in names}
-    summary = smoke.kernel_summary(rows, row, engine)
+             "paged_chunk_attention", "fused_norm_matmul", "fused_qkv_ingest",
+             "fused_sample_tail"]
+    rows = {(name, "main_path"): timed for name in names[:4]}
+    rows.update({(name, case): timed for name, case in smoke.FUSED_MAIN.items()})
+    summary = smoke.kernel_summary(rows, row, engine, (fused_gen, fused_engine))
     assert [k["name"] for k in summary["kernels"]] == names
     assert all(set(k) == KERNEL_KEYS for k in summary["kernels"])
     phases = [json.loads(line)["phase"] for line in capsys.readouterr().out.splitlines()]
     assert phases == ["generate", "full_model_check", "api", "engine", "paged_model_check",
-                      "dense_model_check", "api_engine", "cli"]
+                      "dense_model_check", "api_engine", "generate_fused", "fused_model_check",
+                      "engine_fused", "paged_fused_model_check", "dense_fused_model_check",
+                      "cli"]
 
 
 @pytest.mark.parametrize("kv_mode", ["paged", "dense"])
@@ -147,6 +166,11 @@ def test_bound_takes_the_larger_of_bytes_and_operations(smoke):
         ("nvjet_tst_128x64_64x8_1x2_h_bz_TNN", "matmul"),
         ("void gemv2T_kernel_val<int, int, __nv_bfloat16>(...)", "matmul"),
         ("void at::native::vectorized_elementwise_kernel<4, ...>(...)", "other"),
+        ("void cake::norm_matmul_kernel<__nv_bfloat16, 8, 16>(...)", "fused_norm_matmul"),
+        ("void cake::norm_matmul_wgmma_kernel<__nv_bfloat16, 128>(...)", "fused_norm_matmul"),
+        ("void cake::norm_rows_kernel<__nv_bfloat16>(...)", "fused_norm_matmul"),
+        ("void cake::ingest_kernel<__nv_bfloat16>(...)", "fused_qkv_ingest"),
+        ("void cake::tail_kernel<true, true, true>(...)", "fused_sample_tail"),
     ],
 )
 def test_profile_kernel_families(smoke, name, family):

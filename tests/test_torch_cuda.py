@@ -370,3 +370,324 @@ def test_paged_backend_refuses_a_page_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="page_size"):
         PagedLocalBackend(cfg, params, max_seq_len=256, cache_dtype=torch.float32,
                           page_size=64, device=dev)
+
+
+# ------------------------------------------------------------- decode fusions
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("rows", [1, 3, 5, 8, 17, 64, 129, 256])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_norm_matmul_kernel_matches_plain(dev, dtype, rows, offset):
+    """rms_norm + product against the plain composition, over row counts up
+    to the bound on both sides of GEMV_ROWS (the GEMV, then wgmma for
+    f16/bf16) and of a 128-row tile, each strip width, outputs that end
+    mid-strip, a hidden size that ends mid-K-tile and the Gemma (1 + w)
+    offset;
+    f32-accumulated, so held to a tolerance, not bitwise: TOL, or one
+    rounding step of the output's dtype at its magnitude where that is
+    larger."""
+    from cake_tpu_torch.ops.fused_norm_matmul import (
+        MAX_ROWS, fused_norm_matmul, fused_norm_matmul_plain,
+    )
+
+    assert rows <= MAX_ROWS
+    gen = torch.Generator(device=dev).manual_seed(rows + 100 * offset)
+    # 384 and 200 (a ragged last strip) take the GEMV's 4-group strips and
+    # wgmma's 64-column ones; 17000 and 40000 the GEMV's 8- and 16-group
+    # strips of wide outputs (lm_head, w_gu) and 128-column ones; hidden 520
+    # ends mid-K-tile.
+    for hidden, out_dim in ((512, 384), (512, 200), (512, 17000), (512, 40000), (520, 1000)):
+        x = _randn(gen, dev, dtype, rows, 1, hidden) * 3.0
+        nw = _randn(gen, dev, dtype, hidden)
+        w = _randn(gen, dev, dtype, hidden, out_dim) * hidden**-0.5
+        before = fused_norm_matmul.launches
+        out = fused_norm_matmul(x, nw, w, eps=1e-5, offset=offset)
+        assert fused_norm_matmul.launches == before + 1
+        ref = fused_norm_matmul_plain(x, nw, w, eps=1e-5, offset=offset)
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape and out.dtype == ref.dtype
+        step = torch.finfo(dtype).eps * 2.0 ** torch.floor(torch.log2(ref.float().abs().max()))
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= max(TOL[dtype], step.item()), (hidden, out_dim, err)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_norm_matmul_gemv_rows_at_full_hidden_and_width(dev, dtype):
+    """Every GEMV row tile at Llama-3-8B's hidden into the widest strips:
+    the staged rows and the reduction buffer pass 48 KB of shared memory
+    from 4 rows on (lm_head at 3 or 4 engine lanes)."""
+    from cake_tpu_torch.ops.fused_norm_matmul import (
+        GEMV_ROWS, fused_norm_matmul, fused_norm_matmul_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    hidden, out_dim = 4096, 34000
+    w = _randn(gen, dev, dtype, hidden, out_dim) * hidden**-0.5
+    nw = _randn(gen, dev, dtype, hidden)
+    for rows in range(1, (8 if dtype == torch.float32 else GEMV_ROWS) + 1):
+        x = _randn(gen, dev, dtype, rows, 1, hidden) * 3.0
+        out = fused_norm_matmul(x, nw, w, eps=1e-5)
+        ref = fused_norm_matmul_plain(x, nw, w, eps=1e-5)
+        torch.cuda.synchronize()
+        step = torch.finfo(dtype).eps * 2.0 ** torch.floor(torch.log2(ref.float().abs().max()))
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= max(TOL[dtype], step.item()), (rows, err)
+
+
+def test_norm_matmul_rows_past_the_bound_take_the_composition(dev):
+    from cake_tpu_torch.ops.fused_norm_matmul import MAX_ROWS, fused_norm_matmul
+    from cake_tpu_torch.ops.norm import rms_norm
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = _randn(gen, dev, torch.bfloat16, 2, MAX_ROWS, 256)
+    nw = _randn(gen, dev, torch.bfloat16, 256)
+    w = _randn(gen, dev, torch.bfloat16, 256, 128)
+    before = fused_norm_matmul.launches, fused_norm_matmul.unfused
+    out = fused_norm_matmul(x, nw, w, eps=1e-6)
+    assert (fused_norm_matmul.launches, fused_norm_matmul.unfused) == (before[0], before[1] + 1)
+    assert torch.equal(out, rms_norm(x, nw, 1e-6) @ w)
+
+
+def test_norm_matmul_reads_a_strided_row_view(dev):
+    """head_forward hands the kernel x[:, seq_len - 1], a strided view."""
+    from cake_tpu_torch.ops.fused_norm_matmul import fused_norm_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = _randn(gen, dev, torch.bfloat16, 4, 7, 256)
+    nw = _randn(gen, dev, torch.bfloat16, 256)
+    w = _randn(gen, dev, torch.bfloat16, 256, 256)
+    view = x[:, 5][:, None]
+    got = fused_norm_matmul(view, nw, w, eps=1e-5)
+    want = fused_norm_matmul(view.contiguous(), nw, w, eps=1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _ingest_operands(gen, dev, dtype, b, n_q, n_kv, hd):
+    qkv = _randn(gen, dev, dtype, b, 1, (n_q + 2 * n_kv) * hd)
+    cos = torch.randn(b, 1, hd // 2, generator=gen, device=dev)
+    sin = torch.randn(b, 1, hd // 2, generator=gen, device=dev)
+    return qkv, cos, sin
+
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_ingest_kernel_gives_the_plain_bits_dense_and_paged(dev, dtype, hd, group):
+    """q and every written K/V byte equal the plain version's (split +
+    apply_rope + write_layer / paged_write_layer); paged through shuffled
+    pages, an unmapped entry and a past-the-table row; paged q ≡ dense q."""
+    from cake_tpu_torch.ops.fused_ingest import fused_qkv_ingest, fused_qkv_ingest_plain
+
+    gen = torch.Generator(device=dev).manual_seed(hd + group)
+    b, n_kv, slot = 3, 2, 133
+    n_q = n_kv * group
+    qkv, cos, sin = _ingest_operands(gen, dev, dtype, b, n_q, n_kv, hd)
+    kw = dict(n_q=n_q, n_kv=n_kv)
+    # dense
+    k0 = _randn(gen, dev, dtype, b, n_kv, 256, hd)
+    v0 = _randn(gen, dev, dtype, b, n_kv, 256, hd)
+    k1, v1, k2, v2 = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+    before = fused_qkv_ingest.launches
+    q_dense = fused_qkv_ingest(qkv, cos, sin, slot, k1, v1, **kw)
+    assert fused_qkv_ingest.launches == before + 1
+    q_ref = fused_qkv_ingest_plain(qkv, cos, sin, slot, k2, v2, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(q_dense, q_ref)
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    # paged: slot 133 is logical page 1; row 1's entry there is unmapped.
+    kp, vp = _pool(gen, dev, dtype, 10, n_kv, hd)
+    tables = _tables(dev, [[7, 2, 9], [5, -1, 1], [3, 8, 4]], 3)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    q_paged = fused_qkv_ingest(qkv, cos, sin, slot, k1, v1, block_tables=tables, **kw)
+    q_ref = fused_qkv_ingest_plain(qkv, cos, sin, slot, k2, v2, block_tables=tables, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(q_paged, q_ref) and torch.equal(q_paged, q_dense)
+    assert torch.equal(k1[:-1], k2[:-1]) and torch.equal(v1[:-1], v2[:-1])  # the sink aside
+    assert not torch.equal(k1[2], kp[2]) and torch.equal(k1[1], kp[1])  # row 1 dropped
+    # a slot past the table drops every write
+    k1 = kp.clone()
+    fused_qkv_ingest(qkv, cos, sin, 3 * PAGE + 5, k1, vp.clone(), block_tables=tables, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, kp)
+
+
+def test_ingest_kernel_refuses_what_it_does_not_take(dev):
+    from cake_tpu_torch.ops.fused_ingest import fused_qkv_ingest
+
+    qkv = torch.zeros(1, 1, 12 * 64, device=dev, dtype=torch.bfloat16)
+    cos = torch.zeros(1, 1, 32, device=dev)
+    cache = torch.zeros(1, 2, 16, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="f8"):
+        f8 = cache.to(torch.float8_e4m3fn)
+        fused_qkv_ingest(qkv, cos, cos, 0, f8, f8, n_q=8, n_kv=2)
+    with pytest.raises(ValueError):
+        fused_qkv_ingest(qkv, cos, cos, 16, cache, cache.clone(), n_q=8, n_kv=2)  # slot
+    with pytest.raises(ValueError):
+        fused_qkv_ingest(qkv, cos, cos, 0, cache.float(), cache.float(), n_q=8, n_kv=2)
+    with pytest.raises(ValueError):
+        tables = torch.zeros(1, 1, dtype=torch.int64, device=dev)
+        fused_qkv_ingest(qkv, cos, cos, 0, cache, cache.clone(), n_q=8, n_kv=2,
+                         block_tables=tables)
+
+
+_TAIL_KNOBS = [
+    dict(temperature=0.0, top_k=None, repeat_penalty=1.0),
+    dict(temperature=0.0, top_k=None, repeat_penalty=1.3),
+    dict(temperature=0.7, top_k=None, repeat_penalty=1.0),
+    dict(temperature=0.7, top_k=40, repeat_penalty=1.1),
+    dict(temperature=1.3, top_k=1, repeat_penalty=0.9),
+]
+
+
+def _tail_operands(gen, dev, b, vocab, window, quantize):
+    logits = torch.randn(b, vocab, generator=gen, device=dev) * 3.0
+    if quantize:  # duplicate-heavy rows: the top-k tie shape
+        logits = torch.round(logits * 4) / 4
+    ring = torch.randint(-1, vocab, (b, window), generator=gen, device=dev)
+    u = torch.rand(b, vocab, generator=gen, device=dev).clamp(min=1e-30)
+    return logits, ring, -torch.log(-torch.log(u))
+
+
+@pytest.mark.parametrize("knobs", _TAIL_KNOBS, ids=lambda k: "-".join(map(str, k.values())))
+@pytest.mark.parametrize("vocab", [256, 1000, 128256])
+@pytest.mark.parametrize("b", [1, 8])
+def test_sample_tail_kernel_gives_the_plain_ids(dev, b, vocab, knobs):
+    from cake_tpu_torch.ops.fused_sample_tail import fused_sample_tail, fused_sample_tail_plain
+
+    gen = torch.Generator(device=dev).manual_seed(b * vocab)
+    for quantize in (False, True):
+        logits, ring, noise = _tail_operands(gen, dev, b, vocab, 128, quantize)
+        noise = noise if knobs["temperature"] > 0 else None
+        before = fused_sample_tail.launches
+        got = fused_sample_tail(logits, ring, noise, top_p=None, **knobs)
+        assert fused_sample_tail.launches == before + 1
+        want = fused_sample_tail_plain(logits, ring, noise, top_p=None, **knobs)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype == torch.int64
+        assert torch.equal(got, want), (quantize, got.tolist(), want.tolist())
+
+
+def test_sample_tail_tie_breaks_and_guards(dev):
+    """Equal maxima give the lowest index, NaN wins, an all -inf row gives 0,
+    a ring token twice is penalized once, and top_k = V masks nothing."""
+    from cake_tpu_torch.ops.fused_sample_tail import fused_sample_tail, fused_sample_tail_plain
+
+    vocab = 1024
+    logits = torch.zeros(5, vocab, device=dev)
+    logits[0, [300, 17, 900]] = 5.0  # tie: 17
+    logits[1] = float("-inf")
+    logits[2, 400] = float("nan")
+    logits[2, 10] = float("inf")
+    logits[3, [5, 6]] = 2.0  # 5 is in the ring twice: 6 wins
+    logits[4, 77] = -0.0
+    ring = torch.full((5, 4), -1, dtype=torch.int64, device=dev)
+    ring[3, :2] = 5
+    gen = torch.Generator(device=dev).manual_seed(0)
+    noise = -torch.log(-torch.log(torch.rand(5, vocab, generator=gen, device=dev)))
+    for knobs, nz in ((dict(temperature=0.0, top_k=None, repeat_penalty=1.5), None),
+                      (dict(temperature=0.5, top_k=vocab, repeat_penalty=1.5), noise),
+                      (dict(temperature=0.5, top_k=3, repeat_penalty=1.0), noise)):
+        got = fused_sample_tail(logits, ring, nz, top_p=None, **knobs)
+        want = fused_sample_tail_plain(logits, ring, nz, top_p=None, **knobs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (knobs, got.tolist(), want.tolist())
+    greedy = fused_sample_tail(logits, ring, None, temperature=0.0, top_k=None, top_p=None,
+                               repeat_penalty=1.5)
+    assert greedy.tolist()[:4] == [17, 0, 400, 6]
+
+
+def test_sample_tail_top_p_keeps_the_composition(dev):
+    from cake_tpu_torch.ops.fused_sample_tail import fused_sample_tail, fused_sample_tail_plain
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    logits, ring, noise = _tail_operands(gen, dev, 4, 512, 8, False)
+    knobs = dict(temperature=0.8, top_k=None, top_p=0.9, repeat_penalty=1.1)
+    before = fused_sample_tail.launches, fused_sample_tail.unfused
+    got = fused_sample_tail(logits, ring, noise, **knobs)
+    assert (fused_sample_tail.launches, fused_sample_tail.unfused) == (before[0], before[1] + 1)
+    assert torch.equal(got, fused_sample_tail_plain(logits, ring, noise, **knobs))
+
+
+def _fusion_engine_streams(dev, cfg, params, fusion, kv_mode, sampling):
+    from cake_tpu_torch.models.llama.chat import Message
+    from cake_tpu_torch.models.llama.tokenizer import ByteTokenizer
+    from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+
+    kw = {"kv_mode": "paged", "prefix_cache": True} if kv_mode == "paged" else {}
+    eng = BatchEngine(cfg, params, ByteTokenizer(), max_seq_len=512, cache_dtype=torch.float32,
+                      serve=ServeConfig(max_batch=4, fusion_impl=fusion, **kw), device=dev)
+    eng.start()
+    try:
+        hs = [eng.submit([Message.user(f"question number {i}")], 12, sampling) for i in range(3)]
+        out = [[t.id for t in h.tokens()] for h in hs]
+        assert eng.wait_idle(60)
+    finally:
+        eng.stop()
+    return out
+
+
+@pytest.mark.parametrize("kv_mode", ["dense", "paged"])
+def test_engine_fusions_on_the_card(dev, kv_mode):
+    """The exact fusions (ingest, tail) keep the unfused streams, greedy and
+    sampled; "all" runs every fused kernel and no plain version."""
+    from cake_tpu_torch.models.llama import model as M
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.models.llama.generator import SamplingConfig
+    from cake_tpu_torch.ops import fused_ingest, fused_norm_matmul, fused_sample_tail
+
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                           num_attention_heads=4, num_key_value_heads=2)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.float32, dev)
+    for s in (SamplingConfig(temperature=0.0, repeat_penalty=1.0),
+              SamplingConfig(temperature=0.8, top_k=20, repeat_penalty=1.1, seed=3)):
+        base = _fusion_engine_streams(dev, cfg, params, "none", kv_mode, s)
+        assert _fusion_engine_streams(dev, cfg, params, "ingest,tail", kv_mode, s) == base
+    kernels = (fused_norm_matmul.fused_norm_matmul, fused_ingest.fused_qkv_ingest,
+               fused_sample_tail.fused_sample_tail)
+    plains = (fused_norm_matmul.fused_norm_matmul_plain, fused_ingest.fused_qkv_ingest_plain,
+              fused_sample_tail.fused_sample_tail_plain)
+    before = [k.launches for k in kernels], [p.launches for p in plains]
+    streams = _fusion_engine_streams(dev, cfg, params, "all", kv_mode, s)
+    assert all(1 <= len(x) <= 12 for x in streams)
+    assert all(k.launches > n for k, n in zip(kernels, before[0]))
+    assert [p.launches for p in plains] == before[1]
+
+
+def test_generator_chunks_equal_per_step_on_the_card(dev, tmp_path):
+    """decode_chunk with the fused tail gives the per-step stream, greedy
+    and seeded sampled; a bf16 checkpoint runs through every fusion."""
+    from cake_tpu_torch.io.safetensors_io import save_tiny_checkpoint
+    from cake_tpu_torch.models.llama import model as M
+    from cake_tpu_torch.models.llama.chat import Message
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.models.llama.generator import LlamaGenerator, SamplingConfig
+    from cake_tpu_torch.ops.fused_sample_tail import fused_sample_tail
+
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                           num_attention_heads=4, num_key_value_heads=2)
+    save_tiny_checkpoint(tmp_path, M.init_params(cfg, torch.Generator().manual_seed(1),
+                                                 torch.float32), cfg)
+    for s in (SamplingConfig(temperature=0.0, repeat_penalty=1.1),
+              SamplingConfig(temperature=0.9, top_k=30, repeat_penalty=1.1, seed=5)):
+        streams = []
+        for chunk, fusion in ((1, "none"), (4, "tail")):
+            gen = LlamaGenerator.load(tmp_path, dtype=torch.float32, max_seq_len=256, sampling=s,
+                                      device=dev, decode_chunk_size=chunk, fusion_impl=fusion)
+            gen.add_message(Message.user("tell me a story"))
+            before = fused_sample_tail.launches
+            gen.generate(13)
+            streams.append(list(gen.generated_token_ids))
+            assert (fused_sample_tail.launches > before) == (chunk > 1)
+        assert streams[0] == streams[1]
+    # A loaded checkpoint through every fusion: lm_head and the stacked
+    # weights come out row-major, as the norm-matmul kernel reads them.
+    from cake_tpu_torch.ops.fused_norm_matmul import fused_norm_matmul
+
+    gen = LlamaGenerator.load(tmp_path, dtype=torch.bfloat16, max_seq_len=256, sampling=s,
+                              device=dev, decode_chunk_size=4, fusion_impl="all")
+    gen.add_message(Message.user("tell me a story"))
+    before = fused_norm_matmul.launches
+    gen.generate(9)
+    assert fused_norm_matmul.launches > before and len(gen.generated_token_ids) >= 1

@@ -5,9 +5,13 @@ loaded by both packages' ``LlamaGenerator.load`` (f32, the port on the CPU)
 and decoded greedily: the generated token ids must be equal, with and without
 chunked prefill. Then the port's entry points: the CLI on ``--device cpu``,
 the ApiServer's JSON and SSE chats, its 400s, and the refusal to fall back to
-the CPU when CUDA is absent and not asked for.
+the CPU when CUDA is absent and not asked for. Then fused multi-token decode
+(``decode_chunk_size``): chunked streams equal per-step ones, greedy and
+seeded sampled, an EOS inside a chunk truncates it, greedy chunked streams
+with every fusion equal the JAX generator's, and the CLI's ``--fusion``.
 """
 
+import dataclasses
 import http.client
 import json
 import subprocess
@@ -86,6 +90,8 @@ def test_load_params_matches_the_jax_loader(ckpt):
         np.testing.assert_array_equal(lay[key].numpy(), np.asarray(rl[key]))
     for key in ("embed", "ln_f", "lm_head"):
         np.testing.assert_array_equal(port[key].numpy(), np.asarray(ref[key]))
+    # Row-major [in, out], as the fused norm-matmul kernel reads lm_head.
+    assert port["lm_head"].is_contiguous() and all(t.is_contiguous() for t in lay.values())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -203,3 +209,88 @@ def test_cli_refuses_cuda_without_a_gpu_in_a_fresh_process(ckpt):
     )
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
+
+
+# ------------------------------------------------------------ fused decode
+
+SAMPLED = dict(temperature=0.9, top_k=20, repeat_penalty=1.1, repeat_last_n=8, seed=13)
+
+
+@pytest.mark.parametrize("knobs", [GREEDY, SAMPLED], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("fusion", ["none", "tail", "all"])
+def test_decode_chunks_equal_per_step(ckpt, knobs, fusion):
+    """Chunked decode (the first token per step, then chunks of 4, a short
+    tail per step) gives the per-step stream; a seeded sampled stream draws
+    the same gumbel planes from the dialog's generator in the same order."""
+    streams = []
+    for chunk in (1, 4):
+        gen = LlamaGenerator.load(ckpt, dtype=torch.float32, max_seq_len=256,
+                                  sampling=SamplingConfig(**knobs), device="cpu",
+                                  decode_chunk_size=chunk, fusion_impl=fusion)
+        gen.add_message(Message.user(PROMPT))
+        text = gen.generate(11)
+        streams.append((list(gen.generated_token_ids), text, gen.last_finish_reason))
+    assert streams[0] == streams[1]
+    ids, _, finish = streams[0]
+    assert len(ids) == 11 if finish == "length" else len(ids) > 5  # chunks ran either way
+
+
+def test_eos_mid_chunk_truncates(ckpt):
+    """An EOS inside a chunk ends the stream there: the chunk's tail is
+    dropped, and the stream equals the per-step one with the same EOS."""
+    gen = _port_generator(ckpt)
+    gen.add_message(Message.user(PROMPT))
+    gen.generate(12)
+    stream = list(gen.generated_token_ids)
+    eos = stream[6]  # the first chunk covers tokens 1-4, the second 5-8
+    first = stream.index(eos)
+    out = []
+    for chunk in (1, 4):
+        g = _port_generator(ckpt, decode_chunk_size=chunk)
+        g.config = dataclasses.replace(g.config, eos_token_ids=(eos,))
+        g.add_message(Message.user(PROMPT))
+        calls = []
+        step_chunk = g.step.decode_chunk
+        g.step.decode_chunk = lambda *a: calls.append(a[2]) or step_chunk(*a)
+        g.generate(12)
+        out.append((list(g.generated_token_ids), g.last_finish_reason, calls))
+    assert out[0][:2] == out[1][:2] == (stream[: first + 1], "stop")
+    assert out[1][2] == [4] * (1 + first // 5) and out[0][2] == []
+
+
+def test_chunked_greedy_matches_the_jax_generator(ckpt):
+    """Greedy, every fusion on both sides: the JAX generator's fused decode
+    (8-token chunks, the Pallas fusion kernels in interpret mode) and the
+    port's give the same ids."""
+    from cake_tpu.models.llama.generator import LocalForwardStep as JaxStep
+
+    def fused_step(config, params):
+        return JaxStep(dataclasses.replace(config, fusion_impl="all@pallas"), params,
+                       max_seq_len=256, cache_dtype=jnp.float32)
+
+    jgen = JaxGenerator.load(ckpt, dtype=jnp.float32, max_seq_len=256,
+                             sampling=JaxSampling(**GREEDY), step_factory=fused_step,
+                             decode_chunk_size=8)
+    jgen.add_message(JaxMessage.user(PROMPT))
+    jgen.generate(19)
+    pgen = _port_generator(ckpt, decode_chunk_size=8, fusion_impl="all")
+    pgen.add_message(Message.user(PROMPT))
+    pgen.generate(19)
+    assert pgen.generated_token_ids == jgen.generated_token_ids
+    assert len(pgen.generated_token_ids) > 1  # past the per-step first token
+    assert pgen.last_finish_reason == jgen.last_finish_reason
+
+
+def test_cli_fusion_flag(ckpt):
+    base = [sys.executable, "-m", "cake_tpu_torch.cli", "--model", str(ckpt), "--prompt", "hi",
+            "-n", "6", "--device", "cpu", "--dtype", "f32", "--temperature", "0"]
+    ok = subprocess.run([*base, "--fusion", "all", "--decode-chunk", "4"],
+                        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert ok.returncode == 0, ok.stderr
+    plain = subprocess.run(base, cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert ok.stdout == plain.stdout
+    for spec, message in (("norm,bogus", "unknown fusion 'bogus'"), ("all@pallas", "write 'all'")):
+        bad = subprocess.run([*base, "--fusion", spec], cwd=REPO, capture_output=True,
+                             text=True, timeout=120)
+        assert bad.returncode == 2
+        assert "--fusion" in bad.stderr and message in bad.stderr

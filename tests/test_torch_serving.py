@@ -10,8 +10,10 @@ Pallas kernels.
 
 Then the port's own invariants, all bitwise: a second wave served from the
 prefix cache equals the cold first wave, a joined request equals the same
-request served alone, and paged equals dense. Then cancel, the refusals of
-what is not ported, and the API's engine path with concurrent SSE clients.
+request served alone, and paged equals dense. Then the decode fusions: the
+fused engine equals the unfused one, greedy and sampled, and the JAX engine
+with its fusion kernels, greedy. Then cancel, the refusals of what is not
+ported, and the API's engine path with concurrent SSE clients.
 """
 
 import http.client
@@ -223,6 +225,81 @@ def test_backend_refuses_a_write_past_the_epoch_capacity(port_model):
     kv = be.init_kv(1)
     with pytest.raises(ValueError, match="capacity"):
         be.prefill([[1] * 64], kv, [0])
+
+
+# ----------------------------------------------------------- decode fusions
+
+SAMPLED = dict(temperature=0.9, top_k=20, repeat_penalty=1.1, repeat_last_n=8, seed=11)
+
+
+@pytest.fixture(scope="module")
+def jax_fused_streams(ckpt):
+    """The JAX engine with every decode fusion on its Pallas kernels
+    (interpret mode), paged with the prefix cache."""
+    import dataclasses
+
+    cfg = dataclasses.replace(JaxConfig.from_model_dir(ckpt), fusion_impl="all@pallas")
+    params = jax_load_params(ckpt, cfg, jnp.float32)
+    eng = JaxEngine(cfg, params, jax_load_tokenizer(ckpt), max_seq_len=MAX_SEQ,
+                    cache_dtype=jnp.float32, serve=JaxServe(**SERVE, **MODES["prefix"]))
+    eng.start()
+    try:
+        return _scenario(eng.submit, JaxMessage, JaxSampling(**GREEDY))
+    finally:
+        eng.stop()
+
+
+def test_fused_engine_matches_the_jax_fused_engine(port_model, jax_fused_streams):
+    """Greedy, every fusion: the port's engine (plain versions on the CPU)
+    gives the JAX engine's streams through its fusion kernels."""
+    eng = _engine(port_model, fusion_impl="all", **MODES["prefix"])
+    try:
+        got = _scenario(eng.submit, Message, SamplingConfig(**GREEDY))
+    finally:
+        eng.stop()
+    assert got == jax_fused_streams
+
+
+@pytest.mark.parametrize("knobs", [GREEDY, SAMPLED], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("mode", ["dense", "prefix"])
+def test_fused_engine_equals_unfused(port_model, knobs, mode):
+    """"all" and "none" give the same streams, greedy and sampled, joins
+    included; the fused run goes through the ingest and tail plain versions
+    once per layer and step, and the sampled run takes no top_p fallback."""
+    from cake_tpu_torch.ops import fused_ingest, fused_sample_tail
+
+    streams, stats = {}, {}
+    for spec in ("none", "all"):
+        eng = _engine(port_model, fusion_impl=spec, **MODES[mode])
+        before = (fused_ingest.fused_qkv_ingest_plain.launches,
+                  fused_sample_tail.fused_sample_tail_plain.launches,
+                  fused_sample_tail.fused_sample_tail.unfused)
+        try:
+            streams[spec] = _scenario(eng.submit, Message, SamplingConfig(**knobs))
+            assert eng.wait_idle(10.0)
+            stats[spec] = eng.snapshot()
+        finally:
+            eng.stop()
+        after = (fused_ingest.fused_qkv_ingest_plain.launches,
+                 fused_sample_tail.fused_sample_tail_plain.launches,
+                 fused_sample_tail.fused_sample_tail.unfused)
+        steps = stats[spec]["decode_steps"]
+        n_layers = port_model[0].num_hidden_layers
+        want = (n_layers * steps, steps, 0) if spec == "all" else (0, 0, 0)
+        assert tuple(a - b for a, b in zip(after, before)) == want
+    assert streams["all"] == streams["none"]
+    assert stats["all"]["joins"] >= 1
+
+
+def test_serve_config_fusion_overrides_the_model_config(port_model):
+    cfg, params, tok = port_model
+    with pytest.raises(ValueError, match="unknown fusion"):
+        ServeConfig(fusion_impl="norm,bogus")
+    eng = BatchEngine(cfg, params, tok, max_seq_len=MAX_SEQ, device="cpu",
+                      serve=ServeConfig(fusion_impl="ingest,tail"))
+    assert eng.config.fusion_impl == eng.backend.config.fusion_impl == "ingest,tail"
+    eng = BatchEngine(cfg, params, tok, max_seq_len=MAX_SEQ, device="cpu", serve=ServeConfig())
+    assert eng.backend.config.fusion_impl == cfg.fusion_impl == "none"
 
 
 def test_cli_refuses_prefix_cache_on_without_paged(ckpt):
