@@ -83,6 +83,13 @@ def build_parser() -> argparse.ArgumentParser:
         "Each runs its CUDA kernel on the card and its plain PyTorch version on --device "
         "cpu. top-p keeps the plain sort path",
     )
+    p.add_argument(
+        "--quantize", choices=("int8", "int4"), default=None,
+        help="weight-only quantization of the loaded weights: int8 per-channel (halves the "
+        "weight bytes) or int4 group-128 (quarters them; every int4 product runs the int4 "
+        "CUDA kernel on the card); activations stay --dtype. The --api-batch engine serves "
+        "the same quantized weights. A .q8/.q4 checkpoint loads quantized without it",
+    )
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--top-k", type=int, default=None)
     p.add_argument("--top-p", type=float, default=None)
@@ -148,6 +155,7 @@ def main(argv: list[str] | None = None) -> int:
         device=args.device,
         decode_chunk_size=args.decode_chunk,
         fusion_impl=args.fusion,  # on the config before any step or engine is built
+        quantize=args.quantize,
     )
     if args.api:
         from cake_tpu_torch.runtime.api import ApiServer

@@ -10,8 +10,15 @@ stacked tensors on the target device and fuses the q/k/v and gate/up
 projections as it goes (ops/fuse.py layout), so the weights are never held
 twice.
 
-MoE, Phi-3's fused checkpoint tensors and quantized (.q8/.q4) checkpoints
-are not ported yet (ROADMAP.md).
+Quantized checkpoints (written by ``cake_tpu/io/quantizer.py`` or by
+:func:`save_tiny_checkpoint` over a ``quantize_params`` tree) store each
+quantized linear weight as ``{name}.q8`` (int8 [in, out]) or ``{name}.q4``
+(packed int4 [in/2, out]) beside ``{name}.scale`` (f32 [1|G, out]), in
+compute orientation (no transpose). They load as the port's
+``QuantWeight``/``Quant4Weight`` leaves, bitwise what ``quantize_params``
+gives; the full-precision weights never exist.
+
+MoE and Phi-3's fused checkpoint tensors are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import numpy as np
 import torch
 
 from cake_tpu_torch.models.llama.config import LlamaConfig
+from cake_tpu_torch.ops.fuse import concat_out
+from cake_tpu_torch.ops.quant import QUANT_TYPES, Quant4Weight, QuantWeight
 
 INDEX_FILE = "model.safetensors.index.json"
 SINGLE_FILE = "model.safetensors"
@@ -133,13 +142,50 @@ def resolve_checkpoint_files(model_dir: str | Path) -> list[Path]:
     raise FileNotFoundError(f"no {INDEX_FILE} or {SINGLE_FILE} in {model_dir}")
 
 
+_QUANT_SUFFIXES = ((".q4", Quant4Weight), (".q8", QuantWeight))
+
+
+def read_weight(
+    reader: SafetensorsReader, name: str, dtype: torch.dtype, device="cpu",
+    transpose: bool = False,
+):
+    """One weight by HF name: a plain tensor, or the quantized leaf stored
+    under ``{name}.q4``/``{name}.q8`` + ``{name}.scale`` (no transpose, no
+    cast: the bits as written)."""
+    for suffix, cls in _QUANT_SUFFIXES:
+        if name + suffix in reader:
+            return cls(
+                reader.torch(name + suffix, torch.int8, device),
+                reader.torch(name + ".scale", torch.float32, device),
+            )
+    return reader.torch(name, dtype, device, transpose)
+
+
+def _empty_like_stacked(n: int, t, device):
+    """An [n, ...] stack to fill layer by layer, plain or quantized."""
+    if isinstance(t, QUANT_TYPES):
+        return type(t)(
+            torch.empty((n, *t.w.shape), dtype=t.w.dtype, device=device),
+            torch.empty((n, *t.scale.shape), dtype=t.scale.dtype, device=device),
+        )
+    return torch.empty((n, *t.shape), dtype=t.dtype, device=device)
+
+
+def _set_layer(stack, i: int, t) -> None:
+    if isinstance(stack, QUANT_TYPES):
+        if type(t) is not type(stack):
+            raise ValueError(f"layer {i} is stored as {type(t).__name__}, layer 0 as "
+                             f"{type(stack).__name__}")
+        stack.w[i] = t.w
+        stack.scale[i] = t.scale
+    else:
+        if isinstance(t, QUANT_TYPES):
+            raise ValueError(f"layer {i} is quantized, layer 0 is not")
+        stack[i] = t
+
+
 def _layer_templates(reader: SafetensorsReader, config: LlamaConfig) -> dict:
     first = "model.layers.0."
-    for name in reader.names():
-        if name.startswith(first) and name.endswith((".q8", ".q4")):
-            raise NotImplementedError(
-                "quantized checkpoints are not ported yet (ROADMAP.md queue A, item 9)"
-            )
     if config.num_local_experts or any(
         n.startswith(first) and (".experts." in n or "block_sparse_moe" in n)
         for n in reader.names()
@@ -167,7 +213,8 @@ def load_params(
     """Load a full param tree onto ``device``, q/k/v and gate/up fused.
 
     Each stacked leaf is allocated once on the device and filled layer by
-    layer, so peak device memory is the model plus one layer's tensor."""
+    layer, so peak device memory is the model plus one layer's tensor.
+    Quantized weights load as quantized leaves (fused component-wise)."""
     reader = SafetensorsReader(resolve_checkpoint_files(model_dir))
     templates = _layer_templates(reader, config)
     n = config.num_hidden_layers
@@ -177,17 +224,17 @@ def load_params(
 
     keys = [k for k in templates if not any(k in p for p in _FUSED.values())]
     keys += [fk for fk, ps in _FUSED.items() if ps[0] in templates]
-    layers: dict[str, torch.Tensor] = {}
+    layers: dict = {}
     for key in keys:
         for i in range(n):
             pieces = [
-                reader.torch(templates[p][0].format(i=i), dtype, device, templates[p][1])
+                read_weight(reader, templates[p][0].format(i=i), dtype, device, templates[p][1])
                 for p in parts(key)
             ]
-            t = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=-1)
+            t = pieces[0] if len(pieces) == 1 else concat_out(pieces)
             if key not in layers:
-                layers[key] = torch.empty((n, *t.shape), dtype=dtype, device=device)
-            layers[key][i] = t
+                layers[key] = _empty_like_stacked(n, t, device)
+            _set_layer(layers[key], i, t)
     if "ln_post_attn" in layers:
         if "q_norm" in layers:  # Gemma-3: per-layer window and rope plane
             if config.sliding_pattern is None:
@@ -204,14 +251,16 @@ def load_params(
         "ln_f": reader.torch("model.norm.weight", dtype, device),
     }
     if not config.tie_word_embeddings:
-        params["lm_head"] = reader.torch("lm_head.weight", dtype, device, transpose=True)
+        params["lm_head"] = read_weight(reader, "lm_head.weight", dtype, device, transpose=True)
     return params
 
 
 def hf_tensor_dict(params: dict, config: LlamaConfig, dtype=torch.float32) -> dict[str, np.ndarray]:
     """Flatten an unfused param tree into HF-named [out, in] numpy tensors
     (the inverse of load_params' name mapping). ``dtype`` is the storage
-    dtype: float32, float16 or bfloat16."""
+    dtype of plain tensors: float32, float16 or bfloat16. A quantized leaf
+    is stored as ``{name}.q8``/``{name}.q4`` and ``{name}.scale``, in
+    compute orientation, its bits unchanged."""
     if "wqkv" in params["layers"] or "router" in params["layers"]:
         raise ValueError("hf_tensor_dict takes an unfused dense param tree")
 
@@ -224,24 +273,35 @@ def hf_tensor_dict(params: dict, config: LlamaConfig, dtype=torch.float32) -> di
             return t.view(torch.int16).numpy().view(np.uint16).copy()
         return t.numpy().copy()
 
-    tensors = {
+    def emit(name: str, leaf, transpose: bool) -> None:
+        if isinstance(leaf, QUANT_TYPES):
+            suffix = ".q4" if isinstance(leaf, Quant4Weight) else ".q8"
+            tensors[name + suffix] = leaf.w.detach().to("cpu").contiguous().numpy().copy()
+            tensors[name + ".scale"] = leaf.scale.detach().to("cpu", torch.float32).numpy().copy()
+        else:
+            tensors[name] = np_of(leaf, transpose)
+
+    tensors: dict[str, np.ndarray] = {
         "model.embed_tokens.weight": np_of(params["embed"], False),
         "model.norm.weight": np_of(params["ln_f"], False),
     }
     if not config.tie_word_embeddings:
-        tensors["lm_head.weight"] = np_of(params["lm_head"], True)
+        emit("lm_head.weight", params["lm_head"], True)
     templates = {**_LAYER_TEMPLATES, **_LAYER_BIAS_TEMPLATES, **_QK_NORM_TEMPLATES}
     layers = params["layers"]
     if "ln_post_attn" in layers:
         templates.update(_GEMMA2_NORM_TEMPLATES)
     for key, (tmpl, transpose) in templates.items():
         if key in layers:
-            for i in range(layers[key].shape[0]):
-                tensors[tmpl.format(i=i)] = np_of(layers[key][i], transpose)
+            for i in range(config.num_hidden_layers):
+                emit(tmpl.format(i=i), layers[key][i], transpose)
     return tensors
 
 
-_ST_DTYPES = {np.dtype(np.float32): "F32", np.dtype(np.float16): "F16", np.dtype(np.uint16): "BF16"}
+_ST_DTYPES = {
+    np.dtype(np.float32): "F32", np.dtype(np.float16): "F16", np.dtype(np.uint16): "BF16",
+    np.dtype(np.int8): "I8",
+}
 
 
 def write_safetensors(path: Path, tensors: dict[str, np.ndarray]) -> int:
@@ -268,8 +328,9 @@ def write_safetensors(path: Path, tensors: dict[str, np.ndarray]) -> int:
 def save_tiny_checkpoint(
     model_dir: str | Path, params: dict, config: LlamaConfig, dtype=torch.float32
 ) -> None:
-    """Write a param tree as a real safetensors checkpoint with its
-    config.json and weight_map index (test and smoke fixture)."""
+    """Write an unfused param tree, plain or quantized (``quantize_params``),
+    as a real safetensors checkpoint with its config.json and weight_map
+    index (test and smoke fixture)."""
     model_dir = Path(model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
     with open(model_dir / "config.json", "w") as f:

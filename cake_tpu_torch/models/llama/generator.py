@@ -31,6 +31,7 @@ from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.fused import sampled_decode_loop
 from cake_tpu_torch.models.llama.tokenizer import Tokenizer, load_tokenizer
 from cake_tpu_torch.ops.fuse import fuse_params, parse_fusion_spec, resolve_fusion
+from cake_tpu_torch.ops.quant import quantize_params
 from cake_tpu_torch.ops.rope import model_rope_tables
 from cake_tpu_torch.ops.sampling import DEFAULT_SEED, apply_repeat_penalty, sample
 
@@ -212,18 +213,26 @@ class LlamaGenerator:
         device: torch.device | str | None = None,
         decode_chunk_size: int = 1,
         fusion_impl: str = "none",
+        quantize: str | None = None,
     ) -> "LlamaGenerator":
         """Config, weights and tokenizer from a checkpoint directory, on
         ``device`` (default CUDA; raises when there is none). ``fusion_impl``
-        is set on the config before the step is built."""
+        is set on the config before the step is built. ``quantize``
+        ("int8" or "int4") quantizes the loaded weights on the device, one
+        layer slice at a time, before the step is built; a quantized
+        checkpoint loads quantized without it."""
         from cake_tpu_torch.io.safetensors_io import load_params
 
+        if quantize not in (None, "int8", "int4"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
         dev = resolve_device(device)
         config = LlamaConfig.from_model_dir(model_dir)
         if fusion_impl != "none":
             parse_fusion_spec(fusion_impl)
             config = dataclasses.replace(config, fusion_impl=fusion_impl)
         params = load_params(model_dir, config, dtype, dev)
+        if quantize is not None:
+            params = quantize_params(params, quantize)
         step = LocalForwardStep(
             config, params, max_seq_len=max_seq_len, cache_dtype=dtype, device=dev
         )

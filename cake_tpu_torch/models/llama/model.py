@@ -23,6 +23,11 @@ RMSNorm into the projection it feeds at three sites: the input norm ->
 ``lm_head`` (``head_forward``, unless the embeddings are tied). A
 ``fusion`` argument, resolved once per dispatch (``resolve_fusion``), is
 handed down to every site; None resolves it from the config.
+
+Every projection goes through ``ops/quant.qmat``, so a weight-only
+quantized tree (``ops/quant.quantize_params``, int8 or int4) runs the same
+code: the int8 product in PyTorch, every int4 product through the int4
+kernel (``ops/int4_matmul.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from cake_tpu_torch.ops.fuse import resolve_fusion
 from cake_tpu_torch.ops.fused_norm_matmul import fused_norm_matmul
 from cake_tpu_torch.ops.mlp import swiglu, swiglu_gu_from
 from cake_tpu_torch.ops.norm import rms_norm
+from cake_tpu_torch.ops.quant import QUANT_TYPES, Quant4Weight, QuantWeight, qmat
 from cake_tpu_torch.ops.rope import apply_rope, model_rope_tables
 
 Params = dict[str, Any]
@@ -118,12 +124,20 @@ def _to_torch(leaf, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
+_JAX_QUANT_LEAVES = {"QuantWeight": QuantWeight, "Quant4Weight": Quant4Weight}
+
+
 def params_from_jax(tree: Params, device: torch.device | str = "cpu") -> Params:
     """The port's param tree from a JAX package param tree whose leaves are
     numpy arrays (or anything ``np.asarray`` takes). Layouts are the same
-    ([in, out] linear weights, stacked layers), so this only moves data."""
+    ([in, out] linear weights, stacked layers), so this only moves data. A
+    quantized leaf of the JAX package (a ``QuantWeight``/``Quant4Weight``
+    NamedTuple of two arrays) becomes the port's leaf of the same name."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
+    leaf_cls = _JAX_QUANT_LEAVES.get(type(tree).__name__)
+    if leaf_cls is not None and hasattr(tree, "_fields"):
+        return leaf_cls(_to_torch(tree.w, device), _to_torch(tree.scale, device))
     return _to_torch(tree, device)
 
 
@@ -151,7 +165,8 @@ def block_qkv_flat(lp, x, config: LlamaConfig, fusion=None):
             x, lp["ln_attn"], lp["wqkv"], eps=config.rms_norm_eps, offset=config.rmsnorm_offset
         )
     else:
-        qkv = rms_norm(x, lp["ln_attn"], config.rms_norm_eps, config.rmsnorm_offset) @ lp["wqkv"]
+        qkv = qmat(rms_norm(x, lp["ln_attn"], config.rms_norm_eps, config.rmsnorm_offset),
+                   lp["wqkv"])
     if "bqkv" in lp:
         qkv = qkv + lp["bqkv"].to(qkv.dtype)
     return qkv
@@ -170,7 +185,7 @@ def block_qkv(lp, x, cos, sin, positions, config: LlamaConfig, fusion=None):
         q, k, v = qkv[..., :qw], qkv[..., qw : qw + kw], qkv[..., qw + kw :]
     else:
         h = rms_norm(x, lp["ln_attn"], config.rms_norm_eps, config.rmsnorm_offset)
-        q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+        q, k, v = qmat(h, lp["wq"]), qmat(h, lp["wk"]), qmat(h, lp["wv"])
         if "bq" in lp:
             q = q + lp["bq"].to(q.dtype)
             k = k + lp["bk"].to(k.dtype)
@@ -192,7 +207,7 @@ def block_finish(lp, x, attn, config: LlamaConfig, fusion=None):
     fusion = resolve_fusion(config) if fusion is None else fusion
     b, chunk, _ = x.shape
     off = config.rmsnorm_offset
-    o = (attn.reshape(b, chunk, -1) @ lp["wo"]).to(x.dtype)
+    o = qmat(attn.reshape(b, chunk, -1), lp["wo"]).to(x.dtype)
     if "ln_post_attn" in lp:
         o = rms_norm(o, lp["ln_post_attn"], config.rms_norm_eps, off)
     x = x + o
@@ -200,7 +215,7 @@ def block_finish(lp, x, attn, config: LlamaConfig, fusion=None):
         if "norm" in fusion:
             gu = fused_norm_matmul(x, lp["ln_mlp"], lp["w_gu"], eps=config.rms_norm_eps, offset=off)
         else:
-            gu = rms_norm(x, lp["ln_mlp"], config.rms_norm_eps, off) @ lp["w_gu"]
+            gu = qmat(rms_norm(x, lp["ln_mlp"], config.rms_norm_eps, off), lp["w_gu"])
         mlp = swiglu_gu_from(gu, lp["w_down"], config.hidden_activation)
     else:
         h = rms_norm(x, lp["ln_mlp"], config.rms_norm_eps, off)
@@ -299,7 +314,7 @@ def head_forward(params: Params, x, seq_len: int, config: LlamaConfig, fusion=No
         return _final_softcap(logits.float(), config)
     x_last = rms_norm(x_last, params["ln_f"], config.rms_norm_eps, config.rmsnorm_offset)
     lm_head = params["embed"].T if config.tie_word_embeddings else params["lm_head"]
-    return _final_softcap((x_last @ lm_head).float(), config)
+    return _final_softcap(qmat(x_last, lm_head).float(), config)
 
 
 def forward(
@@ -332,7 +347,14 @@ def forward(
 
 
 def count_params(params: Params) -> int:
+    """Elements of every tensor in the tree (a quantized leaf: its integer
+    weight and its scales, as the JAX package counts its two leaves)."""
     total = 0
     for leaf in params.values():
-        total += count_params(leaf) if isinstance(leaf, dict) else leaf.numel()
+        if isinstance(leaf, dict):
+            total += count_params(leaf)
+        elif isinstance(leaf, QUANT_TYPES):
+            total += leaf.w.numel() + leaf.scale.numel()
+        else:
+            total += leaf.numel()
     return total

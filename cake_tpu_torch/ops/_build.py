@@ -82,6 +82,10 @@ _SIGNATURES = {
         _INT, _INT, _INT, _INT, _INT,                # b n_q n_kv hd slot
         _INT, _INT, _LONG, _INT, _VOID,              # seq_stride n_p table_stride dtype stream
     ),
+    "cake_int4_matmul": (
+        _VOID, _VOID, _VOID, _VOID, _VOID,           # x packed scale out scratch (NULL: one pass)
+        _INT, _INT, _INT, _INT, _INT, _INT, _VOID,   # rows K N group per dtype stream
+    ),
     "cake_fused_sample_tail": (
         _VOID, _VOID, _VOID, _VOID,                  # logits ring noise (NULL: greedy) out
         _INT, _INT, _INT, _INT,                      # b vocab window penalize

@@ -2,7 +2,8 @@
 projections become one ``wqkv`` [in, (n_q + 2*n_kv) * hd] and gate/up one
 ``w_gu`` [in, 2*inter], concatenated along the output axis, so a layer runs
 one large product where it ran three and two. Each output column is the same
-dot product as before, so numerics do not change. Single-device only (the
+dot product as before, so numerics do not change; quantized projections
+fuse their weights and scales alike (ops/quant.py). Single-device only (the
 tensor-parallel shard-major order waits for the distributed slice).
 
 Fusing a tree in memory holds the fused and the unfused projections at once
@@ -25,6 +26,8 @@ kernels that each replace a run of small ops on the decode path:
 from __future__ import annotations
 
 import torch
+
+from cake_tpu_torch.ops.quant import QUANT_TYPES
 
 FUSED_QKV = "wqkv"
 FUSED_QKV_BIAS = "bqkv"
@@ -71,6 +74,18 @@ def resolve_fusion(config) -> frozenset:
     return parse_fusion_spec(getattr(config, "fusion_impl", "none"))
 
 
+def concat_out(ws: list):
+    """Concatenate along the output (last) axis. Quantized leaves fuse
+    component by component: the integer weight and its scales ([..., 1, out]
+    int8, [..., G, out] int4) carry the same columns, so fusing quantized
+    parts gives the bits of quantizing the fused weight."""
+    if isinstance(ws[0], QUANT_TYPES):
+        return type(ws[0])(
+            torch.cat([w.w for w in ws], dim=-1), torch.cat([w.scale for w in ws], dim=-1)
+        )
+    return torch.cat(ws, dim=-1)
+
+
 def fuse_layer_tree(layers: dict) -> dict:
     """Fuse a stacked layer tree ([n_layers, ...] leaves). Idempotent."""
     if FUSED_QKV in layers:
@@ -81,13 +96,11 @@ def fuse_layer_tree(layers: dict) -> dict:
         )
     out = dict(layers)
     if "wq" in out:
-        out[FUSED_QKV] = torch.cat([out.pop("wq"), out.pop("wk"), out.pop("wv")], dim=-1)
+        out[FUSED_QKV] = concat_out([out.pop("wq"), out.pop("wk"), out.pop("wv")])
         if "bq" in out:
-            out[FUSED_QKV_BIAS] = torch.cat(
-                [out.pop("bq"), out.pop("bk"), out.pop("bv")], dim=-1
-            )
+            out[FUSED_QKV_BIAS] = concat_out([out.pop("bq"), out.pop("bk"), out.pop("bv")])
     if "w_gate" in out:
-        out[FUSED_GU] = torch.cat([out.pop("w_gate"), out.pop("w_up")], dim=-1)
+        out[FUSED_GU] = concat_out([out.pop("w_gate"), out.pop("w_up")])
     return out
 
 

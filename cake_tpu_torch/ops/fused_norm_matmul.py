@@ -35,6 +35,12 @@ the unfused composition, counted in ``fused_norm_matmul.unfused``. The sums
 run in another order than cuBLAS's, so the kernel is held to the plain
 version within a tolerance, never bitwise.
 
+A quantized weight (ops/quant.py) is not the kernel's: as in the JAX
+package (``norm_matmul_supported`` takes plain weights only), the wrapper
+computes ``qmat(rms_norm(x, ...), w)``, so an int4 weight runs the int4
+kernel at the norm sites; these calls count in
+``fused_norm_matmul.quantized``.
+
 For a tensor on the CPU the wrapper runs :func:`fused_norm_matmul_plain`;
 for a CUDA tensor it launches the kernel or raises.
 """
@@ -47,6 +53,7 @@ import torch
 
 from cake_tpu_torch.ops import _build
 from cake_tpu_torch.ops.norm import rms_norm
+from cake_tpu_torch.ops.quant import QUANT_TYPES, qmat
 
 _KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 # Rows the kernel takes, as the JAX package's kernel (a 256-row prefill
@@ -57,7 +64,7 @@ GEMV_ROWS = 4
 
 
 def _unfused(x, norm_w, w, eps, offset):
-    return rms_norm(x, norm_w, eps, offset) @ w
+    return qmat(rms_norm(x, norm_w, eps, offset), w)
 
 
 def fused_norm_matmul_plain(x, norm_w, w, *, eps: float, offset: bool = False):
@@ -75,10 +82,13 @@ def fused_norm_matmul(x, norm_w, w, *, eps: float, offset: bool = False):
 
     Args:
       x: [b, t, hidden] activations; norm_w: [hidden]; w: [hidden, out] as
-        stored ([in, out]), all one dtype.
+        stored ([in, out]), all one dtype, or a quantized weight (qmat).
       offset: the Gemma (1 + w) norm weight.
 
     Returns [b, t, out] in x's dtype (f32-accumulated)."""
+    if isinstance(w, QUANT_TYPES):
+        fused_norm_matmul.quantized += 1
+        return _unfused(x, norm_w, w, eps, offset)
     if x.device.type == "cpu":
         return fused_norm_matmul_plain(x, norm_w, w, eps=eps, offset=offset)
     if x.device.type != "cuda":
@@ -138,3 +148,4 @@ def fused_norm_matmul(x, norm_w, w, *, eps: float, offset: bool = False):
 
 fused_norm_matmul.launches = 0
 fused_norm_matmul.unfused = 0
+fused_norm_matmul.quantized = 0

@@ -30,7 +30,13 @@ nonzero exit and no final result line:
                greedy b=1/8, sampled b=8 (temperature 0.7, top_k 40,
                repeat_penalty 1.1, ring 128) and a row all -inf beside a
                NaN row (ids equal). Their library_ms is the unfused PyTorch
-               composition, not one call.
+               composition, not one call. int4_matmul at Llama-3-8B's five
+               projections (wqkv, wo, w_gu, w_down, lm_head) at 1, 8 and 256
+               rows in bf16, one f16 and one f32 case (one rounding step of
+               the dtype at the output's magnitude, cosine >= 0.9999; its
+               library_ms is cuBLAS over the dequantized weight), and row
+               independence: rows of 8-, 256- and 3840-row calls equal the
+               1-row call to the bit (wqkv, w_gu, w_down).
   4. generate  Llama-3-8B at full width and depth, random bf16 weights drawn
                on the card from a seeded torch.Generator: a ~700 byte-token
                prompt prefilled in 256-token chunks (the position-0 and the
@@ -82,14 +88,34 @@ nonzero exit and no final result line:
                and the full-width paged and dense forwards with "all"
                against the plain path (cosine >= 0.999). TTFT, ms per decode
                step, device ops per step and the device idle share of each.
- 10. cli       ``python -m cake_tpu_torch.cli`` on a small checkpoint written
+ 10. generate_int4  the generate phase's weights quantized on the card
+               to int4 (``quantize_params``, one layer at a time), the same
+               prompt and 64 greedy tokens per token and with 8-token
+               chunks: equal streams; int4_matmul launches = (4 x n_layers +
+               1) x forwards, every plain version 0; full-width logits against
+               the plain path (int4_matmul_plain, cosine >= 0.999); prefill,
+               ms/token, device ops and ms per token.
+ 11. engine_int4  wave 1 over the int4 weights through the paged engine,
+               the dense engine, then the paged engine with fusion "all":
+               paged streams equal dense 8/8; int4_matmul and
+               fused_norm_matmul.quantized launches derived from the
+               dispatches (the norm sites run rms_norm + the int4 product),
+               fused_norm_matmul's own kernel 0; TTFT, ms per decode step,
+               device idle share; int4_matmul timed at the engine's
+               prefill rows into w_gu.
+ 12. generate_int8  the same weights in int8, 16 greedy tokens: ms/token
+               and device ms (no kernel of its own: each product converts
+               the weight, multiplies and scales, three ops).
+ 13. cli       ``python -m cake_tpu_torch.cli`` on a small checkpoint written
                by the port's save_tiny_checkpoint: one prompt, the same with
-               ``--fusion all --decode-chunk 4``, then a ``--api-batch 4
-               --kv-mode paged`` server that answers a chat.
- 11.           ``{"kernels": [...]}``: one entry per kernel with its launches
-               on the main path (the fused phases for the fused kernels) and
-               its timings at the main path's shapes.
- 12.           ``{"ok": true, "device": {...}}`` as the last line.
+               ``--fusion all --decode-chunk 4``, with ``--quantize int4``,
+               a ``.q4`` checkpoint (save_tiny_checkpoint over an int4 tree)
+               with no flag, then a ``--api-batch 4 --kv-mode paged`` server
+               that answers a chat.
+ 14.           ``{"kernels": [...]}``: one entry per kernel with its launches
+               on the main path (the fused and int4 phases for their
+               kernels) and its timings at the main path's shapes.
+ 15.           ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits nonzero without a result when no CUDA device is present or when run
 outside a checkout of the repository.
@@ -755,6 +781,105 @@ def tail_cases(torch, dev):
     ]
 
 
+# Llama-3-8B's int4 projections: (site, in, out).
+INT4_SITES = (("wqkv", HIDDEN, (N_Q + 2 * N_KV) * HD), ("wo", N_Q * HD, HIDDEN),
+              ("w_gu", HIDDEN, 2 * INTER), ("w_down", INTER, HIDDEN), ("lm_head", HIDDEN, VOCAB))
+INT4_MAIN = "w_gu_rows1"  # the kernels line: the generator's decode into w_gu
+# One f16 and one f32 case beside the bf16 ones: (site, rows).
+INT4_OTHER_DTYPES = {"float16": ("w_gu", 8), "float32": ("wqkv", 8)}
+INT4_INDEPENDENT = ("wqkv", "w_gu", "w_down")  # row independence: splits, no split, 8 splits
+INDEPENDENT_ROWS = 3840  # the engine's prefill window: 8 lanes of ~480 rows
+
+
+def dtype_step(torch, ref, dtype) -> float:
+    """One rounding step of ``dtype`` at the largest magnitude of ``ref``
+    (f32: 1e-5 of it, another summation order)."""
+    import math
+
+    top = ref.float().abs().max().item()
+    if top == 0:
+        return 0.0
+    if dtype == torch.float32:
+        return 1e-5 * top
+    bits = 7 if dtype == torch.bfloat16 else 10
+    return 2.0 ** (math.floor(math.log2(top)) - bits)
+
+
+def _int4_case(torch, dev, g, site, qs, n_rows, dtype, case=None):
+    """int4_matmul at [n_rows, in] against ``qs`` (operand copies of one
+    int4 weight, rotated so each call reads its weight cold); the yardstick
+    is cuBLAS over the dequantized weight in x's dtype (copies rotated too)."""
+    from cake_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+    from cake_tpu_torch.ops.quant import dequantize_weight
+
+    in_dim, out_dim = qs[0].in_dim, qs[0].w.shape[-1]
+    x = (torch.randn(n_rows, in_dim, generator=g, device=dev)).to(dtype)
+    runs = [lambda q=q: int4_matmul(x, q.w, q.scale) for q in qs]
+    plains = [lambda q=q: int4_matmul_plain(x, q.w, q.scale) for q in qs]
+    out, ref = runs[0](), plains[0]()
+    torch.cuda.synchronize()
+    n_lib = min(len(qs), copies_for(in_dim * out_dim * x.element_size()))
+    dense = [dequantize_weight(q, dtype) for q in qs[:n_lib]]
+    libs = [lambda w=w: x @ w for w in dense]
+    library_ms = cuda_ms(torch, rotating(libs), 10 * n_lib)
+    del dense
+    nbytes = (qs[0].w.numel() + 4 * qs[0].scale.numel()
+              + (n_rows * in_dim + n_rows * out_dim) * x.element_size())
+    flops = 2.0 * n_rows * in_dim * out_dim
+    return _check(
+        torch, "int4_matmul", case or f"{site}_rows{n_rows}" + (
+            "" if dtype == torch.bfloat16 else "_" + str(dtype).removeprefix("torch.")),
+        out, ref, cuda_ms(torch, rotating(runs), 20 * len(qs)),
+        cuda_ms(torch, rotating(plains), 2 * len(qs)), nbytes, flops, library_ms,
+        copies=len(qs), cosine=True, tol=dtype_step(torch, ref, dtype),
+    )
+
+
+def _int4_independent(torch, dev, g, site, q) -> dict:
+    """Rows of 8-, 256- and INDEPENDENT_ROWS-row calls against the 1-row
+    call, to the bit: a row's sum must not depend on its neighbours."""
+    from cake_tpu_torch.ops.int4_matmul import int4_matmul
+
+    x = torch.randn(INDEPENDENT_ROWS, q.in_dim, generator=g, device=dev).to(torch.bfloat16)
+    full = int4_matmul(x, q.w, q.scale)
+    equal = {}
+    for n in (8, 256):
+        equal[f"rows{n}_prefix"] = bool(torch.equal(int4_matmul(x[:n], q.w, q.scale), full[:n]))
+    for r in (0, 7, 255, INDEPENDENT_ROWS - 1):
+        equal[f"row{r}"] = bool(torch.equal(int4_matmul(x[r : r + 1], q.w, q.scale), full[r : r + 1]))
+    torch.cuda.synchronize()
+    row = {"phase": "kernels", "kernel": "int4_matmul", "case": f"{site}_row_independence",
+           "rows": INDEPENDENT_ROWS, "equal": equal}
+    emit(row)
+    if not all(equal.values()):
+        raise AssertionError(f"int4_matmul rows depend on the call's other rows: {row}")
+    return row
+
+
+def int4_cases(torch, dev):
+    """int4_matmul into each of Llama-3-8B's projections, its weight
+    quantized from N(0, 1/in) bf16 draws; copies enough to read it cold."""
+    from cake_tpu_torch.ops.quant import quantize4_weight
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows_out = []
+    for site, in_dim, out_dim in INT4_SITES:
+        n_copy = copies_for(in_dim * out_dim // 2)
+        qs = [quantize4_weight(
+            (torch.randn(in_dim, out_dim, generator=g, device=dev) * in_dim**-0.5).to(torch.bfloat16)
+        ) for _ in range(n_copy)]
+        for n_rows in (1, 8, 256):
+            rows_out.append(_int4_case(torch, dev, g, site, qs, n_rows, torch.bfloat16))
+        for name, (other_site, n_rows) in INT4_OTHER_DTYPES.items():
+            if other_site == site:
+                rows_out.append(_int4_case(torch, dev, g, site, qs, n_rows, getattr(torch, name)))
+        if site in INT4_INDEPENDENT:
+            rows_out.append(_int4_independent(torch, dev, g, site, qs[0]))
+        del qs
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 def phase_kernels(torch) -> dict:
     dev = torch.device("cuda")
     rows = decode_cases(torch, dev) + chunk_cases(torch, dev) + flash_cases(torch, dev)
@@ -762,6 +887,7 @@ def phase_kernels(torch) -> dict:
     torch.cuda.empty_cache()
     rows += norm_matmul_cases(torch, dev) + ingest_cases(torch, dev) + tail_cases(torch, dev)
     torch.cuda.empty_cache()
+    rows += int4_cases(torch, dev)
     return {(r["kernel"], r["case"]): r for r in rows}
 
 
@@ -809,29 +935,33 @@ def _counters():
     )
 
 
+@contextlib.contextmanager
 def _plain_attention(M):
-    """Patch the model's attention calls to the plain versions (the
-    reference forward of the full-model check; never the main path)."""
+    """Patch the model's attention calls and the int4 product to the plain
+    versions (the reference forward of the full-model check; never the main
+    path)."""
     from unittest import mock
 
+    from cake_tpu_torch.ops import quant
     from cake_tpu_torch.ops.chunk_prefill import chunk_prefill_attention_plain
     from cake_tpu_torch.ops.decode_attention import decode_attention_plain
     from cake_tpu_torch.ops.flash_attention import flash_attention_plain
+    from cake_tpu_torch.ops.int4_matmul import int4_matmul_plain
 
-    stack = mock.patch.multiple(
+    with mock.patch.multiple(
         M,
         decode_attention=decode_attention_plain,
         chunk_prefill_attention=chunk_prefill_attention_plain,
         flash_attention=flash_attention_plain,
-    )
-    return stack
+    ), mock.patch.object(quant, "int4_matmul", int4_matmul_plain):
+        yield
 
 
 def _full_model_check(torch, M, config, params, dev, phase: str = "full_model_check") -> dict:
     """Full-width logits through the kernels against the same forward with
-    the plain attention versions and, for a fused config, unfused (the
-    composition each fused plain version is), on a short input (prefill at
-    0, a continuation chunk, two decode steps)."""
+    the plain attention and int4 versions and, for a fused config, unfused
+    (the composition each fused plain version is), on a short input
+    (prefill at 0, a continuation chunk, two decode steps)."""
     from cake_tpu_torch.models.llama.cache import init_cache
     from cake_tpu_torch.ops.rope import model_rope_tables
 
@@ -880,7 +1010,10 @@ def _kernel_family(name: str) -> str:
                            ("norm_matmul_wgmma_kernel", "fused_norm_matmul"),
                            ("norm_rows_kernel", "fused_norm_matmul"),
                            ("ingest_kernel", "fused_qkv_ingest"),
-                           ("tail_kernel", "fused_sample_tail")):
+                           ("tail_kernel", "fused_sample_tail"),
+                           ("int4_mma_kernel", "int4_matmul"),
+                           ("int4_f32_kernel", "int4_matmul"),
+                           ("int4_reduce_kernel", "int4_matmul")):
         if kernel in name:
             return family
     if "PagedLayout" in name:
@@ -1173,30 +1306,37 @@ def _fused_counters():
 
 
 def _paged_counters():
-    from cake_tpu_torch.ops import paged_attention, paged_prefill
+    from cake_tpu_torch.ops import int4_matmul, paged_attention, paged_prefill
 
     return _counters() + (
         paged_attention.paged_decode_attention,
         paged_prefill.paged_chunk_attention,
         paged_attention.paged_decode_attention_plain,
         paged_prefill.paged_chunk_attention_plain,
-    ) + _fused_counters()
+    ) + _fused_counters() + (int4_matmul.int4_matmul, int4_matmul.int4_matmul_plain)
+
+
+# Side counts a wrapper keeps beside its launches: calls it left to the
+# unfused composition, calls it routed to qmat for a quantized weight.
+_SIDE_COUNTS = ("unfused", "quantized")
 
 
 def _zero_counters():
     counters = _paged_counters()
     for c in counters:
         c.launches = 0
-        if hasattr(c, "unfused"):
-            c.unfused = 0
+        for side in _SIDE_COUNTS:
+            if hasattr(c, side):
+                setattr(c, side, 0)
     return counters
 
 
 def _counts(counters) -> dict:
-    """Each counter's launches, and the calls a fused wrapper left to the
-    unfused composition (``name.unfused``)."""
+    """Each counter's launches, and its side counts (``name.unfused``,
+    ``name.quantized``)."""
     out = {c.__name__: c.launches for c in counters}
-    out.update({f"{c.__name__}.unfused": c.unfused for c in counters if hasattr(c, "unfused")})
+    out.update({f"{c.__name__}.{side}": getattr(c, side)
+                for c in counters for side in _SIDE_COUNTS if hasattr(c, side)})
     return out
 
 
@@ -1596,19 +1736,40 @@ def step_recorder(step_cls):
         yield rec
 
 
-def _generator_expected(counters, rec, n_layers: int, on_card: bool):
-    """(launches, expected) of a fused ("all") generator run recorded by
+# int4_matmul calls a forward makes: wqkv, wo, w_gu, w_down in each layer,
+# and lm_head once (the last position's rows).
+def _int4_per_forward(n_layers: int) -> int:
+    return 4 * n_layers + 1
+
+
+def _int4_expected(expected: dict, forwards: int, n_layers: int, norm: bool, on_card: bool):
+    """Add an int4 tree's counts for ``forwards`` forwards: every product on
+    int4_matmul (its plain version off the card) and, with "norm", every
+    norm site (2 a layer and the head) routed to qmat, none on
+    fused_norm_matmul's own kernel or plain version."""
+    expected["int4_matmul" if on_card else "int4_matmul_plain"] = \
+        _int4_per_forward(n_layers) * forwards
+    if norm:
+        for key in ("fused_norm_matmul", "fused_norm_matmul_plain", "fused_norm_matmul.unfused"):
+            expected[key] = 0
+        expected["fused_norm_matmul.quantized"] = (2 * n_layers + 1) * forwards
+
+
+def _generator_expected(counters, rec, n_layers: int, on_card: bool, fused: bool = True,
+                        int4: bool = False):
+    """(launches, expected) of a generator run recorded by
     ``step_recorder``: the attention kernels per forward as in phase
-    generate, fused_norm_matmul per ``_norm_sites`` and fused_sample_tail
-    once per chunked step; off the card the plain versions take every call."""
+    generate; when ``fused`` ("all"), fused_norm_matmul per ``_norm_sites``
+    and fused_sample_tail once per chunked step; for an ``int4`` tree,
+    ``_int4_expected``; off the card the plain versions take every call."""
     launches = _counts(counters)
     expected = dict.fromkeys(launches, 0)
     decode = sum(n for _, n in rec["chunks"]) + sum(1 for _, w, _ in rec["calls"] if w == 1)
     first = sum(1 for _, w, p in rec["calls"] if w > 1 and p == 0)
     cont = sum(1 for _, w, p in rec["calls"] if w > 1 and p > 0)
     groups = [(b * w, b, 1) for b, w, _ in rec["calls"]] + [(b, b, n) for b, n in rec["chunks"]]
-    kernel, unfused = _norm_sites(groups, n_layers)
-    tail = sum(n for _, n in rec["chunks"])
+    kernel, unfused = _norm_sites(groups, n_layers) if fused else (0, 0)
+    tail = sum(n for _, n in rec["chunks"]) if fused else 0
     if on_card:
         expected.update({
             "decode_attention": n_layers * decode,
@@ -1624,6 +1785,9 @@ def _generator_expected(counters, rec, n_layers: int, on_card: bool):
             "fused_norm_matmul_plain": kernel + unfused,
             "fused_sample_tail_plain": tail,
         })
+    if int4:
+        forwards = len(rec["calls"]) + sum(n for _, n in rec["chunks"])
+        _int4_expected(expected, forwards, n_layers, fused, on_card)
     return launches, expected
 
 
@@ -1736,12 +1900,15 @@ def dispatch_recorder(backend):
             delattr(backend, name)
 
 
-def _engine_fused_expected(counters, rec, fusions, kv_mode: str, n_layers: int, on_card: bool):
+def _engine_fused_expected(counters, rec, fusions, kv_mode: str, n_layers: int, on_card: bool,
+                           int4: bool = False):
     """(launches, expected) of engine dispatches recorded by
     ``dispatch_recorder``: the attention gates of phase engine, and per
     enabled fusion fused_qkv_ingest = n_layers x decode steps,
     fused_sample_tail = decode steps, fused_norm_matmul per ``_norm_sites``;
-    off the card the plain versions take every call."""
+    for an ``int4`` tree ``_int4_expected`` over one forward a prefill
+    dispatch and one a decode step; off the card the plain versions take
+    every call."""
     launches = _counts(counters)
     expected = dict.fromkeys(launches, 0)
     decode, chunk = (("paged_decode_attention", "paged_chunk_attention") if kv_mode == "paged"
@@ -1762,11 +1929,14 @@ def _engine_fused_expected(counters, rec, fusions, kv_mode: str, n_layers: int, 
         expected["fused_qkv_ingest" + sfx] = n_layers * steps
     if "tail" in fusions:
         expected["fused_sample_tail" + sfx] = steps
+    if int4:
+        _int4_expected(expected, len(rec["prefills"]) + steps, n_layers, "norm" in fusions,
+                       on_card)
     return launches, expected
 
 
 def _fused_engine_run(torch, make, spec: str, kv_mode: str, n_layers: int, on_card: bool,
-                      sampled: bool) -> dict:
+                      sampled: bool, int4: bool = False) -> dict:
     """One engine with fusion ``spec``: a warm-up wave, then wave 1 (and the
     sampled wave) under the launch gate, then two warm profiled waves of 16
     and 32 tokens: their difference gives the device ops and ms of 16 decode
@@ -1788,7 +1958,7 @@ def _fused_engine_run(torch, make, spec: str, kv_mode: str, n_layers: int, on_ca
                     SamplingConfig(seed=100 + i, **SAMPLED_KNOBS) for i in range(ENGINE_BATCH)
                 ]))
         launches, expected = _engine_fused_expected(
-            counters, rec, parse_fusion_spec(spec), kv_mode, n_layers, on_card)
+            counters, rec, parse_fusion_spec(spec), kv_mode, n_layers, on_card, int4)
         timed = _wave(eng, 16)
         profile = None
         if on_card:
@@ -1807,7 +1977,7 @@ def _fused_engine_run(torch, make, spec: str, kv_mode: str, n_layers: int, on_ca
         eng.stop()
     return {"spec": spec, "kv_mode": kv_mode, "waves": waves, "launches": launches,
             "expected_launches": expected, "profile_wave_wall_ms": 1e3 * timed["wall_s"],
-            "profile": profile}
+            "profile": profile, "prefills": rec["prefills"]}
 
 
 def phase_engine_fused(torch, main_path: dict) -> dict:
@@ -1893,7 +2063,195 @@ def phase_engine_fused(torch, main_path: dict) -> dict:
     return row
 
 
-# ---------------------------------------------------------------- phase 10
+# ---------------------------------------------------------------- phase 10-12
+
+
+def _quantized_step(torch, main_path: dict, mode: str):
+    """(config, params, step, quantize seconds, streamed bytes): the generate
+    phase's weights quantized on the card, one layer slice at a time, and a
+    step over them. The streamed bytes are what a decode token reads: every
+    weight but the embedding (a gather of one row)."""
+    from cake_tpu_torch.models.llama.generator import LocalForwardStep
+    from cake_tpu_torch.ops.quant import quantize_params, quantized_bytes
+
+    gen0 = main_path["generator"]
+    dev = gen0.step.device
+    t0 = time.perf_counter()
+    params = quantize_params(gen0.step.params, mode)
+    _sync(torch, dev)
+    quant_s = time.perf_counter() - t0
+    streamed = quantized_bytes({k: v for k, v in params.items() if k != "embed"})
+    step = LocalForwardStep(gen0.config, params, max_seq_len=MAX_SEQ,
+                            cache_dtype=torch.bfloat16, device=dev)
+    return gen0.config, params, step, quant_s, streamed
+
+
+def _quantized_generate(torch, main_path: dict, step, chunk: int, n_tokens: int, int4: bool):
+    """One warmed-up greedy run of the generate phase's prompt over ``step``
+    with ``chunk``-token decode, gated on the launches its forwards imply."""
+    from cake_tpu_torch.models.llama.chat import Message
+    from cake_tpu_torch.models.llama.generator import LlamaGenerator, LocalForwardStep
+
+    gen0, text = main_path["generator"], main_path["text"]
+    dev = step.device
+    gen = LlamaGenerator(gen0.config, step, gen0.tokenizer, gen0.sampling,
+                         prefill_chunk=PREFILL_CHUNK, decode_chunk_size=chunk)
+    gen.add_message(Message.user(text))
+    gen.generate(chunk + 2)  # warm-up
+    _sync(torch, dev)
+    counters = _zero_counters()
+    gen.reset()
+    gen.add_message(Message.user(text))
+    stamps = []
+    with step_recorder(LocalForwardStep) as rec:
+        t_start = time.perf_counter()
+        gen.generate(n_tokens, on_token=lambda tok: stamps.append(time.perf_counter()))
+        _sync(torch, dev)
+    launches, expected = _generator_expected(
+        counters, rec, gen0.config.num_hidden_layers, dev.type == "cuda", fused=False, int4=int4)
+    ids = gen.generated_token_ids
+    n_gen = len(ids)
+    decode_s = stamps[-1] - stamps[0] if n_gen > 1 else float("nan")
+    run = {
+        "decode_chunk": chunk, "generated_tokens": n_gen, "chunks": len(rec["chunks"]),
+        "step_calls": len(rec["calls"]), "prefill_s": stamps[0] - t_start,
+        "decode_ms_per_token": 1e3 * decode_s / (n_gen - 1) if n_gen > 1 else None,
+        "launches": launches, "expected_launches": expected,
+    }
+    if launches != expected:
+        emit({"phase": "quantized_generate", **run})
+        raise AssertionError(f"quantized generator launch counts {launches} != {expected}")
+    if n_gen < 1 or not all(0 <= t < gen0.config.vocab_size for t in ids):
+        raise AssertionError(f"generated ids out of range: {ids}")
+    return gen, ids, run
+
+
+def phase_generate_int4(torch, main_path: dict) -> dict:
+    """The generate phase's weights in int4: 64 greedy tokens per token and
+    with 8-token chunks (equal streams), every product on int4_matmul,
+    full-width logits against the plain path, the device profile. Returns
+    the row with the int4 params under "params" for phase engine_int4."""
+    from cake_tpu_torch.models.llama import model as M
+
+    config, params, step, quant_s, streamed = _quantized_step(torch, main_path, "int4")
+    dev = step.device
+    gen, ids, per_token = _quantized_generate(torch, main_path, step, 1, DECODE_TOKENS, True)
+    _, ids_chunked, chunked = _quantized_generate(
+        torch, main_path, step, FUSED_CHUNK, DECODE_TOKENS, True)
+    row = {
+        "phase": "generate_int4",
+        "card": main_path["card"],
+        "quantize_s": quant_s,
+        "streamed_gb": streamed / 1e9,
+        "decode_bound_ms_per_token": streamed / HBM_BYTES_PER_S * 1e3,
+        "runs": [per_token, chunked],
+        "chunked_equal_tokens": sum(a == b for a, b in zip(ids, ids_chunked)),
+        "bf16_decode_ms_per_token": main_path["decode_ms_per_token"],
+        "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None,
+    }
+    emit(row)
+    if ids_chunked != ids:
+        raise AssertionError(f"int4 chunked decode parted from per-token decode: {row}")
+    if dev.type == "cuda":
+        row["profile"] = _profile_main_path(torch, gen, main_path["text"],
+                                            per_token["decode_ms_per_token"], phase="profile_int4")
+    row["check"] = _full_model_check(torch, M, config, step.params, dev, phase="int4_model_check")
+    row["int4_launches"] = sum(r["launches"]["int4_matmul"] for r in row["runs"])
+    row["params"] = step.params
+    del gen, step
+    return row
+
+
+def phase_engine_int4(torch, main_path: dict, int4_path: dict) -> dict:
+    """Wave 1 over the int4 weights through the paged engine, the dense
+    engine and the paged engine with every fusion, one engine at a time;
+    then int4_matmul timed at the engine's first prefill window into w_gu
+    (layer 0's quantized weight)."""
+    from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+
+    gen = main_path["generator"]
+    config, params, dev = gen.config, int4_path["params"], gen.step.device
+    n_layers = config.num_hidden_layers
+    on_card = dev.type == "cuda"
+
+    def make(**kw):
+        serve = ServeConfig(max_batch=ENGINE_BATCH, decode_chunk_size=8, **kw)
+        eng = BatchEngine(config, params, gen.tokenizer, max_seq_len=ENGINE_MAX_SEQ,
+                          cache_dtype=torch.bfloat16, serve=serve, device=dev)
+        eng.start()
+        return eng
+
+    runs = []
+    for spec, kv_mode in (("none", "paged"), ("none", "dense"), ("all", "paged")):
+        runs.append(_fused_engine_run(torch, make, spec, kv_mode, n_layers, on_card,
+                                      sampled=False, int4=True))
+        if on_card:
+            torch.cuda.empty_cache()
+    paged, dense, fused = runs
+
+    def summary(r):
+        w = r["waves"][0]
+        return {"spec": r["spec"], "kv_mode": r["kv_mode"], "ttft_p50_s": w["ttft_p50_s"],
+                "ttft_max_s": w["ttft_max_s"], "decode_ms_per_step": w["decode_ms_per_step"],
+                "decode_tok_s": w["decode_tok_s"], "profile_wave_wall_ms": r["profile_wave_wall_ms"],
+                "profile": r["profile"], "prefills": r["prefills"][:4], "launches": r["launches"],
+                "expected_launches": r["expected_launches"]}
+
+    def equal(a, b):
+        return sum(x == y for x, y in zip(a["waves"][0]["streams"], b["waves"][0]["streams"]))
+
+    row = {
+        "phase": "engine_int4",
+        "card": main_path["card"],
+        "config": {"page_size": ENGINE_PAGE, "max_seq": ENGINE_MAX_SEQ, "max_batch": ENGINE_BATCH,
+                   "decode_chunk": 8, "tokens_out": ENGINE_TOKENS, "layers": n_layers},
+        "runs": [summary(r) for r in runs],
+        "dense_equal_paged": equal(dense, paged),
+        "all_equal_none": equal(fused, paged),
+    }
+    emit(row)
+    for r in runs:
+        if r["launches"] != r["expected_launches"]:
+            raise AssertionError(
+                f"int4 {r['kv_mode']} engine with fusion {r['spec']}: launch counts "
+                f"{r['launches']} != expected {r['expected_launches']}")
+        for w in r["waves"]:
+            if not all(1 <= len(ids) <= ENGINE_TOKENS and all(0 <= t < config.vocab_size for t in ids)
+                       for ids in w["streams"]):
+                raise AssertionError(f"engine streams out of range: {w['completion_tokens']}")
+    if row["dense_equal_paged"] != ENGINE_BATCH:
+        raise AssertionError(f"int4 dense engine streams differ from paged: {row['dense_equal_paged']}")
+    row["int4_launches"] = sum(r["launches"]["int4_matmul"] for r in runs)
+    if on_card:
+        rows = paged["prefills"][0][0]
+        g = torch.Generator(device=dev).manual_seed(12)
+        case = _int4_case(torch, dev, g, "w_gu", [params["layers"]["w_gu"][0]], rows,
+                          torch.bfloat16, case="w_gu_engine_prefill")
+        row["kernel_rows"] = {("int4_matmul", case["case"]): case}
+    return row
+
+
+def phase_generate_int8(torch, main_path: dict) -> dict:
+    """The generate phase's weights in int8: 16 greedy tokens per token and
+    their device profile. int8 has no kernel of its own: each product
+    converts the weight to the activation dtype, multiplies and scales."""
+    config, params, step, quant_s, streamed = _quantized_step(torch, main_path, "int8")
+    dev = step.device
+    gen, ids, run = _quantized_generate(torch, main_path, step, 1, 16, False)
+    row = {
+        "phase": "generate_int8", "card": main_path["card"], "quantize_s": quant_s,
+        "streamed_gb": streamed / 1e9, "decode_bound_ms_per_token": streamed / HBM_BYTES_PER_S * 1e3,
+        "run": run, "bf16_decode_ms_per_token": main_path["decode_ms_per_token"],
+    }
+    emit(row)
+    if dev.type == "cuda":
+        row["profile"] = _profile_main_path(torch, gen, main_path["text"],
+                                            run["decode_ms_per_token"], phase="profile_int8")
+    del gen, step, params
+    return row
+
+
+# ---------------------------------------------------------------- phase 13
 
 
 def _free_port() -> int:
@@ -1947,6 +2305,7 @@ def phase_cli(torch, extra_args=()) -> None:
     from cake_tpu_torch.io.safetensors_io import save_tiny_checkpoint
     from cake_tpu_torch.models.llama import model as M
     from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.ops.quant import quantize_params
 
     # Llama-3 layout cut to hidden 512, 2 layers, the byte tokenizer's vocab.
     config = LlamaConfig.tiny(
@@ -1955,14 +2314,21 @@ def phase_cli(torch, extra_args=()) -> None:
     )
     params = M.init_params(config, torch.Generator().manual_seed(3), torch.float32)
     here = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, tempfile.TemporaryDirectory() as tmp_q4:
         save_tiny_checkpoint(tmp, params, config, dtype=torch.bfloat16)
+        # The same weights as a .q4 checkpoint: it loads quantized, no flag.
+        save_tiny_checkpoint(tmp_q4, quantize_params(params, "int4"), config, dtype=torch.bfloat16)
         cli = [sys.executable, "-m", "cake_tpu_torch.cli", "--model", tmp]
         row = {"phase": "cli"}
-        for key, flags in (("prompt", ()), ("fused", ("--fusion", "all", "--decode-chunk", "4"))):
+        for key, model, flags in (
+            ("prompt", tmp, ()),
+            ("fused", tmp, ("--fusion", "all", "--decode-chunk", "4")),
+            ("quantize_int4", tmp, ("--quantize", "int4")),
+            ("q4_checkpoint", tmp_q4, ()),
+        ):
             t0 = time.perf_counter()
             proc = subprocess.run(
-                [*cli, "--prompt", "hi", "-n", "8", *flags, *extra_args],
+                [*cli[:-1], model, "--prompt", "hi", "-n", "8", *flags, *extra_args],
                 cwd=here, capture_output=True, text=True, timeout=600,
             )
             row[key] = {"returncode": proc.returncode, "s": time.perf_counter() - t0,
@@ -1981,12 +2347,15 @@ def phase_cli(torch, extra_args=()) -> None:
 # ---------------------------------------------------------------- phase 9
 
 
-def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=()) -> dict:
+def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(),
+                   int4_paths=()) -> dict:
     # The generate phase counted the dense kernels, the engine phase the paged
-    # ones, the fused phases (generate_fused, engine_fused) the fused ones.
+    # ones, the fused phases (generate_fused, engine_fused) the fused ones,
+    # the int4 phases (generate_int4, engine_int4) int4_matmul.
     launches = {**engine_path["launches"], **main_path["launches"]}
     for name in FUSED_MAIN:
         launches[name] = sum(p["fused_launches"][name] for p in fused_paths)
+    launches["int4_matmul"] = sum(p["int4_launches"] for p in int4_paths)
     spec = [
         ("decode_attention", "cake_tpu_torch/ops/csrc/decode_attention.cu",
          "cake_tpu/ops/pallas/decode_attention.py:106", ("decode_attention",),
@@ -2009,6 +2378,8 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(
         ("fused_sample_tail", "cake_tpu_torch/ops/csrc/fused_sample_tail.cu",
          "cake_tpu/ops/pallas/fused_sample_tail.py:172", ("fused_sample_tail",),
          ("fused_sample_tail", FUSED_MAIN["fused_sample_tail"])),
+        ("int4_matmul", "cake_tpu_torch/ops/csrc/int4_matmul.cu",
+         "cake_tpu/ops/pallas/int4_matmul.py:90", ("int4_matmul",), ("int4_matmul", INT4_MAIN)),
     ]
     out = []
     for name, source, replaces, families, timed in spec:
@@ -2016,7 +2387,8 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for k, r in rows.items() if k[0] in families),
+            "max_abs_err": max(r["max_abs_err"] for k, r in rows.items()
+                               if k[0] in families and "max_abs_err" in r),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
@@ -2042,8 +2414,16 @@ def main() -> int:
     kernel_rows.update(engine_kernel_cases(torch, engine_path))
     phase_api_engine(main_path, engine_path)
     fused_paths = (phase_generate_fused(torch, main_path), phase_engine_fused(torch, main_path))
+    int4_path = phase_generate_int4(torch, main_path)
+    int4_engine = phase_engine_int4(torch, main_path, int4_path)
+    kernel_rows.update(int4_engine["kernel_rows"])
+    del int4_path["params"]
+    torch.cuda.empty_cache()
+    phase_generate_int8(torch, main_path)
+    torch.cuda.empty_cache()
     phase_cli(torch)
-    emit(kernel_summary(kernel_rows, main_path, engine_path, fused_paths))
+    emit(kernel_summary(kernel_rows, main_path, engine_path, fused_paths,
+                        (int4_path, int4_engine)))
     emit({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -78,22 +78,45 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
     assert fused_engine["ingest_tail_equal_streams"] == [smoke.ENGINE_BATCH] * 2
     assert fused_engine["all_equal_streams"] == [smoke.ENGINE_BATCH] * 2
     assert fused_engine["check"]["max_abs_err"] == fused_engine["dense_check"]["max_abs_err"] == 0.0
+    int4 = smoke.phase_generate_int4(torch, row)
+    for r in int4["runs"]:
+        assert r["launches"] == r["expected_launches"]
+        assert r["launches"]["int4_matmul_plain"] > 0 and r["launches"]["int4_matmul"] == 0
+    assert int4["chunked_equal_tokens"] == smoke.DECODE_TOKENS
+    assert int4["check"]["max_abs_err"] == 0.0  # on the CPU both runs are plain
+    int4_engine = smoke.phase_engine_int4(torch, row, int4)
+    assert [(r["spec"], r["kv_mode"]) for r in int4_engine["runs"]] == [
+        ("none", "paged"), ("none", "dense"), ("all", "paged")]
+    for r in int4_engine["runs"]:
+        assert r["launches"] == r["expected_launches"]
+        assert r["launches"]["int4_matmul_plain"] > 0
+    fused_int4 = int4_engine["runs"][2]["launches"]
+    assert fused_int4["fused_norm_matmul.quantized"] > 0
+    assert fused_int4["fused_norm_matmul_plain"] == fused_int4["fused_norm_matmul"] == 0
+    assert int4_engine["dense_equal_paged"] == int4_engine["all_equal_none"] == smoke.ENGINE_BATCH
+    int8 = smoke.phase_generate_int8(torch, row)
+    assert int8["run"]["launches"] == int8["run"]["expected_launches"]
+    assert int8["run"]["launches"]["int4_matmul_plain"] == 0
     smoke.phase_cli(torch, ("--device", "cpu"))
     timed = {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5,
              "bound_by": "bytes", "library_ms": None}
     names = ["decode_attention", "chunk_prefill_attention", "paged_decode_attention",
              "paged_chunk_attention", "fused_norm_matmul", "fused_qkv_ingest",
-             "fused_sample_tail"]
+             "fused_sample_tail", "int4_matmul"]
     rows = {(name, "main_path"): timed for name in names[:4]}
     rows.update({(name, case): timed for name, case in smoke.FUSED_MAIN.items()})
-    summary = smoke.kernel_summary(rows, row, engine, (fused_gen, fused_engine))
+    rows[("int4_matmul", smoke.INT4_MAIN)] = timed
+    rows[("int4_matmul", "w_gu_row_independence")] = {"equal": {"row0": True}}
+    summary = smoke.kernel_summary(rows, row, engine, (fused_gen, fused_engine),
+                                   (int4, int4_engine))
     assert [k["name"] for k in summary["kernels"]] == names
     assert all(set(k) == KERNEL_KEYS for k in summary["kernels"])
+    assert summary["kernels"][-1]["launches"] == int4["int4_launches"] + int4_engine["int4_launches"]
     phases = [json.loads(line)["phase"] for line in capsys.readouterr().out.splitlines()]
     assert phases == ["generate", "full_model_check", "api", "engine", "paged_model_check",
                       "dense_model_check", "api_engine", "generate_fused", "fused_model_check",
                       "engine_fused", "paged_fused_model_check", "dense_fused_model_check",
-                      "cli"]
+                      "generate_int4", "int4_model_check", "engine_int4", "generate_int8", "cli"]
 
 
 @pytest.mark.parametrize("kv_mode", ["paged", "dense"])
@@ -171,6 +194,9 @@ def test_bound_takes_the_larger_of_bytes_and_operations(smoke):
         ("void cake::norm_rows_kernel<__nv_bfloat16>(...)", "fused_norm_matmul"),
         ("void cake::ingest_kernel<__nv_bfloat16>(...)", "fused_qkv_ingest"),
         ("void cake::tail_kernel<true, true, true>(...)", "fused_sample_tail"),
+        ("void cake::int4mm::int4_mma_kernel<__nv_bfloat16, 16, 1, false>(...)", "int4_matmul"),
+        ("void cake::int4mm::int4_f32_kernel(...)", "int4_matmul"),
+        ("void cake::int4mm::int4_reduce_kernel<__nv_bfloat16>(...)", "int4_matmul"),
     ],
 )
 def test_profile_kernel_families(smoke, name, family):

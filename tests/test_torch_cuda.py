@@ -691,3 +691,176 @@ def test_generator_chunks_equal_per_step_on_the_card(dev, tmp_path):
     before = fused_norm_matmul.launches
     gen.generate(9)
     assert fused_norm_matmul.launches > before and len(gen.generated_token_ids) >= 1
+
+
+# ------------------------------------------------------------ int4_matmul
+#
+# The kernel against int4_matmul_plain (the same scaled-then-rounded weight,
+# an f32 product): another summation order may round an output one step of
+# its dtype the other way (f32: 1e-5 of the largest output).
+
+
+def _int4_weight(dev, in_dim, out, group, seed):
+    from cake_tpu_torch.ops.quant import _quantize4_2d
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(in_dim, out, generator=gen, device=dev) * in_dim**-0.5
+    return _quantize4_2d(w, group)
+
+
+def _int4_close(out, ref, dtype):
+    import math
+
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == ref.dtype == dtype
+    assert torch.isfinite(out).all()
+    top = ref.float().abs().max().item()
+    bits = {torch.bfloat16: 7, torch.float16: 10}.get(dtype)
+    tol = 1e-5 * top if bits is None else 2.0 ** (math.floor(math.log2(top)) - bits)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol, f"max-abs {err} > {tol}"
+    cos = torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0)
+    assert cos.item() >= 0.9999
+
+
+INT4_ROWS = [1, 2, 4, 8, 16, 64, 256, 300, 3840]
+# (in, out, group): group sizes 32, 64, 128, a tiny width's 16 and a group
+# that is neither a divisor nor a multiple of the 64-row K step (24); split
+# K on and off; a ragged last K step (in 96) and a half column strip (48).
+INT4_SHAPES = [(1024, 384, 32), (1024, 512, 64), (2048, 640, 128), (64, 128, 16), (96, 48, 24)]
+
+
+@pytest.mark.parametrize("shape", INT4_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("rows", INT4_ROWS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_int4_kernel_matches_plain(dev, dtype, rows, shape):
+    from cake_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    in_dim, out, group = shape
+    q = _int4_weight(dev, in_dim, out, group, rows + in_dim)
+    x = _randn(torch.Generator(device=dev).manual_seed(rows), dev, dtype, rows, in_dim)
+    before = int4_matmul.launches
+    got = int4_matmul(x, q.w, q.scale)
+    assert int4_matmul.launches == before + 1
+    _int4_close(got, int4_matmul_plain(x, q.w, q.scale), dtype)
+
+
+LLAMA3_INT4 = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (4096, 128256)]
+
+
+@pytest.mark.parametrize("shape", LLAMA3_INT4, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_int4_kernel_at_llama3_widths(dev, dtype, shape):
+    from cake_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    q = _int4_weight(dev, *shape, 128, shape[1])
+    for rows in (1, 8, 256):
+        x = _randn(torch.Generator(device=dev).manual_seed(rows), dev, dtype, rows, shape[0])
+        _int4_close(int4_matmul(x, q.w, q.scale), int4_matmul_plain(x, q.w, q.scale), dtype)
+
+
+@pytest.mark.parametrize("shape", [(4096, 6144), (4096, 28672), (14336, 4096), (1024, 384)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_int4_rows_are_independent_bitwise(dev, dtype, shape):
+    """A row's bits do not depend on the rows beside it: every prefix and
+    single row of a 3840-row call (split K in one pass and in two) equals
+    that row's own call."""
+    from cake_tpu_torch.ops.int4_matmul import int4_matmul
+
+    q = _int4_weight(dev, *shape, 128, 7)
+    x = _randn(torch.Generator(device=dev).manual_seed(3), dev, dtype, 3840, shape[0])
+    full = int4_matmul(x, q.w, q.scale)
+    for n in (1, 2, 8, 16, 17, 64, 256, 300):
+        assert torch.equal(int4_matmul(x[:n], q.w, q.scale), full[:n]), n
+    for r in (0, 9, 255, 3839):
+        assert torch.equal(int4_matmul(x[r : r + 1], q.w, q.scale), full[r : r + 1]), r
+
+
+def test_int4_sign_extends_every_nibble(dev):
+    """Packed bytes holding every nibble -8 .. 7 in both halves (a
+    quantizer writes -7 .. 7; -8 only a hand-built byte holds), unit
+    scales: the product is exact in f32 and must equal the plain version."""
+    from cake_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain, unpack4
+
+    packed = torch.arange(-128, 128, dtype=torch.int8, device=dev).reshape(16, 16).repeat(1, 2)
+    lo, hi = unpack4(packed)
+    assert lo.min().item() == hi.min().item() == -8 and lo.max().item() == hi.max().item() == 7
+    scale = torch.ones(2, 32, dtype=torch.float32, device=dev)
+    eye = torch.eye(32, device=dev)
+    for dtype in DTYPES:
+        got = int4_matmul(eye.to(dtype), packed, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got, int4_matmul_plain(eye.to(dtype), packed, scale))
+        want = torch.stack([lo, hi], dim=1).reshape(32, 32).to(dtype)
+        assert torch.equal(got, want)
+
+
+def test_int4_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from cake_tpu_torch.ops.int4_matmul import int4_matmul
+
+    q = _int4_weight(dev, 256, 128, 64, 0)
+    x = torch.randn(3, 256, device=dev, dtype=torch.bfloat16)
+    bad = [
+        (x, q.w, q.scale.to(torch.bfloat16)),            # scale not f32
+        (x, q.w.to(torch.uint8), q.scale),               # packed not int8
+        (x.to(torch.int32), q.w, q.scale),               # activations
+        (x[:, :128], q.w, q.scale),                      # in != 2 * packed rows
+        (x, q.w, q.scale[:3]),                           # 3 groups: odd rows a group
+        (x, q.w[:, :120], q.scale[:, :120]),             # out not a multiple of 16
+        (x, q.w.t().contiguous().t(), q.scale),          # a strided packed view
+        (torch.zeros(3 * 256 + 8, device=dev, dtype=torch.bfloat16)[1:3 * 256 + 1].view(3, 256),
+         q.w, q.scale),                                  # x not 16-byte aligned
+        (x, q.w.cpu(), q.scale),                         # mixed devices
+        (x[None], q.w, q.scale),                         # x not 2-D
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            int4_matmul(*args)
+
+
+def test_int4_generator_and_engine_on_the_card(dev, tmp_path):
+    """A .q4 checkpoint (the port's save_tiny_checkpoint over an int4 tree)
+    loads quantized; per-step and 4-token decode give one stream; the paged
+    and dense engines give it too; every int4 product launched the kernel
+    and no plain version ran."""
+    from cake_tpu_torch.io.safetensors_io import save_tiny_checkpoint
+    from cake_tpu_torch.models.llama import model as M
+    from cake_tpu_torch.models.llama.chat import Message
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.models.llama.generator import LlamaGenerator, SamplingConfig
+    from cake_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+    from cake_tpu_torch.ops.quant import quantize_params, tree_quantization
+    from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                           num_attention_heads=4, num_key_value_heads=2,
+                           tie_word_embeddings=False)
+    params = M.init_params(cfg, torch.Generator().manual_seed(2), torch.float32)
+    save_tiny_checkpoint(tmp_path, quantize_params(params, "int4"), cfg)
+    greedy = SamplingConfig(temperature=0.0, repeat_penalty=1.0)
+    plain0, streams = int4_matmul_plain.launches, []
+    for chunk in (1, 4):
+        gen = LlamaGenerator.load(tmp_path, dtype=torch.bfloat16, max_seq_len=256, sampling=greedy,
+                                  device=dev, decode_chunk_size=chunk, prefill_chunk=16)
+        assert tree_quantization(gen.step.params) == "int4"
+        gen.add_message(Message.user("tell me a story about a cake"))
+        before = int4_matmul.launches
+        gen.generate(12)
+        assert int4_matmul.launches > before
+        streams.append(list(gen.generated_token_ids))
+    assert streams[0] == streams[1]
+    engine_streams = {}
+    for kv_mode in ("paged", "dense"):
+        serve = ServeConfig(max_batch=4, decode_chunk_size=4, kv_mode=kv_mode,
+                            **({"page_size": 128} if kv_mode == "paged" else {}))
+        eng = BatchEngine(cfg, gen.step.params, gen.tokenizer, max_seq_len=256,
+                          cache_dtype=torch.bfloat16, serve=serve, device=dev)
+        eng.start()
+        try:
+            hs = [eng.submit([Message.user(u)], 8, greedy) for u in ("a cake", "bread", "pie")]
+            engine_streams[kv_mode] = [[t.id for t in h.tokens()] for h in hs]
+        finally:
+            eng.stop()
+    assert engine_streams["paged"] == engine_streams["dense"]
+    assert int4_matmul_plain.launches == plain0
