@@ -84,7 +84,8 @@ _SIGNATURES = {
     ),
     "cake_int4_matmul": (
         _VOID, _VOID, _VOID, _VOID, _VOID,           # x packed scale out scratch (NULL: one pass)
-        _INT, _INT, _INT, _INT, _INT, _INT, _VOID,   # rows K N group per dtype stream
+        _INT, _INT, _INT, _INT, _INT,                # rows K N group per
+        _INT, _INT, _VOID,                           # tile dtype stream
     ),
     "cake_fused_sample_tail": (
         _VOID, _VOID, _VOID, _VOID,                  # logits ring noise (NULL: greedy) out

@@ -7,17 +7,19 @@ kernel through ``ops/flash_attention.py``.
 
 What bounds it on the H100: at the main path's chunk sizes (hundreds to
 thousands of queries over a prefix of the same order) the products, about
-4*head_dim FLOPs per (query, key) pair, outweigh the bytes; the kernel is
-compute-bound and, running its products on the CUDA cores in f32, far from
-the tensor-core peak.
+4*head_dim FLOPs per (query, key) pair, outweigh the bytes: the tensor
+cores' rate bounds it.
 
-What the design does about it: one block per (32-query tile, query head,
-row) keeps its Q tile and a 64-key K/V tile in shared memory, so each K/V
-row is read once per query tile and every score stays on chip; the key loop
-starts at the first key any row of the tile needs (``k_starts``, the window)
-and stops at the last (the causal end, ``lengths``), so masked-out blocks
-cost nothing, as the reference's block pruning. Tensor-core tiles are the
-next step.
+What the design does about it (``ops/csrc/chunk_prefill.cuh``): for f16/bf16
+one block per (64 (query, head) rows of a KV head's GQA group, row) keeps
+its Q rows and a 64-key K/V tile in shared memory, reads each K/V tile once
+for the whole group, and runs S = Q K^T and P V on mma.sync m16n8k16 with
+f32 accumulation, the softmax state in f32 registers; f32 inputs take the
+same loop on the CUDA cores. The key loop starts at the first key any row
+of the block needs (``k_starts``, the window) and stops at the last (the
+causal end, ``lengths``), so masked-out blocks cost nothing, as the
+reference's block pruning; its tiles sit at multiples of 64 in key
+position, so a query's bits do not depend on the block that holds it.
 
 For a tensor on the CPU the wrapper runs :func:`chunk_prefill_attention_plain`;
 for a CUDA tensor it launches the kernel or raises.

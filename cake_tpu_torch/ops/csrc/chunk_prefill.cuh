@@ -13,32 +13,44 @@
 // p@v, as in the reference.
 //
 // Bound on the H100: at the main path's shapes (a 256-2048 token chunk over
-// a prefix of the same order, head_dim 128) the work is about 2*head_dim
-// FLOPs per (query, key) pair against 4*head_dim bytes per key row, so a
-// kernel that streams each K/V row once per query tile is compute-bound;
-// the bytes bound (Q, K, V read once, O written once) is lower.
+// a prefix of the same order, head_dim 128) the work is about 4*head_dim
+// FLOPs per (query, key) pair against 4*head_dim bytes per key row read
+// once, so the kernel is bound by the tensor cores' operations.
 //
-// Design: one block per (query tile of 32 rows, query head, batch row),
-// 128 threads. The block loops over 64-key tiles from the first key any of
-// its rows needs (k_starts and the window) to the last (the causal end and
-// lengths): pruning is the loop bound, as the reference's block pruning.
-// Q, K and V tiles sit in shared memory (rows padded by 16 bytes against
-// bank conflicts); each thread owns a 4x4 block of scores, its 4 rows' online
-// softmax state (rows shared by 16 lanes of a half-warp, reduced with
-// shuffles) and a 4 x head_dim/16 slice of the output accumulator. The
-// products run on the CUDA cores in f32; tensor-core tiles (mma.sync, then
-// wgmma with TMA) are the next step.
+// Design (f16, bf16: chunk_kernel_tc): one block per (64 rows, KV head,
+// batch row), 4 warps of 16 rows. A row is a (query, head) pair of the KV
+// head's GQA group, queries outer, so the block covers 64 / group queries
+// of every head of the group and each K/V tile is read once for the group
+// (not once per query head). Both products run on the tensor cores,
+// mma.sync m16n8k16 with f32 accumulation: S = Q K^T from ldmatrix
+// fragments of the Q tile and a 64-key K tile, then the online softmax in
+// f32 on the accumulators (a row's scores on the 4 threads of a quad), then
+// O += P V with P rounded to the dtype and fed straight from the score
+// registers as the A fragments, V through ldmatrix.trans. K/V tiles land
+// through cp.async, two stages, the next tile in flight while the current
+// one is used. f32 takes chunk_kernel, the same loop on the CUDA cores:
+// 32-query tiles of one head, each thread a 4x4 block of scores.
+//
+// Both bodies loop over 64-key tiles from the first key any row needs
+// (k_starts and the window) to the last (the causal end and lengths):
+// pruning is the loop bound, as the reference's block pruning. The tiles
+// sit at multiples of 64 in key position, not where the query block
+// starts, so a query's sums run over the same tiles whichever block holds
+// it: the warm suffix prefill over a cached prefix gives the cold
+// prefill's bits. Keys outside the block's range land as zeros.
 //
 // Dense K and V are addressed through strides with the head_dim axis
 // contiguous, so the same kernel reads the head-major cache [b, n_kv,
 // max_seq, hd] and the fresh seq-major projections [b, seq, n_kv, hd] of the
 // position-0 prefill without a copy. Paged K/V resolve each key row of a
-// tile through the block table (a 128-slot page is two 64-key tiles; a tile
-// that starts mid-page straddles two pages, row by row).
+// tile through the block table (a 128-slot page holds two 64-key tiles).
 #pragma once
 
 #include "common.cuh"
 #include "kv_layout.cuh"
+#include "mma.cuh"
+
+#include <type_traits>
 
 namespace cake {
 
@@ -105,13 +117,15 @@ chunk_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 
   const auto cur = layout.cursor(row, kvh);
-  for (int kt = kbeg; kt < kend; kt += CP_BK) {
+  // Key tiles sit at multiples of CP_BK, whatever the query tile: a
+  // query's sums run over the same tiles in a cold prefill and a warm one.
+  for (int kt = kbeg & ~(CP_BK - 1); kt < kend; kt += CP_BK) {
     __syncthreads();  // the previous tile's readers are done (and Q is loaded)
     for (int idx = tid; idx < CP_BK * ROWV; idx += CP_THREADS) {
       const int r = idx / ROWV;
       const int c = (idx % ROWV) * VEC;
       const int j = kt + r;
-      if (j < kend) {
+      if (j >= kbeg && j < kend) {
         copy16(sK + r * LD + c, k + cur.template k<D>(j) + c);
         copy16(sV + r * LD + c, v + cur.template v<D>(j) + c);
       } else {
@@ -174,8 +188,8 @@ chunk_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     }
     __syncthreads();
 
-    const int nk = min(CP_BK, kend - kt);
-    for (int j = 0; j < nk; ++j) {
+    const int j0 = max(kbeg - kt, 0), nk = min(CP_BK, kend - kt);
+    for (int j = j0; j < nk; ++j) {
       float vv[NC];
       load_vec<T, NC>(sV + j * LD + tk * NC, vv);
 #pragma unroll
@@ -199,6 +213,189 @@ chunk_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
+// ------------------------------------------------ tensor cores (f16, bf16)
+
+// One block per (64 (query, head) rows, KV head, batch row), 4 warps of 16
+// rows: row r is the pair p0 + r, query p / group and head p % group of the
+// KV head's group, so a block covers 64 / group queries of every head of
+// the group and reads each K/V tile once for all of them.
+constexpr int TC_BM = 64;
+constexpr int TC_BK = 64;       // keys per tile, tiles at multiples of TC_BK
+constexpr int TC_THREADS = 128;
+
+template <typename T, int D>
+struct ChunkTcSmem {
+  static constexpr int LD = D + 8;  // row stride, elements (16 bytes of padding: ldmatrix conflict-free)
+  // Q, then K and V in two stages each.
+  static constexpr size_t bytes = (size_t)(TC_BM + 4 * TC_BK) * LD * sizeof(T);
+};
+
+template <typename T, int D, typename Layout>
+__global__ void __launch_bounds__(TC_THREADS)
+chunk_kernel_tc(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                T* __restrict__ out, const int* __restrict__ q_starts,
+                const int* __restrict__ lengths, const int* __restrict__ k_starts,
+                const int* __restrict__ flag, Layout layout, int chunk, int group, long long qsb,
+                long long qss, long long qsh, long long osb, long long oss, long long osh,
+                int window, float scale, float softcap) {
+  constexpr int LD = ChunkTcSmem<T, D>::LD;
+  constexpr int ROWV = D / 8;  // 16-byte copies per row
+  constexpr int DT = D / 8;    // n8 tiles of a warp's output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // [TC_BM][LD]
+  T* sK = sQ + TC_BM * LD;                 // [2][TC_BK][LD]
+  T* sV = sK + 2 * TC_BK * LD;             // [2][TC_BK][LD]
+
+  const int kvh = blockIdx.y, row = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int p0 = blockIdx.x * TC_BM;
+  const int n_pairs = min(TC_BM, chunk * group - p0);
+  const int qs = q_starts[row];
+  const int q0 = qs + p0 / group;  // the block's first and last query positions
+  const int q1 = qs + (p0 + n_pairs - 1) / group;
+  const int k_first = max(k_starts[row], 0);
+  const bool win = window > 0 && (flag == nullptr || flag[0] != 0);
+  int kbeg = k_first;
+  if (win) kbeg = max(kbeg, q0 - window + 1);
+  const int kend = min(min(q1 + 1, lengths[row]), layout.limit());  // exclusive
+
+  const T* qb = q + row * qsb + (size_t)kvh * group * qsh;
+  for (int idx = tid; idx < TC_BM * ROWV; idx += TC_THREADS) {
+    const int r = idx / ROWV, c = (idx % ROWV) * 8;
+    const int p = p0 + r;
+    const bool ok = r < n_pairs;
+    cp_async16(sQ + r * LD + c, ok ? qb + (p / group) * qss + (p % group) * qsh + c : q, ok);
+  }
+  const auto cur = layout.cursor(row, kvh);
+  // Keys outside [kbeg, kend) land as zeros: no row of the block sees them.
+  auto load_kv = [&](int kt, int s) {
+    for (int idx = tid; idx < TC_BK * ROWV; idx += TC_THREADS) {
+      const int r = idx / ROWV, c = (idx % ROWV) * 8;
+      const int j = kt + r;
+      const bool ok = j >= kbeg && j < kend;
+      T* dk = sK + (s * TC_BK + r) * LD + c;
+      T* dv = sV + (s * TC_BK + r) * LD + c;
+      cp_async16(dk, ok ? k + cur.template k<D>(j) + c : k, ok);
+      cp_async16(dv, ok ? v + cur.template v<D>(j) + c : v, ok);
+    }
+  };
+
+  // This thread's rows: 16 warp + g (e = 0) and + 8 (e = 1).
+  int qpos[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) qpos[e] = qs + (p0 + warp * 16 + g + 8 * e) / group;
+  float o[DT][4], mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[i][c] = 0.f;
+
+  const int kt0 = kbeg & ~(TC_BK - 1);
+  if (kt0 < kend) load_kv(kt0, 0);
+  cp_async_commit();
+  int s = 0;
+  for (int kt = kt0; kt < kend; kt += TC_BK, s ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt (and Q) landed; every warp is done with the other stage
+    if (kt + TC_BK < kend) load_kv(kt + TC_BK, s ^ 1);
+    cp_async_commit();
+    const T* tK = sK + s * TC_BK * LD;
+    const T* tV = sV + s * TC_BK * LD;
+    const int mi = lane >> 3;
+
+    // S = Q K^T: 16 rows x 64 keys a warp, 8 n8 tiles.
+    float sc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sc[j][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        uint32_t b[4];
+        ldsm_x4(b, tK + (nb * 16 + (mi >> 1) * 8 + (lane & 7)) * LD + kk * 16 + (mi & 1) * 8);
+        mma16816<T>(sc[2 * nb], a, b[0], b[1]);
+        mma16816<T>(sc[2 * nb + 1], a, b[2], b[3]);
+      }
+    }
+
+    // Online softmax in f32; a row's 64 scores lie on the 4 threads of a quad.
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int kpos = kt + 8 * j + 2 * t + c;
+          const bool ok = kpos < kend && kpos <= qpos[e] && kpos >= k_first &&
+                          (!win || kpos > qpos[e] - window);
+          const float x = ok ? softcap_score(sc[j][2 * e + c] * scale, softcap) : -INFINITY;
+          sc[j][2 * e + c] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(mrow[e], mx);
+      // All-masked so far: keep exact zeros (exp(-inf - 0) == 0).
+      const float m_safe = (m_new == -INFINITY) ? 0.f : m_new;
+      const float alpha = __expf(mrow[e] - m_safe);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = __expf(sc[j][2 * e + c] - m_safe);
+          psum += p;
+          sc[j][2 * e + c] = p;
+        }
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+      lrow[e] = lrow[e] * alpha + psum;
+      mrow[e] = m_new;
+#pragma unroll
+      for (int i = 0; i < DT; ++i) {
+        o[i][2 * e] *= alpha;
+        o[i][2 * e + 1] *= alpha;
+      }
+    }
+
+    // O += P V, P rounded to T: the score tiles are the A fragments.
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+      const uint32_t a[4] = {pack2<T>(sc[2 * kk][0], sc[2 * kk][1]),
+                             pack2<T>(sc[2 * kk][2], sc[2 * kk][3]),
+                             pack2<T>(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                             pack2<T>(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, tV + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LD + dn * 16 + (mi >> 1) * 8);
+        mma16816<T>(o[2 * dn], a, b[0], b[1]);
+        mma16816<T>(o[2 * dn + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = warp * 16 + g + 8 * e;
+    if (r >= n_pairs) continue;
+    const int p = p0 + r;
+    const float inv = lrow[e] > 0.f ? 1.f / lrow[e] : 1.f;
+    T* dst = out + row * osb + (p / group) * oss + ((size_t)kvh * group + p % group) * osh + 2 * t;
+#pragma unroll
+    for (int i = 0; i < DT; ++i)
+      *reinterpret_cast<typename Pair<T>::type*>(dst + i * 8) =
+          Pair<T>::make(o[i][2 * e] * inv, o[i][2 * e + 1] * inv);
+  }
+}
+
 // Everything a launch needs besides the element type and head_dim.
 template <typename Layout>
 struct ChunkArgs {
@@ -216,15 +413,28 @@ struct ChunkArgs {
 
 template <typename T, int D, typename Layout>
 static cudaError_t launch_chunk(const ChunkArgs<Layout>& a) {
-  auto kernel = chunk_kernel<T, D, Layout>;
-  const size_t smem = ChunkSmem<T, D>::bytes;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.chunk + CP_BQ - 1) / CP_BQ, a.n_q, a.b);
-  kernel<<<grid, CP_THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.out), a.q_starts, a.lengths, a.k_starts, a.flag, a.layout, a.chunk,
-      a.group, a.qsb, a.qss, a.qsh, a.osb, a.oss, a.osh, a.window, a.scale, a.softcap);
+  if constexpr (std::is_same_v<T, float>) {
+    auto kernel = chunk_kernel<T, D, Layout>;
+    const size_t smem = ChunkSmem<T, D>::bytes;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((a.chunk + CP_BQ - 1) / CP_BQ, a.n_q, a.b);
+    kernel<<<grid, CP_THREADS, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<T*>(a.out), a.q_starts, a.lengths, a.k_starts, a.flag, a.layout, a.chunk,
+        a.group, a.qsb, a.qss, a.qsh, a.osb, a.oss, a.osh, a.window, a.scale, a.softcap);
+  } else {
+    auto kernel = chunk_kernel_tc<T, D, Layout>;
+    const size_t smem = ChunkTcSmem<T, D>::bytes;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const long long pairs = (long long)a.chunk * a.group;
+    dim3 grid((unsigned)((pairs + TC_BM - 1) / TC_BM), a.n_q / a.group, a.b);
+    kernel<<<grid, TC_THREADS, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<T*>(a.out), a.q_starts, a.lengths, a.k_starts, a.flag, a.layout, a.chunk,
+        a.group, a.qsb, a.qss, a.qsh, a.osb, a.oss, a.osh, a.window, a.scale, a.softcap);
+  }
   return cudaGetLastError();
 }
 

@@ -29,6 +29,7 @@
 //   idle. mma.sync tiles of 16 to 64 rows measured no faster, wqkv's
 //   narrow output aside, so wgmma serves every row count past the GEMV's.
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace cake {
 
@@ -287,12 +288,6 @@ __device__ __forceinline__ void store2(T* p, float a, float b) {
 constexpr int WG_BM = 128, WG_STAGES = 3;
 constexpr int WG_A_BYTES = WG_BM * TC_BK * 2;   // 16 KB
 
-__device__ __forceinline__ uint64_t wg_desc(const void* p, int lbo, int sbo) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);  // 128-byte swizzle
-}
-
 // One m64nBNk16 product per warpgroup from shared memory: BN / 2 f32
 // accumulators a thread.
 template <int BN, typename T>
@@ -400,12 +395,6 @@ __device__ __forceinline__ void wgmma_k16<64, __half>(float (&d)[32], uint64_t d
       : "memory");
 }
 
-template <int R>
-__device__ __forceinline__ void wg_fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 template <typename T, int BN>
 __global__ void __launch_bounds__(256, 2)
 norm_matmul_wgmma_kernel(const T* __restrict__ h, const T* __restrict__ w, T* __restrict__ out,
@@ -451,7 +440,7 @@ norm_matmul_wgmma_kernel(const T* __restrict__ h, const T* __restrict__ w, T* __
   for (int kt = 0; kt < KT; ++kt) {
     const int s = kt % WG_STAGES;
     cp_async_wait<WG_STAGES - 2>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // cp.async -> wgmma
+    fence_proxy_async();  // cp.async -> wgmma
     __syncthreads();  // stage s landed for every thread
 
     // This warpgroup's 64 rows start 64 x 128 bytes into the h tile; each
@@ -459,22 +448,22 @@ norm_matmul_wgmma_kernel(const T* __restrict__ h, const T* __restrict__ w, T* __
     const unsigned char* a = base + (size_t)s * STAGE + wg * 64 * 128;
     const unsigned char* b = base + (size_t)s * STAGE + WG_A_BYTES;
     wg_fence_acc(acc);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wg_fence();
 #pragma unroll
     for (int kk = 0; kk < TC_BK / 16; ++kk)
       wgmma_k16<BN, T>(acc, wg_desc(a + kk * 32, 16, 1024),
                        wg_desc(b + kk * 16 * 128, TC_BK * 128, 1024));
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    wg_commit();
     // Keep this step's products in flight; the previous step's are done
     // (in every warpgroup, after the barrier), so its stage takes the next
     // load.
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    wg_wait<1>();
     __syncthreads();
     const int nk = kt + WG_STAGES - 1;
     if (nk < KT) load_stage(nk % WG_STAGES, nk * TC_BK);
     cp_async_commit();
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wg_wait<0>();
   wg_fence_acc(acc);
   cp_async_wait<0>();
 

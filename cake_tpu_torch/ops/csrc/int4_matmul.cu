@@ -12,36 +12,54 @@
 // is 62 MB, 0.019 ms at 3.35 TB/s); from a few hundred rows the tensor
 // cores (w_gu at 256 rows: 60 GFLOP, 0.061 ms at 989 TFLOP/s).
 //
-// What the design does about it:
-// - A block owns a 256-column strip of 16 rows (decode) or 64, and walks
-//   its split of K in BK = 64-row steps. A ring of cp.async stages
-//   carries the packed bytes (16-byte loads along N, neighbouring threads
-//   on neighbouring addresses), the scale rows the step needs and the x
-//   tile, several steps ahead (5 stages at decode rows, 4 past them). The
-//   weight never exists in device memory in any other form, nor in shared
-//   memory: each warp unpacks it straight into mma.sync m16n8k16 operand
-//   registers.
-// - The operand trick: a B fragment register holds two consecutive k rows
-//   of one column, which is one packed byte (low nibble k = 2i, high
-//   nibble 2i + 1). A thread reads one 32-bit word (4 columns of a packed
-//   row) and so fills the fragments of 4 n8 tiles at once, whose columns
-//   are a permutation of the warp's 32 (tile c holds columns 4j + c). The
-//   permutation is undone at the store: a thread's accumulators cover 8
-//   contiguous columns of each of its rows, one 16-byte store.
-// - Unpacking is integer and f32 arithmetic only: a byte permute builds
-//   2^23 + nibble as a float, one exact subtraction recentres it, one
-//   f32 product applies the scale, one paired conversion rounds two values
-//   to the activation dtype (round to nearest even), as the TPU kernel's
-//   scale-then-cast does. f32 activations take a CUDA-core FMA body.
-// - Row independence: a row's sum runs over the same K steps, in the same
-//   order, with the same split points, whatever the row count. The split
-//   of K is a function of (K, N) alone (the wrapper's split_steps: enough
-//   blocks for decode rows; lm_head needs none): each split is a block of
-//   its own, writing f32 partials to a [splits, M, N] scratch, and a
-//   second kernel adds them in split order. No atomics.
-// - Shapes: N and K multiples of 16, an even group dividing K; a ragged
-//   last K step or column strip is zero-filled and masked.
+// Three bodies, chosen by the wrapper (ops/int4_matmul.py plan):
+// - Decode rows (up to 16), mma.sync m16n8k16: a block owns a 256-column
+//   strip of 16 rows and walks its split of K in BK = 64-row steps through a
+//   5-stage cp.async ring of the packed bytes, their scales and the x tile.
+//   Each warp unpacks one 32-bit word (4 columns of a packed row) straight
+//   into the B fragments of 4 n8 tiles (a B register is two consecutive k of
+//   one column: one packed byte); their column permutation is undone by one
+//   16-byte store a row.
+// - Past 16 rows, wgmma ("swap AB": out^T = W^T x^T): a block holds 128
+//   output columns, two warpgroups of 64, and R = 32, 64, 128 or 256 rows
+//   of x as the product's N. The x tile of a step comes by TMA, K-major and
+//   128-byte swizzled, the B operand; the packed bytes and scales by
+//   cp.async. Each thread unpacks a 16-bit read (its two A rows, two
+//   adjacent columns) of four packed rows into the register A operand of the
+//   step's four m64nRk16 products, once for all R rows; a step's products
+//   stay in flight while the next step unpacks (two A register sets).
+// - f32 activations: a CUDA-core FMA body.
+// Unpacking is integer and f32 arithmetic only: a byte permute builds
+// 2^23 + nibble as a float, one exact subtraction recentres it, one f32
+// product applies the scale, one paired conversion rounds two values to the
+// activation dtype (round to nearest even), as the TPU kernel's
+// scale-then-cast does.
+//
+// Row independence, bitwise: a row's sum runs over the same K steps, in the
+// same order, with the same split points, whatever the row count and the
+// body. The split of K is a function of (K, N) alone (split_steps). At
+// decode rows each split is a block writing f32 partials to a [splits, M,
+// N] scratch and a second kernel adds them in split order; past them, where
+// the blocks fill at least half the card, one block walks every split and
+// folds each split's sums into a running f32 total (total = p0; total +=
+// p1; ...), the ordered reduce's bits with no scratch. Measured on the card
+// (PERF.md; the bits probe of chip_smoke.py): wgmma at every product width
+// N = 8 .. 256 and mma.sync m16n8k16 give a row the same bits, so the body
+// and the row tile follow the row count. Decode rows keep mma.sync: wgmma
+// at row tile 8 or 16 is no faster there over a decode token's products
+// (measured, PERF.md), and mma.sync also takes the scale groups wgmma does
+// not. No atomics.
+//
+// Shapes: N and K multiples of 16, an even group dividing K; the wgmma body
+// takes groups of 16 rows or more that divide or are multiples of BK. A
+// ragged last K step or column strip is zero-filled and masked.
+#include <cuda.h>
+
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace cake {
 namespace int4mm {
@@ -94,16 +112,6 @@ __device__ __forceinline__ void load16(const float* p, float (&s)[16]) {
   }
 }
 
-template <typename T> struct Pair;
-template <> struct Pair<__nv_bfloat16> {
-  using type = __nv_bfloat162;
-  static __device__ __forceinline__ type make(float a, float b) { return __floats2bfloat162_rn(a, b); }
-};
-template <> struct Pair<__half> {
-  using type = __half2;
-  static __device__ __forceinline__ type make(float a, float b) { return __floats2half2_rn(a, b); }
-};
-
 template <typename T>
 __device__ __forceinline__ void store_pair(T* p, float a, float b) {
   *reinterpret_cast<typename Pair<T>::type*>(p) = Pair<T>::make(a, b);
@@ -111,13 +119,6 @@ __device__ __forceinline__ void store_pair(T* p, float a, float b) {
 template <>
 __device__ __forceinline__ void store_pair<float>(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-// Two floats rounded to T as one 32-bit operand register (a in the low half).
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-  typename Pair<T>::type h = Pair<T>::make(a, b);
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // 8 floats rounded to T (or kept f32), stored at a 16-byte aligned address.
@@ -135,33 +136,6 @@ __device__ __forceinline__ void store8<float>(float* p, const float (&v)[8]) {
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// d (one m16n8 f32 tile) += a (m16k16, row-major) x b (k16n8, column-major).
-template <typename T> __device__ __forceinline__ void mma16816(float* d, const uint32_t (&a)[4],
-                                                               uint32_t b0, uint32_t b1);
-template <> __device__ __forceinline__ void mma16816<__nv_bfloat16>(float* d, const uint32_t (&a)[4],
-                                                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-template <> __device__ __forceinline__ void mma16816<__half>(float* d, const uint32_t (&a)[4],
-                                                             uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // The K steps a block walks: split blockIdx.z, `per` steps long.
 struct StepRange {
   int lo, hi;
@@ -175,27 +149,24 @@ struct StepRange {
 // 63 / group + 2 groups.
 __host__ __device__ inline int scale_slots(int group) { return min(BKP + 1, (BK - 1) / group + 2); }
 
-// Stages of the cp.async ring: deep at decode rows (bytes in flight),
-// shallower past them (the 64-row x tiles take the shared memory).
-template <int BM> __host__ __device__ constexpr int stages() { return BM <= 16 ? 5 : 4; }
+constexpr int BM = 16;      // rows a block of the decode body covers
+constexpr int NSTAGE = 5;   // its cp.async ring: deep, for the bytes in flight
 // The block's 8 warps split its 256 columns, 32 each; every warp covers
 // all BM rows, so each weight element is unpacked once a block.
 constexpr int BNB = 32 * (THREADS / 32);
 
-template <int BM>
 inline size_t mma_smem_bytes(int elem, int group) {
-  return (size_t)stages<BM>() *
+  return (size_t)NSTAGE *
          (BKP * (BNB + RAW_PAD) + scale_slots(group) * BNB * 4 + BM * A_STRIDE * elem);
 }
 
 // One block: a BM x 256 output tile over one split of K; its f32 sums go
 // to `scratch` (several splits) or, rounded, to `out` (one).
-template <typename T, int BM>
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 int4_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ packed,
                 const float* __restrict__ scale, T* __restrict__ out, float* __restrict__ scratch,
                 int M, int K, int N, int group, int per) {
-  constexpr int NSTAGE = stages<BM>();
   constexpr int RS = BNB + RAW_PAD;        // packed tile row stride, bytes
   constexpr int MI = BM / 16;
   constexpr int NACC = MI * 4 * 4;         // MI x 4 n8 tiles x 4 registers
@@ -325,6 +296,211 @@ int4_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ packed,
   }
 }
 
+// ------------------------------------------------------------------ wgmma
+
+// Past the decode rows: out^T = W^T x^T on Hopper's warpgroup products. A
+// block holds 128 output columns (two warpgroups, one m64 product tile of
+// 64 columns each) and R rows of x, the product's N; each warpgroup unpacks
+// its 64 columns of a K step straight into wgmma's register A operand, once
+// for all R rows, and x lands K-major in 128-byte swizzled shared memory as
+// the B operand. One m64nRk16 product a 16-deep step covers all R rows.
+constexpr int WGS = 2;                 // consumer warpgroups a block, 64 columns each
+constexpr int WG_COLS = 64 * WGS;
+constexpr int WG_THREADS = 128 * WGS;
+constexpr int WG_RAW = WG_COLS + 16;  // packed tile row stride, bytes (u16 reads conflict-free)
+constexpr int WG_STAGES = 4;          // the ring: two steps in flight ahead of the one in use
+
+// One stage: the x tile [R][128 bytes], the packed tile [BKP][WG_RAW] and
+// the scale rows of the step's groups [groups][WG_COLS] f32, rounded to the
+// swizzle's 1024 bytes. Groups align with the K steps and hold 16 rows or
+// more, so a step spans at most 4.
+__host__ __device__ inline int wg_step_groups(int group) { return group >= BK ? 1 : BK / group; }
+template <int R>
+__host__ __device__ inline int wg_stage_bytes(int group) {
+  return (R * 128 + BKP * WG_RAW + wg_step_groups(group) * WG_COLS * 4 + 1023) & ~1023;
+}
+// The ring, a fold's running totals ([R / 2][WG_THREADS] f32, a thread's
+// own column of them) and the 1024-byte alignment.
+template <int R, bool FOLD> inline size_t wg_smem_bytes(int group) {
+  return (size_t)WG_STAGES * wg_stage_bytes<R>(group) + (FOLD ? R * 2 * WG_THREADS : 0) + 1024;
+}
+
+// FOLD: one block walks every split of K and folds each split's sums into
+// a running f32 total in split order (the ordered reduce's bits); without
+// it a block walks its split blockIdx.z (f32 partials to `scratch`) or,
+// with one split, all of K. Groups align with the K steps (a multiple or a
+// divisor of BK): a thread's scale slots are the same every step.
+template <typename T, int R, bool FOLD>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const int8_t* __restrict__ packed,
+                  const float* __restrict__ scale, T* __restrict__ out,
+                  float* __restrict__ scratch, int M, int K, int N, int group, int per) {
+  constexpr int ACC = R / 2;  // f32 accumulators a thread
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t x_landed[WG_STAGES];  // a stage's x tile arrived (TMA)
+  // 1024-byte aligned stages (the swizzle repeats every 8 rows of 128
+  // bytes), reached by an offset from smem_raw so that every access stays a
+  // shared-memory one.
+  unsigned char* base =
+      smem_raw + ((1024 - (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) & 1023)) & 1023);
+  const int stage_bytes = wg_stage_bytes<R>(group);
+  float* totals = reinterpret_cast<float*>(base + WG_STAGES * stage_bytes) + threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // A rows g and g + 8 of warp (warp & 3) are this thread's two adjacent
+  // columns: one 16-bit read of a packed row gives both.
+  const int ccol = (warp >> 2) * 64 + (warp & 3) * 16 + 2 * g;
+  const int n0 = blockIdx.x * WG_COLS, m0 = blockIdx.y * R;
+  const int steps = (K + BK - 1) / BK, half = K / 2, groups = K / group;
+  int lo = 0, hi = steps;
+  if (!FOLD && scratch) {
+    const StepRange range(steps, per);
+    lo = range.lo;
+    hi = range.hi;
+  }
+  // The offsets of this thread's scale rows (k = 2 (kk 8 + t + 4 h), +1)
+  // among a step's groups.
+  const int step_groups = wg_step_groups(group);
+  int sc_off[BK / 16][2];
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      sc_off[kk][h] = (group >= BK ? 0 : 2 * (kk * 8 + t + 4 * h) / group) * WG_COLS;
+
+  // The x tile [R rows][64 k] of a step comes in one TMA copy (issued by
+  // thread 0, rows past M and k past K zero-filled, 128-byte swizzled as
+  // the B descriptors read it). Each thread's other copies are the same
+  // every step but for the step's offset: packed row xr at 16 columns xc,
+  // scale row sj (+ 8 i) at 4 columns sc4.
+  constexpr int PCH = WG_COLS / 16, SCH = WG_COLS / 4;  // 16-byte chunks of a packed / scale row
+  static_assert(BKP * PCH == WG_THREADS, "one packed chunk a thread");
+  const int xr = tid / PCH, xc = tid % PCH, sj = tid / SCH, sc4 = (tid % SCH) * 4;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < WG_STAGES; ++s) mbar_init(&x_landed[s], 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  const int8_t* psrc = packed + (size_t)xr * N + n0 + xc * 16;
+  const size_t pjump = (size_t)BKP * N;  // one step down
+  const bool pcol_ok = n0 + xc * 16 < N;
+  const int pdst = R * 128 + xr * WG_RAW + xc * 16;
+  const float* ssrc = scale + n0 + sc4;
+  const bool scol_ok = n0 + sc4 < N;
+  const int sdst = R * 128 + BKP * WG_RAW + (sj * WG_COLS + sc4) * 4;
+
+  // In a ragged last step the rows past K read as zeros (x) times zero
+  // nibbles (packed) times finite scales: every slot of the step is
+  // written, the ones past the last group as zeros.
+  const int steps_per_group = group >= BK ? group / BK : 1;
+  auto load_stage = [&](int step, int s) {
+    unsigned char* st = base + (size_t)s * stage_bytes;
+    if (tid == 0) {
+      mbar_expect_tx(&x_landed[s], R * 128);
+      tma_load_2d(st, &xmap, step * BK, m0, &x_landed[s]);
+    }
+    const bool pok = pcol_ok && step * BKP + xr < half;
+    cp_async16(st + pdst, pok ? psrc + step * pjump : packed, pok);
+    const int g0 = group >= BK ? step / steps_per_group : step * step_groups;
+    for (int j = sj; j < step_groups; j += WG_THREADS / SCH) {
+      const bool ok = scol_ok && g0 + j < groups;
+      cp_async16(st + sdst + (j - sj) * WG_COLS * 4, ok ? ssrc + (size_t)(g0 + j) * N : scale, ok);
+    }
+  };
+
+  float acc[ACC];
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < WG_STAGES - 2; ++i) {
+    if (lo + i < hi) load_stage(lo + i, i);
+    cp_async_commit();
+  }
+  // One step into the A operands `as`. Steps alternate between two sets,
+  // so a step's products stay in flight while the next step unpacks.
+  auto run_step = [&](int step, uint32_t (&as)[BK / 16][4]) {
+    const int it = step - lo, s = it % WG_STAGES;
+    cp_async_wait<WG_STAGES - 3>();
+    mbar_wait(&x_landed[s], (it / WG_STAGES) & 1);
+    // Stage s landed for every thread. The stage refilled next was read by
+    // the products of step - 2, done in both warpgroups: each waited for
+    // them after issuing step - 1's.
+    __syncthreads();
+    if (step + WG_STAGES - 2 < hi) load_stage(step + WG_STAGES - 2, (it + WG_STAGES - 2) % WG_STAGES);
+    cp_async_commit();
+    const unsigned char* xs = base + (size_t)s * stage_bytes;
+    const unsigned char* rb = xs + R * 128 + t * WG_RAW + ccol;
+    const float* sc = reinterpret_cast<const float*>(xs + R * 128 + BKP * WG_RAW) + ccol;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t w = *reinterpret_cast<const uint16_t*>(rb + (kk * 8 + 4 * h) * WG_RAW);
+        const float2 sv = *reinterpret_cast<const float2*>(sc + sc_off[kk][h]);
+        const uint32_t lo4 = (w & 0x0F0Fu) ^ 0x0808u;
+        const uint32_t hi4 = ((w >> 4) & 0x0F0Fu) ^ 0x0808u;
+        as[kk][2 * h] = pack2<T>(__fmul_rn(biased_nibble(lo4, 0), sv.x),
+                                 __fmul_rn(biased_nibble(hi4, 0), sv.x));
+        as[kk][2 * h + 1] = pack2<T>(__fmul_rn(biased_nibble(lo4, 1), sv.y),
+                                     __fmul_rn(biased_nibble(hi4, 1), sv.y));
+      }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<R, T>(acc, as[kk], wg_desc(xs + kk * 32, 16, 1024));
+    wg_commit();
+    wg_wait<1>();
+    if constexpr (FOLD) {
+      if ((step + 1) % per == 0 || step + 1 == hi) {  // a split ends: total (+)= its sums
+        wg_wait<0>();
+        const bool first = step < per;
+        wg_fence_acc(acc);
+#pragma unroll
+        for (int i = 0; i < ACC; ++i) {
+          float* tot = totals + i * WG_THREADS;
+          *tot = first ? acc[i] : __fadd_rn(*tot, acc[i]);
+          acc[i] = 0.f;
+        }
+      }
+    }
+  };
+  uint32_t a0[BK / 16][4], a1[BK / 16][4];  // a set is free once its step's products are done
+  int step = lo;
+  for (; step + 1 < hi; step += 2) {
+    run_step(step, a0);
+    run_step(step + 1, a1);
+  }
+  if (step < hi) run_step(step, a0);
+  wg_wait<0>();
+  wg_fence_acc(acc);
+  cp_async_wait<0>();
+
+  // Accumulator 4i + e (e = 0, 1): column ccol, x row 8i + 2t + e;
+  // 4i + 2 + e: column ccol + 1, the same row.
+  const int col = n0 + ccol;
+  if (col >= N) return;
+#pragma unroll
+  for (int i = 0; i < R / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = m0 + 8 * i + 2 * t + e;
+      if (row >= M) continue;
+      float v0, v1;
+      if constexpr (FOLD) {
+        v0 = totals[(4 * i + e) * WG_THREADS];
+        v1 = totals[(4 * i + 2 + e) * WG_THREADS];
+      } else {
+        v0 = acc[4 * i + e];
+        v1 = acc[4 * i + 2 + e];
+      }
+      if (scratch)
+        store_pair<float>(scratch + ((size_t)blockIdx.z * M + row) * N + col, v0, v1);
+      else
+        store_pair<T>(out + (size_t)row * N + col, v0, v1);
+    }
+}
+
 // f32 activations: the same steps and splits on the CUDA cores. A thread
 // owns one column and FM / 2 rows; its sum runs over k in order.
 __global__ void __launch_bounds__(THREADS)
@@ -418,16 +594,17 @@ static cudaError_t reduce(const float* scratch, void* out, int splits, int M, in
   return cudaGetLastError();
 }
 
-template <typename T, int BM>
+// The decode rows' body: 16-row blocks on mma.sync.
+template <typename T>
 static cudaError_t launch_mma(const void* x, const int8_t* packed, const float* scale, void* out,
                               float* scratch, int M, int K, int N, int group, int per, int splits,
                               cudaStream_t stream) {
-  auto kernel = int4_mma_kernel<T, BM>;
-  const size_t smem = mma_smem_bytes<BM>((int)sizeof(T), group);
+  auto kernel = int4_mma_kernel<T>;
+  const size_t smem = mma_smem_bytes((int)sizeof(T), group);
   // Opt in once to the most any group size asks (two rows a group).
   static bool allowed = false;
   if (!allowed) {
-    cudaError_t err = allow_smem(kernel, mma_smem_bytes<BM>((int)sizeof(T), 2));
+    cudaError_t err = allow_smem(kernel, mma_smem_bytes((int)sizeof(T), 2));
     if (err != cudaSuccess) return err;
     allowed = true;
   }
@@ -440,15 +617,99 @@ static cudaError_t launch_mma(const void* x, const int8_t* packed, const float* 
   return reduce<T>(scratch, out, splits, M, N, stream);
 }
 
-// 16-row blocks up to 16 rows, 64-row blocks past them. The row tile
-// changes no bits: each row's sum is the same either way.
+// cuTensorMapEncodeTiled through the runtime's entry-point lookup (no link
+// against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (!cached) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || !p) return cudaErrorNotSupported;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// The TMA map of x [M, K] in tiles of R rows by one K step (128 bytes),
+// 128-byte swizzled, zeros past the edges.
 template <typename T>
-static cudaError_t launch_tc(const void* x, const int8_t* packed, const float* scale, void* out,
-                             float* scratch, int M, int K, int N, int group, int per, int splits,
-                             cudaStream_t stream) {
-  if (M <= 16)
-    return launch_mma<T, 16>(x, packed, scale, out, scratch, M, K, N, group, per, splits, stream);
-  return launch_mma<T, 64>(x, packed, scale, out, scratch, M, K, N, group, per, splits, stream);
+static cudaError_t x_tile_map(CUtensorMap* map, const void* x, int M, int K, int R) {
+  EncodeTiled encode;
+  cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)R};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = encode(
+      map, std::is_same_v<T, __half> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(x), dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, int R, bool FOLD>
+static cudaError_t launch_wgmma(const void* x, const int8_t* packed, const float* scale,
+                                void* out, float* scratch, int M, int K, int N, int group,
+                                int per, int splits, cudaStream_t stream) {
+  auto kernel = int4_wgmma_kernel<T, R, FOLD>;
+  const size_t smem = wg_smem_bytes<R, FOLD>(group);
+  static size_t allowed = 0;  // the most this kernel has opted into so far
+  if (smem > allowed) {
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    allowed = smem;
+  }
+  dim3 grid((N + WG_COLS - 1) / WG_COLS, (M + R - 1) / R, scratch ? splits : 1);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  CUtensorMap xmap;
+  cudaError_t err = x_tile_map<T>(&xmap, x, M, K, R);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, WG_THREADS, smem, stream>>>(
+      xmap, packed, scale, static_cast<T*>(out), scratch, M, K, N, group, per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !scratch) return err;
+  return reduce<T>(scratch, out, splits, M, N, stream);
+}
+
+// Row tile R. Several splits and no scratch: one block walks them all and
+// folds (R up to 128: the total doubles the accumulators); a scratch: a
+// block a split, then the ordered reduce. Tiles 8 and 16 serve the bits
+// probe and the decode-rows comparison (PERF.md).
+template <typename T>
+static cudaError_t launch_tiled(int tile, const void* x, const int8_t* packed, const float* scale,
+                                void* out, float* scratch, int M, int K, int N, int group,
+                                int per, int splits, cudaStream_t stream) {
+  const bool fold = splits > 1 && !scratch;
+#define CAKE_WG(R)                                                                             \
+  if (tile == R)                                                                              \
+    return fold ? launch_wgmma<T, R, true>(x, packed, scale, out, scratch, M, K, N, group, per, \
+                                           splits, stream)                                    \
+                : launch_wgmma<T, R, false>(x, packed, scale, out, scratch, M, K, N, group, per, \
+                                            splits, stream);
+#define CAKE_WG_NOFOLD(R)                                                                      \
+  if (tile == R && !fold)                                                                     \
+    return launch_wgmma<T, R, false>(x, packed, scale, out, scratch, M, K, N, group, per, splits, \
+                                     stream);
+  CAKE_WG(32)
+  CAKE_WG(64)
+  CAKE_WG(128)
+  CAKE_WG_NOFOLD(256)
+  CAKE_WG_NOFOLD(8)
+  CAKE_WG_NOFOLD(16)
+#undef CAKE_WG
+#undef CAKE_WG_NOFOLD
+  return cudaErrorInvalidValue;
 }
 
 static cudaError_t launch_f32(const void* x, const int8_t* packed, const float* scale, void* out,
@@ -464,18 +725,34 @@ static cudaError_t launch_f32(const void* x, const int8_t* packed, const float* 
   return reduce<float>(scratch, out, splits, M, N, stream);
 }
 
+template <typename T>
+static cudaError_t launch_tc(int tile, const void* x, const int8_t* packed,
+                             const float* scale, void* out, float* scratch, int M, int K, int N,
+                             int group, int per, int splits, cudaStream_t stream) {
+  if (tile == 0) {
+    if (splits > 1 && !scratch) return cudaErrorInvalidValue;
+    return launch_mma<T>(x, packed, scale, out, scratch, M, K, N, group, per, splits, stream);
+  }
+  if ((group % BK && BK % group) || group < 16) return cudaErrorInvalidValue;  // see wg_stage_bytes
+  return launch_tiled<T>(tile, x, packed, scale, out, scratch, M, K, N, group, per, splits, stream);
+}
+
 }  // namespace int4mm
 }  // namespace cake
 
 // x: [rows, K] (dtype); packed: [K/2, N] int8; scale: [K/group, N] f32;
 // out: [rows, N] (dtype); all contiguous and 16-byte aligned, K and N
 // multiples of 16, group even and dividing K. per: K steps (of 64 rows) a
-// split covers, a function of (K, N) alone. scratch: a [ceil(steps / per),
-// rows, N] f32 buffer when there is more than one split (NULL for one).
+// split covers, a function of (K, N) alone. tile: 0 for the decode body
+// (mma.sync, 16-row blocks; f32: the CUDA-core body, always), else the row
+// tile of the wgmma body (f16/bf16), the width of its products.
+// scratch: a [ceil(steps / per), rows, N] f32 buffer, each split a block of
+// its own and an ordered reduce after them; NULL with one split, or, for
+// the wgmma body, a block walks every split and folds them in order.
 // Returns the first launch error.
 extern "C" int cake_int4_matmul(const void* x, const void* packed, const void* scale, void* out,
                                 void* scratch, int rows, int K, int N, int group, int per,
-                                int dtype, void* stream) {
+                                int tile, int dtype, void* stream) {
   using namespace cake;
   using namespace cake::int4mm;
   if (rows < 1) return (int)cudaSuccess;
@@ -483,17 +760,19 @@ extern "C" int cake_int4_matmul(const void* x, const void* packed, const void* s
     return (int)cudaErrorInvalidValue;
   const int steps = (K + BK - 1) / BK;
   const int splits = (steps + per - 1) / per;
-  if (splits > 1 && !scratch) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* p = static_cast<const int8_t*>(packed);
   const float* sc = static_cast<const float*>(scale);
   float* scr = static_cast<float*>(scratch);
   switch (dtype) {
-    case kF32: return (int)launch_f32(x, p, sc, out, scr, rows, K, N, group, per, splits, s);
+    case kF32:
+      if (tile != 0 || (splits > 1 && !scratch)) return (int)cudaErrorInvalidValue;
+      return (int)launch_f32(x, p, sc, out, scr, rows, K, N, group, per, splits, s);
     case kF16:
-      return (int)launch_tc<__half>(x, p, sc, out, scr, rows, K, N, group, per, splits, s);
+      return (int)launch_tc<__half>(tile, x, p, sc, out, scr, rows, K, N, group, per, splits, s);
     case kBF16:
-      return (int)launch_tc<__nv_bfloat16>(x, p, sc, out, scr, rows, K, N, group, per, splits, s);
+      return (int)launch_tc<__nv_bfloat16>(tile, x, p, sc, out, scr, rows, K, N, group, per,
+                                           splits, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -16,17 +16,24 @@ packed nibbles and the f32 scales stream: Llama-3-8B's w_gu is 62 MB, 0.019
 ms at 3.35 TB/s); past a few hundred rows, the tensor cores (w_gu at 256
 rows is 60 GFLOP, 0.061 ms at 989 TFLOP/s).
 
-What the design does about it (see the source note): a block owns a
-column strip of W and walks K in 64-row steps through a ring of cp.async
-stages that carry only the packed bytes and their scales; each warp unpacks
-and scales them in registers straight into ``mma.sync`` m16n8k16 operands
-(f32 accumulators), for every row count. f32 activations take a CUDA-core
-FMA body. Where too few strips fill the card (every projection but lm_head
-at decode rows), K is split in a way fixed by the weight's shape alone, and
-each split is a block whose f32 partial sums a second pass adds in split
-order, over a scratch the wrapper allocates (rows go through in chunks that
-keep it under ``SCRATCH_BYTES``). A row's bits do not depend on how many
-rows share the call.
+What the design does about it (see the source note): :func:`plan` picks
+one of three bodies from the shapes alone. Decode rows (up to
+``DECODE_ROWS``) take ``mma.sync`` m16n8k16: a block owns a 256-column strip
+and each warp unpacks the packed bytes and scales, staged by cp.async, in
+registers straight into the operands. Past them f16/bf16 take ``wgmma`` with
+the weight as the register A operand ("swap AB"), x by TMA as the shared B
+operand, ``R`` rows of x (the row tile) a block, so each weight element is
+unpacked once per tile. f32 activations take a CUDA-core FMA body. Where too
+few strips fill the card, K is split in a way fixed by the weight's shape
+alone (:func:`split_steps`). Split blocks write f32 partials that a second
+pass adds in split order, over a scratch the wrapper allocates (rows go
+through in chunks that keep it under ``SCRATCH_BYTES``); where a wgmma
+call's blocks fill at least half the card, each walks every split and
+folds them in the same order instead, with no scratch. A row's bits do
+not depend on how many rows share the call: wgmma at every product width
+and mma.sync give the same bits (measured on the card, PERF.md). Decode
+rows keep mma.sync because wgmma at row tiles 8 and 16 is no faster there
+(measured, PERF.md) and takes fewer scale-group sizes.
 
 For a tensor on the CPU the wrapper runs :func:`int4_matmul_plain`; for a
 CUDA tensor it launches the kernel or raises.
@@ -35,6 +42,7 @@ CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -44,8 +52,12 @@ _KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 _DTYPE_CODES = {getattr(torch, name): code for name, code in _build.DTYPE_CODES.items()}
 # Geometry shared with csrc/int4_matmul.cu.
 BLOCK_K = 64  # logical in-rows a K step covers
-SMS = 132  # H100 SXM streaming multiprocessors: the split-K target
+SMS = 132  # H100 SXM streaming multiprocessors: the split-K and fill target
 MAX_SPLITS = 16
+DECODE_ROWS = 16  # rows the mma.sync body takes (wgmma is no faster there); past them, wgmma
+WG_COLS = 128  # output columns a wgmma block covers
+FOLD_TILES = (32, 64, 128)  # wgmma row tiles that can fold splits (a running total each)
+WIDE_TILE = 256  # the row tile of an unsplit K (no running total to hold)
 # A call whose K is split writes f32 partials [splits, rows, out]; longer
 # calls go through in row chunks that keep this scratch under this size.
 SCRATCH_BYTES = 256 << 20
@@ -84,6 +96,60 @@ def split_steps(in_dim: int, out_dim: int) -> int:
     if strips >= SMS:
         return steps
     return -(-steps // min(MAX_SPLITS, steps, -(-2 * SMS // strips)))
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one call runs: which body, its row tile, and the split of K."""
+
+    route: str  # "mma.sync", "wgmma" or "CUDA cores"
+    tile: int  # wgmma's row tile, the width of its products; 0 for the other bodies
+    per: int  # K steps a split covers: split_steps, the same for every row count
+    splits: int
+    fold: bool  # one block walks every split and folds them in order (no scratch)
+
+
+def wgmma_group(group: int) -> bool:
+    """Whether the wgmma body takes scale groups of ``group`` rows: a
+    multiple or a divisor of BLOCK_K, and 16 rows or more (a K step's scale
+    rows then fit its shared memory)."""
+    return group >= 16 and (group % BLOCK_K == 0 or BLOCK_K % group == 0)
+
+
+def plan(rows: int, in_dim: int, out_dim: int, dtype: torch.dtype, group: int) -> Plan:
+    """The body, tile and fold for ``rows`` rows into an [in_dim, out_dim]
+    weight of ``group``-row scale groups: a pure function of the shapes.
+
+    f32 takes the CUDA-core body, and decode rows (or scale groups the
+    wgmma body does not take, :func:`wgmma_group`) the mma.sync body, each split a block and an
+    ordered reduce. Past DECODE_ROWS f16/bf16 take wgmma with the smallest
+    row tile that holds every row (at most 128, WIDE_TILE past that where K
+    is not split): a weight element is unpacked once per tile, so the
+    widest tile is the fastest (measured on the card, PERF.md). Where its
+    blocks fill at least half the card, one block walks every split of K
+    and folds them; where they fill less, each split is a block of its own.
+    The split points are split_steps's whatever the rows, so every route
+    adds a row's split sums in the same order."""
+    per = split_steps(in_dim, out_dim)
+    splits = -(-(-(-in_dim // BLOCK_K)) // per)
+    if dtype == torch.float32:
+        return Plan("CUDA cores", 0, per, splits, False)
+    if rows <= DECODE_ROWS or not wgmma_group(group):
+        return Plan("mma.sync", 0, per, splits, False)
+    tile = next((t for t in FOLD_TILES if t >= rows), FOLD_TILES[-1])
+    if splits == 1 and rows > tile:
+        tile = WIDE_TILE
+    blocks = -(-rows // tile) * -(-out_dim // WG_COLS)
+    return Plan("wgmma", tile, per, splits, splits > 1 and 2 * blocks >= SMS)
+
+
+def scratch_rows(p: Plan, rows: int, out_dim: int) -> int:
+    """Rows a pass of split blocks covers (their f32 partials held under
+    SCRATCH_BYTES, at least 16 rows), or 0 where the call needs no scratch
+    (one split, or a fold)."""
+    if p.splits == 1 or p.fold:
+        return 0
+    return max(16, min(rows, SCRATCH_BYTES // (4 * p.splits * out_dim)))
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -126,18 +192,34 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> t
             raise ValueError(
                 f"int4_matmul: {name} must be contiguous and 16-byte aligned on {x.device}"
             )
-    out = torch.empty((rows, out_dim), dtype=x.dtype, device=x.device)
     if rows == 0:
-        return out
-    per = split_steps(in_dim, out_dim)
-    splits = -(-in_dim // (BLOCK_K * per))
-    # Each split is a block of its own; a second kernel adds the partials
-    # in split order. The scratch is freed on return: the caching allocator
-    # hands its memory only to work queued after these launches.
-    chunk, scratch = rows, None
-    if splits > 1:
-        chunk = max(16, min(rows, SCRATCH_BYTES // (4 * splits * out_dim)))
-        scratch = torch.empty((splits, chunk, out_dim), dtype=torch.float32, device=x.device)
+        return torch.empty((0, out_dim), dtype=x.dtype, device=x.device)
+    out = _run(x, packed, scale, plan(rows, in_dim, out_dim, x.dtype, in_dim // groups))
+    int4_matmul.launches += 1
+    return out
+
+
+int4_matmul.launches = 0
+
+
+def _run(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, p: Plan) -> torch.Tensor:
+    """Launch the body ``p`` names on operands int4_matmul has checked (the
+    plain version for a tensor on the CPU). Only :func:`plan`'s Plan keeps
+    a row's bits independent of the rows beside it; the card tests and
+    chip_smoke.py hand it others to compare the bodies."""
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, packed, scale)
+    rows, in_dim = x.shape
+    out_dim = packed.shape[1]
+    out = torch.empty((rows, out_dim), dtype=x.dtype, device=x.device)
+    # Split blocks write f32 partials that a second kernel adds in split
+    # order. The scratch is freed on return: the caching allocator hands its
+    # memory only to work queued after these launches.
+    chunk, scratch = scratch_rows(p, rows, out_dim), None
+    if chunk:
+        scratch = torch.empty((p.splits, chunk, out_dim), dtype=torch.float32, device=x.device)
+    else:
+        chunk = rows
     fn = _build.library().cake_int4_matmul
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
     x_ptr, out_ptr = x.data_ptr(), out.data_ptr()
@@ -146,13 +228,9 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> t
         err = fn(
             x_ptr + r0 * row_in, packed.data_ptr(), scale.data_ptr(), out_ptr + r0 * row_out,
             None if scratch is None else scratch.data_ptr(), min(chunk, rows - r0), in_dim,
-            out_dim, in_dim // groups, per, _DTYPE_CODES[x.dtype], stream,
+            out_dim, in_dim // scale.shape[0], p.per, p.tile, _DTYPE_CODES[x.dtype], stream,
         )
         if err:
             break
     _build.check(err, "int4_matmul")
-    int4_matmul.launches += 1
     return out
-
-
-int4_matmul.launches = 0

@@ -9,14 +9,15 @@ verify-shaped chunks (``q_starts`` = the shared slot).
 
 What bounds it on the H100: at prefill shapes the products, about
 4*head_dim FLOPs per (query, key) pair, outweigh the bytes, as for the dense
-chunk kernel (ops/chunk_prefill.py); it runs them on the CUDA cores in f32,
-far from the tensor-core peak.
+chunk kernel (ops/chunk_prefill.py); f16/bf16 run them on the tensor cores.
 
 What the design does about it: the kernel is the dense chunk kernel's body
-(``ops/csrc/chunk_prefill.cuh``): one block per (32-query tile, query head,
-row) keeps its Q tile and a 64-key K/V tile in shared memory, and the key
-loop runs only over ``[max(k_start, window start), min(q0 + rows,
-length))``. Each key row of a tile resolves its page through the block
+(``ops/csrc/chunk_prefill.cuh``): one block per (64 (query, head) rows of a
+KV head's GQA group, row) reads each 64-key K/V tile once for the whole
+group, and runs both products on mma.sync m16n8k16 with f32 accumulation
+(f32 inputs: the CUDA cores). The key loop runs only over the tiles of
+``[max(k_start, window start), min(q0 + rows, length))``, tiles placed by
+key position. Each key row of a tile resolves its page through the block
 table, so dead pages are never read. A query tile with no live key writes
 zeros and an all-masked row comes out exactly 0 (the TPU kernel's ``_init``
 and ``m_safe`` contracts); ``p`` is rounded to V's dtype before ``p@v``.

@@ -30,13 +30,21 @@ nonzero exit and no final result line:
                greedy b=1/8, sampled b=8 (temperature 0.7, top_k 40,
                repeat_penalty 1.1, ring 128) and a row all -inf beside a
                NaN row (ids equal). Their library_ms is the unfused PyTorch
-               composition, not one call. int4_matmul at Llama-3-8B's five
-               projections (wqkv, wo, w_gu, w_down, lm_head) at 1, 8 and 256
-               rows in bf16, one f16 and one f32 case (one rounding step of
-               the dtype at the output's magnitude, cosine >= 0.9999; its
+               composition, not one call. int4_matmul: first the bits
+               probe (every projection's operands through mma.sync, wgmma
+               at each product width, split blocks and the fold: equal to
+               the bit, gated), then Llama-3-8B's five projections (wqkv,
+               wo, w_gu, w_down, lm_head) at 1, 8, 256 and 3840 rows in
+               bf16, one f16 and one f32 case (one rounding step of the
+               dtype at the output's magnitude, cosine >= 0.9999; its
                library_ms is cuBLAS over the dequantized weight), and row
-               independence: rows of 8-, 256- and 3840-row calls equal the
-               1-row call to the bit (wqkv, w_gu, w_down).
+               independence: rows of 8-, 17-, 64-, 256- and 3840-row calls
+               equal the 1-row call to the bit (wqkv, w_gu, w_down), and
+               the decode bodies: mma.sync against wgmma at row tiles 8
+               and 16, at 1 and 8 rows, timed in the same run. The
+               redesigned kernels' rows name the instructions they ran on
+               ("route": wgmma, mma.sync, CUDA cores), read from the
+               kernel names a trace of the case's call records.
   4. generate  Llama-3-8B at full width and depth, random bf16 weights drawn
                on the card from a seeded torch.Generator: a ~700 byte-token
                prompt prefilled in 256-token chunks (the position-0 and the
@@ -54,7 +62,8 @@ nonzero exit and no final result line:
                whose turns differ in length (several page-alignment classes,
                more requests than lanes: joins must happen): TTFT, decode
                tok/s, ms per decode step, prefix hits in wave 2 (must be
-               > 0); the paged kernels' launch counters must equal n_layers
+               > 0) and wave 2's streams equal wave 1's (the warm suffix
+               prefill against the cold one, 8/8); the paged kernels' launch counters must equal n_layers
                x their dispatches (epoch starts and joins) and every other
                counter must stay 0. Then wave 1 and the ragged wave through
                the dense engine, with the same launch gate on the dense
@@ -114,7 +123,10 @@ nonzero exit and no final result line:
                that answers a chat.
  14.           ``{"kernels": [...]}``: one entry per kernel with its launches
                on the main path (the fused and int4 phases for their
-               kernels) and its timings at the main path's shapes.
+               kernels) and its timings at the main path's shapes; the
+               redesigned kernels also carry "redesigned" (the PR) and the
+               instructions their cases ran on; int4_matmul's the
+               wgmma-bits answer.
  15.           ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits nonzero without a result when no CUDA device is present or when run
@@ -322,11 +334,12 @@ def bf16_ulp(ref) -> float:
 
 
 def _check(torch, name, case, out, ref, ms, plain_ms, nbytes, flops, library_ms, copies=1,
-           exact=False, cosine=False, tol=TOL):
+           exact=False, cosine=False, tol=TOL, route=None):
     """Emit a kernel case's row and hold ``out`` to ``ref``: within ``tol``
     max-abs (and, with ``cosine``, at cosine >= COS_TOL), or with ``exact``
     equal to the bit (fused_qkv_ingest's outputs, fused_sample_tail's ids,
-    whose rows may hold NaN and -inf by design)."""
+    whose rows may hold NaN and -inf by design). ``route``: the instructions
+    the case ran on (the redesigned kernels: wgmma, mma.sync, CUDA cores)."""
     err = (out.float() - ref.float()).abs().max().item() if out.numel() else 0.0
     finite = exact or bool(torch.isfinite(out.float()).all().item())
     b_ms, b_by = bound(nbytes, flops)
@@ -336,6 +349,8 @@ def _check(torch, name, case, out, ref, ms, plain_ms, nbytes, flops, library_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
         "bytes": nbytes, "flops": flops, "operand_copies": copies,
     }
+    if route is not None:
+        row["route"] = route
     if cosine:
         row["cosine"] = torch.nn.functional.cosine_similarity(
             out.float().flatten(), ref.float().flatten(), dim=0).item()
@@ -448,6 +463,7 @@ def _chunk_case(torch, dev, g, case, chunk, q_starts, k_starts, kw, max_seq=MAX_
     return _check(
         torch, "chunk_prefill_attention", case, out, ref,
         cuda_ms(torch, run, 20), cuda_ms(torch, plain, 3), nbytes, flops, library_ms,
+        route=traced_route(torch, run),
     )
 
 
@@ -488,6 +504,7 @@ def flash_cases(torch, dev):
         rows.append(_check(
             torch, "flash_attention", case, out, ref,
             cuda_ms(torch, run, 20), cuda_ms(torch, plain, 3), nbytes, flops, library_ms,
+            route=traced_route(torch, run),
         ))
     return rows
 
@@ -599,6 +616,7 @@ def _paged_chunk_case(torch, dev, g, seed, case, chunk, q_starts, lens, k_starts
     return _check(
         torch, "paged_chunk_attention", case, out, ref,
         cuda_ms(torch, run, 20), cuda_ms(torch, plain, 3), nbytes, flops, library_ms,
+        route=traced_route(torch, run),
     )
 
 
@@ -789,6 +807,9 @@ INT4_MAIN = "w_gu_rows1"  # the kernels line: the generator's decode into w_gu
 INT4_OTHER_DTYPES = {"float16": ("w_gu", 8), "float32": ("wqkv", 8)}
 INT4_INDEPENDENT = ("wqkv", "w_gu", "w_down")  # row independence: splits, no split, 8 splits
 INDEPENDENT_ROWS = 3840  # the engine's prefill window: 8 lanes of ~480 rows
+INT4_ROWS = (1, 8, 256, INDEPENDENT_ROWS)  # the bf16 cases of each projection
+WGMMA_WIDTHS = (8, 16, 32, 64, 128, 256)  # the wgmma product widths the bits probe holds
+DECODE_BODY_ROWS = (1, 8)  # rows at which mma.sync and wgmma's decode tiles are timed
 
 
 def dtype_step(torch, ref, dtype) -> float:
@@ -832,18 +853,20 @@ def _int4_case(torch, dev, g, site, qs, n_rows, dtype, case=None):
         out, ref, cuda_ms(torch, rotating(runs), 20 * len(qs)),
         cuda_ms(torch, rotating(plains), 2 * len(qs)), nbytes, flops, library_ms,
         copies=len(qs), cosine=True, tol=dtype_step(torch, ref, dtype),
+        route=traced_route(torch, runs[0]),
     )
 
 
 def _int4_independent(torch, dev, g, site, q) -> dict:
-    """Rows of 8-, 256- and INDEPENDENT_ROWS-row calls against the 1-row
-    call, to the bit: a row's sum must not depend on its neighbours."""
+    """Rows of 8-, 17-, 64-, 256- and INDEPENDENT_ROWS-row calls against the
+    1-row call, to the bit: a row's sum must not depend on its neighbours
+    (nor on the body, mma.sync or wgmma, and the row tile its count picks)."""
     from cake_tpu_torch.ops.int4_matmul import int4_matmul
 
     x = torch.randn(INDEPENDENT_ROWS, q.in_dim, generator=g, device=dev).to(torch.bfloat16)
     full = int4_matmul(x, q.w, q.scale)
     equal = {}
-    for n in (8, 256):
+    for n in (8, 17, 64, 256):
         equal[f"rows{n}_prefix"] = bool(torch.equal(int4_matmul(x[:n], q.w, q.scale), full[:n]))
     for r in (0, 7, 255, INDEPENDENT_ROWS - 1):
         equal[f"row{r}"] = bool(torch.equal(int4_matmul(x[r : r + 1], q.w, q.scale), full[r : r + 1]))
@@ -856,25 +879,93 @@ def _int4_independent(torch, dev, g, site, q) -> dict:
     return row
 
 
+def int4_wgmma_bits(torch, dev, sites=INT4_SITES, n_rows: int = 256) -> dict:
+    """One operand set per projection through every int4 body: mma.sync
+    (the decode rows'), wgmma at each product width of WGMMA_WIDTHS, each
+    split a block (the ordered reduce) and, where K is split, one block
+    folding the splits. All must give the mma.sync body's bits: the wrapper
+    picks the body and the width by row count, so any difference would
+    change a row's bits with the rows beside it."""
+    from cake_tpu_torch.ops.int4_matmul import _run, plan
+    from cake_tpu_torch.ops.quant import quantize4_weight
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    equal = {}
+    for site, in_dim, out_dim in sites:
+        q = quantize4_weight(
+            (torch.randn(in_dim, out_dim, generator=g, device=dev) * in_dim**-0.5).to(torch.bfloat16))
+        x = torch.randn(n_rows, in_dim, generator=g, device=dev).to(torch.bfloat16)
+        base = plan(n_rows, in_dim, out_dim, torch.bfloat16, in_dim // q.scale.shape[0])
+        ref = _run(x, q.w, q.scale, dataclasses.replace(base, route="mma.sync", tile=0, fold=False))
+        for width in WGMMA_WIDTHS:
+            folds = (False, True) if base.splits > 1 and width in (32, 64, 128) else (False,)
+            for fold in folds:
+                out = _run(x, q.w, q.scale, dataclasses.replace(base, route="wgmma", tile=width,
+                                                                fold=fold))
+                equal[f"{site}_wgmma{width}" + ("_fold" if fold else "")] = bool(torch.equal(out, ref))
+        del q, x
+    _sync(torch, dev)
+    agree = all(equal.values())
+    row = {"phase": "kernels", "kernel": "int4_matmul", "case": "wgmma_bits", "rows": n_rows,
+           "equal": equal, "answer": WGMMA_AGREE if agree else "differ"}
+    emit(row)
+    if not agree:
+        raise AssertionError(f"int4_matmul bodies disagree to the bit: {row}")
+    return row
+
+
+# The wgmma-bits answer the kernels line reports when the probe holds.
+WGMMA_AGREE = "wgmma at every product width and mma.sync m16n8k16 give the same bits"
+
+
+def _int4_decode_bodies(torch, dev, g, site, qs) -> dict:
+    """mma.sync (plan()'s body at decode rows) against wgmma at row tiles
+    8 and 16 (the same split blocks and ordered reduce) at DECODE_BODY_ROWS,
+    timed in the same run over the same cold weight copies: the measurement
+    behind int4_matmul.DECODE_ROWS. Each must give plan()'s bits."""
+    from cake_tpu_torch.ops.int4_matmul import _run, plan
+
+    in_dim, out_dim = qs[0].in_dim, qs[0].w.shape[-1]
+    ms, equal = {}, {}
+    for n_rows in DECODE_BODY_ROWS:
+        x = torch.randn(n_rows, in_dim, generator=g, device=dev).to(torch.bfloat16)
+        base = plan(n_rows, in_dim, out_dim, torch.bfloat16, in_dim // qs[0].scale.shape[0])
+        ref = _run(x, qs[0].w, qs[0].scale, base)
+        for tile in (0, 8, 16):
+            p = base if tile == 0 else dataclasses.replace(base, route="wgmma", tile=tile)
+            name = f"rows{n_rows}_" + (base.route if tile == 0 else f"wgmma{tile}")
+            runs = [lambda q=q, p=p: _run(x, q.w, q.scale, p) for q in qs]
+            equal[name] = bool(torch.equal(runs[0](), ref))
+            ms[name] = cuda_ms(torch, rotating(runs), 20 * len(qs))
+    row = {"phase": "kernels", "kernel": "int4_matmul", "case": f"{site}_decode_bodies",
+           "ms_by_body": ms, "equal": equal, "operand_copies": len(qs)}
+    emit(row)
+    if not all(equal.values()):
+        raise AssertionError(f"int4_matmul decode bodies disagree to the bit: {row}")
+    return row
+
+
 def int4_cases(torch, dev):
     """int4_matmul into each of Llama-3-8B's projections, its weight
     quantized from N(0, 1/in) bf16 draws; copies enough to read it cold."""
     from cake_tpu_torch.ops.quant import quantize4_weight
 
     g = torch.Generator(device=dev).manual_seed(11)
-    rows_out = []
+    rows_out = [int4_wgmma_bits(torch, dev)]
+    torch.cuda.empty_cache()
     for site, in_dim, out_dim in INT4_SITES:
         n_copy = copies_for(in_dim * out_dim // 2)
         qs = [quantize4_weight(
             (torch.randn(in_dim, out_dim, generator=g, device=dev) * in_dim**-0.5).to(torch.bfloat16)
         ) for _ in range(n_copy)]
-        for n_rows in (1, 8, 256):
+        for n_rows in INT4_ROWS:
             rows_out.append(_int4_case(torch, dev, g, site, qs, n_rows, torch.bfloat16))
         for name, (other_site, n_rows) in INT4_OTHER_DTYPES.items():
             if other_site == site:
                 rows_out.append(_int4_case(torch, dev, g, site, qs, n_rows, getattr(torch, name)))
         if site in INT4_INDEPENDENT:
             rows_out.append(_int4_independent(torch, dev, g, site, qs[0]))
+        rows_out.append(_int4_decode_bodies(torch, dev, g, site, qs))
         del qs
         torch.cuda.empty_cache()
     return rows_out
@@ -1012,6 +1103,7 @@ def _kernel_family(name: str) -> str:
                            ("ingest_kernel", "fused_qkv_ingest"),
                            ("tail_kernel", "fused_sample_tail"),
                            ("int4_mma_kernel", "int4_matmul"),
+                           ("int4_wgmma_kernel", "int4_matmul"),
                            ("int4_f32_kernel", "int4_matmul"),
                            ("int4_reduce_kernel", "int4_matmul")):
         if kernel in name:
@@ -1027,9 +1119,12 @@ def _kernel_family(name: str) -> str:
     return "other"
 
 
-def _device_profile(torch, run) -> dict:
-    """Run ``run`` under torch.profiler and sum the device time of its
-    kernels, memcpys and memsets by family (ms), from the exported trace."""
+TRACE_TRIES = 3  # traces traced_route takes at most
+
+
+def _device_events(torch, run) -> list:
+    """Run ``run`` under torch.profiler: the kernels, memcpys and memsets of
+    the exported trace."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1040,12 +1135,44 @@ def _device_profile(torch, run) -> dict:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
+    return [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+# The redesigned kernels' bodies by the name of their kernel, and the
+# instructions each runs its products on (chunk_kernel_tc before
+# chunk_kernel, whose name it contains).
+BODY_ROUTES = (("int4_wgmma_kernel", "wgmma"), ("int4_mma_kernel", "mma.sync"),
+               ("int4_f32_kernel", "CUDA cores"), ("chunk_kernel_tc", "mma.sync"),
+               ("chunk_kernel", "CUDA cores"))
+
+
+def kernel_route(names) -> str | None:
+    """The instructions of the redesigned bodies among kernel ``names``
+    (several joined by "+"), or None where none of them ran."""
+    routes = {next((r for k, r in BODY_ROUTES if k in n), None) for n in names} - {None}
+    return "+".join(sorted(routes)) or None
+
+
+def traced_route(torch, run) -> str | None:
+    """The instructions one call of ``run`` ran on, read from the names of
+    the kernels its trace records; None where no trace of TRACE_TRIES held
+    a redesigned body's kernel (on the card, some single-call traces come
+    back without their kernel: PERF.md, section 7)."""
+    for _ in range(TRACE_TRIES):
+        route = kernel_route(e.get("name", "") for e in _device_events(torch, run)
+                             if e.get("cat") == "kernel")
+        if route is not None:
+            return route
+    return None
+
+
+def _device_profile(torch, run) -> dict:
+    """Run ``run`` under torch.profiler and sum the device time of its
+    kernels, memcpys and memsets by family (ms), from the exported trace."""
     by_family: dict[str, float] = {}
     count = 0
-    for e in events:
+    for e in _device_events(torch, run):
         cat = e.get("cat")
-        if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
-            continue
         fam = _kernel_family(e.get("name", "")) if cat == "kernel" else cat
         by_family[fam] = by_family.get(fam, 0.0) + e.get("dur", 0.0) / 1e3
         count += 1
@@ -1620,6 +1747,12 @@ def phase_engine(torch, main_path: dict) -> dict:
         )
     if waves[1]["prefix_hits"] <= 0:
         raise AssertionError("wave 2 took no prefix-cache hit")
+    # Wave 2 repeats wave 1's prompts over its cached prefix: the warm
+    # suffix prefill must give the cold prefill's streams (the chunk body
+    # places key tiles by key position, so a query's sums do not move).
+    if row["wave2_equal_streams"] != ENGINE_BATCH:
+        raise AssertionError(
+            f"warm wave 2 streams equal cold wave 1's {row['wave2_equal_streams']}/{ENGINE_BATCH}")
     if waves[2]["joins"] <= 0 or dense_waves[1]["joins"] <= 0:
         raise AssertionError("the ragged wave drove no join")
     for w in waves + dense_waves:
@@ -2381,18 +2514,33 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(
         ("int4_matmul", "cake_tpu_torch/ops/csrc/int4_matmul.cu",
          "cake_tpu/ops/pallas/int4_matmul.py:90", ("int4_matmul",), ("int4_matmul", INT4_MAIN)),
     ]
+    bits = rows.get(("int4_matmul", "wgmma_bits"), {}).get("answer")
     out = []
     for name, source, replaces, families, timed in spec:
         t = rows[timed]
-        out.append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for k, r in rows.items()
                                if k[0] in families and "max_abs_err" in r),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        })
+        }
+        if name in REDESIGNED:
+            # The instructions its cases ran on (traced), and int4_matmul's
+            # bits probe answer.
+            entry["redesigned"] = REDESIGNED[name]
+            entry["instructions"] = sorted({r["route"] for k, r in rows.items()
+                                            if k[0] in families and "route" in r})
+            if name == "int4_matmul":
+                entry["wgmma_bits"] = bits
+        out.append(entry)
     return {"kernels": out}
+
+
+# Kernels a later PR redesigned, with that PR.
+REDESIGNED = {"chunk_prefill_attention": "PR 5", "paged_chunk_attention": "PR 5",
+              "int4_matmul": "PR 5"}
 
 
 # ---------------------------------------------------------------- main

@@ -52,6 +52,7 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
     assert engine["dense_launches"]["decode_attention_plain"] > 0
     assert engine["dense_launches"]["chunk_prefill_attention_plain"] > 0
     assert engine["prefix_hits_wave2"] > 0
+    assert engine["wave2_equal_streams"] == smoke.ENGINE_BATCH  # warm == cold, gated
     assert engine["waves"][2]["joins"] > 0 and engine["dense_waves"][1]["joins"] > 0
     # Both runs of each check are the plain path here.
     assert engine["check"]["max_abs_err"] == 0.0
@@ -98,8 +99,14 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
     assert int8["run"]["launches"] == int8["run"]["expected_launches"]
     assert int8["run"]["launches"]["int4_matmul_plain"] == 0
     smoke.phase_cli(torch, ("--device", "cpu"))
+    # The int4 bodies' bits probe at a small width (on the CPU every body is
+    # the plain version, so they agree).
+    bits = smoke.int4_wgmma_bits(torch, torch.device("cpu"), sites=(("w", 256, 128),), n_rows=40)
+    assert bits["answer"] == smoke.WGMMA_AGREE
+    assert set(bits["equal"]) == {f"w_wgmma{n}" for n in smoke.WGMMA_WIDTHS} | {
+        f"w_wgmma{n}_fold" for n in (32, 64, 128)}
     timed = {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5,
-             "bound_by": "bytes", "library_ms": None}
+             "bound_by": "bytes", "library_ms": None, "route": "mma.sync"}
     names = ["decode_attention", "chunk_prefill_attention", "paged_decode_attention",
              "paged_chunk_attention", "fused_norm_matmul", "fused_qkv_ingest",
              "fused_sample_tail", "int4_matmul"]
@@ -107,16 +114,25 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
     rows.update({(name, case): timed for name, case in smoke.FUSED_MAIN.items()})
     rows[("int4_matmul", smoke.INT4_MAIN)] = timed
     rows[("int4_matmul", "w_gu_row_independence")] = {"equal": {"row0": True}}
+    rows[("int4_matmul", "wgmma_bits")] = bits
+    rows[("int4_matmul", "w_gu_rows3840")] = dict(timed, route="wgmma")
     summary = smoke.kernel_summary(rows, row, engine, (fused_gen, fused_engine),
                                    (int4, int4_engine))
     assert [k["name"] for k in summary["kernels"]] == names
-    assert all(set(k) == KERNEL_KEYS for k in summary["kernels"])
+    for k in summary["kernels"]:
+        extra = {"redesigned", "instructions"} if k["name"] in smoke.REDESIGNED else set()
+        assert set(k) == KERNEL_KEYS | extra | ({"wgmma_bits"} if k["name"] == "int4_matmul" else set())
+    by_name = {k["name"]: k for k in summary["kernels"]}
+    assert by_name["int4_matmul"]["instructions"] == ["mma.sync", "wgmma"]
+    assert all(by_name[n]["redesigned"] == pr for n, pr in smoke.REDESIGNED.items())
+    assert by_name["int4_matmul"]["wgmma_bits"] == smoke.WGMMA_AGREE
     assert summary["kernels"][-1]["launches"] == int4["int4_launches"] + int4_engine["int4_launches"]
     phases = [json.loads(line)["phase"] for line in capsys.readouterr().out.splitlines()]
     assert phases == ["generate", "full_model_check", "api", "engine", "paged_model_check",
                       "dense_model_check", "api_engine", "generate_fused", "fused_model_check",
                       "engine_fused", "paged_fused_model_check", "dense_fused_model_check",
-                      "generate_int4", "int4_model_check", "engine_int4", "generate_int8", "cli"]
+                      "generate_int4", "int4_model_check", "engine_int4", "generate_int8", "cli",
+                      "kernels"]
 
 
 @pytest.mark.parametrize("kv_mode", ["paged", "dense"])
@@ -196,6 +212,11 @@ def test_bound_takes_the_larger_of_bytes_and_operations(smoke):
         ("void cake::tail_kernel<true, true, true>(...)", "fused_sample_tail"),
         ("void cake::int4mm::int4_mma_kernel<__nv_bfloat16, 16, 1, false>(...)", "int4_matmul"),
         ("void cake::int4mm::int4_f32_kernel(...)", "int4_matmul"),
+        ("void cake::int4mm::int4_wgmma_kernel<__nv_bfloat16, 128, 128, true>(...)", "int4_matmul"),
+        ("void cake::chunk_kernel_tc<__nv_bfloat16, 128, cake::StridedLayout>(...)",
+         "chunk_prefill_attention"),
+        ("void cake::chunk_kernel_tc<__nv_bfloat16, 128, cake::PagedLayout>(...)",
+         "paged_chunk_attention"),
         ("void cake::int4mm::int4_reduce_kernel<__nv_bfloat16>(...)", "int4_matmul"),
     ],
 )
@@ -207,6 +228,24 @@ def _run(script: Path, cwd: Path) -> subprocess.CompletedProcess:
     return subprocess.run(
         [sys.executable, str(script)], cwd=cwd, capture_output=True, text=True, timeout=120
     )
+
+
+@pytest.mark.parametrize(
+    "names,route",
+    [
+        (["void cake::int4mm::int4_wgmma_kernel<__nv_bfloat16, 128, true>(...)"], "wgmma"),
+        (["void cake::int4mm::int4_mma_kernel<__half>(...)",
+          "void cake::int4mm::int4_reduce_kernel<__half>(...)"], "mma.sync"),
+        (["void cake::int4mm::int4_f32_kernel(...)"], "CUDA cores"),
+        (["void cake::chunk_kernel_tc<__nv_bfloat16, 128, cake::PagedLayout>(...)"], "mma.sync"),
+        (["void cake::chunk_kernel<float, 64, cake::StridedLayout>(...)"], "CUDA cores"),
+        (["void cake::int4mm::int4_wgmma_kernel<__half, 8, false>(...)",
+          "void cake::int4mm::int4_mma_kernel<__half>(...)"], "mma.sync+wgmma"),
+        (["void cake::decode_kernel<__nv_bfloat16, 128>(...)", "nvjet_tst_128x256"], None),
+    ],
+)
+def test_route_is_read_from_the_traced_kernel_names(smoke, names, route):
+    assert smoke.kernel_route(names) == route
 
 
 def test_refuses_without_cuda():

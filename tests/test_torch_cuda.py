@@ -124,6 +124,59 @@ def test_chunk_kernel_matches_plain(dev, dtype, hd, group):
         _assert_close(out, ref, dtype)
 
 
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_chunk_body_over_gqa_groups_dense_and_paged(dev, dtype, hd, group):
+    """The chunk body over several key tiles per query block: dense against
+    the plain version, with k_starts, a window gated on and a softcap, and
+    the paged kernel on the same keys equal to the dense one to the bit."""
+    gen = torch.Generator(device=dev).manual_seed(hd * 7 + group)
+    n_kv, chunk = 2, 150
+    k, v = _pool(gen, dev, dtype, 10, n_kv, hd)
+    tables = _tables(dev, _ROWS, 4)
+    k_dense = gather_pages(k, tables).contiguous()
+    v_dense = gather_pages(v, tables).contiguous()
+    q = _randn(gen, dev, dtype, 3, chunk, n_kv * group, hd)
+    q_starts = torch.tensor([0, 40, 350], dtype=torch.int32, device=dev)
+    lengths = torch.tensor([150, 190, 500], dtype=torch.int32, device=dev)
+    pads = torch.tensor([0, 17, 300], dtype=torch.int32, device=dev)
+    flag = torch.tensor(True, device=dev)
+    for wflag, kw in ((None, {}), (flag, {"window": 70, "softcap": 25.0})):
+        dense = chunk_prefill_attention(q, k_dense, v_dense, q_starts, lengths, wflag, pads, **kw)
+        ref = chunk_prefill_attention_plain(q, k_dense, v_dense, q_starts, lengths, wflag, pads,
+                                            **kw)
+        _assert_close(dense, ref, dtype)
+        paged = paged_chunk_attention(q, k, v, q_starts, lengths, pads, tables, wflag, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(paged, dense)
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_chunk_warm_suffix_gives_the_cold_prefill_bits(dev, dtype, group):
+    """A query's output does not depend on which query block holds it: the
+    suffix of a prompt prefilled over its cached prefix (queries from
+    position s) equals, to the bit, the same queries of the cold prefill
+    from position 0, with left pads and a window."""
+    gen = torch.Generator(device=dev).manual_seed(group)
+    n_kv, total, hd = 2, 300, 128
+    k = _randn(gen, dev, dtype, 2, n_kv, 384, hd)
+    v = _randn(gen, dev, dtype, 2, n_kv, 384, hd)
+    q = _randn(gen, dev, dtype, 2, total, n_kv * group, hd)
+    pads = torch.tensor([0, 37], dtype=torch.int32, device=dev)
+    lengths = torch.full((2,), total, dtype=torch.int32, device=dev)
+    flag = torch.tensor(True, device=dev)
+    for wflag, kw in ((None, {}), (flag, {"window": 90})):
+        cold = chunk_prefill_attention(q, k, v, torch.zeros_like(pads), lengths, wflag, pads, **kw)
+        for start in (129, 200, 257):
+            qs = torch.full((2,), start, dtype=torch.int32, device=dev)
+            warm = chunk_prefill_attention(q[:, start:].contiguous(), k, v, qs, lengths, wflag,
+                                           pads, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(warm, cold[:, start:]), (start, kw)
+
+
 def test_chunk_fully_padded_rows_are_exact_zeros(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     q = _randn(gen, dev, torch.bfloat16, 1, 64, 8, 128)
@@ -754,7 +807,7 @@ def test_int4_kernel_at_llama3_widths(dev, dtype, shape):
     from cake_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
 
     q = _int4_weight(dev, *shape, 128, shape[1])
-    for rows in (1, 8, 256):
+    for rows in (1, 8, 16, 17, 64, 256, 3840):
         x = _randn(torch.Generator(device=dev).manual_seed(rows), dev, dtype, rows, shape[0])
         _int4_close(int4_matmul(x, q.w, q.scale), int4_matmul_plain(x, q.w, q.scale), dtype)
 
@@ -775,6 +828,56 @@ def test_int4_rows_are_independent_bitwise(dev, dtype, shape):
         assert torch.equal(int4_matmul(x[:n], q.w, q.scale), full[:n]), n
     for r in (0, 9, 255, 3839):
         assert torch.equal(int4_matmul(x[r : r + 1], q.w, q.scale), full[r : r + 1]), r
+
+
+@pytest.mark.parametrize("shape", [(4096, 6144), (4096, 28672), (14336, 4096), (1024, 384, 32),
+                                   (96, 48, 16), (2048, 640, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_int4_bodies_agree_to_the_bit(dev, dtype, shape):
+    """The bits probe: the same operands through mma.sync m16n8k16 (the
+    decode rows' body) and through wgmma at every product width, each split
+    a block and, where K is split, one block folding the splits in order.
+    Every variant must give mma.sync's bits; the ones that agree are
+    recorded in the assertion message."""
+    import dataclasses
+
+    from cake_tpu_torch.ops.int4_matmul import _run, plan
+
+    in_dim, out = shape[:2]
+    group = shape[2] if len(shape) > 2 else 128
+    q = _int4_weight(dev, in_dim, out, group, 11)
+    x = _randn(torch.Generator(device=dev).manual_seed(5), dev, dtype, 256, in_dim)
+    base = plan(256, in_dim, out, dtype, group)
+    ref = _run(x, q.w, q.scale, dataclasses.replace(base, route="mma.sync", tile=0, fold=False))
+    agree = {}
+    for width in (8, 16, 32, 64, 128, 256):
+        for fold in (False, True) if base.splits > 1 and width in (32, 64, 128) else (False,):
+            got = _run(x, q.w, q.scale, dataclasses.replace(base, route="wgmma", tile=width,
+                                                            fold=fold))
+            agree[f"wgmma{width}" + ("_fold" if fold else "")] = bool(torch.equal(got, ref))
+    assert all(agree.values()), agree
+
+
+def test_built_library_runs_the_tensor_cores(dev):
+    """The redesigned kernels' SASS: HGMMA in int4_matmul's wgmma body,
+    HMMA in the chunk body's f16/bf16 kernels (dense and paged)."""
+    import os
+    import subprocess
+
+    from cake_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True,
+                          check=True).stdout
+    bodies = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0]
+        bodies.setdefault("int4_wgmma" if "int4_wgmma_kernel" in name else
+                          "chunk_tc" if "chunk_kernel_tc" in name else "other", []).append(fn)
+    assert bodies.get("int4_wgmma") and bodies.get("chunk_tc")
+    assert all("HGMMA" in fn for fn in bodies["int4_wgmma"])
+    assert all("HMMA" in fn or "HGMMA" in fn for fn in bodies["chunk_tc"])
 
 
 def test_int4_sign_extends_every_nibble(dev):
