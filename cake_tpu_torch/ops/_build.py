@@ -46,8 +46,9 @@ _FLOAT = ctypes.c_float
 _SIGNATURES = {
     "cake_decode_attention": (
         _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,   # q k v out lengths starts
+        _VOID, _VOID,                                # part tickets
         _INT, _INT, _INT, _INT, _INT, _INT,          # b n_kv group max_seq hd dtype
-        _FLOAT, _FLOAT, _VOID,                       # scale softcap stream
+        _FLOAT, _FLOAT, _INT, _INT, _VOID,           # scale softcap n_split z stream
     ),
     "cake_chunk_prefill_attention": (
         _VOID, _VOID, _VOID, _VOID,                  # q k v out
@@ -59,9 +60,10 @@ _SIGNATURES = {
     "cake_paged_decode_attention": (
         _VOID, _VOID, _VOID, _VOID,                  # q k v out
         _VOID, _VOID, _VOID,                         # lengths starts tables
+        _VOID, _VOID,                                # part tickets
         _INT, _INT, _INT, _INT, _INT,                # b n_kv group page_size n_p
         _LONG, _INT, _INT,                           # table_stride hd dtype
-        _FLOAT, _FLOAT, _VOID,                       # scale softcap stream
+        _FLOAT, _FLOAT, _INT, _INT, _VOID,           # scale softcap n_split z stream
     ),
     "cake_paged_chunk_attention": (
         _VOID, _VOID, _VOID, _VOID,                  # q k v out

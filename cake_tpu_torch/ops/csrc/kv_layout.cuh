@@ -5,7 +5,11 @@
 // and, per (row, kv head), a cursor whose k<D>(j) / v<D>(j) are the element
 // offsets of slot j's K and V rows (D: the head_dim, a template parameter). Which thread reads which slot, and all
 // arithmetic, stay the same, so a paged kernel gives its dense twin's bits
-// on the same keys.
+// on the same keys. The decode kernel reads a split of keys through
+// split<D>(j0): the offset of K's (and V's) slot j0, from which the next
+// slots up to the next multiple of 128 follow D elements apart in both the
+// dense cache and a page (every page size the paged kernels take is a
+// multiple of 128).
 #pragma once
 
 #include <stddef.h>
@@ -22,6 +26,8 @@ struct DenseCursor {
   __device__ __forceinline__ size_t k(int j) const { return (row0 + (size_t)j) * D; }
   template <int D>
   __device__ __forceinline__ size_t v(int j) const { return k<D>(j); }
+  template <int D>
+  __device__ __forceinline__ size_t split(int j0) const { return k<D>(j0); }
 };
 
 struct DenseLayout {
@@ -73,6 +79,9 @@ struct PagedCursor {
   }
   template <int D>
   __device__ __forceinline__ size_t v(int j) const { return k<D>(j); }
+  // One table lookup for the whole split that starts at j0.
+  template <int D>
+  __device__ __forceinline__ size_t split(int j0) const { return k<D>(j0); }
 };
 
 struct PagedLayout {

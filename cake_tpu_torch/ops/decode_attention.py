@@ -6,18 +6,22 @@ Replaces the Pallas TPU kernel ``cake_tpu/ops/pallas/decode_attention.py``
 
 What bounds it on the H100: device-memory bytes. Every live K/V row of the
 cache is read once and serves the ``group`` query heads of its KV head
-(4 for Llama-3-8B), about one FLOP per byte read.
+(4 for Llama-3-8B), about one FLOP per byte read. To read at the card's rate
+the keys must be spread over all 132 SMs, even at batch 1.
 
-What the design does about it: one thread block per (KV head, row) holds all
-query heads of the group, so each K/V byte is read exactly once; the block
-walks only the live slots ``[start, length)`` (the window folds into
-``start``), so pruning is the loop bound and dead slots are never read; eight
-warps stream the keys with coalesced vector loads, 8 keys per warp step, and
-merge their partial softmax states once at the end; the group size is a
-compile-time parameter, so the per-step warp reductions have no branches.
-At batch 1 with 8 KV heads the grid is only 8 blocks on 132 SMs, so the
-kernel is bound by load latency, not bandwidth; splitting the key range
-over more blocks (flash-decoding) is later work.
+What the design does about it (flash-decoding, ``ops/csrc/decode_attention.cuh``):
+a row's live slots ``[start, length)`` (the window folds into ``start``) are
+cut at multiples of :data:`SPLIT` key positions, points that depend on
+nothing but the positions, so a row's bits are the same whatever else shares
+the call. :func:`plan` sizes the grid ``(n_kv, b, z)`` from the shapes alone
+(never from ``lengths``: no host sync, so a CUDA graph can replay it); the
+blocks find their row's live splits on the device and stride over them, and
+each split's block reads its keys once for all query heads of the group
+(eight warps, coalesced vector loads, the warps merged in order) and writes
+an f32 partial (max, sum, acc). The last block of a (row, KV head), by an
+atomic ticket, merges the partials in ascending split order. The tickets
+live in one zeroed buffer per device that every call leaves at zero; they
+assume the calls run on one stream at a time, as the port's callers do.
 
 For a tensor on the CPU the wrapper runs :func:`decode_attention_plain`
 (the tests' path); for a CUDA tensor it launches the kernel or raises.
@@ -26,6 +30,8 @@ For a tensor on the CPU the wrapper runs :func:`decode_attention_plain`
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -35,6 +41,62 @@ from cake_tpu_torch.ops.attention import masked_gqa_attention_hm
 _KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
 _MAX_GROUP = 8
+# Geometry shared with csrc/decode_attention.cuh.
+SPLIT = 128  # keys a split covers (DEC_SPLIT); divides 128, so a page holds whole splits
+SMS = 132  # H100 SXM streaming multiprocessors
+BLOCKS_PER_SM = 8  # the grid offers this many blocks an SM before blocks stride over splits
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """A decode launch's geometry, from the shapes alone."""
+
+    n_split: int  # split slots a row has: ceil(limit / SPLIT)
+    z: int  # the grid's third dimension: blocks a (KV head, row) gets
+    scratch: int  # f32 partials: acc [b, n_kv, n_split, group, head_dim], (m, l) [.., group, 2]
+
+
+def plan(b: int, n_kv: int, group: int, head_dim: int, limit: int, sms: int = SMS) -> SplitPlan:
+    """The grid and scratch of a decode call over ``limit`` key slots a row
+    (``max_seq``, or ``n_p * page_size``): enough blocks to offer every SM
+    BLOCKS_PER_SM of them, never more than a row has splits."""
+    n_split = max(1, -(-limit // SPLIT))
+    z = max(1, min(n_split, -(-BLOCKS_PER_SM * sms // max(1, b * n_kv))))
+    return SplitPlan(n_split, z, b * n_kv * n_split * group * (head_dim + 2))
+
+
+def live_splits(start: int, length: int, limit: int) -> list[tuple[int, int]]:
+    """The key ranges of a row's live splits, in the order the kernel merges
+    them: ``[start, length)`` clamped to ``[0, limit)``, cut at multiples of
+    SPLIT."""
+    start, length = max(start, 0), min(length, limit)
+    return [
+        (max(start, s * SPLIT), min(length, (s + 1) * SPLIT))
+        for s in range(start // SPLIT, (length - 1) // SPLIT + 1)
+    ] if start < length else []
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_tickets: dict[torch.device, torch.Tensor] = {}
+
+
+def split_launch(q: torch.Tensor, n_kv: int, limit: int):
+    """(plan, partials scratch, tickets) of a decode call on q's card. The
+    scratch comes from torch.empty; the tickets are one zeroed int32 buffer
+    per device, grown when a batch needs more (b * n_kv), which every launch
+    leaves at zero."""
+    b, _, n_q, hd = q.shape
+    p = plan(b, n_kv, n_q // n_kv, hd, limit, _sm_count(q.device.index))
+    part = torch.empty(p.scratch, dtype=torch.float32, device=q.device)
+    tickets = _tickets.get(q.device)
+    if tickets is None or tickets.numel() < b * n_kv:
+        tickets = torch.zeros(b * n_kv, dtype=torch.int32, device=q.device)
+        _tickets[q.device] = tickets
+    return p, part, tickets
 
 
 def fold_window(starts, lengths, window, window_flag):
@@ -148,13 +210,14 @@ def decode_attention(
     if b == 0:
         return out
     lib = _build.library()
+    p, part, tickets = split_launch(q, n_kv, max_seq)
     err = lib.cake_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        lengths.data_ptr(), starts.data_ptr(),
+        lengths.data_ptr(), starts.data_ptr(), part.data_ptr(), tickets.data_ptr(),
         b, n_kv, n_q // n_kv, max_seq, hd,
         _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
         float(hd**-0.5 if scale is None else scale),
-        float(softcap or 0.0),
+        float(softcap or 0.0), p.n_split, p.z,
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     _build.check(err, "decode_attention")

@@ -9,14 +9,21 @@ What bounds it on the H100: device-memory bytes, as the dense decode kernel
 ``group`` query heads of its KV head, about one FLOP per byte read.
 
 What the design does about it: the kernel is the dense decode kernel's body
-(``ops/csrc/decode_attention.cuh``) with one change, how a key slot becomes
-an address: ``page = tables[row, j // page_size]`` (an unmapped entry, < 0,
-reads page 0) at offset ``j % page_size``. The block walks only the live
-slots ``[start, length)``, so dead pages cost nothing (the TPU kernel's
-clamp of the logical page into the live range), and key slots go to warps
-exactly as in the dense kernel: on the same keys the paged kernel gives the
-dense kernel's bits. The window folds into ``start`` as in the JAX package's
-``_apply_window`` (``ops/decode_attention.fold_window``, the same rule).
+(``ops/csrc/decode_attention.cuh``, flash-decoding: key splits of
+``decode_attention.SPLIT`` positions over the whole card, an ordered combine)
+with one change, how a key slot becomes an address: ``page = tables[row,
+j // page_size]`` (an unmapped entry, < 0, reads page 0) at offset
+``j % page_size``. The split size divides 128 and the kernel takes page sizes
+that are multiples of 128, so a split lies inside one page: a block looks
+its page up once and reads the split's keys from one base. Only the splits
+of ``[start, length)`` are walked, so dead pages cost nothing (the TPU
+kernel's clamp of the logical page into the live range), and splits and key
+slots go to blocks and warps exactly as in the dense kernel: on the same
+keys the paged kernel gives the dense kernel's bits. The grid comes from
+the pool's shapes (``decode_attention.plan`` over ``n_p * page_size``
+slots), never from ``lengths``. The window folds into ``start`` as in the
+JAX package's ``_apply_window`` (``ops/decode_attention.fold_window``, the
+same rule).
 
 For a tensor on the CPU the wrapper runs :func:`paged_decode_attention_plain`
 (the tests' path); for a CUDA tensor it launches the kernel or raises.
@@ -30,7 +37,7 @@ import torch
 
 from cake_tpu_torch.models.llama.paged_cache import gather_pages
 from cake_tpu_torch.ops import _build
-from cake_tpu_torch.ops.decode_attention import decode_masked, row_bounds
+from cake_tpu_torch.ops.decode_attention import decode_masked, row_bounds, split_launch
 from cake_tpu_torch.ops.paged_prefill import check_paged_operands
 
 
@@ -91,13 +98,15 @@ def paged_decode_attention(
     if b == 0:
         return out
     lib = _build.library()
+    p, part, tickets = split_launch(q, n_kv, n_p * page_size)
     err = lib.cake_paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
         lengths.data_ptr(), starts.data_ptr(), block_tables.data_ptr(),
+        part.data_ptr(), tickets.data_ptr(),
         b, n_kv, n_q // n_kv, page_size, n_p, stride, hd,
         _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
         float(hd**-0.5 if scale is None else scale),
-        float(softcap or 0.0),
+        float(softcap or 0.0), p.n_split, p.z,
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     _build.check(err, "paged_decode_attention")

@@ -44,7 +44,9 @@ nonzero exit and no final result line:
                and 16, at 1 and 8 rows, timed in the same run. The
                redesigned kernels' rows name the instructions they ran on
                ("route": wgmma, mma.sync, CUDA cores), read from the
-               kernel names a trace of the case's call records.
+               kernel names a trace of the case's call records (a second
+               call, after a warm-up call). The decode kernels' cases
+               cover lengths to 8192 keys, starts, window and softcap.
   4. generate  Llama-3-8B at full width and depth, random bf16 weights drawn
                on the card from a seeded torch.Generator: a ~700 byte-token
                prompt prefilled in 256-token chunks (the position-0 and the
@@ -76,7 +78,10 @@ nonzero exit and no final result line:
                first prefill, a mid-wave decode step) are recorded, and
                each kernel is then timed and checked at exactly those
                shapes: the paged kernels' "main_path", the dense kernels'
-               "dense_engine" cases.
+               "dense_engine" cases; at the decode operands the split
+               design's bits are gated ("split_bits"): the paged kernel
+               equals the dense one over the same keys (max_seq 2048 and
+               8192), each row called alone, and a second call.
   7. api_engine the ApiServer with that engine answers 4 concurrent SSE chats.
   8. generate_fused  the generator with ``fusion_impl="all"`` and
                ``decode_chunk_size=8`` over the generate phase's weights, the
@@ -96,7 +101,8 @@ nonzero exit and no final result line:
                version 0. Then one wave through the dense engine with "all",
                and the full-width paged and dense forwards with "all"
                against the plain path (cosine >= 0.999). TTFT, ms per decode
-               step, device ops per step and the device idle share of each.
+               step, device ops and ms per step (by kernel family) and the device
+               idle share of each.
  10. generate_int4  the generate phase's weights quantized on the card
                to int4 (``quantize_params``, one layer at a time), the same
                prompt and 64 greedy tokens per token and with 8-token
@@ -147,6 +153,7 @@ import tempfile
 import threading
 import time
 
+STARTED = time.perf_counter()
 TOL = 2e-2  # bf16 outputs of f32-accumulated attention, max-abs vs the plain version
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -214,12 +221,18 @@ def _spin_cycles_per_ms(torch) -> float:
     return 10_000_000 / start.elapsed_time(end)
 
 
+# Calls timed behind one spin kernel. The host blocks once the device's
+# launch queue is full (about a thousand launches), so a longer run behind
+# one spin ran at the host's launch rate, not the device's.
+SPIN_BATCH = 100
+
+
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls.
 
-    A spin kernel queued ahead of the timed calls holds the device while the
-    host enqueues them, so the events time the device's work and not the
-    host's launch rate."""
+    A spin kernel queued ahead of each batch of at most SPIN_BATCH timed
+    calls holds the device while the host enqueues them, so the events time
+    the device's work and not the host's launch rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -227,16 +240,21 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     fn()
     torch.cuda.synchronize()
     call_ms = (time.perf_counter() - t0) * 1e3
-    spin_ms = min(1.5 * iters * call_ms + 1.0, 3000.0)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(spin_ms * _spin_cycles_per_ms(torch)))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    cycles_per_ms = _spin_cycles_per_ms(torch)
+    total = 0.0
+    for done in range(0, iters, SPIN_BATCH):
+        n = min(SPIN_BATCH, iters - done)
+        spin_ms = min(1.5 * n * call_ms + 1.0, 3000.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * cycles_per_ms))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
 
 
 # Timing a bytes-bound kernel on one small operand set measures the 50 MB
@@ -407,7 +425,7 @@ def _decode_case(torch, dev, g, case, lens, starts, kw, max_seq=MAX_SEQ, cold=Fa
     return _check(
         torch, "decode_attention", case, out, ref,
         cuda_ms(torch, rotating(runs), 50 * n_copy), cuda_ms(torch, rotating(plains), 5),
-        nbytes, flops, library_ms, copies=n_copy,
+        nbytes, flops, library_ms, copies=n_copy, route=traced_route(torch, runs[0]),
     )
 
 
@@ -569,7 +587,7 @@ def _paged_decode_case(torch, dev, g, seed, case, lens, starts, npp, cold=False,
     return _check(
         torch, "paged_decode_attention", case, out, ref,
         cuda_ms(torch, rotating(runs), 50 * n_copy), cuda_ms(torch, rotating(plains), 5),
-        nbytes, flops, library_ms, copies=n_copy,
+        nbytes, flops, library_ms, copies=n_copy, route=traced_route(torch, runs[0]),
     )
 
 
@@ -584,6 +602,44 @@ def paged_decode_cases(torch, dev):
                            [300, 700, 2047, 1000, 129, 640, 1500, 2000],
                            [0, 100, 1000, 513, 0, 200, 64, 1999], n_p),
     ]
+
+
+def decode_split_bits(torch, dev, g, seed, lens, starts, npp) -> dict:
+    """The split design's bits at the engine's decode operands: the paged
+    kernel equals the dense kernel over the same keys gathered (max_seq
+    ``npp`` pages and MAX_SEQ), each row called alone, and a second call
+    (the tickets reset), all to the bit."""
+    from cake_tpu_torch.models.llama.paged_cache import gather_pages
+    from cake_tpu_torch.ops.decode_attention import decode_attention
+    from cake_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    b = len(lens)
+    k, v, tables = _paged_pool(torch, dev, g, seed, b, npp)
+    q = torch.randn(b, 1, N_Q, HD, generator=g, device=dev, dtype=torch.bfloat16)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    paged = paged_decode_attention(q, k, v, lengths, tables, st)
+    dk, dv = gather_pages(k, tables).contiguous(), gather_pages(v, tables).contiguous()
+    wk = torch.zeros(b, N_KV, max(MAX_SEQ, dk.shape[2]), HD, device=dev, dtype=torch.bfloat16)
+    wv = torch.zeros_like(wk)
+    wk[:, :, : dk.shape[2]], wv[:, :, : dv.shape[2]] = dk, dv
+    alone = torch.cat([paged_decode_attention(q[r : r + 1], k, v, lengths[r : r + 1],
+                                              tables[r : r + 1], st[r : r + 1]) for r in range(b)])
+    checks = {
+        "paged_eq_dense": decode_attention(q, dk, dv, lengths, st),
+        f"paged_eq_dense_max_seq_{wk.shape[2]}": decode_attention(q, wk, wv, lengths, st),
+        "rows_alone_eq_batch": alone,
+        "second_call_eq_first": paged_decode_attention(q, k, v, lengths, tables, st),
+    }
+    torch.cuda.synchronize()
+    row = {"phase": "kernels", "kernel": "paged_decode_attention", "case": "split_bits",
+           "lengths": list(lens), "starts": list(starts), "n_p": npp,
+           **{name: bool(torch.equal(out, paged)) for name, out in checks.items()}}
+    emit(row)
+    failed = [name for name in checks if not row[name]]
+    if failed:
+        raise AssertionError(f"decode split bits at the engine's operands: {failed} failed")
+    return row
 
 
 def _paged_chunk_case(torch, dev, g, seed, case, chunk, q_starts, lens, k_starts, npp):
@@ -997,6 +1053,7 @@ def engine_kernel_cases(torch, engine_path: dict) -> dict:
     rows = [
         _paged_decode_case(torch, dev, g, 30, "main_path", d["lengths"], d["starts"], d["n_p"],
                            cold=True),
+        decode_split_bits(torch, dev, g, 32, d["lengths"], d["starts"], d["n_p"]),
         _paged_chunk_case(torch, dev, g, 31, "main_path", c["q"][1], c["q_starts"],
                           c["lengths"], c["k_starts"], c["n_p"]),
     ]
@@ -1108,6 +1165,8 @@ def _kernel_family(name: str) -> str:
                            ("int4_reduce_kernel", "int4_matmul")):
         if kernel in name:
             return family
+    # split_decode_kernel (its splits' combine runs inside it) and chunk_kernel(_tc)
+    # over the page pool, then over the dense cache.
     if "PagedLayout" in name:
         return "paged_decode_attention" if "decode_kernel" in name else "paged_chunk_attention"
     if "decode_kernel" in name:
@@ -1122,14 +1181,19 @@ def _kernel_family(name: str) -> str:
 TRACE_TRIES = 3  # traces traced_route takes at most
 
 
-def _device_events(torch, run) -> list:
+def _device_events(torch, run, warmup: bool = False) -> list:
     """Run ``run`` under torch.profiler: the kernels, memcpys and memsets of
-    the exported trace."""
-    from torch.profiler import ProfilerActivity, profile
+    the exported trace. With ``warmup``, ``run`` runs twice and only the
+    second call is recorded (the first one starts the profiler's tracing)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    plan = schedule(wait=0, warmup=1, active=1, repeat=1) if warmup else None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=plan) as prof:
+        for _ in range(2 if warmup else 1):
+            run()
+            torch.cuda.synchronize()
+            if warmup:
+                prof.step()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -1143,7 +1207,7 @@ def _device_events(torch, run) -> list:
 # chunk_kernel, whose name it contains).
 BODY_ROUTES = (("int4_wgmma_kernel", "wgmma"), ("int4_mma_kernel", "mma.sync"),
                ("int4_f32_kernel", "CUDA cores"), ("chunk_kernel_tc", "mma.sync"),
-               ("chunk_kernel", "CUDA cores"))
+               ("chunk_kernel", "CUDA cores"), ("split_decode_kernel", "CUDA cores"))
 
 
 def kernel_route(names) -> str | None:
@@ -1156,13 +1220,22 @@ def kernel_route(names) -> str | None:
 def traced_route(torch, run) -> str | None:
     """The instructions one call of ``run`` ran on, read from the names of
     the kernels its trace records; None where no trace of TRACE_TRIES held
-    a redesigned body's kernel (on the card, some single-call traces come
-    back without their kernel: PERF.md, section 7)."""
+    a redesigned body's kernel. Each trace records a second call, after a
+    warm-up call that starts the tracing, with the allocator's cached blocks
+    released first (single-call traces at the engine's operands came back
+    without their kernel: PERF.md, section 7)."""
+    torch.cuda.empty_cache()
     for _ in range(TRACE_TRIES):
-        route = kernel_route(e.get("name", "") for e in _device_events(torch, run)
-                             if e.get("cat") == "kernel")
+        events = _device_events(torch, run, warmup=True)
+        names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        route = kernel_route(names)
         if route is not None:
             return route
+    # What the last trace held, for the open question in PERF.md section 7.
+    free, total = torch.cuda.mem_get_info()
+    emit({"phase": "trace_miss", "seconds_into_run": time.perf_counter() - STARTED,
+          "device_events": len(events), "kernels": sorted({n.split("(")[0] for n in names}),
+          "free_mib": free / 2**20, "total_mib": total / 2**20})
     return None
 
 
@@ -2104,6 +2177,9 @@ def _fused_engine_run(torch, make, spec: str, kv_mode: str, n_layers: int, on_ca
                 "device_ops_per_step": (long["device_ops"] - short["device_ops"]) / 16,
                 "device_ms_per_step": (long["device_ms"] - short["device_ms"]) / 16,
                 "by_family_ms_16": short["by_family_ms"],
+                "by_family_ms_per_step": {
+                    f: (long["by_family_ms"].get(f, 0.0) - short["by_family_ms"].get(f, 0.0)) / 16
+                    for f in long["by_family_ms"]},
                 "device_idle_share": 1.0 - busy / (1e3 * timed["wall_s"] - 1e3 * eng.admission_window),
             }
     finally:
@@ -2540,7 +2616,8 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(
 
 # Kernels a later PR redesigned, with that PR.
 REDESIGNED = {"chunk_prefill_attention": "PR 5", "paged_chunk_attention": "PR 5",
-              "int4_matmul": "PR 5"}
+              "int4_matmul": "PR 5", "decode_attention": "PR 6",
+              "paged_decode_attention": "PR 6"}
 
 
 # ---------------------------------------------------------------- main

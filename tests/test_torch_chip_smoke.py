@@ -218,6 +218,10 @@ def test_bound_takes_the_larger_of_bytes_and_operations(smoke):
         ("void cake::chunk_kernel_tc<__nv_bfloat16, 128, cake::PagedLayout>(...)",
          "paged_chunk_attention"),
         ("void cake::int4mm::int4_reduce_kernel<__nv_bfloat16>(...)", "int4_matmul"),
+        ("void cake::split_decode_kernel<__nv_bfloat16, 128, 4, cake::DenseLayout>(...)",
+         "decode_attention"),
+        ("void cake::split_decode_kernel<__nv_bfloat16, 128, 4, cake::PagedLayout>(...)",
+         "paged_decode_attention"),
     ],
 )
 def test_profile_kernel_families(smoke, name, family):
@@ -242,6 +246,8 @@ def _run(script: Path, cwd: Path) -> subprocess.CompletedProcess:
         (["void cake::int4mm::int4_wgmma_kernel<__half, 8, false>(...)",
           "void cake::int4mm::int4_mma_kernel<__half>(...)"], "mma.sync+wgmma"),
         (["void cake::decode_kernel<__nv_bfloat16, 128>(...)", "nvjet_tst_128x256"], None),
+        (["void cake::split_decode_kernel<__nv_bfloat16, 128, 4, cake::PagedLayout>(...)"],
+         "CUDA cores"),
     ],
 )
 def test_route_is_read_from_the_traced_kernel_names(smoke, names, route):

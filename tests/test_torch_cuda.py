@@ -26,7 +26,7 @@ from cake_tpu_torch.ops.chunk_prefill import (
     chunk_prefill_attention,
     chunk_prefill_attention_plain,
 )
-from cake_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+from cake_tpu_torch.ops.decode_attention import SPLIT, decode_attention, decode_attention_plain
 from cake_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from cake_tpu_torch.models.llama.paged_cache import gather_pages
 from cake_tpu_torch.ops.paged_attention import (
@@ -97,6 +97,64 @@ def test_decode_window_flag_gates_the_window(dev):
                       torch.bfloat16)
         outs.append(out)
     assert not torch.equal(outs[0], outs[1])
+
+
+# Lengths on both sides of a split edge, the generator's 733 and a full cache;
+# starts at 0, on split edges and inside splits.
+SPLIT_LENGTHS = [1, SPLIT - 1, SPLIT, SPLIT + 1, 733, 8192]
+SPLIT_STARTS = [[0] * 6, [0, 0, 0, SPLIT, 128, 4096], [0, 1, SPLIT - 1, 1, 300, 8191]]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_decode_split_edges_match_plain(dev, dtype):
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b, n_kv, group, hd, max_seq = len(SPLIT_LENGTHS), 8, 4, 128, 8192
+    q = _randn(gen, dev, dtype, b, 1, n_kv * group, hd)
+    k = _randn(gen, dev, dtype, b, n_kv, max_seq, hd)
+    v = _randn(gen, dev, dtype, b, n_kv, max_seq, hd)
+    lengths = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device=dev)
+    for st in SPLIT_STARTS:
+        starts = torch.tensor(st, dtype=torch.int32, device=dev)
+        out = decode_attention(q, k, v, lengths, starts)
+        _assert_close(out, decode_attention_plain(q, k, v, lengths, starts), dtype)
+
+
+def test_decode_rows_are_independent_and_paged_equals_dense(dev):
+    """Split points are key positions only: a row's bits are the same alone
+    (one block a split) and in a batch of 8 whose long rows make blocks
+    stride over several splits, under max_seq 2048 and 8192, paged and
+    dense; and a second call gives the first one's bits (the tickets reset)."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    dt, n_kv, hd, n_p = torch.bfloat16, 8, 128, 16
+    lens = [733, 1, 64, 65, 2000, 300, 129, 1500]
+    b = len(lens)
+    k = _randn(gen, dev, dt, b * n_p + 1, n_kv, PAGE, hd)
+    v = _randn(gen, dev, dt, b * n_p + 1, n_kv, PAGE, hd)
+    perm = torch.randperm(b * n_p, generator=torch.Generator().manual_seed(2))
+    tables = perm.view(b, n_p).to(torch.int32).to(dev)
+    q = _randn(gen, dev, dt, b, 1, 4 * n_kv, hd)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    starts = torch.tensor([5, 0, 0, 63, 100, 299, 64, 0], dtype=torch.int32, device=dev)
+    paged = paged_decode_attention(q, k, v, lengths, tables, starts)
+    _assert_close(paged, paged_decode_attention_plain(q, k, v, lengths, tables, starts), dt)
+    dk, dv = gather_pages(k, tables).contiguous(), gather_pages(v, tables).contiguous()
+    wk = torch.zeros(b, n_kv, 8192, hd, device=dev, dtype=dt)
+    wv = torch.zeros_like(wk)
+    wk[:, :, : dk.shape[2]], wv[:, :, : dv.shape[2]] = dk, dv
+    outs = {
+        "dense 2048": decode_attention(q, dk, dv, lengths, starts),
+        "dense 8192": decode_attention(q, wk, wv, lengths, starts),
+        "paged again": paged_decode_attention(q, k, v, lengths, tables, starts),
+    }
+    for r in range(b):
+        rs = slice(r, r + 1)
+        alone = paged_decode_attention(q[rs], k, v, lengths[rs], tables[rs], starts[rs])
+        outs[f"row {r} alone"] = torch.cat([paged[:r], alone, paged[r + 1 :]])
+        dense_alone = decode_attention(q[rs], wk[rs], wv[rs], lengths[rs], starts[rs])
+        outs[f"row {r} alone, dense 8192"] = torch.cat([paged[:r], dense_alone, paged[r + 1 :]])
+    torch.cuda.synchronize()
+    for name, out in outs.items():
+        assert torch.equal(out, paged), name
 
 
 @pytest.mark.parametrize("group", GROUPS)
