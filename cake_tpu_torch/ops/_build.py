@@ -74,9 +74,11 @@ _SIGNATURES = {
         _INT, _FLOAT, _FLOAT, _VOID,                 # window scale softcap stream
     ),
     "cake_fused_norm_matmul": (
-        _VOID, _VOID, _VOID, _VOID, _VOID,           # x norm_w w out h (NULL: GEMV)
+        _VOID, _VOID, _VOID, _VOID,                  # x norm_w w out
+        _VOID, _VOID, _VOID,                         # h part tickets (each may be NULL)
         _INT, _INT, _INT, _INT,                      # rows hidden out dtype
-        _FLOAT, _INT, _VOID,                         # eps offset stream
+        _FLOAT, _INT,                                # eps offset
+        _INT, _INT, _INT, _INT, _VOID,               # body tile per stages stream
     ),
     "cake_fused_qkv_ingest": (
         _VOID, _VOID, _VOID, _VOID,                  # qkv cos sin q_out

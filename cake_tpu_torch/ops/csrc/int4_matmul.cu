@@ -617,45 +617,11 @@ static cudaError_t launch_mma(const void* x, const int8_t* packed, const float* 
   return reduce<T>(scratch, out, splits, M, N, stream);
 }
 
-// cuTensorMapEncodeTiled through the runtime's entry-point lookup (no link
-// against libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static cudaError_t encode_tiled(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (!cached) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || !p) return cudaErrorNotSupported;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
 // The TMA map of x [M, K] in tiles of R rows by one K step (128 bytes),
 // 128-byte swizzled, zeros past the edges.
 template <typename T>
 static cudaError_t x_tile_map(CUtensorMap* map, const void* x, int M, int K, int R) {
-  EncodeTiled encode;
-  cudaError_t err = encode_tiled(&encode);
-  if (err != cudaSuccess) return err;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(T)};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)R};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult r = encode(
-      map, std::is_same_v<T, __half> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      2, const_cast<void*>(x), dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return tile_map_2d<T>(map, x, M, K, R, BK);
 }
 
 template <typename T, int R, bool FOLD>

@@ -19,11 +19,14 @@ nonzero exit and no final result line:
                gathered beforehand (the gather is not timed). The dense
                kernels' "main_path" cases have the generate phase's shapes.
                The decode fusions at Llama-3-8B widths: fused_norm_matmul at
-               1 to MAX_ROWS rows into wqkv, w_gu and lm_head (the GEMV up
-               to GEMV_ROWS, the tensor cores past it), and a
-               Gemma (1 + w) case (max-abs <= TOL or one bf16 rounding
-               step at the output's magnitude, whichever is larger, and
-               cosine >= 0.9999);
+               1 to MAX_ROWS rows into wqkv, w_gu and lm_head (swap AB on
+               wgmma to 64, the warp-specialized wgmma body past it), and a
+               Gemma (1 + w) case (max-abs <= TOL or one bf16 rounding step
+               at the output's magnitude, whichever is larger, and cosine
+               >= 0.9999), then its row independence ("bits", gated): at
+               each site, each body's rows (plan() at 1, 8, 16, 64, 256
+               rows) equal the same rows run alone through that body, to
+               the bit;
                fused_qkv_ingest dense b=1 and b=8, paged b=8 over shuffled
                pages with an unmapped entry, and a slot past the table (q
                and every page but the sink bitwise); fused_sample_tail
@@ -693,10 +696,15 @@ FUSED_MAIN = {
 }
 
 
+NORM_SITES = (("wqkv", HIDDEN, (N_Q + 2 * N_KV) * HD), ("w_gu", HIDDEN, 2 * INTER),
+              ("lm_head", HIDDEN, VOCAB))
+NORM_BITS_ROWS = (1, 8, 16, 64, 256)  # swap AB at four product widths, the warp-specialized body
+
+
 def norm_matmul_cases(torch, dev):
     """fused_norm_matmul into each site's weight from 1 to MAX_ROWS rows
-    (both sides of GEMV_ROWS), and a Gemma (1 + w) case; the weights read
-    cold (wqkv rotates over copies, the others exceed the L2 alone)."""
+    (every body), and a Gemma (1 + w) case; the weights read cold (wqkv
+    rotates over copies, the others exceed the L2 alone)."""
     from cake_tpu_torch.ops.fused_norm_matmul import (
         MAX_ROWS, _unfused, fused_norm_matmul, fused_norm_matmul_plain,
     )
@@ -704,9 +712,9 @@ def norm_matmul_cases(torch, dev):
     g = torch.Generator(device=dev).manual_seed(8)
     bf = torch.bfloat16
     rows_out = []
-    sites = (("wqkv", (N_Q + 2 * N_KV) * HD), ("w_gu", 2 * INTER), ("lm_head", VOCAB))
-    cases = [(site, n, r, False) for site, n in sites for r in (1, 4, 8, 16, 64, 128, MAX_ROWS)]
-    cases.append(("wqkv", sites[0][1], 8, True))
+    cases = [(site, n, r, False) for site, _, n in NORM_SITES
+             for r in (1, 4, 8, 16, 64, 128, MAX_ROWS)]
+    cases.append(("wqkv", NORM_SITES[0][2], 8, True))
     weights = {}
     for site, out_dim, n_rows, offset in cases:
         if site not in weights:
@@ -734,10 +742,43 @@ def norm_matmul_cases(torch, dev):
             cuda_ms(torch, rotating(runs), 20 * len(ws)),
             cuda_ms(torch, rotating(plains), 10 * len(ws)), nbytes, flops,
             cuda_ms(torch, rotating(libs), 10 * len(ws)), copies=len(ws), cosine=True,
-            tol=max(TOL, bf16_ulp(ref)),
+            tol=max(TOL, bf16_ulp(ref)), route=traced_route(torch, runs[0]),
         ))
     weights.clear()
+    torch.cuda.empty_cache()
+    rows_out.append(norm_matmul_bits(torch, dev))
     return rows_out
+
+
+def norm_matmul_bits(torch, dev, sites=NORM_SITES) -> dict:
+    """fused_norm_matmul's row independence, bitwise: at each site, the
+    body plan() picks at each of NORM_BITS_ROWS rows, run through the
+    private _run on that many rows, gives its first and last rows the bits
+    of the same row run alone through the same body. Gated: a row's bits
+    must not depend on the rows beside it."""
+    from cake_tpu_torch.ops.fused_norm_matmul import _run, plan
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    bf = torch.bfloat16
+    equal = {}
+    for site, hidden, out_dim in sites:
+        w = (torch.randn(hidden, out_dim, generator=g, device=dev) * hidden**-0.5).to(bf)
+        nw = (0.1 * torch.randn(hidden, generator=g, device=dev) + 1.0).to(bf)
+        x = (3.0 * torch.randn(max(NORM_BITS_ROWS), hidden, generator=g, device=dev)).to(bf)
+        for n in NORM_BITS_ROWS:
+            p = plan(n, hidden, out_dim, bf)
+            full = _run(x[:n], nw, w, p, eps=1e-5)
+            for r in sorted({0, n - 1}):
+                alone = _run(x[r : r + 1], nw, w, p, eps=1e-5)
+                equal[f"{site}_rows{n}_{p.body}_row{r}"] = bool(torch.equal(alone, full[r : r + 1]))
+        del w, x
+    _sync(torch, dev)
+    row = {"phase": "kernels", "kernel": "fused_norm_matmul", "case": "bits",
+           "rows": list(NORM_BITS_ROWS), "equal": equal}
+    emit(row)
+    if not all(equal.values()):
+        raise AssertionError(f"fused_norm_matmul rows depend on the call's other rows: {row}")
+    return row
 
 
 def _ingest_case(torch, dev, g, case, b, slot, paged, unmapped=None):
@@ -1154,8 +1195,7 @@ def _sync(torch, dev) -> None:
 
 
 def _kernel_family(name: str) -> str:
-    for kernel, family in (("norm_matmul_kernel", "fused_norm_matmul"),
-                           ("norm_matmul_wgmma_kernel", "fused_norm_matmul"),
+    for kernel, family in (("norm_matmul_", "fused_norm_matmul"),
                            ("norm_rows_kernel", "fused_norm_matmul"),
                            ("ingest_kernel", "fused_qkv_ingest"),
                            ("tail_kernel", "fused_sample_tail"),
@@ -1207,7 +1247,9 @@ def _device_events(torch, run, warmup: bool = False) -> list:
 # chunk_kernel, whose name it contains).
 BODY_ROUTES = (("int4_wgmma_kernel", "wgmma"), ("int4_mma_kernel", "mma.sync"),
                ("int4_f32_kernel", "CUDA cores"), ("chunk_kernel_tc", "mma.sync"),
-               ("chunk_kernel", "CUDA cores"), ("split_decode_kernel", "CUDA cores"))
+               ("chunk_kernel", "CUDA cores"), ("split_decode_kernel", "CUDA cores"),
+               ("norm_matmul_swap_ab_kernel", "wgmma"), ("norm_matmul_ws_kernel", "wgmma"),
+               ("norm_matmul_kernel", "CUDA cores"))
 
 
 def kernel_route(names) -> str | None:
@@ -2039,6 +2081,7 @@ def phase_generate_fused(torch, main_path: dict) -> dict:
         "fusion": config.fusion_impl,
         "decode_chunk": FUSED_CHUNK,
         "generated_tokens": n_gen,
+        "finish_reason": gen.last_finish_reason,
         "chunks": rec["chunks"],
         "step_calls": len(rec["calls"]),
         "prefill_s": stamps[0] - t_start,
@@ -2225,6 +2268,8 @@ def phase_engine_fused(torch, main_path: dict) -> dict:
         w = r["waves"][0]
         out = {"spec": r["spec"], "kv_mode": r["kv_mode"], "ttft_p50_s": w["ttft_p50_s"],
                "ttft_max_s": w["ttft_max_s"], "decode_ms_per_step": w["decode_ms_per_step"],
+               "greedy_completion_tokens": w["completion_tokens"],
+               "greedy_finish_reasons": w["finish_reasons"],
                "decode_tok_s": w["decode_tok_s"], "profile_wave_wall_ms": r["profile_wave_wall_ms"],
                "profile": r["profile"], "launches": r["launches"],
                "expected_launches": r["expected_launches"]}
@@ -2617,7 +2662,7 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(
 # Kernels a later PR redesigned, with that PR.
 REDESIGNED = {"chunk_prefill_attention": "PR 5", "paged_chunk_attention": "PR 5",
               "int4_matmul": "PR 5", "decode_attention": "PR 6",
-              "paged_decode_attention": "PR 6"}
+              "paged_decode_attention": "PR 6", "fused_norm_matmul": "PR 7"}
 
 
 # ---------------------------------------------------------------- main

@@ -222,6 +222,9 @@ def test_bound_takes_the_larger_of_bytes_and_operations(smoke):
          "decode_attention"),
         ("void cake::split_decode_kernel<__nv_bfloat16, 128, 4, cake::PagedLayout>(...)",
          "paged_decode_attention"),
+        ("void cake::norm_matmul_swap_ab_kernel<__nv_bfloat16, 8, true>(...)",
+         "fused_norm_matmul"),
+        ("void cake::norm_matmul_ws_kernel<__nv_bfloat16, 256, true>(...)", "fused_norm_matmul"),
     ],
 )
 def test_profile_kernel_families(smoke, name, family):
@@ -248,10 +251,28 @@ def _run(script: Path, cwd: Path) -> subprocess.CompletedProcess:
         (["void cake::decode_kernel<__nv_bfloat16, 128>(...)", "nvjet_tst_128x256"], None),
         (["void cake::split_decode_kernel<__nv_bfloat16, 128, 4, cake::PagedLayout>(...)"],
          "CUDA cores"),
+        (["void cake::norm_rows_kernel<__half>(...)",
+          "void cake::norm_matmul_swap_ab_kernel<__half, 32, false>(...)"], "wgmma"),
+        (["void cake::norm_rows_kernel<__nv_bfloat16>(...)",
+          "void cake::norm_matmul_ws_kernel<__nv_bfloat16, 128, false>(...)"], "wgmma"),
+        (["void cake::norm_matmul_kernel<__nv_bfloat16, 1, 16>(...)"], "CUDA cores"),
     ],
 )
 def test_route_is_read_from_the_traced_kernel_names(smoke, names, route):
     assert smoke.kernel_route(names) == route
+
+
+def test_norm_matmul_bits_gate_rehearses_on_the_cpu(smoke, capsys):
+    """The row-independence gate at a small width: every body plan()
+    picks at NORM_BITS_ROWS rows is checked (on the CPU each is the plain
+    version, so they agree), and the row is emitted."""
+    row = smoke.norm_matmul_bits(torch, torch.device("cpu"), sites=(("w", 256, 384),))
+    bodies = {smoke.json.loads(line)["case"] for line in capsys.readouterr().out.splitlines()}
+    assert bodies == {"bits"}
+    assert all(row["equal"].values())
+    assert {k.rsplit("_row", 1)[0] for k in row["equal"]} == {
+        "w_rows1_swap_ab", "w_rows8_swap_ab", "w_rows16_swap_ab", "w_rows64_swap_ab",
+        "w_rows256_warp_specialized"}
 
 
 def test_refuses_without_cuda():

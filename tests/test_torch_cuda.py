@@ -487,14 +487,14 @@ def test_paged_backend_refuses_a_page_the_kernels_do_not_take(dev):
 
 
 @pytest.mark.parametrize("offset", [False, True])
-@pytest.mark.parametrize("rows", [1, 3, 5, 8, 17, 64, 129, 256])
+@pytest.mark.parametrize("rows", [1, 2, 3, 5, 8, 12, 16, 17, 33, 64, 65, 128, 129, 255, 256])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_norm_matmul_kernel_matches_plain(dev, dtype, rows, offset):
     """rms_norm + product against the plain composition, over row counts up
-    to the bound on both sides of GEMV_ROWS (the GEMV, then wgmma for
-    f16/bf16) and of a 128-row tile, each strip width, outputs that end
-    mid-strip, a hidden size that ends mid-K-tile and the Gemma (1 + w)
-    offset;
+    to the bound on both sides of each body's edge (f32 on the GEMV; swap AB
+    to 64 rows, the warp-specialized body past it) and of every product
+    width, each strip width, outputs that end mid-strip, split and unsplit
+    K, a hidden size that ends mid-K-step and the Gemma (1 + w) offset;
     f32-accumulated, so held to a tolerance, not bitwise: TOL, or one
     rounding step of the output's dtype at its magnitude where that is
     larger."""
@@ -504,10 +504,10 @@ def test_norm_matmul_kernel_matches_plain(dev, dtype, rows, offset):
 
     assert rows <= MAX_ROWS
     gen = torch.Generator(device=dev).manual_seed(rows + 100 * offset)
-    # 384 and 200 (a ragged last strip) take the GEMV's 4-group strips and
-    # wgmma's 64-column ones; 17000 and 40000 the GEMV's 8- and 16-group
-    # strips of wide outputs (lm_head, w_gu) and 128-column ones; hidden 520
-    # ends mid-K-tile.
+    # 384, 200 (a ragged last strip) and 1000 split K in swap AB and take
+    # 128-column tiles past it; 17000 and 40000 (the GEMV's 8- and 16-group
+    # strips of wide outputs) one split and, 40000 from 65 rows, 256-column
+    # tiles; hidden 520 ends mid-K-step.
     for hidden, out_dim in ((512, 384), (512, 200), (512, 17000), (512, 40000), (520, 1000)):
         x = _randn(gen, dev, dtype, rows, 1, hidden) * 3.0
         nw = _randn(gen, dev, dtype, hidden)
@@ -525,18 +525,17 @@ def test_norm_matmul_kernel_matches_plain(dev, dtype, rows, offset):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_norm_matmul_gemv_rows_at_full_hidden_and_width(dev, dtype):
-    """Every GEMV row tile at Llama-3-8B's hidden into the widest strips:
-    the staged rows and the reduction buffer pass 48 KB of shared memory
-    from 4 rows on (lm_head at 3 or 4 engine lanes)."""
-    from cake_tpu_torch.ops.fused_norm_matmul import (
-        GEMV_ROWS, fused_norm_matmul, fused_norm_matmul_plain,
-    )
+    """Every row count up to 8 at Llama-3-8B's hidden into a wide output:
+    for f32 every GEMV row tile into its widest strips (the staged rows and
+    the reduction buffer pass 48 KB of shared memory from 4 rows on), for
+    f16/bf16 swap AB's first product width."""
+    from cake_tpu_torch.ops.fused_norm_matmul import fused_norm_matmul, fused_norm_matmul_plain
 
     gen = torch.Generator(device=dev).manual_seed(11)
     hidden, out_dim = 4096, 34000
     w = _randn(gen, dev, dtype, hidden, out_dim) * hidden**-0.5
     nw = _randn(gen, dev, dtype, hidden)
-    for rows in range(1, (8 if dtype == torch.float32 else GEMV_ROWS) + 1):
+    for rows in range(1, 9):
         x = _randn(gen, dev, dtype, rows, 1, hidden) * 3.0
         out = fused_norm_matmul(x, nw, w, eps=1e-5)
         ref = fused_norm_matmul_plain(x, nw, w, eps=1e-5)
@@ -561,18 +560,83 @@ def test_norm_matmul_rows_past_the_bound_take_the_composition(dev):
 
 
 def test_norm_matmul_reads_a_strided_row_view(dev):
-    """head_forward hands the kernel x[:, seq_len - 1], a strided view."""
+    """head_forward hands the kernel x[:, seq_len - 1], a strided view: at
+    1, 4 and 100 rows (each body)."""
     from cake_tpu_torch.ops.fused_norm_matmul import fused_norm_matmul
 
     gen = torch.Generator(device=dev).manual_seed(6)
-    x = _randn(gen, dev, torch.bfloat16, 4, 7, 256)
-    nw = _randn(gen, dev, torch.bfloat16, 256)
-    w = _randn(gen, dev, torch.bfloat16, 256, 256)
-    view = x[:, 5][:, None]
-    got = fused_norm_matmul(view, nw, w, eps=1e-5)
-    want = fused_norm_matmul(view.contiguous(), nw, w, eps=1e-5)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    for b in (1, 4, 100):
+        x = _randn(gen, dev, torch.bfloat16, b, 7, 256)
+        nw = _randn(gen, dev, torch.bfloat16, 256)
+        w = _randn(gen, dev, torch.bfloat16, 256, 256)
+        view = x[:, 5][:, None]
+        got = fused_norm_matmul(view, nw, w, eps=1e-5)
+        want = fused_norm_matmul(view.contiguous(), nw, w, eps=1e-5)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), b
+
+
+def _norm_rows_f32(x, nw, eps, offset=False):
+    """rms_norm's normalized rows, rounded to x's dtype, in f32."""
+    from cake_tpu_torch.ops.norm import rms_norm
+
+    return rms_norm(x, nw, eps, offset).float()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_norm_matmul_one_tile_descriptor_probe(dev, dtype):
+    """One K step and one tile of each tensor-core body against an f32
+    product of the same normalized rows: swap AB (W's 64 columns MN-major
+    as the A operand) and the warp-specialized body (W MN-major as B) at
+    both column tiles, one and two row tiles. A wrong descriptor stride or
+    swizzle scrambles whole 16-byte chunks, far past the one rounding step
+    this allows."""
+    import dataclasses
+
+    from cake_tpu_torch.ops.fused_norm_matmul import _run, plan
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for rows, out_dim, variants in (
+        (8, 64, ({},)),
+        (64, 128, ({},)),
+        (128, 256, ({"tile": 128}, {"tile": 256, "stages": 4})),
+        (256, 256, ({}, {"tile": 256, "stages": 4})),
+    ):
+        x = _randn(gen, dev, dtype, rows, 64) * 3.0
+        nw = _randn(gen, dev, dtype, 64)
+        w = _randn(gen, dev, dtype, 64, out_dim) * 0.125
+        ref = _norm_rows_f32(x, nw, 1e-5) @ w.float()
+        base = plan(rows, 64, out_dim, dtype)
+        assert base.body == ("swap_ab" if rows <= 64 else "warp_specialized")
+        for change in variants:
+            p = dataclasses.replace(base, **change)
+            got = _run(x, nw, w, p, eps=1e-5)
+            torch.cuda.synchronize()
+            step = torch.finfo(dtype).eps * 2.0 ** torch.floor(torch.log2(ref.abs().max()))
+            err = (got.float() - ref).abs().max().item()
+            assert err <= step.item(), (rows, out_dim, change, err)
+
+
+@pytest.mark.parametrize("shape", [(4096, 6144), (512, 40000), (520, 1000)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_norm_matmul_rows_are_independent_bitwise(dev, dtype, shape):
+    """For each body (plan()'s at 1, 8, 16, 32, 64 and 256 rows), a row
+    computed alone and the same row among all the body's rows give the same
+    bits, through the private _run."""
+    from cake_tpu_torch.ops.fused_norm_matmul import _run, plan
+
+    hidden, out_dim = shape
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = _randn(gen, dev, dtype, 256, hidden) * 3.0
+    nw = _randn(gen, dev, dtype, hidden)
+    w = _randn(gen, dev, dtype, hidden, out_dim) * hidden**-0.5
+    for n in (1, 8, 16, 32, 64, 256):
+        p = plan(n, hidden, out_dim, dtype)
+        full = _run(x[:n], nw, w, p, eps=1e-5, offset=True)
+        for r in sorted({0, n // 2, n - 1}):
+            alone = _run(x[r : r + 1], nw, w, p, eps=1e-5, offset=True)
+            assert torch.equal(alone, full[r : r + 1]), (n, p, r)
 
 
 def _ingest_operands(gen, dev, dtype, b, n_q, n_kv, hd):
@@ -918,8 +982,9 @@ def test_int4_bodies_agree_to_the_bit(dev, dtype, shape):
 
 
 def test_built_library_runs_the_tensor_cores(dev):
-    """The redesigned kernels' SASS: HGMMA in int4_matmul's wgmma body,
-    HMMA in the chunk body's f16/bf16 kernels (dense and paged)."""
+    """The redesigned kernels' SASS: HGMMA in int4_matmul's wgmma body and
+    in fused_norm_matmul's swap-AB and warp-specialized bodies, HMMA in the
+    chunk body's f16/bf16 kernels (dense and paged)."""
     import os
     import subprocess
 
@@ -932,9 +997,14 @@ def test_built_library_runs_the_tensor_cores(dev):
     for fn in sass.split("Function : ")[1:]:
         name = fn.split("\n", 1)[0]
         bodies.setdefault("int4_wgmma" if "int4_wgmma_kernel" in name else
-                          "chunk_tc" if "chunk_kernel_tc" in name else "other", []).append(fn)
+                          "chunk_tc" if "chunk_kernel_tc" in name else
+                          "norm_swap_ab" if "norm_matmul_swap_ab_kernel" in name else
+                          "norm_ws" if "norm_matmul_ws_kernel" in name else "other",
+                          []).append(fn)
     assert bodies.get("int4_wgmma") and bodies.get("chunk_tc")
-    assert all("HGMMA" in fn for fn in bodies["int4_wgmma"])
+    assert bodies.get("norm_swap_ab") and bodies.get("norm_ws")
+    assert all("HGMMA" in fn for fn in bodies["int4_wgmma"] + bodies["norm_swap_ab"]
+               + bodies["norm_ws"])
     assert all("HMMA" in fn or "HGMMA" in fn for fn in bodies["chunk_tc"])
 
 
