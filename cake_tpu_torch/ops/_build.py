@@ -84,7 +84,9 @@ _SIGNATURES = {
         _VOID, _VOID, _VOID, _VOID,                  # qkv cos sin q_out
         _VOID, _VOID, _VOID,                         # k_cache v_cache tables (NULL: dense)
         _INT, _INT, _INT, _INT, _INT,                # b n_q n_kv hd slot
-        _INT, _INT, _LONG, _INT, _VOID,              # seq_stride n_p table_stride dtype stream
+        _INT, _INT, _LONG,                           # seq_stride n_p table_stride
+        _INT, _INT, _INT, _INT, _INT, _INT,          # blocks threads vr vv rope_shift v_shift
+        _INT, _VOID,                                 # dtype stream
     ),
     "cake_int4_matmul": (
         _VOID, _VOID, _VOID, _VOID, _VOID,           # x packed scale out scratch (NULL: one pass)
@@ -95,8 +97,13 @@ _SIGNATURES = {
         _VOID, _VOID, _VOID, _VOID,                  # logits ring noise (NULL: greedy) out
         _INT, _INT, _INT, _INT,                      # b vocab window penalize
         _FLOAT, _FLOAT, _FLOAT,                      # penalty 1/penalty 1/temperature
-        _INT, _VOID,                                 # top_k stream
+        _INT, _INT, _INT, _INT, _VOID,               # top_k cluster slice staged stream
     ),
+    "cake_fused_sample_tail_clusters": (
+        _INT, _INT, _INT,                            # cluster slice staged
+        _INT, _INT, _INT,                            # penalize sampled top_k
+    ),
+    "cake_empty_kernel": (_VOID,),                   # stream
 }
 
 

@@ -1,80 +1,138 @@
 // Fused decode ingest: head split + RoPE on q/k + the one-slot K/V write.
 //
 // Replaces the Pallas TPU kernel cake_tpu/ops/pallas/fused_ingest.py
-// (fused_qkv_ingest). Bound on the H100: its launch (~24 KB a row at
-// Llama-3-8B). One block per row; every rope product and sum is rounded on
-// its own, as the plain path's separate ops round them, so q and the
-// written K/V are its bits (see ops/fused_ingest.py).
+// (fused_qkv_ingest). At Llama-3-8B a row is ~24 KB of loads and stores, so
+// on the H100 the kernel is bound by the latency of its memory round trip,
+// not by bytes or by its launch alone. Design (see ops/fused_ingest.py
+// plan()): one thread owns one vector of a q or k head's first half and the
+// matching vector of its second half, with their cos/sin, or one vector of
+// a v head; every load it makes is issued before its first store, so a
+// thread makes one trip to memory. The grid (blocks, rows) and the threads'
+// (head, vector) split come from the shapes; the body divides by nothing
+// but powers of two (shifts). Every rope product and sum is rounded on its
+// own, as the plain path's separate ops round them, so q and the written
+// K/V are its bits.
 #include "common.cuh"
 
 namespace cake {
 
-constexpr int IN_THREADS = 256;
+// Raw copy of N elements of T (N * sizeof(T) a power of two <= 16 bytes,
+// both addresses aligned to it).
+template <typename T, int N>
+struct alignas(N * sizeof(T)) Pack {
+  T e[N];
+};
 
-template <typename T>
-__global__ void __launch_bounds__(IN_THREADS)
-ingest_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_rows,
-              const float* __restrict__ sin_rows, T* __restrict__ q_out, T* __restrict__ k_cache,
-              T* __restrict__ v_cache, const int* __restrict__ tables, int n_q, int n_kv, int hd,
-              int slot, int seq_stride, int n_p, long long table_stride) {
-  const int b = blockIdx.x;
-  const int half = hd / 2;
-  const T* row = qkv + (size_t)b * (n_q + 2 * n_kv) * hd;
-  const float* cb = cos_rows + (size_t)b * half;
-  const float* sb = sin_rows + (size_t)b * half;
+// rope_shift / v_shift: log2 of the threads a q/k head / a v head takes
+// (each a power of two at least its vector count). Dense: `pos` is the
+// slot, `logical` unused. Paged: `pos` is the slot's offset in its page and
+// `logical` its page, both computed once on the host.
+template <typename T, int VR, int VV>
+__global__ void ingest_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_rows,
+                              const float* __restrict__ sin_rows, T* __restrict__ q_out,
+                              T* __restrict__ k_cache, T* __restrict__ v_cache,
+                              const int* __restrict__ tables, int n_q, int n_kv, int hd,
+                              int rope_shift, int v_shift, int pos, int logical, int seq_stride,
+                              int n_p, long long table_stride) {
+  const int row = blockIdx.y;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int half = hd >> 1;
+  const int n_rope = (n_q + n_kv) << rope_shift;
+  const bool rope = t < n_rope;
+  const int u = rope ? t : t - n_rope;
+  const int shift = rope ? rope_shift : v_shift;
+  const int head = u >> shift, j = u & ((1 << shift) - 1);
+  if (rope ? j * VR >= half : (head >= n_kv || j * VV >= hd)) return;
 
+  // The table entry and the rope rows, then the row's qkv vectors: every
+  // load is issued before the first store.
+  int phys = 0;
+  if (tables != nullptr)
+    phys = tables[(long long)row * table_stride + min(logical, n_p - 1)];
+  float c[VR], s[VR];
+  if (rope) {
+    load_vec<float, VR>(cos_rows + (size_t)row * half + j * VR, c);
+    load_vec<float, VR>(sin_rows + (size_t)row * half + j * VR, s);
+  }
   // Element offset of [.., head 0, slot, 0] in the cache, or -1: dropped.
   // Dense: [b, n_kv, max_seq, hd]. Paged: the pool [P, n_kv, page, hd]
   // through the table, the logical page clamped before the lookup.
   long long base = -1;
-  if (tables == nullptr) {
-    base = ((long long)b * n_kv * seq_stride + slot) * hd;
-  } else {
-    const int logical = slot / seq_stride;
-    const int off = slot % seq_stride;
-    const int phys = tables[(long long)b * table_stride + min(logical, n_p - 1)];
-    if (logical < n_p && phys >= 0) base = ((long long)phys * n_kv * seq_stride + off) * hd;
-  }
+  if (tables == nullptr)
+    base = ((long long)row * n_kv * seq_stride + pos) * hd;
+  else if (logical < n_p && phys >= 0)
+    base = ((long long)phys * n_kv * seq_stride + pos) * hd;
   const long long head_stride = (long long)seq_stride * hd;
-
-  // q and k heads: rotate-half in f32, every product and sum rounded alone.
-  for (int i = threadIdx.x; i < (n_q + n_kv) * half; i += IN_THREADS) {
-    const int h = i / half, j = i % half;
-    const float c = cb[j], s = sb[j];
-    const float x1 = to_f(row[h * hd + j]);
-    const float x2 = to_f(row[h * hd + j + half]);
-    const float o1 = __fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s));
-    const float o2 = __fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, s));
-    if (h < n_q) {
-      T* qh = q_out + ((size_t)b * n_q + h) * hd;
-      qh[j] = from_f<T>(o1);
-      qh[j + half] = from_f<T>(o2);
-    } else if (base >= 0) {
-      T* kh = k_cache + base + (h - n_q) * head_stride;
-      kh[j] = from_f<T>(o1);
-      kh[j + half] = from_f<T>(o2);
+  const T* x = qkv + (size_t)row * (n_q + 2 * n_kv) * hd;
+  if (rope) {
+    // q and k heads: rotate-half in f32, every product and sum rounded alone.
+    float x1[VR], x2[VR], o1[VR], o2[VR];
+    load_vec<T, VR>(x + head * hd + j * VR, x1);
+    load_vec<T, VR>(x + head * hd + half + j * VR, x2);
+#pragma unroll
+    for (int i = 0; i < VR; ++i) {
+      o1[i] = __fsub_rn(__fmul_rn(x1[i], c[i]), __fmul_rn(x2[i], s[i]));
+      o2[i] = __fadd_rn(__fmul_rn(x2[i], c[i]), __fmul_rn(x1[i], s[i]));
     }
-  }
-  // v heads: copied into the slot.
-  if (base >= 0) {
-    const T* vr = row + (n_q + n_kv) * hd;
-    for (int i = threadIdx.x; i < n_kv * hd; i += IN_THREADS) {
-      v_cache[base + (i / hd) * head_stride + (i % hd)] = vr[i];
+    T* dst;
+    if (head < n_q) {
+      dst = q_out + ((size_t)row * n_q + head) * hd;
+    } else {
+      if (base < 0) return;
+      dst = k_cache + base + (head - n_q) * head_stride;
     }
+    store_vec<T, VR>(dst + j * VR, o1);
+    store_vec<T, VR>(dst + half + j * VR, o2);
+  } else {
+    // v heads: copied into the slot.
+    if (base < 0) return;
+    const Pack<T, VV> v =
+        *reinterpret_cast<const Pack<T, VV>*>(x + (n_q + n_kv + head) * hd + j * VV);
+    *reinterpret_cast<Pack<T, VV>*>(v_cache + base + head * head_stride + j * VV) = v;
   }
 }
 
-template <typename T>
+template <typename T, int VR, int VV>
 static cudaError_t launch_ingest(const void* qkv, const void* cos_rows, const void* sin_rows,
                                  void* q_out, void* k_cache, void* v_cache, const void* tables,
-                                 int b, int n_q, int n_kv, int hd, int slot, int seq_stride,
-                                 int n_p, long long table_stride, cudaStream_t stream) {
-  ingest_kernel<T><<<b, IN_THREADS, 0, stream>>>(
+                                 int b, int n_q, int n_kv, int hd, int rope_shift, int v_shift,
+                                 int pos, int logical, int seq_stride, int n_p,
+                                 long long table_stride, int blocks, int threads,
+                                 cudaStream_t stream) {
+  ingest_kernel<T, VR, VV><<<dim3(blocks, b), threads, 0, stream>>>(
       static_cast<const T*>(qkv), static_cast<const float*>(cos_rows),
       static_cast<const float*>(sin_rows), static_cast<T*>(q_out), static_cast<T*>(k_cache),
-      static_cast<T*>(v_cache), static_cast<const int*>(tables), n_q, n_kv, hd, slot, seq_stride,
-      n_p, table_stride);
+      static_cast<T*>(v_cache), static_cast<const int*>(tables), n_q, n_kv, hd, rope_shift,
+      v_shift, pos, logical, seq_stride, n_p, table_stride);
   return cudaGetLastError();
+}
+
+// The instantiation for the plan's vector counts (powers of two, at most
+// 16 bytes of T each).
+template <typename T>
+static cudaError_t ingest_by_vectors(int vr, int vv, const void* qkv, const void* cs,
+                                     const void* sn, void* q, void* kc, void* vc,
+                                     const void* tb, int b, int n_q, int n_kv, int hd, int rs,
+                                     int vs, int pos, int logical, int seq, int n_p,
+                                     long long ts, int blocks, int threads, cudaStream_t st) {
+  constexpr int MAXV = 16 / (int)sizeof(T);
+#define CAKE_INGEST(R, V)                                                                      \
+  if (vr == R && vv == V)                                                                      \
+    return launch_ingest<T, R, V>(qkv, cs, sn, q, kc, vc, tb, b, n_q, n_kv, hd, rs, vs, pos,   \
+                                  logical, seq, n_p, ts, blocks, threads, st);
+#define CAKE_INGEST_V(R) CAKE_INGEST(R, 1) CAKE_INGEST(R, 2) CAKE_INGEST(R, 4)
+  CAKE_INGEST_V(1)
+  CAKE_INGEST_V(2)
+  CAKE_INGEST_V(4)
+  if constexpr (MAXV == 8) {
+    CAKE_INGEST(1, 8)
+    CAKE_INGEST(2, 8)
+    CAKE_INGEST(4, 8)
+    CAKE_INGEST(8, 8)
+  }
+#undef CAKE_INGEST_V
+#undef CAKE_INGEST
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace cake
@@ -83,28 +141,35 @@ static cudaError_t launch_ingest(const void* qkv, const void* cos_rows, const vo
 // [b, n_q, hd]. tables == NULL: dense cache [b, n_kv, seq_stride, hd], the
 // write at slot. Otherwise tables [b, n_p] int32 (row stride table_stride)
 // and the pool [P, n_kv, seq_stride = page size, hd]. All contiguous, one
-// dtype for qkv, q and the cache. Returns the launch's error.
+// dtype for qkv, q and the cache, every base 16-byte aligned. The geometry
+// is ops/fused_ingest.plan()'s: `blocks` x `threads` a row, vectors of `vr`
+// (q/k) and `vv` (v) elements, 2^rope_shift threads a q/k head and
+// 2^v_shift a v head. Returns the launch's error.
 extern "C" int cake_fused_qkv_ingest(const void* qkv, const void* cos_rows, const void* sin_rows,
                                      void* q_out, void* k_cache, void* v_cache,
                                      const void* tables, int b, int n_q, int n_kv, int hd,
                                      int slot, int seq_stride, int n_p, long long table_stride,
-                                     int dtype, void* stream) {
+                                     int blocks, int threads, int vr, int vv, int rope_shift,
+                                     int v_shift, int dtype, void* stream) {
   using namespace cake;
   if (b < 1) return (int)cudaSuccess;
-  if (hd < 2 || hd % 2 || seq_stride < 1 || slot < 0 || (tables != nullptr && n_p < 1))
+  if (hd < 2 || hd % 2 || seq_stride < 1 || slot < 0 || (tables != nullptr && n_p < 1) ||
+      blocks < 1 || threads < 1 || threads > 1024 || (hd / 2) % vr || hd % vv ||
+      (1 << rope_shift) * vr < hd / 2 || (1 << v_shift) * vv < hd ||
+      (long long)blocks * threads < ((long long)(n_q + n_kv) << rope_shift) + (n_kv << v_shift))
     return (int)cudaErrorInvalidValue;
+  // The slot's page and offset, once for every row.
+  const int logical = tables != nullptr ? slot / seq_stride : 0;
+  const int pos = tables != nullptr ? slot % seq_stride : slot;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CAKE_INGEST_ARGS                                                                    \
+  vr, vv, qkv, cos_rows, sin_rows, q_out, k_cache, v_cache, tables, b, n_q, n_kv, hd,       \
+      rope_shift, v_shift, pos, logical, seq_stride, n_p, table_stride, blocks, threads, s
   switch (dtype) {
-    case kF32:
-      return (int)launch_ingest<float>(qkv, cos_rows, sin_rows, q_out, k_cache, v_cache, tables,
-                                       b, n_q, n_kv, hd, slot, seq_stride, n_p, table_stride, s);
-    case kF16:
-      return (int)launch_ingest<__half>(qkv, cos_rows, sin_rows, q_out, k_cache, v_cache, tables,
-                                        b, n_q, n_kv, hd, slot, seq_stride, n_p, table_stride, s);
-    case kBF16:
-      return (int)launch_ingest<__nv_bfloat16>(qkv, cos_rows, sin_rows, q_out, k_cache, v_cache,
-                                               tables, b, n_q, n_kv, hd, slot, seq_stride, n_p,
-                                               table_stride, s);
+    case kF32: return (int)ingest_by_vectors<float>(CAKE_INGEST_ARGS);
+    case kF16: return (int)ingest_by_vectors<__half>(CAKE_INGEST_ARGS);
+    case kBF16: return (int)ingest_by_vectors<__nv_bfloat16>(CAKE_INGEST_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef CAKE_INGEST_ARGS
 }

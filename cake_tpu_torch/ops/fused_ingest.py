@@ -6,18 +6,26 @@ Replaces the Pallas TPU kernel ``cake_tpu/ops/pallas/fused_ingest.py``
 token per row, the flat ``[b, 1, (n_q + 2 n_kv) hd]`` projection row in,
 roped q out, the row's K/V written into the cache in place.
 
-What bounds it on the H100: nothing but its launch. At Llama-3-8B a row is
-12 KB of projection in, 8 KB of q out and 4 KB of K/V written: ~24 KB a
-row, microseconds of bytes even at 64 rows. The unfused step spends ~20
-small ops on the same work (the head split, rope's upcast, products,
+What bounds it on the H100: the latency of its trip to memory. At
+Llama-3-8B a row is 12 KB of projection in, 8 KB of q out and 4 KB of K/V
+written: ~24 KB a row, 0.06 us of bytes at 8 rows. A kernel that loops
+over its elements waits on one load after another; the unfused step spends
+~20 small ops on the same work (the head split, rope's upcast, products,
 concatenation and cast on q and on k, the write plan and two scatters).
 
-What the design does about it: one block per row. Each thread ropes one
-(head, pair) of q or k in f32 with the plain path's rounding, every product
-and sum rounded on its own (``__fmul_rn``, ``__fsub_rn``, ``__fadd_rn``; a
-contracted FMA would differ in the last bit), casts back with
-round-to-nearest-even, and stores q, or k at the row's cache slot; v is
-copied. So q and the written K/V are the plain path's bits. The paged
+What the design does about it: each thread makes one trip to memory.
+:func:`plan` splits a row from the shapes alone: a thread owns one vector
+(16 bytes where ``hd/2`` allows it, narrower otherwise, never a wrong
+pairing) of a q or k head's first half, the matching vector of its second
+half and their cos/sin floats, or one vector of a v head. It issues every
+load before its first store. A head's vectors get a power of two of
+threads, so the body maps a thread to its head and vector by shifts; the
+paged slot's page and offset are divided out once on the host. Each
+thread ropes its pairs in f32 with the plain path's rounding, every
+product and sum rounded on its own (``__fmul_rn``, ``__fsub_rn``,
+``__fadd_rn``; a contracted FMA would differ in the last bit), casts back
+with round-to-nearest-even, and stores q, or k at the row's cache slot; v
+is copied. So q and the written K/V are the plain path's bits. The paged
 variant resolves the slot through the block table like ``write_plan``: the
 logical page is clamped into the table before the lookup, and an unmapped
 (< 0) or past-the-table entry drops the write, where the plain path sends
@@ -30,6 +38,7 @@ CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -39,6 +48,46 @@ from cake_tpu_torch.ops import _build
 from cake_tpu_torch.ops.rope import apply_rope
 
 _KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+THREADS = 128  # a block's threads: a row of Llama-3-8B spreads over 4 SMs
+
+
+@dataclass(frozen=True)
+class Plan:
+    """The kernel's split of a row: ``blocks`` x ``threads`` (the grid is
+    ``(blocks, b)``); a q/k thread owns ``vec_rope`` elements of a head's
+    first half and the same of its second half, a v thread ``vec_v``
+    elements of a v head; a q/k head takes ``2**rope_shift`` threads, a v
+    head ``2**v_shift`` (the first ``hd/2 / vec_rope`` and ``hd / vec_v`` of
+    them work)."""
+
+    blocks: int
+    threads: int
+    vec_rope: int
+    vec_v: int
+    rope_shift: int
+    v_shift: int
+
+
+def _vector(n: int, itemsize: int) -> int:
+    """The widest power-of-two vector of at most 16 bytes that divides n."""
+    v = 16 // itemsize
+    while n % v:
+        v //= 2
+    return v
+
+
+def plan(b: int, n_q: int, n_kv: int, hd: int, dtype) -> Plan:
+    """The grid and the threads' split from the shapes alone (never the
+    slot or the table)."""
+    if hd < 2 or hd % 2:
+        raise ValueError(f"fused_qkv_ingest: head dim {hd} must be even")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    vr, vv = _vector(hd // 2, itemsize), _vector(hd, itemsize)
+    rope_shift = (hd // 2 // vr - 1).bit_length()
+    v_shift = (hd // vv - 1).bit_length()
+    row = ((n_q + n_kv) << rope_shift) + (n_kv << v_shift)
+    threads = min(THREADS, -(-row // 32) * 32)
+    return Plan(-(-row // threads), threads, vr, vv, rope_shift, v_shift)
 
 
 def fused_qkv_ingest_plain(qkv, cos, sin, slot: int, k_cache, v_cache, *, n_q: int, n_kv: int,
@@ -130,9 +179,17 @@ def fused_qkv_ingest(qkv, cos, sin, slot: int, k_cache, v_cache, *, n_q: int, n_
             raise ValueError(f"fused_qkv_ingest: {name} is on {tn.device}, not {qkv.device}")
     if cos.dtype != torch.float32 or sin.dtype != torch.float32:
         raise ValueError("fused_qkv_ingest: cos/sin must be f32")
-    qkv, cos, sin = qkv.contiguous(), cos.contiguous(), sin.contiguous()
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("fused_qkv_ingest: the cache must be contiguous (it is written in place)")
+    p = plan(b, n_q, n_kv, hd, qkv.dtype)
+    align = p.vec_v * qkv.element_size()  # the v vector, the widest access to the cache
+    if k_cache.data_ptr() % align or v_cache.data_ptr() % align:
+        raise ValueError(
+            f"fused_qkv_ingest: the cache must start at a {align}-byte aligned address")
+    # The kernel's vector loads take 16-byte aligned operands: one that is
+    # not is copied (a fresh tensor is aligned).
+    qkv, cos, sin = (t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (qkv.contiguous(), cos.contiguous(), sin.contiguous()))
     q = torch.empty((b, 1, n_q, hd), dtype=qkv.dtype, device=qkv.device)
     if b == 0:
         return q
@@ -141,6 +198,7 @@ def fused_qkv_ingest(qkv, cos, sin, slot: int, k_cache, v_cache, *, n_q: int, n_
         k_cache.data_ptr(), v_cache.data_ptr(),
         None if tables is None else tables.data_ptr(),
         b, n_q, n_kv, hd, int(slot), k_cache.shape[2], n_p, table_stride,
+        p.blocks, p.threads, p.vec_rope, p.vec_v, p.rope_shift, p.v_shift,
         _build.DTYPE_CODES[str(qkv.dtype).removeprefix("torch.")],
         ctypes.c_void_p(torch.cuda.current_stream(qkv.device).cuda_stream),
     )

@@ -30,10 +30,12 @@ nonzero exit and no final result line:
                fused_qkv_ingest dense b=1 and b=8, paged b=8 over shuffled
                pages with an unmapped entry, and a slot past the table (q
                and every page but the sink bitwise); fused_sample_tail
-               greedy b=1/8, sampled b=8 (temperature 0.7, top_k 40,
+               greedy b=1/8, sampled b=1/8 (temperature 0.7, top_k 40,
                repeat_penalty 1.1, ring 128) and a row all -inf beside a
                NaN row (ids equal). Their library_ms is the unfused PyTorch
-               composition, not one call. int4_matmul: first the bits
+               composition, not one call; beside them an empty kernel's
+               time, the launch floor (launch_floor_ms in the kernels
+               line, beside their bytes bound). int4_matmul: first the bits
                probe (every projection's operands through mma.sync, wgmma
                at each product width, split blocks and the fold: equal to
                the bit, gated), then Llama-3-8B's five projections (wqkv,
@@ -830,11 +832,11 @@ def _ingest_case(torch, dev, g, case, b, slot, paged, unmapped=None):
     nbytes = (b * (N_Q + 2 * N_KV) * HD * 2 + 2 * b * HD // 2 * 4 + b * N_Q * HD * 2
               + n_written * 2 * N_KV * HD * 2 + (4 * b if paged else 0))
     flops = 6.0 * b * (N_Q + N_KV) * HD // 2
+    run = lambda: fused_qkv_ingest(qkv, cos, sin, slot, k1, v1, **kw)  # noqa: E731
     return _check(
-        torch, "fused_qkv_ingest", case, out, ref,
-        cuda_ms(torch, lambda: fused_qkv_ingest(qkv, cos, sin, slot, k1, v1, **kw), 200),
+        torch, "fused_qkv_ingest", case, out, ref, cuda_ms(torch, run, 200),
         cuda_ms(torch, lambda: fused_qkv_ingest_plain(qkv, cos, sin, slot, k2, v2, **kw), 50),
-        nbytes, flops, cuda_ms(torch, unfused, 50), exact=True,
+        nbytes, flops, cuda_ms(torch, unfused, 50), exact=True, route=traced_route(torch, run),
     )
 
 
@@ -881,6 +883,7 @@ def _tail_case(torch, dev, g, case, b, knobs, guards=False):
     return _check(
         torch, "fused_sample_tail", case, out, ref, cuda_ms(torch, run, 50),
         cuda_ms(torch, plain, 20), nbytes, 0.0, cuda_ms(torch, lib, 20), exact=True,
+        route=traced_route(torch, run),
     )
 
 
@@ -891,9 +894,26 @@ def tail_cases(torch, dev):
     return [
         _tail_case(torch, dev, g, "greedy_b1", 1, greedy),
         _tail_case(torch, dev, g, "greedy_b8", 8, greedy),
+        _tail_case(torch, dev, g, "sampled_b1", 1, sampled),  # the generator's sampled step
         _tail_case(torch, dev, g, "sampled_b8", 8, sampled),
         _tail_case(torch, dev, g, "guards_b8", 8, sampled, guards=True),
     ]
+
+
+def launch_floor(torch) -> dict:
+    """The time of an empty kernel from the port's library, timed as the
+    cases are: the floor under any kernel's time, beside the bytes bound of
+    the small ones (fused_qkv_ingest, fused_sample_tail)."""
+    import ctypes
+
+    from cake_tpu_torch.ops import _build
+
+    lib = _build.library()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    row = {"phase": "kernels", "kernel": "launch_floor", "case": "empty_kernel",
+           "ms": cuda_ms(torch, lambda: _build.check(lib.cake_empty_kernel(stream), "empty"), 200)}
+    emit(row)
+    return row
 
 
 # Llama-3-8B's int4 projections: (site, in, out).
@@ -1074,6 +1094,7 @@ def phase_kernels(torch) -> dict:
     rows += paged_decode_cases(torch, dev) + paged_chunk_cases(torch, dev)
     torch.cuda.empty_cache()
     rows += norm_matmul_cases(torch, dev) + ingest_cases(torch, dev) + tail_cases(torch, dev)
+    rows.append(launch_floor(torch))
     torch.cuda.empty_cache()
     rows += int4_cases(torch, dev)
     return {(r["kernel"], r["case"]): r for r in rows}
@@ -1249,7 +1270,8 @@ BODY_ROUTES = (("int4_wgmma_kernel", "wgmma"), ("int4_mma_kernel", "mma.sync"),
                ("int4_f32_kernel", "CUDA cores"), ("chunk_kernel_tc", "mma.sync"),
                ("chunk_kernel", "CUDA cores"), ("split_decode_kernel", "CUDA cores"),
                ("norm_matmul_swap_ab_kernel", "wgmma"), ("norm_matmul_ws_kernel", "wgmma"),
-               ("norm_matmul_kernel", "CUDA cores"))
+               ("norm_matmul_kernel", "CUDA cores"), ("ingest_kernel", "CUDA cores"),
+               ("tail_kernel", "CUDA cores"))
 
 
 def kernel_route(names) -> str | None:
@@ -2647,6 +2669,9 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         }
+        if name in ("fused_qkv_ingest", "fused_sample_tail"):
+            # An empty kernel's time: these kernels' bytes bound lies below it.
+            entry["launch_floor_ms"] = rows[("launch_floor", "empty_kernel")]["ms"]
         if name in REDESIGNED:
             # The instructions its cases ran on (traced), and int4_matmul's
             # bits probe answer.
@@ -2662,7 +2687,8 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(
 # Kernels a later PR redesigned, with that PR.
 REDESIGNED = {"chunk_prefill_attention": "PR 5", "paged_chunk_attention": "PR 5",
               "int4_matmul": "PR 5", "decode_attention": "PR 6",
-              "paged_decode_attention": "PR 6", "fused_norm_matmul": "PR 7"}
+              "paged_decode_attention": "PR 6", "fused_norm_matmul": "PR 7",
+              "fused_qkv_ingest": "PR 8", "fused_sample_tail": "PR 8"}
 
 
 # ---------------------------------------------------------------- main

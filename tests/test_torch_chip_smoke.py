@@ -116,11 +116,15 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
     rows[("int4_matmul", "w_gu_row_independence")] = {"equal": {"row0": True}}
     rows[("int4_matmul", "wgmma_bits")] = bits
     rows[("int4_matmul", "w_gu_rows3840")] = dict(timed, route="wgmma")
+    rows[("launch_floor", "empty_kernel")] = {"ms": 0.25}
     summary = smoke.kernel_summary(rows, row, engine, (fused_gen, fused_engine),
                                    (int4, int4_engine))
     assert [k["name"] for k in summary["kernels"]] == names
     for k in summary["kernels"]:
         extra = {"redesigned", "instructions"} if k["name"] in smoke.REDESIGNED else set()
+        if k["name"] in ("fused_qkv_ingest", "fused_sample_tail"):
+            assert k["launch_floor_ms"] == 0.25
+            extra |= {"launch_floor_ms"}
         assert set(k) == KERNEL_KEYS | extra | ({"wgmma_bits"} if k["name"] == "int4_matmul" else set())
     by_name = {k["name"]: k for k in summary["kernels"]}
     assert by_name["int4_matmul"]["instructions"] == ["mma.sync", "wgmma"]

@@ -707,6 +707,92 @@ def test_ingest_kernel_refuses_what_it_does_not_take(dev):
                          block_tables=tables)
 
 
+@pytest.mark.parametrize("heads", [(32, 8), (8, 1), (16, 16)], ids=lambda h: f"{h[0]}-{h[1]}")
+@pytest.mark.parametrize("hd", [2, 6, 34, 80, 96])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_ingest_kernel_bits_at_every_vector_width(dev, dtype, hd, heads):
+    """Head dims whose halves are not whole 16-byte vectors take narrower
+    ones (plan()); q and the K/V written stay the plain version's bits,
+    dense and paged."""
+    from cake_tpu_torch.ops.fused_ingest import fused_qkv_ingest, fused_qkv_ingest_plain
+
+    n_q, n_kv = heads
+    gen = torch.Generator(device=dev).manual_seed(hd * n_q + n_kv)
+    b, slot = 5, 200
+    qkv, cos, sin = _ingest_operands(gen, dev, dtype, b, n_q, n_kv, hd)
+    kw = dict(n_q=n_q, n_kv=n_kv)
+    k0 = _randn(gen, dev, dtype, b, n_kv, 256, hd)
+    v0 = _randn(gen, dev, dtype, b, n_kv, 256, hd)
+    k1, v1, k2, v2 = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+    q1 = fused_qkv_ingest(qkv, cos, sin, slot, k1, v1, **kw)
+    q2 = fused_qkv_ingest_plain(qkv, cos, sin, slot, k2, v2, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(q1, q2) and torch.equal(k1, k2) and torch.equal(v1, v2)
+    kp, vp = _pool(gen, dev, dtype, 12, n_kv, hd)
+    tables = _tables(dev, [[7, 2, 9], [5, -1, 1], [3, 8, 4], [0, 11, 10], [1, 6, -1]], 3)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    q1 = fused_qkv_ingest(qkv, cos, sin, slot, k1, v1, block_tables=tables, **kw)
+    q2 = fused_qkv_ingest_plain(qkv, cos, sin, slot, k2, v2, block_tables=tables, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(q1, q2) and torch.equal(k1[:-1], k2[:-1]) and torch.equal(v1[:-1], v2[:-1])
+
+
+def test_ingest_rows_alone_equal_the_batch_and_repeat_calls(dev):
+    from cake_tpu_torch.ops.fused_ingest import fused_qkv_ingest
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, n_q, n_kv, hd, slot = 8, 32, 8, 128, 301
+    qkv, cos, sin = _ingest_operands(gen, dev, torch.bfloat16, b, n_q, n_kv, hd)
+    kp, vp = _pool(gen, dev, torch.bfloat16, 20, n_kv, hd)
+    tables = _tables(dev, [[2 * r, 2 * r + 1, 19 - r] for r in range(b)], 3)
+    kw = dict(n_q=n_q, n_kv=n_kv, block_tables=tables)
+    k1, v1 = kp.clone(), vp.clone()
+    q = fused_qkv_ingest(qkv, cos, sin, slot, k1, v1, **kw)
+    k2, v2 = kp.clone(), vp.clone()
+    assert torch.equal(fused_qkv_ingest(qkv, cos, sin, slot, k2, v2, **kw), q)
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    k3, v3 = kp.clone(), vp.clone()
+    for r in range(b):
+        alone = fused_qkv_ingest(qkv[r : r + 1], cos[r : r + 1], sin[r : r + 1], slot, k3, v3,
+                                 n_q=n_q, n_kv=n_kv, block_tables=tables[r : r + 1])
+        assert torch.equal(alone, q[r : r + 1])
+    torch.cuda.synchronize()
+    assert torch.equal(k3, k1) and torch.equal(v3, v1)
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+def test_ingest_straight_after_the_wqkv_product(dev, rows):
+    """Under ``all`` the ingest follows the wqkv fused_norm_matmul (swap AB)
+    on the stream: q and the cache equal the ingest launched after a
+    synchronize."""
+    from cake_tpu_torch.ops.fused_ingest import fused_qkv_ingest
+    from cake_tpu_torch.ops.fused_norm_matmul import fused_norm_matmul, plan as nm_plan
+
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    n_q, n_kv, hd, hidden, slot = 32, 8, 128, 4096, 77
+    bf = torch.bfloat16
+    assert nm_plan(rows, hidden, (n_q + 2 * n_kv) * hd, bf).body == "swap_ab"
+    x = _randn(gen, dev, bf, rows, 1, hidden) * 3
+    nw = _randn(gen, dev, bf, hidden) * 0.1 + 1
+    w = _randn(gen, dev, bf, hidden, (n_q + 2 * n_kv) * hd) * hidden**-0.5
+    cos = torch.randn(rows, 1, hd // 2, generator=gen, device=dev)
+    sin = torch.randn(rows, 1, hd // 2, generator=gen, device=dev)
+    k0 = _randn(gen, dev, bf, rows, n_kv, 256, hd)
+    v0 = _randn(gen, dev, bf, rows, n_kv, 256, hd)
+    outs = []
+    for sync in (False, True):
+        k, v = k0.clone(), v0.clone()
+        torch.cuda.synchronize()
+        qkv = fused_norm_matmul(x, nw, w, eps=1e-5)
+        if sync:
+            torch.cuda.synchronize()
+        q = fused_qkv_ingest(qkv, cos, sin, slot, k, v, n_q=n_q, n_kv=n_kv)
+        torch.cuda.synchronize()
+        outs.append((q, k, v))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
 _TAIL_KNOBS = [
     dict(temperature=0.0, top_k=None, repeat_penalty=1.0),
     dict(temperature=0.0, top_k=None, repeat_penalty=1.3),
@@ -742,6 +828,65 @@ def test_sample_tail_kernel_gives_the_plain_ids(dev, b, vocab, knobs):
         torch.cuda.synchronize()
         assert got.dtype == want.dtype == torch.int64
         assert torch.equal(got, want), (quantize, got.tolist(), want.tolist())
+
+
+@pytest.mark.parametrize("knobs", _TAIL_KNOBS, ids=lambda k: "-".join(map(str, k.values())))
+@pytest.mark.parametrize("b,vocab", [(3, 1027), (2, 4099), (8, 32000), (8, 151936), (33, 128256),
+                                     (2, 2_000_000)])
+def test_sample_tail_cluster_grid_gives_the_plain_ids(dev, b, vocab, knobs):
+    """Vocabularies not a multiple of 4 or of the cluster, more clusters
+    than fit at once (b = 33), and a top-k slice too large to stage."""
+    from cake_tpu_torch.ops.fused_sample_tail import fused_sample_tail, fused_sample_tail_plain
+
+    gen = torch.Generator(device=dev).manual_seed(b + vocab)
+    logits, ring, noise = _tail_operands(gen, dev, b, vocab, 64, True)
+    noise = noise if knobs["temperature"] > 0 else None
+    got = fused_sample_tail(logits, ring, noise, top_p=None, **knobs)
+    want = fused_sample_tail_plain(logits, ring, noise, top_p=None, **knobs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got.tolist(), want.tolist())
+
+
+@pytest.mark.parametrize("knobs", _TAIL_KNOBS, ids=lambda k: "-".join(map(str, k.values())))
+def test_sample_tail_unaligned_rows_cluster_sizes_and_repeats(dev, knobs):
+    """Rows that start off a 16-byte boundary stage their ends by plain
+    loads; every cluster size and a row alone give the batch's ids; a
+    repeat call gives the same."""
+    from cake_tpu_torch.ops import fused_sample_tail as tail
+    from cake_tpu_torch.ops.fused_sample_tail import Plan, fused_sample_tail_plain, smem_bytes
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, vocab = 8, 128256
+    lg, ring, nz = _tail_operands(gen, dev, b, vocab + 1, 128, True)
+    logits = lg.flatten()[1 : 1 + b * vocab].view(b, vocab)  # 4 bytes past an aligned base
+    noise = nz.flatten()[3 : 3 + b * vocab].view(b, vocab) if knobs["temperature"] > 0 else None
+    ring = ring.clamp(max=vocab - 1)
+    kw = dict(top_p=None, **knobs)
+    want = fused_sample_tail_plain(logits, ring, noise, **kw)
+    got = tail.fused_sample_tail(logits, ring, noise, **kw)
+    assert torch.equal(tail.fused_sample_tail(logits, ring, noise, **kw), got)
+    for r in (0, 5, 7):
+        alone = tail.fused_sample_tail(logits[r : r + 1], ring[r : r + 1],
+                                       None if noise is None else noise[r : r + 1], **kw)
+        assert torch.equal(alone, got[r : r + 1])
+    k = knobs["top_k"] if knobs["temperature"] > 0 else None
+    for cluster in (1, 4, 8, 16):
+        sl = -(-(-(-vocab // cluster)) // 4) * 4
+        staged = k is not None and smem_bytes(sl, True, True) <= tail.SMEM_CAP
+        p = Plan(cluster, sl, staged, smem_bytes(sl, k is not None, staged))
+        ids = tail._run(logits, ring, noise, p, temperature=knobs["temperature"], top_k=k or 0,
+                        repeat_penalty=knobs["repeat_penalty"])
+        assert torch.equal(ids, got), cluster
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_sample_tail_cluster_sizes_fit_on_the_card(dev):
+    from cake_tpu_torch.ops.fused_sample_tail import _max_active_clusters, candidates
+
+    for sampled, top_k in ((False, None), (True, None), (True, 40)):
+        for p in candidates(8, 128256, sampled, top_k):
+            assert _max_active_clusters(p, True, sampled, top_k or 0) > 0, p
 
 
 def test_sample_tail_tie_breaks_and_guards(dev):
