@@ -34,3 +34,17 @@ def upload(array, device: torch.device, dtype: torch.dtype | None = None) -> tor
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.clone()
+
+
+def upload_into(buf: torch.Tensor, value) -> None:
+    """Copy ``value`` into the existing tensor ``buf`` in place: a tensor by
+    ``copy_``, a host array or number through pinned memory, without
+    blocking the host on a CUDA stream (as :func:`upload`)."""
+    if isinstance(value, torch.Tensor):
+        buf.copy_(value)
+        return
+    t = torch.as_tensor(np.array(value, order="C")).to(buf.dtype)
+    if buf.device.type == "cuda":
+        buf.copy_(t.pin_memory(), non_blocking=True)
+    else:
+        buf.copy_(t)

@@ -11,7 +11,9 @@ B independent dialogs decode in lockstep:
   * Decode runs the whole batch one token per step, ``n`` steps per chunk:
     forward -> per-row repeat penalty -> per-row sampling -> feed back, all
     on the device; the chunk's ids are read back once (the JAX package's
-    fused ``lax.scan``, here a Python loop of one-token steps).
+    fused ``lax.scan``; here a loop of one-token steps, which the backends
+    capture as one CUDA graph on the card, models/llama/fused.py). The
+    step's slot is then a device tensor, so nothing of it is baked in.
 
 Masks live in SLOT space. The JAX package's XLA attention masks with a key
 position grid (pad slots carry a sentinel position); its kernels, and every
@@ -134,9 +136,13 @@ def prefill_positions(
     return q_pos, ends.to(torch.int32)
 
 
-def decode_positions(slot: int, pads: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """One token at shared ``slot``: (q_pos [B, 1], lengths [B] = slot + 1)."""
+def decode_positions(slot, pads: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One token at shared ``slot``: (q_pos [B, 1], lengths [B] = slot + 1).
+    ``slot`` is a host int or a 0-d int64 tensor on the device (the decode
+    step of a captured chunk): both then derive from it on the device."""
     q_pos = (slot - pads.long())[:, None]
+    if isinstance(slot, torch.Tensor):
+        return q_pos, (slot.expand(pads.shape[0]) + 1).to(torch.int32)
     lengths = torch.full((pads.shape[0],), slot + 1, dtype=torch.int32, device=pads.device)
     return q_pos, lengths
 
@@ -168,7 +174,7 @@ def batched_blocks_forward(
     decode: bool,
     pads: torch.Tensor,
     lengths: torch.Tensor,
-    write_pos: int,
+    write_pos,
     cached_chunk: bool = False,
     block_tables: torch.Tensor | None = None,
     write_starts: torch.Tensor | None = None,
@@ -181,6 +187,8 @@ def batched_blocks_forward(
 
     Args:
       x: [B, W, hidden]; its tokens sit at slots [write_pos, write_pos + W).
+        ``write_pos`` is a host int, or on a decode step a 0-d int64 device
+        tensor (every write and bound then derives from it on the device).
       kv: the dense cache or (with ``block_tables``) the page pool, written
         in place.
       cos/sin: rope tables covering every position of the dispatch.
@@ -362,12 +370,13 @@ def paged_suffix_prefill(
 
 def batched_forward_one(params: M.Params, pads: torch.Tensor, config: LlamaConfig, rope):
     """The one-token dense forward ``(tok [B, 1], kv, slot) -> (logits, kv)``
-    for sampled_decode_loop; ``slot`` is the shared slot of the fed token.
-    The fusions are resolved once, for every step of the chunk."""
+    for sampled_decode_loop; ``slot`` is the shared slot of the fed token, a
+    host int or a 0-d int64 device tensor. The fusions are resolved once,
+    for every step of the chunk."""
     cos, sin = rope
     fusion = resolve_fusion(config)
 
-    def forward_one(tok, kv, slot: int):
+    def forward_one(tok, kv, slot):
         x = M.embed_tokens(params, tok, config)
         q_pos, lengths = decode_positions(slot, pads)
         x, kv = batched_blocks_forward(
@@ -386,7 +395,7 @@ def paged_forward_one(
     cos, sin = rope
     fusion = resolve_fusion(config)
 
-    def forward_one(tok, kv, slot: int):
+    def forward_one(tok, kv, slot):
         x = M.embed_tokens(params, tok, config)
         q_pos, lengths = decode_positions(slot, pads)
         x, kv = batched_blocks_forward(
@@ -401,7 +410,8 @@ def paged_forward_one(
 
 def decode_chunk(params, kv, tok, slot, pads, keys, ring, ring_idx, config, n, s, rope):
     """One dense decode chunk of ``n`` lockstep steps (the JAX package's
-    ``_decode_fn``)."""
+    ``_decode_fn``), run eagerly: the plain version of the captured chunk
+    the engine's backend replays on the card (runtime/batch_backend.py)."""
     return sampled_decode_loop(
         batched_forward_one(params, pads, config, rope),
         kv, tok, slot, keys, ring, ring_idx, n_steps=n, s=s,
@@ -413,7 +423,8 @@ def paged_decode_chunk(
     params, kv, tok, slot, pads, block_tables, keys, ring, ring_idx, config, n, s, rope
 ):
     """One paged decode chunk of ``n`` lockstep steps (the JAX package's
-    ``_paged_decode_fn``); the block table holds for the whole chunk."""
+    ``_paged_decode_fn``), run eagerly as ``decode_chunk``; the block table
+    holds for the whole chunk."""
     return sampled_decode_loop(
         paged_forward_one(params, pads, block_tables, config, rope),
         kv, tok, slot, keys, ring, ring_idx, n_steps=n, s=s,

@@ -4,8 +4,9 @@ Layout [n_layers, batch, n_kv_heads, max_seq, head_dim], head-major: each KV
 head's sequence is contiguous, which is what the decode and chunked-prefill
 kernels stream. Unlike the JAX package, whose arrays are immutable and whose
 cache is donated back to each step, the port writes the cache IN PLACE: a
-step's K/V land in the preallocated tensors with a slice assignment, and
-nothing is copied or reallocated per token.
+step's K/V land in the preallocated tensors with a slice assignment (a
+prefill at a host offset) or an ``index_copy_`` (a decode step at a device
+slot), and nothing is copied or reallocated per token.
 
 The rolling ring cache for sliding-window models is not ported yet
 (ROADMAP.md).
@@ -65,12 +66,25 @@ def write_layer(
     v_cache: torch.Tensor,
     k_new: torch.Tensor,
     v_new: torch.Tensor,
-    pos: int,
+    pos: int | torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Write a [batch, chunk, n_kv, hd] chunk at sequence offset ``pos`` into
     one layer's [batch, n_kv, max_seq, hd] cache, in place. Returns the same
-    two tensors."""
+    two tensors.
+
+    ``pos`` is a host int (a slice assignment, bounds-checked here) or a 0-d
+    int64 tensor on the cache's device, the decode step's slot: the write is
+    then an ``index_copy_`` along the slot axis at the tensor's value, the
+    counterpart of the JAX package's ``dynamic_update_slice`` at a traced
+    start, so a captured CUDA graph writes where the tensor says at each
+    replay. Its bound is the caller's to check, on the host ints it holds
+    (reading the tensor back would be a sync)."""
     chunk = k_new.shape[1]
+    if isinstance(pos, torch.Tensor):
+        idx = pos.reshape(1) if chunk == 1 else pos + torch.arange(chunk, device=pos.device)
+        k_cache.index_copy_(2, idx, k_new.transpose(1, 2).to(k_cache.dtype))
+        v_cache.index_copy_(2, idx, v_new.transpose(1, 2).to(v_cache.dtype))
+        return k_cache, v_cache
     if pos < 0 or pos + chunk > k_cache.shape[2]:
         raise ValueError(
             f"cache write [{pos}, {pos + chunk}) outside [0, {k_cache.shape[2]})"

@@ -28,7 +28,7 @@ from cake_tpu_torch.models.llama import model as M
 from cake_tpu_torch.models.llama.cache import init_cache
 from cake_tpu_torch.models.llama.chat import Message, encode_dialog
 from cake_tpu_torch.models.llama.config import LlamaConfig
-from cake_tpu_torch.models.llama.fused import sampled_decode_loop
+from cake_tpu_torch.models.llama.fused import DecodeChunk
 from cake_tpu_torch.models.llama.tokenizer import Tokenizer, load_tokenizer
 from cake_tpu_torch.ops.fuse import fuse_params, parse_fusion_spec, resolve_fusion
 from cake_tpu_torch.ops.quant import quantize_params
@@ -82,7 +82,7 @@ class ForwardStep(Protocol):
 class LocalForwardStep:
     """Single-device step: fused weights resident on ``device``, a dense KV
     cache written in place, rope tables built once; ``decode_chunk`` runs
-    multi-token decode on the device."""
+    multi-token decode on the device (a CUDA graph replay on the card)."""
 
     def __init__(
         self,
@@ -103,6 +103,7 @@ class LocalForwardStep:
         self._kv = None
         self.reset()
         self._rope = model_rope_tables(config, self._kv.max_seq_len, self.device)
+        self._chunks: dict = {}  # DecodeChunk per (n_steps, batch, sampling knobs)
 
     @property
     def max_seq_len(self) -> int:
@@ -147,20 +148,38 @@ class LocalForwardStep:
         per-step path advances it. The penalty ring ([batch, window], -1 =
         empty) and its next slot are values: the caller reseeds them from
         its token history each call, so an EOS truncation leaves no stale
-        ring state behind."""
-        params, config, rope, dev = self.params, self.config, self._rope, self.device
+        ring state behind.
 
-        def forward_one(tok, kv, p):
-            return M.forward(params, tok, kv, p, 1, config, rope=rope)
+        The chunk runs as a ``DecodeChunk`` (models/llama/fused.py), one a
+        (n_steps, batch, sampling knobs): on the card a replay of its CUDA
+        graph, captured at its first chunk; on the CPU the loop over the
+        same buffers. The cache bound is checked here, on the host ints."""
+        if pos < 0 or pos + n_steps > self._kv.max_seq_len:
+            raise ValueError(
+                f"decode chunk writes slots [{pos}, {pos + n_steps}) outside the cache's "
+                f"{self._kv.max_seq_len}"
+            )
+        b, window = int(np.size(last_token)), np.shape(ring)[1]
+        s = sampling
+        key = (n_steps, b, window, s.temperature, s.top_k, s.top_p, s.repeat_penalty)
+        chunk = self._chunks.get(key)
+        if chunk is None:
+            params, config, rope = self.params, self.config, self._rope
 
-        tok = torch.as_tensor(np.asarray(last_token, np.int64)).to(dev)
-        ring_t = torch.as_tensor(np.asarray(ring, np.int64)).to(dev)
-        ring_idx_t = torch.full((tok.shape[0],), int(ring_idx), dtype=torch.int64, device=dev)
-        toks, self._kv, _, _, _ = sampled_decode_loop(
-            forward_one, self._kv, tok, int(pos), rng, ring_t, ring_idx_t,
-            n_steps=n_steps, s=sampling, fused_tail="tail" in resolve_fusion(config),
+            def forward_one(tok, kv, p):
+                return M.forward(params, tok, kv, p, 1, config, rope=rope)
+
+            chunk = self._chunks[key] = DecodeChunk(
+                forward_one, self._kv, batch=b, window=window, vocab=config.vocab_size,
+                n_steps=n_steps, s=s, fused_tail="tail" in resolve_fusion(config),
+                per_row=False, device=self.device,
+            )
+        ids = chunk.run(
+            tok=np.asarray(last_token, np.int64).reshape(b), slot=pos,
+            ring=np.asarray(ring, np.int64), ring_idx=np.full(b, ring_idx, np.int64),
+            generator=rng,
         )
-        return toks.cpu().numpy()
+        return ids.cpu().numpy()
 
 
 def prefill_bucket(n: int, max_seq_len: int, minimum: int = 16) -> int:

@@ -226,21 +226,27 @@ def block_finish(lp, x, attn, config: LlamaConfig, fusion=None):
     return x + mlp
 
 
-def attention_rows(b: int, pos: int, chunk: int, device) -> dict[str, torch.Tensor]:
+def attention_rows(b: int, pos, chunk: int, device) -> dict[str, torch.Tensor]:
     """Per-row int32 bounds the attention kernels take, built once per step:
-    decode lengths (pos + 1) or the continuation's q_starts and lengths."""
+    decode lengths (pos + 1) or the continuation's q_starts and lengths.
+    A decode ``pos`` may be a 0-d device tensor: the lengths then derive
+    from it on the device."""
     if chunk == 1:
+        if isinstance(pos, torch.Tensor):
+            return {"lengths": (pos.expand(b) + 1).to(torch.int32)}
         return {"lengths": torch.full((b,), pos + 1, dtype=torch.int32, device=device)}
     q_starts = torch.full((b,), pos, dtype=torch.int32, device=device)
     return {"q_starts": q_starts, "lengths": q_starts + chunk}
 
 
 def block_forward(
-    lp, x, k_cache, v_cache, cos, sin, positions, pos: int, config: LlamaConfig,
+    lp, x, k_cache, v_cache, cos, sin, positions, pos, config: LlamaConfig,
     cached_prefill: bool = False, rolling: bool = False, rows=None, fusion=None,
 ):
     """One decoder block over a token chunk; writes this chunk's K/V into the
-    layer's cache in place. Returns (x_out, k_cache, v_cache)."""
+    layer's cache in place. ``pos``: a host int, or for a one-token step a
+    0-d int64 device tensor (``blocks_forward``). Returns (x_out, k_cache,
+    v_cache)."""
     if rolling:
         raise NotImplementedError(_ROLLING_TODO)
     if fusion is None:
@@ -271,10 +277,16 @@ def block_forward(
 
 
 def blocks_forward(
-    layers: Params, x, kv: KVCache, cos, sin, pos: int, config: LlamaConfig,
+    layers: Params, x, kv: KVCache, cos, sin, pos, config: LlamaConfig,
     cached_prefill: bool = False, fusion=None,
 ):
-    """Run the stacked layers in order (the JAX package's ``lax.scan``)."""
+    """Run the stacked layers in order (the JAX package's ``lax.scan``).
+
+    ``pos`` is a host int (prefill, per-step decode) or, for a one-token
+    decode step, a 0-d int64 tensor on the device (the captured decode chunk
+    of models/llama/fused.py): the positions, the rope rows, the lengths and
+    the cache writes then all derive from it on the device, so the step
+    reads nothing back and bakes no position into a captured graph."""
     if fusion is None:
         fusion = resolve_fusion(config)
     b, chunk, _ = x.shape
@@ -318,7 +330,7 @@ def head_forward(params: Params, x, seq_len: int, config: LlamaConfig, fusion=No
 
 
 def forward(
-    params: Params, tokens, kv: KVCache, pos: int, seq_len: int, config: LlamaConfig,
+    params: Params, tokens, kv: KVCache, pos, seq_len: int, config: LlamaConfig,
     cached_prefill: bool = False, rolling: bool = False, rope=None,
 ):
     """embed -> blocks -> ln_f -> lm_head at position seq_len - 1.
@@ -326,7 +338,9 @@ def forward(
     Args:
       tokens: [b, chunk] int (the chunk may be padded past seq_len).
       kv: full-depth cache, updated in place.
-      pos: offset of tokens[:, 0]; seq_len: count of valid tokens.
+      pos: offset of tokens[:, 0], a host int or, for a one-token step, a
+        0-d int64 device tensor (``blocks_forward``); seq_len: count of
+        valid tokens.
       cached_prefill: chunk > 1 at pos > 0 attends the cache prefix.
       rope: precomputed (cos, sin) tables (default: built for kv's length).
 

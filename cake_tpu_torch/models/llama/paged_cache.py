@@ -82,7 +82,7 @@ def init_paged_cache(
 
 
 def write_plan(
-    pos: int,
+    pos: int | torch.Tensor,
     chunk: int,
     block_tables: torch.Tensor,
     sink: int,
@@ -96,7 +96,12 @@ def write_plan(
     // page_size]`` at offset ``(pos + j) % page_size``. An unmapped entry, a
     logical page past the table, or (with ``starts``) a slot below
     ``starts[b]`` sends the write to page ``sink`` (the pool's write sink).
-    Layer-invariant: built once per dispatch, used by every layer."""
+    Layer-invariant: built once per dispatch, used by every layer.
+
+    ``pos`` is a host int or, on the decode step, a 0-d int64 tensor on
+    the table's device: the plan is then computed from it on the device,
+    nothing read back, so a captured CUDA graph writes where the tensor
+    says at each replay."""
     b, n_p = block_tables.shape
     dev = block_tables.device
     slots = pos + torch.arange(chunk, device=dev, dtype=torch.int64)
@@ -130,12 +135,13 @@ def paged_write_layer(
     v_pages: torch.Tensor,
     k_new: torch.Tensor,
     v_new: torch.Tensor,
-    pos: int,
+    pos: int | torch.Tensor,
     block_tables: torch.Tensor,
     starts: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Write a [batch, chunk, n_kv, head_dim] chunk at slot offset ``pos``
-    into one layer's pool slice through the block table, in place.
+    (a host int or a 0-d device tensor, as ``write_plan``) into one layer's
+    pool slice through the block table, in place.
 
     The paged sibling of cache.write_layer: writes the JAX package drops
     (unmapped entries, logical pages past the table, and with ``starts`` the

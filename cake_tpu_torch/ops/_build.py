@@ -82,8 +82,8 @@ _SIGNATURES = {
     ),
     "cake_fused_qkv_ingest": (
         _VOID, _VOID, _VOID, _VOID,                  # qkv cos sin q_out
-        _VOID, _VOID, _VOID,                         # k_cache v_cache tables (NULL: dense)
-        _INT, _INT, _INT, _INT, _INT,                # b n_q n_kv hd slot
+        _VOID, _VOID, _VOID, _VOID,                  # k_cache v_cache tables (NULL: dense) slot
+        _INT, _INT, _INT, _INT,                      # b n_q n_kv hd
         _INT, _INT, _LONG,                           # seq_stride n_p table_stride
         _INT, _INT, _INT, _INT, _INT, _INT,          # blocks threads vr vv rope_shift v_shift
         _INT, _VOID,                                 # dtype stream

@@ -33,6 +33,7 @@ import torch
 
 from cake_tpu_torch.ops import _build
 from cake_tpu_torch.ops.attention import causal_mask, masked_gqa_attention_hm
+from cake_tpu_torch.ops.launches import count
 
 _KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
@@ -69,7 +70,7 @@ def chunk_prefill_attention_plain(
     window=None, scale=None, softcap=None,
 ):
     """Plain PyTorch version over the whole cache (``chunk_masked``)."""
-    chunk_prefill_attention_plain.launches += 1
+    count(chunk_prefill_attention_plain)
     return chunk_masked(
         q, k_cache, v_cache, q_starts, lengths, window_flag, k_starts,
         window=window, scale=scale, softcap=softcap,
@@ -149,7 +150,7 @@ def launch_chunk_kernel(
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _build.check(err, "chunk_prefill_attention")
-    chunk_prefill_attention.launches += 1
+    count(chunk_prefill_attention)
     return out
 
 

@@ -8,10 +8,12 @@
 // matching vector of its second half, with their cos/sin, or one vector of
 // a v head; every load it makes is issued before its first store, so a
 // thread makes one trip to memory. The grid (blocks, rows) and the threads'
-// (head, vector) split come from the shapes; the body divides by nothing
-// but powers of two (shifts). Every rope product and sum is rounded on its
-// own, as the plain path's separate ops round them, so q and the written
-// K/V are its bits.
+// (head, vector) split come from the shapes; the body maps threads by
+// shifts. The write slot is read from device memory, as the TPU kernel
+// reads it from a scalar-prefetch ref, so a captured CUDA graph replays with
+// the slot its buffer holds at each replay. Every rope product and sum is
+// rounded on its own, as the plain path's separate ops round them, so q and
+// the written K/V are its bits.
 #include "common.cuh"
 
 namespace cake {
@@ -24,16 +26,17 @@ struct alignas(N * sizeof(T)) Pack {
 };
 
 // rope_shift / v_shift: log2 of the threads a q/k head / a v head takes
-// (each a power of two at least its vector count). Dense: `pos` is the
-// slot, `logical` unused. Paged: `pos` is the slot's offset in its page and
-// `logical` its page, both computed once on the host.
+// (each a power of two at least its vector count). `slot` points at the
+// shared write slot (an int64 in device memory). Dense: the slot indexes
+// the cache's sequence axis. Paged: its page is slot / seq_stride (the page
+// size) and its offset in the page slot % seq_stride.
 template <typename T, int VR, int VV>
 __global__ void ingest_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_rows,
                               const float* __restrict__ sin_rows, T* __restrict__ q_out,
                               T* __restrict__ k_cache, T* __restrict__ v_cache,
-                              const int* __restrict__ tables, int n_q, int n_kv, int hd,
-                              int rope_shift, int v_shift, int pos, int logical, int seq_stride,
-                              int n_p, long long table_stride) {
+                              const int* __restrict__ tables, const long long* __restrict__ slot,
+                              int n_q, int n_kv, int hd, int rope_shift, int v_shift,
+                              int seq_stride, int n_p, long long table_stride) {
   const int row = blockIdx.y;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int half = hd >> 1;
@@ -44,31 +47,40 @@ __global__ void ingest_kernel(const T* __restrict__ qkv, const float* __restrict
   const int head = u >> shift, j = u & ((1 << shift) - 1);
   if (rope ? j * VR >= half : (head >= n_kv || j * VV >= hd)) return;
 
-  // The table entry and the rope rows, then the row's qkv vectors: every
-  // load is issued before the first store.
-  int phys = 0;
-  if (tables != nullptr)
-    phys = tables[(long long)row * table_stride + min(logical, n_p - 1)];
-  float c[VR], s[VR];
+  // The slot, the rope rows and the row's qkv vectors, then the table
+  // entry (it depends on the slot): every load is issued before the first
+  // store.
+  const long long at = *slot;
+  const T* x = qkv + (size_t)row * (n_q + 2 * n_kv) * hd;
+  float c[VR], s[VR], x1[VR], x2[VR];
+  Pack<T, VV> v;
   if (rope) {
     load_vec<float, VR>(cos_rows + (size_t)row * half + j * VR, c);
     load_vec<float, VR>(sin_rows + (size_t)row * half + j * VR, s);
-  }
-  // Element offset of [.., head 0, slot, 0] in the cache, or -1: dropped.
-  // Dense: [b, n_kv, max_seq, hd]. Paged: the pool [P, n_kv, page, hd]
-  // through the table, the logical page clamped before the lookup.
-  long long base = -1;
-  if (tables == nullptr)
-    base = ((long long)row * n_kv * seq_stride + pos) * hd;
-  else if (logical < n_p && phys >= 0)
-    base = ((long long)phys * n_kv * seq_stride + pos) * hd;
-  const long long head_stride = (long long)seq_stride * hd;
-  const T* x = qkv + (size_t)row * (n_q + 2 * n_kv) * hd;
-  if (rope) {
-    // q and k heads: rotate-half in f32, every product and sum rounded alone.
-    float x1[VR], x2[VR], o1[VR], o2[VR];
     load_vec<T, VR>(x + head * hd + j * VR, x1);
     load_vec<T, VR>(x + head * hd + half + j * VR, x2);
+  } else {
+    v = *reinterpret_cast<const Pack<T, VV>*>(x + (n_q + n_kv + head) * hd + j * VV);
+  }
+  // Element offset of [.., head 0, slot, 0] in the cache, or -1: dropped
+  // (a negative slot; dense: a slot past the cache; paged: an unmapped
+  // entry or a page past the table, the logical page clamped into the
+  // table before the lookup). Dense: [b, n_kv, max_seq, hd]. Paged: the
+  // pool [P, n_kv, page, hd]. q threads write no cache.
+  long long base = -1;
+  const bool writes = !rope || head >= n_q;
+  if (writes && tables == nullptr) {
+    if (at >= 0 && at < seq_stride) base = ((long long)row * n_kv * seq_stride + at) * hd;
+  } else if (writes && at >= 0) {
+    const long long logical = at / seq_stride;
+    const int phys = tables[(long long)row * table_stride + min(logical, (long long)n_p - 1)];
+    if (logical < n_p && phys >= 0)
+      base = ((long long)phys * n_kv * seq_stride + at % seq_stride) * hd;
+  }
+  const long long head_stride = (long long)seq_stride * hd;
+  if (rope) {
+    // q and k heads: rotate-half in f32, every product and sum rounded alone.
+    float o1[VR], o2[VR];
 #pragma unroll
     for (int i = 0; i < VR; ++i) {
       o1[i] = __fsub_rn(__fmul_rn(x1[i], c[i]), __fmul_rn(x2[i], s[i]));
@@ -86,8 +98,6 @@ __global__ void ingest_kernel(const T* __restrict__ qkv, const float* __restrict
   } else {
     // v heads: copied into the slot.
     if (base < 0) return;
-    const Pack<T, VV> v =
-        *reinterpret_cast<const Pack<T, VV>*>(x + (n_q + n_kv + head) * hd + j * VV);
     *reinterpret_cast<Pack<T, VV>*>(v_cache + base + head * head_stride + j * VV) = v;
   }
 }
@@ -95,15 +105,16 @@ __global__ void ingest_kernel(const T* __restrict__ qkv, const float* __restrict
 template <typename T, int VR, int VV>
 static cudaError_t launch_ingest(const void* qkv, const void* cos_rows, const void* sin_rows,
                                  void* q_out, void* k_cache, void* v_cache, const void* tables,
-                                 int b, int n_q, int n_kv, int hd, int rope_shift, int v_shift,
-                                 int pos, int logical, int seq_stride, int n_p,
+                                 const void* slot, int b, int n_q, int n_kv, int hd,
+                                 int rope_shift, int v_shift, int seq_stride, int n_p,
                                  long long table_stride, int blocks, int threads,
                                  cudaStream_t stream) {
   ingest_kernel<T, VR, VV><<<dim3(blocks, b), threads, 0, stream>>>(
       static_cast<const T*>(qkv), static_cast<const float*>(cos_rows),
       static_cast<const float*>(sin_rows), static_cast<T*>(q_out), static_cast<T*>(k_cache),
-      static_cast<T*>(v_cache), static_cast<const int*>(tables), n_q, n_kv, hd, rope_shift,
-      v_shift, pos, logical, seq_stride, n_p, table_stride);
+      static_cast<T*>(v_cache), static_cast<const int*>(tables),
+      static_cast<const long long*>(slot), n_q, n_kv, hd, rope_shift, v_shift, seq_stride, n_p,
+      table_stride);
   return cudaGetLastError();
 }
 
@@ -112,14 +123,14 @@ static cudaError_t launch_ingest(const void* qkv, const void* cos_rows, const vo
 template <typename T>
 static cudaError_t ingest_by_vectors(int vr, int vv, const void* qkv, const void* cs,
                                      const void* sn, void* q, void* kc, void* vc,
-                                     const void* tb, int b, int n_q, int n_kv, int hd, int rs,
-                                     int vs, int pos, int logical, int seq, int n_p,
-                                     long long ts, int blocks, int threads, cudaStream_t st) {
+                                     const void* tb, const void* sl, int b, int n_q, int n_kv,
+                                     int hd, int rs, int vs, int seq, int n_p, long long ts,
+                                     int blocks, int threads, cudaStream_t st) {
   constexpr int MAXV = 16 / (int)sizeof(T);
 #define CAKE_INGEST(R, V)                                                                      \
   if (vr == R && vv == V)                                                                      \
-    return launch_ingest<T, R, V>(qkv, cs, sn, q, kc, vc, tb, b, n_q, n_kv, hd, rs, vs, pos,   \
-                                  logical, seq, n_p, ts, blocks, threads, st);
+    return launch_ingest<T, R, V>(qkv, cs, sn, q, kc, vc, tb, sl, b, n_q, n_kv, hd, rs, vs,    \
+                                  seq, n_p, ts, blocks, threads, st);
 #define CAKE_INGEST_V(R) CAKE_INGEST(R, 1) CAKE_INGEST(R, 2) CAKE_INGEST(R, 4)
   CAKE_INGEST_V(1)
   CAKE_INGEST_V(2)
@@ -138,33 +149,32 @@ static cudaError_t ingest_by_vectors(int vr, int vv, const void* qkv, const void
 }  // namespace cake
 
 // qkv: [b, (n_q + 2 n_kv) hd]; cos_rows/sin_rows: [b, hd/2] f32; q_out:
-// [b, n_q, hd]. tables == NULL: dense cache [b, n_kv, seq_stride, hd], the
-// write at slot. Otherwise tables [b, n_p] int32 (row stride table_stride)
-// and the pool [P, n_kv, seq_stride = page size, hd]. All contiguous, one
-// dtype for qkv, q and the cache, every base 16-byte aligned. The geometry
-// is ops/fused_ingest.plan()'s: `blocks` x `threads` a row, vectors of `vr`
+// [b, n_q, hd]; slot: one int64 in device memory, the shared write slot.
+// tables == NULL: dense cache [b, n_kv, seq_stride, hd], the write at the
+// slot. Otherwise tables [b, n_p] int32 (row stride table_stride) and the
+// pool [P, n_kv, seq_stride = page size, hd]. All contiguous, one dtype for
+// qkv, q and the cache, every base 16-byte aligned. The geometry is
+// ops/fused_ingest.plan()'s: `blocks` x `threads` a row, vectors of `vr`
 // (q/k) and `vv` (v) elements, 2^rope_shift threads a q/k head and
 // 2^v_shift a v head. Returns the launch's error.
 extern "C" int cake_fused_qkv_ingest(const void* qkv, const void* cos_rows, const void* sin_rows,
                                      void* q_out, void* k_cache, void* v_cache,
-                                     const void* tables, int b, int n_q, int n_kv, int hd,
-                                     int slot, int seq_stride, int n_p, long long table_stride,
-                                     int blocks, int threads, int vr, int vv, int rope_shift,
-                                     int v_shift, int dtype, void* stream) {
+                                     const void* tables, const void* slot, int b, int n_q,
+                                     int n_kv, int hd, int seq_stride, int n_p,
+                                     long long table_stride, int blocks, int threads, int vr,
+                                     int vv, int rope_shift, int v_shift, int dtype,
+                                     void* stream) {
   using namespace cake;
   if (b < 1) return (int)cudaSuccess;
-  if (hd < 2 || hd % 2 || seq_stride < 1 || slot < 0 || (tables != nullptr && n_p < 1) ||
+  if (hd < 2 || hd % 2 || seq_stride < 1 || slot == nullptr || (tables != nullptr && n_p < 1) ||
       blocks < 1 || threads < 1 || threads > 1024 || (hd / 2) % vr || hd % vv ||
       (1 << rope_shift) * vr < hd / 2 || (1 << v_shift) * vv < hd ||
       (long long)blocks * threads < ((long long)(n_q + n_kv) << rope_shift) + (n_kv << v_shift))
     return (int)cudaErrorInvalidValue;
-  // The slot's page and offset, once for every row.
-  const int logical = tables != nullptr ? slot / seq_stride : 0;
-  const int pos = tables != nullptr ? slot % seq_stride : slot;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CAKE_INGEST_ARGS                                                                    \
-  vr, vv, qkv, cos_rows, sin_rows, q_out, k_cache, v_cache, tables, b, n_q, n_kv, hd,       \
-      rope_shift, v_shift, pos, logical, seq_stride, n_p, table_stride, blocks, threads, s
+  vr, vv, qkv, cos_rows, sin_rows, q_out, k_cache, v_cache, tables, slot, b, n_q, n_kv, hd, \
+      rope_shift, v_shift, seq_stride, n_p, table_stride, blocks, threads, s
   switch (dtype) {
     case kF32: return (int)ingest_by_vectors<float>(CAKE_INGEST_ARGS);
     case kF16: return (int)ingest_by_vectors<__half>(CAKE_INGEST_ARGS);

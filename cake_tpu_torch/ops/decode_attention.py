@@ -20,7 +20,7 @@ each split's block reads its keys once for all query heads of the group
 (eight warps, coalesced vector loads, the warps merged in order) and writes
 an f32 partial (max, sum, acc). The last block of a (row, KV head), by an
 atomic ticket, merges the partials in ascending split order. The tickets
-live in one zeroed buffer per device that every call leaves at zero; they
+(ops/tickets.py) are a zeroed buffer that every call leaves at zero; they
 assume the calls run on one stream at a time, as the port's callers do.
 
 For a tensor on the CPU the wrapper runs :func:`decode_attention_plain`
@@ -37,6 +37,8 @@ import torch
 
 from cake_tpu_torch.ops import _build
 from cake_tpu_torch.ops.attention import masked_gqa_attention_hm
+from cake_tpu_torch.ops.launches import count
+from cake_tpu_torch.ops.tickets import tickets
 
 _KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
@@ -81,22 +83,16 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-_tickets: dict[torch.device, torch.Tensor] = {}
-
-
 def split_launch(q: torch.Tensor, n_kv: int, limit: int):
     """(plan, partials scratch, tickets) of a decode call on q's card. The
-    scratch comes from torch.empty; the tickets are one zeroed int32 buffer
-    per device, grown when a batch needs more (b * n_kv), which every launch
-    leaves at zero."""
+    scratch comes from torch.empty (inside a CUDA graph capture, from the
+    graph's pool, which every replay reuses); the tickets (b * n_kv) from
+    ops/tickets.py, which never frees a buffer a graph may hold and raises
+    where one would be made during a capture."""
     b, _, n_q, hd = q.shape
     p = plan(b, n_kv, n_q // n_kv, hd, limit, _sm_count(q.device.index))
     part = torch.empty(p.scratch, dtype=torch.float32, device=q.device)
-    tickets = _tickets.get(q.device)
-    if tickets is None or tickets.numel() < b * n_kv:
-        tickets = torch.zeros(b * n_kv, dtype=torch.int32, device=q.device)
-        _tickets[q.device] = tickets
-    return p, part, tickets
+    return p, part, tickets("decode attention", q.device, b * n_kv)
 
 
 def fold_window(starts, lengths, window, window_flag):
@@ -144,7 +140,7 @@ def decode_attention_plain(
 ):
     """Plain PyTorch version: masked softmax over the whole cache, keys in
     ``[start, length)`` only (the window folded into ``start``)."""
-    decode_attention_plain.launches += 1
+    count(decode_attention_plain)
     return decode_masked(
         q, k_cache, v_cache, lengths, starts, window_flag,
         window=window, scale=scale, softcap=softcap,
@@ -210,10 +206,10 @@ def decode_attention(
     if b == 0:
         return out
     lib = _build.library()
-    p, part, tickets = split_launch(q, n_kv, max_seq)
+    p, part, ticket_buf = split_launch(q, n_kv, max_seq)
     err = lib.cake_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        lengths.data_ptr(), starts.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+        lengths.data_ptr(), starts.data_ptr(), part.data_ptr(), ticket_buf.data_ptr(),
         b, n_kv, n_q // n_kv, max_seq, hd,
         _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
         float(hd**-0.5 if scale is None else scale),
@@ -221,7 +217,7 @@ def decode_attention(
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     _build.check(err, "decode_attention")
-    decode_attention.launches += 1
+    count(decode_attention)
     return out
 
 

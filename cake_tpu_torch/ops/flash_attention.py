@@ -15,13 +15,14 @@ import torch
 
 from cake_tpu_torch.ops.attention import gqa_attention
 from cake_tpu_torch.ops.chunk_prefill import launch_chunk_kernel
+from cake_tpu_torch.ops.launches import count
 
 
 def flash_attention_plain(
     q, k, v, window_flag=None, *, window=None, scale=None, softcap=None
 ):
     """Plain PyTorch version: causal GQA of the chunk over itself."""
-    flash_attention_plain.launches += 1
+    count(flash_attention_plain)
     b, q_len = q.shape[:2]
     pos = torch.arange(q_len, device=q.device, dtype=torch.int32)[None].expand(b, -1)
     return gqa_attention(

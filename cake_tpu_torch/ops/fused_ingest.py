@@ -18,18 +18,22 @@ What the design does about it: each thread makes one trip to memory.
 (16 bytes where ``hd/2`` allows it, narrower otherwise, never a wrong
 pairing) of a q or k head's first half, the matching vector of its second
 half and their cos/sin floats, or one vector of a v head. It issues every
-load before its first store. A head's vectors get a power of two of
-threads, so the body maps a thread to its head and vector by shifts; the
-paged slot's page and offset are divided out once on the host. Each
-thread ropes its pairs in f32 with the plain path's rounding, every
-product and sum rounded on its own (``__fmul_rn``, ``__fsub_rn``,
-``__fadd_rn``; a contracted FMA would differ in the last bit), casts back
-with round-to-nearest-even, and stores q, or k at the row's cache slot; v
-is copied. So q and the written K/V are the plain path's bits. The paged
-variant resolves the slot through the block table like ``write_plan``: the
-logical page is clamped into the table before the lookup, and an unmapped
-(< 0) or past-the-table entry drops the write, where the plain path sends
-it to the pool's sink page.
+load before its first store. A head's vectors get a power of two of threads,
+so the body maps a thread to its head and vector by shifts. The write slot
+is read from device memory (a 0-d int64 tensor), as the TPU kernel reads it
+from a scalar-prefetch ref: a kernel argument is frozen when a CUDA graph
+captures the launch, so a slot passed by value would replay the first
+chunk's slot forever (models/llama/fused.py). Each thread ropes its pairs in
+f32 with the plain path's rounding, every product and sum rounded on its own
+(``__fmul_rn``, ``__fsub_rn``, ``__fadd_rn``; a contracted FMA would differ
+in the last bit), casts back with round-to-nearest-even, and stores q, or k
+at the row's cache slot; v is copied. So q and the written K/V are the plain
+path's bits. The paged variant resolves the slot through the block table
+like ``write_plan``: the logical page is clamped into the table before the
+lookup, and an unmapped (< 0) or past-the-table entry drops the write, where
+the plain path sends it to the pool's sink page. A dense slot outside the
+cache drops the write too; the caller checks its bound on the host, where
+the plain path's ``index_copy_`` would fail.
 
 For tensors on the CPU the wrapper runs :func:`fused_qkv_ingest_plain`; for
 CUDA tensors it launches the kernel or raises.
@@ -45,6 +49,7 @@ import torch
 from cake_tpu_torch.models.llama.cache import write_layer
 from cake_tpu_torch.models.llama.paged_cache import paged_write_layer
 from cake_tpu_torch.ops import _build
+from cake_tpu_torch.ops.launches import count
 from cake_tpu_torch.ops.rope import apply_rope
 
 _KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
@@ -90,12 +95,12 @@ def plan(b: int, n_q: int, n_kv: int, hd: int, dtype) -> Plan:
     return Plan(-(-row // threads), threads, vr, vv, rope_shift, v_shift)
 
 
-def fused_qkv_ingest_plain(qkv, cos, sin, slot: int, k_cache, v_cache, *, n_q: int, n_kv: int,
+def fused_qkv_ingest_plain(qkv, cos, sin, slot, k_cache, v_cache, *, n_q: int, n_kv: int,
                            block_tables=None):
     """Plain PyTorch version: split, ``apply_rope`` on q and k, then
     ``write_layer`` (dense) or ``paged_write_layer`` (through the table;
-    dropped writes land on the sink page)."""
-    fused_qkv_ingest_plain.launches += 1
+    dropped writes land on the sink page). ``slot`` as the kernel's."""
+    count(fused_qkv_ingest_plain)
     b = qkv.shape[0]
     hd = qkv.shape[-1] // (n_q + 2 * n_kv)
     qw, kw = n_q * hd, n_kv * hd
@@ -114,14 +119,16 @@ def fused_qkv_ingest_plain(qkv, cos, sin, slot: int, k_cache, v_cache, *, n_q: i
 fused_qkv_ingest_plain.launches = 0
 
 
-def fused_qkv_ingest(qkv, cos, sin, slot: int, k_cache, v_cache, *, n_q: int, n_kv: int,
+def fused_qkv_ingest(qkv, cos, sin, slot, k_cache, v_cache, *, n_q: int, n_kv: int,
                      block_tables=None):
     """Split heads + rope + cache write for ONE decode token per row.
 
     Args:
       qkv: [b, 1, (n_q + 2 n_kv) hd], the bias already added.
       cos/sin: [b, 1, hd/2] f32 rope rows gathered at each row's position.
-      slot: the shared write slot.
+      slot: the shared write slot: a 0-d int64 tensor on qkv's device,
+        which the kernel reads when it runs (the decode step's), or a host
+        int, checked here and written into a new such tensor.
       k_cache/v_cache: one layer's dense cache [b, n_kv, max_seq, hd], or
         with ``block_tables`` ([b, n_p] int32) its page pool
         [n_pages + 1, n_kv, page_size, hd]; written in place.
@@ -159,7 +166,7 @@ def fused_qkv_ingest(qkv, cos, sin, slot: int, k_cache, v_cache, *, n_q: int, n_
     if block_tables is None:
         if k_cache.shape[0] != b:
             raise ValueError(f"fused_qkv_ingest: cache batch {k_cache.shape[0]} != {b}")
-        if not 0 <= slot < k_cache.shape[2]:
+        if not isinstance(slot, torch.Tensor) and not 0 <= slot < k_cache.shape[2]:
             raise ValueError(f"fused_qkv_ingest: slot {slot} outside [0, {k_cache.shape[2]})")
     else:
         if block_tables.dtype != torch.int32 or block_tables.dim() != 2 \
@@ -168,10 +175,16 @@ def fused_qkv_ingest(qkv, cos, sin, slot: int, k_cache, v_cache, *, n_q: int, n_
                 f"fused_qkv_ingest: block_tables must be [b, n_p] int32 with unit column "
                 f"stride, got {tuple(block_tables.shape)} {block_tables.dtype}"
             )
-        if slot < 0:
+        if not isinstance(slot, torch.Tensor) and slot < 0:
             raise ValueError(f"fused_qkv_ingest: slot {slot} < 0")
         tables, n_p, table_stride = block_tables, block_tables.shape[1], block_tables.stride(0)
-    operands = {"cos": cos, "sin": sin, "k_cache": k_cache, "v_cache": v_cache}
+    if isinstance(slot, torch.Tensor):
+        if slot.dim() != 0 or slot.dtype != torch.int64:
+            raise ValueError(f"fused_qkv_ingest: a slot tensor must be 0-d int64, got "
+                             f"{tuple(slot.shape)} {slot.dtype}")
+    else:
+        slot = torch.full((), int(slot), dtype=torch.int64, device=qkv.device)
+    operands = {"cos": cos, "sin": sin, "k_cache": k_cache, "v_cache": v_cache, "slot": slot}
     if tables is not None:
         operands["block_tables"] = tables
     for name, tn in operands.items():
@@ -196,14 +209,14 @@ def fused_qkv_ingest(qkv, cos, sin, slot: int, k_cache, v_cache, *, n_q: int, n_
     err = _build.library().cake_fused_qkv_ingest(
         qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), q.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(),
-        None if tables is None else tables.data_ptr(),
-        b, n_q, n_kv, hd, int(slot), k_cache.shape[2], n_p, table_stride,
+        None if tables is None else tables.data_ptr(), slot.data_ptr(),
+        b, n_q, n_kv, hd, k_cache.shape[2], n_p, table_stride,
         p.blocks, p.threads, p.vec_rope, p.vec_v, p.rope_shift, p.v_shift,
         _build.DTYPE_CODES[str(qkv.dtype).removeprefix("torch.")],
         ctypes.c_void_p(torch.cuda.current_stream(qkv.device).cuda_stream),
     )
     _build.check(err, "fused_qkv_ingest")
-    fused_qkv_ingest.launches += 1
+    count(fused_qkv_ingest)
     return q
 
 

@@ -58,8 +58,10 @@ from dataclasses import dataclass
 import torch
 
 from cake_tpu_torch.ops import _build
+from cake_tpu_torch.ops.launches import count
 from cake_tpu_torch.ops.norm import rms_norm
 from cake_tpu_torch.ops.quant import QUANT_TYPES, qmat
+from cake_tpu_torch.ops.tickets import tickets
 
 _KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 # Rows the kernel takes, as the JAX package's kernel (a 256-row prefill
@@ -168,7 +170,7 @@ def _unfused(x, norm_w, w, eps, offset):
 def fused_norm_matmul_plain(x, norm_w, w, *, eps: float, offset: bool = False):
     """Plain PyTorch version: ``rms_norm`` then the product, the unfused
     composition itself."""
-    fused_norm_matmul_plain.launches += 1
+    count(fused_norm_matmul_plain)
     return _unfused(x, norm_w, w, eps, offset)
 
 
@@ -185,7 +187,7 @@ def fused_norm_matmul(x, norm_w, w, *, eps: float, offset: bool = False):
 
     Returns [b, t, out] in x's dtype (f32-accumulated)."""
     if isinstance(w, QUANT_TYPES):
-        fused_norm_matmul.quantized += 1
+        count(fused_norm_matmul, "quantized")
         return _unfused(x, norm_w, w, eps, offset)
     if x.device.type == "cpu":
         return fused_norm_matmul_plain(x, norm_w, w, eps=eps, offset=offset)
@@ -199,7 +201,7 @@ def fused_norm_matmul(x, norm_w, w, *, eps: float, offset: bool = False):
     b, t, hidden = x.shape
     rows = b * t
     if rows > MAX_ROWS:
-        fused_norm_matmul.unfused += 1
+        count(fused_norm_matmul, "unfused")
         return _unfused(x, norm_w, w, eps, offset)
     out_dim = w.shape[1]
     if w.shape[0] != hidden or norm_w.shape[0] != hidden:
@@ -222,27 +224,13 @@ def fused_norm_matmul(x, norm_w, w, *, eps: float, offset: bool = False):
     if rows == 0:
         return torch.empty((b, t, out_dim), dtype=x.dtype, device=x.device)
     out = _run(x2, norm_w, w, p, eps=eps, offset=offset)
-    fused_norm_matmul.launches += 1
+    count(fused_norm_matmul)
     return out.view(b, t, out_dim)
 
 
 fused_norm_matmul.launches = 0
 fused_norm_matmul.unfused = 0
 fused_norm_matmul.quantized = 0
-
-
-_tickets: dict[torch.device, torch.Tensor] = {}
-
-
-def _strip_tickets(device: torch.device, strips: int) -> torch.Tensor:
-    """One zeroed int32 ticket a column strip on ``device``: every launch
-    leaves them at zero, so the buffer is allocated once (grown as needed).
-    The port's callers run the kernel on one stream."""
-    tickets = _tickets.get(device)
-    if tickets is None or tickets.numel() < strips:
-        tickets = torch.zeros(strips, dtype=torch.int32, device=device)
-        _tickets[device] = tickets
-    return tickets
 
 
 def _run(x: torch.Tensor, norm_w: torch.Tensor, w: torch.Tensor, p: Plan, *, eps: float,
@@ -259,16 +247,18 @@ def _run(x: torch.Tensor, norm_w: torch.Tensor, w: torch.Tensor, p: Plan, *, eps
     out = torch.empty((rows, out_dim), dtype=x.dtype, device=x.device)
     # The scratch of the normalized rows and the f32 partials of split K
     # are freed on return: the caching allocator hands their memory only to
-    # work queued after this launch on the same stream.
-    h = part = tickets = None
+    # work queued after this launch on the same stream (inside a CUDA graph
+    # capture, they come from the graph's pool). The strips' tickets come
+    # from ops/tickets.py.
+    h = part = strips = None
     if p.body != "gemv":
         h = torch.empty((rows, hidden), dtype=x.dtype, device=x.device)
     if p.body == "swap_ab" and p.splits > 1:
         part = torch.empty((p.splits, rows, out_dim), dtype=torch.float32, device=x.device)
-        tickets = _strip_tickets(x.device, _cdiv(out_dim, SA_COLS))
+        strips = tickets("fused_norm_matmul", x.device, _cdiv(out_dim, SA_COLS))
     err = _build.library().cake_fused_norm_matmul(
         x.data_ptr(), norm_w.data_ptr(), w.data_ptr(), out.data_ptr(),
-        *(None if t is None else t.data_ptr() for t in (h, part, tickets)),
+        *(None if t is None else t.data_ptr() for t in (h, part, strips)),
         rows, hidden, out_dim, _build.DTYPE_CODES[str(x.dtype).removeprefix("torch.")],
         float(eps), int(bool(offset)), BODIES[p.body], p.tile, p.per, p.stages,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),

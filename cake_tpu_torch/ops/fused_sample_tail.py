@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from cake_tpu_torch.ops import _build
+from cake_tpu_torch.ops.launches import count
 from cake_tpu_torch.ops.sampling import _filter, apply_repeat_penalty
 
 log = logging.getLogger("cake_tpu_torch.fused_sample_tail")
@@ -175,7 +176,7 @@ def _composition(logits, ring, noise, temperature, top_k, top_p, repeat_penalty)
 def fused_sample_tail_plain(logits, ring, noise, *, temperature, top_k, top_p, repeat_penalty):
     """Plain PyTorch version: ``apply_repeat_penalty``, ``_filter`` and the
     argmax of ``scaled + noise`` (of the penalized logits when greedy)."""
-    fused_sample_tail_plain.launches += 1
+    count(fused_sample_tail_plain)
     return _composition(logits, ring, noise, temperature, top_k, top_p, repeat_penalty)
 
 
@@ -193,7 +194,7 @@ def fused_sample_tail(logits, ring, noise, *, temperature, top_k, top_p, repeat_
     global _top_p_noted
     greedy = temperature is None or temperature <= 0.0
     if top_p is not None and not greedy:
-        fused_sample_tail.unfused += 1
+        count(fused_sample_tail, "unfused")
         if not _top_p_noted:
             _top_p_noted = True
             log.warning(
@@ -235,7 +236,7 @@ def fused_sample_tail(logits, ring, noise, *, temperature, top_k, top_p, repeat_
                                occupancy=lambda q: _max_active_clusters(q, penalize, not greedy, k))
     out = _run(logits, ring, None if greedy else noise, _plans[key], temperature=temperature,
                top_k=k, repeat_penalty=repeat_penalty)
-    fused_sample_tail.launches += 1
+    count(fused_sample_tail)
     return out
 
 

@@ -47,6 +47,7 @@ from dataclasses import dataclass
 import torch
 
 from cake_tpu_torch.ops import _build
+from cake_tpu_torch.ops.launches import count
 
 _KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 _DTYPE_CODES = {getattr(torch, name): code for name, code in _build.DTYPE_CODES.items()}
@@ -74,7 +75,7 @@ def unpack4(packed: torch.Tensor, dtype: torch.dtype = torch.int8):
 def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: unpack, scale in f32, round to x's dtype, then
     an f32 product rounded to x's dtype."""
-    int4_matmul_plain.launches += 1
+    count(int4_matmul_plain)
     half, out = packed.shape
     groups = scale.shape[0]
     lo, hi = unpack4(packed, torch.float32)
@@ -195,7 +196,7 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> t
     if rows == 0:
         return torch.empty((0, out_dim), dtype=x.dtype, device=x.device)
     out = _run(x, packed, scale, plan(rows, in_dim, out_dim, x.dtype, in_dim // groups))
-    int4_matmul.launches += 1
+    count(int4_matmul)
     return out
 
 
@@ -214,7 +215,10 @@ def _run(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, p: Plan) ->
     out = torch.empty((rows, out_dim), dtype=x.dtype, device=x.device)
     # Split blocks write f32 partials that a second kernel adds in split
     # order. The scratch is freed on return: the caching allocator hands its
-    # memory only to work queued after these launches.
+    # memory only to work queued after these launches (inside a CUDA graph
+    # capture it comes from the graph's pool, which each replay reuses in
+    # the captured order). Nothing here is made lazily, so a capture needs
+    # no warm-up of this wrapper.
     chunk, scratch = scratch_rows(p, rows, out_dim), None
     if chunk:
         scratch = torch.empty((p.splits, chunk, out_dim), dtype=torch.float32, device=x.device)

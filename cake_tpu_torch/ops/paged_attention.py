@@ -38,6 +38,7 @@ import torch
 from cake_tpu_torch.models.llama.paged_cache import gather_pages
 from cake_tpu_torch.ops import _build
 from cake_tpu_torch.ops.decode_attention import decode_masked, row_bounds, split_launch
+from cake_tpu_torch.ops.launches import count
 from cake_tpu_torch.ops.paged_prefill import check_paged_operands
 
 
@@ -49,7 +50,7 @@ def paged_decode_attention_plain(
     gather each row's pages into the dense head-major view, then the dense
     plain decode arithmetic, so it is bitwise the dense plain path on equal
     keys and equal widths."""
-    paged_decode_attention_plain.launches += 1
+    count(paged_decode_attention_plain)
     return decode_masked(
         q, gather_pages(k_pages, block_tables), gather_pages(v_pages, block_tables),
         lengths, starts, window_flag, window=window, scale=scale, softcap=softcap,
@@ -110,7 +111,7 @@ def paged_decode_attention(
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     _build.check(err, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    count(paged_decode_attention)
     return out
 
 

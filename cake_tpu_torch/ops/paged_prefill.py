@@ -36,6 +36,7 @@ import torch
 from cake_tpu_torch.models.llama.paged_cache import gather_pages
 from cake_tpu_torch.ops import _build
 from cake_tpu_torch.ops.chunk_prefill import as_rows, chunk_masked
+from cake_tpu_torch.ops.launches import count
 
 _KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
@@ -101,7 +102,7 @@ def paged_chunk_attention_plain(
     gather each row's pages into the dense head-major view, then the dense
     plain chunk arithmetic, so it is bitwise the dense plain path on equal
     keys and equal widths."""
-    paged_chunk_attention_plain.launches += 1
+    count(paged_chunk_attention_plain)
     return chunk_masked(
         q, gather_pages(k_pages, block_tables), gather_pages(v_pages, block_tables),
         q_starts, lengths, window_flag, k_starts,
@@ -175,7 +176,7 @@ def paged_chunk_attention(
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _build.check(err, "paged_chunk_attention")
-    paged_chunk_attention.launches += 1
+    count(paged_chunk_attention)
     return out
 
 

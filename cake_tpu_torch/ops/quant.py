@@ -151,7 +151,10 @@ def weight_out_dim(w) -> int:
 
 
 def qmat(x: torch.Tensor, w) -> torch.Tensor:
-    """``x @ w`` for a plain tensor, a QuantWeight or a Quant4Weight."""
+    """``x @ w`` for a plain tensor, a QuantWeight or a Quant4Weight. The
+    int8 product converts the weight at every call; inside a CUDA graph
+    capture the converted copy comes from the graph's pool, so the largest
+    one (lm_head's) sets the pool's size."""
     if isinstance(w, QuantWeight):
         scale = w.scale.reshape(*w.scale.shape[:-2], w.scale.shape[-1])
         return (x @ w.w.to(x.dtype)) * scale.to(x.dtype)

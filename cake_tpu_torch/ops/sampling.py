@@ -59,11 +59,21 @@ def _filter(logits, temperature, top_k, top_p):
     return scaled
 
 
-def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """Standard gumbel noise drawn from ``generator``."""
-    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+def draw_uniforms(shape, generator: torch.Generator, device, out=None) -> torch.Tensor:
+    """The f32 uniforms of one draw from ``generator`` (``out``: a buffer of
+    ``shape`` to draw into, the same bits as a fresh tensor)."""
+    return torch.rand(shape, generator=generator, device=device, dtype=torch.float32, out=out)
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Standard gumbel noise from f32 uniforms."""
     tiny = torch.finfo(torch.float32).tiny
     return -torch.log(-torch.log(u.clamp(min=tiny)))
+
+
+def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard gumbel noise drawn from ``generator``."""
+    return gumbel_from_uniform(draw_uniforms(shape, generator, device))
 
 
 def sample(
@@ -163,7 +173,8 @@ def gumbel_per_row(keys: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def sample_step(
-    logits, keys, ring, ring_idx, *, temperature, top_k, top_p, repeat_penalty, fused_tail=False
+    logits, keys, ring, ring_idx, *, temperature, top_k, top_p, repeat_penalty, fused_tail=False,
+    uniform=None,
 ):
     """ONE decode sampling step for a batch of rows (port of
     ``cake_tpu/models/llama/fused.py`` ``sample_step``): repeat penalty over
@@ -172,9 +183,11 @@ def sample_step(
     Args: logits [b, vocab] f32; keys [b, 2] per-row keys, or a
     ``torch.Generator`` whose one stream the rows share (the generator's
     ``decode_chunk``: the draws of its per-step ``sample``, in the same
-    order); ring [b, window] int64 recent ids (-1 = empty), updated in
-    place; ring_idx [b] int64 next circular slot. All on the device;
-    nothing is read back.
+    order), or None: greedy, or a shared stream whose draw for this step is
+    ``uniform`` ([b, vocab] f32, drawn beforehand by ``draw_uniforms``, as
+    a captured decode chunk reads it); ring [b, window] int64 recent ids
+    (-1 = empty), updated in place; ring_idx [b] int64 next circular slot.
+    All on the device; nothing is read back.
 
     ``fused_tail`` routes penalty, temperature, top-k and the draw through
     the fused sampling tail (ops/fused_sample_tail.py). The key split and the
@@ -182,7 +195,10 @@ def sample_step(
     random stream and give the same ids.
 
     Returns (next ids [b] int64, keys, ring, ring_idx)."""
-    shared = isinstance(keys, torch.Generator)
+    shared = not isinstance(keys, torch.Tensor)
+    sampled = temperature is not None and temperature > 0.0
+    if sampled and keys is None and uniform is None:
+        raise ValueError("sample_step: a sampled step needs keys, a generator or its uniforms")
     if fused_tail:
         from cake_tpu_torch.ops.fused_sample_tail import fused_sample_tail
 
@@ -190,9 +206,13 @@ def sample_step(
         if not shared:
             keys, sub = split_keys(keys)
         noise = None
-        if temperature is not None and temperature > 0.0:
-            noise = (gumbel_noise(logits.shape, sub, logits.device) if shared
-                     else gumbel_per_row(sub, logits.shape[-1]))
+        if sampled:
+            if not shared:
+                noise = gumbel_per_row(sub, logits.shape[-1])
+            elif uniform is not None:
+                noise = gumbel_from_uniform(uniform)
+            else:
+                noise = gumbel_noise(logits.shape, sub, logits.device)
         nxt = fused_sample_tail(
             logits, ring, noise, temperature=temperature, top_k=top_k, top_p=top_p,
             repeat_penalty=repeat_penalty,
@@ -200,7 +220,8 @@ def sample_step(
     else:
         logits = apply_repeat_penalty(logits, repeat_penalty, ring)
         if shared:
-            nxt = sample(logits, keys, temperature, top_k, top_p)
+            noise = gumbel_from_uniform(uniform) if sampled and uniform is not None else None
+            nxt = sample(logits, keys, temperature, top_k, top_p, noise=noise)
         else:
             keys, sub = split_keys(keys)
             nxt = sample_per_row(logits, sub, temperature, top_k, top_p)

@@ -10,14 +10,23 @@ operations over the left-padded lockstep layout (models/llama/batch.py):
     ``PageAllocator``; attention through the paged decode and chunk
     kernels. With a prefix cache attached the pool persists across epochs.
 
-Both keep the weights resident (fused once) and the rope tables built once;
-every per-row operand a dispatch needs (pads, write thresholds, the block
-table) is uploaded once per dispatch. The decode fusions ride the config
+Both keep the weights resident (fused once), the rope tables built once
+and the KV storage for their lifetime (zeroed at each epoch); every per-row
+operand a prefill needs (pads, write thresholds, the block table) is
+uploaded once per dispatch. A decode chunk runs a ``DecodeChunk``
+(models/llama/fused.py), one per (steps, lanes, sampling knobs, and paged:
+the table's width): on the card a replay of its CUDA graph, captured at its
+first chunk (the capacity edge's shorter chunk gets its own, as the JAX
+package compiles another ``n_steps``). The backends own its static buffers:
+the pads are copied in at every chunk, the block table only when the
+allocator's changed (joins, page extensions), the slot when the previous
+chunk did not leave it there. The decode fusions ride the config
 (``LlamaConfig.fusion_impl``): each dispatch resolves them once, and the
-decode chunks sample through the fused tail when "tail" is on. The tensor-parallel, pipelined and TCP
-backends, speculative verify and the kernel-fallback flight event are not
-ported (ROADMAP.md): the port has no quiet fallback, and a page size the
-paged kernels do not take raises on the card.
+decode chunks sample through the fused tail when "tail" is on. The
+tensor-parallel, pipelined and TCP backends, speculative verify and the
+kernel-fallback flight event are not ported (ROADMAP.md): the port has no
+quiet fallback, and a page size the paged kernels do not take raises on the
+card.
 """
 
 from __future__ import annotations
@@ -30,8 +39,14 @@ from cake_tpu_torch.models.llama import batch as B
 from cake_tpu_torch.models.llama import model as M
 from cake_tpu_torch.models.llama.cache import SEQ_MULTIPLE, KVCache, init_cache
 from cake_tpu_torch.models.llama.config import LlamaConfig
-from cake_tpu_torch.models.llama.paged_cache import PageAllocator, copy_pages, init_paged_cache
-from cake_tpu_torch.ops.fuse import fuse_params
+from cake_tpu_torch.models.llama.fused import DecodeChunk
+from cake_tpu_torch.models.llama.paged_cache import (
+    PageAllocator,
+    PagedKVCache,
+    copy_pages,
+    init_paged_cache,
+)
+from cake_tpu_torch.ops.fuse import fuse_params, resolve_fusion
 from cake_tpu_torch.ops.paged_prefill import paged_kernel_supported
 from cake_tpu_torch.ops.rope import model_rope_tables
 
@@ -43,6 +58,28 @@ def _rows(x, device) -> torch.Tensor:
 
 def _tokens(x, device) -> torch.Tensor:
     return upload(np.asarray(x, np.int64), device)
+
+
+def _decode_chunk(backend, kv, n: int, tok, ring, s, make_forward, **shapes) -> DecodeChunk:
+    """The backend's DecodeChunk for a chunk of ``n`` steps over ``tok``'s
+    lanes with knobs ``s``, built at its first use: ``make_forward(**extra)``
+    over the static int32 ``extra`` buffers of ``shapes`` (pads, block
+    tables), which the key holds too."""
+    key = (n, tok.shape[0], ring.shape[1], s.temperature, s.top_k, s.top_p, s.repeat_penalty,
+           *sorted(shapes.items()))
+    chunk = backend._chunks.get(key)
+    if chunk is None:
+        extra = {name: torch.zeros(shape, dtype=torch.int32, device=backend.device)
+                 for name, shape in shapes.items()}
+        chunk = backend._chunks[key] = DecodeChunk(
+            make_forward(**extra), kv, batch=tok.shape[0], window=ring.shape[1],
+            vocab=backend.config.vocab_size, n_steps=n, s=s,
+            fused_tail="tail" in resolve_fusion(backend.config), per_row=True,
+            device=backend.device, extra=extra,
+        )
+    elif chunk.kv.k.data_ptr() != kv.k.data_ptr():
+        raise RuntimeError("decode: the KV storage moved under a captured decode chunk")
+    return chunk
 
 
 class LocalBatchBackend:
@@ -66,13 +103,26 @@ class LocalBatchBackend:
         self.cache_dtype = cache_dtype
         padded = -(-max_seq_len // SEQ_MULTIPLE) * SEQ_MULTIPLE  # the cache's length
         self.rope = model_rope_tables(config, padded, self.device)
+        self._kv: KVCache | None = None
+        self._chunks: dict = {}  # DecodeChunk per key (_decode_chunk)
 
     def init_kv(self, b: int) -> KVCache:
+        """The epoch's zeroed cache of ``b`` lanes: the first ``b`` lanes of
+        one cache kept for the backend's lifetime (each layer's lanes stay
+        contiguous), so the decode chunks' graphs keep their addresses. It
+        grows, dropping the graphs, when an epoch needs more lanes."""
         c = self.config
-        return init_cache(
-            c.num_hidden_layers, b, self.max_seq_len, c.num_key_value_heads, c.head_dim,
-            self.cache_dtype, self.device,
-        )
+        if self._kv is None or self._kv.batch_size < b:
+            self._chunks.clear()  # their graphs hold the old cache's addresses
+            self._kv = None  # freed before the larger one is made
+            self._kv = init_cache(
+                c.num_hidden_layers, b, self.max_seq_len, c.num_key_value_heads, c.head_dim,
+                self.cache_dtype, self.device,
+            )
+        kv = KVCache(self._kv.k[:, :b], self._kv.v[:, :b])
+        kv.k.zero_()
+        kv.v.zero_()
+        return kv
 
     @torch.inference_mode()
     def prefill(self, tokens, kv, pads):
@@ -84,11 +134,22 @@ class LocalBatchBackend:
 
     @torch.inference_mode()
     def decode(self, kv, tok, slot, pads, keys, ring, ring_idx, n, s):
-        """``n`` lockstep steps; the tokens stay on the device. The sampling
-        tail follows the config's fusions (``batch.decode_chunk``)."""
-        return B.decode_chunk(
-            self.params, kv, tok, slot, pads, keys, ring, ring_idx, self.config, n, s, self.rope
+        """``n`` lockstep steps; the tokens stay on the device: a
+        ``DecodeChunk`` run (``batch.decode_chunk`` is its eager plain
+        version). Returns (ids [B, n], kv, keys, ring, ring_idx); the last
+        three are the chunk's buffers, the next chunk's inputs as they are.
+        The sampling tail follows the config's fusions."""
+        if slot < 0 or slot + n > kv.max_seq_len:
+            raise ValueError(f"decode writes slots [{slot}, {slot + n}) outside the cache's "
+                             f"{kv.max_seq_len}")
+        params, config, rope = self.params, self.config, self.rope
+        chunk = _decode_chunk(
+            self, kv, n, tok, ring, s,
+            lambda pads: B.batched_forward_one(params, pads, config, rope),
+            pads=(tok.shape[0],),
         )
+        ids = chunk.run(tok=tok, slot=slot, ring=ring, ring_idx=ring_idx, keys=keys, pads=pads)
+        return ids, kv, chunk.keys, chunk.ring, chunk.ring_idx
 
     @torch.inference_mode()
     def join(self, kv, row_tokens, pad: int, end: int, lane: int):
@@ -168,6 +229,8 @@ class PagedLocalBackend:
         self.prefix_cache = None
         self._retained_kv = None
         self._cap_pages: int | None = None
+        self._pool: PagedKVCache | None = None
+        self._chunks: dict = {}  # DecodeChunk per key (_decode_chunk)
 
     # --------------------------------------------------- bounded capacity
 
@@ -193,13 +256,16 @@ class PagedLocalBackend:
                 f"{self.capacity_slots()} slots: the one-capacity-per-epoch bound was violated"
             )
 
-    def _tables(self, lanes: slice = slice(None)) -> torch.Tensor:
-        """The block table rows of ``lanes`` sliced to the epoch capacity,
-        uploaded as one contiguous int32 tensor."""
+    def _host_tables(self, lanes: slice = slice(None)) -> np.ndarray:
+        """The block table rows of ``lanes`` sliced to the epoch capacity."""
         tables = self.allocator.block_tables[lanes]
         if self._cap_pages is not None:
             tables = tables[:, : self._cap_pages]
-        return upload(tables, self.device)
+        return tables
+
+    def _tables(self, lanes: slice = slice(None)) -> torch.Tensor:
+        """``_host_tables`` uploaded as one contiguous int32 tensor."""
+        return upload(self._host_tables(lanes), self.device)
 
     def _lane_table(self, lane: int) -> torch.Tensor:
         return self._tables(slice(lane, lane + 1))
@@ -220,9 +286,11 @@ class PagedLocalBackend:
     def init_kv(self, b: int):
         """The new epoch's pool. Without a prefix cache: allocator reset and
         a zeroed pool. Persistent: lane mappings release (cached chains keep
-        their pages) and the retained pool is reused; it is rebuilt zeroed
-        only when nothing was retained (the first epoch, or a failed one,
-        after which the engine has cleared the cache)."""
+        their pages) and the retained pool is reused; it is zeroed only when
+        nothing was retained (the first epoch, or a failed one, after which
+        the engine has cleared the cache). Every epoch's pool is the same
+        storage, kept for the backend's lifetime, so the decode chunks'
+        graphs keep their addresses."""
         if self.prefix_cache is not None:
             self.allocator.release_lanes(batch=b)
             kv, self._retained_kv = self._retained_kv, None
@@ -230,11 +298,16 @@ class PagedLocalBackend:
                 return kv
         else:
             self.allocator.reset(batch=b)
-        c = self.config
-        return init_paged_cache(
-            c.num_hidden_layers, self.max_pages, c.num_key_value_heads, self.page_size,
-            c.head_dim, self.cache_dtype, self.device,
-        )
+        if self._pool is None:
+            c = self.config
+            self._pool = init_paged_cache(
+                c.num_hidden_layers, self.max_pages, c.num_key_value_heads, self.page_size,
+                c.head_dim, self.cache_dtype, self.device,
+            )
+        else:
+            self._pool.k.zero_()
+            self._pool.v.zero_()
+        return self._pool
 
     # --------------------------------------------------- dispatches
 
@@ -279,13 +352,22 @@ class PagedLocalBackend:
 
     @torch.inference_mode()
     def decode(self, kv, tok, slot, pads, keys, ring, ring_idx, n, s):
-        """``n`` lockstep steps; the block table holds for the whole chunk.
-        The sampling tail follows the config's fusions."""
+        """``n`` lockstep steps; the block table holds for the whole chunk: a
+        ``DecodeChunk`` run (``batch.paged_decode_chunk`` is its eager plain
+        version), the table copied into its buffer every chunk. Returns as
+        the dense backend's. The sampling tail follows the config's
+        fusions."""
         self._check_write_bound("decode", int(slot) + n)
-        return B.paged_decode_chunk(
-            self.params, kv, tok, slot, pads, self._tables(), keys, ring, ring_idx,
-            self.config, n, s, self.rope,
+        tables = self._host_tables()
+        params, config, rope = self.params, self.config, self.rope
+        chunk = _decode_chunk(
+            self, kv, n, tok, ring, s,
+            lambda pads, tables: B.paged_forward_one(params, pads, tables, config, rope),
+            pads=(tok.shape[0],), tables=tables.shape,
         )
+        ids = chunk.run(tok=tok, slot=slot, ring=ring, ring_idx=ring_idx, keys=keys, pads=pads,
+                        tables=tables)
+        return ids, kv, chunk.keys, chunk.ring, chunk.ring_idx
 
     @torch.inference_mode()
     def join(self, kv, row_tokens, pad: int, end: int, lane: int):

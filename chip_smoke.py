@@ -32,7 +32,9 @@ nonzero exit and no final result line:
                and every page but the sink bitwise); fused_sample_tail
                greedy b=1/8, sampled b=1/8 (temperature 0.7, top_k 40,
                repeat_penalty 1.1, ring 128) and a row all -inf beside a
-               NaN row (ids equal). Their library_ms is the unfused PyTorch
+               NaN row (ids equal); the ingest reads its slot from device
+               memory: one launch captured in a CUDA graph and replayed at
+               several slots equals its plain version at each (gated). Their library_ms is the unfused PyTorch
                composition, not one call; beside them an empty kernel's
                time, the launch floor (launch_floor_ms in the kernels
                line, beside their bytes bound). int4_matmul: first the bits
@@ -123,22 +125,48 @@ nonzero exit and no final result line:
                fused_norm_matmul's own kernel 0; TTFT, ms per decode step,
                device idle share; int4_matmul timed at the engine's
                prefill rows into w_gu.
- 12. generate_int8  the same weights in int8, 16 greedy tokens: ms/token
+ 12. decode_graph  the decode chunk as one CUDA graph (DecodeChunk,
+               models/llama/fused.py) against its eager plain version in
+               the same run. Bits, gated: the generator (bf16 "none" and
+               "all", int4; greedy and seeded sampled) over 3 chunks of 8
+               from one graph, against sampled_decode_loop with a host-int
+               slot on a clone of the cache and of the dialog's generator
+               (ids, the whole cache, the generator's state); the engine,
+               every decode dispatch against batch.decode_chunk /
+               paged_decode_chunk on clones (paged "none", "all", int4
+               "none", dense "all"; greedy, sampled, the ragged wave's joins,
+               chunks after a block-table change, and a 32-token wave whose
+               epoch capacity ends on a 7-step chunk, the capacity edge's
+               own graph). Timings: the generator's ms/token (8-token
+               chunks) and the paged engine's ms a decode step, graph and
+               eager (the chunk's loop run op by op over the same buffers),
+               with device ms, ops and idle share; gated: device ops a token
+               and a step equal to eager's, the generator's ms/token under
+               eager's, the same streams. The captures' count, warm-up and
+               capture seconds and the graph pool's growth.
+ 13. generate_int8  the same weights in int8, 16 greedy tokens: ms/token
                and device ms (no kernel of its own: each product converts
                the weight, multiplies and scales, three ops).
- 13. cli       ``python -m cake_tpu_torch.cli`` on a small checkpoint written
+ 14. cli       ``python -m cake_tpu_torch.cli`` on a small checkpoint written
                by the port's save_tiny_checkpoint: one prompt, the same with
                ``--fusion all --decode-chunk 4``, with ``--quantize int4``,
                a ``.q4`` checkpoint (save_tiny_checkpoint over an int4 tree)
                with no flag, then a ``--api-batch 4 --kv-mode paged`` server
                that answers a chat.
- 14.           ``{"kernels": [...]}``: one entry per kernel with its launches
+ 15.           ``{"kernels": [...]}``: one entry per kernel with its launches
                on the main path (the fused and int4 phases for their
                kernels) and its timings at the main path's shapes; the
                redesigned kernels also carry "redesigned" (the PR) and the
                instructions their cases ran on; int4_matmul's the
                wgmma-bits answer.
- 15.           ``{"ok": true, "device": {...}}`` as the last line.
+ 16.           ``{"ok": true, "device": {...}}`` as the last line.
+
+On the card every decode chunk (the generator's ``decode_chunk`` and both
+engines' decode) replays a captured CUDA graph. A wrapper's launch counter
+counts its kernel's eager launches and, at every replay, the launches the
+capture recorded (ops/launches.py); the warm-up run a graph makes before
+its capture is not counted. So every launch gate below holds for replayed
+chunks as it held for eager ones.
 
 Exits nonzero without a result when no CUDA device is present or when run
 outside a checkout of the repository.
@@ -532,10 +560,17 @@ def flash_cases(torch, dev):
     return rows
 
 
-def engine_messages(turns=USER_TURNS):
+def engine_messages(turns=USER_TURNS, system=SYSTEM_PROMPT):
     from cake_tpu_torch.models.llama.chat import Message
 
-    return [[Message.system(SYSTEM_PROMPT), Message.user(u)] for u in turns]
+    return [[Message.system(system), Message.user(u)] for u in turns]
+
+
+def warm_messages():
+    """Wave 1's shapes with other bytes: the system prompt reversed (as long
+    in byte tokens, no prefix in common). A wave of them captures the decode
+    chunks' graphs wave 1's epoch replays, and serves no prefix of it."""
+    return engine_messages(system=SYSTEM_PROMPT[::-1])
 
 
 def _paged_pool(torch, dev, g, seed, n_rows, n_p):
@@ -809,8 +844,9 @@ def _ingest_case(torch, dev, g, case, b, slot, paged, unmapped=None):
         v0 = torch.randn(b, N_KV, ENGINE_MAX_SEQ, HD, generator=g, device=dev, dtype=bf)
     kw = dict(n_q=N_Q, n_kv=N_KV, block_tables=tables)
     k1, v1, k2, v2 = k0.clone(), v0.clone(), k0.clone(), v0.clone()
-    q1 = fused_qkv_ingest(qkv, cos, sin, slot, k1, v1, **kw)
-    q2 = fused_qkv_ingest_plain(qkv, cos, sin, slot, k2, v2, **kw)
+    at = torch.full((), slot, dtype=torch.int64, device=dev)  # read by the kernel on the card
+    q1 = fused_qkv_ingest(qkv, cos, sin, at, k1, v1, **kw)
+    q2 = fused_qkv_ingest_plain(qkv, cos, sin, at, k2, v2, **kw)
     torch.cuda.synchronize()
     live = slice(None, -1) if paged else slice(None)  # every page but the sink
     out = torch.cat([q1.flatten(), k1[live].flatten(), v1[live].flatten()])
@@ -832,12 +868,70 @@ def _ingest_case(torch, dev, g, case, b, slot, paged, unmapped=None):
     nbytes = (b * (N_Q + 2 * N_KV) * HD * 2 + 2 * b * HD // 2 * 4 + b * N_Q * HD * 2
               + n_written * 2 * N_KV * HD * 2 + (4 * b if paged else 0))
     flops = 6.0 * b * (N_Q + N_KV) * HD // 2
-    run = lambda: fused_qkv_ingest(qkv, cos, sin, slot, k1, v1, **kw)  # noqa: E731
+    run = lambda: fused_qkv_ingest(qkv, cos, sin, at, k1, v1, **kw)  # noqa: E731
     return _check(
         torch, "fused_qkv_ingest", case, out, ref, cuda_ms(torch, run, 200),
-        cuda_ms(torch, lambda: fused_qkv_ingest_plain(qkv, cos, sin, slot, k2, v2, **kw), 50),
+        cuda_ms(torch, lambda: fused_qkv_ingest_plain(qkv, cos, sin, at, k2, v2, **kw), 50),
         nbytes, flops, cuda_ms(torch, unfused, 50), exact=True, route=traced_route(torch, run),
     )
+
+
+def ingest_slot_replays(torch, dev) -> dict:
+    """The ingest reads its slot from device memory: one launch captured in
+    a CUDA graph (as the decode chunk captures it), replayed at several
+    slots written into the slot tensor between replays, equals the plain
+    version at each slot, to the bit: dense b=1, and paged b=8 through the
+    engine's pool with an unmapped entry and a slot past the table (every
+    page but the sink). Gated."""
+    from cake_tpu_torch.ops.fused_ingest import fused_qkv_ingest, fused_qkv_ingest_plain
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    bf = torch.bfloat16
+    n_p = ENGINE_MAX_SEQ // ENGINE_PAGE
+    equal = {}
+    for name, b, paged, slots in (
+            ("dense_b1", 1, False, (0, 1, 733, ENGINE_MAX_SEQ - 1)),
+            ("paged_b8", 8, True, (0, 127, 128, 505, 1000, n_p * ENGINE_PAGE + 5))):
+        qkv = torch.randn(b, 1, (N_Q + 2 * N_KV) * HD, generator=g, device=dev, dtype=bf)
+        cos = torch.randn(b, 1, HD // 2, generator=g, device=dev)
+        sin = torch.randn(b, 1, HD // 2, generator=g, device=dev)
+        tables = None
+        if paged:
+            k0, v0, tables = _paged_pool(torch, dev, g, 60, b, n_p)
+            tables[5, 3] = -1
+        else:
+            k0 = torch.randn(b, N_KV, ENGINE_MAX_SEQ, HD, generator=g, device=dev, dtype=bf)
+            v0 = torch.randn(b, N_KV, ENGINE_MAX_SEQ, HD, generator=g, device=dev, dtype=bf)
+        kw = dict(n_q=N_Q, n_kv=N_KV, block_tables=tables)
+        at = torch.zeros((), dtype=torch.int64, device=dev)
+        k1, v1 = k0.clone(), v0.clone()
+        fused_qkv_ingest(qkv, cos, sin, at, k1, v1, **kw)  # outside the capture
+        graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            graph.capture_begin()
+            q1 = fused_qkv_ingest(qkv, cos, sin, at, k1, v1, **kw)
+            graph.capture_end()
+        torch.cuda.current_stream().wait_stream(stream)
+        live = slice(None, -1) if paged else slice(None)
+        for slot in slots:
+            k1.copy_(k0)
+            v1.copy_(v0)
+            at.fill_(slot)
+            graph.replay()
+            k2, v2 = k0.clone(), v0.clone()
+            q2 = fused_qkv_ingest_plain(qkv, cos, sin, slot, k2, v2, **kw)
+            torch.cuda.synchronize()
+            equal[f"{name}_slot{slot}"] = bool(
+                torch.equal(q1, q2) and torch.equal(k1[live], k2[live])
+                and torch.equal(v1[live], v2[live]))
+        del graph, k0, v0, k1, v1, k2, v2
+    row = {"phase": "kernels", "kernel": "fused_qkv_ingest", "case": "graph_slot_replays",
+           "equal": equal}
+    emit(row)
+    if not all(equal.values()):
+        raise AssertionError(f"fused_qkv_ingest replayed at a new slot parted from plain: {row}")
+    return row
 
 
 def ingest_cases(torch, dev):
@@ -849,6 +943,7 @@ def ingest_cases(torch, dev):
         # slot 505 is logical page 3: row 5's entry there is unmapped.
         _ingest_case(torch, dev, g, "paged_b8", 8, 505, paged=True, unmapped=(5, 3)),
         _ingest_case(torch, dev, g, "paged_past_table", 8, n_p * ENGINE_PAGE + 5, paged=True),
+        ingest_slot_replays(torch, dev),
     ]
 
 
@@ -1242,17 +1337,60 @@ def _kernel_family(name: str) -> str:
 TRACE_TRIES = 3  # traces traced_route takes at most
 
 
-def _device_events(torch, run, warmup: bool = False) -> list:
-    """Run ``run`` under torch.profiler: the kernels, memcpys and memsets of
-    the exported trace. With ``warmup``, ``run`` runs twice and only the
-    second call is recorded (the first one starts the profiler's tracing)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+TRACE_WINDOW = "chip_smoke_window"
+TRACE_PAD_S = 0.02  # host pause inside a trace's padding
+PAD_KERNELS = 256  # small kernels that open and close every trace, outside its fences
+
+
+def _fence(torch) -> None:
+    """A spin kernel (``torch.cuda._sleep``: no path of the port launches
+    one), waited for."""
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def _pad(torch) -> None:
+    """PAD_KERNELS small kernels and a pause: a trace's first and last
+    device events are these, never the fences or the call's."""
+    x = torch.zeros(256, device="cuda")
+    for _ in range(PAD_KERNELS):
+        x.abs_()
+    torch.cuda.synchronize()
+    time.sleep(TRACE_PAD_S)
+
+
+def _device_events(torch, run, warmup: bool = False) -> tuple[list | None, float | None]:
+    """Run ``run`` under torch.profiler: (the kernels, memcpys and memsets
+    of the exported trace that ran between two fences around the call, the
+    clock offset in µs). With ``warmup``, ``run`` runs twice and only the
+    second call is recorded (the first one starts the profiler's tracing).
+
+    A trace can lack device events near its start and its end, and places
+    device events by a clock that can sit ~100 µs off the host's (PERF.md,
+    PR 9): work launched after the host's end of a call can fall inside the
+    host's span of it. So a recorded call is padded and fenced on the
+    device: padding (``_pad``), a spin kernel, the call and its synchronize
+    (inside a ``record_function`` span, the host's window), a spin kernel,
+    padding; only the device events between the two spin kernels, by the
+    device's own timestamps, are the call's. The clock offset is the second
+    fence's start less the host window's end (the fence is launched after
+    it: a negative offset is the trace's clock running early). Returns
+    (None, offset) where a fence is missing.
+
+    Each event carries the thread of the runtime call that launched it
+    ("launch_tid"; None where the trace holds no such call)."""
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
     plan = schedule(wait=0, warmup=1, active=1, repeat=1) if warmup else None
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=plan) as prof:
         for _ in range(2 if warmup else 1):
-            run()
-            torch.cuda.synchronize()
+            _pad(torch)
+            _fence(torch)
+            with record_function(TRACE_WINDOW):
+                run()
+                torch.cuda.synchronize()
+            _fence(torch)
+            _pad(torch)
             if warmup:
                 prof.step()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1260,7 +1398,20 @@ def _device_events(torch, run, warmup: bool = False) -> list:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    return [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    fences = sorted(e["ts"] for e in device if "spin_kernel" in e.get("name", ""))
+    window = [e for e in events
+              if e.get("cat") == "user_annotation" and e.get("name") == TRACE_WINDOW]
+    offset = fences[-1] - (window[-1]["ts"] + window[-1]["dur"]) if fences and window else None
+    if len(fences) < 2:
+        return None, offset
+    launcher = {e["args"]["correlation"]: e.get("tid") for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    device = [e for e in device if fences[0] < e["ts"] < fences[-1]]
+    for e in device:
+        e["launch_tid"] = launcher.get(e.get("args", {}).get("correlation"))
+    return device, offset
 
 
 # The redesigned kernels' bodies by the name of their kernel, and the
@@ -1290,7 +1441,7 @@ def traced_route(torch, run) -> str | None:
     without their kernel: PERF.md, section 7)."""
     torch.cuda.empty_cache()
     for _ in range(TRACE_TRIES):
-        events = _device_events(torch, run, warmup=True)
+        events = _device_events(torch, run, warmup=True)[0] or []
         names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
         route = kernel_route(names)
         if route is not None:
@@ -1303,17 +1454,120 @@ def traced_route(torch, run) -> str | None:
     return None
 
 
-def _device_profile(torch, run) -> dict:
-    """Run ``run`` under torch.profiler and sum the device time of its
-    kernels, memcpys and memsets by family (ms), from the exported trace."""
+# The kernel each wrapper launches once a call (its counter's unit): the
+# norm-matmul bodies (not norm_rows_kernel, which runs before the tensor-core
+# ones), the int4 bodies (not the split-K reduce), and the attention bodies
+# over the page pool or the dense cache.
+KERNEL_WRAPPERS = ("decode_attention", "paged_decode_attention", "chunk_prefill_attention",
+                   "paged_chunk_attention", "fused_norm_matmul", "fused_qkv_ingest",
+                   "fused_sample_tail", "int4_matmul")
+_LAUNCH_KERNELS = (("norm_matmul_", "fused_norm_matmul"), ("ingest_kernel", "fused_qkv_ingest"),
+                   ("tail_kernel", "fused_sample_tail"), ("int4_mma_kernel", "int4_matmul"),
+                   ("int4_wgmma_kernel", "int4_matmul"), ("int4_f32_kernel", "int4_matmul"))
+
+
+def launch_of(name: str) -> str | None:
+    """The wrapper whose one launch kernel ``name`` is, or None."""
+    for kernel, wrapper in _LAUNCH_KERNELS:
+        if kernel in name:
+            return wrapper
+    paged = "PagedLayout" in name
+    if "split_decode_kernel" in name:
+        return "paged_decode_attention" if paged else "decode_attention"
+    if "chunk_kernel" in name:
+        return "paged_chunk_attention" if paged else "chunk_prefill_attention"
+    return None
+
+
+def launches_seen(events) -> dict:
+    """Each wrapper's launch kernels among a trace's device events."""
+    seen = dict.fromkeys(KERNEL_WRAPPERS, 0)
+    for e in events:
+        wrapper = launch_of(e.get("name", "")) if e.get("cat") == "kernel" else None
+        if wrapper is not None:
+            seen[wrapper] += 1
+    return seen
+
+
+PROFILE_TRIES = 4  # traces _complete_trace takes at most
+
+
+def _complete_trace(torch, run, setup=None, expect=None,
+                    valid=None) -> tuple[list, int, float | None]:
+    """(device events, tries, clock offset µs) of the first of PROFILE_TRIES traces of
+    ``run`` that holds every launch: each wrapper's launch kernels as many
+    as its counter grew by over the call (``expect`` instead, where the
+    call counts nothing, as a bare graph replay). A replayed decode chunk
+    adds its capture's counts (ops/launches.py); the trace sees the
+    replay's kernels themselves, so the two counts are independent.
+
+    A trace that lacks a launch or a fence (``_device_events``), that
+    captured a graph (its warm-up's launches are not counted, and a
+    capture is no part of what is measured), or whose ``run`` returned what
+    ``valid`` refuses (a wave the engine split over two epochs) is emitted
+    ("trace_incomplete") and taken again, after ``setup`` (which puts back
+    what ``run`` changed). Raises when no trace is complete, or when one
+    holds launches the counters did not see without a capture."""
+    from cake_tpu_torch.models.llama import fused
+
+    counters = _paged_counters()
+    for tries in range(1, PROFILE_TRIES + 1):
+        if setup is not None:
+            setup()
+        before, captures = _counts(counters), fused.STATS["captures"]
+        out = []
+        events, offset = _device_events(torch, lambda: out.append(run()))
+        after = _counts(counters)
+        captured = fused.STATS["captures"] - captures
+        seen = launches_seen(events or [])
+        counted = expect or {w: after[w] - before[w] for w in KERNEL_WRAPPERS}
+        kept = valid is None or valid(out[0])
+        if events is not None and seen == counted and not captured and kept:
+            return events, tries, offset
+        row = {"phase": "trace_incomplete", "try": tries,
+               "device_events": None if events is None else len(events),
+               "launch_kernels": seen, "counted": counted, "clock_offset_us": offset,
+               "seconds_into_run": time.perf_counter() - STARTED,
+               "captures_inside": captured, "valid": kept}
+        emit(row)
+        if not captured and any(seen[w] > counted[w] for w in KERNEL_WRAPPERS):
+            raise AssertionError(f"a trace holds launches the counters did not see: {row}")
+    raise AssertionError(f"no complete trace in {PROFILE_TRIES}: {row}")
+
+
+def _one_epoch(wave: dict) -> bool:
+    """A profiled wave the engine served as one epoch, no join."""
+    return wave["batches"] == 1 and wave["joins"] == 0
+
+
+def _device_profile(torch, run, setup=None, valid=None) -> dict:
+    """Run ``run`` under torch.profiler (``_complete_trace``: the launch
+    counters held to the trace's kernels) and sum the device time of its
+    kernels, memcpys and memsets by family (ms), from the exported trace;
+    "names" counts the events by name and "launchers" by the thread that
+    launched them, for ``ops_diff``."""
+    events, tries, offset = _complete_trace(torch, run, setup, valid=valid)
     by_family: dict[str, float] = {}
-    count = 0
-    for e in _device_events(torch, run):
+    for e in events:
         cat = e.get("cat")
         fam = _kernel_family(e.get("name", "")) if cat == "kernel" else cat
         by_family[fam] = by_family.get(fam, 0.0) + e.get("dur", 0.0) / 1e3
-        count += 1
-    return {"device_ms": sum(by_family.values()), "device_ops": count, "by_family_ms": by_family}
+    return {"device_ms": sum(by_family.values()), "device_ops": len(events),
+            "by_family_ms": by_family, "launches_seen": launches_seen(events),
+            "trace_tries": tries, "clock_offset_us": offset, "names": _tally(events, "name"),
+            "launchers": _tally(events, "launch_tid")}
+
+
+def _minus(a: dict, b: dict) -> dict:
+    """Tally ``a`` less tally ``b``, key by key (negative counts kept)."""
+    return {k: a.get(k, 0) - b.get(k, 0) for k in set(a) | set(b)}
+
+
+def ops_diff(a: dict, b: dict) -> dict:
+    """Where two event tallies (a profile's "names" or "launchers", or
+    differences of them) part: {key: [count in a, count in b]}."""
+    return {k: [a.get(k, 0), b.get(k, 0)] for k in sorted(set(a) | set(b))
+            if a.get(k, 0) != b.get(k, 0)}
 
 
 def _profile_main_path(torch, gen, text: str, decode_ms_per_token: float | None,
@@ -1323,10 +1577,15 @@ def _profile_main_path(torch, gen, text: str, decode_ms_per_token: float | None,
     from cake_tpu_torch.models.llama.chat import Message
 
     n_decode = 16
-    gen.reset()
-    gen.add_message(Message.user(text))
-    prefill = _device_profile(torch, lambda: gen.generate(1))
-    decode = _device_profile(torch, lambda: gen.generate(n_decode))
+
+    def fresh(prefilled: bool) -> None:
+        gen.reset()
+        gen.add_message(Message.user(text))
+        if prefilled:
+            gen.generate(1)
+
+    prefill = _device_profile(torch, lambda: gen.generate(1), setup=lambda: fresh(False))
+    decode = _device_profile(torch, lambda: gen.generate(n_decode), setup=lambda: fresh(True))
     per_token = {k: v / n_decode for k, v in decode["by_family_ms"].items()}
     busy = decode["device_ms"] / n_decode
     row = {
@@ -1337,6 +1596,9 @@ def _profile_main_path(torch, gen, text: str, decode_ms_per_token: float | None,
         "decode_tokens": n_decode,
         "decode_device_ms_per_token": busy,
         "decode_device_ops_per_token": decode["device_ops"] / n_decode,
+        "decode_launches_seen": decode["launches_seen"],
+        "trace_tries": [prefill["trace_tries"], decode["trace_tries"]],
+        "clock_offset_us": [prefill["clock_offset_us"], decode["clock_offset_us"]],
         "decode_by_family_ms_per_token": per_token,
         "decode_wall_ms_per_token": decode_ms_per_token,
         "decode_device_idle_share": (
@@ -1344,7 +1606,7 @@ def _profile_main_path(torch, gen, text: str, decode_ms_per_token: float | None,
         ),
     }
     emit(row)
-    return row
+    return row | {"decode_names": decode["names"], "decode_launchers": decode["launchers"]}
 
 
 def phase_generate(torch, card: str, dev=None, config=None) -> dict:
@@ -1790,7 +2052,6 @@ def phase_engine(torch, main_path: dict) -> dict:
     profile and the full-width forward checks. Returns the row, with the
     running paged engine under "engine" and the operands recorded from
     each engine's first wave under "dispatches"."""
-    from cake_tpu_torch.models.llama.chat import Message
     from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
 
     gen = main_path["generator"]
@@ -1814,10 +2075,14 @@ def phase_engine(torch, main_path: dict) -> dict:
         return sum(x == y for x, y in zip(a["streams"], b["streams"]))
 
     engine = make(kv_mode="paged", page_size=ENGINE_PAGE, prefix_cache=True)
-    # Warm-up on another prompt (its chain does not serve the waves' prefix).
-    _wave(engine, 4, [[Message.user("warm up the engine")]])
+    # Warm-up on other prompts of wave 1's shapes (their chains do not serve
+    # the waves' prefix): it captures the decode chunks' graphs.
+    _wave(engine, ENGINE_TOKENS, warm_messages())
     counters = _zero_counters()
-    with recording(mid_decode) as seen:
+    # Wave 1's decode chunks run their loops op by op (eager_chunks): a
+    # replay calls no wrapper, and the recorder reads the operands at the
+    # wrapper's call. Waves 2 and 3 replay the chunks' graphs.
+    with recording(mid_decode) as seen, eager_chunks():
         waves = [_wave(engine, ENGINE_TOKENS)]
     dispatches = {"paged": dispatch_shapes(seen)}
     waves.append(_wave(engine, ENGINE_TOKENS))
@@ -1828,8 +2093,9 @@ def phase_engine(torch, main_path: dict) -> dict:
 
     dense = make()
     try:
+        _wave(dense, ENGINE_TOKENS, warm_messages())
         counters = _zero_counters()
-        with recording(mid_decode) as seen:
+        with recording(mid_decode) as seen, eager_chunks():
             dense_waves = [_wave(dense, ENGINE_TOKENS)]
         dispatches["dense"] = dispatch_shapes(seen)
         dense_waves.append(_wave(dense, ENGINE_TOKENS, engine_messages(RAGGED_TURNS)))
@@ -1845,9 +2111,14 @@ def phase_engine(torch, main_path: dict) -> dict:
     # The profile: one short wave unprofiled (its wall time), then the same
     # wave under torch.profiler (its device time by kernel family). The
     # engine sleeps one admission window before the wave's epoch: not idle
-    # time of the device's making, so the share leaves it out.
+    # time of the device's making, so the share leaves it out. A wave first
+    # captures the decode chunks' graphs of its epoch capacity.
+    _wave(engine, 16)
     timed = _wave(engine, 16)
-    profile = _device_profile(torch, lambda: _wave(engine, 16)) if on_card else None
+    profile = (_device_profile(torch, lambda: _wave(engine, 16), valid=_one_epoch)
+               if on_card else None)
+    if profile:
+        profile = {k: v for k, v in profile.items() if k not in ("names", "launchers")}
     busy = profile["device_ms"] if profile else None
     window_ms = 1e3 * engine.admission_window
     row = {
@@ -2208,36 +2479,45 @@ def _engine_fused_expected(counters, rec, fusions, kv_mode: str, n_layers: int, 
 
 def _fused_engine_run(torch, make, spec: str, kv_mode: str, n_layers: int, on_card: bool,
                       sampled: bool, int4: bool = False) -> dict:
-    """One engine with fusion ``spec``: a warm-up wave, then wave 1 (and the
-    sampled wave) under the launch gate, then two warm profiled waves of 16
+    """One engine with fusion ``spec``: warm-up waves (they capture the
+    decode chunks' graphs), then wave 1 (and the sampled wave) under the
+    launch gate, then two warm profiled waves of 16
     and 32 tokens: their difference gives the device ops and ms of 16 decode
     steps, the prefill being the same in both."""
-    from cake_tpu_torch.models.llama.chat import Message
     from cake_tpu_torch.models.llama.generator import SamplingConfig
     from cake_tpu_torch.ops.fuse import parse_fusion_spec
 
     kw = {"kv_mode": "paged", "page_size": ENGINE_PAGE, "prefix_cache": True} \
         if kv_mode == "paged" else {}
     eng = make(fusion_impl=spec, **kw)
+    sampled_wave = [SamplingConfig(seed=100 + i, **SAMPLED_KNOBS) for i in range(ENGINE_BATCH)]
     try:
-        _wave(eng, 4, [[Message.user("warm up the engine")]])
+        # Waves of wave 1's shapes on other prompts capture the decode
+        # chunks' graphs (greedy, and sampled when that wave runs).
+        _wave(eng, ENGINE_TOKENS, warm_messages())
+        if sampled:
+            _wave(eng, ENGINE_TOKENS, warm_messages(), samplings=sampled_wave)
         counters = _zero_counters()
         with dispatch_recorder(eng.backend) as rec:
             waves = [_wave(eng, ENGINE_TOKENS)]
             if sampled:
-                waves.append(_wave(eng, ENGINE_TOKENS, samplings=[
-                    SamplingConfig(seed=100 + i, **SAMPLED_KNOBS) for i in range(ENGINE_BATCH)
-                ]))
+                waves.append(_wave(eng, ENGINE_TOKENS, samplings=sampled_wave))
         launches, expected = _engine_fused_expected(
             counters, rec, parse_fusion_spec(spec), kv_mode, n_layers, on_card, int4)
+        # Unprofiled first: the 16- and 32-token waves' epochs capture their
+        # chunks' graphs (the 32-token one ends on a 7-step chunk).
+        _wave(eng, 32)
         timed = _wave(eng, 16)
         profile = None
         if on_card:
-            short = _device_profile(torch, lambda: _wave(eng, 16))
-            long = _device_profile(torch, lambda: _wave(eng, 32))
+            short = _device_profile(torch, lambda: _wave(eng, 16), valid=_one_epoch)
+            long = _device_profile(torch, lambda: _wave(eng, 32), valid=_one_epoch)
             busy = short["device_ms"]
             profile = {
                 "device_ms_16": short["device_ms"], "device_ops_16": short["device_ops"],
+                "launches_seen_16": short["launches_seen"],
+                "trace_tries": [short["trace_tries"], long["trace_tries"]],
+                "clock_offset_us": [short["clock_offset_us"], long["clock_offset_us"]],
                 "device_ms_32": long["device_ms"], "device_ops_32": long["device_ops"],
                 "device_ops_per_step": (long["device_ops"] - short["device_ops"]) / 16,
                 "device_ms_per_step": (long["device_ms"] - short["device_ms"]) / 16,
@@ -2529,6 +2809,438 @@ def phase_generate_int8(torch, main_path: dict) -> dict:
 
 # ---------------------------------------------------------------- phase 13
 
+GRAPH_CHUNKS = 3  # chunks each generator bits check runs graph against eager
+GRAPH_KNOBS = {"greedy": dict(temperature=0.0, repeat_penalty=1.0),
+               "sampled": dict(seed=77, **SAMPLED_KNOBS)}
+
+
+@contextlib.contextmanager
+def eager_chunks():
+    """Every DecodeChunk runs its loop op by op over its static buffers
+    (``body``, the ops a replay runs) instead of replaying its graph: the
+    eager side of the graph's timings and device-op counts."""
+    from unittest import mock
+
+    from cake_tpu_torch.models.llama.fused import DecodeChunk
+
+    def run(self, **inputs):
+        self.load(**inputs)
+        self.body()
+        return self.ids
+
+    with mock.patch.object(DecodeChunk, "run", run):
+        yield
+
+
+def eager_generator_chunk(torch, step, kv, last_token, pos, n_steps, s, rng, ring, ring_idx):
+    """The generator's decode chunk as it ran before the graph:
+    sampled_decode_loop over ``kv`` with a host-int slot, the inputs
+    uploaded and the ids read back once (the plain version the graph is
+    held against)."""
+    import numpy as np
+
+    from cake_tpu_torch.models.llama import model as M
+    from cake_tpu_torch.models.llama.fused import sampled_decode_loop
+    from cake_tpu_torch.ops.fuse import resolve_fusion
+
+    dev = step.device
+
+    def forward_one(tok, kv_, p):
+        return M.forward(step.params, tok, kv_, p, 1, step.config, rope=step._rope)
+
+    tok = torch.as_tensor(np.asarray(last_token, np.int64)).to(dev)
+    ring_t = torch.as_tensor(np.asarray(ring, np.int64)).to(dev)
+    ring_idx_t = torch.full((tok.shape[0],), int(ring_idx), dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        toks, *_ = sampled_decode_loop(
+            forward_one, kv, tok, int(pos), rng, ring_t, ring_idx_t, n_steps=n_steps, s=s,
+            fused_tail="tail" in resolve_fusion(step.config))
+    return toks.cpu().numpy()
+
+
+def _generator_bits(torch, step, tokenizer, text, knobs: dict) -> dict:
+    """GRAPH_CHUNKS decode chunks through ``step.decode_chunk`` (its graph,
+    replayed at moving slots) and through ``eager_generator_chunk`` on a
+    clone of the cache and of the dialog's generator, from the same prefill:
+    the ids of each chunk, the whole cache and the generator's state after
+    them, to the bit."""
+    import numpy as np
+
+    from cake_tpu_torch.models.llama.cache import KVCache
+    from cake_tpu_torch.models.llama.chat import Message
+    from cake_tpu_torch.models.llama.generator import LlamaGenerator, SamplingConfig
+
+    s = SamplingConfig(**knobs)
+    dev = step.device
+    gen = LlamaGenerator(step.config, step, tokenizer, s, prefill_chunk=PREFILL_CHUNK,
+                         decode_chunk_size=FUSED_CHUNK)
+    gen.add_message(Message.user(text))
+    gen.generate(1)  # the prefill and the first token
+    history = list(gen._tokens)
+    rng = gen._dialog_rng(dev)
+    ref_rng = torch.Generator(device=dev)
+    ref_rng.set_state(rng.get_state())
+    ref = KVCache(step._kv.k.clone(), step._kv.v.clone())
+    window = s.repeat_last_n
+    chunks = []
+    for _ in range(GRAPH_CHUNKS):
+        ring = np.full((1, window), -1, np.int64)
+        recent = history[-window:]
+        ring[0, : len(recent)] = recent
+        ring_idx = min(len(history), window) % window
+        pos = len(history) - 1
+        got = step.decode_chunk(np.asarray([history[-1]]), pos, FUSED_CHUNK, s, rng, ring,
+                                ring_idx)
+        want = eager_generator_chunk(torch, step, ref, [history[-1]], pos, FUSED_CHUNK, s,
+                                     ref_rng, ring, ring_idx)
+        chunks.append(bool(np.array_equal(got, want)))
+        history += got[0].tolist()
+    _sync(torch, dev)
+    out = {"chunks_equal": chunks,
+           "kv_equal": bool(torch.equal(step._kv.k, ref.k) and torch.equal(step._kv.v, ref.v)),
+           "rng_equal": bool(torch.equal(rng.get_state(), ref_rng.get_state()))}
+    del ref
+    return out
+
+
+@contextlib.contextmanager
+def graph_vs_eager(torch, backend):
+    """Hold every decode dispatch of ``backend`` (a DecodeChunk replay on the
+    card) against its eager plain version: the cache and the carries are
+    cloned before the dispatch, and ``batch.decode_chunk`` /
+    ``paged_decode_chunk`` (sampled_decode_loop with a host-int slot, the
+    table uploaded) runs on the clones after it; its ids, cache and carries
+    must equal the dispatch's to the bit. Yields the tally: dispatches,
+    equal ones, short chunks (the capacity edge), chunks after a table or
+    pads change."""
+    from cake_tpu_torch.models.llama import batch as B
+
+    rec = {"dispatches": 0, "equal": 0, "short_chunks": 0, "table_changes": 0,
+           "pads_changes": 0, "first_mismatch": None}
+    decode = backend.decode
+    paged = backend.kv_mode == "paged"
+    seen = {"tables": None, "pads": None}
+
+    def call(kv, tok, slot, pads, keys, ring, ring_idx, n, s):
+        with torch.inference_mode():
+            tables = torch.as_tensor(backend._host_tables()).to(backend.device) if paged else None
+            ref = type(kv)(kv.k.clone(), kv.v.clone())
+            r_tok, r_pads, r_keys, r_ring, r_idx = (
+                t.clone() for t in (tok, pads, keys, ring, ring_idx))
+            out = decode(kv, tok, slot, pads, keys, ring, ring_idx, n, s)
+            if paged:
+                want = B.paged_decode_chunk(backend.params, ref, r_tok, int(slot), r_pads, tables,
+                                            r_keys, r_ring, r_idx, backend.config, n, s,
+                                            backend.rope)
+            else:
+                want = B.decode_chunk(backend.params, ref, r_tok, int(slot), r_pads, r_keys,
+                                      r_ring, r_idx, backend.config, n, s, backend.rope)
+            ok = (torch.equal(out[0], want[0]) and torch.equal(kv.k, ref.k)
+                  and torch.equal(kv.v, ref.v)
+                  and all(torch.equal(a, b) for a, b in zip(out[2:], want[2:])))
+        rec["dispatches"] += 1
+        rec["equal"] += int(ok)
+        if not ok and rec["first_mismatch"] is None:
+            rec["first_mismatch"] = {"slot": int(slot), "n": n, "graph": out[0].tolist(),
+                                     "eager": want[0].tolist()}
+        rec["short_chunks"] += int(n < FUSED_CHUNK)
+        if paged:
+            now = tables.cpu()
+            rec["table_changes"] += int(seen["tables"] is not None and not (
+                seen["tables"].shape == now.shape and torch.equal(seen["tables"], now)))
+            seen["tables"] = now
+        now = r_pads.cpu()
+        rec["pads_changes"] += int(seen["pads"] is not None and not torch.equal(seen["pads"], now))
+        seen["pads"] = now
+        del ref
+        return out
+
+    backend.decode = call
+    try:
+        yield rec
+    finally:
+        del backend.decode
+
+
+def _engine_bits(torch, make, spec: str, kv_mode: str, ragged: bool) -> dict:
+    """One engine with fusion ``spec`` under ``graph_vs_eager``: wave 1
+    greedy and the sampled wave (64 tokens), the ragged wave (joins: pads
+    and tables change between chunks of one graph), and a 32-token wave,
+    whose epoch capacity (the 480-slot bucket plus 32, 512) ends it on a
+    7-step chunk: the capacity edge's own graph."""
+    from cake_tpu_torch.models.llama.generator import SamplingConfig
+
+    kw = {"kv_mode": "paged", "page_size": ENGINE_PAGE, "prefix_cache": True} \
+        if kv_mode == "paged" else {}
+    eng = make(fusion_impl=spec, **kw)
+    try:
+        with graph_vs_eager(torch, eng.backend) as rec:
+            _wave(eng, ENGINE_TOKENS)
+            _wave(eng, ENGINE_TOKENS, samplings=[
+                SamplingConfig(seed=300 + i, **SAMPLED_KNOBS) for i in range(ENGINE_BATCH)])
+            if ragged:
+                _wave(eng, ENGINE_TOKENS, engine_messages(RAGGED_TURNS))
+            _wave(eng, 32)
+        graphs = len(eng.backend._chunks)
+    finally:
+        eng.stop()
+    return {"spec": spec, "kv_mode": kv_mode, "graphs": graphs, **rec}
+
+
+def _chunk_ops(torch, chunk, repeats: int = 5) -> dict:
+    """Device ops of one decode chunk three ways, each the count most of
+    ``repeats`` complete traces hold (``_complete_trace``; a complete trace
+    can still lack a few events besides the launch kernels, PERF.md, PR 9;
+    every count is kept under "traces", and a spread is emitted with the
+    events by name and by launching thread): its graph's replay (held to
+    its capture's launch record); its loop run op by op over the same
+    buffers (the eager side, the same ops); and the loop with a host-int
+    slot over copies of its carries (the path before the graph). Run at the
+    end of the chunk's use: each writes the cache past the live slots."""
+    from cake_tpu_torch.models.llama.fused import sampled_decode_loop
+
+    replay = dict.fromkeys(KERNEL_WRAPPERS, 0)
+    for (fn, what), n in chunk.captured.items():
+        if what == "launches" and fn.__name__ in replay:
+            replay[fn.__name__] += n
+    with torch.inference_mode():
+        slot = int(chunk.slot)
+        carries = [None if t is None else t.clone()
+                   for t in (chunk.tok, chunk.keys, chunk.ring, chunk.ring_idx)]
+
+        def int_slot():
+            tok, keys, ring, ring_idx = carries
+            sampled_decode_loop(chunk.forward_one, chunk.kv, tok, slot, keys, ring, ring_idx,
+                                n_steps=chunk.n_steps, s=chunk.s, fused_tail=chunk.fused_tail,
+                                uniforms=chunk.uniforms)
+
+        traces = {}
+        for name, fn, expect in (("graph", chunk.graph.replay, replay),
+                                 ("eager", chunk.body, None), ("int_slot", int_slot, None)):
+            runs = [_complete_trace(torch, fn, expect=expect)[0] for _ in range(repeats)]
+            traces[name] = [len(r) for r in runs]
+            if len(set(traces[name])) > 1:  # what the outlying traces held
+                most, fewest = max(runs, key=len), min(runs, key=len)
+                emit({"phase": "chunk_ops_spread", "chunk": name, "traces": traces[name],
+                      "names": ops_diff(*(_tally(r, "name") for r in (most, fewest))),
+                      "launchers": ops_diff(*(_tally(r, "launch_tid") for r in (most, fewest))),
+                      "main_tid": threading.get_native_id()})
+    return {"steps": chunk.n_steps, **{k: statistics.mode(v) for k, v in traces.items()},
+            "traces": traces}
+
+
+def _tally(events, key: str) -> dict:
+    """Device events by name (cut at its argument list) or by launching thread."""
+    import collections
+
+    return collections.Counter(str(e.get(key, "")).split("(")[0][:96] for e in events)
+
+
+def _generator_timing(torch, step, tokenizer, text, eager: bool, name: str) -> dict:
+    """64 greedy tokens in FUSED_CHUNK-token chunks after a warm-up run
+    (which captures the chunk's graph): wall ms a token, then the device
+    profile of 16 tokens (ms, ops and idle share), each chunk a replay or,
+    with ``eager``, its loop run op by op (``eager_chunks``); in a graph
+    run, ``_chunk_ops`` of its chunk."""
+    from cake_tpu_torch.models.llama.chat import Message
+    from cake_tpu_torch.models.llama.generator import LlamaGenerator, SamplingConfig
+
+    dev = step.device
+    gen = LlamaGenerator(step.config, step, tokenizer, SamplingConfig(**GRAPH_KNOBS["greedy"]),
+                         prefill_chunk=PREFILL_CHUNK, decode_chunk_size=FUSED_CHUNK)
+    with eager_chunks() if eager else contextlib.nullcontext():
+        gen.add_message(Message.user(text))
+        gen.generate(FUSED_CHUNK + 2)
+        gen.reset()
+        gen.add_message(Message.user(text))
+        stamps = []
+        gen.generate(DECODE_TOKENS, on_token=lambda tok: stamps.append(time.perf_counter()))
+        _sync(torch, dev)
+        ms = 1e3 * (stamps[-1] - stamps[0]) / (len(stamps) - 1)
+        profile = chunk_ops = None
+        if dev.type == "cuda":
+            profile = _profile_main_path(torch, gen, text, ms,
+                                         phase=f"profile_{name}_{'eager' if eager else 'graph'}")
+            if not eager:
+                chunk_ops = _chunk_ops(torch, max(step._chunks.values(), key=lambda c: c.replays))
+    return {"name": name, "mode": "eager" if eager else "graph", "decode_ms_per_token": ms,
+            "ids": gen.generated_token_ids, "profile": profile, "chunk_ops": chunk_ops}
+
+
+def _engine_timing(torch, make, spec: str, eager: bool) -> dict:
+    """The paged engine with fusion ``spec``: after a warm-up wave of wave
+    1's shapes, wave 1 (64 tokens) for its ms a decode step, then
+    unprofiled and profiled waves of 16 and 32 tokens (their difference:
+    device ops and ms of 16 steps), each decode chunk a replay or, with
+    ``eager``, its loop run op by op; in a graph run, ``_chunk_ops`` of its
+    most replayed chunk."""
+    eng = make(fusion_impl=spec, kv_mode="paged", page_size=ENGINE_PAGE, prefix_cache=True)
+    try:
+        with eager_chunks() if eager else contextlib.nullcontext():
+            _wave(eng, ENGINE_TOKENS, warm_messages())
+            wave = _wave(eng, ENGINE_TOKENS)
+            _wave(eng, 32)
+            timed = _wave(eng, 16)
+            profile = chunk_ops = None
+            if eng.backend.device.type == "cuda":
+                short = _device_profile(torch, lambda: _wave(eng, 16), valid=_one_epoch)
+                long = _device_profile(torch, lambda: _wave(eng, 32), valid=_one_epoch)
+                profile = {
+                    "device_ops_per_step": (long["device_ops"] - short["device_ops"]) / 16,
+                    "device_ms_per_step": (long["device_ms"] - short["device_ms"]) / 16,
+                    "device_idle_share": 1.0 - short["device_ms"] / (
+                        1e3 * timed["wall_s"] - 1e3 * eng.admission_window),
+                    "names": _minus(long["names"], short["names"]),
+                    "launchers": _minus(long["launchers"], short["launchers"]),
+                }
+                if not eager:
+                    chunk_ops = _chunk_ops(
+                        torch, max(eng.backend._chunks.values(), key=lambda c: c.replays))
+    finally:
+        eng.stop()
+    return {"spec": spec, "mode": "eager" if eager else "graph",
+            "decode_ms_per_step": wave["decode_ms_per_step"], "streams": wave["streams"],
+            "profile": profile, "chunk_ops": chunk_ops}
+
+
+def phase_decode_graph(torch, main_path: dict, int4_path: dict) -> dict:
+    """The decode chunk as one CUDA graph (DecodeChunk) against its eager
+    plain version, in one run:
+
+    * bits, gated: the generator (bf16 ``none`` and ``all``, int4; greedy and
+      sampled) over GRAPH_CHUNKS chunks, and the engine dispatch by dispatch
+      (``graph_vs_eager``: paged ``none`` and ``all``, int4 paged, dense
+      ``all``; greedy, sampled, the ragged wave's joins and the capacity
+      edge's 7-step chunk);
+    * timings: the generator's wall ms a token and the paged engine's ms a
+      decode step, graph and eager (``eager_chunks``) side by side, with
+      device ms, ops and idle share; gated on the card: device ops a token
+      and a step equal to eager's, over the whole profiled waves and over one
+      chunk (``_chunk_ops``), a mismatch emitted with the events by name and
+      by launching thread; the generator's wall ms a token under eager's;
+      the same greedy streams;
+    * the captures' cost: count, warm-up and capture seconds, the graph
+      pool's growth."""
+    from cake_tpu_torch.models.llama import fused
+    from cake_tpu_torch.models.llama.generator import LocalForwardStep
+    from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+
+    gen0, text = main_path["generator"], main_path["text"]
+    config, dev, tok = gen0.config, gen0.step.device, gen0.tokenizer
+    on_card = dev.type == "cuda"
+    bf16 = gen0.step.params
+    int4 = int4_path["params"]
+    all_config = dataclasses.replace(config, fusion_impl="all")
+    steps = {
+        "bf16_none": gen0.step,
+        "bf16_all": LocalForwardStep(all_config, bf16, max_seq_len=MAX_SEQ,
+                                     cache_dtype=torch.bfloat16, device=dev),
+        "int4_none": LocalForwardStep(config, int4, max_seq_len=MAX_SEQ,
+                                      cache_dtype=torch.bfloat16, device=dev),
+    }
+    generator_bits = {f"{name}_{kind}": _generator_bits(torch, step, tok, text, knobs)
+                      for name, step in steps.items() for kind, knobs in GRAPH_KNOBS.items()}
+    generator_timing = []
+    for name, step in steps.items():
+        for eager in (False, True, False, True):
+            generator_timing.append(_generator_timing(torch, step, tok, text, eager, name))
+    del steps
+    if on_card:
+        torch.cuda.empty_cache()
+
+    def make(params=bf16, **kw):
+        serve = ServeConfig(max_batch=ENGINE_BATCH, decode_chunk_size=FUSED_CHUNK, **kw)
+        eng = BatchEngine(config, params, tok, max_seq_len=ENGINE_MAX_SEQ,
+                          cache_dtype=torch.bfloat16, serve=serve, device=dev)
+        eng.start()
+        return eng
+
+    engine_bits = []
+    for spec, kv_mode, params, ragged in (("none", "paged", bf16, False),
+                                          ("all", "paged", bf16, True),
+                                          ("none", "paged", int4, False),
+                                          ("all", "dense", bf16, False)):
+        engine_bits.append(dict(_engine_bits(torch, lambda **kw: make(params, **kw), spec, kv_mode,
+                                             ragged), int4=params is int4))
+        if on_card:
+            torch.cuda.empty_cache()
+    engine_timing = []
+    for spec in ("none", "all"):
+        for eager in (False, True):
+            engine_timing.append(_engine_timing(torch, make, spec, eager))
+            if on_card:
+                torch.cuda.empty_cache()
+
+    def ops(p, key):
+        return None if p is None else p[key]
+
+    row = {
+        "phase": "decode_graph",
+        "card": main_path["card"],
+        "decode_chunk": FUSED_CHUNK,
+        "generator_bits": generator_bits,
+        "engine_bits": engine_bits,
+        "generator_timing": [
+            {k: v for k, v in t.items() if k not in ("ids", "profile")}
+            | {"device_ms_per_token": ops(t["profile"], "decode_device_ms_per_token"),
+               "device_ops_per_token": ops(t["profile"], "decode_device_ops_per_token"),
+               "device_idle_share": ops(t["profile"], "decode_device_idle_share")}
+            for t in generator_timing],
+        "engine_timing": [
+            {k: v for k, v in t.items() if k not in ("streams", "profile")}
+            | {k: v for k, v in (t["profile"] or {}).items() if k not in ("names", "launchers")}
+            for t in engine_timing],
+        "captures": dict(fused.STATS, pool_mb=fused.STATS["pool_bytes"] / 2**20),
+    }
+    emit(row)
+    for name, r in generator_bits.items():
+        if not (all(r["chunks_equal"]) and r["kv_equal"] and r["rng_equal"]):
+            raise AssertionError(f"generator {name}: the graph parted from the eager loop: {r}")
+    for r in engine_bits:
+        if r["dispatches"] == 0 or r["equal"] != r["dispatches"]:
+            raise AssertionError(f"engine {r['spec']} {r['kv_mode']}: the graph parted from the "
+                                 f"eager chunk: {r}")
+        if r["kv_mode"] == "paged" and (r["short_chunks"] == 0 or r["table_changes"] == 0):
+            raise AssertionError(f"paged engine {r['spec']}: no capacity-edge chunk or no chunk "
+                                 f"after a table change: {r}")
+    if not any(r["pads_changes"] for r in engine_bits):
+        raise AssertionError("no engine chunk replayed after a join changed the pads")
+    pairs = [(g, e) for g, e in zip(generator_timing[::2], generator_timing[1::2])]
+    for g, e in pairs:
+        if g["ids"] != e["ids"]:
+            raise AssertionError(f"generator {g['name']}: graph and eager streams differ")
+    for g, e in zip(engine_timing[::2], engine_timing[1::2]):
+        if g["streams"] != e["streams"]:
+            raise AssertionError(f"engine {g['spec']}: graph and eager streams differ")
+    if on_card:
+        for g, e in pairs:
+            if not g["decode_ms_per_token"] < e["decode_ms_per_token"]:
+                raise AssertionError(f"generator {g['name']}: graph {g['decode_ms_per_token']} ms "
+                                     f"a token, not below eager's {e['decode_ms_per_token']}")
+        for t in generator_timing + engine_timing:
+            ops = t["chunk_ops"]
+            if ops is not None and ops["graph"] != ops["eager"]:
+                raise AssertionError(f"{t.get('name') or t['spec']}: a chunk's replay ran "
+                                     f"{ops['graph']} device ops, its loop {ops['eager']}")
+        # The whole waves: device ops a token (16 generated tokens) and a
+        # step (32-token wave less 16-token wave), graph against eager.
+        waves = [(g["name"], "decode_device_ops_per_token", g["profile"], "decode_",
+                  e["profile"]) for g, e in pairs]
+        waves += [(g["spec"], "device_ops_per_step", g["profile"], "", e["profile"])
+                  for g, e in zip(engine_timing[::2], engine_timing[1::2])]
+        for name, key, g, prefix, e in waves:
+            if g[key] != e[key]:
+                diff = {"phase": "decode_graph_ops_diff", "run": name, key: [g[key], e[key]],
+                        "names": ops_diff(g[prefix + "names"], e[prefix + "names"]),
+                        "launchers": ops_diff(g[prefix + "launchers"], e[prefix + "launchers"]),
+                        "main_tid": threading.get_native_id()}
+                emit(diff)
+                raise AssertionError(f"{name}: {key} graph {g[key]}, eager {e[key]}: {diff}")
+    return row
+
+
+# ---------------------------------------------------------------- phase 14
+
 
 def _free_port() -> int:
     with socket.socket() as sock:
@@ -2713,6 +3425,8 @@ def main() -> int:
     int4_path = phase_generate_int4(torch, main_path)
     int4_engine = phase_engine_int4(torch, main_path, int4_path)
     kernel_rows.update(int4_engine["kernel_rows"])
+    torch.cuda.empty_cache()
+    phase_decode_graph(torch, main_path, int4_path)
     del int4_path["params"]
     torch.cuda.empty_cache()
     phase_generate_int8(torch, main_path)

@@ -95,6 +95,25 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
     assert fused_int4["fused_norm_matmul.quantized"] > 0
     assert fused_int4["fused_norm_matmul_plain"] == fused_int4["fused_norm_matmul"] == 0
     assert int4_engine["dense_equal_paged"] == int4_engine["all_equal_none"] == smoke.ENGINE_BATCH
+    # The decode chunk's graph against its eager plain version: on the CPU
+    # a DecodeChunk runs its loop uncaptured, so this rehearses the bits
+    # checks' and the timings' bookkeeping (the card gates skip here).
+    graph = smoke.phase_decode_graph(torch, row, int4)
+    assert set(graph["generator_bits"]) == {
+        f"{c}_{k}" for c in ("bf16_none", "bf16_all", "int4_none") for k in ("greedy", "sampled")}
+    for r in graph["generator_bits"].values():
+        assert r["chunks_equal"] == [True] * smoke.GRAPH_CHUNKS and r["kv_equal"] and r["rng_equal"]
+    assert [(r["spec"], r["kv_mode"], r["int4"]) for r in graph["engine_bits"]] == [
+        ("none", "paged", False), ("all", "paged", False), ("none", "paged", True),
+        ("all", "dense", False)]
+    for r in graph["engine_bits"]:
+        assert r["dispatches"] > 0 and r["equal"] == r["dispatches"]
+        if r["kv_mode"] == "paged":
+            assert r["short_chunks"] > 0 and r["table_changes"] > 0
+    assert graph["engine_bits"][1]["pads_changes"] > 0  # the ragged wave's joins
+    assert [t["mode"] for t in graph["generator_timing"]] == ["graph", "eager"] * 6
+    assert [t["mode"] for t in graph["engine_timing"]] == ["graph", "eager"] * 2
+    assert graph["captures"]["captures"] == 0  # nothing is captured on the CPU
     int8 = smoke.phase_generate_int8(torch, row)
     assert int8["run"]["launches"] == int8["run"]["expected_launches"]
     assert int8["run"]["launches"]["int4_matmul_plain"] == 0
@@ -135,8 +154,8 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
     assert phases == ["generate", "full_model_check", "api", "engine", "paged_model_check",
                       "dense_model_check", "api_engine", "generate_fused", "fused_model_check",
                       "engine_fused", "paged_fused_model_check", "dense_fused_model_check",
-                      "generate_int4", "int4_model_check", "engine_int4", "generate_int8", "cli",
-                      "kernels"]
+                      "generate_int4", "int4_model_check", "engine_int4", "decode_graph",
+                      "generate_int8", "cli", "kernels"]
 
 
 @pytest.mark.parametrize("kv_mode", ["paged", "dense"])
@@ -233,6 +252,90 @@ def test_bound_takes_the_larger_of_bytes_and_operations(smoke):
 )
 def test_profile_kernel_families(smoke, name, family):
     assert smoke._kernel_family(name) == family
+
+
+@pytest.mark.parametrize(
+    "name,wrapper",
+    [
+        ("void cake::split_decode_kernel<__nv_bfloat16, 128, 4, cake::DenseLayout>(...)",
+         "decode_attention"),
+        ("void cake::split_decode_kernel<__nv_bfloat16, 128, 4, cake::PagedLayout>(...)",
+         "paged_decode_attention"),
+        ("void cake::chunk_kernel_tc<__nv_bfloat16, 128, cake::StridedLayout>(...)",
+         "chunk_prefill_attention"),
+        ("void cake::chunk_kernel<float, 64, cake::PagedLayout>(...)", "paged_chunk_attention"),
+        ("void cake::norm_matmul_swap_ab_kernel<__nv_bfloat16, 8, true>(...)",
+         "fused_norm_matmul"),
+        ("void cake::norm_matmul_ws_kernel<__nv_bfloat16, 256, true>(...)", "fused_norm_matmul"),
+        ("void cake::norm_matmul_kernel<float, 1, 16>(...)", "fused_norm_matmul"),
+        ("void cake::norm_rows_kernel<__nv_bfloat16>(...)", None),
+        ("void cake::ingest_kernel<__nv_bfloat16, 8, 8>(...)", "fused_qkv_ingest"),
+        ("void cake::tail_kernel<true, true, true, true>(...)", "fused_sample_tail"),
+        ("void cake::int4mm::int4_mma_kernel<__half>(...)", "int4_matmul"),
+        ("void cake::int4mm::int4_wgmma_kernel<__nv_bfloat16, 128, true>(...)", "int4_matmul"),
+        ("void cake::int4mm::int4_f32_kernel(...)", "int4_matmul"),
+        ("void cake::int4mm::int4_reduce_kernel<__half>(...)", None),
+        ("void cake::empty_kernel()", None),
+        ("nvjet_tst_128x64_64x8_1x2_h_bz_TNN", None),
+    ],
+)
+def test_each_wrapper_counts_one_launch_kernel(smoke, name, wrapper):
+    """The kernel a trace shows once for each counted launch of a wrapper:
+    the body, never its helper kernels (norm rows, the split-K reduce)."""
+    assert smoke.launch_of(name) == wrapper
+
+
+def test_launches_seen_and_ops_diff_read_a_trace(smoke):
+    events = [
+        {"cat": "kernel", "name": "void cake::ingest_kernel<float, 4, 4>(...)"},
+        {"cat": "kernel", "name": "void cake::norm_rows_kernel<float>(...)"},
+        {"cat": "kernel", "name": "void cake::norm_matmul_swap_ab_kernel<__half, 8, true>(...)"},
+        {"cat": "kernel", "name": "void cake::norm_matmul_swap_ab_kernel<__half, 8, true>(...)"},
+        {"cat": "gpu_memcpy", "name": "ingest_kernel"},
+    ]
+    seen = smoke.launches_seen(events)
+    assert set(seen) == set(smoke.KERNEL_WRAPPERS)
+    assert seen["fused_qkv_ingest"] == 1 and seen["fused_norm_matmul"] == 2
+    assert sum(seen.values()) == 3
+    assert smoke.ops_diff({"a": 1, "b": 2}, {"b": 2, "c": 1}) == {"a": [1, 0], "c": [0, 1]}
+    assert smoke._minus({"a": 3, "b": 1}, {"b": 2, "c": 1}) == {"a": 3, "b": -1, "c": -1}
+    assert smoke._tally([{"name": "k(int)"}, {"name": "k(float)"}, {"name": "m"}], "name") == {
+        "k": 2, "m": 1}
+
+
+def test_an_incomplete_trace_is_taken_again(smoke, monkeypatch, capsys):
+    """A trace whose launch kernels fall short of the counters' growth is
+    emitted and taken again after the setup; the first complete one is
+    returned. A trace with more launches than counted raises at once."""
+    from cake_tpu_torch.ops.fused_ingest import fused_qkv_ingest
+
+    kernel = {"cat": "kernel", "name": "void cake::ingest_kernel<__nv_bfloat16, 8, 8>(...)"}
+    shown = iter([1, 2])
+    setups = []
+
+    def run():
+        fused_qkv_ingest.launches += 2
+
+    monkeypatch.setattr(smoke, "_device_events", lambda torch, fn: (
+        fn(), ([dict(kernel) for _ in range(next(shown))], -120.0))[1])
+    monkeypatch.setattr(fused_qkv_ingest, "launches", 0)
+    events, tries, offset = smoke._complete_trace(torch, run, setup=lambda: setups.append(1))
+    assert (len(events), tries, len(setups), offset) == (2, 2, 2, -120.0)
+    (row,) = [smoke.json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert row["phase"] == "trace_incomplete" and row["launch_kernels"]["fused_qkv_ingest"] == 1
+    expect = dict.fromkeys(smoke.KERNEL_WRAPPERS, 0)
+    monkeypatch.setattr(smoke, "_device_events", lambda torch, fn: ([dict(kernel)], 0.0))
+    with pytest.raises(AssertionError, match="did not see"):
+        smoke._complete_trace(torch, lambda: None, expect=expect)
+    monkeypatch.setattr(smoke, "_device_events", lambda torch, fn: (None, None))
+    with pytest.raises(AssertionError, match="no complete trace"):
+        smoke._complete_trace(torch, lambda: None, expect=expect)
+    # A wave split over two epochs is taken again.
+    waves = iter([{"batches": 2, "joins": 0}, {"batches": 1, "joins": 0}])
+    monkeypatch.setattr(smoke, "_device_events", lambda torch, fn: (fn(), ([], 0.0))[1])
+    _, tries, _ = smoke._complete_trace(torch, lambda: next(waves), expect=expect,
+                                        valid=smoke._one_epoch)
+    assert tries == 2
 
 
 def _run(script: Path, cwd: Path) -> subprocess.CompletedProcess:

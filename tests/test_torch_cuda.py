@@ -1013,6 +1013,299 @@ def test_generator_chunks_equal_per_step_on_the_card(dev, tmp_path):
     assert fused_norm_matmul.launches > before and len(gen.generated_token_ids) >= 1
 
 
+# ------------------------------------------------------------ decode graphs
+#
+# A decode chunk on the card replays one CUDA graph (models/llama/fused.py
+# DecodeChunk). Held here against the eager loop on a clone of the same
+# state, to the bit, at a small width.
+
+GRAPH_CFG = dict(hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                 num_attention_heads=4, num_key_value_heads=2)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_ingest_graph_replays_read_the_slot_from_device_memory(dev, paged):
+    """One ingest launch captured in a graph, replayed at several slots (the
+    slot tensor written between replays; paged: one past the table, whose
+    write drops), equals its plain version at each slot: q and the cache,
+    the sink page aside."""
+    from cake_tpu_torch.ops.fused_ingest import fused_qkv_ingest, fused_qkv_ingest_plain
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    b, n_q, n_kv, hd = 4, 8, 2, 128
+    qkv, cos, sin = _ingest_operands(gen, dev, torch.bfloat16, b, n_q, n_kv, hd)
+    kw = dict(n_q=n_q, n_kv=n_kv)
+    if paged:
+        k0, v0 = _pool(gen, dev, torch.bfloat16, 10, n_kv, hd)
+        kw["block_tables"] = _tables(dev, [[7, 2, 9], [5, -1, 1], [3, 8, 4], [0, 6, -1]], 3)
+        slots = [0, 127, 128, 300, 3 * PAGE + 5]
+    else:
+        k0 = _randn(gen, dev, torch.bfloat16, b, n_kv, 512, hd)
+        v0 = _randn(gen, dev, torch.bfloat16, b, n_kv, 512, hd)
+        slots = [0, 1, 255, 511]
+    slot = torch.zeros((), dtype=torch.int64, device=dev)
+    k1, v1 = k0.clone(), v0.clone()
+    fused_qkv_ingest(qkv, cos, sin, slot, k1, v1, **kw)  # warm-up outside the capture
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        q = fused_qkv_ingest(qkv, cos, sin, slot, k1, v1, **kw)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    for at in slots:
+        k1.copy_(k0)
+        v1.copy_(v0)
+        slot.fill_(at)
+        graph.replay()
+        k2, v2 = k0.clone(), v0.clone()
+        q2 = fused_qkv_ingest_plain(qkv, cos, sin, at, k2, v2, **kw)
+        torch.cuda.synchronize()
+        keep = slice(None, -1) if paged else slice(None)
+        assert torch.equal(q, q2), at
+        assert torch.equal(k1[keep], k2[keep]) and torch.equal(v1[keep], v2[keep]), at
+        assert not torch.equal(k1, k0) or at == 3 * PAGE + 5
+
+
+@pytest.mark.parametrize("op", ["decode_attention", "fused_norm_matmul"])
+def test_a_graph_replays_after_a_larger_call_grew_the_tickets(dev, op, monkeypatch):
+    """A graph captured over a small call's ticket buffer, replayed after a
+    larger eager call needed more tickets and other tensors took what the
+    allocator had free, equals the small call run eagerly, and leaves those
+    tensors alone: the buffer a graph holds is never freed (the engine's
+    epochs go from 2 lanes to 8 and back)."""
+    from cake_tpu_torch.ops import tickets
+    from cake_tpu_torch.ops.fused_norm_matmul import fused_norm_matmul
+
+    monkeypatch.setattr(tickets, "_held", {})
+    gen = torch.Generator(device=dev).manual_seed(43)
+    dt = torch.bfloat16
+    if op == "decode_attention":
+        n_q, n_kv, hd, max_seq = 32, 8, 128, 1024
+
+        def operands(b):
+            return (_randn(gen, dev, dt, b, 1, n_q, hd), _randn(gen, dev, dt, b, n_kv, max_seq, hd),
+                    _randn(gen, dev, dt, b, n_kv, max_seq, hd),
+                    torch.arange(700, 700 + b, dtype=torch.int32, device=dev))
+
+        def call(args):
+            return decode_attention(*args)
+    else:
+        hidden = 4096
+
+        def operands(out):  # the strips' tickets grow with the product's width
+            return (_randn(gen, dev, dt, 2, 1, hidden), _randn(gen, dev, dt, hidden),
+                    _randn(gen, dev, dt, hidden, out) * hidden**-0.5)
+
+        def call(args):
+            return fused_norm_matmul(*args, eps=1e-5)
+    small, large = (operands(2), operands(8)) if op == "decode_attention" else (
+        operands(1024), operands(8192))
+    call(small)  # the warm-up makes the small call's tickets
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        got = call(small)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    call(large)
+    (held,) = tickets._held.values()
+    assert len(held) == 2 and held[1].numel() >= 2 * held[0].numel()
+    junk = [torch.full((held[0].numel(),), 7, dtype=torch.int32, device=dev) for _ in range(64)]
+    for _ in range(3):
+        graph.replay()
+        want = call(small)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert all(bool((j == 7).all()) for j in junk)
+    assert not held[0].any() and not held[1].any()
+
+
+def _graph_engine(dev, kv_mode, fusion, dtype, quantize=None):
+    """A backend at the small width with three prompts prefilled: (backend,
+    kv, carries, slot)."""
+    import dataclasses
+
+    from cake_tpu_torch.models.llama import batch as B
+    from cake_tpu_torch.models.llama import model as M
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.models.llama.generator import SamplingConfig
+    from cake_tpu_torch.ops.quant import quantize_params
+    from cake_tpu_torch.ops.sampling import row_keys
+    from cake_tpu_torch.runtime.batch_backend import LocalBatchBackend, PagedLocalBackend
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(**GRAPH_CFG), fusion_impl=fusion)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(2), dtype, dev)
+    if quantize:
+        params = quantize_params(params, quantize)
+    if kv_mode == "paged":
+        be = PagedLocalBackend(cfg, params, max_seq_len=512, cache_dtype=dtype, device=dev)
+    else:
+        be = LocalBatchBackend(cfg, params, max_seq_len=512, cache_dtype=dtype, device=dev)
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist() for n in (40, 121, 77)]
+    tokens, pads, bucket = B.layout_prompts(prompts, 512)
+    s = SamplingConfig(temperature=0.0, repeat_penalty=1.1, repeat_last_n=16)
+    with torch.inference_mode():
+        kv = be.init_kv(3)
+        if kv_mode == "paged":
+            for lane, pad in enumerate(pads):
+                be.allocator.map_range(lane, int(pad), bucket + 8)
+        logits, kv = be.prefill(tokens, kv, pads)
+        ring, ring_idx = B.seed_rings(prompts, 16)
+        first, keys, ring, ring_idx = B.first_sample(logits, s, ring, ring_idx,
+                                                     row_keys([4, 5, 6], dev))
+    carries = dict(tok=torch.as_tensor(first, dtype=torch.int64, device=dev),
+                   pads=torch.as_tensor(pads, device=dev), keys=keys,
+                   ring=torch.as_tensor(ring, dtype=torch.int64, device=dev),
+                   ring_idx=torch.as_tensor(ring_idx, dtype=torch.int64, device=dev))
+    return be, kv, carries, bucket
+
+
+@pytest.mark.parametrize("case", [
+    ("dense", "none", torch.bfloat16, None), ("dense", "all", torch.bfloat16, None),
+    ("paged", "none", torch.bfloat16, None), ("paged", "all", torch.bfloat16, None),
+    ("paged", "ingest,tail", torch.float32, None), ("paged", "all", torch.bfloat16, "int4"),
+], ids=lambda c: f"{c[0]}-{c[1]}-{str(c[2])[6:]}-{c[3]}")
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_engine_decode_graph_equals_the_eager_chunk(dev, case, sampled):
+    """Five chunks of the backend's decode (one graph, replayed at moving
+    slots; paged: pages mapped between chunks change the table) against
+    batch.decode_chunk / paged_decode_chunk on a clone of the cache, the
+    slot a host int: ids, KV and carries to the bit. The launch counters
+    count the replays."""
+    from cake_tpu_torch.models.llama import batch as B
+    from cake_tpu_torch.models.llama.generator import SamplingConfig
+    from cake_tpu_torch.ops.decode_attention import decode_attention
+    from cake_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    kv_mode, fusion, dtype, quantize = case
+    be, kv, c, slot = _graph_engine(dev, kv_mode, fusion, dtype, quantize)
+    s = SamplingConfig(temperature=0.8, top_k=20, repeat_penalty=1.1, repeat_last_n=16) \
+        if sampled else SamplingConfig(temperature=0.0, repeat_penalty=1.1, repeat_last_n=16)
+    n = 4
+    ref = type(kv)(kv.k.clone(), kv.v.clone())
+    tok, keys, ring, ring_idx = c["tok"], c["keys"], c["ring"], c["ring_idx"]
+    r_tok, r_keys, r_ring, r_idx = tok.clone(), keys.clone(), ring.clone(), ring_idx.clone()
+    counter = paged_decode_attention if kv_mode == "paged" else decode_attention
+    for i in range(5):
+        if kv_mode == "paged":
+            for lane in range(3):
+                be.allocator.map_range(lane, slot, slot + n + 128 * (i % 2))
+        with torch.inference_mode():
+            before = counter.launches
+            ids, kv, keys, ring, ring_idx = be.decode(kv, tok, slot, c["pads"], keys, ring,
+                                                      ring_idx, n, s)
+            assert counter.launches - before == n * be.config.num_hidden_layers
+            if kv_mode == "paged":
+                tables = torch.as_tensor(be._host_tables(), device=dev)
+                want, ref, r_keys, r_ring, r_idx = B.paged_decode_chunk(
+                    be.params, ref, r_tok, slot, c["pads"], tables, r_keys, r_ring, r_idx,
+                    be.config, n, s, be.rope)
+            else:
+                want, ref, r_keys, r_ring, r_idx = B.decode_chunk(
+                    be.params, ref, r_tok, slot, c["pads"], r_keys, r_ring, r_idx, be.config,
+                    n, s, be.rope)
+            torch.cuda.synchronize()
+            assert torch.equal(ids, want), (i, ids, want)
+            assert torch.equal(keys, r_keys) and torch.equal(ring, r_ring)
+            assert torch.equal(ring_idx, r_idx)
+            assert torch.equal(kv.k, ref.k) and torch.equal(kv.v, ref.v)
+            tok, r_tok, slot = ids[:, -1].clone(), want[:, -1].clone(), slot + n
+    (chunk,) = be._chunks.values()
+    assert chunk.graph is not None and chunk.replays == 5
+
+
+@pytest.mark.parametrize("fusion", ["none", "all"])
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_generator_decode_graph_equals_the_eager_loop(dev, fusion, sampled):
+    """Three chunks of LocalForwardStep.decode_chunk (one graph; a shared
+    generator's draws made before each replay) against sampled_decode_loop
+    drawing from a copy of the generator, on a clone of the cache: ids, KV
+    and the generator's state to the bit."""
+    import dataclasses
+
+    import numpy as np
+
+    from cake_tpu_torch.models.llama import model as M
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.models.llama.fused import sampled_decode_loop
+    from cake_tpu_torch.models.llama.generator import LocalForwardStep, SamplingConfig
+    from cake_tpu_torch.ops.fuse import resolve_fusion
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(**GRAPH_CFG), fusion_impl=fusion)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(8), torch.bfloat16, dev)
+    step = LocalForwardStep(cfg, params, max_seq_len=512, cache_dtype=torch.bfloat16, device=dev)
+    s = SamplingConfig(temperature=0.9, top_k=30, repeat_penalty=1.1, repeat_last_n=16, seed=9) \
+        if sampled else SamplingConfig(temperature=0.0, repeat_penalty=1.1, repeat_last_n=16)
+    prompt = np.arange(3, 60, dtype=np.int64)[None]
+    with torch.inference_mode():
+        last = int(step(prompt, 0, prompt.shape[1]).argmax(-1)[0])
+    ref = type(step._kv)(step._kv.k.clone(), step._kv.v.clone())
+    rng = torch.Generator(device=dev).manual_seed(s.seed)
+    ref_rng = torch.Generator(device=dev).manual_seed(s.seed)
+
+    def forward_one(tok, kv, p):
+        return M.forward(step.params, tok, kv, p, 1, cfg, rope=step._rope)
+
+    history, pos = prompt[0].tolist() + [last], prompt.shape[1]
+    for _ in range(3):
+        ring = np.full((1, 16), -1, np.int64)
+        ring[0, : min(16, len(history))] = history[-16:]
+        ring_idx = min(len(history), 16) % 16
+        with torch.inference_mode():
+            got = step.decode_chunk(np.asarray([history[-1]]), pos, 8, s, rng, ring, ring_idx)
+            want, ref, _, _, _ = sampled_decode_loop(
+                forward_one, ref, torch.tensor([history[-1]], device=dev), pos, ref_rng,
+                torch.as_tensor(ring, device=dev),
+                torch.full((1,), ring_idx, dtype=torch.int64, device=dev), n_steps=8, s=s,
+                fused_tail="tail" in resolve_fusion(cfg))
+        np.testing.assert_array_equal(got, want.cpu().numpy())
+        history += got[0].tolist()
+        pos += 8
+    torch.cuda.synchronize()
+    assert torch.equal(step._kv.k, ref.k) and torch.equal(step._kv.v, ref.v)
+    assert torch.equal(rng.get_state(), ref_rng.get_state())
+    (chunk,) = step._chunks.values()
+    assert chunk.graph is not None and chunk.replays == 3
+
+
+def test_profiler_sees_every_kernel_of_a_replay(dev):
+    """torch.profiler reports a replay's device work node by node: as many
+    kernels, memcpys and memsets as the same chunk run eagerly."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    be, kv, c, slot = _graph_engine(dev, "paged", "all", torch.bfloat16)
+    from cake_tpu_torch.models.llama.generator import SamplingConfig
+
+    s = SamplingConfig(temperature=0.0, repeat_penalty=1.1, repeat_last_n=16)
+    with torch.inference_mode():
+        be.decode(kv, c["tok"], slot, c["pads"], c["keys"], c["ring"], c["ring_idx"], 4, s)
+    (chunk,) = be._chunks.values()
+
+    def device_ops(fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "t.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        return [e["name"] for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+    with torch.inference_mode():
+        device_ops(chunk.graph.replay)  # the profiler's own warm-up
+        replayed = device_ops(chunk.graph.replay)
+        eager = device_ops(chunk.body)
+    assert len(replayed) == len(eager) > 100, (len(replayed), len(eager))
+
+
 # ------------------------------------------------------------ int4_matmul
 #
 # The kernel against int4_matmul_plain (the same scaled-then-rounded weight,
