@@ -3,6 +3,7 @@
     python -m cake_tpu_torch.cli --model DIR --prompt "..." -n 100
     python -m cake_tpu_torch.cli --model DIR --api 127.0.0.1:8080
     python -m cake_tpu_torch.cli --model DIR --api 127.0.0.1:8080 --api-batch 8 --kv-mode paged
+    python -m cake_tpu_torch.cli --model DIR --prompt "..." --kv-dtype f8
 
 Single-host generation on one CUDA device (``--device cpu`` runs the plain
 PyTorch versions of the kernels on the CPU instead; without a CUDA device
@@ -18,6 +19,7 @@ import logging
 import sys
 
 from cake_tpu_torch.device import DTYPES
+from cake_tpu_torch.ops.kv_dtype import KV_DTYPE_CHOICES, resolve_kv_dtype
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,6 +36,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--system-prompt", default=None)
     p.add_argument("-n", "--sample-len", type=int, default=100)
     p.add_argument("--dtype", choices=tuple(DTYPES), default="bf16")
+    p.add_argument(
+        "--kv-dtype",
+        choices=KV_DTYPE_CHOICES,
+        default="auto",
+        help="KV-cache storage dtype (auto = --dtype). f8 (float8_e4m3fn) halves KV memory "
+        "and per-token cache bandwidth, the long-context lever; attention computes in "
+        "--dtype after an on-read upcast. Applies to the generator and to the --api-batch "
+        "engine, dense and paged",
+    )
     p.add_argument("--max-seq-len", type=int, default=None)
     p.add_argument(
         "--prefill-chunk", type=int, default=None,
@@ -145,9 +156,11 @@ def main(argv: list[str] | None = None) -> int:
         prefix_cache = bool(args.api)
     else:
         prefix_cache = args.prefix_cache == "on"
+    kv_dtype = resolve_kv_dtype(args.kv_dtype, DTYPES[args.dtype])
     generator = LlamaGenerator.load(
         args.model,
         dtype=DTYPES[args.dtype],
+        kv_dtype=kv_dtype,
         max_seq_len=args.max_seq_len,
         sampling=sampling,
         prefill_chunk=args.prefill_chunk,
@@ -177,7 +190,7 @@ def main(argv: list[str] | None = None) -> int:
             step = generator.step
             engine = BatchEngine(
                 generator.config, step.params, generator.tokenizer,
-                max_seq_len=step.max_seq_len, cache_dtype=DTYPES[args.dtype],
+                max_seq_len=step.max_seq_len, cache_dtype=kv_dtype,
                 serve=serve, device=step.device,
             )
         host, port = _parse_address(args.api)

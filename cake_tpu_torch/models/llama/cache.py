@@ -6,7 +6,11 @@ kernels stream. Unlike the JAX package, whose arrays are immutable and whose
 cache is donated back to each step, the port writes the cache IN PLACE: a
 step's K/V land in the preallocated tensors with a slice assignment (a
 prefill at a host offset) or an ``index_copy_`` (a decode step at a device
-slot), and nothing is copied or reallocated per token.
+slot), and nothing is copied or reallocated per token. A cache of another
+dtype than the activations (``--kv-dtype``) takes each chunk through
+``ops/kv_dtype.narrow``, the JAX package's ``astype`` (NaN past f8's range,
+not torch's saturation); an f8 cache is written through its byte view
+(``kv_view``), since ``index_copy_`` has no Float8 kernel.
 
 The rolling ring cache for sliding-window models is not ported yet
 (ROADMAP.md).
@@ -17,6 +21,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from cake_tpu_torch.ops.kv_dtype import kv_view, narrow
 
 
 class KVCache(NamedTuple):
@@ -78,17 +84,22 @@ def write_layer(
     counterpart of the JAX package's ``dynamic_update_slice`` at a traced
     start, so a captured CUDA graph writes where the tensor says at each
     replay. Its bound is the caller's to check, on the host ints it holds
-    (reading the tensor back would be a sync)."""
+    (reading the tensor back would be a sync).
+
+    The chunk is narrowed to the cache's dtype from the dtype it comes in
+    (the activations'), as the JAX package's ``astype`` narrows it."""
     chunk = k_new.shape[1]
+    k_rows = kv_view(narrow(k_new.transpose(1, 2), k_cache.dtype))
+    v_rows = kv_view(narrow(v_new.transpose(1, 2), v_cache.dtype))
     if isinstance(pos, torch.Tensor):
         idx = pos.reshape(1) if chunk == 1 else pos + torch.arange(chunk, device=pos.device)
-        k_cache.index_copy_(2, idx, k_new.transpose(1, 2).to(k_cache.dtype))
-        v_cache.index_copy_(2, idx, v_new.transpose(1, 2).to(v_cache.dtype))
+        kv_view(k_cache).index_copy_(2, idx, k_rows)
+        kv_view(v_cache).index_copy_(2, idx, v_rows)
         return k_cache, v_cache
     if pos < 0 or pos + chunk > k_cache.shape[2]:
         raise ValueError(
             f"cache write [{pos}, {pos + chunk}) outside [0, {k_cache.shape[2]})"
         )
-    k_cache[:, :, pos : pos + chunk] = k_new.transpose(1, 2)
-    v_cache[:, :, pos : pos + chunk] = v_new.transpose(1, 2)
+    kv_view(k_cache)[:, :, pos : pos + chunk] = k_rows
+    kv_view(v_cache)[:, :, pos : pos + chunk] = v_rows
     return k_cache, v_cache

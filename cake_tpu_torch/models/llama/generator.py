@@ -103,7 +103,7 @@ class LocalForwardStep:
         self._kv = None
         self.reset()
         self._rope = model_rope_tables(config, self._kv.max_seq_len, self.device)
-        self._chunks: dict = {}  # DecodeChunk per (n_steps, batch, sampling knobs)
+        self._chunks: dict = {}  # DecodeChunk per (n_steps, batch, sampling knobs, KV dtype)
 
     @property
     def max_seq_len(self) -> int:
@@ -161,7 +161,8 @@ class LocalForwardStep:
             )
         b, window = int(np.size(last_token)), np.shape(ring)[1]
         s = sampling
-        key = (n_steps, b, window, s.temperature, s.top_k, s.top_p, s.repeat_penalty)
+        key = (n_steps, b, window, s.temperature, s.top_k, s.top_p, s.repeat_penalty,
+               self._kv.k.dtype)
         chunk = self._chunks.get(key)
         if chunk is None:
             params, config, rope = self.params, self.config, self._rope
@@ -233,13 +234,16 @@ class LlamaGenerator:
         decode_chunk_size: int = 1,
         fusion_impl: str = "none",
         quantize: str | None = None,
+        kv_dtype: torch.dtype | None = None,
     ) -> "LlamaGenerator":
         """Config, weights and tokenizer from a checkpoint directory, on
         ``device`` (default CUDA; raises when there is none). ``fusion_impl``
         is set on the config before the step is built. ``quantize``
         ("int8" or "int4") quantizes the loaded weights on the device, one
         layer slice at a time, before the step is built; a quantized
-        checkpoint loads quantized without it."""
+        checkpoint loads quantized without it. ``kv_dtype``: the KV cache's
+        dtype (``--kv-dtype``; None = ``dtype``), e.g. ``torch.float8_e4m3fn``,
+        which halves the cache against bf16."""
         from cake_tpu_torch.io.safetensors_io import load_params
 
         if quantize not in (None, "int8", "int4"):
@@ -253,7 +257,7 @@ class LlamaGenerator:
         if quantize is not None:
             params = quantize_params(params, quantize)
         step = LocalForwardStep(
-            config, params, max_seq_len=max_seq_len, cache_dtype=dtype, device=dev
+            config, params, max_seq_len=max_seq_len, cache_dtype=kv_dtype or dtype, device=dev
         )
         return cls(
             config, step, load_tokenizer(model_dir), sampling,

@@ -22,6 +22,9 @@ JAX package drops lands there instead. No table entry ever names it, so
 nothing reads it. ``PagedKVCache.n_pages`` counts the allocatable pages.
 
 The port writes the pool IN PLACE (the JAX package returns a new pool).
+Writes narrow to the pool's dtype (``ops/kv_dtype.narrow``); an f8 pool is
+written, gathered and copied through its byte view (``kv_view``), so f8
+bits move unchanged.
 
 ``PageAllocator`` is host-side bookkeeping (free list, refcounts, block
 tables as numpy); only the block tables cross to the device, once per
@@ -36,6 +39,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from cake_tpu_torch.ops.kv_dtype import kv_view, narrow
 
 UNMAPPED = np.int32(-1)  # block-table sentinel: no physical page mapped
 
@@ -125,8 +130,8 @@ def write_pages(
     """Scatter a [b, chunk, n_kv, hd] chunk through a ``write_plan`` into one
     layer's [n_pages + 1, n_kv, page_size, hd] pool, in place."""
     phys, offs = plan
-    k_pages[phys, :, offs] = k_new.to(k_pages.dtype)
-    v_pages[phys, :, offs] = v_new.to(v_pages.dtype)
+    kv_view(k_pages)[phys, :, offs] = kv_view(narrow(k_new, k_pages.dtype))
+    kv_view(v_pages)[phys, :, offs] = kv_view(narrow(v_new, v_pages.dtype))
     return k_pages, v_pages
 
 
@@ -160,10 +165,10 @@ def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor) -> torch.Tenso
     in logical order rebuilds the dense cache layout at every mapped slot;
     unmapped pages read zeros, which the callers' masks exclude anyway."""
     bt = block_tables.long()
-    g = pages[bt.clamp(min=0)]  # [b, n_p, n_kv, ps, hd]
+    g = kv_view(pages)[bt.clamp(min=0)]  # [b, n_p, n_kv, ps, hd]
     g = torch.where((bt >= 0)[:, :, None, None, None], g, torch.zeros((), dtype=g.dtype))
     b, n_p, n_kv, ps, hd = g.shape
-    return g.transpose(1, 2).reshape(b, n_kv, n_p * ps, hd)
+    return g.transpose(1, 2).reshape(b, n_kv, n_p * ps, hd).view(pages.dtype)
 
 
 def copy_pages(cache: PagedKVCache, src, dst) -> PagedKVCache:
@@ -175,8 +180,8 @@ def copy_pages(cache: PagedKVCache, src, dst) -> PagedKVCache:
     dev = cache.k.device
     src = torch.as_tensor(np.asarray(src, np.int64), device=dev)
     dst = torch.as_tensor(np.asarray(dst, np.int64), device=dev)
-    cache.k[:, dst] = cache.k[:, src]
-    cache.v[:, dst] = cache.v[:, src]
+    for pool in (kv_view(cache.k), kv_view(cache.v)):
+        pool[:, dst] = pool[:, src]
     return cache
 
 

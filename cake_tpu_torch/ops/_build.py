@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 )
 
 # dtype codes shared with csrc/common.cuh (enum DType)
-DTYPE_CODES = {"float32": 0, "float16": 1, "bfloat16": 2}
+DTYPE_CODES = {"float32": 0, "float16": 1, "bfloat16": 2, "float8_e4m3fn": 3}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -47,13 +47,14 @@ _SIGNATURES = {
     "cake_decode_attention": (
         _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,   # q k v out lengths starts
         _VOID, _VOID,                                # part tickets
-        _INT, _INT, _INT, _INT, _INT, _INT,          # b n_kv group max_seq hd dtype
+        _INT, _INT, _INT, _INT, _INT, _INT, _INT,    # b n_kv group max_seq hd dtype kv_dtype
         _FLOAT, _FLOAT, _INT, _INT, _VOID,           # scale softcap n_split z stream
     ),
     "cake_chunk_prefill_attention": (
         _VOID, _VOID, _VOID, _VOID,                  # q k v out
         _VOID, _VOID, _VOID, _VOID,                  # q_starts lengths k_starts flag
         _INT, _INT, _INT, _INT, _INT, _INT, _INT,    # b chunk n_q n_kv kv_len hd dtype
+        _INT,                                        # kv_dtype
         ctypes.POINTER(ctypes.c_longlong),           # strides[12]
         _INT, _FLOAT, _FLOAT, _VOID,                 # window scale softcap stream
     ),
@@ -62,14 +63,14 @@ _SIGNATURES = {
         _VOID, _VOID, _VOID,                         # lengths starts tables
         _VOID, _VOID,                                # part tickets
         _INT, _INT, _INT, _INT, _INT,                # b n_kv group page_size n_p
-        _LONG, _INT, _INT,                           # table_stride hd dtype
+        _LONG, _INT, _INT, _INT,                     # table_stride hd dtype kv_dtype
         _FLOAT, _FLOAT, _INT, _INT, _VOID,           # scale softcap n_split z stream
     ),
     "cake_paged_chunk_attention": (
         _VOID, _VOID, _VOID, _VOID,                  # q k v out
         _VOID, _VOID, _VOID, _VOID, _VOID,           # q_starts lengths k_starts tables flag
         _INT, _INT, _INT, _INT, _INT, _INT,          # b chunk n_q n_kv page_size n_p
-        _LONG, _INT, _INT,                           # table_stride hd dtype
+        _LONG, _INT, _INT, _INT,                     # table_stride hd dtype kv_dtype
         _LONG, _LONG, _LONG, _LONG, _LONG, _LONG,    # qsb qss qsh osb oss osh
         _INT, _FLOAT, _FLOAT, _VOID,                 # window scale softcap stream
     ),
@@ -86,7 +87,7 @@ _SIGNATURES = {
         _INT, _INT, _INT, _INT,                      # b n_q n_kv hd
         _INT, _INT, _LONG,                           # seq_stride n_p table_stride
         _INT, _INT, _INT, _INT, _INT, _INT,          # blocks threads vr vv rope_shift v_shift
-        _INT, _VOID,                                 # dtype stream
+        _INT, _INT, _VOID,                           # dtype kv_dtype stream
     ),
     "cake_int4_matmul": (
         _VOID, _VOID, _VOID, _VOID, _VOID,           # x packed scale out scratch (NULL: one pass)
@@ -105,6 +106,11 @@ _SIGNATURES = {
     ),
     "cake_empty_kernel": (_VOID,),                   # stream
 }
+
+
+def dtype_code(dtype) -> int:
+    """A torch dtype's code in csrc/common.cuh's enum DType."""
+    return DTYPE_CODES[str(dtype).removeprefix("torch.")]
 
 
 def sources() -> list[Path]:

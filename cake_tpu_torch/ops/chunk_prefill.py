@@ -19,7 +19,10 @@ same loop on the CUDA cores. The key loop starts at the first key any row
 of the block needs (``k_starts``, the window) and stops at the last (the
 causal end, ``lengths``), so masked-out blocks cost nothing, as the
 reference's block pruning; its tiles sit at multiples of 64 in key
-position, so a query's bits do not depend on the block that holds it.
+position, so a query's bits do not depend on the block that holds it. An f8
+cache reaches shared memory narrow (cp.async, half the bytes) and each tile
+is widened there, exactly, into the layout the products read; the products
+stay in q's dtype, as the reference widens f8 before its dots.
 
 For a tensor on the CPU the wrapper runs :func:`chunk_prefill_attention_plain`;
 for a CUDA tensor it launches the kernel or raises.
@@ -33,9 +36,9 @@ import torch
 
 from cake_tpu_torch.ops import _build
 from cake_tpu_torch.ops.attention import causal_mask, masked_gqa_attention_hm
+from cake_tpu_torch.ops.kv_dtype import F8, attention_dtype
 from cake_tpu_torch.ops.launches import count
 
-_KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
 
 
@@ -108,19 +111,19 @@ def launch_chunk_kernel(
         _, kv_len, n_kv, _ = k.shape
         ksb, kss, ksh = k.stride(0), k.stride(1), k.stride(2)
         vsb, vss, vsh = v.stride(0), v.stride(1), v.stride(2)
-    if torch.float8_e4m3fn in (k.dtype, v.dtype):
-        raise NotImplementedError(
-            "chunk_prefill_attention: f8 KV caches are not ported yet (ROADMAP.md)"
-        )
-    if q.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"chunk_prefill_attention: unsupported dtype {q.dtype}")
+    wide = attention_dtype("chunk_prefill_attention", q.dtype, k.dtype, v.dtype)
+    if wide != q.dtype:  # a wider cache: the query upcast exactly, the output cast back
+        return launch_chunk_kernel(
+            q.to(wide), k, v, k_layout, q_starts, lengths, k_starts, window_flag,
+            window=window, scale=scale, softcap=softcap,
+        ).to(q.dtype)
     if hd not in _HEAD_DIMS or k.shape[-1] != hd or n_q % n_kv or k.shape != v.shape:
         raise ValueError(
             f"chunk_prefill_attention: q {tuple(q.shape)} does not fit k/v "
             f"{tuple(k.shape)}/{tuple(v.shape)} (head_dim must be one of {_HEAD_DIMS})"
         )
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q.dtype, q.device)
+        _check_operand(name, t, q.dtype if name == "q" else k.dtype, q.device)
     out = torch.empty((b, chunk, n_q, hd), dtype=q.dtype, device=q.device)
     if b == 0 or chunk == 0:
         return out
@@ -142,7 +145,7 @@ def launch_chunk_kernel(
         q_starts.data_ptr(), lengths.data_ptr(), k_starts.data_ptr(),
         None if flag is None else flag.data_ptr(),
         b, chunk, n_q, n_kv, kv_len, hd,
-        _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
+        _build.dtype_code(q.dtype), _build.dtype_code(k.dtype),
         strides,
         int(window or 0),
         float(hd**-0.5 if scale is None else scale),
@@ -151,6 +154,8 @@ def launch_chunk_kernel(
     )
     _build.check(err, "chunk_prefill_attention")
     count(chunk_prefill_attention)
+    if k.dtype == F8:
+        count(chunk_prefill_attention, "f8")
     return out
 
 
@@ -163,7 +168,8 @@ def chunk_prefill_attention(
     Args:
       q: [b, chunk, n_q, hd]; row r's token i sits at q_starts[r] + i.
       k_cache/v_cache: [b, n_kv, max_seq, hd] head-major, the chunk's own
-        keys already written.
+        keys already written; of q's dtype, f8 or wider than q
+        (``ops/kv_dtype.attention_dtype``).
       q_starts, lengths: [b] int32; lengths >= q_starts + valid chunk.
       window_flag: optional bool / 0-dim bool tensor gating ``window``.
       k_starts: optional [b] int32 first live key slot (left-padded rows).
@@ -187,3 +193,4 @@ def chunk_prefill_attention(
 
 
 chunk_prefill_attention.launches = 0
+chunk_prefill_attention.f8 = 0  # launches over an f8 cache

@@ -7,7 +7,8 @@
 #include "chunk_prefill.cuh"
 
 // q: [b, chunk, n_q, hd] and out through strides (qsb, qss, qsh) / (osb, oss,
-// osh); k, v: [b, n_kv, kv_len, hd] through (ksb, ksh, kss) / (vsb, vsh, vss);
+// osh), of dtype; k, v: [b, n_kv, kv_len, hd] of kv_dtype (dtype, or kF8)
+// through (ksb, ksh, kss) / (vsb, vsh, vss);
 // every stride in elements, hd contiguous. strides = {qsb, qss, qsh, ksb, ksh,
 // kss, vsb, vsh, vss, osb, oss, osh} in host memory. q_starts, lengths,
 // k_starts: [b] int32 on the device; flag: one int32 on the device or NULL
@@ -17,7 +18,8 @@ extern "C" int cake_chunk_prefill_attention(const void* q, const void* k, const 
                                             const void* lengths, const void* k_starts,
                                             const void* flag, int b, int chunk, int n_q,
                                             int n_kv, int kv_len, int head_dim, int dtype,
-                                            const long long* st, int window, float scale,
+                                            int kv_dtype, const long long* st, int window,
+                                            float scale,
                                             float softcap, void* stream) {
   using namespace cake;
   if (n_kv < 1 || n_q % n_kv) return (int)cudaErrorInvalidValue;
@@ -30,5 +32,5 @@ extern "C" int cake_chunk_prefill_attention(const void* q, const void* k, const 
                              b, chunk, n_q, n_q / n_kv,
                              st[0], st[1], st[2], st[9], st[10], st[11],
                              window, scale, softcap, static_cast<cudaStream_t>(stream)};
-  return run_chunk(dtype, head_dim, a);
+  return run_chunk(dtype, kv_dtype, head_dim, a);
 }

@@ -31,6 +31,14 @@
 // one is used. f32 takes chunk_kernel, the same loop on the CUDA cores:
 // 32-query tiles of one head, each thread a 4x4 block of scores.
 //
+// An f8 (e4m3) cache (KT = f8; T stays q's dtype): the tensor-core body
+// stages each K/V tile narrow, 128 bytes a key row where bf16 takes 256 at
+// head_dim 128 (by cp.async, into two stages), and after the wait
+// widens the current tile in shared memory into the T layout ldmatrix reads
+// (exact: every e4m3 value is an f16 and a bf16 value), so the products and
+// every bit after them are the T kernel's over the widened cache. The f32
+// body widens each 16-byte narrow load in registers into its f32 tile.
+//
 // Both bodies loop over 64-key tiles from the first key any row needs
 // (k_starts and the window) to the last (the causal end and lengths):
 // pruning is the loop bound, as the reference's block pruning. The tiles
@@ -66,9 +74,9 @@ struct ChunkSmem {
       (size_t)(CP_BQ + 2 * CP_BK) * LD * sizeof(T) + (size_t)CP_BQ * CP_BK * sizeof(float);
 };
 
-template <typename T, int D, typename Layout>
+template <typename T, typename KT, int D, typename Layout>
 __global__ void __launch_bounds__(CP_THREADS)
-chunk_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+chunk_kernel(const T* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
              T* __restrict__ out, const int* __restrict__ q_starts,
              const int* __restrict__ lengths, const int* __restrict__ k_starts,
              const int* __restrict__ flag, Layout layout, int chunk, int group, long long qsb,
@@ -121,16 +129,34 @@ chunk_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   // query's sums run over the same tiles in a cold prefill and a warm one.
   for (int kt = kbeg & ~(CP_BK - 1); kt < kend; kt += CP_BK) {
     __syncthreads();  // the previous tile's readers are done (and Q is loaded)
-    for (int idx = tid; idx < CP_BK * ROWV; idx += CP_THREADS) {
-      const int r = idx / ROWV;
-      const int c = (idx % ROWV) * VEC;
-      const int j = kt + r;
-      if (j >= kbeg && j < kend) {
-        copy16(sK + r * LD + c, k + cur.template k<D>(j) + c);
-        copy16(sV + r * LD + c, v + cur.template v<D>(j) + c);
-      } else {
-        zero16(sK + r * LD + c);
-        zero16(sV + r * LD + c);
+    if constexpr (std::is_same_v<KT, T>) {
+      for (int idx = tid; idx < CP_BK * ROWV; idx += CP_THREADS) {
+        const int r = idx / ROWV;
+        const int c = (idx % ROWV) * VEC;
+        const int j = kt + r;
+        if (j >= kbeg && j < kend) {
+          copy16(sK + r * LD + c, k + cur.template k<D>(j) + c);
+          copy16(sV + r * LD + c, v + cur.template v<D>(j) + c);
+        } else {
+          zero16(sK + r * LD + c);
+          zero16(sV + r * LD + c);
+        }
+      }
+    } else {  // e4m3: 16 narrow bytes a load, widened into the f32 tile
+      for (int idx = tid; idx < CP_BK * (D / 16); idx += CP_THREADS) {
+        const int r = idx / (D / 16);
+        const int c = (idx % (D / 16)) * 16;
+        const int j = kt + r;
+        float wk[16], wv[16];
+        if (j >= kbeg && j < kend) {
+          load_vec<KT, 16>(k + cur.template k<D>(j) + c, wk);
+          load_vec<KT, 16>(v + cur.template v<D>(j) + c, wv);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) wk[i] = wv[i] = 0.f;
+        }
+        store_vec<T, 16>(sK + r * LD + c, wk);
+        store_vec<T, 16>(sV + r * LD + c, wv);
       }
     }
     __syncthreads();
@@ -223,28 +249,38 @@ constexpr int TC_BM = 64;
 constexpr int TC_BK = 64;       // keys per tile, tiles at multiples of TC_BK
 constexpr int TC_THREADS = 128;
 
-template <typename T, int D>
+template <typename T, typename KT, int D>
 struct ChunkTcSmem {
   static constexpr int LD = D + 8;  // row stride, elements (16 bytes of padding: ldmatrix conflict-free)
-  // Q, then K and V in two stages each.
-  static constexpr size_t bytes = (size_t)(TC_BM + 4 * TC_BK) * LD * sizeof(T);
+  static constexpr bool NARROW = !std::is_same_v<KT, T>;  // an e4m3 cache
+  static constexpr int STAGES = NARROW ? 1 : 2;  // K/V tiles in T: the narrow ones stage twice
+  static constexpr int LD8 = D + 16;  // narrow row stride, bytes (16-byte aligned rows)
+  // Q, then K and V in T (two stages each, or the one widened tile), then
+  // the narrow K and V in two stages each.
+  static constexpr size_t bytes = (size_t)(TC_BM + 2 * STAGES * TC_BK) * LD * sizeof(T) +
+                                  (NARROW ? (size_t)4 * TC_BK * LD8 : 0);
 };
 
-template <typename T, int D, typename Layout>
+template <typename T, typename KT, int D, typename Layout>
 __global__ void __launch_bounds__(TC_THREADS)
-chunk_kernel_tc(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+chunk_kernel_tc(const T* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
                 T* __restrict__ out, const int* __restrict__ q_starts,
                 const int* __restrict__ lengths, const int* __restrict__ k_starts,
                 const int* __restrict__ flag, Layout layout, int chunk, int group, long long qsb,
                 long long qss, long long qsh, long long osb, long long oss, long long osh,
                 int window, float scale, float softcap) {
-  constexpr int LD = ChunkTcSmem<T, D>::LD;
-  constexpr int ROWV = D / 8;  // 16-byte copies per row
+  using Smem = ChunkTcSmem<T, KT, D>;
+  constexpr int LD = Smem::LD, LD8 = Smem::LD8;
+  constexpr bool NARROW = Smem::NARROW;
+  constexpr int ROWV = D / 8;  // 16-byte copies per row (T)
+  constexpr int ROW8 = D / 16; // 16-byte copies per row (e4m3)
   constexpr int DT = D / 8;    // n8 tiles of a warp's output
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);  // [TC_BM][LD]
-  T* sK = sQ + TC_BM * LD;                 // [2][TC_BK][LD]
-  T* sV = sK + 2 * TC_BK * LD;             // [2][TC_BK][LD]
+  T* sQ = reinterpret_cast<T*>(smem_raw);                 // [TC_BM][LD]
+  T* sK = sQ + TC_BM * LD;                                // [STAGES][TC_BK][LD]
+  T* sV = sK + Smem::STAGES * TC_BK * LD;                 // [STAGES][TC_BK][LD]
+  KT* sK8 = reinterpret_cast<KT*>(sV + Smem::STAGES * TC_BK * LD);  // NARROW: [2][TC_BK][LD8]
+  KT* sV8 = sK8 + 2 * TC_BK * LD8;                                  // NARROW: [2][TC_BK][LD8]
 
   const int kvh = blockIdx.y, row = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -270,14 +306,35 @@ chunk_kernel_tc(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const auto cur = layout.cursor(row, kvh);
   // Keys outside [kbeg, kend) land as zeros: no row of the block sees them.
   auto load_kv = [&](int kt, int s) {
-    for (int idx = tid; idx < TC_BK * ROWV; idx += TC_THREADS) {
-      const int r = idx / ROWV, c = (idx % ROWV) * 8;
-      const int j = kt + r;
-      const bool ok = j >= kbeg && j < kend;
-      T* dk = sK + (s * TC_BK + r) * LD + c;
-      T* dv = sV + (s * TC_BK + r) * LD + c;
-      cp_async16(dk, ok ? k + cur.template k<D>(j) + c : k, ok);
-      cp_async16(dv, ok ? v + cur.template v<D>(j) + c : v, ok);
+    if constexpr (NARROW) {
+      for (int idx = tid; idx < TC_BK * ROW8; idx += TC_THREADS) {
+        const int r = idx / ROW8, c = (idx % ROW8) * 16;
+        const int j = kt + r;
+        const bool ok = j >= kbeg && j < kend;
+        cp_async16(sK8 + (s * TC_BK + r) * LD8 + c, ok ? k + cur.template k<D>(j) + c : k, ok);
+        cp_async16(sV8 + (s * TC_BK + r) * LD8 + c, ok ? v + cur.template v<D>(j) + c : v, ok);
+      }
+    } else {
+      for (int idx = tid; idx < TC_BK * ROWV; idx += TC_THREADS) {
+        const int r = idx / ROWV, c = (idx % ROWV) * 8;
+        const int j = kt + r;
+        const bool ok = j >= kbeg && j < kend;
+        T* dk = sK + (s * TC_BK + r) * LD + c;
+        T* dv = sV + (s * TC_BK + r) * LD + c;
+        cp_async16(dk, ok ? k + cur.template k<D>(j) + c : k, ok);
+        cp_async16(dv, ok ? v + cur.template v<D>(j) + c : v, ok);
+      }
+    }
+  };
+  // NARROW: stage s's e4m3 tiles widened into the T tiles (zeros stay zeros).
+  auto widen_kv = [&](int s) {
+    for (int idx = tid; idx < TC_BK * ROW8; idx += TC_THREADS) {
+      const int r = idx / ROW8, c = (idx % ROW8) * 16;
+      float w[16];
+      load_vec<KT, 16>(sK8 + (s * TC_BK + r) * LD8 + c, w);
+      store_vec<T, 16>(sK + r * LD + c, w);
+      load_vec<KT, 16>(sV8 + (s * TC_BK + r) * LD8 + c, w);
+      store_vec<T, 16>(sV + r * LD + c, w);
     }
   };
 
@@ -300,8 +357,12 @@ chunk_kernel_tc(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     __syncthreads();  // tile kt (and Q) landed; every warp is done with the other stage
     if (kt + TC_BK < kend) load_kv(kt + TC_BK, s ^ 1);
     cp_async_commit();
-    const T* tK = sK + s * TC_BK * LD;
-    const T* tV = sV + s * TC_BK * LD;
+    const T* tK = sK + (NARROW ? 0 : s * TC_BK * LD);
+    const T* tV = sV + (NARROW ? 0 : s * TC_BK * LD);
+    if constexpr (NARROW) {
+      widen_kv(s);
+      __syncthreads();  // the widened tile is whole
+    }
     const int mi = lane >> 3;
 
     // S = Q K^T: 16 rows x 64 keys a warp, 8 n8 tiles.
@@ -411,52 +472,61 @@ struct ChunkArgs {
   cudaStream_t stream;
 };
 
-template <typename T, int D, typename Layout>
+template <typename T, typename KT, int D, typename Layout>
 static cudaError_t launch_chunk(const ChunkArgs<Layout>& a) {
   if constexpr (std::is_same_v<T, float>) {
-    auto kernel = chunk_kernel<T, D, Layout>;
+    auto kernel = chunk_kernel<T, KT, D, Layout>;
     const size_t smem = ChunkSmem<T, D>::bytes;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     dim3 grid((a.chunk + CP_BQ - 1) / CP_BQ, a.n_q, a.b);
     kernel<<<grid, CP_THREADS, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.q), static_cast<const KT*>(a.k), static_cast<const KT*>(a.v),
         static_cast<T*>(a.out), a.q_starts, a.lengths, a.k_starts, a.flag, a.layout, a.chunk,
         a.group, a.qsb, a.qss, a.qsh, a.osb, a.oss, a.osh, a.window, a.scale, a.softcap);
   } else {
-    auto kernel = chunk_kernel_tc<T, D, Layout>;
-    const size_t smem = ChunkTcSmem<T, D>::bytes;
+    auto kernel = chunk_kernel_tc<T, KT, D, Layout>;
+    const size_t smem = ChunkTcSmem<T, KT, D>::bytes;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     const long long pairs = (long long)a.chunk * a.group;
     dim3 grid((unsigned)((pairs + TC_BM - 1) / TC_BM), a.n_q / a.group, a.b);
     kernel<<<grid, TC_THREADS, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.q), static_cast<const KT*>(a.k), static_cast<const KT*>(a.v),
         static_cast<T*>(a.out), a.q_starts, a.lengths, a.k_starts, a.flag, a.layout, a.chunk,
         a.group, a.qsb, a.qss, a.qsh, a.osb, a.oss, a.osh, a.window, a.scale, a.softcap);
   }
   return cudaGetLastError();
 }
 
-template <typename T, typename Layout>
+template <typename T, typename KT, typename Layout>
 static cudaError_t chunk_by_head_dim(int head_dim, const ChunkArgs<Layout>& a) {
   switch (head_dim) {
-    case 64: return launch_chunk<T, 64>(a);
-    case 128: return launch_chunk<T, 128>(a);
-    case 256: return launch_chunk<T, 256>(a);
+    case 64: return launch_chunk<T, KT, 64>(a);
+    case 128: return launch_chunk<T, KT, 128>(a);
+    case 256: return launch_chunk<T, KT, 256>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The C entry points' common tail: validate, then dispatch on the dtype.
+// The cache's element type: the activations' (T), or e4m3.
+template <typename T, typename Layout>
+static cudaError_t chunk_by_kv(int kv_dtype, int head_dim, const ChunkArgs<Layout>& a) {
+  if (kv_dtype == kF8) return chunk_by_head_dim<T, f8>(head_dim, a);
+  return chunk_by_head_dim<T, T>(head_dim, a);
+}
+
+// The C entry points' common tail: validate, then dispatch on the dtype of
+// q and out (dtype) and of K/V (kv_dtype: dtype, or kF8).
 template <typename Layout>
-static int run_chunk(int dtype, int head_dim, const ChunkArgs<Layout>& a) {
+static int run_chunk(int dtype, int kv_dtype, int head_dim, const ChunkArgs<Layout>& a) {
   if (a.group < 1 || a.n_q % a.group) return (int)cudaErrorInvalidValue;
+  if (kv_dtype != dtype && kv_dtype != kF8) return (int)cudaErrorInvalidValue;
   if (a.chunk < 1 || a.b < 1) return (int)cudaSuccess;
   switch (dtype) {
-    case kF32: return (int)chunk_by_head_dim<float>(head_dim, a);
-    case kF16: return (int)chunk_by_head_dim<__half>(head_dim, a);
-    case kBF16: return (int)chunk_by_head_dim<__nv_bfloat16>(head_dim, a);
+    case kF32: return (int)chunk_by_kv<float>(kv_dtype, head_dim, a);
+    case kF16: return (int)chunk_by_kv<__half>(kv_dtype, head_dim, a);
+    case kBF16: return (int)chunk_by_kv<__nv_bfloat16>(kv_dtype, head_dim, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -46,12 +46,22 @@
 //   * the group size is a template parameter G (the group rounded up to 1,
 //     2, 4 or 8; padded query heads are zeros and never written), so the
 //     per-step warp reductions are straight-line shuffles with no branches.
+// An f8 (e4m3) cache is the same body with KT = f8: a lane loads its
+// head_dim/32 elements narrow (4 bytes at head_dim 128, half the bf16 load)
+// and widens them in registers (cvt.rn.f16x2.e4m3x2, exact), so which lane
+// and warp read which key, the split points, the grid (plan() takes no
+// dtype: f8 leaves the split length at DEC_SPLIT) and the merge order stay
+// the bf16 kernel's, and over the f8 values widened to T the two give the
+// same bits. The products stay in f32 on the widened values and p is
+// rounded to T, as the reference widens f8 K/V to q's dtype before its dots.
 // The tickets assume one launch at a time on them: the port's callers run
 // the decode kernels on one stream.
 #pragma once
 
 #include "common.cuh"
 #include "kv_layout.cuh"
+
+#include <type_traits>
 
 namespace cake {
 
@@ -64,9 +74,9 @@ static_assert(128 % DEC_SPLIT == 0, "a split must never straddle a page");
 // tiles in 128 registers a thread: 16 warps an SM.
 constexpr int DEC_SMALL_BLOCKS = DEC_WARPS < 16 ? 16 / DEC_WARPS : 1;
 
-template <typename T, int D, int G, typename Layout>
+template <typename T, typename KT, int D, int G, typename Layout>
 __global__ void __launch_bounds__(DEC_WARPS * 32, G * D <= 512 ? DEC_SMALL_BLOCKS : 1)
-split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+split_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
                     T* __restrict__ out, const int* __restrict__ lengths,
                     const int* __restrict__ starts, Layout layout, int n_kv, int group,
                     float scale, float softcap, float* __restrict__ part,
@@ -139,8 +149,8 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int t = 0; t < TK; ++t) {
         if (j0 + t >= start && j0 + t < length) {
-          load_vec<T, N>(k + base + (size_t)(r0 + t) * D, kr[t]);
-          load_vec<T, N>(v + base + (size_t)(r0 + t) * D, vr[t]);
+          load_vec<KT, N>(k + base + (size_t)(r0 + t) * D, kr[t]);
+          load_vec<KT, N>(v + base + (size_t)(r0 + t) * D, vr[t]);
         } else {
 #pragma unroll
           for (int i = 0; i < N; ++i) kr[t][i] = vr[t][i] = 0.f;
@@ -318,52 +328,71 @@ struct DecodeArgs {
   cudaStream_t stream;
 };
 
-template <typename T, int D, int G, typename Layout>
+template <typename T, typename KT, int D, int G, typename Layout>
 static cudaError_t launch_decode(const DecodeArgs<Layout>& a) {
-  auto kernel = split_decode_kernel<T, D, G, Layout>;
+  auto kernel = split_decode_kernel<T, KT, D, G, Layout>;
   const size_t smem = decode_smem<D, G>(a.n_split);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(a.n_kv, a.b, a.z);
   kernel<<<grid, DEC_WARPS * 32, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.q), static_cast<const KT*>(a.k), static_cast<const KT*>(a.v),
       static_cast<T*>(a.out), a.lengths, a.starts, a.layout, a.n_kv, a.group, a.scale,
       a.softcap, a.part, a.tickets, a.n_split);
   return cudaGetLastError();
 }
 
-template <typename T, int D, typename Layout>
+template <typename T, typename KT, int D, typename Layout>
 static cudaError_t decode_by_group(const DecodeArgs<Layout>& a) {
-  if (a.group <= 1) return launch_decode<T, D, 1>(a);
-  if (a.group <= 2) return launch_decode<T, D, 2>(a);
-  if (a.group <= 4) return launch_decode<T, D, 4>(a);
-  return launch_decode<T, D, DEC_MAXG>(a);
+  if (a.group <= 1) return launch_decode<T, KT, D, 1>(a);
+  if (a.group <= 2) return launch_decode<T, KT, D, 2>(a);
+  if (a.group <= 4) return launch_decode<T, KT, D, 4>(a);
+  return launch_decode<T, KT, D, DEC_MAXG>(a);
 }
 
-template <typename T, typename Layout>
+template <typename T, typename KT, typename Layout>
 static cudaError_t decode_by_head_dim(int head_dim, const DecodeArgs<Layout>& a) {
   switch (head_dim) {
-    case 64: return decode_by_group<T, 64>(a);
-    case 128: return decode_by_group<T, 128>(a);
-    case 256: return decode_by_group<T, 256>(a);
+    case 64: return decode_by_group<T, KT, 64>(a);
+    case 128: return decode_by_group<T, KT, 128>(a);
+    case 256: return decode_by_group<T, KT, 256>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The C entry points' common tail: validate, then dispatch on the dtype.
+// The kernels over a cache of element type KT (T: the activations' dtype).
+template <typename KT, typename Layout>
+static cudaError_t decode_by_dtype(int dtype, int head_dim, const DecodeArgs<Layout>& a) {
+  constexpr bool same = std::is_same_v<KT, void>;  // void: the cache in T
+  switch (dtype) {
+    case kF32: return decode_by_head_dim<float, std::conditional_t<same, float, KT>>(head_dim, a);
+    case kF16: return decode_by_head_dim<__half, std::conditional_t<same, __half, KT>>(head_dim, a);
+    case kBF16:
+      return decode_by_head_dim<__nv_bfloat16, std::conditional_t<same, __nv_bfloat16, KT>>(
+          head_dim, a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The e4m3 instantiations, each layout's in a translation unit of its own
+// (decode_attention_f8.cu, paged_decode_attention_f8.cu), so that they
+// compile in parallel with the rest.
+cudaError_t decode_f8(int dtype, int head_dim, const DecodeArgs<DenseLayout>& a);
+cudaError_t decode_f8(int dtype, int head_dim, const DecodeArgs<PagedLayout>& a);
+
+// The C entry points' common tail: validate, then dispatch on the dtype of
+// q and out (dtype) and of the cache (kv_dtype: dtype, or kF8).
 // `limit` is the layout's slot count; the scratch must hold n_split splits.
 template <typename Layout>
-static int run_decode(int dtype, int head_dim, int limit, const DecodeArgs<Layout>& a) {
+static int run_decode(int dtype, int kv_dtype, int head_dim, int limit,
+                      const DecodeArgs<Layout>& a) {
   if (a.group < 1 || a.group > DEC_MAXG) return (int)cudaErrorInvalidValue;
+  if (kv_dtype != dtype && kv_dtype != kF8) return (int)cudaErrorInvalidValue;
   if (a.b < 1) return (int)cudaSuccess;
   if ((long long)a.n_split * DEC_SPLIT < limit || a.z < 1 || a.z > 65535)
     return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case kF32: return (int)decode_by_head_dim<float>(head_dim, a);
-    case kF16: return (int)decode_by_head_dim<__half>(head_dim, a);
-    case kBF16: return (int)decode_by_head_dim<__nv_bfloat16>(head_dim, a);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (kv_dtype == kF8) return (int)decode_f8(dtype, head_dim, a);
+  return (int)decode_by_dtype<void>(dtype, head_dim, a);
 }
 
 }  // namespace cake

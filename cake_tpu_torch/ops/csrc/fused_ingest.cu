@@ -13,8 +13,15 @@
 // reads it from a scalar-prefetch ref, so a captured CUDA graph replays with
 // the slot its buffer holds at each replay. Every rope product and sum is
 // rounded on its own, as the plain path's separate ops round them, so q and
-// the written K/V are its bits.
+// the written K/V are its bits. A cache of another dtype KT (e4m3, or f32
+// under 16-bit activations) stores k rounded first to T, as the plain path's
+// rope returns it, then to KT, and v from T: narrow_f8 for e4m3, round to
+// nearest even with NaN past +-464 as the reference's astype. The vectors
+// stay plan()'s (by T): a thread's k pair writes 8 bytes of e4m3 where it
+// wrote 16 of bf16.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace cake {
 
@@ -30,10 +37,10 @@ struct alignas(N * sizeof(T)) Pack {
 // shared write slot (an int64 in device memory). Dense: the slot indexes
 // the cache's sequence axis. Paged: its page is slot / seq_stride (the page
 // size) and its offset in the page slot % seq_stride.
-template <typename T, int VR, int VV>
+template <typename T, typename KT, int VR, int VV>
 __global__ void ingest_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_rows,
                               const float* __restrict__ sin_rows, T* __restrict__ q_out,
-                              T* __restrict__ k_cache, T* __restrict__ v_cache,
+                              KT* __restrict__ k_cache, KT* __restrict__ v_cache,
                               const int* __restrict__ tables, const long long* __restrict__ slot,
                               int n_q, int n_kv, int hd, int rope_shift, int v_shift,
                               int seq_stride, int n_p, long long table_stride) {
@@ -86,33 +93,49 @@ __global__ void ingest_kernel(const T* __restrict__ qkv, const float* __restrict
       o1[i] = __fsub_rn(__fmul_rn(x1[i], c[i]), __fmul_rn(x2[i], s[i]));
       o2[i] = __fadd_rn(__fmul_rn(x2[i], c[i]), __fmul_rn(x1[i], s[i]));
     }
-    T* dst;
     if (head < n_q) {
-      dst = q_out + ((size_t)row * n_q + head) * hd;
+      T* dst = q_out + ((size_t)row * n_q + head) * hd;
+      store_vec<T, VR>(dst + j * VR, o1);
+      store_vec<T, VR>(dst + half + j * VR, o2);
     } else {
       if (base < 0) return;
-      dst = k_cache + base + (head - n_q) * head_stride;
+      KT* dst = k_cache + base + (head - n_q) * head_stride;
+      if constexpr (!std::is_same_v<KT, T>) {  // k as the plain rope returns it, in T
+#pragma unroll
+        for (int i = 0; i < VR; ++i) {
+          o1[i] = round_to<T>(o1[i]);
+          o2[i] = round_to<T>(o2[i]);
+        }
+      }
+      store_vec<KT, VR>(dst + j * VR, o1);
+      store_vec<KT, VR>(dst + half + j * VR, o2);
     }
-    store_vec<T, VR>(dst + j * VR, o1);
-    store_vec<T, VR>(dst + half + j * VR, o2);
   } else {
-    // v heads: copied into the slot.
+    // v heads: copied into the slot (narrowed or widened to KT).
     if (base < 0) return;
-    *reinterpret_cast<Pack<T, VV>*>(v_cache + base + head * head_stride + j * VV) = v;
+    KT* dst = v_cache + base + head * head_stride + j * VV;
+    if constexpr (std::is_same_v<KT, T>) {
+      *reinterpret_cast<Pack<T, VV>*>(dst) = v;
+    } else {
+      float w[VV];
+#pragma unroll
+      for (int i = 0; i < VV; ++i) w[i] = to_f(v.e[i]);
+      store_vec<KT, VV>(dst, w);
+    }
   }
 }
 
-template <typename T, int VR, int VV>
+template <typename T, typename KT, int VR, int VV>
 static cudaError_t launch_ingest(const void* qkv, const void* cos_rows, const void* sin_rows,
                                  void* q_out, void* k_cache, void* v_cache, const void* tables,
                                  const void* slot, int b, int n_q, int n_kv, int hd,
                                  int rope_shift, int v_shift, int seq_stride, int n_p,
                                  long long table_stride, int blocks, int threads,
                                  cudaStream_t stream) {
-  ingest_kernel<T, VR, VV><<<dim3(blocks, b), threads, 0, stream>>>(
+  ingest_kernel<T, KT, VR, VV><<<dim3(blocks, b), threads, 0, stream>>>(
       static_cast<const T*>(qkv), static_cast<const float*>(cos_rows),
-      static_cast<const float*>(sin_rows), static_cast<T*>(q_out), static_cast<T*>(k_cache),
-      static_cast<T*>(v_cache), static_cast<const int*>(tables),
+      static_cast<const float*>(sin_rows), static_cast<T*>(q_out), static_cast<KT*>(k_cache),
+      static_cast<KT*>(v_cache), static_cast<const int*>(tables),
       static_cast<const long long*>(slot), n_q, n_kv, hd, rope_shift, v_shift, seq_stride, n_p,
       table_stride);
   return cudaGetLastError();
@@ -120,7 +143,7 @@ static cudaError_t launch_ingest(const void* qkv, const void* cos_rows, const vo
 
 // The instantiation for the plan's vector counts (powers of two, at most
 // 16 bytes of T each).
-template <typename T>
+template <typename T, typename KT>
 static cudaError_t ingest_by_vectors(int vr, int vv, const void* qkv, const void* cs,
                                      const void* sn, void* q, void* kc, void* vc,
                                      const void* tb, const void* sl, int b, int n_q, int n_kv,
@@ -129,8 +152,8 @@ static cudaError_t ingest_by_vectors(int vr, int vv, const void* qkv, const void
   constexpr int MAXV = 16 / (int)sizeof(T);
 #define CAKE_INGEST(R, V)                                                                      \
   if (vr == R && vv == V)                                                                      \
-    return launch_ingest<T, R, V>(qkv, cs, sn, q, kc, vc, tb, sl, b, n_q, n_kv, hd, rs, vs,    \
-                                  seq, n_p, ts, blocks, threads, st);
+    return launch_ingest<T, KT, R, V>(qkv, cs, sn, q, kc, vc, tb, sl, b, n_q, n_kv, hd, rs, vs, \
+                                      seq, n_p, ts, blocks, threads, st);
 #define CAKE_INGEST_V(R) CAKE_INGEST(R, 1) CAKE_INGEST(R, 2) CAKE_INGEST(R, 4)
   CAKE_INGEST_V(1)
   CAKE_INGEST_V(2)
@@ -146,14 +169,26 @@ static cudaError_t ingest_by_vectors(int vr, int vv, const void* qkv, const void
   return cudaErrorInvalidValue;
 }
 
+// The cache's element type: the activations' (T), e4m3, or f32 (wider than
+// a 16-bit T).
+template <typename T, typename... Args>
+static cudaError_t ingest_by_kv(int kv_dtype, Args... args) {
+  if (kv_dtype == kF8) return ingest_by_vectors<T, f8>(args...);
+  if constexpr (!std::is_same_v<T, float>) {
+    if (kv_dtype == kF32) return ingest_by_vectors<T, float>(args...);
+  }
+  return ingest_by_vectors<T, T>(args...);
+}
+
 }  // namespace cake
 
 // qkv: [b, (n_q + 2 n_kv) hd]; cos_rows/sin_rows: [b, hd/2] f32; q_out:
 // [b, n_q, hd]; slot: one int64 in device memory, the shared write slot.
 // tables == NULL: dense cache [b, n_kv, seq_stride, hd], the write at the
 // slot. Otherwise tables [b, n_p] int32 (row stride table_stride) and the
-// pool [P, n_kv, seq_stride = page size, hd]. All contiguous, one dtype for
-// qkv, q and the cache, every base 16-byte aligned. The geometry is
+// pool [P, n_kv, seq_stride = page size, hd]. All contiguous; qkv and q of
+// dtype, the cache of kv_dtype (dtype, kF8, or kF32 under a 16-bit dtype);
+// every base 16-byte aligned. The geometry is
 // ops/fused_ingest.plan()'s: `blocks` x `threads` a row, vectors of `vr`
 // (q/k) and `vv` (v) elements, 2^rope_shift threads a q/k head and
 // 2^v_shift a v head. Returns the launch's error.
@@ -163,22 +198,23 @@ extern "C" int cake_fused_qkv_ingest(const void* qkv, const void* cos_rows, cons
                                      int n_kv, int hd, int seq_stride, int n_p,
                                      long long table_stride, int blocks, int threads, int vr,
                                      int vv, int rope_shift, int v_shift, int dtype,
-                                     void* stream) {
+                                     int kv_dtype, void* stream) {
   using namespace cake;
   if (b < 1) return (int)cudaSuccess;
   if (hd < 2 || hd % 2 || seq_stride < 1 || slot == nullptr || (tables != nullptr && n_p < 1) ||
       blocks < 1 || threads < 1 || threads > 1024 || (hd / 2) % vr || hd % vv ||
       (1 << rope_shift) * vr < hd / 2 || (1 << v_shift) * vv < hd ||
-      (long long)blocks * threads < ((long long)(n_q + n_kv) << rope_shift) + (n_kv << v_shift))
+      (long long)blocks * threads < ((long long)(n_q + n_kv) << rope_shift) + (n_kv << v_shift) ||
+      !(kv_dtype == dtype || kv_dtype == kF8 || (kv_dtype == kF32 && dtype != kF32)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CAKE_INGEST_ARGS                                                                    \
   vr, vv, qkv, cos_rows, sin_rows, q_out, k_cache, v_cache, tables, slot, b, n_q, n_kv, hd, \
       rope_shift, v_shift, seq_stride, n_p, table_stride, blocks, threads, s
   switch (dtype) {
-    case kF32: return (int)ingest_by_vectors<float>(CAKE_INGEST_ARGS);
-    case kF16: return (int)ingest_by_vectors<__half>(CAKE_INGEST_ARGS);
-    case kBF16: return (int)ingest_by_vectors<__nv_bfloat16>(CAKE_INGEST_ARGS);
+    case kF32: return (int)ingest_by_kv<float>(kv_dtype, CAKE_INGEST_ARGS);
+    case kF16: return (int)ingest_by_kv<__half>(kv_dtype, CAKE_INGEST_ARGS);
+    case kBF16: return (int)ingest_by_kv<__nv_bfloat16>(kv_dtype, CAKE_INGEST_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CAKE_INGEST_ARGS

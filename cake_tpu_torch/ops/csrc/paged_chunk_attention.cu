@@ -19,7 +19,8 @@
 // q: [b, chunk, n_q, hd], out the same, through strides (qsb, qss, qsh) /
 // (osb, oss, osh) in elements, hd contiguous; k, v: one layer's pool
 // [n_pages + 1, n_kv, page_size, hd], contiguous; tables: [b, n_p] int32 with
-// row stride table_stride. q_starts, lengths, k_starts: [b] int32 on the
+// row stride table_stride; q and out of dtype, the pool of kv_dtype (dtype,
+// or kF8). q_starts, lengths, k_starts: [b] int32 on the
 // device; flag: one int32 on the device or NULL (= window always on); window
 // <= 0 = none; softcap <= 0 = none.
 extern "C" int cake_paged_chunk_attention(const void* q, const void* k, const void* v,
@@ -27,7 +28,7 @@ extern "C" int cake_paged_chunk_attention(const void* q, const void* k, const vo
                                           const void* k_starts, const void* tables,
                                           const void* flag, int b, int chunk, int n_q, int n_kv,
                                           int page_size, int n_p, long long table_stride,
-                                          int head_dim, int dtype, long long qsb,
+                                          int head_dim, int dtype, int kv_dtype, long long qsb,
                                           long long qss, long long qsh, long long osb,
                                           long long oss, long long osh, int window,
                                           float scale, float softcap, void* stream) {
@@ -43,5 +44,5 @@ extern "C" int cake_paged_chunk_attention(const void* q, const void* k, const vo
                            b, chunk, n_q, n_q / n_kv,
                            qsb, qss, qsh, osb, oss, osh,
                            window, scale, softcap, static_cast<cudaStream_t>(stream)};
-  return run_chunk(dtype, head_dim, a);
+  return run_chunk(dtype, kv_dtype, head_dim, a);
 }

@@ -15,8 +15,8 @@
 // lookup is one 4-byte load a split of DEC_SPLIT key rows.
 #include "decode_attention.cuh"
 
-// q, out: [b, n_q, head_dim]; k, v: one layer's pool [n_pages + 1, n_kv,
-// page_size, head_dim], contiguous. lengths, starts: [b] int32 (window folded
+// q, out: [b, n_q, head_dim] of dtype; k, v: one layer's pool [n_pages + 1,
+// n_kv, page_size, head_dim] of kv_dtype (dtype, or kF8), contiguous. lengths, starts: [b] int32 (window folded
 // into starts); tables: [b, n_p] int32 with row stride table_stride
 // (elements), head_dim contiguous. softcap <= 0 means none. part, tickets,
 // n_split (= ceil(n_p * page_size / DEC_SPLIT)) and z: as cake_decode_attention.
@@ -25,8 +25,8 @@ extern "C" int cake_paged_decode_attention(const void* q, const void* k, const v
                                            const void* tables, void* part, void* tickets, int b,
                                            int n_kv, int group, int page_size, int n_p,
                                            long long table_stride, int head_dim, int dtype,
-                                           float scale, float softcap, int n_split, int z,
-                                           void* stream) {
+                                           int kv_dtype, float scale, float softcap,
+                                           int n_split, int z, void* stream) {
   using namespace cake;
   if (page_size < 1 || n_p < 1 || page_size % DEC_SPLIT) return (int)cudaErrorInvalidValue;
   DecodeArgs<PagedLayout> a{q, k, v, out,
@@ -36,5 +36,5 @@ extern "C" int cake_paged_decode_attention(const void* q, const void* k, const v
                             b, n_kv, group, scale, softcap,
                             static_cast<float*>(part), static_cast<int*>(tickets), n_split, z,
                             static_cast<cudaStream_t>(stream)};
-  return run_decode(dtype, head_dim, n_p * page_size, a);
+  return run_decode(dtype, kv_dtype, head_dim, n_p * page_size, a);
 }

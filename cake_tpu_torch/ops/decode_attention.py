@@ -17,7 +17,8 @@ the call. :func:`plan` sizes the grid ``(n_kv, b, z)`` from the shapes alone
 (never from ``lengths``: no host sync, so a CUDA graph can replay it); the
 blocks find their row's live splits on the device and stride over them, and
 each split's block reads its keys once for all query heads of the group
-(eight warps, coalesced vector loads, the warps merged in order) and writes
+(eight warps, coalesced vector loads, the warps merged in order; an f8
+cache is loaded narrow, half the bytes, and widened in registers) and writes
 an f32 partial (max, sum, acc). The last block of a (row, KV head), by an
 atomic ticket, merges the partials in ascending split order. The tickets
 (ops/tickets.py) are a zeroed buffer that every call leaves at zero; they
@@ -37,10 +38,10 @@ import torch
 
 from cake_tpu_torch.ops import _build
 from cake_tpu_torch.ops.attention import masked_gqa_attention_hm
+from cake_tpu_torch.ops.kv_dtype import F8, attention_dtype
 from cake_tpu_torch.ops.launches import count
 from cake_tpu_torch.ops.tickets import tickets
 
-_KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
 _MAX_GROUP = 8
 # Geometry shared with csrc/decode_attention.cuh.
@@ -157,7 +158,9 @@ def decode_attention(
     """Single-position GQA attention against the cache.
 
     Args:
-      q: [b, 1, n_q, hd]; k_cache/v_cache: [b, n_kv, max_seq, hd] head-major.
+      q: [b, 1, n_q, hd]; k_cache/v_cache: [b, n_kv, max_seq, hd] head-major,
+        of q's dtype, f8 (widened exactly, computed in q's dtype) or wider
+        than q (``ops/kv_dtype.attention_dtype``).
       lengths: [b] int32 live prefix per row (the current token is written).
       starts: optional [b] int32 first live slot per row (None = 0); every
         row needs starts < lengths.
@@ -177,15 +180,12 @@ def decode_attention(
     b, q_len, n_q, hd = q.shape
     if q_len != 1:
         raise ValueError(f"decode_attention takes one position, got q_len={q_len}")
-    if k_cache.dtype == torch.float8_e4m3fn or v_cache.dtype == torch.float8_e4m3fn:
-        raise NotImplementedError(
-            "decode_attention: f8 KV caches are not ported yet (ROADMAP.md)"
-        )
-    if q.dtype not in _KERNEL_DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise ValueError(
-            f"decode_attention: q/k/v dtypes {q.dtype}/{k_cache.dtype}/"
-            f"{v_cache.dtype} must match and be one of {_KERNEL_DTYPES}"
-        )
+    wide = attention_dtype("decode_attention", q.dtype, k_cache.dtype, v_cache.dtype)
+    if wide != q.dtype:  # a wider cache: the query upcast exactly, the output cast back
+        return decode_attention(
+            q.to(wide), k_cache, v_cache, lengths, starts, window_flag,
+            window=window, scale=scale, softcap=softcap,
+        ).to(q.dtype)
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"decode_attention: cache shapes {k_cache.shape} / {v_cache.shape}")
     kb, n_kv, max_seq, khd = k_cache.shape
@@ -211,14 +211,17 @@ def decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         lengths.data_ptr(), starts.data_ptr(), part.data_ptr(), ticket_buf.data_ptr(),
         b, n_kv, n_q // n_kv, max_seq, hd,
-        _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
+        _build.dtype_code(q.dtype), _build.dtype_code(k_cache.dtype),
         float(hd**-0.5 if scale is None else scale),
         float(softcap or 0.0), p.n_split, p.z,
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     _build.check(err, "decode_attention")
     count(decode_attention)
+    if k_cache.dtype == F8:
+        count(decode_attention, "f8")
     return out
 
 
 decode_attention.launches = 0
+decode_attention.f8 = 0  # launches over an f8 cache

@@ -27,8 +27,13 @@ chunk's slot forever (models/llama/fused.py). Each thread ropes its pairs in
 f32 with the plain path's rounding, every product and sum rounded on its own
 (``__fmul_rn``, ``__fsub_rn``, ``__fadd_rn``; a contracted FMA would differ
 in the last bit), casts back with round-to-nearest-even, and stores q, or k
-at the row's cache slot; v is copied. So q and the written K/V are the plain
-path's bits. The paged variant resolves the slot through the block table
+at the row's cache slot; v is copied. A cache of another dtype (f8, or f32
+under 16-bit activations) takes k and v as the plain path's ``narrow`` does:
+k from its activation-dtype rounding (the JAX package's ingest ropes in f32,
+casts back to the activations' dtype, then to the cache's), v as it comes,
+f8 rounded to nearest even with NaN past +-464 (``__NV_SATFINITE`` below
+464, NaN above it: the reference's ``astype``, not a saturating cast). So q
+and the written K/V are the plain path's bits. The paged variant resolves the slot through the block table
 like ``write_plan``: the logical page is clamped into the table before the
 lookup, and an unmapped (< 0) or past-the-table entry drops the write, where
 the plain path sends it to the pool's sink page. A dense slot outside the
@@ -49,6 +54,7 @@ import torch
 from cake_tpu_torch.models.llama.cache import write_layer
 from cake_tpu_torch.models.llama.paged_cache import paged_write_layer
 from cake_tpu_torch.ops import _build
+from cake_tpu_torch.ops.kv_dtype import F8
 from cake_tpu_torch.ops.launches import count
 from cake_tpu_torch.ops.rope import apply_rope
 
@@ -131,7 +137,8 @@ def fused_qkv_ingest(qkv, cos, sin, slot, k_cache, v_cache, *, n_q: int, n_kv: i
         int, checked here and written into a new such tensor.
       k_cache/v_cache: one layer's dense cache [b, n_kv, max_seq, hd], or
         with ``block_tables`` ([b, n_p] int32) its page pool
-        [n_pages + 1, n_kv, page_size, hd]; written in place.
+        [n_pages + 1, n_kv, page_size, hd]; written in place; of qkv's
+        dtype, f8, or f32 under 16-bit activations.
 
     Returns q [b, 1, n_q, hd] roped, in qkv's dtype."""
     if qkv.device.type == "cpu":
@@ -140,8 +147,6 @@ def fused_qkv_ingest(qkv, cos, sin, slot, k_cache, v_cache, *, n_q: int, n_kv: i
         )
     if qkv.device.type != "cuda":
         raise ValueError(f"fused_qkv_ingest: unsupported device {qkv.device}")
-    if k_cache.dtype == torch.float8_e4m3fn or v_cache.dtype == torch.float8_e4m3fn:
-        raise NotImplementedError("fused_qkv_ingest: f8 KV caches are not ported yet (ROADMAP.md)")
     b, one, width = qkv.shape
     heads = n_q + 2 * n_kv
     hd = width // heads
@@ -149,10 +154,17 @@ def fused_qkv_ingest(qkv, cos, sin, slot, k_cache, v_cache, *, n_q: int, n_kv: i
         raise ValueError(
             f"fused_qkv_ingest: qkv {tuple(qkv.shape)} is not one token of {heads} heads"
         )
-    if qkv.dtype not in _KERNEL_DTYPES or k_cache.dtype != qkv.dtype or v_cache.dtype != qkv.dtype:
+    if {qkv.dtype, k_cache.dtype} == {torch.float16, torch.bfloat16}:
+        raise NotImplementedError(
+            f"fused_qkv_ingest: a {k_cache.dtype} cache under {qkv.dtype} activations is not "
+            "ported (ROADMAP.md, queue B item 1: same-width cross-dtype caches)"
+        )
+    if qkv.dtype not in _KERNEL_DTYPES or v_cache.dtype != k_cache.dtype or not (
+            k_cache.dtype in (qkv.dtype, F8)
+            or (k_cache.dtype == torch.float32 and qkv.dtype != torch.float32)):
         raise ValueError(
-            f"fused_qkv_ingest: qkv/k/v dtypes {qkv.dtype}/{k_cache.dtype}/{v_cache.dtype} must "
-            f"match and be one of {_KERNEL_DTYPES}"
+            f"fused_qkv_ingest: qkv/k/v dtypes {qkv.dtype}/{k_cache.dtype}/{v_cache.dtype}: qkv "
+            f"must be one of {_KERNEL_DTYPES}, the cache of its dtype, f8 or f32"
         )
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape or k_cache.shape[1] != n_kv \
             or k_cache.shape[3] != hd:
@@ -195,7 +207,7 @@ def fused_qkv_ingest(qkv, cos, sin, slot, k_cache, v_cache, *, n_q: int, n_kv: i
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("fused_qkv_ingest: the cache must be contiguous (it is written in place)")
     p = plan(b, n_q, n_kv, hd, qkv.dtype)
-    align = p.vec_v * qkv.element_size()  # the v vector, the widest access to the cache
+    align = p.vec_v * k_cache.element_size()  # the v vector, the widest access to the cache
     if k_cache.data_ptr() % align or v_cache.data_ptr() % align:
         raise ValueError(
             f"fused_qkv_ingest: the cache must start at a {align}-byte aligned address")
@@ -212,12 +224,15 @@ def fused_qkv_ingest(qkv, cos, sin, slot, k_cache, v_cache, *, n_q: int, n_kv: i
         None if tables is None else tables.data_ptr(), slot.data_ptr(),
         b, n_q, n_kv, hd, k_cache.shape[2], n_p, table_stride,
         p.blocks, p.threads, p.vec_rope, p.vec_v, p.rope_shift, p.v_shift,
-        _build.DTYPE_CODES[str(qkv.dtype).removeprefix("torch.")],
+        _build.dtype_code(qkv.dtype), _build.dtype_code(k_cache.dtype),
         ctypes.c_void_p(torch.cuda.current_stream(qkv.device).cuda_stream),
     )
     _build.check(err, "fused_qkv_ingest")
     count(fused_qkv_ingest)
+    if k_cache.dtype == F8:
+        count(fused_qkv_ingest, "f8")
     return q
 
 
 fused_qkv_ingest.launches = 0
+fused_qkv_ingest.f8 = 0  # launches over an f8 cache

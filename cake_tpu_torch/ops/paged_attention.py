@@ -38,6 +38,7 @@ import torch
 from cake_tpu_torch.models.llama.paged_cache import gather_pages
 from cake_tpu_torch.ops import _build
 from cake_tpu_torch.ops.decode_attention import decode_masked, row_bounds, split_launch
+from cake_tpu_torch.ops.kv_dtype import F8, attention_dtype
 from cake_tpu_torch.ops.launches import count
 from cake_tpu_torch.ops.paged_prefill import check_paged_operands
 
@@ -70,7 +71,8 @@ def paged_decode_attention(
       q: [b, 1, n_q, hd].
       k_pages/v_pages: one layer's pool [n_pages + 1, n_kv, page_size, hd]
         (models/llama/paged_cache.py); the kernel takes page sizes that are
-        multiples of 128.
+        multiples of 128, and pools of q's dtype, f8 or wider than q
+        (``ops/kv_dtype.attention_dtype``).
       lengths: [b] int32 live prefix per row (the current token is written).
       block_tables: [b, n_p] int32 physical page per logical page; entries
         < 0 are unmapped (legal only outside [start, length)).
@@ -89,6 +91,12 @@ def paged_decode_attention(
     b, q_len, n_q, hd = q.shape
     if q_len != 1:
         raise ValueError(f"paged_decode_attention takes one position, got q_len={q_len}")
+    wide = attention_dtype("paged_decode_attention", q.dtype, k_pages.dtype, v_pages.dtype)
+    if wide != q.dtype:  # a wider pool: the query upcast exactly, the output cast back
+        return paged_decode_attention(
+            q.to(wide), k_pages, v_pages, lengths, block_tables, starts, window_flag,
+            window=window, scale=scale, softcap=softcap,
+        ).to(q.dtype)
     n_kv, page_size, n_p, stride = check_paged_operands(
         "paged_decode_attention", q, k_pages, v_pages, block_tables, max_group=8
     )
@@ -105,14 +113,17 @@ def paged_decode_attention(
         lengths.data_ptr(), starts.data_ptr(), block_tables.data_ptr(),
         part.data_ptr(), tickets.data_ptr(),
         b, n_kv, n_q // n_kv, page_size, n_p, stride, hd,
-        _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
+        _build.dtype_code(q.dtype), _build.dtype_code(k_pages.dtype),
         float(hd**-0.5 if scale is None else scale),
         float(softcap or 0.0), p.n_split, p.z,
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     _build.check(err, "paged_decode_attention")
     count(paged_decode_attention)
+    if k_pages.dtype == F8:
+        count(paged_decode_attention, "f8")
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.f8 = 0  # launches over an f8 cache

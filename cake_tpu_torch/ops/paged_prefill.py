@@ -36,9 +36,9 @@ import torch
 from cake_tpu_torch.models.llama.paged_cache import gather_pages
 from cake_tpu_torch.ops import _build
 from cake_tpu_torch.ops.chunk_prefill import as_rows, chunk_masked
+from cake_tpu_torch.ops.kv_dtype import F8, attention_dtype
 from cake_tpu_torch.ops.launches import count
 
-_KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
 _PAGE_MULTIPLE = 128
 
@@ -50,18 +50,14 @@ def paged_kernel_supported(page_size: int) -> bool:
 
 
 def check_paged_operands(name, q, k_pages, v_pages, block_tables, max_group=None):
-    """Validate what the paged kernels take; returns (n_kv, page_size, n_p,
-    table row stride). Raises NotImplementedError for f8 pools and
-    ValueError for anything else the kernels do not take."""
+    """Validate what the paged kernels take, for q already in the dtype
+    they compute in (``ops/kv_dtype.attention_dtype``); returns (n_kv,
+    page_size, n_p, table row stride). Raises ValueError for anything the
+    kernels do not take."""
     hd = q.shape[-1]
     n_q = q.shape[2]
-    if torch.float8_e4m3fn in (k_pages.dtype, v_pages.dtype):
-        raise NotImplementedError(f"{name}: f8 KV pools are not ported yet (ROADMAP.md)")
-    if q.dtype not in _KERNEL_DTYPES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise ValueError(
-            f"{name}: q/k/v dtypes {q.dtype}/{k_pages.dtype}/{v_pages.dtype} must "
-            f"match and be one of {_KERNEL_DTYPES}"
-        )
+    if attention_dtype(name, q.dtype, k_pages.dtype, v_pages.dtype) != q.dtype:
+        raise ValueError(f"{name}: q must come in the dtype the kernel computes in")
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"{name}: pool shapes {tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
     _, n_kv, page_size, khd = k_pages.shape
@@ -122,7 +118,8 @@ def paged_chunk_attention(
     Args:
       q: [b, chunk, n_q, hd]; row r's token i sits at slot q_starts[r] + i,
         the chunk's own keys already written through the block table.
-      k_pages/v_pages: one layer's pool [n_pages + 1, n_kv, page_size, hd].
+      k_pages/v_pages: one layer's pool [n_pages + 1, n_kv, page_size, hd],
+        of q's dtype, f8 or wider than q (``ops/kv_dtype.attention_dtype``).
       q_starts, lengths, k_starts: [b] int32 (first query slot, live prefix,
         first live key slot).
       block_tables: [b, n_p] int32; entries < 0 are unmapped (legal only
@@ -141,6 +138,12 @@ def paged_chunk_attention(
         raise ValueError(f"paged_chunk_attention: unsupported device {q.device}")
     if q.dim() != 4:
         raise ValueError("paged_chunk_attention: q must be [b, chunk, n_q, hd]")
+    wide = attention_dtype("paged_chunk_attention", q.dtype, k_pages.dtype, v_pages.dtype)
+    if wide != q.dtype:  # a wider pool: the query upcast exactly, the output cast back
+        return paged_chunk_attention(
+            q.to(wide), k_pages, v_pages, q_starts, lengths, k_starts, block_tables, window_flag,
+            window=window, scale=scale, softcap=softcap,
+        ).to(q.dtype)
     n_kv, page_size, n_p, stride = check_paged_operands(
         "paged_chunk_attention", q, k_pages, v_pages, block_tables
     )
@@ -168,7 +171,7 @@ def paged_chunk_attention(
         q_starts.data_ptr(), lengths.data_ptr(), k_starts.data_ptr(),
         block_tables.data_ptr(), None if flag is None else flag.data_ptr(),
         b, chunk, n_q, n_kv, page_size, n_p, stride, hd,
-        _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
+        _build.dtype_code(q.dtype), _build.dtype_code(k_pages.dtype),
         q.stride(0), q.stride(1), q.stride(2), out.stride(0), out.stride(1), out.stride(2),
         int(window or 0),
         float(hd**-0.5 if scale is None else scale),
@@ -177,7 +180,10 @@ def paged_chunk_attention(
     )
     _build.check(err, "paged_chunk_attention")
     count(paged_chunk_attention)
+    if k_pages.dtype == F8:
+        count(paged_chunk_attention, "f8")
     return out
 
 
 paged_chunk_attention.launches = 0
+paged_chunk_attention.f8 = 0  # launches over an f8 cache

@@ -64,9 +64,10 @@ def _decode_chunk(backend, kv, n: int, tok, ring, s, make_forward, **shapes) -> 
     """The backend's DecodeChunk for a chunk of ``n`` steps over ``tok``'s
     lanes with knobs ``s``, built at its first use: ``make_forward(**extra)``
     over the static int32 ``extra`` buffers of ``shapes`` (pads, block
-    tables), which the key holds too."""
+    tables), which the key holds too, as it holds the KV dtype: a graph
+    never replays over a cache of another dtype."""
     key = (n, tok.shape[0], ring.shape[1], s.temperature, s.top_k, s.top_p, s.repeat_penalty,
-           *sorted(shapes.items()))
+           kv.k.dtype, *sorted(shapes.items()))
     chunk = backend._chunks.get(key)
     if chunk is None:
         extra = {name: torch.zeros(shape, dtype=torch.int32, device=backend.device)

@@ -54,6 +54,20 @@ nonzero exit and no final result line:
                kernel names a trace of the case's call records (a second
                call, after a warm-up call). The decode kernels' cases
                cover lengths to 8192 keys, starts, window and softcap.
+               The f8 KV cases (``--kv-dtype f8``): the five functions that
+               read or write the cache over float8_e4m3fn K/V, each beside
+               its bf16 case and with its bytes bound (the K/V bytes
+               halved): decode and chunk at the main path's operands and
+               the dense engine's, the paged kernels at the paged engine's
+               recorded wave-1 operands ("main_path_f8"), each within TOL of
+               its plain version on the same f8 contents (library_ms: SDPA
+               over the cache widened to bf16, PyTorch having no call that
+               reads f8); "f8_bits" (gated): at the engine's operands each
+               paged f8 kernel equals, to the bit, itself over the pool
+               widened to bf16 and the dense f8 kernel over the pages
+               gathered; fused_qkv_ingest dense b=1 and paged b=8 into f8,
+               bitwise, with six k/v values past +-464 that must come back
+               NaN.
   4. generate  Llama-3-8B at full width and depth, random bf16 weights drawn
                on the card from a seeded torch.Generator: a ~700 byte-token
                prompt prefilled in 256-token chunks (the position-0 and the
@@ -110,6 +124,22 @@ nonzero exit and no final result line:
                against the plain path (cosine >= 0.999). TTFT, ms per decode
                step, device ops and ms per step (by kernel family) and the device
                idle share of each.
+  9b. generate_f8  the generate phase's weights over an f8 KV cache: the
+               same prompt, 64 greedy tokens per token and in 8-token
+               graph-replayed chunks (equal streams), every decode and
+               continuation launch over f8 (the wrappers' ``f8`` side
+               counts, gated), graph against eager to the bit (greedy and
+               sampled), full-width logits through the f8 kernels against
+               the plain versions; wall and device ms a token, the KV bytes
+               beside bf16's, greedy agreement with the bf16 stream.
+  9c. engine_f8  the batch engine over an f8 cache, one engine at a time:
+               paged (prefix cache on: wave 1 cold, then warm) and dense
+               (wave 1), each with fusion "none" and "all": launches over
+               f8 gated; paged = dense 8/8 and warm = cold 8/8 under each
+               fusion, gated; the four full-width forwards through the f8
+               kernels against the plain versions; the f8 pool half the
+               bf16 pool's bytes (gated); ms a step, device ms by family,
+               TTFT.
  10. generate_int4  the generate phase's weights quantized on the card
                to int4 (``quantize_params``, one layer at a time), the same
                prompt and 64 greedy tokens per token and with 8-token
@@ -151,14 +181,17 @@ nonzero exit and no final result line:
                by the port's save_tiny_checkpoint: one prompt, the same with
                ``--fusion all --decode-chunk 4``, with ``--quantize int4``,
                a ``.q4`` checkpoint (save_tiny_checkpoint over an int4 tree)
-               with no flag, then a ``--api-batch 4 --kv-mode paged`` server
-               that answers a chat.
+               with no flag, ``--kv-dtype f8``, then a ``--api-batch 4
+               --kv-mode paged`` server that answers a chat, and the same
+               with ``--kv-dtype f8``.
  15.           ``{"kernels": [...]}``: one entry per kernel with its launches
                on the main path (the fused and int4 phases for their
                kernels) and its timings at the main path's shapes; the
                redesigned kernels also carry "redesigned" (the PR) and the
                instructions their cases ran on; int4_matmul's the
-               wgmma-bits answer.
+               wgmma-bits answer; then the f8 instantiations of the five
+               kernels that read or write the cache ("<name>_f8", launches
+               over f8 in the f8 phases).
  16.           ``{"ok": true, "device": {...}}`` as the last line.
 
 On the card every decode chunk (the generator's ``decode_chunk`` and both
@@ -188,6 +221,8 @@ import time
 
 STARTED = time.perf_counter()
 TOL = 2e-2  # bf16 outputs of f32-accumulated attention, max-abs vs the plain version
+# An f8 case's library_ms: PyTorch has no call that reads an f8 cache.
+F8_LIBRARY = "scaled_dot_product_attention over the same cache widened to bf16"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 N_Q, N_KV, HD = 32, 8, 128  # Llama-3-8B attention shapes
@@ -385,7 +420,7 @@ def bf16_ulp(ref) -> float:
 
 
 def _check(torch, name, case, out, ref, ms, plain_ms, nbytes, flops, library_ms, copies=1,
-           exact=False, cosine=False, tol=TOL, route=None):
+           exact=False, cosine=False, tol=TOL, route=None, extra=None):
     """Emit a kernel case's row and hold ``out`` to ``ref``: within ``tol``
     max-abs (and, with ``cosine``, at cosine >= COS_TOL), or with ``exact``
     equal to the bit (fused_qkv_ingest's outputs, fused_sample_tail's ids,
@@ -402,6 +437,7 @@ def _check(torch, name, case, out, ref, ms, plain_ms, nbytes, flops, library_ms,
     }
     if route is not None:
         row["route"] = route
+    row.update(extra or {})
     if cosine:
         row["cosine"] = torch.nn.functional.cosine_similarity(
             out.float().flatten(), ref.float().flatten(), dim=0).item()
@@ -418,20 +454,30 @@ def _check(torch, name, case, out, ref, ms, plain_ms, nbytes, flops, library_ms,
     return row
 
 
-def _decode_case(torch, dev, g, case, lens, starts, kw, max_seq=MAX_SEQ, cold=False):
-    """One decode_attention case over a [b, n_kv, max_seq, hd] cache; a cold
-    case rotates over copies of its cache, one per call."""
+def _kv_case(torch, kv) -> tuple:
+    """(cache dtype, its element size, the row fields of an f8 case): bf16,
+    or ``kv`` (f8, whose library yardstick reads the cache widened to bf16)."""
+    if kv is None:
+        return torch.bfloat16, 2, {}
+    return kv, 1, {"kv_dtype": "f8", "library": F8_LIBRARY}
+
+
+def _decode_case(torch, dev, g, case, lens, starts, kw, max_seq=MAX_SEQ, cold=False, kv=None):
+    """One decode_attention case over a [b, n_kv, max_seq, hd] cache (bf16,
+    or ``kv``: f8); a cold case rotates over copies of its cache, one per
+    call."""
     from cake_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_plain, fold_window,
     )
 
     bf = torch.bfloat16
+    kv_dt, esize, extra = _kv_case(torch, kv)
     b, kw = len(lens), dict(kw)
     live0 = sum(max(0, ln - s0) for ln, s0 in zip(lens, starts or [0] * b))
-    n_copy = copies_for(live0 * N_KV * HD * 2 * 2) if cold else 1
+    n_copy = copies_for(live0 * N_KV * HD * 2 * esize) if cold else 1
     q = torch.randn(b, 1, N_Q, HD, generator=g, device=dev, dtype=bf)
-    k = torch.randn(b * n_copy, N_KV, max_seq, HD, generator=g, device=dev, dtype=bf)
-    v = torch.randn(b * n_copy, N_KV, max_seq, HD, generator=g, device=dev, dtype=bf)
+    k = torch.randn(b * n_copy, N_KV, max_seq, HD, generator=g, device=dev, dtype=bf).to(kv_dt)
+    v = torch.randn(b * n_copy, N_KV, max_seq, HD, generator=g, device=dev, dtype=bf).to(kv_dt)
     kvs = [(k[c * b : (c + 1) * b], v[c * b : (c + 1) * b]) for c in range(n_copy)]
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
@@ -445,20 +491,23 @@ def _decode_case(torch, dev, g, case, lens, starts, kw, max_seq=MAX_SEQ, cold=Fa
     st0 = torch.zeros_like(lengths) if st is None else st
     eff = fold_window(st0, lengths, kw.get("window"), window_flag)
     live = int((lengths - eff).clamp(min=0).sum().item())
-    nbytes = 2 * q.numel() * 2 + live * N_KV * HD * 2 * 2
+    nbytes = 2 * q.numel() * 2 + live * N_KV * HD * 2 * esize
     flops = 4.0 * live * N_Q * HD
     library_ms = None
     if "softcap" not in kw:
         kpos = torch.arange(max_seq, device=dev)
         mask = ((kpos[None] >= eff[:, None]) & (kpos[None] < lengths[:, None]))[:, None, None, :]
         qh = q.transpose(1, 2)
+        wide = [(kc.to(bf), vc.to(bf)) for kc, vc in kvs]  # no PyTorch call reads f8
         libs = [lambda kc=kc, vc=vc: _sdpa(torch, qh, kc, vc, mask, kw.get("scale"))
-                for kc, vc in kvs]
+                for kc, vc in wide]
         library_ms = cuda_ms(torch, rotating(libs), 10 * n_copy)
+        del wide, libs
     return _check(
         torch, "decode_attention", case, out, ref,
         cuda_ms(torch, rotating(runs), 50 * n_copy), cuda_ms(torch, rotating(plains), 5),
         nbytes, flops, library_ms, copies=n_copy, route=traced_route(torch, runs[0]),
+        extra=extra,
     )
 
 
@@ -472,24 +521,27 @@ def decode_cases(torch, dev):
         ("softcap", [1, 300, 4097, 8192], None, {"softcap": 50.0, "scale": 0.1}),
     ]
     rows = [_decode_case(torch, dev, g, *c) for c in cases]
-    # The generate phase's decode reads its cache cold.
+    # The generate phase's decode reads its cache cold; generate_f8's the same, f8.
     rows.append(_decode_case(torch, dev, g, "main_path", [733], None, {}, cold=True))
+    rows.append(_decode_case(torch, dev, g, "main_path_f8", [733], None, {}, cold=True,
+                             kv=torch.float8_e4m3fn))
     return rows
 
 
 def _chunk_case(torch, dev, g, case, chunk, q_starts, k_starts, kw, max_seq=MAX_SEQ,
-                lens=None):
-    """One chunk_prefill_attention case over a [b, n_kv, max_seq, hd] cache;
-    ``lens`` defaults to each row's chunk end."""
+                lens=None, kv=None):
+    """One chunk_prefill_attention case over a [b, n_kv, max_seq, hd] cache
+    (bf16, or ``kv``: f8); ``lens`` defaults to each row's chunk end."""
     from cake_tpu_torch.ops.chunk_prefill import (
         chunk_prefill_attention, chunk_prefill_attention_plain,
     )
 
     bf = torch.bfloat16
+    kv_dt, esize, extra = _kv_case(torch, kv)
     b, kw = len(q_starts), dict(kw)
     q = torch.randn(b, chunk, N_Q, HD, generator=g, device=dev, dtype=bf)
-    k = torch.randn(b, N_KV, max_seq, HD, generator=g, device=dev, dtype=bf)
-    v = torch.randn(b, N_KV, max_seq, HD, generator=g, device=dev, dtype=bf)
+    k = torch.randn(b, N_KV, max_seq, HD, generator=g, device=dev, dtype=bf).to(kv_dt)
+    v = torch.randn(b, N_KV, max_seq, HD, generator=g, device=dev, dtype=bf).to(kv_dt)
     qs = torch.tensor(q_starts, dtype=torch.int32, device=dev)
     lengths = qs + chunk if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
     ks = None if k_starts is None else torch.tensor(k_starts, dtype=torch.int32, device=dev)
@@ -507,14 +559,16 @@ def _chunk_case(torch, dev, g, case, chunk, q_starts, k_starts, kw, max_seq=MAX_
         mask &= kpos > qpos[:, :, None] - kw["window"]
     pairs = int(mask.sum().item())
     keys = int(mask.any(dim=1).sum().item())
-    nbytes = 2 * q.numel() * 2 + keys * N_KV * HD * 2 * 2
+    nbytes = 2 * q.numel() * 2 + keys * N_KV * HD * 2 * esize
     flops = 4.0 * pairs * N_Q * HD
-    qh = q.transpose(1, 2)
-    library_ms = cuda_ms(torch, lambda: _sdpa(torch, qh, k, v, mask[:, None], kw.get("scale")), 5)
+    qh, kw_, vw = q.transpose(1, 2), k.to(bf), v.to(bf)  # no PyTorch call reads f8
+    library_ms = cuda_ms(torch, lambda: _sdpa(torch, qh, kw_, vw, mask[:, None], kw.get("scale")),
+                         5)
+    del kw_, vw
     return _check(
         torch, "chunk_prefill_attention", case, out, ref,
         cuda_ms(torch, run, 20), cuda_ms(torch, plain, 3), nbytes, flops, library_ms,
-        route=traced_route(torch, run),
+        route=traced_route(torch, run), extra=extra,
     )
 
 
@@ -527,7 +581,10 @@ def chunk_cases(torch, dev):
          {"window": 256, "window_flag": torch.tensor(True, device=dev)}),
         ("main_path", PREFILL_CHUNK, [2 * PREFILL_CHUNK], None, {}),
     ]
-    return [_chunk_case(torch, dev, g, *c) for c in cases]
+    rows = [_chunk_case(torch, dev, g, *c) for c in cases]
+    rows.append(_chunk_case(torch, dev, g, "main_path_f8", PREFILL_CHUNK, [2 * PREFILL_CHUNK],
+                            None, {}, kv=torch.float8_e4m3fn))
+    return rows
 
 
 def flash_cases(torch, dev):
@@ -573,13 +630,14 @@ def warm_messages():
     return engine_messages(system=SYSTEM_PROMPT[::-1])
 
 
-def _paged_pool(torch, dev, g, seed, n_rows, n_p):
-    """A bf16 pool of n_rows * n_p pages (+ the write sink) and block tables
-    [n_rows, n_p] naming them in a shuffled order."""
+def _paged_pool(torch, dev, g, seed, n_rows, n_p, kv=None):
+    """A bf16 (or ``kv``: f8) pool of n_rows * n_p pages (+ the write sink)
+    and block tables [n_rows, n_p] naming them in a shuffled order."""
     n_pages = n_rows * n_p
     shape = (n_pages + 1, N_KV, ENGINE_PAGE, HD)
-    k = torch.randn(*shape, generator=g, device=dev, dtype=torch.bfloat16)
-    v = torch.randn(*shape, generator=g, device=dev, dtype=torch.bfloat16)
+    kv_dt = kv or torch.bfloat16
+    k = torch.randn(*shape, generator=g, device=dev, dtype=torch.bfloat16).to(kv_dt)
+    v = torch.randn(*shape, generator=g, device=dev, dtype=torch.bfloat16).to(kv_dt)
     perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(seed))
     return k, v, perm.view(n_rows, n_p).to(torch.int32).to(dev)
 
@@ -590,20 +648,21 @@ def _table_bytes(starts, lengths) -> int:
 
 
 def _paged_decode_case(torch, dev, g, seed, case, lens, starts, npp, cold=False,
-                       unmapped=None):
-    """One paged_decode_attention case over tables of ``npp`` pages a row.
-    A cold case's pool holds disjoint page sets, one block table each, and
-    each call reads the next set. ``unmapped`` (row, column) marks one
-    table entry -1."""
+                       unmapped=None, kv=None):
+    """One paged_decode_attention case over tables of ``npp`` pages a row
+    (a bf16 pool, or ``kv``: f8). A cold case's pool holds disjoint page
+    sets, one block table each, and each call reads the next set.
+    ``unmapped`` (row, column) marks one table entry -1."""
     from cake_tpu_torch.models.llama.paged_cache import gather_pages
     from cake_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_plain,
     )
 
     b = len(lens)
+    kv_dt, esize, extra = _kv_case(torch, kv)
     live = sum(max(0, ln - s0) for s0, ln in zip(starts, lens))
-    n_copy = copies_for(live * N_KV * HD * 2 * 2) if cold else 1
-    k, v, all_tables = _paged_pool(torch, dev, g, seed, b * n_copy, npp)
+    n_copy = copies_for(live * N_KV * HD * 2 * esize) if cold else 1
+    k, v, all_tables = _paged_pool(torch, dev, g, seed, b * n_copy, npp, kv)
     tables = [all_tables[c * b : (c + 1) * b] for c in range(n_copy)]
     if unmapped is not None:
         tables[0][unmapped] = -1
@@ -615,19 +674,23 @@ def _paged_decode_case(torch, dev, g, seed, case, lens, starts, npp, cold=False,
               for t in tables]
     out, ref = runs[0](), plains[0]()
     torch.cuda.synchronize()
-    nbytes = 2 * q.numel() * 2 + live * N_KV * HD * 2 * 2 + _table_bytes(starts, lens)
+    nbytes = 2 * q.numel() * 2 + live * N_KV * HD * 2 * esize + _table_bytes(starts, lens)
     flops = 4.0 * live * N_Q * HD
-    # The yardstick reads dense views gathered here, outside the timing.
-    views = [(gather_pages(k, t), gather_pages(v, t)) for t in tables]
+    # The yardstick reads dense views gathered here (widened to bf16: no
+    # PyTorch call reads f8), outside the timing.
+    views = [(gather_pages(k, t).to(torch.bfloat16), gather_pages(v, t).to(torch.bfloat16))
+             for t in tables]
     kpos = torch.arange(views[0][0].shape[2], device=dev)
     mask = ((kpos[None] >= st[:, None]) & (kpos[None] < lengths[:, None]))[:, None, None, :]
     qh = q.transpose(1, 2)
     libs = [lambda dk=dk, dv=dv: _sdpa(torch, qh, dk, dv, mask) for dk, dv in views]
     library_ms = cuda_ms(torch, rotating(libs), 10 * n_copy)
+    del views, libs
     return _check(
         torch, "paged_decode_attention", case, out, ref,
         cuda_ms(torch, rotating(runs), 50 * n_copy), cuda_ms(torch, rotating(plains), 5),
         nbytes, flops, library_ms, copies=n_copy, route=traced_route(torch, runs[0]),
+        extra=extra,
     )
 
 
@@ -682,15 +745,62 @@ def decode_split_bits(torch, dev, g, seed, lens, starts, npp) -> dict:
     return row
 
 
-def _paged_chunk_case(torch, dev, g, seed, case, chunk, q_starts, lens, k_starts, npp):
-    """One paged_chunk_attention case over tables of ``npp`` pages a row."""
+def f8_bits(torch, dev, g, seed, decode: dict, chunk: dict) -> dict:
+    """The f8 kernels' bits at the engine's operands (``decode``, ``chunk``:
+    recorded dispatches): over an f8 pool, each paged kernel equals, to the
+    bit, the same kernel over the pool widened to bf16 (the f8 bodies load
+    narrow and widen exactly, the rest is the bf16 body) and the dense f8
+    kernel over the pages gathered. Gated."""
+    from cake_tpu_torch.models.llama.paged_cache import gather_pages
+    from cake_tpu_torch.ops.chunk_prefill import chunk_prefill_attention
+    from cake_tpu_torch.ops.decode_attention import decode_attention
+    from cake_tpu_torch.ops.paged_attention import paged_decode_attention
+    from cake_tpu_torch.ops.paged_prefill import paged_chunk_attention
+
+    bf = torch.bfloat16
+    b, npp = len(decode["lengths"]), max(decode["n_p"], chunk["n_p"])
+    k, v, tables = _paged_pool(torch, dev, g, seed, b, npp, torch.float8_e4m3fn)
+    kw, vw = k.to(bf), v.to(bf)
+    dk, dv = gather_pages(k, tables).contiguous(), gather_pages(v, tables).contiguous()
+
+    def rows(key, d):
+        return torch.tensor(d[key], dtype=torch.int32, device=dev)
+
+    q = torch.randn(b, 1, N_Q, HD, generator=g, device=dev, dtype=bf)
+    lengths, starts = rows("lengths", decode), rows("starts", decode)
+    dec = paged_decode_attention(q, k, v, lengths, tables, starts)
+    qc = torch.randn(b, chunk["q"][1], N_Q, HD, generator=g, device=dev, dtype=bf)
+    qs, cl, ks = rows("q_starts", chunk), rows("lengths", chunk), rows("k_starts", chunk)
+    chk = paged_chunk_attention(qc, k, v, qs, cl, ks, tables)
+    checks = {
+        "paged_decode_eq_widened": (dec, paged_decode_attention(q, kw, vw, lengths, tables, starts)),
+        "paged_decode_eq_dense": (dec, decode_attention(q, dk, dv, lengths, starts)),
+        "paged_chunk_eq_widened": (chk, paged_chunk_attention(qc, kw, vw, qs, cl, ks, tables)),
+        "paged_chunk_eq_dense": (chk, chunk_prefill_attention(qc, dk, dv, qs, cl, None, ks)),
+    }
+    _sync(torch, dev)
+    row = {"phase": "kernels", "kernel": "paged_decode_attention", "case": "f8_bits",
+           "kv_dtype": "f8", "n_p": npp,
+           **{name: bool(torch.equal(a, b_)) for name, (a, b_) in checks.items()}}
+    emit(row)
+    failed = [name for name in checks if not row[name]]
+    if failed:
+        raise AssertionError(f"f8 kernel bits at the engine's operands: {failed} failed")
+    return row
+
+
+def _paged_chunk_case(torch, dev, g, seed, case, chunk, q_starts, lens, k_starts, npp,
+                      kv=None):
+    """One paged_chunk_attention case over tables of ``npp`` pages a row (a
+    bf16 pool, or ``kv``: f8)."""
     from cake_tpu_torch.models.llama.paged_cache import gather_pages
     from cake_tpu_torch.ops.paged_prefill import (
         paged_chunk_attention, paged_chunk_attention_plain,
     )
 
     b = len(lens)
-    k, v, tables = _paged_pool(torch, dev, g, seed, b, npp)
+    kv_dt, esize, extra = _kv_case(torch, kv)
+    k, v, tables = _paged_pool(torch, dev, g, seed, b, npp, kv)
     q = torch.randn(b, chunk, N_Q, HD, generator=g, device=dev, dtype=torch.bfloat16)
     qs = torch.tensor(q_starts, dtype=torch.int32, device=dev)
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -699,20 +809,22 @@ def _paged_chunk_case(torch, dev, g, seed, case, chunk, q_starts, lens, k_starts
     plain = lambda: paged_chunk_attention_plain(q, k, v, qs, lengths, ks, tables)  # noqa: E731
     out, ref = run(), plain()
     torch.cuda.synchronize()
-    dk, dv = gather_pages(k, tables), gather_pages(v, tables)
+    # Widened to bf16 for the yardstick: no PyTorch call reads f8.
+    dk, dv = gather_pages(k, tables).to(torch.bfloat16), gather_pages(v, tables).to(torch.bfloat16)
     qpos = qs[:, None] + torch.arange(chunk, device=dev)[None]
     kpos = torch.arange(dk.shape[2], device=dev)[None, None]
     mask = (kpos <= qpos[:, :, None]) & (kpos >= ks[:, None, None]) & (kpos < lengths[:, None, None])
     pairs = int(mask.sum().item())
     keys = int(mask.any(dim=1).sum().item())
-    nbytes = 2 * q.numel() * 2 + keys * N_KV * HD * 2 * 2 + _table_bytes(k_starts, lens)
+    nbytes = 2 * q.numel() * 2 + keys * N_KV * HD * 2 * esize + _table_bytes(k_starts, lens)
     flops = 4.0 * pairs * N_Q * HD
     qh = q.transpose(1, 2)
     library_ms = cuda_ms(torch, lambda: _sdpa(torch, qh, dk, dv, mask[:, None]), 5)
+    del dk, dv
     return _check(
         torch, "paged_chunk_attention", case, out, ref,
         cuda_ms(torch, run, 20), cuda_ms(torch, plain, 3), nbytes, flops, library_ms,
-        route=traced_route(torch, run),
+        route=traced_route(torch, run), extra=extra,
     )
 
 
@@ -818,30 +930,38 @@ def norm_matmul_bits(torch, dev, sites=NORM_SITES) -> dict:
     return row
 
 
-def _ingest_case(torch, dev, g, case, b, slot, paged, unmapped=None):
+def _ingest_case(torch, dev, g, case, b, slot, paged, unmapped=None, kv=None):
     """One fused_qkv_ingest case at Llama-3-8B heads: the kernel and the
-    plain version each write their own copy of the cache; q and every page
-    but the sink must be equal. The library time is the unfused step as the
+    plain version each write their own copy of the cache (bf16, or ``kv``:
+    f8, with four k and two v values of row 0 past +-464, which must come
+    back NaN, six NaN bytes in all); q and every page but the sink must be
+    equal, byte for byte. The library time is the unfused step as the
     engine runs it (split, rope on q and k, the write through a plan built
     once per dispatch)."""
     from cake_tpu_torch.models.llama.cache import write_layer
     from cake_tpu_torch.models.llama.paged_cache import write_pages, write_plan
     from cake_tpu_torch.ops.fused_ingest import fused_qkv_ingest, fused_qkv_ingest_plain
+    from cake_tpu_torch.ops.kv_dtype import kv_view
     from cake_tpu_torch.ops.rope import apply_rope
 
     bf = torch.bfloat16
+    kv_dt, esize, extra = _kv_case(torch, kv)
     n_p = ENGINE_MAX_SEQ // ENGINE_PAGE
     qkv = torch.randn(b, 1, (N_Q + 2 * N_KV) * HD, generator=g, device=dev, dtype=bf)
     cos = torch.randn(b, 1, HD // 2, generator=g, device=dev)
     sin = torch.randn(b, 1, HD // 2, generator=g, device=dev)
+    if kv is not None:  # row 0: four k values and two v values past +-464 (rope them as they are)
+        qkv[0, 0, N_Q * HD : N_Q * HD + 4] = torch.tensor([470.0, -470.0, 1000.0, -2000.0])
+        qkv[0, 0, (N_Q + N_KV) * HD : (N_Q + N_KV) * HD + 2] = torch.tensor([500.0, -465.5])
+        cos[0, 0, :4], sin[0, 0, :4] = 1.0, 0.0
     tables = None
     if paged:
-        k0, v0, tables = _paged_pool(torch, dev, g, 40 + b, b, n_p)
+        k0, v0, tables = _paged_pool(torch, dev, g, 40 + b, b, n_p, kv)
         if unmapped is not None:
             tables[unmapped] = -1
     else:
-        k0 = torch.randn(b, N_KV, ENGINE_MAX_SEQ, HD, generator=g, device=dev, dtype=bf)
-        v0 = torch.randn(b, N_KV, ENGINE_MAX_SEQ, HD, generator=g, device=dev, dtype=bf)
+        k0 = torch.randn(b, N_KV, ENGINE_MAX_SEQ, HD, generator=g, device=dev, dtype=bf).to(kv_dt)
+        v0 = torch.randn(b, N_KV, ENGINE_MAX_SEQ, HD, generator=g, device=dev, dtype=bf).to(kv_dt)
     kw = dict(n_q=N_Q, n_kv=N_KV, block_tables=tables)
     k1, v1, k2, v2 = k0.clone(), v0.clone(), k0.clone(), v0.clone()
     at = torch.full((), slot, dtype=torch.int64, device=dev)  # read by the kernel on the card
@@ -849,8 +969,18 @@ def _ingest_case(torch, dev, g, case, b, slot, paged, unmapped=None):
     q2 = fused_qkv_ingest_plain(qkv, cos, sin, at, k2, v2, **kw)
     torch.cuda.synchronize()
     live = slice(None, -1) if paged else slice(None)  # every page but the sink
-    out = torch.cat([q1.flatten(), k1[live].flatten(), v1[live].flatten()])
-    ref = torch.cat([q2.flatten(), k2[live].flatten(), v2[live].flatten()])
+    if kv is None:
+        out = torch.cat([q1.flatten(), k1[live].flatten(), v1[live].flatten()])
+        ref = torch.cat([q2.flatten(), k2[live].flatten(), v2[live].flatten()])
+    else:  # bytes: NaN is no float's equal
+        out, ref = (torch.cat([qq.view(torch.uint8).flatten(), kv_view(kk[live]).flatten(),
+                               kv_view(vv[live]).flatten()])
+                    for qq, kk, vv in ((q1, k1, v1), (q2, k2, v2)))
+        nan = (kv_view(k1[live]) & 0x7F == 0x7F).sum() + (kv_view(v1[live]) & 0x7F == 0x7F).sum()
+        extra = dict(extra, nan_written=int(nan.item()))
+        if extra["nan_written"] != 6:
+            emit({"phase": "kernels", "kernel": "fused_qkv_ingest", "case": case, **extra})
+            raise AssertionError(f"fused_qkv_ingest/{case}: values past +-464 did not come back NaN")
     plan = write_plan(slot, 1, tables, k0.shape[0] - 1, ENGINE_PAGE) if paged else None
 
     def unfused():
@@ -866,13 +996,16 @@ def _ingest_case(torch, dev, g, case, b, slot, paged, unmapped=None):
 
     n_written = 0 if paged and slot // ENGINE_PAGE >= n_p else b - (unmapped is not None)
     nbytes = (b * (N_Q + 2 * N_KV) * HD * 2 + 2 * b * HD // 2 * 4 + b * N_Q * HD * 2
-              + n_written * 2 * N_KV * HD * 2 + (4 * b if paged else 0))
+              + n_written * 2 * N_KV * HD * esize + (4 * b if paged else 0))
     flops = 6.0 * b * (N_Q + N_KV) * HD // 2
     run = lambda: fused_qkv_ingest(qkv, cos, sin, at, k1, v1, **kw)  # noqa: E731
+    if kv is not None:  # the f8 case's yardstick: the same unfused step (narrow) into f8
+        extra["library"] = "the unfused composition into the f8 cache"
     return _check(
         torch, "fused_qkv_ingest", case, out, ref, cuda_ms(torch, run, 200),
         cuda_ms(torch, lambda: fused_qkv_ingest_plain(qkv, cos, sin, at, k2, v2, **kw), 50),
         nbytes, flops, cuda_ms(torch, unfused, 50), exact=True, route=traced_route(torch, run),
+        extra=extra,
     )
 
 
@@ -943,6 +1076,9 @@ def ingest_cases(torch, dev):
         # slot 505 is logical page 3: row 5's entry there is unmapped.
         _ingest_case(torch, dev, g, "paged_b8", 8, 505, paged=True, unmapped=(5, 3)),
         _ingest_case(torch, dev, g, "paged_past_table", 8, n_p * ENGINE_PAGE + 5, paged=True),
+        _ingest_case(torch, dev, g, "dense_b1_f8", 1, 733, paged=False, kv=torch.float8_e4m3fn),
+        _ingest_case(torch, dev, g, "paged_b8_f8", 8, 505, paged=True, unmapped=(5, 3),
+                     kv=torch.float8_e4m3fn),
         ingest_slot_replays(torch, dev),
     ]
 
@@ -1207,20 +1343,28 @@ def engine_kernel_cases(torch, engine_path: dict) -> dict:
             if d["q"][2:] != (N_Q, HD):
                 raise AssertionError(f"{name}: the engine's q is {d['q']}, not [.., {N_Q}, {HD}]")
     d, c = paged["paged_decode_attention"], paged["paged_chunk_attention"]
+    f8 = torch.float8_e4m3fn
     rows = [
         _paged_decode_case(torch, dev, g, 30, "main_path", d["lengths"], d["starts"], d["n_p"],
                            cold=True),
         decode_split_bits(torch, dev, g, 32, d["lengths"], d["starts"], d["n_p"]),
         _paged_chunk_case(torch, dev, g, 31, "main_path", c["q"][1], c["q_starts"],
                           c["lengths"], c["k_starts"], c["n_p"]),
+        # engine_f8's paged kernels: the same operands over an f8 pool
+        _paged_decode_case(torch, dev, g, 33, "main_path_f8", d["lengths"], d["starts"],
+                           d["n_p"], cold=True, kv=f8),
+        _paged_chunk_case(torch, dev, g, 34, "main_path_f8", c["q"][1], c["q_starts"],
+                          c["lengths"], c["k_starts"], c["n_p"], kv=f8),
+        f8_bits(torch, dev, g, 35, d, c),
     ]
     d, c = dense["decode_attention"], dense["chunk_prefill_attention"]
-    rows += [
-        _decode_case(torch, dev, g, "dense_engine", d["lengths"], d["starts"], {},
-                     max_seq=d["kv"][2], cold=True),
-        _chunk_case(torch, dev, g, "dense_engine", c["q"][1], c["q_starts"], c["k_starts"], {},
-                    max_seq=c["kv"][2], lens=c["lengths"]),
-    ]
+    for case, kv in (("dense_engine", None), ("dense_engine_f8", f8)):
+        rows += [
+            _decode_case(torch, dev, g, case, d["lengths"], d["starts"], {},
+                         max_seq=d["kv"][2], cold=True, kv=kv),
+            _chunk_case(torch, dev, g, case, c["q"][1], c["q_starts"], c["k_starts"], {},
+                        max_seq=c["kv"][2], lens=c["lengths"], kv=kv),
+        ]
     torch.cuda.empty_cache()
     return {(r["kernel"], r["case"]): r for r in rows}
 
@@ -1262,11 +1406,13 @@ def _plain_attention(M):
         yield
 
 
-def _full_model_check(torch, M, config, params, dev, phase: str = "full_model_check") -> dict:
+def _full_model_check(torch, M, config, params, dev, phase: str = "full_model_check",
+                      cache_dtype=None) -> dict:
     """Full-width logits through the kernels against the same forward with
     the plain attention and int4 versions and, for a fused config, unfused
     (the composition each fused plain version is), on a short input
-    (prefill at 0, a continuation chunk, two decode steps)."""
+    (prefill at 0, a continuation chunk, two decode steps), over a bf16
+    cache or one of ``cache_dtype``."""
     from cake_tpu_torch.models.llama.cache import init_cache
     from cake_tpu_torch.ops.rope import model_rope_tables
 
@@ -1277,7 +1423,7 @@ def _full_model_check(torch, M, config, params, dev, phase: str = "full_model_ch
 
     def run():
         kv = init_cache(config.num_hidden_layers, 1, 256, config.num_key_value_heads,
-                        config.head_dim, torch.bfloat16, dev)
+                        config.head_dim, cache_dtype or torch.bfloat16, dev)
         outs = []
         with torch.inference_mode():
             logits, kv = M.forward(params, first, kv, 0, 48, config, rope=rope)
@@ -1843,8 +1989,9 @@ def _paged_counters():
 
 
 # Side counts a wrapper keeps beside its launches: calls it left to the
-# unfused composition, calls it routed to qmat for a quantized weight.
-_SIDE_COUNTS = ("unfused", "quantized")
+# unfused composition, calls it routed to qmat for a quantized weight,
+# launches over an f8 cache.
+_SIDE_COUNTS = ("unfused", "quantized", "f8")
 
 
 def _zero_counters():
@@ -1965,7 +2112,8 @@ def _wave(engine, n_tokens: int, messages=None, samplings=None) -> dict:
     }
 
 
-def _batch_model_check(torch, config, params, dev, kv_mode: str, phase: str | None = None) -> dict:
+def _batch_model_check(torch, config, params, dev, kv_mode: str, phase: str | None = None,
+                       cache_dtype=None) -> dict:
     """The full-width lockstep forward through the kernels against the same
     forward with the attention kernels' plain versions, unfused (the
     composition each fused plain version is): paged (a cold prefill
@@ -1997,7 +2145,7 @@ def _batch_model_check(torch, config, params, dev, kv_mode: str, phase: str | No
 
     def run_paged():
         kv = init_paged_cache(config.num_hidden_layers, 4, config.num_key_value_heads,
-                              ENGINE_PAGE, config.head_dim, torch.bfloat16, dev)
+                              ENGINE_PAGE, config.head_dim, cache_dtype or torch.bfloat16, dev)
         with torch.inference_mode():
             logits, kv = B.paged_prefill(params, tokens_t, kv, pads_t, tables, config, rope=rope)
             outs = [logits]
@@ -2013,7 +2161,7 @@ def _batch_model_check(torch, config, params, dev, kv_mode: str, phase: str | No
 
     def run_dense():
         kv = init_cache(config.num_hidden_layers, 2, 256, config.num_key_value_heads,
-                        config.head_dim, torch.bfloat16, dev)
+                        config.head_dim, cache_dtype or torch.bfloat16, dev)
         with torch.inference_mode():
             logits, kv = B.batched_prefill(params, tokens_t, kv, pads_t, config, rope=rope)
             outs = [logits]
@@ -2145,6 +2293,7 @@ def phase_engine(torch, main_path: dict) -> dict:
             1.0 - busy / (1e3 * timed["wall_s"] - window_ms) if busy else None
         ),
         "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+        "pool_bytes": 2 * engine.backend._pool.k.numel() * engine.backend._pool.k.element_size(),
     }
     emit(row)
     if launches != expected:
@@ -2297,12 +2446,14 @@ def _int4_expected(expected: dict, forwards: int, n_layers: int, norm: bool, on_
 
 
 def _generator_expected(counters, rec, n_layers: int, on_card: bool, fused: bool = True,
-                        int4: bool = False):
+                        int4: bool = False, f8: bool = False):
     """(launches, expected) of a generator run recorded by
     ``step_recorder``: the attention kernels per forward as in phase
     generate; when ``fused`` ("all"), fused_norm_matmul per ``_norm_sites``
     and fused_sample_tail once per chunked step; for an ``int4`` tree,
-    ``_int4_expected``; off the card the plain versions take every call."""
+    ``_int4_expected``; over an ``f8`` cache, every decode and continuation
+    launch over f8 (the position-0 chunk attends its own fresh K/V); off the
+    card the plain versions take every call."""
     launches = _counts(counters)
     expected = dict.fromkeys(launches, 0)
     decode = sum(n for _, n in rec["chunks"]) + sum(1 for _, w, _ in rec["calls"] if w == 1)
@@ -2318,6 +2469,9 @@ def _generator_expected(counters, rec, n_layers: int, on_card: bool, fused: bool
             "fused_norm_matmul": kernel, "fused_norm_matmul.unfused": unfused,
             "fused_sample_tail": tail,
         })
+        if f8:
+            expected["decode_attention.f8"] = n_layers * decode
+            expected["chunk_prefill_attention.f8"] = n_layers * cont
     else:
         expected.update({
             "decode_attention_plain": n_layers * decode,
@@ -2362,12 +2516,9 @@ def phase_generate_fused(torch, main_path: dict) -> dict:
         gen.generate(DECODE_TOKENS, on_token=lambda tok: stamps.append(time.perf_counter()))
         _sync(torch, dev)
     launches, expected = _generator_expected(counters, rec, n_layers, dev.type == "cuda")
-    ids, ids0 = gen.generated_token_ids, main_path["generated_ids"]
+    ids = gen.generated_token_ids
     n_gen = len(ids)
     decode_s = stamps[-1] - stamps[0] if n_gen > 1 else float("nan")
-    same = 0
-    while same < min(len(ids), len(ids0)) and ids[same] == ids0[same]:
-        same += 1
     row = {
         "phase": "generate_fused",
         "card": main_path["card"],
@@ -2380,7 +2531,7 @@ def phase_generate_fused(torch, main_path: dict) -> dict:
         "prefill_s": stamps[0] - t_start,
         "decode_ms_per_token": 1e3 * decode_s / (n_gen - 1) if n_gen > 1 else None,
         "unfused_decode_ms_per_token": main_path["decode_ms_per_token"],
-        "tokens_equal_to_unfused": same,
+        "tokens_equal_to_unfused": _stream_agreement(ids, main_path["generated_ids"]),
         "launches": launches,
         "expected_launches": expected,
     }
@@ -2443,14 +2594,15 @@ def dispatch_recorder(backend):
 
 
 def _engine_fused_expected(counters, rec, fusions, kv_mode: str, n_layers: int, on_card: bool,
-                           int4: bool = False):
+                           int4: bool = False, f8: bool = False):
     """(launches, expected) of engine dispatches recorded by
     ``dispatch_recorder``: the attention gates of phase engine, and per
     enabled fusion fused_qkv_ingest = n_layers x decode steps,
     fused_sample_tail = decode steps, fused_norm_matmul per ``_norm_sites``;
     for an ``int4`` tree ``_int4_expected`` over one forward a prefill
-    dispatch and one a decode step; off the card the plain versions take
-    every call."""
+    dispatch and one a decode step; over an ``f8`` cache every attention and
+    ingest launch over f8; off the card the plain versions take every
+    call."""
     launches = _counts(counters)
     expected = dict.fromkeys(launches, 0)
     decode, chunk = (("paged_decode_attention", "paged_chunk_attention") if kv_mode == "paged"
@@ -2471,6 +2623,9 @@ def _engine_fused_expected(counters, rec, fusions, kv_mode: str, n_layers: int, 
         expected["fused_qkv_ingest" + sfx] = n_layers * steps
     if "tail" in fusions:
         expected["fused_sample_tail" + sfx] = steps
+    if f8 and on_card:
+        for name in (decode, chunk, "fused_qkv_ingest"):
+            expected[name + ".f8"] = expected[name]
     if int4:
         _int4_expected(expected, len(rec["prefills"]) + steps, n_layers, "norm" in fusions,
                        on_card)
@@ -2478,12 +2633,14 @@ def _engine_fused_expected(counters, rec, fusions, kv_mode: str, n_layers: int, 
 
 
 def _fused_engine_run(torch, make, spec: str, kv_mode: str, n_layers: int, on_card: bool,
-                      sampled: bool, int4: bool = False) -> dict:
+                      sampled: bool, int4: bool = False, f8: bool = False,
+                      warm: bool = False) -> dict:
     """One engine with fusion ``spec``: warm-up waves (they capture the
-    decode chunks' graphs), then wave 1 (and the sampled wave) under the
-    launch gate, then two warm profiled waves of 16
-    and 32 tokens: their difference gives the device ops and ms of 16 decode
-    steps, the prefill being the same in both."""
+    decode chunks' graphs), then wave 1 (and the sampled wave; with
+    ``warm``, wave 1 again, served from the prefix cache) under the launch
+    gate, then two warm profiled waves of 16 and 32 tokens: their
+    difference gives the device ops and ms of 16 decode steps, the prefill
+    being the same in both."""
     from cake_tpu_torch.models.llama.generator import SamplingConfig
     from cake_tpu_torch.ops.fuse import parse_fusion_spec
 
@@ -2502,8 +2659,10 @@ def _fused_engine_run(torch, make, spec: str, kv_mode: str, n_layers: int, on_ca
             waves = [_wave(eng, ENGINE_TOKENS)]
             if sampled:
                 waves.append(_wave(eng, ENGINE_TOKENS, samplings=sampled_wave))
+            if warm:
+                waves.append(_wave(eng, ENGINE_TOKENS))
         launches, expected = _engine_fused_expected(
-            counters, rec, parse_fusion_spec(spec), kv_mode, n_layers, on_card, int4)
+            counters, rec, parse_fusion_spec(spec), kv_mode, n_layers, on_card, int4, f8)
         # Unprofiled first: the 16- and 32-token waves' epochs capture their
         # chunks' graphs (the 32-token one ends on a 7-step chunk).
         _wave(eng, 32)
@@ -2527,11 +2686,13 @@ def _fused_engine_run(torch, make, spec: str, kv_mode: str, n_layers: int, on_ca
                     for f in long["by_family_ms"]},
                 "device_idle_share": 1.0 - busy / (1e3 * timed["wall_s"] - 1e3 * eng.admission_window),
             }
+        kv = getattr(eng.backend, "_pool", None) or eng.backend._kv
+        kv_bytes = kv.k.numel() * kv.k.element_size() * 2
     finally:
         eng.stop()
     return {"spec": spec, "kv_mode": kv_mode, "waves": waves, "launches": launches,
             "expected_launches": expected, "profile_wave_wall_ms": 1e3 * timed["wall_s"],
-            "profile": profile, "prefills": rec["prefills"]}
+            "profile": profile, "prefills": rec["prefills"], "kv_bytes": kv_bytes}
 
 
 def phase_engine_fused(torch, main_path: dict) -> dict:
@@ -2642,9 +2803,11 @@ def _quantized_step(torch, main_path: dict, mode: str):
     return gen0.config, params, step, quant_s, streamed
 
 
-def _quantized_generate(torch, main_path: dict, step, chunk: int, n_tokens: int, int4: bool):
+def _quantized_generate(torch, main_path: dict, step, chunk: int, n_tokens: int, int4: bool,
+                        f8: bool = False):
     """One warmed-up greedy run of the generate phase's prompt over ``step``
-    with ``chunk``-token decode, gated on the launches its forwards imply."""
+    (an int4 tree, or an ``f8`` cache) with ``chunk``-token decode, gated on
+    the launches its forwards imply."""
     from cake_tpu_torch.models.llama.chat import Message
     from cake_tpu_torch.models.llama.generator import LlamaGenerator, LocalForwardStep
 
@@ -2664,7 +2827,8 @@ def _quantized_generate(torch, main_path: dict, step, chunk: int, n_tokens: int,
         gen.generate(n_tokens, on_token=lambda tok: stamps.append(time.perf_counter()))
         _sync(torch, dev)
     launches, expected = _generator_expected(
-        counters, rec, gen0.config.num_hidden_layers, dev.type == "cuda", fused=False, int4=int4)
+        counters, rec, gen0.config.num_hidden_layers, dev.type == "cuda", fused=False, int4=int4,
+        f8=f8)
     ids = gen.generated_token_ids
     n_gen = len(ids)
     decode_s = stamps[-1] - stamps[0] if n_gen > 1 else float("nan")
@@ -2715,6 +2879,173 @@ def phase_generate_int4(torch, main_path: dict) -> dict:
     row["int4_launches"] = sum(r["launches"]["int4_matmul"] for r in row["runs"])
     row["params"] = step.params
     del gen, step
+    return row
+
+
+def _stream_agreement(a: list, b: list) -> int:
+    """How many leading ids two streams share."""
+    same = 0
+    while same < min(len(a), len(b)) and a[same] == b[same]:
+        same += 1
+    return same
+
+
+def phase_generate_f8(torch, main_path: dict) -> dict:
+    """The generate phase's weights over an f8 KV cache (``--kv-dtype f8``):
+    the same prompt, 64 greedy tokens per token and in FUSED_CHUNK-token
+    graph-replayed chunks (equal streams, gated), every decode and
+    continuation launch over f8 (the counters' ``f8`` side counts, gated),
+    the graph against its eager loop to the bit (greedy and sampled, gated),
+    full-width logits through the f8 kernels against the plain versions;
+    wall and device ms a token, the KV bytes beside a bf16 cache's, and
+    the greedy agreement with phase generate's bf16 stream (random weights:
+    reported, not gated)."""
+    from cake_tpu_torch.models.llama import model as M
+    from cake_tpu_torch.models.llama.generator import LocalForwardStep
+
+    f8 = torch.float8_e4m3fn
+    gen0, text = main_path["generator"], main_path["text"]
+    dev = gen0.step.device
+    on_card = dev.type == "cuda"
+    step = LocalForwardStep(gen0.config, gen0.step.params, max_seq_len=MAX_SEQ, cache_dtype=f8,
+                            device=dev)
+    kv_bytes = 2 * step._kv.k.numel() * step._kv.k.element_size()
+    gen, ids, per_token = _quantized_generate(torch, main_path, step, 1, DECODE_TOKENS, False,
+                                              f8=True)
+    profile = (_profile_main_path(torch, gen, text, per_token["decode_ms_per_token"],
+                                  phase="profile_f8") if on_card else None)
+    gen8, ids8, chunked = _quantized_generate(torch, main_path, step, FUSED_CHUNK, DECODE_TOKENS,
+                                              False, f8=True)
+    profile8 = (_profile_main_path(torch, gen8, text, chunked["decode_ms_per_token"],
+                                   phase="profile_f8_graph") if on_card else None)
+    bits = {name: _generator_bits(torch, step, gen0.tokenizer, text, knobs)
+            for name, knobs in GRAPH_KNOBS.items()}
+    row = {
+        "phase": "generate_f8",
+        "card": main_path["card"],
+        "kv_dtype": "f8",
+        "kv_bytes": kv_bytes,
+        "bf16_kv_bytes": 2 * kv_bytes,
+        "runs": [per_token, chunked],
+        "chunked_equal_tokens": sum(a == b for a, b in zip(ids, ids8)),
+        "graph_bits": bits,
+        "device_ms_per_token": profile and profile["decode_device_ms_per_token"],
+        "graph_device_ms_per_token": profile8 and profile8["decode_device_ms_per_token"],
+        "bf16_decode_ms_per_token": main_path["decode_ms_per_token"],
+        "bf16_greedy_agreement": _stream_agreement(ids, main_path["generated_ids"]),
+        "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+    }
+    emit(row)
+    if ids8 != ids:
+        raise AssertionError(f"f8 chunked decode parted from per-token decode: {row}")
+    for name, b in bits.items():
+        if not (all(b["chunks_equal"]) and b["kv_equal"] and b["rng_equal"]):
+            raise AssertionError(f"f8 generator graph parted from its eager loop ({name}): {b}")
+    row["check"] = _full_model_check(torch, M, gen0.config, step.params, dev,
+                                     phase="f8_model_check", cache_dtype=f8)
+    row["f8_launches"] = {name: sum(r["launches"][name + ".f8"] for r in row["runs"])
+                          for name in ("decode_attention", "chunk_prefill_attention")}
+    del gen, gen8, step
+    if on_card:
+        torch.cuda.empty_cache()
+    return row
+
+
+def phase_engine_f8(torch, main_path: dict, engine_path: dict) -> dict:
+    """The batch engine over an f8 cache (``--kv-dtype f8``), one engine at a
+    time: paged (prefix cache on) and dense, with fusion "none" and "all".
+    The paged engines serve wave 1 cold and again warm (prefix hits), the
+    dense ones wave 1. Gates: every launch over f8 (the side counts), paged
+    streams equal dense 8/8 and warm equal cold 8/8 under each fusion, the
+    full-width paged and dense forwards with each fusion through the f8
+    kernels against the plain versions, and the f8 pool half the bytes of
+    phase engine's bf16 pool at the same lanes x slots. "all" against
+    "none" is reported, not gated (random weights)."""
+    from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+
+    f8 = torch.float8_e4m3fn
+    gen = main_path["generator"]
+    config, params, dev = gen.config, gen.step.params, gen.step.device
+    n_layers = config.num_hidden_layers
+    on_card = dev.type == "cuda"
+
+    def make(**kw):
+        serve = ServeConfig(max_batch=ENGINE_BATCH, decode_chunk_size=8, **kw)
+        eng = BatchEngine(config, params, gen.tokenizer, max_seq_len=ENGINE_MAX_SEQ,
+                          cache_dtype=f8, serve=serve, device=dev)
+        eng.start()
+        return eng
+
+    runs = {}
+    for spec, kv_mode in (("none", "paged"), ("none", "dense"), ("all", "paged"),
+                          ("all", "dense")):
+        runs[spec, kv_mode] = _fused_engine_run(torch, make, spec, kv_mode, n_layers, on_card,
+                                                sampled=False, f8=True, warm=kv_mode == "paged")
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def equal(a, b):
+        return sum(x == y for x, y in zip(a["streams"], b["streams"]))
+
+    def summary(r):
+        w = r["waves"][0]
+        out = {"spec": r["spec"], "kv_mode": r["kv_mode"], "ttft_p50_s": w["ttft_p50_s"],
+               "ttft_max_s": w["ttft_max_s"], "decode_ms_per_step": w["decode_ms_per_step"],
+               "decode_tok_s": w["decode_tok_s"], "profile_wave_wall_ms": r["profile_wave_wall_ms"],
+               "profile": r["profile"], "kv_bytes": r["kv_bytes"], "launches": r["launches"],
+               "expected_launches": r["expected_launches"]}
+        if len(r["waves"]) > 1:
+            warm = r["waves"][1]
+            out.update(warm_ttft_p50_s=warm["ttft_p50_s"], warm_prefix_hits=warm["prefix_hits"],
+                       warm_decode_ms_per_step=warm["decode_ms_per_step"])
+        return out
+
+    row = {
+        "phase": "engine_f8",
+        "card": main_path["card"],
+        "kv_dtype": "f8",
+        "config": {"page_size": ENGINE_PAGE, "max_seq": ENGINE_MAX_SEQ, "max_batch": ENGINE_BATCH,
+                   "decode_chunk": 8, "tokens_out": ENGINE_TOKENS, "layers": n_layers},
+        "runs": [summary(r) for r in runs.values()],
+        "pool_bytes": runs["none", "paged"]["kv_bytes"],
+        "bf16_pool_bytes": engine_path["pool_bytes"],
+        "dense_equal_paged": {spec: equal(runs[spec, "dense"]["waves"][0],
+                                          runs[spec, "paged"]["waves"][0])
+                              for spec in ("none", "all")},
+        "warm_equal_cold": {spec: equal(runs[spec, "paged"]["waves"][1],
+                                        runs[spec, "paged"]["waves"][0])
+                            for spec in ("none", "all")},
+        "all_equal_none": equal(runs["all", "paged"]["waves"][0], runs["none", "paged"]["waves"][0]),
+    }
+    emit(row)
+    for r in runs.values():
+        if r["launches"] != r["expected_launches"]:
+            raise AssertionError(
+                f"f8 {r['kv_mode']} engine with fusion {r['spec']}: launch counts "
+                f"{r['launches']} != expected {r['expected_launches']}")
+        for w in r["waves"]:
+            if not all(1 <= len(ids) <= ENGINE_TOKENS and all(0 <= t < config.vocab_size for t in ids)
+                       for ids in w["streams"]):
+                raise AssertionError(f"engine streams out of range: {w['completion_tokens']}")
+    for spec in ("none", "all"):
+        if row["dense_equal_paged"][spec] != ENGINE_BATCH:
+            raise AssertionError(f"f8 dense engine streams differ from paged ({spec}): {row}")
+        if row["warm_equal_cold"][spec] != ENGINE_BATCH:
+            raise AssertionError(f"f8 warm wave streams differ from cold ({spec}): {row}")
+        if runs[spec, "paged"]["waves"][1]["prefix_hits"] <= 0:
+            raise AssertionError(f"the f8 warm wave took no prefix-cache hit ({spec})")
+    if 2 * row["pool_bytes"] != row["bf16_pool_bytes"]:
+        raise AssertionError(f"the f8 pool is not half the bf16 pool: {row}")
+    for spec in ("none", "all"):
+        fused_config = dataclasses.replace(config, fusion_impl=spec)
+        for kv_mode in ("paged", "dense"):
+            row[f"{kv_mode}_{spec}_check"] = _batch_model_check(
+                torch, fused_config, params, dev, kv_mode, phase=f"{kv_mode}_{spec}_f8_model_check",
+                cache_dtype=f8)
+    row["f8_launches"] = {
+        name: sum(r["launches"][name + ".f8"] for r in runs.values())
+        for name in ("decode_attention", "chunk_prefill_attention", "paged_decode_attention",
+                     "paged_chunk_attention", "fused_qkv_ingest")}
     return row
 
 
@@ -2869,6 +3200,7 @@ def _generator_bits(torch, step, tokenizer, text, knobs: dict) -> dict:
     from cake_tpu_torch.models.llama.cache import KVCache
     from cake_tpu_torch.models.llama.chat import Message
     from cake_tpu_torch.models.llama.generator import LlamaGenerator, SamplingConfig
+    from cake_tpu_torch.ops.kv_dtype import kv_view
 
     s = SamplingConfig(**knobs)
     dev = step.device
@@ -2897,7 +3229,8 @@ def _generator_bits(torch, step, tokenizer, text, knobs: dict) -> dict:
         history += got[0].tolist()
     _sync(torch, dev)
     out = {"chunks_equal": chunks,
-           "kv_equal": bool(torch.equal(step._kv.k, ref.k) and torch.equal(step._kv.v, ref.v)),
+           "kv_equal": bool(torch.equal(kv_view(step._kv.k), kv_view(ref.k))
+                            and torch.equal(kv_view(step._kv.v), kv_view(ref.v))),
            "rng_equal": bool(torch.equal(rng.get_state(), ref_rng.get_state()))}
     del ref
     return out
@@ -2914,6 +3247,7 @@ def graph_vs_eager(torch, backend):
     equal ones, short chunks (the capacity edge), chunks after a table or
     pads change."""
     from cake_tpu_torch.models.llama import batch as B
+    from cake_tpu_torch.ops.kv_dtype import kv_view
 
     rec = {"dispatches": 0, "equal": 0, "short_chunks": 0, "table_changes": 0,
            "pads_changes": 0, "first_mismatch": None}
@@ -2935,8 +3269,8 @@ def graph_vs_eager(torch, backend):
             else:
                 want = B.decode_chunk(backend.params, ref, r_tok, int(slot), r_pads, r_keys,
                                       r_ring, r_idx, backend.config, n, s, backend.rope)
-            ok = (torch.equal(out[0], want[0]) and torch.equal(kv.k, ref.k)
-                  and torch.equal(kv.v, ref.v)
+            ok = (torch.equal(out[0], want[0]) and torch.equal(kv_view(kv.k), kv_view(ref.k))
+                  and torch.equal(kv_view(kv.v), kv_view(ref.v))
                   and all(torch.equal(a, b) for a, b in zip(out[2:], want[2:])))
         rec["dispatches"] += 1
         rec["equal"] += int(ok)
@@ -3313,6 +3647,7 @@ def phase_cli(torch, extra_args=()) -> None:
             ("fused", tmp, ("--fusion", "all", "--decode-chunk", "4")),
             ("quantize_int4", tmp, ("--quantize", "int4")),
             ("q4_checkpoint", tmp_q4, ()),
+            ("kv_f8", tmp, ("--kv-dtype", "f8")),
         ):
             t0 = time.perf_counter()
             proc = subprocess.run(
@@ -3329,6 +3664,11 @@ def phase_cli(torch, extra_args=()) -> None:
             [*cli, "--api-batch", "4", "--kv-mode", "paged", *extra_args], here
         )
         row["api_batch"]["s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        row["api_batch_f8"] = _serve_and_chat(
+            [*cli, "--api-batch", "4", "--kv-mode", "paged", "--kv-dtype", "f8", *extra_args], here
+        )
+        row["api_batch_f8"]["s"] = time.perf_counter() - t0
     emit(row)
 
 
@@ -3336,10 +3676,11 @@ def phase_cli(torch, extra_args=()) -> None:
 
 
 def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(),
-                   int4_paths=()) -> dict:
+                   int4_paths=(), f8_paths=()) -> dict:
     # The generate phase counted the dense kernels, the engine phase the paged
     # ones, the fused phases (generate_fused, engine_fused) the fused ones,
-    # the int4 phases (generate_int4, engine_int4) int4_matmul.
+    # the int4 phases (generate_int4, engine_int4) int4_matmul, the f8 phases
+    # (generate_f8, engine_f8) the five kernels' launches over an f8 cache.
     launches = {**engine_path["launches"], **main_path["launches"]}
     for name in FUSED_MAIN:
         launches[name] = sum(p["fused_launches"][name] for p in fused_paths)
@@ -3369,22 +3710,37 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(
         ("int4_matmul", "cake_tpu_torch/ops/csrc/int4_matmul.cu",
          "cake_tpu/ops/pallas/int4_matmul.py:90", ("int4_matmul",), ("int4_matmul", INT4_MAIN)),
     ]
+    # The f8 instantiations of the five kernels that read or write the cache,
+    # timed at the same main-path operands over an f8 cache.
+    f8_cases = {"decode_attention": "main_path_f8", "chunk_prefill_attention": "main_path_f8",
+                "paged_decode_attention": "main_path_f8", "paged_chunk_attention": "main_path_f8",
+                "fused_qkv_ingest": "paged_b8_f8"}
+    for name in f8_cases:
+        launches[f"{name}_f8"] = sum(p["f8_launches"].get(name, 0) for p in f8_paths)
+    spec += [(f"{name}_f8", source.replace("decode_attention.cu", "decode_attention_f8.cu"),
+              replaces, families, (name, f8_cases[name]))
+             for name, source, replaces, families, _ in list(spec) if name in f8_cases]
     bits = rows.get(("int4_matmul", "wgmma_bits"), {}).get("answer")
     out = []
     for name, source, replaces, families, timed in spec:
+        f8 = name.endswith("_f8")
         t = rows[timed]
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for k, r in rows.items()
-                               if k[0] in families and "max_abs_err" in r),
+                               if k[0] in families and "max_abs_err" in r
+                               and k[1].endswith("_f8") == f8),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         }
-        if name in ("fused_qkv_ingest", "fused_sample_tail"):
+        if name in ("fused_qkv_ingest", "fused_sample_tail", "fused_qkv_ingest_f8"):
             # An empty kernel's time: these kernels' bytes bound lies below it.
             entry["launch_floor_ms"] = rows[("launch_floor", "empty_kernel")]["ms"]
-        if name in REDESIGNED:
+        if f8:
+            entry["kv_dtype"] = "f8"
+            entry["library"] = t.get("library")
+        elif name in REDESIGNED:
             # The instructions its cases ran on (traced), and int4_matmul's
             # bits probe answer.
             entry["redesigned"] = REDESIGNED[name]
@@ -3422,6 +3778,7 @@ def main() -> int:
     kernel_rows.update(engine_kernel_cases(torch, engine_path))
     phase_api_engine(main_path, engine_path)
     fused_paths = (phase_generate_fused(torch, main_path), phase_engine_fused(torch, main_path))
+    f8_paths = (phase_generate_f8(torch, main_path), phase_engine_f8(torch, main_path, engine_path))
     int4_path = phase_generate_int4(torch, main_path)
     int4_engine = phase_engine_int4(torch, main_path, int4_path)
     kernel_rows.update(int4_engine["kernel_rows"])
@@ -3433,7 +3790,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cli(torch)
     emit(kernel_summary(kernel_rows, main_path, engine_path, fused_paths,
-                        (int4_path, int4_engine)))
+                        (int4_path, int4_engine), f8_paths))
     emit({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

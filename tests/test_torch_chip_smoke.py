@@ -79,6 +79,25 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
     assert fused_engine["ingest_tail_equal_streams"] == [smoke.ENGINE_BATCH] * 2
     assert fused_engine["all_equal_streams"] == [smoke.ENGINE_BATCH] * 2
     assert fused_engine["check"]["max_abs_err"] == fused_engine["dense_check"]["max_abs_err"] == 0.0
+    # The f8 phases: on the CPU the plain versions take every call and no
+    # launch counts as over f8 (the side counts are the kernels').
+    f8_gen = smoke.phase_generate_f8(torch, row)
+    for r in f8_gen["runs"]:
+        assert r["launches"] == r["expected_launches"]
+        assert r["launches"]["decode_attention_plain"] > 0 and r["launches"]["decode_attention.f8"] == 0
+    assert f8_gen["chunked_equal_tokens"] == smoke.DECODE_TOKENS
+    assert set(f8_gen["graph_bits"]) == set(smoke.GRAPH_KNOBS)
+    assert f8_gen["kv_bytes"] * 2 == f8_gen["bf16_kv_bytes"]
+    assert f8_gen["check"]["max_abs_err"] == 0.0
+    f8_engine = smoke.phase_engine_f8(torch, row, engine)
+    assert [(r["spec"], r["kv_mode"]) for r in f8_engine["runs"]] == [
+        ("none", "paged"), ("none", "dense"), ("all", "paged"), ("all", "dense")]
+    for r in f8_engine["runs"]:
+        assert r["launches"] == r["expected_launches"]
+    assert f8_engine["runs"][0]["warm_prefix_hits"] > 0
+    assert f8_engine["dense_equal_paged"] == f8_engine["warm_equal_cold"] == {
+        "none": smoke.ENGINE_BATCH, "all": smoke.ENGINE_BATCH}
+    assert 2 * f8_engine["pool_bytes"] == f8_engine["bf16_pool_bytes"]
     int4 = smoke.phase_generate_int4(torch, row)
     for r in int4["runs"]:
         assert r["launches"] == r["expected_launches"]
@@ -136,14 +155,20 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
     rows[("int4_matmul", "wgmma_bits")] = bits
     rows[("int4_matmul", "w_gu_rows3840")] = dict(timed, route="wgmma")
     rows[("launch_floor", "empty_kernel")] = {"ms": 0.25}
+    f8_names = ["decode_attention", "chunk_prefill_attention", "paged_decode_attention",
+                "paged_chunk_attention", "fused_qkv_ingest"]
+    rows.update({(name, "main_path_f8"): dict(timed, library="sdpa") for name in f8_names[:4]})
+    rows[("fused_qkv_ingest", "paged_b8_f8")] = dict(timed, library="unfused")
     summary = smoke.kernel_summary(rows, row, engine, (fused_gen, fused_engine),
-                                   (int4, int4_engine))
-    assert [k["name"] for k in summary["kernels"]] == names
+                                   (int4, int4_engine), (f8_gen, f8_engine))
+    assert [k["name"] for k in summary["kernels"]] == names + [f"{n}_f8" for n in f8_names]
     for k in summary["kernels"]:
         extra = {"redesigned", "instructions"} if k["name"] in smoke.REDESIGNED else set()
-        if k["name"] in ("fused_qkv_ingest", "fused_sample_tail"):
+        if k["name"] in ("fused_qkv_ingest", "fused_sample_tail", "fused_qkv_ingest_f8"):
             assert k["launch_floor_ms"] == 0.25
             extra |= {"launch_floor_ms"}
+        if k["name"].endswith("_f8"):
+            extra |= {"kv_dtype", "library"}
         assert set(k) == KERNEL_KEYS | extra | ({"wgmma_bits"} if k["name"] == "int4_matmul" else set())
     by_name = {k["name"]: k for k in summary["kernels"]}
     assert by_name["int4_matmul"]["instructions"] == ["mma.sync", "wgmma"]
@@ -154,6 +179,9 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
     assert phases == ["generate", "full_model_check", "api", "engine", "paged_model_check",
                       "dense_model_check", "api_engine", "generate_fused", "fused_model_check",
                       "engine_fused", "paged_fused_model_check", "dense_fused_model_check",
+                      "generate_f8", "f8_model_check", "engine_f8", "paged_none_f8_model_check",
+                      "dense_none_f8_model_check", "paged_all_f8_model_check",
+                      "dense_all_f8_model_check",
                       "generate_int4", "int4_model_check", "engine_int4", "decode_graph",
                       "generate_int8", "cli", "kernels"]
 
@@ -207,6 +235,56 @@ def test_engine_layout_follows_the_engine(smoke, kv_mode):
     # The prefill covers every lane at once, the decode call one token each.
     assert shapes[names[0]]["q"][0] == shapes[names[1]]["q"][0] == 4
     assert shapes[names[1]]["q"][1] == 1
+
+
+def test_f8_bits_gate_rehearses_on_the_cpu(smoke, capsys):
+    """The f8 kernels' bits gate at small engine-like operands: on the CPU
+    each wrapper runs its plain version, which widens f8 to bf16 exactly,
+    so the f8 calls equal the widened and the dense ones, and the row is
+    emitted."""
+    decode = {"lengths": [5, 130, 200], "starts": [0, 3, 64], "n_p": 2}
+    chunk = {"q": (3, 20, smoke.N_Q, smoke.HD), "q_starts": [0, 110, 180],
+             "lengths": [20, 130, 200], "k_starts": [0, 3, 64], "n_p": 2}
+    g = torch.Generator().manual_seed(0)
+    row = smoke.f8_bits(torch, torch.device("cpu"), g, 1, decode, chunk)
+    (emitted,) = [smoke.json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert emitted["case"] == "f8_bits" and emitted["kv_dtype"] == "f8"
+    assert {k: v for k, v in row.items() if k.startswith("paged_")} == dict.fromkeys(
+        ("paged_decode_eq_widened", "paged_decode_eq_dense", "paged_chunk_eq_widened",
+         "paged_chunk_eq_dense"), True)
+
+
+def test_f8_kernel_cases_rehearse_on_the_cpu(smoke, monkeypatch, capsys):
+    """The f8 kernel cases at a small cache on the CPU (the timings, which
+    need the card, stubbed): each holds its f8 call to the plain version,
+    counts fewer bytes than its bf16 case for the same operations, and
+    names its yardstick; the ingest's six values past +-464 come back NaN
+    in the bytes compared."""
+    monkeypatch.setattr(smoke, "cuda_ms", lambda torch, fn, iters, warmup=2: (fn(), 0.5)[1])
+    monkeypatch.setattr(smoke, "traced_route", lambda torch, run: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    dev, f8 = torch.device("cpu"), torch.float8_e4m3fn
+    g = torch.Generator().manual_seed(0)
+    rows = {}
+    for kv in (None, f8):
+        name = "f8" if kv else "bf16"
+        rows["decode", name] = smoke._decode_case(torch, dev, g, name, [5, 200], None, {},
+                                                  max_seq=256, kv=kv)
+        rows["chunk", name] = smoke._chunk_case(torch, dev, g, name, 16, [0, 100], [0, 3], {},
+                                                max_seq=256, kv=kv)
+        rows["paged_decode", name] = smoke._paged_decode_case(torch, dev, g, 1, name, [5, 200],
+                                                              [0, 3], 2, kv=kv)
+        rows["paged_chunk", name] = smoke._paged_chunk_case(torch, dev, g, 2, name, 16, [0, 100],
+                                                            [16, 116], [0, 3], 2, kv=kv)
+    for kernel in ("decode", "chunk", "paged_decode", "paged_chunk"):
+        bf, f8_row = rows[kernel, "bf16"], rows[kernel, "f8"]
+        assert f8_row["max_abs_err"] == 0.0 and f8_row["kv_dtype"] == "f8"
+        assert f8_row["library"] == smoke.F8_LIBRARY and "kv_dtype" not in bf
+        assert f8_row["bytes"] < bf["bytes"] and f8_row["flops"] == bf["flops"]
+    for case, b, paged in (("dense_b1_f8", 1, False), ("paged_b8_f8", 8, True)):
+        row = smoke._ingest_case(torch, dev, g, case, b, 300, paged=paged, kv=f8)
+        assert row["equal"] and row["nan_written"] == 6 and row["kv_dtype"] == "f8"
+    capsys.readouterr()
 
 
 def test_bound_takes_the_larger_of_bytes_and_operations(smoke):

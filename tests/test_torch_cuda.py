@@ -28,6 +28,7 @@ from cake_tpu_torch.ops.chunk_prefill import (
 )
 from cake_tpu_torch.ops.decode_attention import SPLIT, decode_attention, decode_attention_plain
 from cake_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from cake_tpu_torch.ops.kv_dtype import kv_view
 from cake_tpu_torch.models.llama.paged_cache import gather_pages
 from cake_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
@@ -272,11 +273,13 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros(1, 1, 8, 128, device=dev, dtype=torch.bfloat16)
     cache = torch.zeros(1, 2, 128, 128, device=dev, dtype=torch.bfloat16)
     lengths = torch.ones(1, dtype=torch.int32, device=dev)
-    f8 = cache.to(torch.float8_e4m3fn)
-    with pytest.raises(NotImplementedError, match="f8"):
-        decode_attention(q, f8, f8, lengths)
-    with pytest.raises(NotImplementedError, match="f8"):
-        chunk_prefill_attention(q, f8, f8, lengths - 1, lengths)
+    f16 = cache.half()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        decode_attention(q, f16, f16, lengths)  # a same-width cache of another dtype
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        chunk_prefill_attention(q, f16, f16, lengths - 1, lengths)
+    with pytest.raises(ValueError):
+        decode_attention(q, cache.to(torch.float8_e4m3fn), cache, lengths)  # K and V apart
     with pytest.raises(ValueError):
         decode_attention(q, cache.transpose(2, 3), cache, lengths)  # not contiguous
     with pytest.raises(ValueError):
@@ -415,11 +418,11 @@ def test_paged_kernels_refuse_what_they_do_not_take(dev):
     pool = torch.zeros(3, 2, PAGE, 128, device=dev, dtype=torch.bfloat16)
     tables = torch.zeros(1, 2, dtype=torch.int32, device=dev)
     lengths = torch.ones(1, dtype=torch.int32, device=dev)
-    f8 = pool.to(torch.float8_e4m3fn)
-    with pytest.raises(NotImplementedError, match="f8"):
-        paged_decode_attention(q, f8, f8, lengths, tables)
-    with pytest.raises(NotImplementedError, match="f8"):
-        paged_chunk_attention(q, f8, f8, lengths - 1, lengths, None, tables)
+    f16 = pool.half()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        paged_decode_attention(q, f16, f16, lengths, tables)  # a same-width pool of another dtype
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        paged_chunk_attention(q, f16, f16, lengths - 1, lengths, None, tables)
     small = pool[:, :, :64].contiguous()
     with pytest.raises(ValueError, match="page_size"):
         paged_decode_attention(q, small, small, lengths, tables)  # page 64: no quiet fallback
@@ -694,13 +697,12 @@ def test_ingest_kernel_refuses_what_it_does_not_take(dev):
     qkv = torch.zeros(1, 1, 12 * 64, device=dev, dtype=torch.bfloat16)
     cos = torch.zeros(1, 1, 32, device=dev)
     cache = torch.zeros(1, 2, 16, 64, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="f8"):
-        f8 = cache.to(torch.float8_e4m3fn)
-        fused_qkv_ingest(qkv, cos, cos, 0, f8, f8, n_q=8, n_kv=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_qkv_ingest(qkv, cos, cos, 0, cache.half(), cache.half(), n_q=8, n_kv=2)  # f16 cache
     with pytest.raises(ValueError):
         fused_qkv_ingest(qkv, cos, cos, 16, cache, cache.clone(), n_q=8, n_kv=2)  # slot
     with pytest.raises(ValueError):
-        fused_qkv_ingest(qkv, cos, cos, 0, cache.float(), cache.float(), n_q=8, n_kv=2)
+        fused_qkv_ingest(qkv.float(), cos, cos, 0, cache, cache.clone(), n_q=8, n_kv=2)
     with pytest.raises(ValueError):
         tables = torch.zeros(1, 1, dtype=torch.int64, device=dev)
         fused_qkv_ingest(qkv, cos, cos, 0, cache, cache.clone(), n_q=8, n_kv=2,
@@ -1067,7 +1069,7 @@ def test_ingest_graph_replays_read_the_slot_from_device_memory(dev, paged):
         assert not torch.equal(k1, k0) or at == 3 * PAGE + 5
 
 
-@pytest.mark.parametrize("op", ["decode_attention", "fused_norm_matmul"])
+@pytest.mark.parametrize("op", ["decode_attention", "fused_norm_matmul", "decode_attention_f8"])
 def test_a_graph_replays_after_a_larger_call_grew_the_tickets(dev, op, monkeypatch):
     """A graph captured over a small call's ticket buffer, replayed after a
     larger eager call needed more tickets and other tensors took what the
@@ -1080,12 +1082,14 @@ def test_a_graph_replays_after_a_larger_call_grew_the_tickets(dev, op, monkeypat
     monkeypatch.setattr(tickets, "_held", {})
     gen = torch.Generator(device=dev).manual_seed(43)
     dt = torch.bfloat16
-    if op == "decode_attention":
+    if op.startswith("decode_attention"):
         n_q, n_kv, hd, max_seq = 32, 8, 128, 1024
+        kv_dt = torch.float8_e4m3fn if op.endswith("f8") else dt
 
         def operands(b):
-            return (_randn(gen, dev, dt, b, 1, n_q, hd), _randn(gen, dev, dt, b, n_kv, max_seq, hd),
-                    _randn(gen, dev, dt, b, n_kv, max_seq, hd),
+            return (_randn(gen, dev, dt, b, 1, n_q, hd),
+                    _randn(gen, dev, kv_dt, b, n_kv, max_seq, hd),
+                    _randn(gen, dev, kv_dt, b, n_kv, max_seq, hd),
                     torch.arange(700, 700 + b, dtype=torch.int32, device=dev))
 
         def call(args):
@@ -1099,7 +1103,7 @@ def test_a_graph_replays_after_a_larger_call_grew_the_tickets(dev, op, monkeypat
 
         def call(args):
             return fused_norm_matmul(*args, eps=1e-5)
-    small, large = (operands(2), operands(8)) if op == "decode_attention" else (
+    small, large = (operands(2), operands(8)) if op.startswith("decode_attention") else (
         operands(1024), operands(8192))
     call(small)  # the warm-up makes the small call's tickets
     graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
@@ -1122,9 +1126,9 @@ def test_a_graph_replays_after_a_larger_call_grew_the_tickets(dev, op, monkeypat
     assert not held[0].any() and not held[1].any()
 
 
-def _graph_engine(dev, kv_mode, fusion, dtype, quantize=None):
+def _graph_engine(dev, kv_mode, fusion, dtype, quantize=None, kv_dtype=None):
     """A backend at the small width with three prompts prefilled: (backend,
-    kv, carries, slot)."""
+    kv, carries, slot); its cache of ``kv_dtype`` (None: ``dtype``)."""
     import dataclasses
 
     from cake_tpu_torch.models.llama import batch as B
@@ -1139,10 +1143,11 @@ def _graph_engine(dev, kv_mode, fusion, dtype, quantize=None):
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(2), dtype, dev)
     if quantize:
         params = quantize_params(params, quantize)
+    kv_dtype = kv_dtype or dtype
     if kv_mode == "paged":
-        be = PagedLocalBackend(cfg, params, max_seq_len=512, cache_dtype=dtype, device=dev)
+        be = PagedLocalBackend(cfg, params, max_seq_len=512, cache_dtype=kv_dtype, device=dev)
     else:
-        be = LocalBatchBackend(cfg, params, max_seq_len=512, cache_dtype=dtype, device=dev)
+        be = LocalBatchBackend(cfg, params, max_seq_len=512, cache_dtype=kv_dtype, device=dev)
     gen = torch.Generator().manual_seed(3)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist() for n in (40, 121, 77)]
     tokens, pads, bucket = B.layout_prompts(prompts, 512)
@@ -1167,7 +1172,10 @@ def _graph_engine(dev, kv_mode, fusion, dtype, quantize=None):
     ("dense", "none", torch.bfloat16, None), ("dense", "all", torch.bfloat16, None),
     ("paged", "none", torch.bfloat16, None), ("paged", "all", torch.bfloat16, None),
     ("paged", "ingest,tail", torch.float32, None), ("paged", "all", torch.bfloat16, "int4"),
-], ids=lambda c: f"{c[0]}-{c[1]}-{str(c[2])[6:]}-{c[3]}")
+    # f8 caches: the unfused writes (narrow) and the ingest kernel's
+    ("paged", "none", torch.bfloat16, None, torch.float8_e4m3fn),
+    ("dense", "all", torch.bfloat16, None, torch.float8_e4m3fn),
+], ids=lambda c: f"{c[0]}-{c[1]}-{str(c[2])[6:]}-{c[3]}" + (f"-{str(c[4])[6:]}" if c[4:] else ""))
 @pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
 def test_engine_decode_graph_equals_the_eager_chunk(dev, case, sampled):
     """Five chunks of the backend's decode (one graph, replayed at moving
@@ -1180,8 +1188,8 @@ def test_engine_decode_graph_equals_the_eager_chunk(dev, case, sampled):
     from cake_tpu_torch.ops.decode_attention import decode_attention
     from cake_tpu_torch.ops.paged_attention import paged_decode_attention
 
-    kv_mode, fusion, dtype, quantize = case
-    be, kv, c, slot = _graph_engine(dev, kv_mode, fusion, dtype, quantize)
+    kv_mode, fusion, dtype, quantize = case[:4]
+    be, kv, c, slot = _graph_engine(dev, kv_mode, fusion, dtype, quantize, *case[4:])
     s = SamplingConfig(temperature=0.8, top_k=20, repeat_penalty=1.1, repeat_last_n=16) \
         if sampled else SamplingConfig(temperature=0.0, repeat_penalty=1.1, repeat_last_n=16)
     n = 4
@@ -1211,7 +1219,8 @@ def test_engine_decode_graph_equals_the_eager_chunk(dev, case, sampled):
             assert torch.equal(ids, want), (i, ids, want)
             assert torch.equal(keys, r_keys) and torch.equal(ring, r_ring)
             assert torch.equal(ring_idx, r_idx)
-            assert torch.equal(kv.k, ref.k) and torch.equal(kv.v, ref.v)
+            assert torch.equal(kv_view(kv.k), kv_view(ref.k))
+            assert torch.equal(kv_view(kv.v), kv_view(ref.v))
             tok, r_tok, slot = ids[:, -1].clone(), want[:, -1].clone(), slot + n
     (chunk,) = be._chunks.values()
     assert chunk.graph is not None and chunk.replays == 5
@@ -1224,6 +1233,18 @@ def test_generator_decode_graph_equals_the_eager_loop(dev, fusion, sampled):
     generator's draws made before each replay) against sampled_decode_loop
     drawing from a copy of the generator, on a clone of the cache: ids, KV
     and the generator's state to the bit."""
+    _generator_graph_case(dev, fusion, sampled, torch.bfloat16)
+
+
+@pytest.mark.parametrize("fusion", ["none", "all"])
+def test_generator_f8_decode_graph_equals_the_eager_loop(dev, fusion):
+    """The same over an f8 cache: the graph writes it through narrow and
+    reads it through the f8 decode kernel, the eager loop the same, to the
+    bit."""
+    _generator_graph_case(dev, fusion, True, torch.float8_e4m3fn)
+
+
+def _generator_graph_case(dev, fusion, sampled, kv_dtype):
     import dataclasses
 
     import numpy as np
@@ -1236,7 +1257,7 @@ def test_generator_decode_graph_equals_the_eager_loop(dev, fusion, sampled):
 
     cfg = dataclasses.replace(LlamaConfig.tiny(**GRAPH_CFG), fusion_impl=fusion)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(8), torch.bfloat16, dev)
-    step = LocalForwardStep(cfg, params, max_seq_len=512, cache_dtype=torch.bfloat16, device=dev)
+    step = LocalForwardStep(cfg, params, max_seq_len=512, cache_dtype=kv_dtype, device=dev)
     s = SamplingConfig(temperature=0.9, top_k=30, repeat_penalty=1.1, repeat_last_n=16, seed=9) \
         if sampled else SamplingConfig(temperature=0.0, repeat_penalty=1.1, repeat_last_n=16)
     prompt = np.arange(3, 60, dtype=np.int64)[None]
@@ -1265,7 +1286,8 @@ def test_generator_decode_graph_equals_the_eager_loop(dev, fusion, sampled):
         history += got[0].tolist()
         pos += 8
     torch.cuda.synchronize()
-    assert torch.equal(step._kv.k, ref.k) and torch.equal(step._kv.v, ref.v)
+    assert torch.equal(kv_view(step._kv.k), kv_view(ref.k))
+    assert torch.equal(kv_view(step._kv.v), kv_view(ref.v))
     assert torch.equal(rng.get_state(), ref_rng.get_state())
     (chunk,) = step._chunks.values()
     assert chunk.graph is not None and chunk.replays == 3
@@ -1533,3 +1555,175 @@ def test_int4_generator_and_engine_on_the_card(dev, tmp_path):
             eng.stop()
     assert engine_streams["paged"] == engine_streams["dense"]
     assert int4_matmul_plain.launches == plain0
+
+
+# ------------------------------------------------------------- f8 KV caches
+
+F8 = torch.float8_e4m3fn
+
+
+def _f8(gen, dev, *shape):
+    return _randn(gen, dev, F8, *shape)
+
+
+def _bits_equal(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(kv_view(a), kv_view(b))
+
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_decode_kernel_f8_matches_plain_and_the_widened_cache(dev, dtype, hd, group):
+    """The f8 decode body against the plain version, and to the bit the
+    same kernel over the cache widened to q's dtype (exact: the body loads
+    narrow and widens in registers, the rest unchanged)."""
+    gen = torch.Generator(device=dev).manual_seed(hd + group + 1)
+    b, n_kv, max_seq = 3, 2, 384
+    q = _randn(gen, dev, dtype, b, 1, n_kv * group, hd)
+    k, v = _f8(gen, dev, b, n_kv, max_seq, hd), _f8(gen, dev, b, n_kv, max_seq, hd)
+    lengths = torch.tensor([1, 200, 384], dtype=torch.int32, device=dev)
+    starts = torch.tensor([0, 50, 0], dtype=torch.int32, device=dev)
+    for kw in ({}, {"window": 64, "softcap": 30.0, "scale": 0.2}):
+        before = decode_attention.launches
+        out = decode_attention(q, k, v, lengths, starts, **kw)
+        assert decode_attention.launches == before + 1 and out.dtype == dtype
+        _assert_close(out, decode_attention_plain(q, k, v, lengths, starts, **kw), dtype)
+        wide = decode_attention(q, k.to(dtype), v.to(dtype), lengths, starts, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, wide)
+
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_chunk_kernel_f8_matches_plain_and_the_widened_cache(dev, dtype, hd, group):
+    """The f8 chunk body (narrow tiles widened in shared memory; f32: in
+    registers) against the plain version, and to the bit the kernel over
+    the widened cache, over several key tiles with k_starts, a window and
+    a softcap."""
+    gen = torch.Generator(device=dev).manual_seed(hd * group + 2)
+    b, n_kv, max_seq, chunk = 2, 2, 384, 150
+    q = _randn(gen, dev, dtype, b, chunk, n_kv * group, hd)
+    k, v = _f8(gen, dev, b, n_kv, max_seq, hd), _f8(gen, dev, b, n_kv, max_seq, hd)
+    q_starts = torch.tensor([0, 200], dtype=torch.int32, device=dev)
+    lengths = q_starts + chunk
+    k_starts = torch.tensor([0, 30], dtype=torch.int32, device=dev)
+    flag = torch.tensor(True, device=dev)
+    for args, kw in (((None, None), {}), ((flag, k_starts), {"window": 80, "softcap": 25.0})):
+        before = chunk_prefill_attention.launches
+        out = chunk_prefill_attention(q, k, v, q_starts, lengths, *args, **kw)
+        assert chunk_prefill_attention.launches == before + 1 and out.dtype == dtype
+        ref = chunk_prefill_attention_plain(q, k, v, q_starts, lengths, *args, **kw)
+        _assert_close(out, ref, dtype)
+        wide = chunk_prefill_attention(q, k.to(dtype), v.to(dtype), q_starts, lengths, *args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, wide)
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_paged_kernels_f8_match_plain_and_dense(dev, dtype, hd):
+    """The paged f8 kernels against their plain versions and, to the bit,
+    the dense f8 kernels over the gathered pages (shuffled pages, an
+    unmapped entry past a row's range, left pads)."""
+    gen = torch.Generator(device=dev).manual_seed(hd + 3)
+    n_kv, group = 2, 4
+    k, v = _f8(gen, dev, 11, n_kv, PAGE, hd), _f8(gen, dev, 11, n_kv, PAGE, hd)
+    tables = _tables(dev, _ROWS, 4)
+    k_dense, v_dense = gather_pages(k, tables).contiguous(), gather_pages(v, tables).contiguous()
+    assert k_dense.dtype == F8
+    lengths = torch.tensor(_LENGTHS, dtype=torch.int32, device=dev)
+    starts = torch.tensor(_STARTS, dtype=torch.int32, device=dev)
+    q = _randn(gen, dev, dtype, 3, 1, n_kv * group, hd)
+    paged = paged_decode_attention(q, k, v, lengths, tables, starts)
+    _assert_close(paged, paged_decode_attention_plain(q, k, v, lengths, tables, starts), dtype)
+    assert torch.equal(paged, decode_attention(q, k_dense, v_dense, lengths, starts))
+    qc = _randn(gen, dev, dtype, 3, 150, n_kv * group, hd)
+    q_starts = torch.tensor([0, 40, 350], dtype=torch.int32, device=dev)
+    c_lengths = torch.tensor([150, 190, 500], dtype=torch.int32, device=dev)
+    pads = torch.tensor([0, 17, 300], dtype=torch.int32, device=dev)
+    chunk = paged_chunk_attention(qc, k, v, q_starts, c_lengths, pads, tables)
+    ref = paged_chunk_attention_plain(qc, k, v, q_starts, c_lengths, pads, tables)
+    _assert_close(chunk, ref, dtype)
+    dense = chunk_prefill_attention(qc, k_dense, v_dense, q_starts, c_lengths, None, pads)
+    torch.cuda.synchronize()
+    assert torch.equal(chunk, dense)
+
+
+@pytest.mark.parametrize("kernel", ["decode", "chunk", "paged_decode", "paged_chunk"])
+def test_a_wider_cache_upgrades_the_query(dev, kernel):
+    """An f32 cache under bf16 queries: the f32 kernel over the query
+    upcast (the reference's widen_qkv), the output back in bf16, within
+    tolerance of the plain version and to the bit the f32 call cast down."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf, n_kv, hd = torch.bfloat16, 2, 128
+    lengths = torch.tensor([300, 200, 384], dtype=torch.int32, device=dev)
+    starts = torch.tensor([0, 70, 130], dtype=torch.int32, device=dev)
+    chunk = 1 if "decode" in kernel else 64
+    q = _randn(gen, dev, bf, 3, chunk, 4 * n_kv, hd)
+    if kernel.startswith("paged"):
+        k, v = _pool(gen, dev, torch.float32, 10, n_kv, hd)
+        tables = _tables(dev, [[7, 2, 9], [5, 0, -1], [1, 8, 3]], 3)
+    else:
+        k = _randn(gen, dev, torch.float32, 3, n_kv, 384, hd)
+        v = _randn(gen, dev, torch.float32, 3, n_kv, 384, hd)
+    q_starts = lengths - chunk
+    calls = {
+        "decode": lambda q_: decode_attention(q_, k, v, lengths, starts),
+        "chunk": lambda q_: chunk_prefill_attention(q_, k, v, q_starts, lengths, None, starts),
+        "paged_decode": lambda q_: paged_decode_attention(q_, k, v, lengths, tables, starts),
+        "paged_chunk": lambda q_: paged_chunk_attention(q_, k, v, q_starts, lengths, starts,
+                                                        tables),
+    }
+    plains = {
+        "decode": lambda: decode_attention_plain(q, k, v, lengths, starts),
+        "chunk": lambda: chunk_prefill_attention_plain(q, k, v, q_starts, lengths, None, starts),
+        "paged_decode": lambda: paged_decode_attention_plain(q, k, v, lengths, tables, starts),
+        "paged_chunk": lambda: paged_chunk_attention_plain(q, k, v, q_starts, lengths, starts,
+                                                           tables),
+    }
+    out = calls[kernel](q)
+    assert out.dtype == bf
+    _assert_close(out, plains[kernel](), bf)
+    assert torch.equal(out, calls[kernel](q.float()).to(bf))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype,cache", [(d, c) for d in DTYPES for c in ("f8", "f32")
+                                         if (d, c) != (torch.float32, "f32")],
+                         ids=lambda x: str(x).removeprefix("torch."))
+def test_ingest_kernel_f8_gives_the_plain_bits(dev, dtype, cache, hd, paged):
+    """The ingest over an f8 cache (k rounded to the activations' dtype,
+    then narrowed; NaN past +-464, with the sign) or an f32 cache under
+    16-bit activations: q and every written cache byte equal the plain
+    version's."""
+    from cake_tpu_torch.ops.fused_ingest import fused_qkv_ingest, fused_qkv_ingest_plain
+
+    kv_dt = F8 if cache == "f8" else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(hd + 11)
+    b, n_q, n_kv, slot = 3, 8, 2, 133
+    qkv, cos, sin = _ingest_operands(gen, dev, dtype, b, n_q, n_kv, hd)
+    # Row 0 (mapped in both layouts): four k and two v values past +-464,
+    # roped as they are.
+    qkv[0, 0, n_q * hd : n_q * hd + 4] = torch.tensor([470.0, -470.0, 1000.0, -2000.0])
+    qkv[0, 0, (n_q + n_kv) * hd : (n_q + n_kv) * hd + 2] = torch.tensor([500.0, -465.5])
+    cos[0, 0, :4], sin[0, 0, :4] = 1.0, 0.0
+    kw = dict(n_q=n_q, n_kv=n_kv)
+    if paged:
+        k0, v0 = _pool(gen, dev, kv_dt, 10, n_kv, hd)
+        kw["block_tables"] = _tables(dev, [[7, 2, 9], [5, -1, 1], [3, 8, 4]], 3)
+    else:
+        k0, v0 = _randn(gen, dev, kv_dt, b, n_kv, 256, hd), _randn(gen, dev, kv_dt, b, n_kv, 256, hd)
+    k1, v1, k2, v2 = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+    before = fused_qkv_ingest.launches
+    q1 = fused_qkv_ingest(qkv, cos, sin, slot, k1, v1, **kw)
+    assert fused_qkv_ingest.launches == before + 1
+    q2 = fused_qkv_ingest_plain(qkv, cos, sin, slot, k2, v2, **kw)
+    torch.cuda.synchronize()
+    live = slice(None, -1) if paged else slice(None)  # the sink aside
+    assert torch.equal(q1, q2)
+    assert _bits_equal(k1[live], k2[live]) and _bits_equal(v1[live], v2[live])
+    if cache == "f8":  # the six values came back NaN, with their signs
+        nan = torch.cat([kv_view(k1[live]).flatten(), kv_view(v1[live]).flatten()])
+        assert sorted(nan[nan & 0x7F == 0x7F].tolist()) == [0x7F, 0x7F, 0x7F, 0xFF, 0xFF, 0xFF]
