@@ -56,7 +56,7 @@ from cake_tpu_torch.ops.fused_ingest import fused_qkv_ingest
 from cake_tpu_torch.ops.paged_attention import paged_decode_attention
 from cake_tpu_torch.ops.paged_prefill import paged_chunk_attention
 from cake_tpu_torch.ops.rope import model_rope_tables
-from cake_tpu_torch.ops.sampling import apply_repeat_penalty, sample_per_row, split_keys
+from cake_tpu_torch.ops.sampling import apply_repeat_penalty, draw, sample
 
 BUCKET_MULTIPLE = 16
 _NOT_PORTED = "is not ported yet (ROADMAP.md queue A)"
@@ -102,14 +102,15 @@ def seed_rings(ids_list: list[list[int]], window: int) -> tuple[np.ndarray, np.n
 def first_sample(logits: torch.Tensor, s, ring: np.ndarray, ring_idx: np.ndarray, keys):
     """Penalize + sample the FIRST post-prefill token and advance the rings:
     the one definition of the first-token arithmetic, shared by the epoch
-    start and the joins. ``keys`` [B, 2] gives each row its own stream.
+    start and the joins. ``keys`` [B, 2] threefry keys give each row its own
+    stream (the JAX package's ``vmap(split)`` and ``sample_per_row``).
 
     Returns (first [B] np.int32, keys, ring, ring_idx)."""
     penalized = apply_repeat_penalty(
         logits, s.repeat_penalty, torch.as_tensor(ring, device=logits.device)
     )
-    keys, sub = split_keys(keys)
-    first = sample_per_row(penalized, sub, s.temperature, s.top_k, s.top_p)
+    keys, noise = draw(keys, penalized, s.temperature)
+    first = sample(penalized, None, s.temperature, s.top_k, s.top_p, noise=noise)
     first = first.cpu().numpy().astype(np.int32)
     window = ring.shape[1]
     if window > 0:

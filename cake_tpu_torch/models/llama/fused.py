@@ -47,7 +47,7 @@ import torch
 
 from cake_tpu_torch.device import upload_into
 from cake_tpu_torch.ops import launches
-from cake_tpu_torch.ops.sampling import draw_uniforms, sample_step
+from cake_tpu_torch.ops.sampling import sample_step
 
 # What every capture so far cost, for the smoke's and the bench's records:
 # captures, seconds of warm-up runs and of captures (instantiation
@@ -80,8 +80,7 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 def sampled_decode_loop(
-    forward_one, kv, tok, slot, keys, ring, ring_idx, *, n_steps, s, fused_tail=False,
-    uniforms=None, out=None,
+    forward_one, kv, tok, slot, keys, ring, ring_idx, *, n_steps, s, fused_tail=False, out=None,
 ):
     """``n_steps`` one-token steps, forward -> sample_step -> feed back, all
     on the device (port of ``fused.sampled_decode_scan``).
@@ -91,12 +90,11 @@ def sampled_decode_loop(
     written there and the logits predict slot + 1. ``slot`` is a host int
     (step i feeds slot + i) or a 0-d int64 tensor on the device, advanced in
     place one a step (it ends at slot + n_steps). ``keys``: [B, 2] per-row
-    keys, one ``torch.Generator``, or None with ``uniforms`` [n_steps, B,
-    vocab], a shared stream's draws made beforehand, or when greedy (see
-    ``sample_step``); ``s``: the sampling knobs; ``out``: a [B, n_steps]
-    int64 buffer for the ids. Returns (tokens [B, n_steps] on the device,
-    kv, keys, ring, ring_idx); the caller reads the tokens back once per
-    chunk."""
+    threefry keys, one [2] key the rows share, or None when greedy, split
+    once a sampled step (see ``sample_step``); ``s``: the sampling knobs;
+    ``out``: a [B, n_steps] int64 buffer for the ids. Returns (tokens [B,
+    n_steps] on the device, kv, keys, ring, ring_idx); the caller reads the
+    tokens back once per chunk."""
     on_device = isinstance(slot, torch.Tensor)
     toks = []
     for i in range(n_steps):
@@ -105,7 +103,6 @@ def sampled_decode_loop(
             logits, keys, ring, ring_idx,
             temperature=s.temperature, top_k=s.top_k, top_p=s.top_p,
             repeat_penalty=s.repeat_penalty, fused_tail=fused_tail,
-            uniform=None if uniforms is None else uniforms[i],
         )
         if on_device:
             slot.add_(1)
@@ -120,8 +117,9 @@ class DecodeChunk:
     replays it (the JAX package jits one scan per ``n_steps`` and knobs).
 
     Static inputs: ``tok`` [B], ``slot`` (0-d), ``ring`` [B, window],
-    ``ring_idx`` [B], ``keys`` [B, 2] (per-row keys) or ``uniforms`` [n, B,
-    vocab] (a shared generator's draws, when sampled), and ``extra``, the
+    ``ring_idx`` [B], ``keys`` ([B, 2] per-row threefry keys, or the [2] key
+    the rows share: the graph splits it and draws the noise on the device
+    once a sampled step, so nothing is drawn on the host), and ``extra``, the
     buffers the owner's forward reads (pads, block tables). Static outputs:
     ``ids`` [B, n], and the carries for the next chunk in ``tok``, ``ring``,
     ``ring_idx``, ``keys`` and ``slot`` (advanced by n).
@@ -136,19 +134,16 @@ class DecodeChunk:
     counters at every replay; the warm-up's are not counted
     (ops/launches.py)."""
 
-    def __init__(self, forward_one, kv, *, batch: int, window: int, vocab: int, n_steps: int,
-                 s, fused_tail: bool, per_row: bool, device: torch.device, extra=None):
+    def __init__(self, forward_one, kv, *, batch: int, window: int, n_steps: int, s,
+                 fused_tail: bool, per_row: bool, device: torch.device, extra=None):
         i64 = dict(dtype=torch.int64, device=device)
-        sampled = s.temperature is not None and s.temperature > 0.0
         self.forward_one, self.kv, self.n_steps, self.s = forward_one, kv, n_steps, s
         self.fused_tail, self.device = fused_tail, device
         self.tok = torch.zeros(batch, **i64)
         self.slot = torch.zeros((), **i64)
         self.ring = torch.full((batch, window), -1, **i64)
         self.ring_idx = torch.zeros(batch, **i64)
-        self.keys = torch.zeros((batch, 2), **i64) if per_row else None
-        self.uniforms = (torch.zeros((n_steps, batch, vocab), dtype=torch.float32, device=device)
-                         if sampled and not per_row else None)
+        self.keys = torch.zeros((batch, 2) if per_row else (2,), **i64)
         self.ids = torch.zeros((batch, n_steps), **i64)
         self.extra = dict(extra or {})
         self.graph = None
@@ -159,30 +154,23 @@ class DecodeChunk:
         """The chunk over the static buffers: what the graph captures."""
         ids, _, keys, _, ring_idx = sampled_decode_loop(
             self.forward_one, self.kv, self.tok, self.slot, self.keys, self.ring, self.ring_idx,
-            n_steps=self.n_steps, s=self.s, fused_tail=self.fused_tail, uniforms=self.uniforms,
-            out=self.ids,
+            n_steps=self.n_steps, s=self.s, fused_tail=self.fused_tail, out=self.ids,
         )
         self.tok.copy_(ids[:, -1])
         self.ring_idx.copy_(ring_idx)
-        if self.keys is not None:
+        if keys is not self.keys:  # a greedy chunk leaves the keys as they are
             self.keys.copy_(keys)
 
-    def load(self, *, tok, slot: int, ring, ring_idx, keys=None, generator=None, **extra) -> None:
+    def load(self, *, tok, slot: int, ring, ring_idx, keys, **extra) -> None:
         """Copy a chunk's inputs into the static buffers: device tensors by
         a device copy (none where the value is the buffer itself, as the
         carries a previous run returned are), host values through pinned
-        memory. With a shared generator, the chunk's uniforms are drawn here,
-        one draw a step in the loop's order, so the stream advances as the
-        eager loop advances it."""
+        memory."""
         upload_into(self.slot, np.int64(slot))
         for buf, value in ((self.tok, tok), (self.ring, ring), (self.ring_idx, ring_idx),
                            (self.keys, keys), *((self.extra[k], v) for k, v in extra.items())):
-            if buf is not None and value is not buf:
+            if value is not buf:
                 upload_into(buf, value)
-        if self.uniforms is not None:
-            shape = self.uniforms.shape[1:]
-            for i in range(self.n_steps):
-                draw_uniforms(shape, generator, self.device, out=self.uniforms[i])
 
     def run(self, **inputs) -> torch.Tensor:
         """One chunk from ``inputs`` (see :meth:`load`): a replay of the
@@ -202,8 +190,7 @@ class DecodeChunk:
     def _capture(self) -> None:
         dev = self.device
         stream = _capture_stream(dev)
-        carries = [t for t in (self.tok, self.slot, self.ring, self.ring_idx, self.keys)
-                   if t is not None]
+        carries = [self.tok, self.slot, self.ring, self.ring_idx, self.keys]
         t0 = time.perf_counter()
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream), launches.diverted():

@@ -33,7 +33,8 @@ from cake_tpu_torch.models.llama.tokenizer import Tokenizer, load_tokenizer
 from cake_tpu_torch.ops.fuse import fuse_params, parse_fusion_spec, resolve_fusion
 from cake_tpu_torch.ops.quant import quantize_params
 from cake_tpu_torch.ops.rope import model_rope_tables
-from cake_tpu_torch.ops.sampling import DEFAULT_SEED, apply_repeat_penalty, sample
+from cake_tpu_torch.ops.sampling import DEFAULT_SEED, apply_repeat_penalty, draw, sample
+from cake_tpu_torch.ops.threefry import prng_key
 
 @dataclasses.dataclass
 class Token:
@@ -135,20 +136,21 @@ class LocalForwardStep:
         pos: int,
         n_steps: int,
         sampling,
-        rng: torch.Generator,
+        key: torch.Tensor,
         ring: np.ndarray,
         ring_idx: int,
-    ) -> np.ndarray:
+    ) -> tuple[np.ndarray, torch.Tensor]:
         """Decode ``n_steps`` tokens on the device (port of the JAX package's
         ``FusedDecodeCapability.decode_chunk``); returns their ids [batch,
-        n_steps], read back once.
+        n_steps], read back once, and the advanced key.
 
-        ``last_token`` [batch] sits at position ``pos``. ``rng`` is the
-        dialog's sampling generator, advanced in place exactly as the
-        per-step path advances it. The penalty ring ([batch, window], -1 =
-        empty) and its next slot are values: the caller reseeds them from
-        its token history each call, so an EOS truncation leaves no stale
-        ring state behind.
+        ``last_token`` [batch] sits at position ``pos``. ``key`` is the
+        dialog's [2] threefry key on the device, split once a sampled step
+        exactly as the per-step path splits it; the advanced key stays on
+        the device (the chunk's key buffer). The penalty ring ([batch,
+        window], -1 = empty) and its next slot are values: the caller
+        reseeds them from its token history each call, so an EOS truncation
+        leaves no stale ring state behind.
 
         The chunk runs as a ``DecodeChunk`` (models/llama/fused.py), one a
         (n_steps, batch, sampling knobs): on the card a replay of its CUDA
@@ -161,26 +163,25 @@ class LocalForwardStep:
             )
         b, window = int(np.size(last_token)), np.shape(ring)[1]
         s = sampling
-        key = (n_steps, b, window, s.temperature, s.top_k, s.top_p, s.repeat_penalty,
-               self._kv.k.dtype)
-        chunk = self._chunks.get(key)
+        ckey = (n_steps, b, window, s.temperature, s.top_k, s.top_p, s.repeat_penalty,
+                self._kv.k.dtype)
+        chunk = self._chunks.get(ckey)
         if chunk is None:
             params, config, rope = self.params, self.config, self._rope
 
             def forward_one(tok, kv, p):
                 return M.forward(params, tok, kv, p, 1, config, rope=rope)
 
-            chunk = self._chunks[key] = DecodeChunk(
-                forward_one, self._kv, batch=b, window=window, vocab=config.vocab_size,
-                n_steps=n_steps, s=s, fused_tail="tail" in resolve_fusion(config),
-                per_row=False, device=self.device,
+            chunk = self._chunks[ckey] = DecodeChunk(
+                forward_one, self._kv, batch=b, window=window, n_steps=n_steps, s=s,
+                fused_tail="tail" in resolve_fusion(config), per_row=False, device=self.device,
             )
         ids = chunk.run(
             tok=np.asarray(last_token, np.int64).reshape(b), slot=pos,
             ring=np.asarray(ring, np.int64), ring_idx=np.full(b, ring_idx, np.int64),
-            generator=rng,
+            keys=key,
         )
-        return ids.cpu().numpy()
+        return ids.cpu().numpy(), chunk.keys
 
 
 def prefill_bucket(n: int, max_seq_len: int, minimum: int = 16) -> int:
@@ -286,7 +287,9 @@ class LlamaGenerator:
         self._decoded_len = 0
         self._started = False
         self._prompt_cache: tuple[str, list[int]] | None = None
-        self._rng: torch.Generator | None = None
+        # The dialog's threefry key, on the step's device (the reference's
+        # jax.random.PRNGKey(seed) at reset).
+        self._key = prng_key(self.sampling.seed, getattr(self.step, "device", None))
         self.last_prefill_tokens = 0
 
     def add_message(self, message: Message) -> None:
@@ -325,23 +328,16 @@ class LlamaGenerator:
         return w
 
     def _sample(self, logits: torch.Tensor) -> int:
+        """The next id: penalty, one split of the dialog's key, the draw
+        (the JAX package's ``next_token``; the chunked path splits the same
+        key in the same order)."""
         s = self.sampling
         if s.repeat_penalty != 1.0:
             window = torch.from_numpy(self._penalty_window()).to(logits.device)
             logits = apply_repeat_penalty(logits, s.repeat_penalty, window)
-        ids = sample(
-            logits, self._dialog_rng(logits.device), temperature=s.temperature, top_k=s.top_k,
-            top_p=s.top_p,
-        )
+        self._key, noise = draw(self._key, logits, s.temperature)
+        ids = sample(logits, None, s.temperature, s.top_k, s.top_p, noise=noise)
         return int(ids[0])
-
-    def _dialog_rng(self, device) -> torch.Generator:
-        """The dialog's sampling generator, seeded at its first draw; the
-        per-step and the fused paths draw from it in the same order."""
-        if self._rng is None:
-            self._rng = torch.Generator(device=device)
-            self._rng.manual_seed(self.sampling.seed)
-        return self._rng
 
     # ------------------------------------------------------------- decoding
 
@@ -420,9 +416,9 @@ class LlamaGenerator:
         ring = self._penalty_window()
         ring_idx = min(len(self._tokens), window) % window if window > 0 else 0
         pos = len(self._tokens) - 1
-        toks = self.step.decode_chunk(
+        toks, self._key = self.step.decode_chunk(
             np.asarray([self._tokens[-1]], np.int64), pos, n_steps, self.sampling,
-            self._dialog_rng(self.step.device), ring, ring_idx,
+            self._key, ring, ring_idx,
         )
         # Every fed position was written; reset()'s len - 1 bound drops the
         # slots of tokens an EOS below discards.

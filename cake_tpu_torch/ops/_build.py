@@ -104,6 +104,10 @@ _SIGNATURES = {
         _INT, _INT, _INT,                            # cluster slice staged
         _INT, _INT, _INT,                            # penalize sampled top_k
     ),
+    "cake_threefry_noise": (
+        _VOID, _VOID, _VOID, _VOID,                  # keys next sub (NULL: no split) out
+        _INT, _LONG, _INT, _INT, _VOID,              # rows n per_row kind stream
+    ),
     "cake_empty_kernel": (_VOID,),                   # stream
 }
 

@@ -73,8 +73,7 @@ def _decode_chunk(backend, kv, n: int, tok, ring, s, make_forward, **shapes) -> 
         extra = {name: torch.zeros(shape, dtype=torch.int32, device=backend.device)
                  for name, shape in shapes.items()}
         chunk = backend._chunks[key] = DecodeChunk(
-            make_forward(**extra), kv, batch=tok.shape[0], window=ring.shape[1],
-            vocab=backend.config.vocab_size, n_steps=n, s=s,
+            make_forward(**extra), kv, batch=tok.shape[0], window=ring.shape[1], n_steps=n, s=s,
             fused_tail="tail" in resolve_fusion(backend.config), per_row=True,
             device=backend.device, extra=extra,
         )

@@ -15,9 +15,11 @@ charge pages of the shared pool, decode maps pages at page boundaries, and
 finished streams return theirs; with the prefix cache on, a prompt sharing a
 cached prefix forks its page chain and prefills only the uncached suffix.
 
-Each row carries its own sampling key (ops/sampling.sample_per_row), so a
-row's stream does not depend on what shares its batch; greedy streams equal
-the JAX package's engine on the same checkpoint (tests/test_torch_serving.py).
+Each row carries its own threefry key (ops/threefry.py: ``prng_key`` of its
+seed, split once a step, ops/sampling.sample_per_row), so a row's stream does
+not depend on what shares its batch; greedy and seeded sampled streams equal
+the JAX package's engine on the same checkpoint (tests/test_torch_serving.py,
+tests/test_torch_threefry.py).
 
 Not ported yet (ROADMAP.md): the continuous scheduler with spill/restore,
 speculative verify, tenants and fair queueing (the queue is the single-tenant
@@ -47,7 +49,7 @@ from cake_tpu_torch.models.llama.generator import SamplingConfig, Token, decode_
 from cake_tpu_torch.models.llama.paged_cache import PageExhausted
 from cake_tpu_torch.models.llama.tokenizer import Tokenizer
 from cake_tpu_torch.ops.fuse import parse_fusion_spec
-from cake_tpu_torch.ops.sampling import row_keys
+from cake_tpu_torch.ops.threefry import prng_key
 
 __all__ = ["BatchEngine", "ServeConfig", "StreamHandle"]
 
@@ -627,7 +629,7 @@ class BatchEngine:
         else:
             logits, kv = self.backend.prefill(tokens, kv, pads)
         ring, ring_idx = seed_rings(ids_list, window)
-        keys = row_keys([r.sampling.seed if r is not None else 0 for r in reqs], dev)
+        keys = prng_key([r.sampling.seed if r is not None else 0 for r in reqs], dev)
         first, keys, ring, ring_idx = first_sample(logits, s, ring, ring_idx, keys)
         self.stats["prefill_s"] += time.perf_counter() - t0
         for lane, row in enumerate(rows):
@@ -834,7 +836,7 @@ class BatchEngine:
         # The same first-token arithmetic as the epoch start (batch.first_sample).
         window = s.repeat_last_n
         row_ring, row_ring_idx = seed_rings([ids], window)
-        key0 = row_keys([req.sampling.seed], self.backend.device)
+        key0 = prng_key([req.sampling.seed], self.backend.device)
         first_arr, key_next, row_ring, row_ring_idx = first_sample(
             logits, s, row_ring, row_ring_idx, key0
         )

@@ -68,6 +68,16 @@ nonzero exit and no final result line:
                gathered; fused_qkv_ingest dense b=1 and paged b=8 into f8,
                bitwise, with six k/v values past +-464 that must come back
                NaN.
+               The noise kernel (threefry_noise, ops/csrc/threefry.cu: a
+               sampled step's key split and gumbel plane, replacing no
+               Pallas kernel) per row at b=8 and shared at b=1 over
+               Llama-3's vocabulary: next and sub keys, bits and uniforms
+               equal to its plain twin's to the bit, the gumbel plane within
+               1e-6 (gated; whether bitwise is recorded); library_ms is
+               torch.rand and two logs at the same shape (another stream).
+               Then jax's constants (gated): threefry2x32's known answers,
+               the kernel's split of PRNGKey(299792458) and the ids of
+               categorical over zeros((2, 128256)) at that key.
   4. generate  Llama-3-8B at full width and depth, random bf16 weights drawn
                on the card from a seeded torch.Generator: a ~700 byte-token
                prompt prefilled in 256-token chunks (the position-0 and the
@@ -118,8 +128,10 @@ nonzero exit and no final result line:
                time; "ingest,tail" streams must equal "none"'s 8/8, greedy
                and sampled; fused_qkv_ingest = n_layers x decode steps,
                fused_sample_tail = decode steps, fused_norm_matmul = the
-               derived count, the attention gates as before, every plain
-               version 0. Then one wave through the dense engine with "all",
+               derived count, threefry_noise = the sampled wave's prefill
+               dispatches (first samples) + its decode steps, the attention
+               gates as before, every plain version 0. Then one wave
+               through the dense engine with "all",
                and the full-width paged and dense forwards with "all"
                against the plain path (cosine >= 0.999). TTFT, ms per decode
                step, device ops and ms per step (by kernel family) and the device
@@ -160,8 +172,9 @@ nonzero exit and no final result line:
                the same run. Bits, gated: the generator (bf16 "none" and
                "all", int4; greedy and seeded sampled) over 3 chunks of 8
                from one graph, against sampled_decode_loop with a host-int
-               slot on a clone of the cache and of the dialog's generator
-               (ids, the whole cache, the generator's state); the engine,
+               slot on a clone of the cache and of the dialog's threefry key
+               (ids, the whole cache, the advanced key), and the same dialog
+               decoded per step (equal ids); the engine,
                every decode dispatch against batch.decode_chunk /
                paged_decode_chunk on clones (paged "none", "all", int4
                "none", dense "all"; greedy, sampled, the ragged wave's joins,
@@ -191,7 +204,9 @@ nonzero exit and no final result line:
                instructions their cases ran on; int4_matmul's the
                wgmma-bits answer; then the f8 instantiations of the five
                kernels that read or write the cache ("<name>_f8", launches
-               over f8 in the f8 phases).
+               over f8 in the f8 phases), then threefry_noise (launches in
+               engine_fused's sampled waves; "counterpart" says that the
+               JAX package has no Pallas kernel for it).
  16.           ``{"ok": true, "device": {...}}`` as the last line.
 
 On the card every decode chunk (the generator's ``decode_chunk`` and both
@@ -225,8 +240,21 @@ TOL = 2e-2  # bf16 outputs of f32-accumulated attention, max-abs vs the plain ve
 F8_LIBRARY = "scaled_dot_product_attention over the same cache widened to bf16"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores (32-bit ops)
 N_Q, N_KV, HD = 32, 8, 128  # Llama-3-8B attention shapes
 HIDDEN, INTER, VOCAB = 4096, 14336, 128256  # Llama-3-8B widths
+# jax.random's values the noise kernel must give (tests/test_torch_threefry.py
+# holds them to jax): threefry2x32-20 (key, counter) -> pair, and at
+# PRNGKey(THREEFRY_SEED) jax.random.split and jax.random.categorical over
+# zeros((2, VOCAB)).
+THREEFRY_KAT = (
+    ((0x00000000, 0x00000000), (0x00000000, 0x00000000), (0x6B200159, 0x99BA4EFE)),
+    ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF), (0x1CB996FC, 0xBB002BE7)),
+    ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3), (0xC4923A9C, 0x483DF7A0)),
+)
+THREEFRY_SEED = 299792458
+SPLIT_OF_SEED = ((2133886344, 1704773556), (3188621163, 1269772507))
+CATEGORICAL_OF_SEED = (102805, 31574)
 FUSED_CHUNK = 8  # the generator's decode chunk in phase generate_fused
 MAX_SEQ = 8192
 PROMPT_TOKENS = 700
@@ -272,9 +300,11 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations"): bytes over the memory rate, or
+    operations over ``peak`` (the tensor cores' bf16 rate unless given)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -420,7 +450,7 @@ def bf16_ulp(ref) -> float:
 
 
 def _check(torch, name, case, out, ref, ms, plain_ms, nbytes, flops, library_ms, copies=1,
-           exact=False, cosine=False, tol=TOL, route=None, extra=None):
+           exact=False, cosine=False, tol=TOL, route=None, extra=None, peak=BF16_FLOPS_PER_S):
     """Emit a kernel case's row and hold ``out`` to ``ref``: within ``tol``
     max-abs (and, with ``cosine``, at cosine >= COS_TOL), or with ``exact``
     equal to the bit (fused_qkv_ingest's outputs, fused_sample_tail's ids,
@@ -428,7 +458,7 @@ def _check(torch, name, case, out, ref, ms, plain_ms, nbytes, flops, library_ms,
     the case ran on (the redesigned kernels: wgmma, mma.sync, CUDA cores)."""
     err = (out.float() - ref.float()).abs().max().item() if out.numel() else 0.0
     finite = exact or bool(torch.isfinite(out.float()).all().item())
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, peak)
     row = {
         "phase": "kernels", "kernel": name, "case": case,
         "max_abs_err": err, "tol": 0.0 if exact else tol, "ms": ms, "plain_ms": plain_ms,
@@ -1131,6 +1161,99 @@ def tail_cases(torch, dev):
     ]
 
 
+# 32-bit integer operations an element of the noise kernel: one
+# threefry2x32-20 (2 key adds, 20 rounds of add, rotate and xor, 5 key
+# injections of 2 adds) and the bits' xor; the float tail (a shift, an or, a
+# subtract, a max, two logs) is not counted.
+NOISE_OPS_PER_ELEMENT = 73
+NOISE_TOL = 1e-6  # gumbel planes: kernel logf against torch's log, the same inputs
+
+
+def _noise_case(torch, dev, case, keys, shape):
+    """The noise kernel (ops/threefry.py) at one draw, split included,
+    against its plain twin on the same keys: the next and sub keys, the
+    bits and the uniforms to the bit, the gumbel plane within NOISE_TOL
+    (and whether it is bitwise), finite. Timed as the decode step draws it
+    (gumbel, with the split); library_ms is ``torch.rand`` and two logs at
+    the same shape (another stream: a time only)."""
+    import math
+
+    from cake_tpu_torch.ops.threefry import threefry_noise, threefry_noise_plain
+
+    equal = {}
+    planes = {}
+    for kind in ("bits", "uniform", "gumbel"):
+        got, ref = threefry_noise(keys, shape, kind=kind), threefry_noise_plain(keys, shape, kind=kind)
+        torch.cuda.synchronize()
+        equal["keys"] = equal.get("keys", True) and all(
+            torch.equal(a, b) for a, b in zip(got[:2], ref[:2]))
+        bits_of = (lambda t: t) if kind == "bits" else (lambda t: t.view(torch.int32))
+        equal[kind] = bool(torch.equal(bits_of(got[2]), bits_of(ref[2])))
+        planes[kind] = got[2], ref[2]
+    full = tuple(planes["gumbel"][0].shape)
+    rows = keys.shape[0] if keys.dim() == 2 else 1
+    n = math.prod(full)
+    nbytes = 4 * n + 16 * rows + 32 * rows  # the plane; the keys read, the next and sub written
+    run = lambda: threefry_noise(keys, shape)  # noqa: E731
+    plain = lambda: threefry_noise_plain(keys, shape)  # noqa: E731
+    lib = lambda: -torch.log(-torch.log(torch.rand(full, device=dev)))  # noqa: E731
+    row = _check(
+        torch, "threefry_noise", case, *planes["gumbel"], cuda_ms(torch, run, 200),
+        cuda_ms(torch, plain, 10), nbytes, n * NOISE_OPS_PER_ELEMENT, cuda_ms(torch, lib, 50),
+        tol=NOISE_TOL, peak=CUDA_CORE_OPS_PER_S,
+        extra={"shape": list(full), "per_row": keys.dim() == 2,
+               "equal": {k: equal[k] for k in ("keys", "bits", "uniform")},
+               "gumbel_bitwise": equal["gumbel"],
+               "library": "torch.rand + two logs at the same shape (another stream)"},
+    )
+    if not all(row["equal"].values()):
+        raise AssertionError(f"threefry_noise/{case}: keys, bits or uniforms differ from the "
+                             f"plain twin: {row['equal']}")
+    return row
+
+
+def _noise_constants(torch, dev) -> dict:
+    """The noise kernel and its twin give jax's values on the card: the
+    twin's threefry2x32 on the known answers, the kernel's split of key
+    (0, 0) (its next key is the first known answer) and of
+    PRNGKey(THREEFRY_SEED), and ``sample`` (the kernel's shared draw) over
+    zeros((2, VOCAB)) at that key: jax's categorical ids."""
+    from cake_tpu_torch.ops.sampling import sample
+    from cake_tpu_torch.ops.threefry import prng_key, threefry2x32, threefry_noise
+
+    def pair(t):
+        return tuple(int(v) for v in t)
+
+    kat = [pair(threefry2x32(*(torch.tensor(v, dtype=torch.int64, device=dev) for v in k + c)))
+           == want for k, c, want in THREEFRY_KAT]
+    zero_next, _, _ = threefry_noise(torch.zeros(2, dtype=torch.int64, device=dev), (1,))
+    nxt, sub, _ = threefry_noise(prng_key(THREEFRY_SEED, dev), (1,))
+    ids = sample(torch.zeros((2, VOCAB), device=dev), prng_key(THREEFRY_SEED, dev),
+                 temperature=1.0)
+    row = {"phase": "kernels", "kernel": "threefry_noise", "case": "jax_constants",
+           "known_answers": kat, "kernel_split_of_zero_key": pair(zero_next) == THREEFRY_KAT[0][2],
+           "kernel_split": (pair(nxt), pair(sub)) == SPLIT_OF_SEED,
+           "categorical": tuple(ids.tolist()) == CATEGORICAL_OF_SEED, "ids": ids.tolist()}
+    emit(row)
+    if not (all(kat) and row["kernel_split_of_zero_key"] and row["kernel_split"]
+            and row["categorical"]):
+        raise AssertionError(f"threefry_noise: jax's constants not met: {row}")
+    return row
+
+
+def noise_cases(torch, dev):
+    """The noise kernel where the main path launches it: the engine's
+    per-row draw (8 keys over VOCAB), the generator's shared one (one key,
+    one row); then jax's constants."""
+    from cake_tpu_torch.ops.threefry import prng_key
+
+    return [
+        _noise_case(torch, dev, "per_row_b8", prng_key([100 + i for i in range(8)], dev), (VOCAB,)),
+        _noise_case(torch, dev, "shared_b1", prng_key(THREEFRY_SEED, dev), (1, VOCAB)),
+        _noise_constants(torch, dev),
+    ]
+
+
 def launch_floor(torch) -> dict:
     """The time of an empty kernel from the port's library, timed as the
     cases are: the floor under any kernel's time, beside the bytes bound of
@@ -1325,6 +1448,7 @@ def phase_kernels(torch) -> dict:
     rows += paged_decode_cases(torch, dev) + paged_chunk_cases(torch, dev)
     torch.cuda.empty_cache()
     rows += norm_matmul_cases(torch, dev) + ingest_cases(torch, dev) + tail_cases(torch, dev)
+    rows += noise_cases(torch, dev)
     rows.append(launch_floor(torch))
     torch.cuda.empty_cache()
     rows += int4_cases(torch, dev)
@@ -1464,7 +1588,8 @@ def _kernel_family(name: str) -> str:
                            ("int4_mma_kernel", "int4_matmul"),
                            ("int4_wgmma_kernel", "int4_matmul"),
                            ("int4_f32_kernel", "int4_matmul"),
-                           ("int4_reduce_kernel", "int4_matmul")):
+                           ("int4_reduce_kernel", "int4_matmul"),
+                           ("threefry_noise_kernel", "threefry_noise")):
         if kernel in name:
             return family
     # split_decode_kernel (its splits' combine runs inside it) and chunk_kernel(_tc)
@@ -1606,10 +1731,11 @@ def traced_route(torch, run) -> str | None:
 # over the page pool or the dense cache.
 KERNEL_WRAPPERS = ("decode_attention", "paged_decode_attention", "chunk_prefill_attention",
                    "paged_chunk_attention", "fused_norm_matmul", "fused_qkv_ingest",
-                   "fused_sample_tail", "int4_matmul")
+                   "fused_sample_tail", "int4_matmul", "threefry_noise")
 _LAUNCH_KERNELS = (("norm_matmul_", "fused_norm_matmul"), ("ingest_kernel", "fused_qkv_ingest"),
                    ("tail_kernel", "fused_sample_tail"), ("int4_mma_kernel", "int4_matmul"),
-                   ("int4_wgmma_kernel", "int4_matmul"), ("int4_f32_kernel", "int4_matmul"))
+                   ("int4_wgmma_kernel", "int4_matmul"), ("int4_f32_kernel", "int4_matmul"),
+                   ("threefry_noise_kernel", "threefry_noise"))
 
 
 def launch_of(name: str) -> str | None:
@@ -1965,7 +2091,7 @@ def phase_api(main_path: dict) -> None:
 
 
 def _fused_counters():
-    from cake_tpu_torch.ops import fused_ingest, fused_norm_matmul, fused_sample_tail
+    from cake_tpu_torch.ops import fused_ingest, fused_norm_matmul, fused_sample_tail, threefry
 
     return (
         fused_norm_matmul.fused_norm_matmul,
@@ -1974,6 +2100,8 @@ def _fused_counters():
         fused_ingest.fused_qkv_ingest_plain,
         fused_sample_tail.fused_sample_tail,
         fused_sample_tail.fused_sample_tail_plain,
+        threefry.threefry_noise,
+        threefry.threefry_noise_plain,
     )
 
 
@@ -2594,15 +2722,17 @@ def dispatch_recorder(backend):
 
 
 def _engine_fused_expected(counters, rec, fusions, kv_mode: str, n_layers: int, on_card: bool,
-                           int4: bool = False, f8: bool = False):
+                           int4: bool = False, f8: bool = False, sampled=None):
     """(launches, expected) of engine dispatches recorded by
     ``dispatch_recorder``: the attention gates of phase engine, and per
     enabled fusion fused_qkv_ingest = n_layers x decode steps,
     fused_sample_tail = decode steps, fused_norm_matmul per ``_norm_sites``;
     for an ``int4`` tree ``_int4_expected`` over one forward a prefill
     dispatch and one a decode step; over an ``f8`` cache every attention and
-    ingest launch over f8; off the card the plain versions take every
-    call."""
+    ingest launch over f8; threefry_noise once a first sample (a prefill
+    dispatch) and once a decode step of the sampled dispatches ``sampled``
+    (the part of ``rec`` a sampled wave made); off the card the plain
+    versions take every call."""
     launches = _counts(counters)
     expected = dict.fromkeys(launches, 0)
     decode, chunk = (("paged_decode_attention", "paged_chunk_attention") if kv_mode == "paged"
@@ -2623,6 +2753,9 @@ def _engine_fused_expected(counters, rec, fusions, kv_mode: str, n_layers: int, 
         expected["fused_qkv_ingest" + sfx] = n_layers * steps
     if "tail" in fusions:
         expected["fused_sample_tail" + sfx] = steps
+    if sampled is not None:
+        expected["threefry_noise" + sfx] = (len(sampled["prefills"])
+                                            + sum(n for _, n in sampled["decodes"]))
     if f8 and on_card:
         for name in (decode, chunk, "fused_qkv_ingest"):
             expected[name + ".f8"] = expected[name]
@@ -2655,14 +2788,18 @@ def _fused_engine_run(torch, make, spec: str, kv_mode: str, n_layers: int, on_ca
         if sampled:
             _wave(eng, ENGINE_TOKENS, warm_messages(), samplings=sampled_wave)
         counters = _zero_counters()
+        sampled_rec = None
         with dispatch_recorder(eng.backend) as rec:
             waves = [_wave(eng, ENGINE_TOKENS)]
             if sampled:
+                at = {k: len(v) for k, v in rec.items()}
                 waves.append(_wave(eng, ENGINE_TOKENS, samplings=sampled_wave))
+                sampled_rec = {k: v[at[k]:] for k, v in rec.items()}
             if warm:
                 waves.append(_wave(eng, ENGINE_TOKENS))
         launches, expected = _engine_fused_expected(
-            counters, rec, parse_fusion_spec(spec), kv_mode, n_layers, on_card, int4, f8)
+            counters, rec, parse_fusion_spec(spec), kv_mode, n_layers, on_card, int4, f8,
+            sampled_rec)
         # Unprofiled first: the 16- and 32-token waves' epochs capture their
         # chunks' graphs (the 32-token one ends on a 7-step chunk).
         _wave(eng, 32)
@@ -2777,6 +2914,10 @@ def phase_engine_fused(torch, main_path: dict) -> dict:
         name: sum(r["launches"][name] for r in runs)
         for name in ("fused_norm_matmul", "fused_qkv_ingest", "fused_sample_tail")
     }
+    # The noise kernel's launches over the gated sampled waves (the paged runs').
+    row["noise_launches"] = sum(r["launches"]["threefry_noise"] for r in runs)
+    if on_card and not all(r["launches"]["threefry_noise"] > 0 for r in runs[:3]):
+        raise AssertionError("a sampled wave ran without the noise kernel")
     return row
 
 
@@ -2939,7 +3080,8 @@ def phase_generate_f8(torch, main_path: dict) -> dict:
     if ids8 != ids:
         raise AssertionError(f"f8 chunked decode parted from per-token decode: {row}")
     for name, b in bits.items():
-        if not (all(b["chunks_equal"]) and b["kv_equal"] and b["rng_equal"]):
+        if not (all(b["chunks_equal"]) and b["kv_equal"] and b["key_equal"]
+                and b["per_step_equal"]):
             raise AssertionError(f"f8 generator graph parted from its eager loop ({name}): {b}")
     row["check"] = _full_model_check(torch, M, gen0.config, step.params, dev,
                                      phase="f8_model_check", cache_dtype=f8)
@@ -3163,11 +3305,11 @@ def eager_chunks():
         yield
 
 
-def eager_generator_chunk(torch, step, kv, last_token, pos, n_steps, s, rng, ring, ring_idx):
+def eager_generator_chunk(torch, step, kv, last_token, pos, n_steps, s, key, ring, ring_idx):
     """The generator's decode chunk as it ran before the graph:
     sampled_decode_loop over ``kv`` with a host-int slot, the inputs
     uploaded and the ids read back once (the plain version the graph is
-    held against)."""
+    held against). Returns (ids, the advanced key)."""
     import numpy as np
 
     from cake_tpu_torch.models.llama import model as M
@@ -3183,18 +3325,20 @@ def eager_generator_chunk(torch, step, kv, last_token, pos, n_steps, s, rng, rin
     ring_t = torch.as_tensor(np.asarray(ring, np.int64)).to(dev)
     ring_idx_t = torch.full((tok.shape[0],), int(ring_idx), dtype=torch.int64, device=dev)
     with torch.inference_mode():
-        toks, *_ = sampled_decode_loop(
-            forward_one, kv, tok, int(pos), rng, ring_t, ring_idx_t, n_steps=n_steps, s=s,
+        toks, _, key, _, _ = sampled_decode_loop(
+            forward_one, kv, tok, int(pos), key, ring_t, ring_idx_t, n_steps=n_steps, s=s,
             fused_tail="tail" in resolve_fusion(step.config))
-    return toks.cpu().numpy()
+    return toks.cpu().numpy(), key
 
 
 def _generator_bits(torch, step, tokenizer, text, knobs: dict) -> dict:
     """GRAPH_CHUNKS decode chunks through ``step.decode_chunk`` (its graph,
     replayed at moving slots) and through ``eager_generator_chunk`` on a
-    clone of the cache and of the dialog's generator, from the same prefill:
-    the ids of each chunk, the whole cache and the generator's state after
-    them, to the bit."""
+    clone of the cache and of the dialog's threefry key, from the same
+    prefill: the ids of each chunk, the whole cache and the advanced key
+    after them, to the bit. Then the same dialog decoded per step (a fresh
+    generator, one split of the key a token) must give the same ids as the
+    first token and the chunks ("per_step_equal")."""
     import numpy as np
 
     from cake_tpu_torch.models.llama.cache import KVCache
@@ -3209,9 +3353,8 @@ def _generator_bits(torch, step, tokenizer, text, knobs: dict) -> dict:
     gen.add_message(Message.user(text))
     gen.generate(1)  # the prefill and the first token
     history = list(gen._tokens)
-    rng = gen._dialog_rng(dev)
-    ref_rng = torch.Generator(device=dev)
-    ref_rng.set_state(rng.get_state())
+    key = gen._key
+    ref_key = key.clone()
     ref = KVCache(step._kv.k.clone(), step._kv.v.clone())
     window = s.repeat_last_n
     chunks = []
@@ -3221,18 +3364,24 @@ def _generator_bits(torch, step, tokenizer, text, knobs: dict) -> dict:
         ring[0, : len(recent)] = recent
         ring_idx = min(len(history), window) % window
         pos = len(history) - 1
-        got = step.decode_chunk(np.asarray([history[-1]]), pos, FUSED_CHUNK, s, rng, ring,
-                                ring_idx)
-        want = eager_generator_chunk(torch, step, ref, [history[-1]], pos, FUSED_CHUNK, s,
-                                     ref_rng, ring, ring_idx)
+        got, key = step.decode_chunk(np.asarray([history[-1]]), pos, FUSED_CHUNK, s, key, ring,
+                                     ring_idx)
+        want, ref_key = eager_generator_chunk(torch, step, ref, [history[-1]], pos, FUSED_CHUNK,
+                                              s, ref_key, ring, ring_idx)
         chunks.append(bool(np.array_equal(got, want)))
         history += got[0].tolist()
     _sync(torch, dev)
     out = {"chunks_equal": chunks,
            "kv_equal": bool(torch.equal(kv_view(step._kv.k), kv_view(ref.k))
                             and torch.equal(kv_view(step._kv.v), kv_view(ref.v))),
-           "rng_equal": bool(torch.equal(rng.get_state(), ref_rng.get_state()))}
+           "key_equal": bool(torch.equal(key, ref_key))}
     del ref
+    chunked = history[gen.prompt_tokens:]
+    per_step = LlamaGenerator(step.config, step, tokenizer, s, prefill_chunk=PREFILL_CHUNK)
+    per_step.add_message(Message.user(text))
+    per_step.generate(len(chunked))
+    out["per_step_equal"] = per_step.generated_token_ids == chunked[:len(
+        per_step.generated_token_ids)] and len(per_step.generated_token_ids) > 1
     return out
 
 
@@ -3339,14 +3488,12 @@ def _chunk_ops(torch, chunk, repeats: int = 5) -> dict:
             replay[fn.__name__] += n
     with torch.inference_mode():
         slot = int(chunk.slot)
-        carries = [None if t is None else t.clone()
-                   for t in (chunk.tok, chunk.keys, chunk.ring, chunk.ring_idx)]
+        carries = [t.clone() for t in (chunk.tok, chunk.keys, chunk.ring, chunk.ring_idx)]
 
         def int_slot():
             tok, keys, ring, ring_idx = carries
             sampled_decode_loop(chunk.forward_one, chunk.kv, tok, slot, keys, ring, ring_idx,
-                                n_steps=chunk.n_steps, s=chunk.s, fused_tail=chunk.fused_tail,
-                                uniforms=chunk.uniforms)
+                                n_steps=chunk.n_steps, s=chunk.s, fused_tail=chunk.fused_tail)
 
         traces = {}
         for name, fn, expect in (("graph", chunk.graph.replay, replay),
@@ -3401,18 +3548,27 @@ def _generator_timing(torch, step, tokenizer, text, eager: bool, name: str) -> d
             "ids": gen.generated_token_ids, "profile": profile, "chunk_ops": chunk_ops}
 
 
+WAVE_TRIES = 3  # times _engine_timing serves wave 1 at most
+
+
 def _engine_timing(torch, make, spec: str, eager: bool) -> dict:
     """The paged engine with fusion ``spec``: after a warm-up wave of wave
     1's shapes, wave 1 (64 tokens) for its ms a decode step, then
     unprofiled and profiled waves of 16 and 32 tokens (their difference:
     device ops and ms of 16 steps), each decode chunk a replay or, with
     ``eager``, its loop run op by op; in a graph run, ``_chunk_ops`` of its
-    most replayed chunk."""
+    most replayed chunk. Wave 1 is served again (at most WAVE_TRIES times)
+    until it runs as one epoch with no join: its streams are held to the
+    other mode's, and a wave split by the admission window prefills its
+    joined rows alone, on other GEMM shapes."""
     eng = make(fusion_impl=spec, kv_mode="paged", page_size=ENGINE_PAGE, prefix_cache=True)
     try:
         with eager_chunks() if eager else contextlib.nullcontext():
             _wave(eng, ENGINE_TOKENS, warm_messages())
-            wave = _wave(eng, ENGINE_TOKENS)
+            for tries in range(1, WAVE_TRIES + 1):
+                wave = _wave(eng, ENGINE_TOKENS)
+                if _one_epoch(wave):
+                    break
             _wave(eng, 32)
             timed = _wave(eng, 16)
             profile = chunk_ops = None
@@ -3434,6 +3590,7 @@ def _engine_timing(torch, make, spec: str, eager: bool) -> dict:
         eng.stop()
     return {"spec": spec, "mode": "eager" if eager else "graph",
             "decode_ms_per_step": wave["decode_ms_per_step"], "streams": wave["streams"],
+            "wave_tries": tries, "batches": wave["batches"], "joins": wave["joins"],
             "profile": profile, "chunk_ops": chunk_ops}
 
 
@@ -3528,7 +3685,8 @@ def phase_decode_graph(torch, main_path: dict, int4_path: dict) -> dict:
     }
     emit(row)
     for name, r in generator_bits.items():
-        if not (all(r["chunks_equal"]) and r["kv_equal"] and r["rng_equal"]):
+        if not (all(r["chunks_equal"]) and r["kv_equal"] and r["key_equal"]
+                and r["per_step_equal"]):
             raise AssertionError(f"generator {name}: the graph parted from the eager loop: {r}")
     for r in engine_bits:
         if r["dispatches"] == 0 or r["equal"] != r["dispatches"]:
@@ -3545,7 +3703,12 @@ def phase_decode_graph(torch, main_path: dict, int4_path: dict) -> dict:
             raise AssertionError(f"generator {g['name']}: graph and eager streams differ")
     for g, e in zip(engine_timing[::2], engine_timing[1::2]):
         if g["streams"] != e["streams"]:
-            raise AssertionError(f"engine {g['spec']}: graph and eager streams differ")
+            parted = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), min(len(x), len(y)))
+                      if x != y else None for x, y in zip(g["streams"], e["streams"])]
+            raise AssertionError(
+                f"engine {g['spec']}: graph and eager streams differ (first differing token of "
+                f"each stream: {parted}; graph wave {g['batches']} epochs, {g['joins']} joins, "
+                f"eager {e['batches']}, {e['joins']})")
     if on_card:
         for g, e in pairs:
             if not g["decode_ms_per_token"] < e["decode_ms_per_token"]:
@@ -3720,6 +3883,12 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(
     spec += [(f"{name}_f8", source.replace("decode_attention.cu", "decode_attention_f8.cu"),
               replaces, families, (name, f8_cases[name]))
              for name, source, replaces, families, _ in list(spec) if name in f8_cases]
+    # The noise kernel replaces no Pallas kernel: the JAX package draws the
+    # same noise with XLA. Its launches: the sampled waves of engine_fused.
+    launches["threefry_noise"] = sum(p.get("noise_launches", 0) for p in fused_paths)
+    spec.append(("threefry_noise", "cake_tpu_torch/ops/csrc/threefry.cu",
+                 "cake_tpu/ops/pallas/fused_sample_tail.py:62", ("threefry_noise",),
+                 ("threefry_noise", "per_row_b8")))
     bits = rows.get(("int4_matmul", "wgmma_bits"), {}).get("answer")
     out = []
     for name, source, replaces, families, timed in spec:
@@ -3734,9 +3903,16 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         }
-        if name in ("fused_qkv_ingest", "fused_sample_tail", "fused_qkv_ingest_f8"):
+        if name in ("fused_qkv_ingest", "fused_sample_tail", "fused_qkv_ingest_f8",
+                    "threefry_noise"):
             # An empty kernel's time: these kernels' bytes bound lies below it.
             entry["launch_floor_ms"] = rows[("launch_floor", "empty_kernel")]["ms"]
+        if name == "threefry_noise":
+            entry["counterpart"] = ("no Pallas kernel: the JAX package draws this noise with "
+                                    "XLA (gumbel_noise, jax.random.gumbel)")
+            entry["library"] = t.get("library")
+            entry["gumbel_bitwise"] = all(r["gumbel_bitwise"] for k, r in rows.items()
+                                          if k[0] == name and "gumbel_bitwise" in r)
         if f8:
             entry["kv_dtype"] = "f8"
             entry["library"] = t.get("library")

@@ -28,7 +28,7 @@ from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.generator import SamplingConfig
 from cake_tpu_torch.models.llama.paged_cache import PageAllocator, gather_pages, init_paged_cache
 from cake_tpu_torch.ops.rope import model_rope_tables
-from cake_tpu_torch.ops.sampling import row_keys
+from cake_tpu_torch.ops.threefry import prng_key
 
 MAX_SEQ = 256
 PAGE = 16
@@ -142,7 +142,7 @@ def _port_lockstep(cfg, params, paged: bool, n_chunks: int, chunk: int = 4, pena
                         cfg.head_dim, torch.float32)
         logits, kv = B.batched_prefill(params, torch.as_tensor(tokens), kv, pads_t, cfg, rope=rope)
     ring, ring_idx = B.seed_rings(PROMPTS, s.repeat_last_n)
-    first, keys, ring, ring_idx = B.first_sample(logits, s, ring, ring_idx, row_keys([0] * 3, "cpu"))
+    first, keys, ring, ring_idx = B.first_sample(logits, s, ring, ring_idx, prng_key([0] * 3))
     out = [torch.as_tensor(first, dtype=torch.int64)[:, None]]
     tok, slot = out[0][:, 0], bucket
     ring_t, ring_idx_t = torch.as_tensor(ring, dtype=torch.int64), torch.as_tensor(ring_idx).long()
@@ -203,7 +203,7 @@ def test_sample_step_matches_jax_greedy_with_penalty():
         temperature=0.0, top_k=None, top_p=None, repeat_penalty=1.3,
     )
     got = sample_step(
-        torch.as_tensor(logits), row_keys([0, 1, 2], "cpu"), torch.as_tensor(ring).long(),
+        torch.as_tensor(logits), prng_key([0, 1, 2]), torch.as_tensor(ring).long(),
         torch.as_tensor(ring_idx).long(), temperature=0.0, top_k=None, top_p=None,
         repeat_penalty=1.3,
     )
@@ -214,19 +214,24 @@ def test_sample_step_matches_jax_greedy_with_penalty():
 
 def test_per_row_draws_do_not_depend_on_the_batch():
     """A row's sampled draw depends on its own key only (the serving
-    engine's reproducibility contract), and splitting advances it."""
-    from cake_tpu_torch.ops.sampling import sample_per_row, split_keys
+    engine's reproducibility contract), and splitting advances it as the
+    JAX package's ``vmap(split)`` does."""
+    from cake_tpu_torch.ops.sampling import sample_per_row
+    from cake_tpu_torch.ops.threefry import split
 
     logits = torch.as_tensor(np.random.default_rng(4).normal(size=(4, 64)).astype(np.float32))
-    keys = row_keys([11, 22, 33, 44], "cpu")
+    seeds = [11, 22, 33, 44]
+    keys = prng_key(seeds)
     batch = sample_per_row(logits, keys, temperature=0.9, top_k=20)
     for r in range(4):
         solo = sample_per_row(logits[r : r + 1], keys[r : r + 1], temperature=0.9, top_k=20)
         assert solo.item() == batch[r].item()
-    nxt, used = split_keys(keys)
-    assert torch.equal(used, keys) and torch.equal(nxt[:, 1], keys[:, 1] + 1)
+    nxt, sub = split(keys)
+    pair = jax.vmap(jax.random.split)(jnp.stack([jax.random.PRNGKey(s) for s in seeds]))
+    np.testing.assert_array_equal(nxt.numpy(), np.asarray(pair[:, 0]).astype(np.int64))
+    np.testing.assert_array_equal(sub.numpy(), np.asarray(pair[:, 1]).astype(np.int64))
     draws = {tuple(sample_per_row(logits, k, temperature=5.0).tolist())
-             for k in (keys, nxt, split_keys(nxt)[0])}
+             for k in (keys, nxt, split(nxt)[0])}
     assert len(draws) > 1  # the stream moves
 
 

@@ -79,6 +79,13 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
     assert fused_engine["ingest_tail_equal_streams"] == [smoke.ENGINE_BATCH] * 2
     assert fused_engine["all_equal_streams"] == [smoke.ENGINE_BATCH] * 2
     assert fused_engine["check"]["max_abs_err"] == fused_engine["dense_check"]["max_abs_err"] == 0.0
+    # The sampled waves drew their noise through the plain twin here, once a
+    # first sample and once a decode step (gated), and never the kernel.
+    for r in fused_engine["runs"][:3]:
+        assert r["launches"]["threefry_noise_plain"] > 0
+        assert r["launches"]["threefry_noise_plain"] == r["expected_launches"]["threefry_noise_plain"]
+    assert fused_engine["runs"][3]["launches"]["threefry_noise_plain"] == 0  # dense: greedy only
+    assert fused_engine["noise_launches"] == 0
     # The f8 phases: on the CPU the plain versions take every call and no
     # launch counts as over f8 (the side counts are the kernels').
     f8_gen = smoke.phase_generate_f8(torch, row)
@@ -121,7 +128,8 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
     assert set(graph["generator_bits"]) == {
         f"{c}_{k}" for c in ("bf16_none", "bf16_all", "int4_none") for k in ("greedy", "sampled")}
     for r in graph["generator_bits"].values():
-        assert r["chunks_equal"] == [True] * smoke.GRAPH_CHUNKS and r["kv_equal"] and r["rng_equal"]
+        assert r["chunks_equal"] == [True] * smoke.GRAPH_CHUNKS and r["kv_equal"] and r["key_equal"]
+        assert r["per_step_equal"]
     assert [(r["spec"], r["kv_mode"], r["int4"]) for r in graph["engine_bits"]] == [
         ("none", "paged", False), ("all", "paged", False), ("none", "paged", True),
         ("all", "dense", False)]
@@ -159,14 +167,19 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
                 "paged_chunk_attention", "fused_qkv_ingest"]
     rows.update({(name, "main_path_f8"): dict(timed, library="sdpa") for name in f8_names[:4]})
     rows[("fused_qkv_ingest", "paged_b8_f8")] = dict(timed, library="unfused")
+    rows[("threefry_noise", "per_row_b8")] = dict(timed, library="torch.rand", gumbel_bitwise=True)
     summary = smoke.kernel_summary(rows, row, engine, (fused_gen, fused_engine),
                                    (int4, int4_engine), (f8_gen, f8_engine))
-    assert [k["name"] for k in summary["kernels"]] == names + [f"{n}_f8" for n in f8_names]
+    assert [k["name"] for k in summary["kernels"]] == (
+        names + [f"{n}_f8" for n in f8_names] + ["threefry_noise"])
     for k in summary["kernels"]:
         extra = {"redesigned", "instructions"} if k["name"] in smoke.REDESIGNED else set()
-        if k["name"] in ("fused_qkv_ingest", "fused_sample_tail", "fused_qkv_ingest_f8"):
+        if k["name"] in ("fused_qkv_ingest", "fused_sample_tail", "fused_qkv_ingest_f8",
+                         "threefry_noise"):
             assert k["launch_floor_ms"] == 0.25
             extra |= {"launch_floor_ms"}
+        if k["name"] == "threefry_noise":
+            extra |= {"counterpart", "library", "gumbel_bitwise"}
         if k["name"].endswith("_f8"):
             extra |= {"kv_dtype", "library"}
         assert set(k) == KERNEL_KEYS | extra | ({"wgmma_bits"} if k["name"] == "int4_matmul" else set())
@@ -174,7 +187,8 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
     assert by_name["int4_matmul"]["instructions"] == ["mma.sync", "wgmma"]
     assert all(by_name[n]["redesigned"] == pr for n, pr in smoke.REDESIGNED.items())
     assert by_name["int4_matmul"]["wgmma_bits"] == smoke.WGMMA_AGREE
-    assert summary["kernels"][-1]["launches"] == int4["int4_launches"] + int4_engine["int4_launches"]
+    assert by_name["int4_matmul"]["launches"] == int4["int4_launches"] + int4_engine["int4_launches"]
+    assert by_name["threefry_noise"]["launches"] == fused_engine["noise_launches"]
     phases = [json.loads(line)["phase"] for line in capsys.readouterr().out.splitlines()]
     assert phases == ["generate", "full_model_check", "api", "engine", "paged_model_check",
                       "dense_model_check", "api_engine", "generate_fused", "fused_model_check",
@@ -290,6 +304,29 @@ def test_f8_kernel_cases_rehearse_on_the_cpu(smoke, monkeypatch, capsys):
 def test_bound_takes_the_larger_of_bytes_and_operations(smoke):
     assert smoke.bound(3.35e9, 1.0) == (1.0, "bytes")
     assert smoke.bound(1.0, 989e9) == (1.0, "operations")
+    assert smoke.bound(1.0, 67e9, smoke.CUDA_CORE_OPS_PER_S) == (1.0, "operations")
+
+
+def test_noise_cases_rehearse_on_the_cpu(smoke, monkeypatch, capsys):
+    """The noise kernel's cases at Llama-3's vocabulary on the CPU (the
+    timings, which need the card, stubbed): the wrapper runs the plain twin
+    here, so keys, bits, uniforms and the gumbel plane agree to the bit;
+    the bound counts the plane's bytes and the threefry operations; the
+    constants case holds the twin and the wrapper to jax's values."""
+    monkeypatch.setattr(smoke, "cuda_ms", lambda torch, fn, iters, warmup=2: (fn(), 0.5)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    per_row, shared, constants = smoke.noise_cases(torch, torch.device("cpu"))
+    for row, shape in ((per_row, [8, smoke.VOCAB]), (shared, [1, smoke.VOCAB])):
+        assert row["shape"] == shape and row["max_abs_err"] == 0.0 and row["gumbel_bitwise"]
+        assert row["equal"] == {"keys": True, "bits": True, "uniform": True}
+        assert row["bytes"] >= 4 * shape[0] * shape[1]
+        assert row["flops"] == smoke.NOISE_OPS_PER_ELEMENT * shape[0] * shape[1]
+        assert row["bound_ms"] == 1e3 * max(row["bytes"] / smoke.HBM_BYTES_PER_S,
+                                            row["flops"] / smoke.CUDA_CORE_OPS_PER_S)
+    assert per_row["per_row"] and not shared["per_row"]
+    assert constants["known_answers"] == [True] * 3 and constants["categorical"]
+    assert constants["kernel_split"] and constants["kernel_split_of_zero_key"]
+    capsys.readouterr()
 
 
 @pytest.mark.parametrize(
@@ -326,6 +363,7 @@ def test_bound_takes_the_larger_of_bytes_and_operations(smoke):
         ("void cake::norm_matmul_swap_ab_kernel<__nv_bfloat16, 8, true>(...)",
          "fused_norm_matmul"),
         ("void cake::norm_matmul_ws_kernel<__nv_bfloat16, 256, true>(...)", "fused_norm_matmul"),
+        ("void cake::threefry_noise_kernel<0>(...)", "threefry_noise"),
     ],
 )
 def test_profile_kernel_families(smoke, name, family):
@@ -353,6 +391,7 @@ def test_profile_kernel_families(smoke, name, family):
         ("void cake::int4mm::int4_wgmma_kernel<__nv_bfloat16, 128, true>(...)", "int4_matmul"),
         ("void cake::int4mm::int4_f32_kernel(...)", "int4_matmul"),
         ("void cake::int4mm::int4_reduce_kernel<__half>(...)", None),
+        ("void cake::threefry_noise_kernel<0>(...)", "threefry_noise"),
         ("void cake::empty_kernel()", None),
         ("nvjet_tst_128x64_64x8_1x2_h_bz_TNN", None),
     ],

@@ -1136,7 +1136,7 @@ def _graph_engine(dev, kv_mode, fusion, dtype, quantize=None, kv_dtype=None):
     from cake_tpu_torch.models.llama.config import LlamaConfig
     from cake_tpu_torch.models.llama.generator import SamplingConfig
     from cake_tpu_torch.ops.quant import quantize_params
-    from cake_tpu_torch.ops.sampling import row_keys
+    from cake_tpu_torch.ops.threefry import prng_key
     from cake_tpu_torch.runtime.batch_backend import LocalBatchBackend, PagedLocalBackend
 
     cfg = dataclasses.replace(LlamaConfig.tiny(**GRAPH_CFG), fusion_impl=fusion)
@@ -1160,7 +1160,7 @@ def _graph_engine(dev, kv_mode, fusion, dtype, quantize=None, kv_dtype=None):
         logits, kv = be.prefill(tokens, kv, pads)
         ring, ring_idx = B.seed_rings(prompts, 16)
         first, keys, ring, ring_idx = B.first_sample(logits, s, ring, ring_idx,
-                                                     row_keys([4, 5, 6], dev))
+                                                     prng_key([4, 5, 6], dev))
     carries = dict(tok=torch.as_tensor(first, dtype=torch.int64, device=dev),
                    pads=torch.as_tensor(pads, device=dev), keys=keys,
                    ring=torch.as_tensor(ring, dtype=torch.int64, device=dev),
@@ -1229,10 +1229,10 @@ def test_engine_decode_graph_equals_the_eager_chunk(dev, case, sampled):
 @pytest.mark.parametrize("fusion", ["none", "all"])
 @pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
 def test_generator_decode_graph_equals_the_eager_loop(dev, fusion, sampled):
-    """Three chunks of LocalForwardStep.decode_chunk (one graph; a shared
-    generator's draws made before each replay) against sampled_decode_loop
-    drawing from a copy of the generator, on a clone of the cache: ids, KV
-    and the generator's state to the bit."""
+    """Three chunks of LocalForwardStep.decode_chunk (one graph; the shared
+    threefry key carried on the device and split in it) against
+    sampled_decode_loop from a copy of the key, on a clone of the cache:
+    ids, KV and the advanced key to the bit."""
     _generator_graph_case(dev, fusion, sampled, torch.bfloat16)
 
 
@@ -1254,6 +1254,7 @@ def _generator_graph_case(dev, fusion, sampled, kv_dtype):
     from cake_tpu_torch.models.llama.fused import sampled_decode_loop
     from cake_tpu_torch.models.llama.generator import LocalForwardStep, SamplingConfig
     from cake_tpu_torch.ops.fuse import resolve_fusion
+    from cake_tpu_torch.ops.threefry import prng_key
 
     cfg = dataclasses.replace(LlamaConfig.tiny(**GRAPH_CFG), fusion_impl=fusion)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(8), torch.bfloat16, dev)
@@ -1264,8 +1265,7 @@ def _generator_graph_case(dev, fusion, sampled, kv_dtype):
     with torch.inference_mode():
         last = int(step(prompt, 0, prompt.shape[1]).argmax(-1)[0])
     ref = type(step._kv)(step._kv.k.clone(), step._kv.v.clone())
-    rng = torch.Generator(device=dev).manual_seed(s.seed)
-    ref_rng = torch.Generator(device=dev).manual_seed(s.seed)
+    key, ref_key = prng_key(s.seed, dev), prng_key(s.seed, dev)
 
     def forward_one(tok, kv, p):
         return M.forward(step.params, tok, kv, p, 1, cfg, rope=step._rope)
@@ -1276,9 +1276,10 @@ def _generator_graph_case(dev, fusion, sampled, kv_dtype):
         ring[0, : min(16, len(history))] = history[-16:]
         ring_idx = min(len(history), 16) % 16
         with torch.inference_mode():
-            got = step.decode_chunk(np.asarray([history[-1]]), pos, 8, s, rng, ring, ring_idx)
-            want, ref, _, _, _ = sampled_decode_loop(
-                forward_one, ref, torch.tensor([history[-1]], device=dev), pos, ref_rng,
+            got, key = step.decode_chunk(np.asarray([history[-1]]), pos, 8, s, key, ring,
+                                         ring_idx)
+            want, ref, ref_key, _, _ = sampled_decode_loop(
+                forward_one, ref, torch.tensor([history[-1]], device=dev), pos, ref_key,
                 torch.as_tensor(ring, device=dev),
                 torch.full((1,), ring_idx, dtype=torch.int64, device=dev), n_steps=8, s=s,
                 fused_tail="tail" in resolve_fusion(cfg))
@@ -1288,7 +1289,8 @@ def _generator_graph_case(dev, fusion, sampled, kv_dtype):
     torch.cuda.synchronize()
     assert torch.equal(kv_view(step._kv.k), kv_view(ref.k))
     assert torch.equal(kv_view(step._kv.v), kv_view(ref.v))
-    assert torch.equal(rng.get_state(), ref_rng.get_state())
+    assert torch.equal(key, ref_key)
+    assert torch.equal(key, prng_key(s.seed, dev)) != sampled  # a sampled step splits it
     (chunk,) = step._chunks.values()
     assert chunk.graph is not None and chunk.replays == 3
 
@@ -1727,3 +1729,70 @@ def test_ingest_kernel_f8_gives_the_plain_bits(dev, dtype, cache, hd, paged):
     if cache == "f8":  # the six values came back NaN, with their signs
         nan = torch.cat([kv_view(k1[live]).flatten(), kv_view(v1[live]).flatten()])
         assert sorted(nan[nan & 0x7F == 0x7F].tolist()) == [0x7F, 0x7F, 0x7F, 0xFF, 0xFF, 0xFF]
+
+
+# ------------------------------------------------------------ threefry noise
+
+
+@pytest.mark.parametrize("rows,n", [(None, 1), (None, 1000), (None, 128256), (1, 128256),
+                                    (8, 128256), (3, 257), (5, 1)],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("split", [False, True], ids=["draw", "split"])
+def test_threefry_noise_matches_its_twin(dev, rows, n, split):
+    """The noise kernel against its plain twin on the same keys: the next
+    and sub keys, the bits and the uniforms to the bit, the gumbel plane
+    within 1e-6 (the kernel's logf against torch's log) and finite; one key
+    (rows None: the plane [1, n] counted over both dims) or a key a row."""
+    from cake_tpu_torch.ops.threefry import prng_key, threefry_noise, threefry_noise_plain
+
+    if rows is None:
+        keys, shape = prng_key(299792458 + n, dev), (1, n)
+    else:
+        keys, shape = prng_key([1000 * n + r for r in range(rows)], dev), (n,)
+    before = threefry_noise.launches
+    for kind in ("bits", "uniform", "gumbel"):
+        nxt, sub, got = threefry_noise(keys, shape, split_keys=split, kind=kind)
+        r_nxt, r_sub, ref = threefry_noise_plain(keys, shape, split_keys=split, kind=kind)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert (nxt is None) == (not split) and torch.equal(sub, r_sub)
+        if split:
+            assert torch.equal(nxt, r_nxt)
+        if kind == "gumbel":
+            assert torch.isfinite(got).all()
+            assert (got - ref).abs().max().item() <= 1e-6
+        else:
+            assert torch.equal(got, ref)
+    assert threefry_noise.launches - before == 3
+
+
+def test_threefry_noise_replays_in_a_graph(dev):
+    """The kernel reads its key from device memory: one launch captured in
+    a CUDA graph, replayed after another key is copied into the same
+    buffer, draws that key's plane and writes its split."""
+    from cake_tpu_torch.ops.threefry import prng_key, threefry_noise, threefry_noise_plain
+
+    keys = prng_key([1, 2, 3, 4], dev)
+    threefry_noise(keys, (4096,))  # build and load the library outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        nxt, sub, noise = threefry_noise(keys, (4096,))
+    for seeds in ([5, 6, 7, 8], [9, 10, 11, 12]):
+        keys.copy_(prng_key(seeds, dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        r_nxt, r_sub, ref = threefry_noise_plain(keys, (4096,))
+        assert torch.equal(nxt, r_nxt) and torch.equal(sub, r_sub)
+        assert (noise - ref).abs().max().item() <= 1e-6
+
+
+def test_threefry_noise_refuses_what_it_cannot_draw(dev):
+    from cake_tpu_torch.ops.threefry import prng_key, threefry_noise
+
+    with pytest.raises(ValueError, match="keys must be"):
+        threefry_noise(prng_key([1, 2], dev).int(), (8,))
+    with pytest.raises(ValueError, match="contiguous"):
+        threefry_noise(prng_key([1, 2, 3], dev).t().contiguous().t()[:, :2], (8,))
+    nxt, sub, noise = threefry_noise(torch.zeros((0, 2), dtype=torch.int64, device=dev), (8,))
+    assert nxt.shape == sub.shape == (0, 2) and noise.shape == (0, 8)

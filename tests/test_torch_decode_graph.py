@@ -11,7 +11,7 @@ paged and the generator's step, under the decode fusions ``none``,
   * the step the graph captures, run from its static buffers over chunks at
     moving slots (a page-table change between them, paged), is
     ``sampled_decode_loop`` with a host-int slot to the bit: ids, KV and the
-    carries, with per-row keys and with a ``torch.Generator``, greedy and
+    carries, with per-row threefry keys and with one shared key, greedy and
     sampled;
   * greedy streams equal the JAX package's ``decode_scan`` (the generator's
     fused decode), ``_decode_fn`` and ``_paged_decode_fn`` (the engine's),
@@ -52,7 +52,7 @@ from cake_tpu_torch.models.llama.paged_cache import PagedKVCache
 from cake_tpu_torch.ops.fuse import resolve_fusion
 from cake_tpu_torch.ops.fused_ingest import fused_qkv_ingest_plain
 from cake_tpu_torch.ops.quant import quantize_params
-from cake_tpu_torch.ops.sampling import row_keys
+from cake_tpu_torch.ops.threefry import prng_key
 from cake_tpu_torch.runtime.batch_backend import LocalBatchBackend, PagedLocalBackend
 
 MAX_SEQ = 128
@@ -117,7 +117,7 @@ def _engine(mode: str, cfg, params):
         logits, kv = be.prefill(tokens, kv, pads)
         ring, ring_idx = B.seed_rings(PROMPTS, WINDOW)
         first, keys, ring, ring_idx = B.first_sample(
-            logits, GREEDY, ring, ring_idx, row_keys([7, 8, 9], "cpu"))
+            logits, GREEDY, ring, ring_idx, prng_key([7, 8, 9]))
     carries = {"tok": torch.as_tensor(first, dtype=torch.int64), "pads": torch.as_tensor(pads),
                "keys": keys, "ring": torch.as_tensor(ring, dtype=torch.int64),
                "ring_idx": torch.as_tensor(ring_idx, dtype=torch.int64)}
@@ -223,15 +223,15 @@ def test_engine_chunks_equal_the_eager_loop(jax_model, mode, fusion, dtype, knob
 @pytest.mark.parametrize("dtype", ["bf16", "int4"])
 @pytest.mark.parametrize("fusion", ["none", "all"])
 def test_generator_chunks_equal_the_eager_loop(jax_model, fusion, dtype, knobs):
-    """Three chunks of the step's ``decode_chunk`` (a shared
-    torch.Generator: its draws made before each chunk) against
-    ``sampled_decode_loop`` drawing from a copy of the generator inside the
-    loop, on a clone of the cache: ids, KV and the generator's state."""
+    """Three chunks of the step's ``decode_chunk`` (one shared threefry key,
+    carried on the device and split in the chunk) against
+    ``sampled_decode_loop`` from a copy of the key, on a clone of the cache:
+    ids, KV and the advanced key."""
     cfg = _config(fusion)
     s = KNOBS[knobs]
     step, last, pos = _generator_state(cfg, _port_params(jax_model, dtype))
     ref_kv = _clone_kv(step._kv)
-    rng, ref_rng = torch.Generator().manual_seed(s.seed), torch.Generator().manual_seed(s.seed)
+    key, ref_key = prng_key(s.seed), prng_key(s.seed)
     fwd = _forward_one("generator", step)
     history = list(PROMPTS[0]) + [last]
     for _ in range(3):
@@ -240,16 +240,18 @@ def test_generator_chunks_equal_the_eager_loop(jax_model, fusion, dtype, knobs):
         ring[0, : len(recent)] = recent
         ring_idx = min(len(history), WINDOW) % WINDOW
         with torch.inference_mode():
-            got = step.decode_chunk(np.asarray([history[-1]]), pos, CHUNK, s, rng, ring, ring_idx)
-            want, ref_kv, _, _, _ = sampled_decode_loop(
-                fwd, ref_kv, torch.tensor([history[-1]]), pos, ref_rng, torch.from_numpy(ring),
+            got, key = step.decode_chunk(np.asarray([history[-1]]), pos, CHUNK, s, key, ring,
+                                         ring_idx)
+            want, ref_kv, ref_key, _, _ = sampled_decode_loop(
+                fwd, ref_kv, torch.tensor([history[-1]]), pos, ref_key, torch.from_numpy(ring),
                 torch.full((1,), ring_idx, dtype=torch.int64), n_steps=CHUNK, s=s,
                 fused_tail="tail" in resolve_fusion(cfg))
         np.testing.assert_array_equal(got, want.numpy())
         history += got[0].tolist()
         pos += CHUNK
     _assert_kv_equal(step._kv, ref_kv)
-    assert torch.equal(rng.get_state(), ref_rng.get_state())
+    assert torch.equal(key, ref_key)
+    assert torch.equal(key, prng_key(s.seed)) == (knobs == "greedy")  # sampled steps split it
 
 
 # ---------------------------------------------------------- against JAX
@@ -342,8 +344,8 @@ def test_generator_greedy_chunks_match_jax_decode_scan(jax_model, fusion):
         ring[0, : len(recent)] = recent
         ring_idx = min(len(history), WINDOW) % WINDOW
         with torch.inference_mode():
-            got = step.decode_chunk(np.asarray([history[-1]]), pos, CHUNK, GREEDY,
-                                    torch.Generator(), ring, ring_idx)
+            got, _ = step.decode_chunk(np.asarray([history[-1]]), pos, CHUNK, GREEDY,
+                                       prng_key(0), ring, ring_idx)
         want, jkv, key, _, _ = jax_decode_scan(
             jax_model[1], jkv, jnp.asarray([history[-1]], jnp.int32), jnp.int32(pos), key,
             jnp.asarray(ring, jnp.int32), jnp.int32(ring_idx), jcfg, n_steps=CHUNK,
@@ -400,18 +402,17 @@ def test_the_captured_step_bakes_in_no_value(jax_model, mode, fusion, knobs):
     cfg = _config(fusion)
     s = KNOBS[knobs]
     params = _port_params(jax_model, "bf16")
-    gen = torch.Generator().manual_seed(3)
     with torch.inference_mode():
         if mode == "generator":
             step, last, slot = _generator_state(cfg, params)
             chunk = DecodeChunk(_forward_one(mode, step), step._kv, batch=1, window=WINDOW,
-                                vocab=cfg.vocab_size, n_steps=CHUNK, s=s,
+                                n_steps=CHUNK, s=s,
                                 fused_tail="tail" in resolve_fusion(cfg), per_row=False,
                                 device=torch.device("cpu"))
             first = dict(tok=np.asarray([last]), slot=slot, ring=np.full((1, WINDOW), -1),
-                         ring_idx=np.zeros(1, np.int64), generator=gen)
+                         ring_idx=np.zeros(1, np.int64), keys=prng_key(3))
             second = dict(tok=np.asarray([3]), slot=slot + 9, ring=np.arange(WINDOW)[None],
-                          ring_idx=np.full(1, 5), generator=gen)
+                          ring_idx=np.full(1, 5), keys=prng_key(4))
         else:
             be, kv, c, slot = _engine(mode, cfg, params)
             be.decode(kv, c["tok"], slot, c["pads"], c["keys"], c["ring"], c["ring_idx"],

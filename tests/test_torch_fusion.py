@@ -38,9 +38,8 @@ from cake_tpu_torch.ops.fuse import fuse_params, parse_fusion_spec, resolve_fusi
 from cake_tpu_torch.ops.fused_ingest import fused_qkv_ingest, fused_qkv_ingest_plain
 from cake_tpu_torch.ops.fused_norm_matmul import fused_norm_matmul, fused_norm_matmul_plain
 from cake_tpu_torch.ops.fused_sample_tail import fused_sample_tail, fused_sample_tail_plain
-from cake_tpu_torch.ops.sampling import (
-    gumbel_per_row, row_keys, sample, sample_step, unit_float,
-)
+from cake_tpu_torch.ops.sampling import sample, sample_step
+from cake_tpu_torch.ops.threefry import TINY, gumbel, prng_key, split, uniform_from_bits
 
 SPECS = [
     "none", "", "all", "norm", "ingest", "tail", "norm,tail", " ingest , tail ",
@@ -260,13 +259,13 @@ def test_sample_tail_top_p_keeps_the_composition_and_logs_once(monkeypatch, capl
 
 @pytest.mark.parametrize("knobs", TAIL_KNOBS, ids=lambda k: "-".join(map(str, k.values())))
 def test_sample_step_through_the_tail_walks_the_unfused_stream(knobs):
-    """Per-row keys: the same ids, keys and rings fused or not; the noise is
-    ``gumbel_per_row`` of the split keys, so ``scaled + g`` is the unfused
-    ``scaled - log(-log(u))`` to the bit."""
+    """Per-row threefry keys: the same ids, keys and rings fused or not; the
+    noise is each row's gumbel draw from its split key, the plane the
+    unfused ``sample_per_row`` adds, so the ids agree to the bit."""
     logits, ring, _ = (torch.from_numpy(a) for a in _tail_operands(12))
     outs = []
     for fused in (False, True):
-        keys = row_keys([3, 4, 5, 6], "cpu")
+        keys = prng_key([3, 4, 5, 6])
         r, idx = ring.clone(), torch.zeros(4, dtype=torch.int64)
         for _ in range(3):
             nxt, keys, r, idx = sample_step(logits, keys, r, idx, top_p=None, fused_tail=fused,
@@ -278,31 +277,36 @@ def test_sample_step_through_the_tail_walks_the_unfused_stream(knobs):
 
 
 def test_per_row_uniforms_stay_inside_the_open_interval():
-    """The extreme hashes map strictly inside (0, 1), so the gumbel noise is
-    finite: with top-k, an infinite draw on a masked token (-inf + inf =
-    NaN) would win the argmax, and the fused tail (which masks after adding
-    the noise, as the JAX kernel does) would part from the plain version."""
-    u = unit_float(torch.tensor([0, 1, 2**31, 2**32 - 1], dtype=torch.int64))
-    assert u[0].item() == 2.0**-24 and u[-1].item() == 1.0 - 2.0**-24
+    """The extreme bits map into [tiny, 1 - 2**-23] (jax's uniform over
+    [tiny, 1)), strictly inside (0, 1), so the gumbel noise is finite: with
+    top-k, an infinite draw on a masked token (-inf + inf = NaN) would win
+    the argmax, and the fused tail (which masks after adding the noise, as
+    the JAX kernel does) would part from the plain version."""
+    u = uniform_from_bits(torch.tensor([0, 1, 511, 512, 2**31, 2**32 - 1], dtype=torch.int64))
+    assert u.dtype == torch.float32
+    assert u[:3].tolist() == [TINY] * 3 and u[3].item() == 2.0**-23
+    assert u[4].item() == 0.5 and u[-1].item() == 1.0 - 2.0**-23
     assert bool(((u > 0) & (u < 1)).all())
     assert torch.isfinite(-torch.log(-torch.log(u))).all()
 
 
 def test_sample_step_with_a_shared_generator_draws_like_sample():
     """The generator's shared stream: the fused tail and the per-step
-    ``sample`` draw the same planes from a torch.Generator, in order."""
+    ``sample`` (a split, then a draw with the subkey) walk one [2] threefry
+    key to the same ids and the same key."""
     logits, ring, _ = (torch.from_numpy(a) for a in _tail_operands(13, b=1))
     knobs = dict(temperature=0.9, top_k=20, top_p=None)
     per_step, fused = [], []
-    g1, g2 = torch.Generator().manual_seed(8), torch.Generator().manual_seed(8)
+    k1 = k2 = prng_key(8)
     idx = torch.zeros(1, dtype=torch.int64)
     for _ in range(4):
-        per_step.append(int(sample(logits, g1, **knobs)[0]))
-        nxt, _, _, _ = sample_step(logits, g2, torch.full((1, 0), -1), idx, repeat_penalty=1.0,
-                                   fused_tail=True, **knobs)
+        k1, sub = split(k1)
+        per_step.append(int(sample(logits, sub, **knobs)[0]))
+        nxt, k2, _, _ = sample_step(logits, k2, torch.full((1, 0), -1), idx, repeat_penalty=1.0,
+                                    fused_tail=True, **knobs)
         fused.append(int(nxt[0]))
-    assert per_step == fused
-    noise = gumbel_per_row(row_keys([1], "cpu"), 16)
+    assert per_step == fused and torch.equal(k1, k2)
+    noise = gumbel(prng_key([1]), (16,))
     assert noise.shape == (1, 16) and torch.isfinite(noise).all()
 
 

@@ -125,13 +125,15 @@ def test_sample_with_the_same_gumbel_noise(temperature, top_k, top_p):
 
 
 def test_sample_from_a_generator_is_seeded():
+    """A draw is seeded by its threefry key alone: the same key gives the
+    same id, and it is jax.random.categorical's id for that key."""
+    from cake_tpu_torch.ops.threefry import prng_key
+
     logits = torch.zeros((1, 1000))
-    draws = [
-        sampling.sample(logits, torch.Generator().manual_seed(7), temperature=1.0).item()
-        for _ in range(2)
-    ]
+    draws = [sampling.sample(logits, prng_key(7), temperature=1.0).item() for _ in range(2)]
     assert draws[0] == draws[1]
-    with pytest.raises(ValueError, match="generator or noise"):
+    assert draws[0] == int(jax.random.categorical(jax.random.PRNGKey(7), jnp.zeros((1, 1000)))[0])
+    with pytest.raises(ValueError, match="key or noise"):
         sampling.sample(logits, None, temperature=1.0)
 
 
