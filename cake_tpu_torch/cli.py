@@ -3,6 +3,8 @@
     python -m cake_tpu_torch.cli --model DIR --prompt "..." -n 100
     python -m cake_tpu_torch.cli --model DIR --api 127.0.0.1:8080
     python -m cake_tpu_torch.cli --model DIR --api 127.0.0.1:8080 --api-batch 8 --kv-mode paged
+    python -m cake_tpu_torch.cli --model DIR --api 127.0.0.1:8080 --api-batch 8 --kv-mode paged \
+        --scheduler continuous
     python -m cake_tpu_torch.cli --model DIR --prompt "..." --kv-dtype f8
 
 Single-host generation on one CUDA device (``--device cpu`` runs the plain
@@ -54,6 +56,24 @@ def build_parser() -> argparse.ArgumentParser:
         "--api-batch", type=int, default=1,
         help="serve up to N API requests as one lockstep decode batch with continuous "
         "admission (runtime/serving.py); 1 = serialized",
+    )
+    p.add_argument(
+        "--scheduler", choices=("epoch", "continuous"), default="epoch",
+        help="scheduler of the --api-batch engine: epoch = the lockstep epoch (a burst lands "
+        "together after an admission window; page pressure finishes a stream as 'length'); "
+        "continuous = per-step admission under a prefill budget a step (--step-prefill), no "
+        "admission window, and page pressure preempts the lowest-priority lane (spilled to "
+        "the host, restored to the same stream) instead of truncating it",
+    )
+    p.add_argument(
+        "--step-prefill", type=int, default=0, metavar="TOKENS",
+        help="continuous scheduler: prompt tokens of join and restore prefill one engine step "
+        "may dispatch before decode resumes; 0 = auto (512)",
+    )
+    p.add_argument(
+        "--default-priority", type=int, choices=(0, 1, 2), default=1,
+        help="priority class of requests that carry none (0 low / 1 normal / 2 high): the "
+        "continuous scheduler preempts the lowest class first",
     )
     p.add_argument(
         "--kv-mode", choices=("dense", "paged"), default="dense",
@@ -122,6 +142,25 @@ def _parse_address(addr: str) -> tuple[str, int]:
     return host or "127.0.0.1", int(port)
 
 
+def serve_config(args: argparse.Namespace):
+    """The ``--api-batch`` engine's ServeConfig from parsed flags."""
+    from cake_tpu_torch.runtime.serving import ServeConfig
+
+    return ServeConfig(
+        max_batch=args.api_batch,
+        decode_chunk_size=args.decode_chunk,
+        scheduler=args.scheduler,
+        step_prefill_tokens=args.step_prefill,
+        default_priority=args.default_priority,
+        kv_mode=args.kv_mode,
+        page_size=args.page_size,
+        max_pages=args.max_pages,
+        prefix_cache=args.kv_mode == "paged" and args.prefix_cache != "off",
+        prefix_cache_pages=args.prefix_cache_pages,
+        fusion_impl=args.fusion,
+    )
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     from cake_tpu_torch.ops.fuse import parse_fusion_spec
@@ -175,18 +214,9 @@ def main(argv: list[str] | None = None) -> int:
 
         engine = None
         if engine_serves:
-            from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+            from cake_tpu_torch.runtime.serving import BatchEngine
 
-            serve = ServeConfig(
-                max_batch=args.api_batch,
-                decode_chunk_size=args.decode_chunk,
-                kv_mode=args.kv_mode,
-                page_size=args.page_size,
-                max_pages=args.max_pages,
-                prefix_cache=args.kv_mode == "paged" and args.prefix_cache != "off",
-                prefix_cache_pages=args.prefix_cache_pages,
-                fusion_impl=args.fusion,
-            )
+            serve = serve_config(args)
             step = generator.step
             engine = BatchEngine(
                 generator.config, step.params, generator.tokenizer,

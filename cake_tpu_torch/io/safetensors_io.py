@@ -190,10 +190,12 @@ def _layer_templates(reader: SafetensorsReader, config: LlamaConfig) -> dict:
         n.startswith(first) and (".experts." in n or "block_sparse_moe" in n)
         for n in reader.names()
     ):
-        raise NotImplementedError("MoE checkpoints are not ported yet (ROADMAP.md queue A, item 9)")
+        raise NotImplementedError(
+            "MoE checkpoints are not ported yet (ROADMAP.md queue A, MoE and Phi-3)"
+        )
     if "model.layers.0.self_attn.qkv_proj.weight" in reader:
         raise NotImplementedError(
-            "Phi-3 fused checkpoint tensors are not ported yet (ROADMAP.md queue A, item 3)"
+            "Phi-3 fused checkpoint tensors are not ported yet (ROADMAP.md queue A, MoE and Phi-3)"
         )
     templates = dict(_LAYER_TEMPLATES)
     for key, entry in (*_LAYER_BIAS_TEMPLATES.items(), *_QK_NORM_TEMPLATES.items()):

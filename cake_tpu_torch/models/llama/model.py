@@ -51,8 +51,10 @@ from cake_tpu_torch.ops.rope import apply_rope, model_rope_tables
 
 Params = dict[str, Any]
 
-_MOE_TODO = "sparse MoE layers are not ported yet (ROADMAP.md queue A, item 9)"
-_ROLLING_TODO = "the rolling window cache is not ported yet (ROADMAP.md queue A, item 3)"
+_MOE_TODO = "sparse MoE layers are not ported yet (ROADMAP.md queue A, MoE and Phi-3)"
+_ROLLING_TODO = (
+    "the rolling window cache is not ported yet (ROADMAP.md queue A, the rolling window cache)"
+)
 
 
 def init_params(

@@ -261,6 +261,12 @@ class PageAllocator:
     def lane_mapped(self, lane: int) -> bool:
         return bool((self.block_tables[lane] >= 0).any())
 
+    def lane_pages(self, lane: int) -> int:
+        """Mapped logical pages of ``lane``: the relief spilling it would
+        give (the continuous scheduler's victim choice; shared pages count
+        too, since the lane's reference still blocks their reuse)."""
+        return int((self.block_tables[lane] >= 0).sum())
+
     def map_range(self, lane: int, start_slot: int, end_slot: int) -> None:
         """Map pages so slots [start_slot, end_slot) of ``lane`` have storage.
 

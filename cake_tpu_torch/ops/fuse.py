@@ -92,7 +92,7 @@ def fuse_layer_tree(layers: dict) -> dict:
         return layers
     if "router" in layers:
         raise NotImplementedError(
-            "MoE layer trees are not ported yet (ROADMAP.md queue A, item 9)"
+            "MoE layer trees are not ported yet (ROADMAP.md queue A, MoE and Phi-3)"
         )
     out = dict(layers)
     if "wq" in out:

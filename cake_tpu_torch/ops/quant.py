@@ -207,7 +207,7 @@ def quantize_layer_tree(layers: dict, mode: str = "int8") -> dict:
         )
     if "router" in layers:
         raise NotImplementedError(
-            "MoE layer trees are not ported yet (ROADMAP.md queue A, item 9)"
+            "MoE layer trees are not ported yet (ROADMAP.md queue A, MoE and Phi-3)"
         )
     return {k: _quantize_one(v, mode) if k in _QUANT_LAYER_KEYS else v for k, v in layers.items()}
 

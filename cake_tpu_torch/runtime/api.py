@@ -2,7 +2,8 @@
 
 Routes: ``POST /api/v1/chat/completions`` (JSON, or SSE with
 ``"stream": true`` and ``stream_options.include_usage``; per-request
-temperature / top_k / top_p / seed / max_tokens overrides), ``GET /health``,
+temperature / top_k / top_p / seed / max_tokens overrides, and with an
+engine a ``priority`` class 0-2), ``GET /health``,
 ``GET /api/v1/models`` and ``GET /stats``. Without an engine, requests run
 one at a time under a lock around the single generator, which is reset per
 request. With a batch engine (runtime/serving.py, ``--api-batch``) chat
@@ -153,9 +154,15 @@ class ApiServer:
         response id is the engine's request id, so a client that goes away
         cancels exactly its own request."""
         sampling = self._sampling(opt, self.generator.sampling)
+        # Priority class (0 low / 1 normal / 2 high; the engine's default
+        # otherwise): the continuous scheduler preempts the lowest first.
+        priority = opt("priority", None, int)
+        if priority is not None and priority not in (0, 1, 2):
+            raise ApiError(400, f"priority must be 0, 1 or 2, got {priority}")
         rid = f"chatcmpl-{uuid.uuid4()}"
         try:
-            h = self.engine.submit(messages, max_tokens, sampling, request_id=rid)
+            h = self.engine.submit(messages, max_tokens, sampling, request_id=rid,
+                                   priority=priority)
         except ValueError as e:  # a prompt the engine can never serve: 400 before any header
             raise ApiError(400, str(e)) from e
         created = int(time.time())

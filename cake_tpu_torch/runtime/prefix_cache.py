@@ -202,6 +202,27 @@ class PrefixCache:
                 return None
             return (align, id(c))
 
+    def reclaimable(self) -> int:
+        """Pages eviction could free RIGHT NOW: nodes of unpinned subtrees
+        whose page has no reference besides the cache's own. A restore's
+        page check counts them as available (runtime/serving.py)."""
+        with self._lock:
+            total = 0
+
+            def walk(node) -> bool:
+                nonlocal total
+                free_sub = node.pins == 0
+                for c in node.children:
+                    free_sub &= walk(c)
+                if free_sub and self.allocator.refcount[node.page] == 1:
+                    total += 1
+                return free_sub
+
+            for root in self._roots.values():
+                for c in root.children:
+                    walk(c)
+            return total
+
     def stats(self) -> dict:
         with self._lock:
             return {

@@ -1,5 +1,6 @@
 """Concurrent batched serving: a request queue feeding lockstep batch decode
-(port of ``cake_tpu/runtime/serving.py``, the epoch scheduler).
+(port of ``cake_tpu/runtime/serving.py``, the epoch and continuous
+schedulers).
 
 HTTP handler threads ``submit()`` requests into a FIFO; one engine thread
 owns the device, drains the queue, groups requests whose sampling knobs
@@ -15,16 +16,32 @@ charge pages of the shared pool, decode maps pages at page boundaries, and
 finished streams return theirs; with the prefix cache on, a prompt sharing a
 cached prefix forks its page chain and prefills only the uncached suffix.
 
+Two schedulers drive that loop (``ServeConfig.scheduler``):
+
+  * ``"epoch"``: admission waits one admission window so a burst lands in
+    one batch; joins take every free lane at once; a lane the page pool
+    cannot extend finishes as ``"length"``.
+  * ``"continuous"``: no admission-window sleep; each chunk boundary is a
+    step whose join and restore prefill is bounded by a prompt-token grant
+    (runtime/admission.py ``StepBudget``); page pressure PREEMPTS the
+    lowest-priority lane instead of truncating it: its history, threefry
+    key and penalty ring go to the host (``_SpilledLane``), its pages return
+    to the pool, and a later restore re-prefills ``history[:-1]`` into a
+    free lane at the shared slot (the join arithmetic) or seeds a new
+    segment, and puts the sampling state back, so the resumed stream
+    continues the tokens the uninterrupted run would give.
+
 Each row carries its own threefry key (ops/threefry.py: ``prng_key`` of its
 seed, split once a step, ops/sampling.sample_per_row), so a row's stream does
 not depend on what shares its batch; greedy and seeded sampled streams equal
-the JAX package's engine on the same checkpoint (tests/test_torch_serving.py,
-tests/test_torch_threefry.py).
+the JAX package's engine on the same checkpoint, under both schedulers
+(tests/test_torch_serving.py, tests/test_torch_threefry.py,
+tests/test_torch_continuous.py).
 
-Not ported yet (ROADMAP.md): the continuous scheduler with spill/restore,
-speculative verify, tenants and fair queueing (the queue is the single-tenant
-FIFO), shedding, deadlines, failover, the black box and the observability
-ledgers. Asking for a knob that is not ported raises.
+Not ported yet (ROADMAP.md): speculative verify, tenants and fair queueing
+(the queue is the single-tenant FIFO), shedding, deadlines, failover, the
+black box and the observability ledgers. Asking for a knob that is not
+ported raises.
 """
 
 from __future__ import annotations
@@ -50,6 +67,7 @@ from cake_tpu_torch.models.llama.paged_cache import PageExhausted
 from cake_tpu_torch.models.llama.tokenizer import Tokenizer
 from cake_tpu_torch.ops.fuse import parse_fusion_spec
 from cake_tpu_torch.ops.threefry import prng_key
+from cake_tpu_torch.runtime.admission import StepBudget
 
 __all__ = ["BatchEngine", "ServeConfig", "StreamHandle"]
 
@@ -79,12 +97,19 @@ class ServeConfig:
     requests that extend the same cached chain into one epoch.
     ``fusion_impl`` (ops/fuse.py ``parse_fusion_spec``), when not "none",
     overrides the model config's decode fusions for the engine's backend.
+
+    ``scheduler`` is ``"epoch"`` or ``"continuous"`` (the module docstring);
+    ``step_prefill_tokens`` is the continuous scheduler's prompt tokens of
+    join and restore prefill a step (0 = ``StepBudget.AUTO_TOKENS``), and
+    ``default_priority`` the class (0 low, 1 normal, 2 high) of a request
+    submitted without one: preemption spills the lowest class first.
     """
 
     max_batch: int = 8
     decode_chunk_size: int = 8
     admission_window: float = 0.01
-    scheduler: str = "epoch"  # "continuous" is not ported yet
+    scheduler: str = "epoch"  # "epoch" | "continuous"
+    step_prefill_tokens: int = 0
     cache_aware_order: bool = True
     kv_mode: str = "dense"  # "dense" | "paged"
     page_size: int = 128
@@ -94,15 +119,18 @@ class ServeConfig:
     prefix_cache_pages: int = 0
     prefix_min_tokens: int = 0
     fusion_impl: str = "none"
+    default_priority: int = 1
 
     def __post_init__(self):
         parse_fusion_spec(self.fusion_impl)
-        if self.scheduler == "continuous":
-            raise NotImplementedError(
-                "the continuous scheduler is not ported yet (ROADMAP.md queue A)"
+        if self.scheduler not in ("epoch", "continuous"):
+            raise ValueError(f"scheduler must be epoch|continuous, got {self.scheduler}")
+        if self.step_prefill_tokens < 0:
+            raise ValueError(
+                f"step_prefill_tokens must be >= 0 (0 = auto), got {self.step_prefill_tokens}"
             )
-        if self.scheduler != "epoch":
-            raise ValueError(f"scheduler must be epoch, got {self.scheduler}")
+        if self.default_priority not in (0, 1, 2):
+            raise ValueError(f"default_priority must be 0|1|2, got {self.default_priority}")
         if self.kv_mode not in ("dense", "paged"):
             raise ValueError(f"kv_mode must be dense|paged, got {self.kv_mode}")
         if self.page_size < 1:
@@ -135,6 +163,7 @@ class _Request:
     handle: "StreamHandle"
     rid: str = ""
     t_submit: float = 0.0
+    priority: int = 1  # 0 low / 1 normal / 2 high: preemption spills the lowest first
 
     def knobs(self) -> tuple:
         return _knobs(self.sampling)
@@ -203,6 +232,9 @@ class BatchEngine:
         self.max_batch = max(1, serve.max_batch)
         self.admission_window = serve.admission_window
         self.cache_aware_order = serve.cache_aware_order
+        self.scheduler = serve.scheduler
+        self.default_priority = serve.default_priority
+        self._step_budget = StepBudget(serve.step_prefill_tokens)
         from cake_tpu_torch.runtime import batch_backend
 
         if serve.kv_mode == "paged":
@@ -254,11 +286,16 @@ class BatchEngine:
         # waits for a chunk boundary.
         self._live_rids: set[str] = set()
         self._cancel_ids: set[str] = set()
-        # Written by the engine thread; readers take a copy.
+        # Under _cv: rid -> _SpilledLane, the lanes the continuous scheduler
+        # preempted. A spilled lane holds no pages and no device state.
+        self._spilled: dict[str, _SpilledLane] = {}
+        # Written by the engine thread; readers take a copy. budget_deferrals
+        # counts join and restore candidates a step's prefill grant put off.
         self.stats = {
             "batches": 0, "rows": 0, "max_rows": 0, "joins": 0, "cancelled": 0,
             "page_truncations": 0, "prefix_hits": 0, "prefix_misses": 0,
             "prefill_s": 0.0, "decode_s": 0.0, "decode_chunks": 0, "decode_steps": 0,
+            "preemptions": 0, "restores": 0, "budget_deferrals": 0,
         }
 
     # ------------------------------------------------------------ lifecycle
@@ -276,6 +313,10 @@ class BatchEngine:
         if self._thread is not None:
             self._thread.join(timeout=60)
             self._thread = None
+        with self._cv:
+            # The engine thread closes them on its way out; an engine that
+            # never started has none to do it.
+            self._fail_spilled_locked("engine stopped")
 
     def snapshot(self) -> dict:
         """Counters for ``GET /stats``: engine stats, live lanes, the pool
@@ -284,6 +325,7 @@ class BatchEngine:
         with self._cv:
             out["queued"] = len(self._queue)
             out["live"] = len(self._live_rids)
+            out["spilled"] = len(self._spilled)
         out["kv_mode"] = self.kv_mode
         if self._alloc is not None:
             out["pages_total"] = self._alloc.pages_total
@@ -300,10 +342,14 @@ class BatchEngine:
         max_tokens: int,
         sampling: SamplingConfig,
         request_id: str | None = None,
+        priority: int | None = None,
     ) -> StreamHandle:
-        """Queue one chat completion; returns its stream at once. Raises
-        ValueError for prompts that can never be served (the API maps it to
-        a 400 before any streaming headers go out)."""
+        """Queue one chat completion; returns its stream at once.
+        ``priority`` (0 low, 1 normal, 2 high; ServeConfig's
+        ``default_priority`` when None) orders preemption under the
+        continuous scheduler. Raises ValueError for prompts that can never
+        be served (the API maps it to a 400 before any streaming headers go
+        out)."""
         ids = self.tokenizer.encode(encode_dialog(messages, self.config.dialog_template))
         # The left-pad bucket can add slots ahead of the prompt: require room
         # for the bucket plus one generated token (the layout's own helper).
@@ -318,10 +364,12 @@ class BatchEngine:
                     f"prompt needs {need} KV pages (page_size {self._alloc.page_size}) "
                     f"but the pool holds {self._alloc.pages_total}"
                 )
+        if priority is None:
+            priority = self.default_priority
         rid = request_id or f"req-{uuid.uuid4()}"
         handle = StreamHandle(n_prompt=len(ids), request_id=rid)
         req = _Request(ids, int(max_tokens), sampling, handle, rid=rid,
-                       t_submit=time.perf_counter())
+                       t_submit=time.perf_counter(), priority=max(0, min(2, int(priority))))
         with self._cv:
             if self._stop:
                 raise RuntimeError("engine is stopped")
@@ -330,9 +378,10 @@ class BatchEngine:
         return handle
 
     def cancel(self, request_id: str) -> bool:
-        """Cancel one request. Queued: finished at once as "cancelled".
-        Running: finished at the next chunk boundary, its lane and pages
-        freed for joins. False for ids neither queued nor live."""
+        """Cancel one request. Queued or spilled: finished at once as
+        "cancelled" (a spilled lane holds no pages). Running: finished at
+        the next chunk boundary, its lane and pages freed for joins. False
+        for ids neither queued, spilled nor live."""
         with self._cv:
             for r in self._queue:
                 if r.rid == request_id:
@@ -341,24 +390,38 @@ class BatchEngine:
                     self.stats["cancelled"] += 1
                     r.handle._emit(_DONE)
                     return True
-            if request_id in self._live_rids:
+            sp = self._spilled.pop(request_id, None)
+            if sp is None and request_id in self._live_rids:
                 self._cancel_ids.add(request_id)
                 return True
-        return False
+        if sp is None:
+            return False
+        self.stats["cancelled"] += 1
+        sp.row.req.handle.finish_reason = "cancelled"
+        sp.row.finish()
+        return True
 
     def wait_idle(self, timeout: float = 30.0) -> bool:
-        """Wait until the queue is empty and no epoch is running: every
-        lane's pages are back in the pool, and the next submissions open an
-        epoch of their own (a stream closes before its epoch ends, and a
-        request submitted then joins it)."""
+        """Wait until the queue and the spill table are empty and no epoch
+        is running: every lane's pages are back in the pool, and the next
+        submissions open an epoch of their own (a stream closes before its
+        epoch ends, and a request submitted then joins it)."""
         deadline = time.monotonic() + timeout
         with self._cv:
-            while self._queue or self._running:
+            while self._queue or self._spilled or self._running:
                 left = deadline - time.monotonic()
                 if left <= 0:
                     return False
                 self._cv.wait(left)
         return True
+
+    def _fail_spilled_locked(self, error: str) -> None:
+        """Close every spilled stream with a raised error (the caller holds
+        the cv): a parked lane never outlives the engine."""
+        for sp in self._spilled.values():
+            sp.row.req.handle._emit(RuntimeError(error))
+            sp.row.req.handle._emit(_DONE)
+        self._spilled.clear()
 
     def _row_finished(self, rid: str) -> None:
         with self._cv:
@@ -386,22 +449,27 @@ class BatchEngine:
             torch.cuda.set_device(self._cuda_index)  # this thread owns the card
         while True:
             with self._cv:
-                while not self._queue and not self._stop:
+                while not self._queue and not self._spilled and not self._stop:
                     self._cv.wait()
                 if self._stop:
                     for r in self._queue:
                         r.handle._emit(RuntimeError("engine stopped"))
                     self._queue.clear()
+                    self._fail_spilled_locked("engine stopped")
                     return
-            # Let a burst of concurrent submissions land in one batch.
-            if self.admission_window > 0:
+                # Pending spills run first (continuous): previously admitted
+                # work, restored as the seed rows of a segment that queued
+                # requests with the same knobs join per step.
+                spill_seed = self.scheduler == "continuous" and bool(self._spilled)
+            # Epoch: let a burst of concurrent submissions land in one batch.
+            # The continuous scheduler admits per step instead.
+            if self.admission_window > 0 and self.scheduler != "continuous":
                 time.sleep(self.admission_window)
-            batch = self._admit()
-            if not batch:
+            batch = [] if spill_seed else self._admit()
+            if not batch and not spill_seed:
                 continue
-            self.stats["batches"] += 1
-            self.stats["rows"] += len(batch)
-            self.stats["max_rows"] = max(self.stats["max_rows"], len(batch))
+            if batch:  # a spill-seeded segment counts itself once its seeds are known
+                self._note_batch_started(len(batch))
             try:
                 self._run_batch(batch)
             except Exception as e:  # noqa: BLE001 - surface to every consumer, keep serving
@@ -413,6 +481,11 @@ class BatchEngine:
                 with self._cv:
                     self._running = False
                     self._cv.notify_all()
+
+    def _note_batch_started(self, n_rows: int) -> None:
+        self.stats["batches"] += 1
+        self.stats["rows"] += n_rows
+        self.stats["max_rows"] = max(self.stats["max_rows"], n_rows)
 
     def _pages_for(self, req: _Request, end_slot: int | None = None) -> int:
         """Admission price: prompt pages + the reserve, less the cached-prefix
@@ -476,15 +549,18 @@ class BatchEngine:
 
     # ------------------------------------------------- prefix-cache wiring
 
-    def _fork_lane(self, lane: int, req: _Request, pad: int, end: int):
+    def _fork_lane(self, lane: int, req: _Request, pad: int, end: int,
+                   ids: list[int] | None = None):
         """Fork the longest cached chain under one lane, split the boundary
         page copy-on-write when the fresh region starts mid-page, and map the
-        uncached tail [fresh, end). Returns (fresh, cow_pair): the first slot
-        the lane computes and may write, and the (src, dst) pages the caller
-        copies before any write (None without a split). Raises PageExhausted
-        when even reclaiming the cache cannot supply the tail's pages."""
+        uncached tail [fresh, end). ``ids`` are the tokens matched (a
+        restore's history, which starts with the prompt; default the
+        prompt). Returns (fresh, cow_pair): the first slot the lane computes
+        and may write, and the (src, dst) pages the caller copies before any
+        write (None without a split). Raises PageExhausted when even
+        reclaiming the cache cannot supply the tail's pages."""
         fresh, pair = pad, None
-        plan = self._prefix.fork(lane, req.prompt_ids, pad)
+        plan = self._prefix.fork(lane, req.prompt_ids if ids is None else ids, pad)
         if plan is None:
             self.stats["prefix_misses"] += 1
         else:
@@ -510,11 +586,13 @@ class BatchEngine:
         self._lane_info[lane] = (req, pad)
         return fresh, pair
 
-    def _prefix_layout(self, reqs: list, rows: list, pads, bucket: int, kv):
+    def _prefix_layout(self, reqs: list, rows: list, pads, bucket: int, kv, ids_list: list):
         """Epoch-start layout under the prefix cache: fork every real lane's
-        cached chain and map its uncached tail. Returns (kv, write_starts):
-        cold lanes' thresholds sit at their pads, dummy lanes' at the window
-        tail. A lane that cannot get its pages finishes as "length"."""
+        cached chain matching its ``ids_list`` row (prompts, or a
+        spill-seeded segment's histories) and map its uncached tail.
+        Returns (kv, write_starts): cold lanes' thresholds sit at their
+        pads, dummy lanes' at the window tail. A lane that cannot get its
+        pages finishes as "length"."""
         ws = np.asarray(pads, np.int32).copy()
         cow_src: list[int] = []
         cow_dst: list[int] = []
@@ -523,7 +601,7 @@ class BatchEngine:
                 ws[lane] = bucket - 1
                 continue
             try:
-                fresh, pair = self._fork_lane(lane, r, int(pads[lane]), bucket)
+                fresh, pair = self._fork_lane(lane, r, int(pads[lane]), bucket, ids_list[lane])
             except PageExhausted:
                 self.stats["page_truncations"] += 1
                 rows[lane].req.handle.finish_reason = "length"
@@ -544,10 +622,12 @@ class BatchEngine:
 
     @torch.inference_mode()
     def _run_batch(self, batch: list[_Request]) -> None:
-        """One epoch. Any exception reaches every row admitted so far,
-        joiners included, as a raised error; the pool is returned either
-        way, and a failed epoch clears the prefix cache (its chains must
-        never outlive their bytes)."""
+        """One epoch (a segment, under the continuous scheduler; ``batch``
+        is empty for a spill-seeded one). Any exception reaches every row
+        admitted so far, joiners included, and every spilled stream, as a
+        raised error; the pool is returned either way, and a failed epoch
+        clears the prefix cache (its chains must never outlive their
+        bytes)."""
         rows: list[_RowState | None] = []
         self._epoch_kv_retained = False
         try:
@@ -558,6 +638,10 @@ class BatchEngine:
                     row.req.handle._emit(e)
                     row.req.handle._emit(_DONE)
                     self._row_finished(row.req.rid)
+            # A spilled stream must not retry a deterministically failing
+            # segment forever: it gets the error every other consumer sees.
+            with self._cv:
+                self._fail_spilled_locked(str(e))
             raise
         finally:
             if self._alloc is not None:
@@ -571,6 +655,8 @@ class BatchEngine:
             self._lane_info.clear()
             if hasattr(self.backend, "set_epoch_capacity"):
                 self.backend.set_epoch_capacity(None)
+            # The spill table is left as it is: a lane spilled in this epoch
+            # is no longer live, and the next segment restores it.
             with self._cv:
                 self._live_rids.difference_update(r.rid for r in batch)
                 self._cancel_ids.difference_update(r.rid for r in batch)
@@ -580,28 +666,56 @@ class BatchEngine:
                         self._cancel_ids.discard(row.req.rid)
 
     def _run_epoch(self, batch: list[_Request], rows: list) -> None:
-        s, knobs = batch[0].sampling, batch[0].knobs()
+        seed_spills: list[_SpilledLane] = []
+        if not batch:
+            # Spill-seeded segment (continuous): the oldest spill's knob
+            # group restores as the seed rows. Their KV is rebuilt by the
+            # prefill below over each row's history[:-1]; their pending
+            # token, key and ring come back from the host copies.
+            seed_spills = self._pop_spill_seed()
+            if not seed_spills:
+                return
+            self._note_batch_started(len(seed_spills))
+            head = seed_spills[0].row.req
+            s, knobs = head.sampling, head.knobs()
+        else:
+            s, knobs = batch[0].sampling, batch[0].knobs()
         eos = set(self.config.eos_token_ids)
         dev = self.backend.device
         # Lanes: the next power of two of the group, doubled once for join
         # headroom, capped at max_batch.
+        n_seed = len(batch) or len(seed_spills)
         n_lanes = 1
-        while n_lanes < len(batch):
+        while n_lanes < n_seed:
             n_lanes *= 2
         n_lanes = min(max(n_lanes * 2, 2), self.max_batch)
         window = s.repeat_last_n
         # Spare lanes carry a one-token dummy prompt and are free for joins.
-        reqs: list[_Request | None] = list(batch) + [None] * (n_lanes - len(batch))
-        ids_list = [r.prompt_ids if r is not None else [self.config.bos_token_id] for r in reqs]
-        rows.extend(
-            _RowState(r, eos, self.tokenizer, self) if r is not None else None for r in reqs
-        )
+        spare = n_lanes - n_seed
+        if seed_spills:
+            reqs: list[_Request | None] = [sp.row.req for sp in seed_spills] + [None] * spare
+            ids_list = [sp.row.history[:-1] for sp in seed_spills] + [
+                [self.config.bos_token_id]] * spare
+            t_open = time.perf_counter()
+            for sp in seed_spills:
+                sp.row.t_open = t_open
+            rows.extend([sp.row for sp in seed_spills] + [None] * spare)
+        else:
+            reqs = list(batch) + [None] * spare
+            ids_list = [r.prompt_ids if r is not None else [self.config.bos_token_id]
+                        for r in reqs]
+            rows.extend(
+                _RowState(r, eos, self.tokenizer, self) if r is not None else None for r in reqs
+            )
         tokens, pads, bucket = layout_prompts(ids_list, self.max_seq_len)
         # ONE bounded capacity for the whole epoch (paged): enough slots for
-        # every admitted row's budget, bucketed, capped at max_seq_len.
+        # every admitted row's (remaining) budget, bucketed, capped at
+        # max_seq_len.
         cap = self.max_seq_len
         if self._alloc is not None:
-            reach = bucket + max(min(r.max_tokens, self.max_seq_len - bucket) for r in batch)
+            budgets = ([max(1, sp.row.req.max_tokens - sp.row.n) for sp in seed_spills]
+                       if seed_spills else [r.max_tokens for r in batch])
+            reach = bucket + max(min(t, self.max_seq_len - bucket) for t in budgets)
             self.backend.set_epoch_capacity(
                 min(self.max_seq_len, -(-reach // _CAPACITY_BUCKET) * _CAPACITY_BUCKET)
             )
@@ -611,7 +725,7 @@ class BatchEngine:
         kv = self.backend.init_kv(n_lanes)  # paged: resets or releases the allocator
         write_starts = None
         if self._prefix is not None:
-            kv, write_starts = self._prefix_layout(reqs, rows, pads, bucket, kv)
+            kv, write_starts = self._prefix_layout(reqs, rows, pads, bucket, kv, ids_list)
         elif self._alloc is not None:
             # Each real lane's pages over its live window [pad, bucket);
             # dummy lanes hold none (their writes sink).
@@ -629,14 +743,31 @@ class BatchEngine:
         else:
             logits, kv = self.backend.prefill(tokens, kv, pads)
         ring, ring_idx = seed_rings(ids_list, window)
-        keys = prng_key([r.sampling.seed if r is not None else 0 for r in reqs], dev)
-        first, keys, ring, ring_idx = first_sample(logits, s, ring, ring_idx, keys)
+        if seed_spills:
+            # Nothing is sampled: the pending token history[-1] was already
+            # delivered, and the key and ring are the spill's copies.
+            for lane, sp in enumerate(seed_spills):
+                if sp.ring is not None and window > 0:
+                    ring[lane] = sp.ring
+                    ring_idx[lane] = sp.ring_idx
+            host_keys = prng_key([0] * n_lanes).numpy()
+            for lane, sp in enumerate(seed_spills):
+                host_keys[lane] = sp.key
+            keys = upload(host_keys, dev, torch.int64)
+            first = np.asarray([sp.row.history[-1] for sp in seed_spills] + [0] * spare, np.int32)
+            for sp in seed_spills:
+                sp.row.n_at_restore = sp.row.n
+            self.stats["restores"] += len(seed_spills)
+        else:
+            keys = prng_key([r.sampling.seed if r is not None else 0 for r in reqs], dev)
+            first, keys, ring, ring_idx = first_sample(logits, s, ring, ring_idx, keys)
         self.stats["prefill_s"] += time.perf_counter() - t0
-        for lane, row in enumerate(rows):
-            if row is not None:
-                row.push(int(first[lane]))
-                if row.done:
-                    rows[lane] = None
+        if not seed_spills:
+            for lane, row in enumerate(rows):
+                if row is not None:
+                    row.push(int(first[lane]))
+                    if row.done:
+                        rows[lane] = None
         self._release_finished(rows)
 
         tok = upload(first, dev, torch.int64)
@@ -656,7 +787,15 @@ class BatchEngine:
                 return
             self._apply_cancels(rows)
             self._release_finished(rows)
-            join_args = self._take_joins(knobs, rows, slot, cap)
+            # Continuous: grant this step's prefill budget, restore spilled
+            # lanes first (admitted work outranks new admissions), then
+            # join. Epoch: joins unbudgeted.
+            budget = None
+            if self.scheduler == "continuous":
+                budget = {"left": self._grant_step_budget(rows)}
+                kv = self._take_restores(knobs, rows, slot, cap, budget, tok, kv, keys, ring_j,
+                                         ring_idx_j, pads_j)
+            join_args = self._take_joins(knobs, rows, slot, cap, budget)
             joined: set[int] = set()
             try:
                 for lane, req in join_args:
@@ -675,14 +814,18 @@ class BatchEngine:
             if not any(r is not None for r in rows):
                 break
             n = min(self.decode_chunk_size, cap - 1 - slot)
-            if self._alloc is not None and not self._extend_pages(rows, slot, n):
-                break  # every remaining row was truncated
+            if self._alloc is not None and not self._extend_pages(
+                rows, slot, n, spill_ctx=(keys, ring_j, ring_idx_j)
+            ):
+                break  # every remaining row was truncated or spilled
             t_chunk = time.perf_counter()
             toks, kv, keys, ring_j, ring_idx_j = self.backend.decode(
                 kv, tok, slot, pads_j, keys, ring_j, ring_idx_j, n, s
             )
             toks_np = toks.cpu().numpy()  # the chunk's one readback
-            self.stats["decode_s"] += time.perf_counter() - t_chunk
+            dt_chunk = time.perf_counter() - t_chunk
+            self._step_budget.observe_chunk(dt_chunk)
+            self.stats["decode_s"] += dt_chunk
             self.stats["decode_chunks"] += 1
             self.stats["decode_steps"] += n
             for lane, row in enumerate(rows):
@@ -728,12 +871,14 @@ class BatchEngine:
             self._prefix.release(self._lane_leases.pop(lane, None))
         self._alloc.release(lane)
 
-    def _extend_pages(self, rows: list, slot: int, n: int) -> bool:
+    def _extend_pages(self, rows: list, slot: int, n: int, spill_ctx: tuple | None = None) -> bool:
         """Map every live lane's pages over the next chunk [slot, slot + n)
-        (only page-boundary crossings allocate). Pool pressure reclaims
-        cold prefix-cache pages, retrying while a pass frees something, and
-        only then finishes the stream as "length". Returns False when no
-        live row is left."""
+        (only page-boundary crossings allocate). Pool pressure first
+        reclaims cold prefix-cache pages, retrying while a pass frees
+        something; then, under the continuous scheduler (``spill_ctx`` =
+        the chunk's keys, ring and ring index), preempts (``_preempt_for``);
+        only then, or under the epoch scheduler, finishes the stream as
+        "length". Returns False when no live row is left."""
         any_live = False
         for lane, row in enumerate(rows):
             if row is None:
@@ -742,18 +887,13 @@ class BatchEngine:
                 try:
                     self._alloc.map_range(lane, slot, slot + n)
                 except PageExhausted:
-                    if self._prefix is None:
-                        raise
-                    while True:
-                        freed = self._prefix.reclaim(self._alloc.pages_needed(n) + 1)
-                        try:
-                            self._alloc.map_range(lane, slot, slot + n)
-                            break
-                        except PageExhausted:
-                            if not freed:
-                                raise
+                    self._reclaim_and_map(lane, slot, n)
                 any_live = True
             except PageExhausted:
+                if self.scheduler == "continuous" and spill_ctx is not None:
+                    if self._preempt_for(rows, lane, slot, n, spill_ctx):
+                        any_live = True
+                    continue
                 self.stats["page_truncations"] += 1
                 row.req.handle.finish_reason = "length"
                 row.finish()
@@ -761,14 +901,290 @@ class BatchEngine:
                 self._lane_recycle(lane)
         return any_live
 
+    def _reclaim_and_map(self, lane: int, slot: int, n: int) -> None:
+        """Map [slot, slot + n) for ``lane``, evicting prefix-cache pages
+        between attempts while eviction makes progress. Raises PageExhausted
+        when there is no cache or a whole reclaim pass freed nothing."""
+        if self._prefix is None:
+            raise PageExhausted(f"lane {lane} needs pages for [{slot}, {slot + n})")
+        while True:
+            freed = self._prefix.reclaim(self._alloc.pages_needed(n) + 1)
+            try:
+                self._alloc.map_range(lane, slot, slot + n)
+                return
+            except PageExhausted:
+                if not freed:
+                    raise
+
+    # ------------------------------------------- preemption (spill/restore)
+    # Continuous scheduler only: page pressure preempts instead of
+    # truncating. A spilled lane's pages return to the pool; its host record
+    # (history, threefry key, penalty ring: the chunk-boundary state) waits
+    # in ``_spilled`` until pages free, and a restore re-prefills
+    # ``history[:-1]`` into a window ending at the shared slot through the
+    # join or suffix-join arithmetic, so the resumed stream is the
+    # uninterrupted one (tests/test_torch_continuous.py).
+
+    def _pick_victim(self, rows: list, lane: int) -> int | None:
+        """The lane to preempt so ``lane`` can extend: the lowest priority
+        (never one above the starving lane's), then the most pages (the most
+        relief a spill), then the youngest. None: no other lane qualifies,
+        and the starving lane spills itself."""
+        me = rows[lane].req.priority
+        best, best_key = None, None
+        for i, row in enumerate(rows):
+            if row is None or i == lane or row.req.priority > me:
+                continue
+            key = (row.req.priority, -self._alloc.lane_pages(i), -row.t_open)
+            if best_key is None or key < best_key:
+                best, best_key = i, key
+        return best
+
+    def _preempt_for(self, rows: list, lane: int, slot: int, n: int, spill_ctx: tuple) -> bool:
+        """Spill victims until ``lane``'s next chunk maps (True), or spill
+        ``lane`` itself when no lower-priority lane is left (False: the lane
+        is parked, and resumes once a restore finds room)."""
+        while True:
+            victim = self._pick_victim(rows, lane)
+            if victim is None:
+                self._spill_lane(rows, lane, slot, spill_ctx, reason="self")
+                return False
+            self._spill_lane(rows, victim, slot, spill_ctx, reason="preempted")
+            try:
+                try:
+                    self._alloc.map_range(lane, slot, slot + n)
+                except PageExhausted:
+                    # The victim's prompt pages went to the prefix cache on
+                    # recycle: reclaim them before the next victim.
+                    self._reclaim_and_map(lane, slot, n)
+                return True
+            except PageExhausted:
+                continue
+
+    def _spill_lane(self, rows: list, lane: int, slot: int, spill_ctx: tuple,
+                    reason: str) -> None:
+        """Preempt one lane at the chunk boundary ``slot`` (its pending
+        token's), after the chunk's readback: copy its key, ring and ring
+        index to the host, return its pages (the prefix cache adopts its
+        prompt chain, which the restore may fork back) and park it in the
+        spill table. A cancel that raced the preemption wins. A lane that
+        made no progress since its last restore and spills itself again can
+        never advance on this pool: it finishes as "length" instead of
+        cycling."""
+        keys, ring_j, ring_idx_j = spill_ctx
+        row = rows[lane]
+        rid = row.req.rid
+        if reason == "self" and row.n == row.n_at_restore:
+            self.stats["page_truncations"] += 1
+            row.req.handle.finish_reason = "length"
+            rows[lane] = None
+            row.finish()
+            self._lane_recycle(lane)
+            return
+        window = int(ring_j.shape[1]) if ring_j.ndim == 2 else 0
+        sp = _SpilledLane(
+            row=row,
+            key=keys[lane].cpu().numpy().copy(),
+            ring=ring_j[lane].cpu().numpy().copy() if window > 0 else None,
+            ring_idx=int(ring_idx_j[lane]) if window > 0 else 0,
+        )
+        rows[lane] = None
+        with self._cv:
+            cancelled = rid in self._cancel_ids
+            if cancelled:
+                self._cancel_ids.discard(rid)
+            else:
+                self._spilled[rid] = sp
+                self._live_rids.discard(rid)
+        if cancelled:
+            self.stats["cancelled"] += 1
+            row.req.handle.finish_reason = "cancelled"
+            row.finish()
+            self._lane_recycle(lane)
+            return
+        self.stats["preemptions"] += 1
+        self._lane_recycle(lane, insert=True)
+
+    def _pop_spill_seed(self) -> list[_SpilledLane]:
+        """Seed rows of a spill-seeded segment: the oldest spill's knob
+        group, oldest first, as many as fit the lanes and the (fully free)
+        pool. A spill whose history can never be served again (the window
+        or the whole pool is too small for it) finishes as "length"."""
+        doomed: list[_SpilledLane] = []
+        out: list[_SpilledLane] = []
+        with self._cv:
+            if not self._spilled:
+                return []
+            order = sorted(self._spilled.values(), key=lambda e: e.t)
+            knobs = order[0].row.req.knobs()
+            claimed = 0
+            for sp in order:
+                if len(out) >= self.max_batch:
+                    break
+                row = sp.row
+                if row.req.knobs() != knobs:
+                    continue
+                hist = len(row.history) - 1
+                if prompt_bucket(hist, self.max_seq_len) >= self.max_seq_len:
+                    del self._spilled[row.req.rid]
+                    doomed.append(sp)
+                    continue
+                if self._alloc is not None:
+                    need = self._alloc.pages_needed(hist) + self._alloc.reserve_pages
+                    if need + claimed > self._alloc.pages_total:
+                        if need > self._alloc.pages_total:
+                            del self._spilled[row.req.rid]
+                            doomed.append(sp)
+                        continue
+                    claimed += need
+                del self._spilled[row.req.rid]
+                # Live under the same lock that unparks it: cancel() always
+                # finds a request somewhere.
+                self._live_rids.add(row.req.rid)
+                out.append(sp)
+            self._running = self._running or bool(out)
+        for sp in doomed:
+            self.stats["page_truncations"] += 1
+            sp.row.req.handle.finish_reason = "length"
+            sp.row.finish()
+        return out
+
+    def _take_restores(self, knobs, rows, slot, cap, budget, tok, kv, keys, ring_j, ring_idx_j,
+                       pads_j):
+        """Step-boundary restores: re-attach spilled lanes (oldest first,
+        same knobs) into free lanes while pages and the step's prefill
+        budget allow. They run before joins and charge the same budget.
+        Returns the KV; the sampling state is written in place."""
+        with self._cv:
+            if not self._spilled:
+                return kv
+        free = [i for i, r in enumerate(rows) if r is None]
+        if not free:
+            return kv
+        picks: list[tuple[int, _SpilledLane]] = []
+        claimed = 0
+        with self._cv:
+            for sp in sorted(self._spilled.values(), key=lambda e: e.t):
+                if not free:
+                    break
+                row, req = sp.row, sp.row.req
+                hist = len(row.history) - 1
+                if req.knobs() != knobs:
+                    continue  # another segment's knobs
+                if hist > slot or cap - 1 - slot < req.max_tokens - row.n:
+                    # It needs a taller segment, or restoring here would
+                    # truncate it below what a segment of its own gives.
+                    continue
+                if budget["left"] < hist:
+                    self.stats["budget_deferrals"] += 1
+                    continue
+                if self._alloc is not None:
+                    need = self._alloc.pages_needed(hist) + self._alloc.reserve_pages
+                    avail = self._alloc.pages_free - claimed + (
+                        self._prefix.reclaimable() if self._prefix is not None else 0
+                    )
+                    if need > avail:
+                        continue
+                    claimed += need
+                budget["left"] -= hist
+                del self._spilled[req.rid]
+                self._live_rids.add(req.rid)
+                picks.append((free.pop(0), sp))
+        for lane, sp in picks:
+            try:
+                kv = self._restore_lane(sp, lane, rows, slot, tok, kv, keys, ring_j, ring_idx_j,
+                                        pads_j)
+            except PageExhausted:
+                # The page estimate raced an eviction: the spill waits for
+                # the next step.
+                self._unwind_restore(lane, sp)
+            except BaseException:
+                self._unwind_restore(lane, sp)
+                raise
+        return kv
+
+    def _unwind_restore(self, lane: int, sp: _SpilledLane) -> None:
+        """Put a restore that failed back in the spill table (or finish it,
+        when a cancel landed meanwhile) and return the lane's pages."""
+        rid = sp.row.req.rid
+        with self._cv:
+            cancelled = rid in self._cancel_ids
+            self._cancel_ids.discard(rid)
+            self._live_rids.discard(rid)
+            if not cancelled:
+                self._spilled[rid] = sp
+        if self._alloc is not None and self._alloc.lane_mapped(lane):
+            self._lane_recycle(lane, insert=False)
+        elif self._prefix is not None:
+            self._prefix.release(self._lane_leases.pop(lane, None))
+            self._lane_info.pop(lane, None)
+        if cancelled:
+            self.stats["cancelled"] += 1
+            sp.row.req.handle.finish_reason = "cancelled"
+            sp.row.finish()
+
+    def _restore_lane(self, sp: _SpilledLane, lane: int, rows, slot, tok, kv, keys, ring_j,
+                      ring_idx_j, pads_j):
+        """Re-attach one spilled lane at the shared slot: re-prefill
+        ``history[:-1]`` into a window ending at ``slot`` (the suffix-join
+        arithmetic under the prefix cache, which may fork the chain the
+        spill gave it; the plain join otherwise), then write the host
+        copies of its key and ring, its pending token ``history[-1]`` and
+        its pad into the lane's rows of the device state, in place: the
+        decode graphs were captured over those buffers. Nothing is
+        sampled. Returns the KV."""
+        row, req = sp.row, sp.row.req
+        hist = row.history[:-1]
+        pad = slot - len(hist)
+        t0 = time.perf_counter()
+        if self._prefix is not None:
+            fresh, pair = self._fork_lane(lane, req, pad, slot, ids=hist)
+            if pair is not None:
+                kv = self.backend.cow_copy(kv, [pair[0]], [pair[1]])
+            width = min(-(-(slot - fresh) // _WINDOW_BUCKET) * _WINDOW_BUCKET, slot)
+            start = slot - width
+            row_tokens = np.zeros((1, width), np.int32)
+            lo = max(pad, start)
+            row_tokens[0, lo - start :] = hist[lo - pad :]
+            _, kv = self.backend.suffix_join(kv, row_tokens, pad, fresh, lane, start)
+        else:
+            width = min(-(-slot // _WINDOW_BUCKET) * _WINDOW_BUCKET, self.max_seq_len)
+            row_tokens = np.zeros((1, width), np.int32)
+            row_tokens[0, pad:slot] = hist
+            if self._alloc is not None:
+                self._alloc.map_range(lane, pad, slot)
+            _, kv = self.backend.join(kv, row_tokens, pad, slot, lane)
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        dev = self.backend.device
+        if sp.ring is not None and ring_j.ndim == 2 and ring_j.shape[1] > 0:
+            ring_j[lane] = upload(sp.ring, dev, torch.int64)
+            ring_idx_j[lane] = int(sp.ring_idx)
+        keys[lane] = upload(sp.key, dev, torch.int64)
+        tok[lane] = int(row.history[-1])
+        pads_j[lane] = pad
+        rows[lane] = row
+        row.n_at_restore = row.n
+        row.t_open = time.perf_counter()
+        self.stats["restores"] += 1
+        return kv
+
+    def _grant_step_budget(self, rows: list) -> int:
+        """This step's prefill grant in prompt tokens (``StepBudget``). The
+        port has no SLO tracker and no deadlines yet (ROADMAP.md, the
+        admission item), so nothing burns and no live stream has slack."""
+        return self._step_budget.grant(burning=False, tightest_slack_s=None)
+
     # ------------------------------------------------------------ joins
 
-    def _take_joins(self, knobs: tuple, rows: list, slot: int, cap: int) -> list:
+    def _take_joins(self, knobs: tuple, rows: list, slot: int, cap: int,
+                    budget: dict | None = None) -> list:
         """Dequeue requests that can join NOW, in FIFO order: same knobs (a
         request with other knobs stops the scan: it bounds this epoch), a
         prompt that ends by the shared slot, a free lane, and enough budget
-        left in the epoch that joining delivers what waiting would. Paged:
-        joiners charge their pages, reclaiming cold cache pages first."""
+        left in the epoch that joining delivers what waiting would.
+        ``budget`` (continuous) caps this step's join prefill in prompt
+        tokens; a candidate over it waits a step. Paged: joiners charge
+        their pages, reclaiming cold cache pages first."""
         free = [i for i, r in enumerate(rows) if r is None]
         if not free:
             return []
@@ -786,6 +1202,9 @@ class BatchEngine:
                 )
                 if n_ids > slot or cap - slot < solo_budget:
                     continue
+                if budget is not None and budget["left"] < n_ids:
+                    self.stats["budget_deferrals"] += 1
+                    continue
                 if avail is not None:
                     need = self._pages_for(req, end_slot=slot)
                     if need > avail and self._prefix is not None:
@@ -793,6 +1212,8 @@ class BatchEngine:
                     if need > avail:
                         continue
                     avail -= need
+                if budget is not None:
+                    budget["left"] -= n_ids
                 self._queue.remove(req)
                 out.append((free[len(out)], req))
             self._live_rids.update(req.rid for _, req in out)
@@ -855,6 +1276,21 @@ class BatchEngine:
         return tok, kv, keys, ring_j, ring_idx_j
 
 
+@dataclasses.dataclass
+class _SpilledLane:
+    """Host record of a preempted lane (continuous scheduler): the
+    chunk-boundary state a restore needs. ``row`` keeps the history and the
+    budget; ``key`` ([2] uint32 words in int64), ``ring`` and ``ring_idx``
+    are the lane's sampling state copied from the device at the spill. No
+    device memory and no pages."""
+
+    row: "_RowState"
+    key: np.ndarray
+    ring: np.ndarray | None
+    ring_idx: int
+    t: float = dataclasses.field(default_factory=time.perf_counter)
+
+
 class _RowState:
     """Engine-side per-row bookkeeping: budget, EOS, incremental detok, events."""
 
@@ -864,10 +1300,17 @@ class _RowState:
         self._tokenizer = tokenizer
         self._engine = engine
         self._ids: list[int] = []
+        # The prompt and every pushed id: what a restore re-prefills.
+        self.history: list[int] = list(req.prompt_ids)
         self._decoded_len = 0
         self.n = 0
         self.done = False
         self._finished = False
+        # When the row took its lane (the victim choice spills the youngest
+        # first), and its token count at its last restore (-1: never): a
+        # lane that spills itself again at that count made no progress.
+        self.t_open = time.perf_counter()
+        self.n_at_restore = -1
 
     def push(self, tid: int) -> None:
         """Accept one decoded id and emit it. The moment the row is done
@@ -876,6 +1319,7 @@ class _RowState:
         if self.done:
             return
         self._ids.append(tid)
+        self.history.append(tid)
         self.n += 1
         if self.n == 1:
             self.req.handle.ttft_s = time.perf_counter() - self.req.t_submit

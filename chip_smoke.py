@@ -136,6 +136,35 @@ nonzero exit and no final result line:
                against the plain path (cosine >= 0.999). TTFT, ms per decode
                step, device ops and ms per step (by kernel family) and the device
                idle share of each.
+  9a. engine_continuous  the continuous scheduler on the paged engine
+               (prefix cache on, fusion none, one engine at a time): after a
+               warm-up wave, wave 1 submitted as one group (the engine's
+               lock held) to an epoch and a continuous engine (the same
+               admission: equal streams 8/8, gated; TTFT and ms a step side
+               by side); the ragged
+               wave of 12 under both schedulers after a warm-up wave of its
+               shapes (TTFT p50 and max, ms a decode step, joins, the step
+               budget's deferrals; agreement reported); wave 1's prompts
+               with 384 tokens out, greedy and the sampled wave of
+               engine_fused, on the smallest pool that admits all 8 in one
+               epoch (the sum of their admission charges) and on the default
+               pool. Gated: >= 2 preemptions and restores on the small pool
+               and none on the full one, no truncation, the same finish
+               reasons and token counts on both pools, no spill left and
+               every page not cached free; every restore (into a running
+               segment or as a new segment's seed) held to its spill: the
+               token, key, ring row, ring index and pad it decodes from
+               equal the spill's host copies, its K/V over history[:-1]
+               within TOL of the K/V it held in each layer's relative L2
+               norm, by position (max-abs reported); then the sampled wave with half the
+               lanes at 192 tokens and a step grant of 2048, whose spills
+               come back into the running segment (>= 1, gated); the paged
+               kernels' launches = n_layers x prefill dispatches and decode
+               steps, the noise kernel's = the sampled wave's first samples
+               + decode steps (restores sample nothing); a second sampled
+               run on the small pool (submitted as one group, the prefix
+               cache cleared) captures no new graph. Agreement
+               between pools reported, with each stream's first difference.
   9b. generate_f8  the generate phase's weights over an f8 KV cache: the
                same prompt, 64 greedy tokens per token and in 8-token
                graph-replayed chunks (equal streams), every decode and
@@ -2202,10 +2231,13 @@ def dispatch_shapes(seen: dict) -> dict:
             for name, rec in seen.items()}
 
 
-def _wave(engine, n_tokens: int, messages=None, samplings=None) -> dict:
+def _wave(engine, n_tokens, messages=None, samplings=None, together: bool = False) -> dict:
     """Submit one wave of concurrent requests (greedy, or one
-    ``samplings`` entry each), read every stream, and wait for the epoch to
-    end. TTFT is the engine's submit-to-first-token time; decode tok/s
+    ``samplings`` entry each; ``n_tokens`` out, or one entry each), read
+    every stream, and wait for the epoch to end. ``together``: the engine's
+    lock is held while the wave is submitted, so a running engine admits it
+    as one group, as one not yet started does (the continuous scheduler
+    has no admission window to gather a burst). TTFT is the engine's submit-to-first-token time; decode tok/s
     counts the tokens after each stream's first over the engine's
     decode-chunk wall time (device work plus the chunk's readback)."""
     from cake_tpu_torch.models.llama.generator import SamplingConfig
@@ -2214,7 +2246,10 @@ def _wave(engine, n_tokens: int, messages=None, samplings=None) -> dict:
     samplings = samplings or [SamplingConfig(temperature=0.0, repeat_penalty=1.0)] * len(messages)
     before = dict(engine.stats)
     t0 = time.perf_counter()
-    handles = [engine.submit(m, n_tokens, s) for m, s in zip(messages, samplings)]
+    budgets = n_tokens if isinstance(n_tokens, list) else [n_tokens] * len(messages)
+    with engine._cv if together else contextlib.nullcontext():
+        handles = [engine.submit(m, n, s) for m, n, s in zip(messages, budgets, samplings)]
+        engine.start()
     streams = [[t.id for t in h.tokens()] for h in handles]
     wall = time.perf_counter() - t0
     if not engine.wait_idle(600):
@@ -2222,7 +2257,8 @@ def _wave(engine, n_tokens: int, messages=None, samplings=None) -> dict:
     after = engine.snapshot()
     delta = {k: after[k] - before[k] for k in (
         "batches", "joins", "decode_s", "decode_steps", "decode_chunks", "prefill_s",
-        "prefix_hits", "prefix_misses",
+        "prefix_hits", "prefix_misses", "preemptions", "restores", "page_truncations",
+        "budget_deferrals",
     )}
     ttft = [h.ttft_s for h in handles]
     decoded = sum(h.completion_tokens - 1 for h in handles)
@@ -2918,6 +2954,370 @@ def phase_engine_fused(torch, main_path: dict) -> dict:
     row["noise_launches"] = sum(r["launches"]["threefry_noise"] for r in runs)
     if on_card and not all(r["launches"]["threefry_noise"] > 0 for r in runs[:3]):
         raise AssertionError("a sampled wave ran without the noise kernel")
+    return row
+
+
+# ---------------------------------------------------------------- phase 9a
+
+CONTINUOUS_TOKENS = 384  # tokens out of the preemption runs
+
+
+def _pool_for_one_epoch(engine, messages) -> int:
+    """The smallest pool that admits every request of ``messages`` into one
+    epoch: the sum of their admission charges (the prompt's pages plus the
+    reserve), the prefix cache being empty."""
+    from cake_tpu_torch.models.llama.chat import encode_dialog
+
+    alloc = engine.backend.allocator
+    lengths = [len(engine.tokenizer.encode(encode_dialog(m, engine.config.dialog_template)))
+               for m in messages]
+    return sum(alloc.pages_needed(n) + alloc.reserve_pages for n in lengths)
+
+
+def _lane_kv(engine, kv, lane: int, lo: int, hi: int):
+    """``lane``'s K and V over slots [lo, hi), through its block table, by
+    position: [hi - lo, layers, kv heads, head dim] each."""
+    import numpy as np
+    import torch
+
+    page = engine.backend.page_size
+    slots = np.arange(lo, hi)
+    table = engine.backend.allocator.block_tables[lane]
+    pages = torch.as_tensor(table[slots // page], dtype=torch.long, device=kv.k.device)
+    offs = torch.as_tensor(slots % page, dtype=torch.long, device=kv.k.device)
+    if bool((pages < 0).any()):
+        raise AssertionError(f"lane {lane} has unmapped slots in [{lo}, {hi})")
+    return kv.k[:, pages, :, offs].clone(), kv.v[:, pages, :, offs].clone()
+
+
+@contextlib.contextmanager
+def restore_checker(engine):
+    """Hold every restore to its spill. The instance's ``_spill_lane`` is
+    wrapped to keep, for each lane it parks, the K/V over its history[:-1]
+    (read before its pages go); ``_restore_lane`` (a restore into a running
+    segment) and ``_pop_spill_seed`` (the seeds of a new segment) note which
+    lane each spill comes back to; and at the next decode dispatch, whose
+    operands are the state that lane decodes from, its token, key, ring row,
+    ring index and pad are compared with the spill's copies (bitwise) and
+    its K/V with the kept K/V (max-abs, and per layer the difference's norm
+    over the kept K/V's). Yields {"checks": [...], "seeded":
+    [seeds of each spill-seeded segment], "respilled": restores spilled
+    again before they decoded}."""
+    import numpy as np
+
+    checks: list = []
+    state = {"checks": checks, "seeded": [], "respilled": 0}
+    kept: dict = {}  # id(spill record) -> (K, V) before the spill
+    pending: dict = {}  # lane -> (spill record, route, history length)
+    spill, restore, seed = engine._spill_lane, engine._restore_lane, engine._pop_spill_seed
+    decode = engine.backend.decode
+
+    def spill_lane(rows, lane, slot, spill_ctx, reason):
+        row = rows[lane]
+        n_hist = len(row.history) - 1
+        kv = _lane_kv(engine, engine.backend._pool, lane, slot - n_hist, slot)
+        for other, (sp, _, _) in list(pending.items()):
+            if sp.row is row:  # spilled again before it decoded
+                del pending[other]
+                kept.pop(id(sp), None)
+                state["respilled"] += 1
+        spill(rows, lane, slot, spill_ctx, reason)
+        sp = engine._spilled.get(row.req.rid)
+        if sp is not None and sp.row is row:
+            kept[id(sp)] = kv
+
+    def restore_lane(sp, lane, *args):
+        kv = restore(sp, lane, *args)
+        pending[lane] = (sp, "in_segment", len(sp.row.history) - 1)
+        return kv
+
+    def pop_spill_seed():
+        seeds = seed()
+        if seeds:
+            state["seeded"].append(len(seeds))
+        for lane, sp in enumerate(seeds):
+            pending[lane] = (sp, "seeded", len(sp.row.history) - 1)
+        return seeds
+
+    def decode_chunk(kv, tok, slot, pads, keys, ring, ring_idx, n, s):
+        for lane, (sp, route, n_hist) in list(pending.items()):
+            del pending[lane]
+            k0, v0 = kept.pop(id(sp))
+            k, v = _lane_kv(engine, kv, lane, slot - n_hist, slot)
+            diffs = [(a.float() - b.float()) for a, b in ((k, k0), (v, v0))]
+            err = max(d.abs().max().item() for d in diffs)
+            # Per layer (dim 1 of a [positions, layers, heads, dim] view), the
+            # difference's norm over the kept K/V's: rounding compounded
+            # through the layers moves small elements as much as large ones.
+            rel = max((d.square().sum((0, 2, 3)).sqrt()
+                       / b.float().square().sum((0, 2, 3)).sqrt()).max().item()
+                      for d, b in zip(diffs, (k0, v0)))
+            window = ring.shape[1] if ring.ndim == 2 else 0
+            checks.append({
+                "route": route, "history": n_hist,
+                "token": int(tok[lane]) == sp.row.history[n_hist],
+                "key": bool(np.array_equal(keys[lane].cpu().numpy(), sp.key)),
+                "ring": (window == 0 or (
+                    bool(np.array_equal(ring[lane].cpu().numpy(), sp.ring))
+                    and int(ring_idx[lane]) == sp.ring_idx)),
+                "pad": int(pads[lane]) == slot - n_hist,
+                "kv_max_abs_err": err,
+                "kv_ref_max_abs": max(k0.float().abs().max().item(), v0.float().abs().max().item()),
+                "kv_rel_err": rel,
+                "kv_bitwise": err == 0.0,
+            })
+        return decode(kv, tok, slot, pads, keys, ring, ring_idx, n, s)
+
+    patches = ((engine, "_spill_lane", spill_lane), (engine, "_restore_lane", restore_lane),
+               (engine, "_pop_spill_seed", pop_spill_seed), (engine.backend, "decode", decode_chunk))
+    # Instance attributes already set (another recorder's) are put back after.
+    saved = [(obj, name, obj.__dict__.get(name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        yield state
+    finally:
+        for obj, name, old in saved:
+            if old is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, old)
+
+
+def _first_difference(a: list, b: list) -> int | None:
+    """The first position where two streams differ (None when equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def _continuous_pressure_run(torch, make, knobs: str, max_pages, n_layers: int,
+                             on_card: bool, tokens, repeat: bool = False, **serve) -> dict:
+    """Wave 1's prompts, ``tokens`` out (one number, or one each), greedy or
+    the seeded sampled wave, submitted before start() to a new continuous
+    engine (``serve``: more ServeConfig knobs) on a pool of ``max_pages``
+    (None: the default pool): the wave, its launch gate, the restore checks
+    and the pool's state after it. With ``repeat``, the same wave again once
+    the prefix cache is cleared (the first run's page state): the graph
+    captures of the second run."""
+    from cake_tpu_torch.models.llama import fused
+    from cake_tpu_torch.models.llama.generator import SamplingConfig
+
+    samplings = ([SamplingConfig(seed=100 + i, **SAMPLED_KNOBS) for i in range(ENGINE_BATCH)]
+                 if knobs == "sampled" else None)
+    eng = make(scheduler="continuous", max_pages=max_pages, **serve)
+    try:
+        counters = _zero_counters()
+        with dispatch_recorder(eng.backend) as rec, restore_checker(eng) as checked:
+            wave = _wave(eng, tokens, engine_messages(), samplings, together=True)
+        seeded = checked["seeded"]
+        in_segment = wave["restores"] - sum(seeded)
+        # Restores and the seeds' prefills sample nothing: the wave's first
+        # samples are its other prefill dispatches.
+        sampled = None
+        if samplings is not None:
+            firsts = len(rec["prefills"]) - in_segment - len(seeded)
+            sampled = {"prefills": [None] * firsts, "decodes": rec["decodes"]}
+        launches, expected = _engine_fused_expected(counters, rec, set(), "paged", n_layers,
+                                                    on_card, sampled=sampled)
+        snap = eng.snapshot()
+        held = snap["prefix"]["pages"]
+        out = {
+            "knobs": knobs, "max_pages": snap["pages_total"], "wave": wave,
+            "launches": launches, "expected_launches": expected,
+            "restore_checks": checked["checks"], "respilled_before_decode": checked["respilled"],
+            "in_segment_restores": in_segment, "seeded_segments": len(seeded),
+            "seeded_restores": sum(seeded), "prefills": len(rec["prefills"]),
+            "pool_whole": snap["spilled"] == 0 and snap["pages_free"] == snap["pages_total"] - held,
+            "spilled_left": snap["spilled"], "pages_free": snap["pages_free"],
+            "cache_pages": held,
+        }
+        if repeat:
+            eng._prefix.clear()
+            captures, keys = fused.STATS["captures"], set(eng.backend._chunks)
+            again = _wave(eng, tokens, engine_messages(), samplings, together=True)
+            out["repeat_new_captures"] = fused.STATS["captures"] - captures
+            # A chunk key is a graph on the card (and the loop's buffers on the CPU).
+            out["repeat_new_chunk_keys"] = len(set(eng.backend._chunks) - keys)
+            out["repeat_equal_streams"] = sum(
+                x == y for x, y in zip(again["streams"], wave["streams"]))
+            out["repeat_preemptions"] = again["preemptions"]
+    finally:
+        eng.stop()
+    return out
+
+
+def phase_engine_continuous(torch, main_path: dict, tokens: int = CONTINUOUS_TOKENS) -> dict:
+    """The continuous scheduler (``ServeConfig(scheduler="continuous")``) on
+    the paged engine (page 128, max_seq 2048, 8 lanes, prefix cache on,
+    fusion none), one engine at a time: (1) after a warm-up wave, wave 1
+    submitted as one group to an epoch engine and to a continuous one
+    (equal streams, gated); (2)
+    the ragged wave of 12 under both schedulers, each after a warm-up wave of
+    its shapes (TTFT, ms a decode step, joins, the step budget's deferrals;
+    agreement reported); (3) wave 1's prompts with 384 tokens out, greedy
+    and the seeded sampled wave, on the smallest pool that admits all 8 in
+    one epoch and on the default pool: preemptions and restores >= 2 on the
+    small pool and 0 on the full one, no truncation, the same finish reasons
+    and token counts on both pools, the pool whole after each, every restore
+    held to its spill (``restore_checker``: state bitwise, each layer's K/V
+    within TOL in relative norm),
+    the paged kernels' and the noise kernel's launches derived from the
+    dispatches, and a second sampled run on the small pool capturing no new
+    graph (nor a new decode chunk key). Then (4) the sampled wave on the small pool with half the
+    requests asking half the tokens and a step budget of max_seq: the
+    short streams' lanes free up mid-segment and spills come back into the
+    running segment (``_restore_lane``), held to their spills as above.
+    ``tokens`` (384) is what the CPU rehearsal cuts (with the page size)."""
+    from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+
+    gen = main_path["generator"]
+    config, params, dev = gen.config, gen.step.params, gen.step.device
+    n_layers = config.num_hidden_layers
+    on_card = dev.type == "cuda"
+
+    def make(**kw):
+        # Not started: a wave submitted before start() is one admission.
+        serve = ServeConfig(max_batch=ENGINE_BATCH, decode_chunk_size=8, kv_mode="paged",
+                            page_size=ENGINE_PAGE, prefix_cache=True, **kw)
+        return BatchEngine(config, params, gen.tokenizer, max_seq_len=ENGINE_MAX_SEQ,
+                           cache_dtype=torch.bfloat16, serve=serve, device=dev)
+
+    def strip(w):
+        return {k: v for k, v in w.items() if k != "streams"}
+
+    t0 = time.perf_counter()
+    ragged = engine_messages(RAGGED_TURNS)
+    ragged_warm = engine_messages(RAGGED_TURNS, system=SYSTEM_PROMPT[::-1])
+    same_admission, ragged_runs = {}, {}
+    for scheduler in ("epoch", "continuous"):
+        eng = make(scheduler=scheduler)
+        try:
+            # Wave 1's shapes on other prompts capture the graphs first.
+            _wave(eng, ENGINE_TOKENS, warm_messages(), together=True)
+            same_admission[scheduler] = _wave(eng, ENGINE_TOKENS, together=True)
+            _wave(eng, ENGINE_TOKENS, ragged_warm)  # captures the ragged wave's graphs
+            ragged_runs[scheduler] = _wave(eng, ENGINE_TOKENS, ragged)
+        finally:
+            eng.stop()
+        del eng
+        if on_card:
+            torch.cuda.empty_cache()
+
+    probe = make(scheduler="continuous")
+    small_pool = _pool_for_one_epoch(probe, engine_messages())
+    full_pool = probe.backend.allocator.pages_total
+    del probe
+    runs = []
+    for knobs in ("greedy", "sampled"):
+        for pool in (small_pool, None):
+            runs.append(_continuous_pressure_run(
+                torch, make, knobs, pool, n_layers, on_card, tokens,
+                repeat=knobs == "sampled" and pool is not None))
+            if on_card:
+                torch.cuda.empty_cache()
+    # The oldest lanes stop early; the youngest, spilled first, come back
+    # into the running segment.
+    mixed_tokens = [tokens // 2] * (ENGINE_BATCH // 2) + [tokens] * (ENGINE_BATCH // 2)
+    runs.append(_continuous_pressure_run(torch, make, "sampled", small_pool, n_layers, on_card,
+                                         mixed_tokens, step_prefill_tokens=ENGINE_MAX_SEQ))
+
+    def agreement(small, full):
+        a, b = small["wave"]["streams"], full["wave"]["streams"]
+        return {"equal": sum(x == y for x, y in zip(a, b)),
+                "first_difference": [_first_difference(x, y) for x, y in zip(a, b)]}
+
+    checks = [c for r in runs for c in r["restore_checks"]]
+    pairs = {"greedy": (runs[0], runs[1]), "sampled": (runs[2], runs[3])}
+    # The mixed run's streams against the full pool's, each up to its length.
+    mixed_prefix_equal = sum(a == b[: len(a)] for a, b in zip(runs[4]["wave"]["streams"],
+                                                             runs[3]["wave"]["streams"]))
+    row = {
+        "phase": "engine_continuous",
+        "card": main_path["card"],
+        "config": {"kv_mode": "paged", "page_size": ENGINE_PAGE, "max_seq": ENGINE_MAX_SEQ,
+                   "max_batch": ENGINE_BATCH, "prefix_cache": True, "fusion": "none",
+                   "decode_chunk": 8, "tokens_out": ENGINE_TOKENS,
+                   "pressure_tokens_out": tokens, "mixed_tokens_out": mixed_tokens,
+                   "mixed_step_prefill": ENGINE_MAX_SEQ, "small_pool": small_pool,
+                   "full_pool": full_pool, "sampled": SAMPLED_KNOBS, "layers": n_layers},
+        "same_admission": {s: strip(w) for s, w in same_admission.items()},
+        "same_admission_equal_streams": sum(
+            x == y for x, y in zip(same_admission["epoch"]["streams"],
+                                   same_admission["continuous"]["streams"])),
+        "ragged": {s: strip(w) for s, w in ragged_runs.items()},
+        "ragged_equal_streams": sum(
+            x == y for x, y in zip(ragged_runs["epoch"]["streams"],
+                                   ragged_runs["continuous"]["streams"])),
+        "pressure": [{k: (strip(v) if k == "wave" else v) for k, v in r.items()
+                      if k != "restore_checks"} for r in runs],
+        "pressure_agreement": {k: agreement(*p) for k, p in pairs.items()},
+        "mixed_prefix_equal_full_pool": mixed_prefix_equal,
+        "restore_checks": len(checks),
+        "restore_routes": {route: sum(c["route"] == route for c in checks)
+                           for route in ("in_segment", "seeded")},
+        "restore_state_equal": sum(c["token"] and c["key"] and c["ring"] and c["pad"]
+                                   for c in checks),
+        "restore_kv_max_abs_err": max((c["kv_max_abs_err"] for c in checks), default=None),
+        "restore_kv_ref_max_abs": max((c["kv_ref_max_abs"] for c in checks), default=None),
+        "restore_kv_rel_err": max((c["kv_rel_err"] for c in checks), default=None),
+        "restore_check_rows": checks,
+        "restore_kv_bitwise": sum(c["kv_bitwise"] for c in checks),
+        "tol": TOL,
+        "seconds": time.perf_counter() - t0,
+    }
+    emit(row)
+    if row["same_admission_equal_streams"] != ENGINE_BATCH:
+        raise AssertionError(
+            f"continuous streams equal epoch's {row['same_admission_equal_streams']}"
+            f"/{ENGINE_BATCH} under the same admission")
+    for knobs, (small, full) in pairs.items():
+        ws, wf = small["wave"], full["wave"]
+        if ws["preemptions"] < 2 or ws["restores"] < 2:
+            raise AssertionError(f"{knobs}: the small pool preempted {ws['preemptions']} and "
+                                 f"restored {ws['restores']} times")
+        if wf["preemptions"] or wf["restores"]:
+            raise AssertionError(f"{knobs}: the full pool preempted")
+        if ws["page_truncations"] or wf["page_truncations"]:
+            raise AssertionError(f"{knobs}: a stream was truncated")
+        if (ws["finish_reasons"], ws["completion_tokens"]) != (wf["finish_reasons"],
+                                                               wf["completion_tokens"]):
+            raise AssertionError(f"{knobs}: finish reasons or token counts differ between pools")
+    for r in runs:
+        if not r["pool_whole"]:
+            raise AssertionError(f"{r['knobs']} pool {r['max_pages']}: a spill or pages left: "
+                                 f"{r['spilled_left']} spilled, {r['pages_free']} free")
+        if r["launches"] != r["expected_launches"]:
+            raise AssertionError(f"{r['knobs']} pool {r['max_pages']}: launch counts "
+                                 f"{r['launches']} != expected {r['expected_launches']}")
+        for w in (r["wave"],):
+            if not all(1 <= len(ids) <= tokens
+                       and all(0 <= t < config.vocab_size for t in ids) for ids in w["streams"]):
+                raise AssertionError(f"engine streams out of range: {w['completion_tokens']}")
+    restored = sum(r["wave"]["restores"] - r["respilled_before_decode"] for r in runs)
+    if len(checks) != restored:
+        raise AssertionError(f"{len(checks)} restores checked of the {restored} that decoded")
+    if row["restore_state_equal"] != len(checks):
+        raise AssertionError("a restore wrote back another key, ring, token or pad than its "
+                             f"spill's: {[c for c in checks if not (c['token'] and c['key'])]}")
+    # Re-prefilled on other GEMM shapes, the K/V's rounding compounds through
+    # the layers: each layer's K and V within TOL of the spilled ones in
+    # norm (relative L2); the max-abs is reported beside it.
+    if checks and row["restore_kv_rel_err"] > TOL:
+        raise AssertionError(f"a restored lane's K/V is {row['restore_kv_rel_err']} from the "
+                             f"K/V it held in a layer's norm (TOL {TOL}; max-abs "
+                             f"{row['restore_kv_max_abs_err']})")
+    if runs[4]["in_segment_restores"] < 1 or runs[4]["wave"]["page_truncations"]:
+        raise AssertionError(f"the mixed run restored {runs[4]['in_segment_restores']} lanes "
+                             f"into its segment and truncated {runs[4]['wave']['page_truncations']}")
+    if runs[2]["repeat_new_captures"] or runs[2]["repeat_new_chunk_keys"]:
+        raise AssertionError(f"a second continuous run captured {runs[2]['repeat_new_captures']} "
+                             f"new graphs ({runs[2]['repeat_new_chunk_keys']} new chunk keys)")
+    # The launches this phase adds to the kernels line.
+    row["launches"] = {name: sum(r["launches"][name] for r in runs)
+                       for name in ("paged_decode_attention", "paged_chunk_attention",
+                                    "threefry_noise")}
     return row
 
 
@@ -3839,12 +4239,16 @@ def phase_cli(torch, extra_args=()) -> None:
 
 
 def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(),
-                   int4_paths=(), f8_paths=()) -> dict:
+                   int4_paths=(), f8_paths=(), continuous_path=None) -> dict:
     # The generate phase counted the dense kernels, the engine phase the paged
     # ones, the fused phases (generate_fused, engine_fused) the fused ones,
     # the int4 phases (generate_int4, engine_int4) int4_matmul, the f8 phases
-    # (generate_f8, engine_f8) the five kernels' launches over an f8 cache.
+    # (generate_f8, engine_f8) the five kernels' launches over an f8 cache;
+    # engine_continuous adds its paged kernels' and noise kernel's launches.
     launches = {**engine_path["launches"], **main_path["launches"]}
+    extra = continuous_path["launches"] if continuous_path else {}
+    for name in ("paged_decode_attention", "paged_chunk_attention"):
+        launches[name] += extra.get(name, 0)
     for name in FUSED_MAIN:
         launches[name] = sum(p["fused_launches"][name] for p in fused_paths)
     launches["int4_matmul"] = sum(p["int4_launches"] for p in int4_paths)
@@ -3885,7 +4289,8 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(
              for name, source, replaces, families, _ in list(spec) if name in f8_cases]
     # The noise kernel replaces no Pallas kernel: the JAX package draws the
     # same noise with XLA. Its launches: the sampled waves of engine_fused.
-    launches["threefry_noise"] = sum(p.get("noise_launches", 0) for p in fused_paths)
+    launches["threefry_noise"] = (sum(p.get("noise_launches", 0) for p in fused_paths)
+                                  + extra.get("threefry_noise", 0))
     spec.append(("threefry_noise", "cake_tpu_torch/ops/csrc/threefry.cu",
                  "cake_tpu/ops/pallas/fused_sample_tail.py:62", ("threefry_noise",),
                  ("threefry_noise", "per_row_b8")))
@@ -3954,6 +4359,8 @@ def main() -> int:
     kernel_rows.update(engine_kernel_cases(torch, engine_path))
     phase_api_engine(main_path, engine_path)
     fused_paths = (phase_generate_fused(torch, main_path), phase_engine_fused(torch, main_path))
+    continuous_path = phase_engine_continuous(torch, main_path)
+    torch.cuda.empty_cache()
     f8_paths = (phase_generate_f8(torch, main_path), phase_engine_f8(torch, main_path, engine_path))
     int4_path = phase_generate_int4(torch, main_path)
     int4_engine = phase_engine_int4(torch, main_path, int4_path)
@@ -3966,7 +4373,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cli(torch)
     emit(kernel_summary(kernel_rows, main_path, engine_path, fused_paths,
-                        (int4_path, int4_engine), f8_paths))
+                        (int4_path, int4_engine), f8_paths, continuous_path))
     emit({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -168,8 +168,12 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
     rows.update({(name, "main_path_f8"): dict(timed, library="sdpa") for name in f8_names[:4]})
     rows[("fused_qkv_ingest", "paged_b8_f8")] = dict(timed, library="unfused")
     rows[("threefry_noise", "per_row_b8")] = dict(timed, library="torch.rand", gumbel_bitwise=True)
+    # engine_continuous's launches (tests/test_torch_chip_smoke_continuous.py
+    # rehearses the phase) add to the paged kernels' and the noise kernel's.
+    cont = {"launches": {"paged_decode_attention": 3, "paged_chunk_attention": 5,
+                         "threefry_noise": 7}}
     summary = smoke.kernel_summary(rows, row, engine, (fused_gen, fused_engine),
-                                   (int4, int4_engine), (f8_gen, f8_engine))
+                                   (int4, int4_engine), (f8_gen, f8_engine), cont)
     assert [k["name"] for k in summary["kernels"]] == (
         names + [f"{n}_f8" for n in f8_names] + ["threefry_noise"])
     for k in summary["kernels"]:
@@ -188,7 +192,9 @@ def test_phases_rehearse_on_the_cpu(smoke, capsys):
     assert all(by_name[n]["redesigned"] == pr for n, pr in smoke.REDESIGNED.items())
     assert by_name["int4_matmul"]["wgmma_bits"] == smoke.WGMMA_AGREE
     assert by_name["int4_matmul"]["launches"] == int4["int4_launches"] + int4_engine["int4_launches"]
-    assert by_name["threefry_noise"]["launches"] == fused_engine["noise_launches"]
+    assert by_name["threefry_noise"]["launches"] == fused_engine["noise_launches"] + 7
+    for name, n in (("paged_decode_attention", 3), ("paged_chunk_attention", 5)):
+        assert by_name[name]["launches"] == engine["launches"][name] + n
     phases = [json.loads(line)["phase"] for line in capsys.readouterr().out.splitlines()]
     assert phases == ["generate", "full_model_check", "api", "engine", "paged_model_check",
                       "dense_model_check", "api_engine", "generate_fused", "fused_model_check",

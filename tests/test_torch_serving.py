@@ -206,8 +206,8 @@ def test_cancel_queued_and_running(port_model):
 
 def test_unported_knobs_refuse(port_model):
     cfg, params, tok = port_model
-    with pytest.raises(NotImplementedError):
-        ServeConfig(scheduler="continuous")
+    with pytest.raises(ValueError):
+        ServeConfig(scheduler="lockstep")
     with pytest.raises(ValueError):
         ServeConfig(kv_mode="dense", prefix_cache=True)
     with pytest.raises(NotImplementedError):
