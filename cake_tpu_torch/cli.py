@@ -6,17 +6,26 @@
     python -m cake_tpu_torch.cli --model DIR --api 127.0.0.1:8080 --api-batch 8 --kv-mode paged \
         --scheduler continuous
     python -m cake_tpu_torch.cli --model DIR --prompt "..." --kv-dtype f8
+    python -m cake_tpu_torch.cli --model DIR --mode worker --name w1 \
+        --topology topology.yml --address 0.0.0.0:10128
+    python -m cake_tpu_torch.cli --model DIR --topology topology.yml --prompt "..."
+    python -m cake_tpu_torch.cli --model DIR --topology topology.yml --api 127.0.0.1:8080 \
+        --api-batch 8
 
-Single-host generation on one CUDA device (``--device cpu`` runs the plain
-PyTorch versions of the kernels on the CPU instead; without a CUDA device
-and without ``--device cpu`` it exits with an error). The flags are the
-subset of ``cake_tpu/cli.py``'s master path that the port has; others are
+Generation on one CUDA device (``--device cpu`` runs the plain PyTorch
+versions of the kernels on the CPU instead; without a CUDA device and
+without ``--device cpu`` it exits with an error), or Cake's master/worker
+pipeline over TCP: ``--mode worker`` serves the layer ranges its node owns
+in the topology file, and a master given ``--topology`` walks the plan,
+running the embedding, the head, sampling and the layers no node owns. The
+flags are the subset of ``cake_tpu/cli.py`` that the port has; others are
 refused by the parser.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import sys
 
@@ -30,6 +39,24 @@ def build_parser() -> argparse.ArgumentParser:
         description="Llama-family generation on one NVIDIA GPU (PyTorch/CUDA port)",
     )
     p.add_argument("--model", required=True, help="checkpoint directory")
+    p.add_argument(
+        "--mode", choices=("master", "worker"), default="master",
+        help="run as the generation master or as a block-serving worker",
+    )
+    p.add_argument("--name", default="", help="this worker's node name in the topology")
+    p.add_argument(
+        "--address", default="127.0.0.1:10128", help="worker bind address host:port",
+    )
+    p.add_argument(
+        "--topology", default=None,
+        help="topology file (YAML: node -> host, description, layers)",
+    )
+    p.add_argument(
+        "--backend", choices=("tcp", "local", "mesh"), default=None,
+        help="master execution backend: tcp (the default when the topology names workers) "
+        "forwards each span to its worker; local runs every layer here. mesh is refused: the "
+        "in-process pipeline and tensor-parallel backends are ROADMAP.md queue A items",
+    )
     p.add_argument(
         "--api", default=None, metavar="HOST:PORT",
         help="serve the OpenAI-compatible REST API instead of one-shot generation",
@@ -131,15 +158,82 @@ def build_parser() -> argparse.ArgumentParser:
         "--device", choices=("cuda", "cpu"), default="cuda",
         help="cuda (default; fails without a GPU) or cpu (plain PyTorch versions)",
     )
+    p.add_argument(
+        "--op-deadline", type=float, default=30.0, metavar="S",
+        help="per-op wire deadline in seconds for worker round trips: a hop that neither "
+        "replies nor fails within it is retried (tcp backend)",
+    )
+    p.add_argument(
+        "--op-retries", type=int, default=2, metavar="N",
+        help="idempotent resends of a failed worker op before giving up (session replay, "
+        "runtime/client.py); 0 = fail fast",
+    )
+    p.add_argument(
+        "--reconnect-attempts", type=int, default=3, metavar="N",
+        help="re-dial attempts after a worker connection dies (exponential backoff between "
+        "attempts, none after the last)",
+    )
+    p.add_argument(
+        "--reconnect-backoff", type=float, default=0.5, metavar="S",
+        help="base reconnect backoff in seconds (doubles per attempt)",
+    )
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
 
-def _parse_address(addr: str) -> tuple[str, int]:
-    host, sep, port = addr.rpartition(":")
-    if not sep or not port.isdigit():
-        raise SystemExit(f"--api expects HOST:PORT, got {addr!r}")
-    return host or "127.0.0.1", int(port)
+def _parse_address(addr: str, flag: str = "--api") -> tuple[str, int]:
+    from cake_tpu_torch.runtime.client import parse_address
+
+    try:
+        return parse_address(addr, default_host="127.0.0.1", what=flag)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+
+def _master_backend(args, topology) -> str:
+    """local or tcp, from --backend and the topology (the JAX CLI's choice;
+    mesh is refused)."""
+    if args.backend == "mesh":
+        raise SystemExit(
+            "--backend mesh is not ported yet (ROADMAP.md queue A, the in-process pipeline and "
+            "tensor-parallel backends)"
+        )
+    if topology is None:
+        if args.backend == "tcp":
+            raise SystemExit("--backend tcp requires --topology")
+        return "local"
+    if args.backend == "local" or (args.backend is None and not topology.nodes):
+        return "local"
+    if args.quantize:
+        # The master's own ranges stay full precision; workers quantize
+        # their ranges with their own --quantize.
+        raise SystemExit(
+            "--quantize on a master runs on the local backend (give workers their own "
+            "--quantize for the tcp path)"
+        )
+    return "tcp"
+
+
+def _serve_worker(args, kv_dtype) -> int:
+    from cake_tpu_torch.parallel.topology import Topology
+    from cake_tpu_torch.runtime.worker import Worker
+
+    if not args.topology:
+        print("worker mode requires --topology", file=sys.stderr)
+        return 2
+    worker = Worker(
+        args.name, args.model, Topology.from_path(args.topology),
+        _parse_address(args.address, "--address"), dtype=DTYPES[args.dtype], kv_dtype=kv_dtype,
+        max_seq_len=args.max_seq_len, fusion_impl=args.fusion, quantize=args.quantize,
+        device=args.device,
+    )
+    try:
+        worker.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        worker.stop()
+    return 0
 
 
 def serve_config(args: argparse.Namespace):
@@ -185,7 +279,19 @@ def main(argv: list[str] | None = None) -> int:
         repeat_last_n=args.repeat_last_n,
         **({"seed": args.seed} if args.seed is not None else {}),
     )
+    kv_dtype = resolve_kv_dtype(args.kv_dtype, DTYPES[args.dtype])
+    if args.mode == "worker":
+        return _serve_worker(args, kv_dtype)
+    from cake_tpu_torch.parallel.topology import Topology
+
+    topology = Topology.from_path(args.topology) if args.topology else None
+    backend = _master_backend(args, topology)
     engine_serves = bool(args.api) and args.api_batch > 1
+    if engine_serves and backend == "tcp" and args.kv_mode == "paged":
+        raise SystemExit(
+            "--kv-mode paged runs on the local --api-batch master only (the tcp backend keeps "
+            "the dense cache)"
+        )
     if engine_serves and args.prefix_cache == "on" and args.kv_mode != "paged":
         raise SystemExit(
             "--prefix-cache on shares physical KV pages across requests and therefore "
@@ -195,20 +301,23 @@ def main(argv: list[str] | None = None) -> int:
         prefix_cache = bool(args.api)
     else:
         prefix_cache = args.prefix_cache == "on"
-    kv_dtype = resolve_kv_dtype(args.kv_dtype, DTYPES[args.dtype])
-    generator = LlamaGenerator.load(
-        args.model,
-        dtype=DTYPES[args.dtype],
-        kv_dtype=kv_dtype,
-        max_seq_len=args.max_seq_len,
-        sampling=sampling,
-        prefill_chunk=args.prefill_chunk,
-        prefix_cache=prefix_cache and not engine_serves,
-        device=args.device,
-        decode_chunk_size=args.decode_chunk,
-        fusion_impl=args.fusion,  # on the config before any step or engine is built
-        quantize=args.quantize,
-    )
+    if backend == "tcp":
+        generator = _tcp_generator(args, topology, sampling, kv_dtype,
+                                   prefix_cache and not engine_serves)
+    else:
+            generator = LlamaGenerator.load(
+            args.model,
+            dtype=DTYPES[args.dtype],
+            kv_dtype=kv_dtype,
+            max_seq_len=args.max_seq_len,
+            sampling=sampling,
+            prefill_chunk=args.prefill_chunk,
+            prefix_cache=prefix_cache and not engine_serves,
+            device=args.device,
+            decode_chunk_size=args.decode_chunk,
+            fusion_impl=args.fusion,  # on the config before any step or engine is built
+            quantize=args.quantize,
+        )
     if args.api:
         from cake_tpu_torch.runtime.api import ApiServer
 
@@ -218,20 +327,60 @@ def main(argv: list[str] | None = None) -> int:
 
             serve = serve_config(args)
             step = generator.step
-            engine = BatchEngine(
-                generator.config, step.params, generator.tokenizer,
-                max_seq_len=step.max_seq_len, cache_dtype=kv_dtype,
-                serve=serve, device=step.device,
-            )
+            if backend == "tcp":
+                from cake_tpu_torch.runtime.batch_backend import DistributedBatchBackend
+
+                # Continuous batching over the topology: B rows share every
+                # worker round trip.
+                engine = BatchEngine(
+                    generator.config, None, generator.tokenizer, max_seq_len=step.max_seq_len,
+                    cache_dtype=kv_dtype, serve=serve,
+                    backend=DistributedBatchBackend(step),
+                )
+            else:
+                engine = BatchEngine(
+                    generator.config, step.params, generator.tokenizer,
+                    max_seq_len=step.max_seq_len, cache_dtype=kv_dtype,
+                    serve=serve, device=step.device,
+                )
         host, port = _parse_address(args.api)
         ApiServer(generator, engine=engine).serve_forever(host, port)
         return 0
     if args.system_prompt:
         generator.add_message(Message.system(args.system_prompt))
     generator.add_message(Message.user(args.prompt))
-    generator.generate(args.sample_len, on_token=lambda t: print(t.text, end="", flush=True))
+    on_token = lambda t: print(t.text, end="", flush=True)  # noqa: E731
+    if backend == "tcp":
+        from cake_tpu_torch.runtime.master import Master
+
+        Master(generator, sample_len=args.sample_len).generate(on_token=on_token)
+    else:
+        generator.generate(args.sample_len, on_token=on_token)
     print()
     return 0
+
+
+def _tcp_generator(args, topology, sampling, kv_dtype, prefix_cache: bool):
+    """The generator over a ``DistributedForwardStep``: the master holds
+    the head and the ranges no node owns, one client per node."""
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.models.llama.generator import LlamaGenerator
+    from cake_tpu_torch.models.llama.tokenizer import load_tokenizer
+    from cake_tpu_torch.runtime.master import DistributedForwardStep
+
+    config = LlamaConfig.from_model_dir(args.model)
+    if args.fusion != "none":
+        config = dataclasses.replace(config, fusion_impl=args.fusion)
+    step = DistributedForwardStep(
+        config, args.model, topology, dtype=DTYPES[args.dtype], max_seq_len=args.max_seq_len,
+        kv_dtype=kv_dtype, op_deadline_s=args.op_deadline, op_retries=args.op_retries,
+        reconnect_attempts=args.reconnect_attempts, reconnect_backoff_s=args.reconnect_backoff,
+        device=args.device,
+    )
+    return LlamaGenerator(
+        config, step, load_tokenizer(args.model), sampling, prefill_chunk=args.prefill_chunk,
+        prefix_cache=prefix_cache, decode_chunk_size=args.decode_chunk,
+    )
 
 
 if __name__ == "__main__":

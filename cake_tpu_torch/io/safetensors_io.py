@@ -206,20 +206,11 @@ def _layer_templates(reader: SafetensorsReader, config: LlamaConfig) -> dict:
     return templates
 
 
-def load_params(
-    model_dir: str | Path,
-    config: LlamaConfig,
-    dtype: torch.dtype = torch.bfloat16,
-    device: torch.device | str = "cpu",
-) -> dict:
-    """Load a full param tree onto ``device``, q/k/v and gate/up fused.
-
-    Each stacked leaf is allocated once on the device and filled layer by
-    layer, so peak device memory is the model plus one layer's tensor.
-    Quantized weights load as quantized leaves (fused component-wise)."""
-    reader = SafetensorsReader(resolve_checkpoint_files(model_dir))
+def _load_layers(reader: SafetensorsReader, config: LlamaConfig, dtype: torch.dtype, device,
+                 lo: int, hi: int) -> dict:
+    """Layers [lo, hi) as stacked leaves (index 0 = layer ``lo``)."""
     templates = _layer_templates(reader, config)
-    n = config.num_hidden_layers
+    n = hi - lo
 
     def parts(key: str) -> tuple[str, ...]:
         return tuple(p for p in _FUSED.get(key, (key,)) if p in templates)
@@ -228,7 +219,7 @@ def load_params(
     keys += [fk for fk, ps in _FUSED.items() if ps[0] in templates]
     layers: dict = {}
     for key in keys:
-        for i in range(n):
+        for i in range(lo, hi):
             pieces = [
                 read_weight(reader, templates[p][0].format(i=i), dtype, device, templates[p][1])
                 for p in parts(key)
@@ -236,25 +227,66 @@ def load_params(
             t = pieces[0] if len(pieces) == 1 else concat_out(pieces)
             if key not in layers:
                 layers[key] = _empty_like_stacked(n, t, device)
-            _set_layer(layers[key], i, t)
+            _set_layer(layers[key], i - lo, t)
     if "ln_post_attn" in layers:
         if "q_norm" in layers:  # Gemma-3: per-layer window and rope plane
             if config.sliding_pattern is None:
                 raise ValueError("gemma3 checkpoint needs sliding_pattern in the config")
-            layers["win_flag"] = torch.tensor(config.sliding_pattern, device=device)
-            layers["rope_sel"] = torch.tensor(
-                config.sliding_pattern, dtype=torch.int32, device=device
-            )
+            pattern = list(config.sliding_pattern)[lo:hi]
+            layers["win_flag"] = torch.tensor(pattern, device=device)
+            layers["rope_sel"] = torch.tensor(pattern, dtype=torch.int32, device=device)
         else:  # Gemma-2: even layers local, odd global
-            layers["win_flag"] = (torch.arange(n, device=device) % 2) == 0
-    params = {
+            layers["win_flag"] = (torch.arange(lo, hi, device=device) % 2) == 0
+    return layers
+
+
+def _load_head(reader: SafetensorsReader, config: LlamaConfig, dtype: torch.dtype,
+               device) -> dict:
+    head = {
         "embed": reader.torch("model.embed_tokens.weight", dtype, device),
-        "layers": layers,
         "ln_f": reader.torch("model.norm.weight", dtype, device),
     }
     if not config.tie_word_embeddings:
-        params["lm_head"] = read_weight(reader, "lm_head.weight", dtype, device, transpose=True)
+        head["lm_head"] = read_weight(reader, "lm_head.weight", dtype, device, transpose=True)
+    return head
+
+
+def load_params(
+    model_dir: str | Path,
+    config: LlamaConfig,
+    dtype: torch.dtype = torch.bfloat16,
+    device: torch.device | str = "cpu",
+    layer_range: tuple[int, int] | None = None,
+    head: bool = True,
+) -> dict:
+    """Load a param tree onto ``device``, q/k/v and gate/up fused.
+
+    ``layer_range`` (lo, hi) loads only layers [lo, hi), stacked from index 0
+    (a TCP worker's or a master's own ranges, runtime/worker.py); ``head``
+    False leaves out the embedding, the final norm and the LM head. Each
+    stacked leaf is allocated once on the device and filled layer by layer,
+    so peak device memory is the weights asked for plus one layer's tensor.
+    Quantized weights load as quantized leaves (fused component-wise)."""
+    reader = SafetensorsReader(resolve_checkpoint_files(model_dir))
+    lo, hi = layer_range if layer_range is not None else (0, config.num_hidden_layers)
+    if not 0 <= lo < hi <= config.num_hidden_layers:
+        raise ValueError(f"layer_range {layer_range} outside [0, {config.num_hidden_layers})")
+    params = _load_head(reader, config, dtype, device) if head else {}
+    params["layers"] = _load_layers(reader, config, dtype, device, lo, hi)
     return params
+
+
+def load_head(
+    model_dir: str | Path,
+    config: LlamaConfig,
+    dtype: torch.dtype = torch.bfloat16,
+    device: torch.device | str = "cpu",
+) -> dict:
+    """The embedding, final norm and LM head only (``lm_head`` quantized
+    where the checkpoint stores it so): what a TCP master needs besides its
+    own ranges (runtime/master.py)."""
+    reader = SafetensorsReader(resolve_checkpoint_files(model_dir))
+    return _load_head(reader, config, dtype, device)
 
 
 def hf_tensor_dict(params: dict, config: LlamaConfig, dtype=torch.float32) -> dict[str, np.ndarray]:

@@ -281,6 +281,45 @@ def batched_blocks_forward(
     return x, kv
 
 
+def lockstep_range_ops(config: LlamaConfig, rope):
+    """(prefill, decode, join) over a BARE stacked-layer range (port of
+    ``make_lockstep_range_ops``): the lockstep ops a block-range executor
+    runs, shared by the TCP worker (runtime/worker.py) and the TCP master's
+    own ranges (runtime/batch_backend.DistributedBatchBackend), so both
+    sides of the wire run the same code, and the same kernels at the same
+    shapes as the local backends. ``rope`` is the (cos, sin) tables.
+
+      prefill(layers, x, kv, pads, ends)         -> (x, kv)  slots [0, W)
+      decode(layers, x, kv, pads, slot)          -> (x, kv)  one token at slot
+      join(layers, x, kv, pads1, ends1, lane)    -> (x, kv)  one row's window
+          prefilled straight into ``lane``'s strip of the cache (a view,
+          written in place), as LocalBatchBackend.join does
+    """
+    cos, sin = rope
+    fusion = resolve_fusion(config)
+
+    def prefill(layers, x, kv, pads, ends):
+        q_pos, lengths = prefill_positions(x.shape[1], pads, ends)
+        return batched_blocks_forward(
+            layers, x, kv, cos, sin, q_pos, config,
+            decode=False, pads=pads, lengths=lengths, write_pos=0, fusion=fusion,
+        )
+
+    def decode(layers, x, kv, pads, slot: int):
+        q_pos, lengths = decode_positions(slot, pads)
+        return batched_blocks_forward(
+            layers, x, kv, cos, sin, q_pos, config,
+            decode=True, pads=pads, lengths=lengths, write_pos=slot, fusion=fusion,
+        )
+
+    def join(layers, x, kv, pads1, ends1, lane: int):
+        lane_kv = KVCache(kv.k[:, lane : lane + 1], kv.v[:, lane : lane + 1])
+        x, _ = prefill(layers, x, lane_kv, pads1, ends1)
+        return x, kv
+
+    return prefill, decode, join
+
+
 def _rope(rope, config: LlamaConfig, n_slots: int, device):
     return rope if rope is not None else model_rope_tables(config, n_slots, device)
 

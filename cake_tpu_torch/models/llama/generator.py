@@ -4,9 +4,10 @@
 Chat history, prefill (power-of-two buckets, optional fixed-size chunks),
 the per-token decode loop, fused multi-token decode (``decode_chunk_size``
 tokens per device dispatch, models/llama/fused.py), sampling with the repeat
-penalty, incremental detokenization, EOS detection, and KV prefix reuse
-across ``reset()``. Speculative decoding, failure recovery and the metrics
-calls are not ported yet (ROADMAP.md).
+penalty, incremental detokenization, EOS detection, KV prefix reuse across
+``reset()``, and recovery from a lost worker connection (a step raising
+``StepConnectionError``: the step is reset and the token history replayed).
+Speculative decoding and the metrics calls are not ported yet (ROADMAP.md).
 
 The seam is the same as the JAX package's: the generator needs a step
 ``(tokens, pos, seq_len) -> logits``; :class:`LocalForwardStep` runs the
@@ -17,6 +18,7 @@ place.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from pathlib import Path
 from typing import Callable, Protocol
 
@@ -35,6 +37,17 @@ from cake_tpu_torch.ops.quant import quantize_params
 from cake_tpu_torch.ops.rope import model_rope_tables
 from cake_tpu_torch.ops.sampling import DEFAULT_SEED, apply_repeat_penalty, draw, sample
 from cake_tpu_torch.ops.threefry import prng_key
+
+
+class StepConnectionError(RuntimeError):
+    """A step's backing connection failed mid-call and was re-established
+    (runtime/master.py): the step's KV state is lost, and the generator
+    recovers by resetting the step and replaying its token history."""
+
+    def __init__(self, node: str):
+        super().__init__(f"connection to worker {node!r} was reset")
+        self.node = node
+
 
 @dataclasses.dataclass
 class Token:
@@ -431,6 +444,30 @@ class LlamaGenerator:
                 break
         return out
 
+    def _replay_history(self) -> None:
+        """Recovery: rebuild ALL step-side KV from the token history. The
+        step is reset, the prompt is prefilled in the chunks it was first
+        prefilled in, and each generated token but the pending last one is
+        fed as the decode step that first consumed it: the same kernels at
+        the same shapes, so the rebuilt KV holds the lost KV's bits. (The
+        JAX package replays the history as one chunked prefill; on the card
+        that rounds the generated tokens' K/V otherwise, and a greedy stream
+        then parts from the uninterrupted one.) The next regular step
+        consumes the pending token and resumes the stream where it broke. A
+        failure before the first token leaves nothing to replay: the
+        prompt's prefill runs again. Under prefix reuse the reused prefix's
+        KV is recomputed here, so its bits may differ."""
+        self.step.reset()
+        self._kv_high = 0  # everything below re-earns its mark
+        n = self._n_prompt
+        if len(self._tokens) <= n:
+            self._started = False
+            return
+        self._prefill(self._tokens[:n])
+        for pos in range(n, len(self._tokens) - 1):
+            self.step(np.array([[self._tokens[pos]]], np.int64), pos, 1)
+            self._kv_high = pos + 1
+
     def generate(
         self, max_new_tokens: int, on_token: Callable[[Token], None] | None = None
     ) -> str:
@@ -439,24 +476,50 @@ class LlamaGenerator:
 
         With ``decode_chunk_size`` > 1 the tokens after the first come in
         fused chunks of that size (``_next_tokens_fused``); the first token
-        (prefill) and a tail shorter than a chunk go per step."""
+        (prefill) and a tail shorter than a chunk go per step.
+
+        A step that raises ``StepConnectionError`` (a lost worker, which it
+        re-dialed) raises before any token of the iteration materializes:
+        the history is replayed and the iteration retried. The budget is 2
+        recoveries in a row; a produced token resets it, so separate blips
+        each get their own."""
         chunk = self.decode_chunk_size
         out: list[str] = []
         self.last_finish_reason = "length"
         produced = 0
+        recoveries = 0
+        needs_replay = False
+        produced_at_last_failure = 0
         while produced < max_new_tokens:
+            if recoveries and produced > produced_at_last_failure:
+                recoveries = 0
             if len(self._tokens) >= self.step.max_seq_len:
                 break
             budget = min(max_new_tokens - produced, self.step.max_seq_len - len(self._tokens))
-            fused = chunk > 1 and budget >= chunk and self._started and hasattr(
-                self.step, "decode_chunk"
-            )
-            for tok in self._next_tokens_fused(chunk) if fused else [self.next_token()]:
-                produced += 1
-                if on_token is not None:
-                    on_token(tok)
-                if tok.is_end_of_stream:
-                    self.last_finish_reason = "stop"
-                    return "".join(out)
-                out.append(tok.text)
+            try:
+                if needs_replay:
+                    # Inside the try: a blip during the replay spends the
+                    # same budget.
+                    self._replay_history()
+                    needs_replay = False
+                fused = chunk > 1 and budget >= chunk and self._started and hasattr(
+                    self.step, "decode_chunk"
+                )
+                for tok in self._next_tokens_fused(chunk) if fused else [self.next_token()]:
+                    produced += 1
+                    if on_token is not None:
+                        on_token(tok)
+                    if tok.is_end_of_stream:
+                        self.last_finish_reason = "stop"
+                        return "".join(out)
+                    out.append(tok.text)
+            except StepConnectionError as e:
+                recoveries += 1
+                if recoveries > 2:
+                    raise
+                produced_at_last_failure = produced
+                logging.getLogger("cake_tpu_torch.generator").warning(
+                    "recovering from %s (replaying %d tokens)", e, len(self._tokens)
+                )
+                needs_replay = True
         return "".join(out)

@@ -128,6 +128,8 @@ class ApiServer:
                     )
                 rid = f"chatcmpl-{uuid.uuid4()}"
                 created = int(time.time())
+                if hasattr(gen.step, "trace_id"):
+                    gen.step.trace_id = rid  # rides every FORWARD header (TCP steps)
                 if stream:
 
                     def produce(on_token) -> str:
@@ -146,6 +148,8 @@ class ApiServer:
                 )
             finally:
                 gen.sampling = base
+                if hasattr(gen.step, "trace_id"):
+                    gen.step.trace_id = None
 
     def _handle_chat_batched(
         self, messages, max_tokens: int, stream: bool, include_usage: bool, opt, handler

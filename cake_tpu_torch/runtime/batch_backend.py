@@ -1,7 +1,8 @@
 """Batch execution backends: the device seam under the serving engine (port
-of ``cake_tpu/runtime/batch_backend.py``, the single-device backends).
+of ``cake_tpu/runtime/batch_backend.py``: the single-device backends and the
+TCP one).
 
-The engine (runtime/serving.py) drives one of two backends through the same
+The engine (runtime/serving.py) drives a backend through the same
 operations over the left-padded lockstep layout (models/llama/batch.py):
 
   * ``LocalBatchBackend``: a dense KV cache, one ``[max_seq]`` strip per
@@ -9,6 +10,9 @@ operations over the left-padded lockstep layout (models/llama/batch.py):
   * ``PagedLocalBackend``: a shared page pool and a host-side
     ``PageAllocator``; attention through the paged decode and chunk
     kernels. With a prefix cache attached the pool persists across epochs.
+  * ``DistributedBatchBackend``: the same dense ops over a TCP topology's
+    workers (the master's ``DistributedForwardStep``), one round trip per
+    span per op; its decode walks the plan once a step, without a graph.
 
 Both keep the weights resident (fused once), the rope tables built once
 and the KV storage for their lifetime (zeroed at each epoch); every per-row
@@ -23,13 +27,15 @@ allocator's changed (joins, page extensions), the slot when the previous
 chunk did not leave it there. The decode fusions ride the config
 (``LlamaConfig.fusion_impl``): each dispatch resolves them once, and the
 decode chunks sample through the fused tail when "tail" is on. The
-tensor-parallel, pipelined and TCP backends, speculative verify and the
+tensor-parallel and pipelined backends, speculative verify and the
 kernel-fallback flight event are not ported (ROADMAP.md): the port has no
 quiet fallback, and a page size the paged kernels do not take raises on the
 card.
 """
 
 from __future__ import annotations
+
+import uuid
 
 import numpy as np
 import torch
@@ -49,6 +55,7 @@ from cake_tpu_torch.models.llama.paged_cache import (
 from cake_tpu_torch.ops.fuse import fuse_params, resolve_fusion
 from cake_tpu_torch.ops.paged_prefill import paged_kernel_supported
 from cake_tpu_torch.ops.rope import model_rope_tables
+from cake_tpu_torch.ops.sampling import sample_step
 
 
 def _rows(x, device) -> torch.Tensor:
@@ -380,3 +387,172 @@ class PagedLocalBackend:
             rope=self.rope,
         )
         return logits, kv
+
+
+class BackendWorkerError(RuntimeError):
+    """A backend op failed because a worker died after the retry/replay
+    budget was spent (or lost the epoch's session). The engine finishes the
+    epoch's live streams with ``finish_reason="error"`` and keeps serving
+    (runtime/serving.py); any other exception still reaches every consumer
+    as a raised error."""
+
+    def __init__(self, node: str, op: str, cause: Exception | None = None):
+        super().__init__(f"worker {node!r} failed during batch {op} "
+                         f"({cause if cause is not None else 'no cause'})")
+        self.node = node
+        self.op = op
+
+
+class DistributedBatchBackend:
+    """Continuous batching over the TCP topology (master <-> workers).
+
+    The engine's init_kv / prefill / decode / join seam over the SAME
+    clients the serialized master walks (runtime/master.py
+    ``DistributedForwardStep``), the lockstep layout riding the FORWARD
+    header's ``batch`` extension: B rows share every round trip. The master
+    holds embed / ln_f / lm_head and its own ranges (``kv`` here is a dict
+    of those ranges' caches, maybe empty); each worker keeps the epoch's
+    caches for its ranges under the epoch's replay session. Sampling runs
+    master-side through ``sample_step``, the step every backend's decode
+    runs, so the streams equal the dense local backend's.
+
+    Every epoch opens a replay session (one sid per ``init_kv``): a
+    transient wire failure mid-op is absorbed by the client's deadline and
+    idempotent resend. When the retries are spent, or the worker lost the
+    session, ``_walk`` raises ``BackendWorkerError``; the range is never
+    computed on the master instead."""
+
+    kv_mode = "dense"
+
+    def __init__(self, step):
+        from cake_tpu_torch.parallel.topology import MASTER_NODE
+
+        # An old worker ignores the ``batch`` header and would run padded
+        # rows as a plain chunk: refuse it here, loudly.
+        for node, client in step.clients.items():
+            info = getattr(client, "info", None)
+            if info is None or not getattr(info, "batch_ops", False):
+                ver = getattr(info, "version", "unknown")
+                raise RuntimeError(
+                    f"worker {node!r} (version {ver}) does not support lockstep batch ops; "
+                    "upgrade it or drop --api-batch"
+                )
+        self.step = step
+        self.config = step.config
+        self.device = step.device
+        self.max_seq_len = step.max_seq_len
+        self.cache_dtype = step.kv_dtype
+        self._master_node = MASTER_NODE
+        # The epoch's head request id (the engine sets it); it rides every
+        # FORWARD header.
+        self.trace_id: str | None = None
+        padded = -(-self.max_seq_len // SEQ_MULTIPLE) * SEQ_MULTIPLE
+        rope = model_rope_tables(self.config, padded, self.device)
+        self._prefill_op, self._decode_op, self._join_op = B.lockstep_range_ops(self.config, rope)
+
+    def init_kv(self, b: int) -> dict:
+        """A new epoch: the router's next route, a fresh replay session on
+        every routed worker (the previous one retired where it is held),
+        and the master's own ranges' caches of ``b`` lanes."""
+        routed = set(self.step.router.refresh().values())
+        sid = f"ep-{uuid.uuid4().hex[:12]}"
+        for name, client in self.step.clients.items():
+            if client.sid is not None:
+                try:
+                    client.reset()
+                except (ConnectionError, TimeoutError, OSError):
+                    pass  # a dead socket holds nothing to retire; the LRU ages it out
+                client.sid = None
+            if name in routed:
+                client.begin_session(sid)
+        c = self.config
+        return {
+            (lo, hi): init_cache(hi - lo, b, self.max_seq_len, c.num_key_value_heads, c.head_dim,
+                                 self.cache_dtype, self.device)
+            for (lo, hi) in self.step.local_params
+        }
+
+    def _walk(self, kind: str, x: torch.Tensor, pos: int, kv: dict, batch_hdr: dict, local):
+        """``x`` through the whole plan: the master's ranges by
+        ``local(layers, x, kv_range)``, each remote span as ONE round trip."""
+        from cake_tpu_torch.runtime.worker import torch_to_wire, wire_to_torch
+
+        step = self.step
+        plan = step.plan
+        i = 0
+        while i < len(plan):
+            s = plan[i]
+            if s.node == self._master_node:
+                r = (s.lo, s.hi)
+                x, kv[r] = local(step.local_params[r], x, kv[r])
+                i += 1
+                continue
+            ranges = []
+            primary = s.node
+            while i < len(plan) and plan[i].node == primary:
+                ranges.append((plan[i].lo, plan[i].hi))
+                i += 1
+            node = step.router.route(primary)
+            try:
+                out = step.clients[node].forward(torch_to_wire(x), ranges, pos, batch=batch_hdr,
+                                                 trace=self.trace_id)
+            except (ConnectionError, TimeoutError, OSError) as e:
+                # The epoch cannot continue: re-dial so the next epoch has a
+                # live socket, then the typed error the engine isolates.
+                try:
+                    step.clients[node].reconnect()
+                except (ConnectionError, TimeoutError, OSError):
+                    pass
+                raise BackendWorkerError(node, kind, e) from e
+            step.router.report_success(node)
+            x = wire_to_torch(out, step.dtype, self.device)
+        return x, kv
+
+    @torch.inference_mode()
+    def prefill(self, tokens, kv, pads):
+        """The whole left-padded batch at slots [0, width): (logits, kv)."""
+        width = int(np.shape(tokens)[1])
+        pads_np = np.asarray(pads, np.int32).reshape(-1)
+        pads_t, ends_t = _rows(pads_np, self.device), _rows([width] * len(pads_np), self.device)
+        x = M.embed_tokens(self.step.head, _tokens(tokens, self.device), self.config)
+        hdr = {"kind": "prefill", "pads": pads_np.tolist(), "ends": [width] * len(pads_np)}
+        x, kv = self._walk("prefill", x, 0, kv, hdr,
+                           lambda layers, x, kv_r: self._prefill_op(layers, x, kv_r, pads_t, ends_t))
+        return M.head_forward(self.step.head, x, width, self.config), kv
+
+    @torch.inference_mode()
+    def decode(self, kv, tok, slot, pads, keys, ring, ring_idx, n, s):
+        """``n`` lockstep steps, one walk of the plan each; sampling on the
+        master (``sample_step``, the fused tail when "tail" is on). Returns
+        (ids [B, n], kv, keys, ring, ring_idx)."""
+        if slot < 0 or slot + n > self.max_seq_len:
+            raise ValueError(f"decode writes slots [{slot}, {slot + n}) outside the cache's "
+                             f"{self.max_seq_len}")
+        hdr = {"kind": "decode", "pads": [int(p) for p in pads.tolist()]}
+        fused_tail = "tail" in resolve_fusion(self.config)
+        out = []
+        for i in range(n):
+            pos = int(slot) + i
+            x = M.embed_tokens(self.step.head, tok[:, None], self.config)
+            x, kv = self._walk("decode", x, pos, kv, hdr,
+                               lambda layers, x, kv_r: self._decode_op(layers, x, kv_r, pads, pos))
+            logits = M.head_forward(self.step.head, x, 1, self.config)
+            tok, keys, ring, ring_idx = sample_step(
+                logits, keys, ring, ring_idx, temperature=s.temperature, top_k=s.top_k,
+                top_p=s.top_p, repeat_penalty=s.repeat_penalty, fused_tail=fused_tail,
+            )
+            out.append(tok)
+        return torch.stack(out, dim=1), kv, keys, ring, ring_idx
+
+    @torch.inference_mode()
+    def join(self, kv, row_tokens, pad: int, end: int, lane: int):
+        """One row whose prompt ends at the shared slot ``end``, prefilled
+        into ``lane`` on the master's ranges and every worker's."""
+        pads1, ends1 = _rows([pad], self.device), _rows([end], self.device)
+        x = M.embed_tokens(self.step.head, _tokens(row_tokens, self.device), self.config)
+        hdr = {"kind": "join", "pads": [int(pad)], "ends": [int(end)], "lane": int(lane)}
+        x, kv = self._walk(
+            "join", x, 0, kv, hdr,
+            lambda layers, x, kv_r: self._join_op(layers, x, kv_r, pads1, ends1, int(lane)),
+        )
+        return M.head_forward(self.step.head, x, int(end), self.config), kv

@@ -38,6 +38,13 @@ the JAX package's engine on the same checkpoint, under both schedulers
 (tests/test_torch_serving.py, tests/test_torch_threefry.py,
 tests/test_torch_continuous.py).
 
+With ``backend=`` the engine serves through a backend built outside it:
+runtime/batch_backend.py ``DistributedBatchBackend`` runs the lanes over a
+TCP topology's workers (dense KV only), and a worker lost after the wire
+retries (``BackendWorkerError``) finishes the epoch's live streams with
+``finish_reason="error"`` while the engine keeps serving; ``snapshot()``
+names the routed nodes.
+
 Not ported yet (ROADMAP.md): speculative verify, tenants and fair queueing
 (the queue is the single-tenant FIFO), shedding, deadlines, failover, the
 black box and the observability ledgers. Asking for a knob that is not
@@ -218,6 +225,7 @@ class BatchEngine:
         serve: ServeConfig | None = None,
         speculative_k: int = 0,
         device: torch.device | str | None = None,
+        backend=None,
     ):
         if speculative_k:
             raise NotImplementedError("speculative decoding is not ported yet (ROADMAP.md)")
@@ -237,7 +245,18 @@ class BatchEngine:
         self._step_budget = StepBudget(serve.step_prefill_tokens)
         from cake_tpu_torch.runtime import batch_backend
 
-        if serve.kv_mode == "paged":
+        if backend is not None:
+            # An explicit backend (the TCP one) baked its config and KV
+            # layout at construction.
+            if serve.kv_mode == "paged" and backend.kv_mode != "paged":
+                raise ValueError(
+                    f"kv_mode='paged' needs a paged backend; the provided "
+                    f"{type(backend).__name__} keeps the dense cache"
+                )
+            self.config = config = backend.config
+        elif params is None:
+            raise ValueError("BatchEngine needs either params (for a local backend) or backend=")
+        elif serve.kv_mode == "paged":
             pages_per_seq = -(-self.max_seq_len // serve.page_size)
             backend = batch_backend.PagedLocalBackend(
                 config, params, max_seq_len=self.max_seq_len, cache_dtype=cache_dtype,
@@ -295,7 +314,7 @@ class BatchEngine:
             "batches": 0, "rows": 0, "max_rows": 0, "joins": 0, "cancelled": 0,
             "page_truncations": 0, "prefix_hits": 0, "prefix_misses": 0,
             "prefill_s": 0.0, "decode_s": 0.0, "decode_chunks": 0, "decode_steps": 0,
-            "preemptions": 0, "restores": 0, "budget_deferrals": 0,
+            "preemptions": 0, "restores": 0, "budget_deferrals": 0, "stream_errors": 0,
         }
 
     # ------------------------------------------------------------ lifecycle
@@ -318,10 +337,18 @@ class BatchEngine:
             # never started has none to do it.
             self._fail_spilled_locked("engine stopped")
 
+    def node_label(self) -> str:
+        """The node(s) serving now: a TCP backend's routed workers ("w1+w2"),
+        else "local"."""
+        router = getattr(getattr(self.backend, "step", None), "router", None)
+        routes = sorted(set(router.snapshot()["routes"].values())) if router else []
+        return "+".join(routes) or "local"
+
     def snapshot(self) -> dict:
-        """Counters for ``GET /stats``: engine stats, live lanes, the pool
-        and the prefix cache."""
+        """Counters for ``GET /stats``: engine stats, live lanes, the pool,
+        the prefix cache and the node label."""
         out = dict(self.stats)
+        out["node"] = self.node_label()
         with self._cv:
             out["queued"] = len(self._queue)
             out["live"] = len(self._live_rids)
@@ -628,10 +655,28 @@ class BatchEngine:
         raised error; the pool is returned either way, and a failed epoch
         clears the prefix cache (its chains must never outlive their
         bytes)."""
+        from cake_tpu_torch.runtime.batch_backend import BackendWorkerError
+
         rows: list[_RowState | None] = []
         self._epoch_kv_retained = False
+        if hasattr(self.backend, "trace_id"):
+            # The epoch's head request id rides every FORWARD header.
+            with self._cv:
+                head = batch[0].rid if batch else next(iter(self._spilled), None)
+            self.backend.trace_id = head
         try:
             self._run_epoch(batch, rows)
+        except BackendWorkerError as e:
+            # Failure isolation: the epoch's LIVE streams finish "error" (the
+            # tokens they delivered are the fault-free run's); the engine
+            # keeps serving.
+            log.warning("epoch lost its worker: %s", e)
+            self.stats["stream_errors"] += sum(r is not None for r in rows)
+            for lane, row in enumerate(rows):
+                if row is not None:
+                    row.req.handle.finish_reason = "error"
+                    row.finish()
+                    rows[lane] = None
         except Exception as e:
             for row in rows:
                 if row is not None:

@@ -3321,6 +3321,326 @@ def phase_engine_continuous(torch, main_path: dict, tokens: int = CONTINUOUS_TOK
     return row
 
 
+# ---------------------------------------------------------------- phase 9d
+
+
+class _LogitsTap:
+    """A generator step that records the logits of its first one-token call
+    after each reset (the first decode step) and passes everything on."""
+
+    def __init__(self, step):
+        self.step, self.first_decode = step, None
+        self.device = getattr(step, "device", None)
+
+    @property
+    def max_seq_len(self) -> int:
+        return self.step.max_seq_len
+
+    def reset(self) -> None:
+        self.first_decode = None
+        self.step.reset()
+
+    def __call__(self, tokens, pos, seq_len):
+        logits = self.step(tokens, pos, seq_len)
+        if self.first_decode is None and tokens.shape[1] == 1:
+            self.first_decode = logits.clone()
+        return logits
+
+
+def _wire_totals(step) -> tuple[int, int]:
+    """(round trips, payload bytes both ways) of a TCP step's clients."""
+    return (sum(c.round_trips for c in step.clients.values()),
+            sum(c.tx_bytes + c.rx_bytes for c in step.clients.values()))
+
+
+def _tally_wire(step) -> dict:
+    """From now on, {batch kind: [round trips, payload bytes both ways]} of
+    ``step``'s clients' forwards (the measurement wraps each client)."""
+    tally: dict = {}
+    for client in step.clients.values():
+        def counted(x, ranges, pos, batch=None, trace=None, _real=client.forward):
+            out = _real(x, ranges, pos, batch=batch, trace=trace)
+            t = tally.setdefault(batch["kind"] if batch else "stream", [0, 0])
+            t[0] += 1
+            t[1] += len(x.data) + len(out.data)
+            return out
+
+        client.forward = counted
+    return tally
+
+
+def _start_workers(torch, config, params, topo, max_seq: int, dev) -> dict:
+    """In-process workers of ``topo`` over views of ``params`` (on the card
+    already), each serving on its own threads on a loopback port."""
+    from cake_tpu_torch.runtime.worker import Worker
+
+    workers = {}
+    for name in topo.nodes:
+        w = Worker(name, None, topo, ("127.0.0.1", 0), dtype=torch.bfloat16, max_seq_len=max_seq,
+                   device=dev, config=config, params=params)
+        w.start()
+        topo.nodes[name].host = f"127.0.0.1:{w.address[1]}"
+        workers[name] = w
+    return workers
+
+
+def _tcp_generation(torch, main_path: dict, step, replays: list | None = None) -> dict:
+    """The generate phase's prompt and 64 greedy tokens through ``step``:
+    ids, first-decode-step logits, launches, ms a token, round trips and
+    wire bytes a token. ``replays`` collects the history replays."""
+    from cake_tpu_torch.models.llama.chat import Message
+    from cake_tpu_torch.models.llama.generator import LlamaGenerator, SamplingConfig
+
+    gen0 = main_path["generator"]
+    tap = _LogitsTap(step)
+    gen = LlamaGenerator(gen0.config, tap, gen0.tokenizer,
+                         SamplingConfig(temperature=0.0, repeat_penalty=1.0),
+                         prefill_chunk=PREFILL_CHUNK)
+    if replays is not None:
+        real = gen._replay_history
+        gen._replay_history = lambda: (replays.append(len(gen._tokens)), real())[1]
+    counters = _counters()
+    for c in counters:
+        c.launches = 0
+    gen.add_message(Message.user(main_path["text"]))
+    stamps, wire = [], []
+    base = _wire_totals(step)
+    on_token = lambda tok: (stamps.append(time.perf_counter()), wire.append(
+        tuple(x - b for x, b in zip(_wire_totals(step), base))))
+    t0 = time.perf_counter()
+    gen.generate(DECODE_TOKENS, on_token=on_token)
+    return {"gen": gen, "tap": tap, "ids": gen.generated_token_ids, "t0": t0, "stamps": stamps,
+            "wire": wire, "launches": {c.__name__: c.launches for c in counters}}
+
+
+def phase_distributed(torch, main_path: dict) -> dict:
+    """Cake's master/worker pipeline over loopback TCP at the generate
+    phase's weights and shapes (Llama-3-8B, 32 layers, bf16, the 700-token
+    prompt in 256-token chunks, 64 greedy tokens), workers in this process
+    on their own threads over views of the weights already on the card.
+
+    A: the master runs layers 0-15, worker w1 16-31: ids equal the local
+    generator's 64/64 and the first decode step's logits equal the local
+    ones to the bit (gated), launch counts equal the local run's (gated);
+    ms a token, round trips and wire bytes a token, a profile for the device
+    idle share (not gated). B: w1 0-15, w2 16-31 and its replica w2b, the
+    master running no layer: two sequences route to w2 and to w2b and give
+    equal streams (gated). Recovery: topology A without wire retries, w1's
+    socket closed under the master after 5 tokens: the stream equals the
+    uninterrupted one with exactly one history replay (gated). Engine:
+    ``DistributedBatchBackend`` over topology A against the dense local
+    engine (max_seq 2048, 8 lanes, decode chunk 8): wave 1 submitted as one
+    group, then the seeded sampled wave of engine_fused; streams equal 8/8
+    and launch counts equal (gated); ms a decode step of each."""
+    from cake_tpu_torch.models.llama.generator import SamplingConfig
+    from cake_tpu_torch.parallel.topology import Topology
+    from cake_tpu_torch.runtime.batch_backend import DistributedBatchBackend
+    from cake_tpu_torch.runtime.master import DistributedForwardStep
+    from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+
+    t_phase = time.perf_counter()
+    gen0 = main_path["generator"]
+    config, params, dev = gen0.config, gen0.step.params, gen0.step.device
+    n_layers = config.num_hidden_layers
+    half = n_layers // 2
+    on_card = dev.type == "cuda"
+
+    def span(lo: int, hi: int) -> list[str]:
+        return [f"model.layers.{lo}-{hi - 1}" if hi - lo > 1 else f"model.layers.{lo}"]
+
+    want = main_path["generated_ids"]
+    row = {"phase": "distributed", "card": main_path["card"],
+           "topologies": {"A": {"master": [0, half], "w1": [half, n_layers]},
+                          "B": {"w1": [0, half], "w2": [half, n_layers], "w2b": [half, n_layers]}}}
+
+    # The local generator's first decode-step logits, at the same prompt.
+    from cake_tpu_torch.models.llama.chat import Message
+    from cake_tpu_torch.models.llama.generator import LlamaGenerator
+
+    local_tap = _LogitsTap(gen0.step)
+    local = LlamaGenerator(config, local_tap, gen0.tokenizer,
+                           SamplingConfig(temperature=0.0, repeat_penalty=1.0),
+                           prefill_chunk=PREFILL_CHUNK)
+    local.add_message(Message.user(main_path["text"]))
+    local.generate(2)
+    local_logits = local_tap.first_decode
+
+    workers = {}
+    try:
+        # -- A: master 0-15, w1 16-31.
+        topo_a = Topology.from_dict({"w1": {"host": "placeholder", "layers": span(half, n_layers)}})
+        workers.update(_start_workers(torch, config, params, topo_a, MAX_SEQ, dev))
+        step = DistributedForwardStep(config, None, topo_a, dtype=torch.bfloat16,
+                                      max_seq_len=MAX_SEQ, device=dev, params=params)
+        _tcp_generation(torch, main_path, step)  # warm-up
+        _sync(torch, dev)
+        a = _tcp_generation(torch, main_path, step)
+        _sync(torch, dev)
+        stamps, wire = a["stamps"], a["wire"]
+        n_gen = len(a["ids"])
+        decode_ms = 1e3 * (stamps[-1] - stamps[0]) / (n_gen - 1)
+        trips = (wire[-1][0] - wire[0][0]) / (n_gen - 1)
+        nbytes = (wire[-1][1] - wire[0][1]) / (n_gen - 1)
+        logits_bitwise = bool(torch.equal(a["tap"].first_decode, local_logits))
+        row["A"] = {
+            "equal_tokens": sum(x == y for x, y in zip(a["ids"], want)),
+            "generated_tokens": n_gen,
+            "first_decode_logits_bitwise": logits_bitwise,
+            "first_decode_logits_max_abs": float(
+                (a["tap"].first_decode - local_logits).abs().max()),
+            "prefill_s": stamps[0] - a["t0"],
+            "decode_ms_per_token": decode_ms,
+            "local_decode_ms_per_token": main_path["decode_ms_per_token"],
+            "round_trips_per_token": trips,
+            "wire_bytes_per_token": nbytes,
+            "prefill_round_trips": wire[0][0],
+            "launches": a["launches"], "local_launches": main_path["launches"],
+        }
+        if on_card:
+            try:
+                prof = _profile_main_path(torch, a["gen"], main_path["text"], decode_ms,
+                                          phase="distributed_profile")
+                row["A"]["decode_device_ms_per_token"] = prof["decode_device_ms_per_token"]
+                row["A"]["decode_device_idle_share"] = prof["decode_device_idle_share"]
+            except AssertionError as e:  # the idle share is not gated
+                row["A"]["profile_error"] = str(e)[:300]
+        # -- Recovery: no wire retries, so the blip reaches the generator.
+        rstep = DistributedForwardStep(config, None, topo_a, dtype=torch.bfloat16,
+                                       max_seq_len=MAX_SEQ, device=dev, params=params,
+                                       op_retries=0)
+        replays: list = []
+        blip = {"done": False}
+
+        def close_after_5(tok):
+            if len(blip_gen.generated_token_ids) == 5 and not blip["done"]:
+                blip["done"] = True
+                rstep.clients["w1"]._sock.close()
+
+        from cake_tpu_torch.models.llama.generator import LlamaGenerator as _G
+
+        blip_gen = _G(config, rstep, gen0.tokenizer,
+                      SamplingConfig(temperature=0.0, repeat_penalty=1.0),
+                      prefill_chunk=PREFILL_CHUNK)
+        real = blip_gen._replay_history
+        blip_gen._replay_history = lambda: (replays.append(len(blip_gen._tokens)), real())[1]
+        blip_gen.add_message(Message.user(main_path["text"]))
+        blip_gen.generate(DECODE_TOKENS, on_token=close_after_5)
+        row["recovery"] = {
+            "equal_tokens": sum(x == y for x, y in zip(blip_gen.generated_token_ids, want)),
+            "generated_tokens": len(blip_gen.generated_token_ids), "replays": len(replays),
+            "replayed_history_tokens": replays,
+        }
+        rstep.close()
+        step.close()
+        for w in workers.values():
+            w.stop()
+        workers.clear()
+
+        # -- B: w1 0-15, w2 16-31 and its replica w2b; the master runs no layer.
+        topo_b = Topology.from_dict({
+            "w1": {"host": "placeholder", "layers": span(0, half)},
+            "w2": {"host": "placeholder", "layers": span(half, n_layers)},
+            "w2b": {"host": "placeholder", "layers": span(half, n_layers)},
+        })
+        workers.update(_start_workers(torch, config, params, topo_b, MAX_SEQ, dev))
+        bstep = DistributedForwardStep(config, None, topo_b, dtype=torch.bfloat16,
+                                       max_seq_len=MAX_SEQ, device=dev, params=params)
+        streams, served = [], []
+        for _ in range(2):
+            before = {n: w.ops for n, w in workers.items()}
+            streams.append(_tcp_generation(torch, main_path, bstep)["ids"])
+            served.append(sorted(n for n, w in workers.items() if w.ops > before[n]))
+        row["B"] = {"master_layers": sum(hi - lo for lo, hi in bstep.local_params),
+                    "served": served, "equal_streams": streams[0] == streams[1],
+                    "equal_tokens_to_local": sum(x == y for x, y in zip(streams[0], want))}
+        bstep.close()
+        for w in workers.values():
+            w.stop()
+        workers.clear()
+
+        # -- Engine: DistributedBatchBackend over topology A against the
+        # dense local engine, one engine at a time.
+        sampled = [SamplingConfig(seed=100 + i, **SAMPLED_KNOBS) for i in range(ENGINE_BATCH)]
+        serve = dict(max_batch=ENGINE_BATCH, decode_chunk_size=8)
+        topo_e = Topology.from_dict({"w1": {"host": "placeholder", "layers": span(half, n_layers)}})
+        runs = {}
+        for name in ("local", "tcp"):
+            if name == "local":
+                eng = BatchEngine(config, params, gen0.tokenizer, max_seq_len=ENGINE_MAX_SEQ,
+                                  cache_dtype=torch.bfloat16, serve=ServeConfig(**serve),
+                                  device=dev)
+            else:
+                workers.update(_start_workers(torch, config, params, topo_e, ENGINE_MAX_SEQ, dev))
+                estep = DistributedForwardStep(config, None, topo_e, dtype=torch.bfloat16,
+                                               max_seq_len=ENGINE_MAX_SEQ, device=dev,
+                                               params=params)
+                eng = BatchEngine(config, None, gen0.tokenizer, max_seq_len=ENGINE_MAX_SEQ,
+                                  cache_dtype=torch.bfloat16, serve=ServeConfig(**serve),
+                                  backend=DistributedBatchBackend(estep))
+            try:
+                # Warm-up waves of wave 1's shapes (the local engine captures
+                # its decode chunks' graphs), then the counted waves.
+                _wave(eng, ENGINE_TOKENS, warm_messages(), together=True)
+                _wave(eng, ENGINE_TOKENS, warm_messages(), samplings=sampled, together=True)
+                counters = _zero_counters()
+                if name == "tcp":
+                    kinds = _tally_wire(estep)
+                waves = [_wave(eng, ENGINE_TOKENS, together=True),
+                         _wave(eng, ENGINE_TOKENS, samplings=sampled, together=True)]
+                runs[name] = {"waves": waves, "launches": _counts(counters),
+                              "node": eng.snapshot()["node"]}
+                if name == "tcp":
+                    steps = sum(w["decode_steps"] for w in waves)
+                    runs[name]["wire_by_kind"] = kinds
+                    runs[name]["round_trips_per_step"] = kinds["decode"][0] / steps
+                    runs[name]["wire_bytes_per_step"] = kinds["decode"][1] / steps
+            finally:
+                eng.stop()
+                if name == "tcp":
+                    estep.close()
+            if on_card:
+                torch.cuda.empty_cache()
+        equal = [sum(x == y for x, y in zip(a["streams"], b["streams"]))
+                 for a, b in zip(runs["tcp"]["waves"], runs["local"]["waves"])]
+        row["engine"] = {
+            "equal_streams": equal, "node": runs["tcp"]["node"],
+            "wire_by_kind": runs["tcp"]["wire_by_kind"],
+            "round_trips_per_step": runs["tcp"]["round_trips_per_step"],
+            "wire_bytes_per_step": runs["tcp"]["wire_bytes_per_step"],
+            **{f"{n}_{k}": [w[k] for w in runs[n]["waves"]] for n in runs
+               for k in ("decode_ms_per_step", "ttft_p50_s", "batches", "joins", "decode_steps")},
+            "launches_equal": runs["tcp"]["launches"] == runs["local"]["launches"],
+            "launches": {k: v for k, v in runs["tcp"]["launches"].items() if v},
+        }
+    finally:
+        for w in workers.values():
+            w.stop()
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    gates = {
+        "A ids equal the local stream": row["A"]["equal_tokens"] == len(want) == DECODE_TOKENS,
+        "A first-decode logits bitwise": row["A"]["first_decode_logits_bitwise"],
+        "A launches equal the local run's": row["A"]["launches"] == main_path["launches"],
+        "B replica pair equal streams": row["B"]["equal_streams"],
+        "B routed to both members": sorted(map(tuple, row["B"]["served"])) == [
+            ("w1", "w2"), ("w1", "w2b")],
+        "recovery equal stream": row["recovery"]["equal_tokens"] == len(want),
+        "recovery one replay": row["recovery"]["replays"] == 1,
+        "engine streams equal 8/8": equal == [ENGINE_BATCH, ENGINE_BATCH],
+        "engine launches equal": row["engine"]["launches_equal"],
+    }
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"distributed phase gates failed: {failed}")
+    # The launches this phase adds to the kernels line: the TCP runs of A
+    # and of the engine (the local runs are what they are held to).
+    row["launches"] = {name: row["A"]["launches"].get(name, 0)
+                       + runs["tcp"]["launches"].get(name, 0)
+                       for name in ("decode_attention", "chunk_prefill_attention",
+                                    "threefry_noise")}
+    return row
+
+
 # ---------------------------------------------------------------- phase 10-12
 
 
@@ -4219,6 +4539,8 @@ def phase_cli(torch, extra_args=()) -> None:
             )
             row[key] = {"returncode": proc.returncode, "s": time.perf_counter() - t0,
                         "stdout_chars": len(proc.stdout), "stdout": proc.stdout[-200:]}
+            if key == "prompt":
+                local_stdout = proc.stdout
             if proc.returncode != 0 or not proc.stdout:
                 emit(row)
                 raise AssertionError(f"cli {key} failed: {proc.stderr[-2000:]}")
@@ -4232,22 +4554,83 @@ def phase_cli(torch, extra_args=()) -> None:
             [*cli, "--api-batch", "4", "--kv-mode", "paged", "--kv-dtype", "f8", *extra_args], here
         )
         row["api_batch_f8"]["s"] = time.perf_counter() - t0
+        row.update(_cli_tcp(cli, tmp, here, extra_args, local_stdout))
     emit(row)
+
+
+def _cli_tcp(cli: list, tmp: str, here: str, extra_args, local_stdout: str) -> dict:
+    """Cake's master/worker pipeline from the CLI: a ``--mode worker``
+    subprocess serving layer 1 (the master runs layer 0) of a topology file
+    written by the port's writer, a ``--mode master --topology`` prompt
+    whose output must equal the local ``--prompt`` run's, and a ``--api
+    --api-batch 4`` master over the same worker that answers a chat."""
+    from cake_tpu_torch.parallel.topology import Topology
+
+    port = _free_port()
+    path = os.path.join(tmp, "topology.yml")
+    Topology.from_dict({"w1": {"host": f"127.0.0.1:{port}", "description": "chip_smoke worker",
+                               "layers": ["model.layers.1"]}}).save(path)
+    out = {}
+    with tempfile.TemporaryFile(mode="w+") as errs:
+        t0 = time.perf_counter()
+        worker = subprocess.Popen(
+            [*cli, "--mode", "worker", "--name", "w1", "--topology", path, "--address",
+             f"127.0.0.1:{port}", *extra_args], cwd=here, stdout=subprocess.DEVNULL,
+            stderr=errs, text=True)
+        try:
+            deadline = time.monotonic() + 600
+            while True:
+                if worker.poll() is not None or time.monotonic() > deadline:
+                    errs.seek(0)
+                    raise AssertionError(f"cli worker did not come up: {errs.read()[-2000:]}")
+                try:
+                    socket.create_connection(("127.0.0.1", port), timeout=2).close()
+                    break
+                except OSError:
+                    time.sleep(0.5)
+            out["tcp_worker_up_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [*cli, "--mode", "master", "--topology", path, "--prompt", "hi", "-n", "8",
+                 *extra_args], cwd=here, capture_output=True, text=True, timeout=600)
+            out["tcp_prompt"] = {"returncode": proc.returncode, "s": time.perf_counter() - t0,
+                                 "stdout": proc.stdout[-200:],
+                                 "equal_to_local": proc.stdout == local_stdout}
+            if proc.returncode != 0 or proc.stdout != local_stdout:
+                raise AssertionError(f"cli tcp master: {out['tcp_prompt']} "
+                                     f"local {local_stdout[-200:]!r}: {proc.stderr[-2000:]}")
+            t0 = time.perf_counter()
+            out["tcp_api_batch"] = _serve_and_chat(
+                [*cli, "--mode", "master", "--topology", path, "--api-batch", "4", *extra_args],
+                here)
+            out["tcp_api_batch"]["s"] = time.perf_counter() - t0
+        finally:
+            worker.terminate()
+            try:
+                worker.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                worker.kill()
+                worker.wait(timeout=30)
+    return out
 
 
 # ---------------------------------------------------------------- phase 9
 
 
 def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(),
-                   int4_paths=(), f8_paths=(), continuous_path=None) -> dict:
+                   int4_paths=(), f8_paths=(), continuous_path=None, distributed_path=None) -> dict:
     # The generate phase counted the dense kernels, the engine phase the paged
     # ones, the fused phases (generate_fused, engine_fused) the fused ones,
     # the int4 phases (generate_int4, engine_int4) int4_matmul, the f8 phases
     # (generate_f8, engine_f8) the five kernels' launches over an f8 cache;
-    # engine_continuous adds its paged kernels' and noise kernel's launches.
+    # engine_continuous adds its paged kernels' and noise kernel's launches,
+    # distributed its TCP runs' dense kernels' and noise kernel's.
     launches = {**engine_path["launches"], **main_path["launches"]}
-    extra = continuous_path["launches"] if continuous_path else {}
-    for name in ("paged_decode_attention", "paged_chunk_attention"):
+    extra = dict(continuous_path["launches"]) if continuous_path else {}
+    for name, n in (distributed_path or {}).get("launches", {}).items():
+        extra[name] = extra.get(name, 0) + n
+    for name in ("paged_decode_attention", "paged_chunk_attention", "decode_attention",
+                 "chunk_prefill_attention"):
         launches[name] += extra.get(name, 0)
     for name in FUSED_MAIN:
         launches[name] = sum(p["fused_launches"][name] for p in fused_paths)
@@ -4361,6 +4744,8 @@ def main() -> int:
     fused_paths = (phase_generate_fused(torch, main_path), phase_engine_fused(torch, main_path))
     continuous_path = phase_engine_continuous(torch, main_path)
     torch.cuda.empty_cache()
+    distributed_path = phase_distributed(torch, main_path)
+    torch.cuda.empty_cache()
     f8_paths = (phase_generate_f8(torch, main_path), phase_engine_f8(torch, main_path, engine_path))
     int4_path = phase_generate_int4(torch, main_path)
     int4_engine = phase_engine_int4(torch, main_path, int4_path)
@@ -4373,7 +4758,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cli(torch)
     emit(kernel_summary(kernel_rows, main_path, engine_path, fused_paths,
-                        (int4_path, int4_engine), f8_paths, continuous_path))
+                        (int4_path, int4_engine), f8_paths, continuous_path, distributed_path))
     emit({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

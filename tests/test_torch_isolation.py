@@ -1,6 +1,7 @@
 """The port stands alone: ``cake_tpu_torch`` and ``chip_smoke.py`` import
 neither jax nor anything of the JAX package (they keep their own copies of
-the host-side modules they need)."""
+the host-side modules they need), nor PyYAML, which the card's machine
+lacks (the topology reader is the port's own)."""
 
 import re
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "cake_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)|\bcake_tpu\.(?!_torch)|\bcake_tpu\b(?!_torch)\s+import|import\s+cake_tpu\b(?!_torch)", re.M)
+FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+yaml\b|from\s+yaml\b)|\bcake_tpu\.(?!_torch)|\bcake_tpu\b(?!_torch)\s+import|import\s+cake_tpu\b(?!_torch)", re.M)
 
 
 def test_port_files_exist():
@@ -34,8 +35,11 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import cake_tpu_torch.runtime.admission\n"
         "import cake_tpu_torch.models.llama.fused, cake_tpu_torch.ops.fused_norm_matmul\n"
         "import cake_tpu_torch.ops.fused_ingest, cake_tpu_torch.ops.fused_sample_tail\n"
+        "import cake_tpu_torch.runtime.proto, cake_tpu_torch.runtime.client\n"
+        "import cake_tpu_torch.runtime.worker, cake_tpu_torch.runtime.master\n"
+        "import cake_tpu_torch.runtime.router, cake_tpu_torch.parallel.topology\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'cake_tpu' or m.startswith('cake_tpu.'))\n"
+        "             or m == 'cake_tpu' or m.startswith('cake_tpu.') or m == 'yaml')\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -47,6 +51,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
 
 def test_the_pattern_catches_what_it_should():
     for bad in ("import jax\n", "from jax import numpy\n", "from cake_tpu.ops import x\n",
+                "import yaml\n", "    from yaml import safe_load\n",
                 "import cake_tpu\n", "x = cake_tpu.models\n"):
         assert FORBIDDEN.search(bad), bad
     for ok in ("import cake_tpu_torch\n", "from cake_tpu_torch.ops import x\n",
