@@ -1,6 +1,6 @@
 """Safetensors checkpoints: a directory -> the port's stacked param tree.
 
-Port of ``cake_tpu/io/safetensors_io.py`` for the dense families. The file
+Port of ``cake_tpu/io/safetensors_io.py``. The file
 format (8-byte little-endian header length, JSON header, raw tensor bytes)
 is read with numpy's memmap, so only the tensors asked for are touched; BF16
 comes back as a uint16 view and becomes ``torch.bfloat16`` by ``.view``
@@ -18,7 +18,14 @@ compute orientation (no transpose). They load as the port's
 ``QuantWeight``/``Quant4Weight`` leaves, bitwise what ``quantize_params``
 gives; the full-precision weights never exist.
 
-MoE and Phi-3's fused checkpoint tensors are not ported yet (ROADMAP.md).
+MoE checkpoints (Mixtral's ``block_sparse_moe.*``, Qwen2/Qwen3-MoE's
+``mlp.experts.*`` with Qwen2-MoE's shared expert; the layout is read from
+the checkpoint) load the router [in, E] and each expert stack as one
+[E, in, out] tensor a layer (int8 where the checkpoint stores it so); the
+shared expert's gate|up fuses into ``sh_gu``. Phi-3's fused ``qkv_proj``
+and ``gate_up_proj`` are already the fused layout once transposed: they
+load as ``wqkv`` and ``w_gu`` after a check of their widths against the
+config, bitwise the JAX package's split fused again.
 """
 
 from __future__ import annotations
@@ -67,8 +74,44 @@ _GEMMA2_NORM_TEMPLATES: dict[str, tuple[str, bool]] = {
     "ln_post_attn": ("model.layers.{i}.post_attention_layernorm.weight", False),
     "ln_post_mlp": ("model.layers.{i}.post_feedforward_layernorm.weight", False),
 }
+# MoE layers: a router and per-expert SwiGLU weights in place of the dense
+# MLP, stacked [E, in, out] at load; Qwen2-MoE adds an always-on shared
+# expert with a sigmoid gate (Qwen3-MoE has the same names, no shared one).
+_MOE_LAYOUTS: dict[str, dict] = {
+    "mixtral": {
+        "router": "model.layers.{i}.block_sparse_moe.gate.weight",
+        "experts": {
+            "w_gate": "model.layers.{i}.block_sparse_moe.experts.{e}.w1.weight",
+            "w_up": "model.layers.{i}.block_sparse_moe.experts.{e}.w3.weight",
+            "w_down": "model.layers.{i}.block_sparse_moe.experts.{e}.w2.weight",
+        },
+        "shared": {},
+    },
+    "qwen2_moe": {
+        "router": "model.layers.{i}.mlp.gate.weight",
+        "experts": {
+            "w_gate": "model.layers.{i}.mlp.experts.{e}.gate_proj.weight",
+            "w_up": "model.layers.{i}.mlp.experts.{e}.up_proj.weight",
+            "w_down": "model.layers.{i}.mlp.experts.{e}.down_proj.weight",
+        },
+        "shared": {
+            "sh_gate": "model.layers.{i}.mlp.shared_expert.gate_proj.weight",
+            "sh_up": "model.layers.{i}.mlp.shared_expert.up_proj.weight",
+            "sh_down": "model.layers.{i}.mlp.shared_expert.down_proj.weight",
+            "se_gate": "model.layers.{i}.mlp.shared_expert_gate.weight",
+        },
+    },
+}
+# Phi-3's fused projections, [out, in] like every HF linear weight.
+_PHI3_FUSED = {
+    "wqkv": "model.layers.{i}.self_attn.qkv_proj.weight",
+    "w_gu": "model.layers.{i}.mlp.gate_up_proj.weight",
+}
 # Projections that load_params concatenates along the output axis.
-_FUSED = {"wqkv": ("wq", "wk", "wv"), "bqkv": ("bq", "bk", "bv"), "w_gu": ("w_gate", "w_up")}
+_FUSED = {
+    "wqkv": ("wq", "wk", "wv"), "bqkv": ("bq", "bk", "bv"), "w_gu": ("w_gate", "w_up"),
+    "sh_gu": ("sh_gate", "sh_up"),
+}
 
 _NP_DTYPES = {
     "F64": np.float64, "F32": np.float32, "F16": np.float16, "I64": np.int64,
@@ -184,47 +227,103 @@ def _set_layer(stack, i: int, t) -> None:
         stack[i] = t
 
 
-def _layer_templates(reader: SafetensorsReader, config: LlamaConfig) -> dict:
-    first = "model.layers.0."
-    if config.num_local_experts or any(
-        n.startswith(first) and (".experts." in n or "block_sparse_moe" in n)
-        for n in reader.names()
-    ):
-        raise NotImplementedError(
-            "MoE checkpoints are not ported yet (ROADMAP.md queue A, MoE and Phi-3)"
-        )
-    if "model.layers.0.self_attn.qkv_proj.weight" in reader:
-        raise NotImplementedError(
-            "Phi-3 fused checkpoint tensors are not ported yet (ROADMAP.md queue A, MoE and Phi-3)"
-        )
+def _has_tensor(reader: SafetensorsReader, name: str) -> bool:
+    """Present plain or quantized (``.q8``/``.q4``)."""
+    return any(name + suffix in reader for suffix in ("", ".q8", ".q4"))
+
+
+def _layer_templates(reader: SafetensorsReader, config: LlamaConfig, lo: int) -> dict:
+    """The per-layer tensors of layers from ``lo``: stacked-param name ->
+    (HF template, transposed). MoE expert templates carry ``{e}``."""
     templates = dict(_LAYER_TEMPLATES)
     for key, entry in (*_LAYER_BIAS_TEMPLATES.items(), *_QK_NORM_TEMPLATES.items()):
-        if entry[0].format(i=0) in reader:
+        if entry[0].format(i=lo) in reader:
             templates[key] = entry
-    if _GEMMA2_NORM_TEMPLATES["ln_mlp"][0].format(i=0) in reader:
+    if _GEMMA2_NORM_TEMPLATES["ln_mlp"][0].format(i=lo) in reader:
         templates.update(_GEMMA2_NORM_TEMPLATES)
+    layout = next((lay for lay in _MOE_LAYOUTS.values() if lay["router"].format(i=lo) in reader),
+                  None)
+    if layout is None and config.num_local_experts:
+        raise ValueError(f"the config has {config.num_local_experts} experts a layer but the "
+                         f"checkpoint has no router for layer {lo}")
+    if layout is not None:
+        for key, tmpl in layout["experts"].items():
+            templates[key] = (tmpl, True)
+        templates["router"] = (layout["router"], True)
+        # The config decides whether the shared expert exists (0: none); a
+        # config that does not say trusts the checkpoint.
+        se = config.shared_expert_intermediate_size
+        for key, tmpl in layout["shared"].items():
+            if se == 0 or (se is None and not _has_tensor(reader, tmpl.format(i=lo))):
+                continue
+            templates[key] = (tmpl, True)
+    if _has_tensor(reader, _PHI3_FUSED["wqkv"].format(i=lo)):
+        for key in ("wq", "wk", "wv", "w_gate", "w_up"):
+            del templates[key]
+        templates.update({key: (tmpl, True) for key, tmpl in _PHI3_FUSED.items()})
     return templates
+
+
+def _phi3_check(key: str, t, i: int, config: LlamaConfig) -> None:
+    """Phi-3's fused widths against the config's geometry."""
+    width = (t.w if isinstance(t, QUANT_TYPES) else t).shape[-1]
+    hd = config.head_dim
+    if key == "wqkv":
+        want = (config.num_attention_heads + 2 * config.num_key_value_heads) * hd
+        if width != want:
+            raise ValueError(
+                f"layer {i}: fused qkv width {width} does not match the config's geometry "
+                f"q={config.num_attention_heads * hd} + 2*kv={2 * config.num_key_value_heads * hd}"
+                " (config.json and checkpoint disagree)")
+    elif width % 2:
+        raise ValueError(f"layer {i}: fused gate_up width {width} is odd")
+
+
+def _read_layer_leaf(reader, key, templates, parts, i, n_experts, dtype, device, config):
+    """Layer i's tensor for ``key``: fused from its parts, an expert stack
+    [E, ...], or a single weight."""
+    pieces = []
+    for p in parts:
+        tmpl, transpose = templates[p]
+        if "{e}" in tmpl:
+            experts = [read_weight(reader, tmpl.format(i=i, e=e), dtype, device, transpose)
+                       for e in range(n_experts)]
+            if isinstance(experts[0], QUANT_TYPES):
+                pieces.append(type(experts[0])(torch.stack([x.w for x in experts]),
+                                               torch.stack([x.scale for x in experts])))
+            else:
+                pieces.append(torch.stack(experts))
+        else:
+            pieces.append(read_weight(reader, tmpl.format(i=i), dtype, device, transpose))
+    t = pieces[0] if len(pieces) == 1 else concat_out(pieces)
+    if parts == (key,) and key in _PHI3_FUSED:
+        _phi3_check(key, t, i, config)
+    return t
 
 
 def _load_layers(reader: SafetensorsReader, config: LlamaConfig, dtype: torch.dtype, device,
                  lo: int, hi: int) -> dict:
     """Layers [lo, hi) as stacked leaves (index 0 = layer ``lo``)."""
-    templates = _layer_templates(reader, config)
+    templates = _layer_templates(reader, config, lo)
     n = hi - lo
-
-    def parts(key: str) -> tuple[str, ...]:
-        return tuple(p for p in _FUSED.get(key, (key,)) if p in templates)
-
-    keys = [k for k in templates if not any(k in p for p in _FUSED.values())]
-    keys += [fk for fk, ps in _FUSED.items() if ps[0] in templates]
+    n_experts = 0
+    if "router" in templates:
+        while _has_tensor(reader, templates["w_gate"][0].format(i=lo, e=n_experts)):
+            n_experts += 1
+    # Stacked-param name -> the templates it is read from (several: fused
+    # along the output axis). Expert stacks keep gate and up apart.
+    plan: dict[str, tuple[str, ...]] = {}
+    for fk, ps in _FUSED.items():
+        if fk not in templates and ps[0] in templates and not (
+                fk == "w_gu" and "router" in templates):
+            plan[fk] = tuple(p for p in ps if p in templates)
+    fused_parts = {p for ps in plan.values() for p in ps}
+    plan.update({k: (k,) for k in templates if k not in fused_parts})
     layers: dict = {}
-    for key in keys:
+    for key, parts in plan.items():
         for i in range(lo, hi):
-            pieces = [
-                read_weight(reader, templates[p][0].format(i=i), dtype, device, templates[p][1])
-                for p in parts(key)
-            ]
-            t = pieces[0] if len(pieces) == 1 else concat_out(pieces)
+            t = _read_layer_leaf(reader, key, templates, parts, i, n_experts, dtype, device,
+                                 config)
             if key not in layers:
                 layers[key] = _empty_like_stacked(n, t, device)
             _set_layer(layers[key], i - lo, t)
@@ -294,9 +393,13 @@ def hf_tensor_dict(params: dict, config: LlamaConfig, dtype=torch.float32) -> di
     (the inverse of load_params' name mapping). ``dtype`` is the storage
     dtype of plain tensors: float32, float16 or bfloat16. A quantized leaf
     is stored as ``{name}.q8``/``{name}.q4`` and ``{name}.scale``, in
-    compute orientation, its bits unchanged."""
-    if "wqkv" in params["layers"] or "router" in params["layers"]:
-        raise ValueError("hf_tensor_dict takes an unfused dense param tree")
+    compute orientation, its bits unchanged. MoE trees write their family's
+    expert names (Mixtral's, or Qwen2/Qwen3-MoE's), one tensor an expert; a
+    Phi-3 config writes the fused ``qkv_proj`` and ``gate_up_proj`` that
+    Phi-3 checkpoints carry."""
+    layers = params["layers"]
+    if "wqkv" in layers:
+        raise ValueError("hf_tensor_dict takes an unfused param tree")
 
     def np_of(t: torch.Tensor, transpose: bool) -> np.ndarray:
         t = t.detach().to("cpu", dtype)
@@ -322,12 +425,31 @@ def hf_tensor_dict(params: dict, config: LlamaConfig, dtype=torch.float32) -> di
     if not config.tie_word_embeddings:
         emit("lm_head.weight", params["lm_head"], True)
     templates = {**_LAYER_TEMPLATES, **_LAYER_BIAS_TEMPLATES, **_QK_NORM_TEMPLATES}
-    layers = params["layers"]
     if "ln_post_attn" in layers:
         templates.update(_GEMMA2_NORM_TEMPLATES)
+    n = config.num_hidden_layers
+    if "router" in layers:
+        layout = _MOE_LAYOUTS[
+            "qwen2_moe" if config.model_type in ("qwen2_moe", "qwen3_moe") else "mixtral"]
+        for key, tmpl in layout["experts"].items():
+            del templates[key]
+            for i in range(n):
+                stack = layers[key][i]
+                n_e = (stack.w if isinstance(stack, QUANT_TYPES) else stack).shape[0]
+                for e in range(n_e):
+                    emit(tmpl.format(i=i, e=e), stack[e], True)
+        templates.update({k: (t, True) for k, t in layout["shared"].items()})
+        templates["router"] = (layout["router"], True)
+    if config.model_type == "phi3":
+        for key, parts in (("wqkv", ("wq", "wk", "wv")), ("w_gu", ("w_gate", "w_up"))):
+            for i in range(n):
+                emit(_PHI3_FUSED[key].format(i=i), concat_out([layers[p][i] for p in parts]),
+                     True)
+            for p in parts:
+                del templates[p]
     for key, (tmpl, transpose) in templates.items():
         if key in layers:
-            for i in range(config.num_hidden_layers):
+            for i in range(n):
                 emit(tmpl.format(i=i), layers[key][i], transpose)
     return tensors
 
@@ -363,8 +485,9 @@ def save_tiny_checkpoint(
     model_dir: str | Path, params: dict, config: LlamaConfig, dtype=torch.float32
 ) -> None:
     """Write an unfused param tree, plain or quantized (``quantize_params``),
-    as a real safetensors checkpoint with its config.json and weight_map
-    index (test and smoke fixture)."""
+    dense, MoE or Phi-3 (``hf_tensor_dict``'s names), as a real safetensors
+    checkpoint with its config.json and weight_map index (test and smoke
+    fixture)."""
     model_dir = Path(model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
     with open(model_dir / "config.json", "w") as f:

@@ -35,8 +35,11 @@ decode step (split + rope + the one-slot K/V write in one kernel, dense or
 through the block table; Qwen3's q/k-norm trees keep the unfused path) and
 "tail" in ``sampled_decode_loop``.
 
-Tensor parallelism, the 1F1B row window, ragged pipeline stages and MoE
-layers are not ported yet: they raise NotImplementedError.
+MoE layers run through ``block_finish`` (ops/moe.py): a prefill window of
+8 rows or more takes the grouped dispatch, pads included, as in the JAX
+package; a decode step the dense combine. Tensor parallelism (with it the
+MoE capacity dispatch), the 1F1B row window and ragged pipeline stages are
+not ported yet: they raise NotImplementedError.
 """
 
 from __future__ import annotations

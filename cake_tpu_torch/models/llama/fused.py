@@ -22,7 +22,9 @@ those buffers, replays the graph and reads the ids back once. The slot is a
 0-d device tensor that the forward reads on the device (cache writes,
 lengths, rope rows, the ingest kernel's slot) and that each step advances in
 place, so no position is baked into the graph. On the CPU the same loop runs
-over the same buffers, uncaptured.
+over the same buffers, uncaptured. A MoE layer's one-token step takes the
+dense combine, static in shape; the grouped dispatch reads its group sizes
+back to the host and raises under a capture (ops/moe.py).
 
 EOS cannot stop a chunk early; the caller scans the returned ids and drops
 the tail past EOS. Its KV writes sit past the live length, where no read

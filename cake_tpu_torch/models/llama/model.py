@@ -1,10 +1,11 @@
 """Llama-family decoder as plain functions over a dict of tensors.
 
-Port of ``cake_tpu/models/llama/model.py`` for the dense families: Llama,
-Qwen2 (QKV bias), Qwen3 (q/k RMSNorm), Mistral (window, decoupled head_dim)
-and the Gemma family (scaled embeddings, (1+w) norms, GeGLU, score scale and
-soft-caps, per-layer window flags, Gemma-3's dual rope). Sparse MoE layers
-and the rolling window cache raise NotImplementedError (ROADMAP.md).
+Port of ``cake_tpu/models/llama/model.py``: Llama, Qwen2 (QKV bias), Qwen3
+(q/k RMSNorm), Mistral (window, decoupled head_dim), Phi-3, the Gemma family
+(scaled embeddings, (1+w) norms, GeGLU, score scale and soft-caps, per-layer
+window flags, Gemma-3's dual rope) and the sparse-MoE families (Mixtral,
+Qwen2-MoE with its gated shared expert, Qwen3-MoE; ops/moe.py). The rolling
+window cache raises NotImplementedError (ROADMAP.md).
 
 The param tree keeps the JAX package's layout so the two can be compared
 leaf for leaf: linear weights are [in, out] and applied as ``x @ w``, and
@@ -44,14 +45,14 @@ from cake_tpu_torch.ops.decode_attention import decode_attention
 from cake_tpu_torch.ops.flash_attention import flash_attention
 from cake_tpu_torch.ops.fuse import resolve_fusion
 from cake_tpu_torch.ops.fused_norm_matmul import fused_norm_matmul
-from cake_tpu_torch.ops.mlp import swiglu, swiglu_gu_from
+from cake_tpu_torch.ops.mlp import swiglu, swiglu_gu, swiglu_gu_from
+from cake_tpu_torch.ops.moe import moe_swiglu
 from cake_tpu_torch.ops.norm import rms_norm
 from cake_tpu_torch.ops.quant import QUANT_TYPES, Quant4Weight, QuantWeight, qmat
 from cake_tpu_torch.ops.rope import apply_rope, model_rope_tables
 
 Params = dict[str, Any]
 
-_MOE_TODO = "sparse MoE layers are not ported yet (ROADMAP.md queue A, MoE and Phi-3)"
 _ROLLING_TODO = (
     "the rolling window cache is not ported yet (ROADMAP.md queue A, the rolling window cache)"
 )
@@ -64,9 +65,9 @@ def init_params(
     device: torch.device | str = "cpu",
 ) -> Params:
     """Random params drawn from ``generator`` (which must live on ``device``),
-    N(0, fan_in**-0.5) like the JAX package's init; norms start at identity."""
-    if config.num_local_experts:
-        raise NotImplementedError(_MOE_TODO)
+    N(0, fan_in**-0.5) like the JAX package's init; norms start at identity.
+    MoE configs get the router [n, h, E], the expert stacks [n, E, in, out]
+    and, for Qwen2-MoE, the shared expert and its gate [n, h, 1]."""
     h, inter, v = config.hidden_size, config.intermediate_size, config.vocab_size
     hd, n_q, n_kv = config.head_dim, config.num_attention_heads, config.num_key_value_heads
     n = config.num_hidden_layers
@@ -80,17 +81,25 @@ def init_params(
         fill = 0.0 if config.rmsnorm_offset else 1.0
         return torch.full(shape, fill, dtype=dtype, device=device)
 
+    # Attention first, then the MLP: the order the dense trees' seeds draw in.
     layers = {
         "wq": w(n, h, n_q * hd),
         "wk": w(n, h, n_kv * hd),
         "wv": w(n, h, n_kv * hd),
         "wo": w(n, n_q * hd, h),
-        "w_gate": w(n, h, inter),
-        "w_up": w(n, h, inter),
-        "w_down": w(n, inter, h),
-        "ln_attn": norm(n, h),
-        "ln_mlp": norm(n, h),
     }
+    n_e = config.num_local_experts
+    if n_e:
+        e_inter = config.moe_intermediate_size or inter
+        layers.update(router=w(n, h, n_e), w_gate=w(n, n_e, h, e_inter),
+                      w_up=w(n, n_e, h, e_inter), w_down=w(n, n_e, e_inter, h))
+        s_i = config.shared_expert_intermediate_size
+        if s_i:
+            layers.update(sh_gate=w(n, h, s_i), sh_up=w(n, h, s_i), sh_down=w(n, s_i, h),
+                          se_gate=w(n, h, 1))
+    else:
+        layers.update(w_gate=w(n, h, inter), w_up=w(n, h, inter), w_down=w(n, inter, h))
+    layers.update(ln_attn=norm(n, h), ln_mlp=norm(n, h))
     if config.post_block_norms:
         layers["ln_post_attn"] = norm(n, h)
         layers["ln_post_mlp"] = norm(n, h)
@@ -203,9 +212,11 @@ def block_qkv(lp, x, cos, sin, positions, config: LlamaConfig, fusion=None):
 
 def block_finish(lp, x, attn, config: LlamaConfig, fusion=None):
     """Out-projection + residual, rms_2 -> gated MLP + residual. With
-    "norm" and the fused ``w_gu``, rms_2 folds into the gate|up product."""
-    if "router" in lp:
-        raise NotImplementedError(_MOE_TODO)
+    "norm" and the fused ``w_gu``, rms_2 folds into the gate|up product. A
+    layer with a "router" runs the routed experts (ops/moe.py) plus, for
+    Qwen2-MoE, the shared expert scaled by its sigmoid gate; the "norm"
+    fusion never fires there (the router and the experts read rms_2's
+    output)."""
     fusion = resolve_fusion(config) if fusion is None else fusion
     b, chunk, _ = x.shape
     off = config.rmsnorm_offset
@@ -213,7 +224,20 @@ def block_finish(lp, x, attn, config: LlamaConfig, fusion=None):
     if "ln_post_attn" in lp:
         o = rms_norm(o, lp["ln_post_attn"], config.rms_norm_eps, off)
     x = x + o
-    if "w_gu" in lp:
+    if "router" in lp:
+        h = rms_norm(x, lp["ln_mlp"], config.rms_norm_eps, off)
+        mlp = moe_swiglu(
+            h, lp["router"], lp["w_gate"], lp["w_up"], lp["w_down"],
+            config.num_experts_per_tok, norm_topk=config.norm_topk_prob,
+        ).to(x.dtype)
+        if "sh_gu" in lp or "sh_gate" in lp:
+            if "sh_gu" in lp:
+                shared = swiglu_gu(h, lp["sh_gu"], lp["sh_down"])
+            else:
+                shared = swiglu(h, lp["sh_gate"], lp["sh_up"], lp["sh_down"])
+            gate = torch.sigmoid(qmat(h, lp["se_gate"]))
+            mlp = mlp + (shared * gate).to(x.dtype)
+    elif "w_gu" in lp:
         if "norm" in fusion:
             gu = fused_norm_matmul(x, lp["ln_mlp"], lp["w_gu"], eps=config.rms_norm_eps, offset=off)
         else:

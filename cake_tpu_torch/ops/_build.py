@@ -47,7 +47,8 @@ _SIGNATURES = {
     "cake_decode_attention": (
         _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,   # q k v out lengths starts
         _VOID, _VOID,                                # part tickets
-        _INT, _INT, _INT, _INT, _INT, _INT, _INT,    # b n_kv group max_seq hd dtype kv_dtype
+        _INT, _INT, _INT, _INT,                      # b n_kv group heads
+        _INT, _INT, _INT, _INT,                      # max_seq hd dtype kv_dtype
         _FLOAT, _FLOAT, _INT, _INT, _VOID,           # scale softcap n_split z stream
     ),
     "cake_chunk_prefill_attention": (
@@ -62,7 +63,7 @@ _SIGNATURES = {
         _VOID, _VOID, _VOID, _VOID,                  # q k v out
         _VOID, _VOID, _VOID,                         # lengths starts tables
         _VOID, _VOID,                                # part tickets
-        _INT, _INT, _INT, _INT, _INT,                # b n_kv group page_size n_p
+        _INT, _INT, _INT, _INT, _INT, _INT,          # b n_kv group heads page_size n_p
         _LONG, _INT, _INT, _INT,                     # table_stride hd dtype kv_dtype
         _FLOAT, _FLOAT, _INT, _INT, _VOID,           # scale softcap n_split z stream
     ),

@@ -36,10 +36,10 @@ import torch
 
 from cake_tpu_torch.ops import _build
 from cake_tpu_torch.ops.attention import causal_mask, masked_gqa_attention_hm
+from cake_tpu_torch.ops.decode_attention import HEAD_DIM_TODO, HEAD_DIMS
 from cake_tpu_torch.ops.kv_dtype import F8, attention_dtype
 from cake_tpu_torch.ops.launches import count
 
-_HEAD_DIMS = (64, 128, 256)
 
 
 def as_rows(x, b, device, default=0):
@@ -117,10 +117,11 @@ def launch_chunk_kernel(
             q.to(wide), k, v, k_layout, q_starts, lengths, k_starts, window_flag,
             window=window, scale=scale, softcap=softcap,
         ).to(q.dtype)
-    if hd not in _HEAD_DIMS or k.shape[-1] != hd or n_q % n_kv or k.shape != v.shape:
+    if hd not in HEAD_DIMS or k.shape[-1] != hd or n_q % n_kv or k.shape != v.shape:
         raise ValueError(
             f"chunk_prefill_attention: q {tuple(q.shape)} does not fit k/v "
-            f"{tuple(k.shape)}/{tuple(v.shape)} (head_dim must be one of {_HEAD_DIMS})"
+            f"{tuple(k.shape)}/{tuple(v.shape)} (head_dim must be one of {HEAD_DIMS}; "
+            f"{HEAD_DIM_TODO})"
         )
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, t, q.dtype if name == "q" else k.dtype, q.device)

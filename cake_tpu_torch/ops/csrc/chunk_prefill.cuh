@@ -17,6 +17,11 @@
 // FLOPs per (query, key) pair against 4*head_dim bytes per key row read
 // once, so the kernel is bound by the tensor cores' operations.
 //
+// Head dims 64, 96, 128 and 256: every tile loop runs over head_dim / 16
+// k-steps of mma.sync (6 at 96) and head_dim / 8 output n8 tiles, and a row
+// of a shared tile is head_dim + 8 elements (208 bytes at 96 in f16/bf16:
+// 16-byte aligned for ldmatrix, its 8 rows on distinct bank quads).
+//
 // Design (f16, bf16: chunk_kernel_tc): one block per (64 rows, KV head,
 // batch row), 4 warps of 16 rows. A row is a (query, head) pair of the KV
 // head's GQA group, queries outer, so the block covers 64 / group queries
@@ -503,6 +508,7 @@ template <typename T, typename KT, typename Layout>
 static cudaError_t chunk_by_head_dim(int head_dim, const ChunkArgs<Layout>& a) {
   switch (head_dim) {
     case 64: return launch_chunk<T, KT, 64>(a);
+    case 96: return launch_chunk<T, KT, 96>(a);
     case 128: return launch_chunk<T, KT, 128>(a);
     case 256: return launch_chunk<T, KT, 256>(a);
     default: return cudaErrorInvalidValue;

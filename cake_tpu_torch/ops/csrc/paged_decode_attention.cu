@@ -18,12 +18,14 @@
 // q, out: [b, n_q, head_dim] of dtype; k, v: one layer's pool [n_pages + 1,
 // n_kv, page_size, head_dim] of kv_dtype (dtype, or kF8), contiguous. lengths, starts: [b] int32 (window folded
 // into starts); tables: [b, n_p] int32 with row stride table_stride
-// (elements), head_dim contiguous. softcap <= 0 means none. part, tickets,
-// n_split (= ceil(n_p * page_size / DEC_SPLIT)) and z: as cake_decode_attention.
+// (elements), head_dim contiguous. softcap <= 0 means none. heads, part,
+// tickets, n_split (= ceil(n_p * page_size / DEC_SPLIT)) and z: as
+// cake_decode_attention.
 extern "C" int cake_paged_decode_attention(const void* q, const void* k, const void* v,
                                            void* out, const void* lengths, const void* starts,
                                            const void* tables, void* part, void* tickets, int b,
-                                           int n_kv, int group, int page_size, int n_p,
+                                           int n_kv, int group, int heads, int page_size,
+                                           int n_p,
                                            long long table_stride, int head_dim, int dtype,
                                            int kv_dtype, float scale, float softcap,
                                            int n_split, int z, void* stream) {
@@ -33,7 +35,7 @@ extern "C" int cake_paged_decode_attention(const void* q, const void* k, const v
                             static_cast<const int*>(lengths), static_cast<const int*>(starts),
                             PagedLayout{static_cast<const int*>(tables), table_stride, n_p,
                                         n_kv, page_size},
-                            b, n_kv, group, scale, softcap,
+                            b, n_kv, group, heads, scale, softcap,
                             static_cast<float*>(part), static_cast<int*>(tickets), n_split, z,
                             static_cast<cudaStream_t>(stream)};
   return run_decode(dtype, kv_dtype, head_dim, n_p * page_size, a);

@@ -13,8 +13,11 @@ What the design does about it (flash-decoding, ``ops/csrc/decode_attention.cuh``
 a row's live slots ``[start, length)`` (the window folds into ``start``) are
 cut at multiples of :data:`SPLIT` key positions, points that depend on
 nothing but the positions, so a row's bits are the same whatever else shares
-the call. :func:`plan` sizes the grid ``(n_kv, b, z)`` from the shapes alone
-(never from ``lengths``: no host sync, so a CUDA graph can replay it); the
+the call. :func:`plan` sizes the grid ``(n_kv * passes, b, z)`` from the
+shapes alone (never from ``lengths``: no host sync, so a CUDA graph can
+replay it): a GQA group of more query heads than a block takes
+(:func:`max_heads`: 16 at head_dim <= 128, 8 at 256) is cut into passes
+of at most that many heads, each reading the KV head's keys; the
 blocks find their row's live splits on the device and stride over them, and
 each split's block reads its keys once for all query heads of the group
 (eight warps, coalesced vector loads, the warps merged in order; an f8
@@ -42,8 +45,8 @@ from cake_tpu_torch.ops.kv_dtype import F8, attention_dtype
 from cake_tpu_torch.ops.launches import count
 from cake_tpu_torch.ops.tickets import tickets
 
-_HEAD_DIMS = (64, 128, 256)
-_MAX_GROUP = 8
+HEAD_DIMS = (64, 96, 128, 256)
+HEAD_DIM_TODO = "other head dims are not ported (ROADMAP.md queue B item 2)"
 # Geometry shared with csrc/decode_attention.cuh.
 SPLIT = 128  # keys a split covers (DEC_SPLIT); divides 128, so a page holds whole splits
 SMS = 132  # H100 SXM streaming multiprocessors
@@ -55,17 +58,29 @@ class SplitPlan:
     """A decode launch's geometry, from the shapes alone."""
 
     n_split: int  # split slots a row has: ceil(limit / SPLIT)
-    z: int  # the grid's third dimension: blocks a (KV head, row) gets
-    scratch: int  # f32 partials: acc [b, n_kv, n_split, group, head_dim], (m, l) [.., group, 2]
+    z: int  # the grid's third dimension: blocks a (unit, row) gets
+    heads: int  # query heads a block takes; units = n_kv * ceil(group / heads)
+    units: int  # (KV head, pass) pairs: the grid's first dimension
+    scratch: int  # f32 partials: acc [b, units, n_split, heads, head_dim], (m, l) [.., heads, 2]
+
+
+def max_heads(head_dim: int) -> int:
+    """Most query heads a block takes (csrc/decode_attention.cuh
+    DEC_MAX_HEADS): its register tiles of 16 heads fit at head_dim <= 128."""
+    return 16 if head_dim <= 128 else 8
 
 
 def plan(b: int, n_kv: int, group: int, head_dim: int, limit: int, sms: int = SMS) -> SplitPlan:
     """The grid and scratch of a decode call over ``limit`` key slots a row
-    (``max_seq``, or ``n_p * page_size``): enough blocks to offer every SM
-    BLOCKS_PER_SM of them, never more than a row has splits."""
+    (``max_seq``, or ``n_p * page_size``): the group in as few passes as
+    :func:`max_heads` allows, of equal size but the last; enough blocks to
+    offer every SM BLOCKS_PER_SM of them, never more than a row has splits."""
     n_split = max(1, -(-limit // SPLIT))
-    z = max(1, min(n_split, -(-BLOCKS_PER_SM * sms // max(1, b * n_kv))))
-    return SplitPlan(n_split, z, b * n_kv * n_split * group * (head_dim + 2))
+    passes = -(-group // max_heads(head_dim))
+    heads = -(-group // passes)
+    units = n_kv * -(-group // heads)
+    z = max(1, min(n_split, -(-BLOCKS_PER_SM * sms // max(1, b * units))))
+    return SplitPlan(n_split, z, heads, units, b * units * n_split * heads * (head_dim + 2))
 
 
 def live_splits(start: int, length: int, limit: int) -> list[tuple[int, int]]:
@@ -87,13 +102,13 @@ def _sm_count(index: int) -> int:
 def split_launch(q: torch.Tensor, n_kv: int, limit: int):
     """(plan, partials scratch, tickets) of a decode call on q's card. The
     scratch comes from torch.empty (inside a CUDA graph capture, from the
-    graph's pool, which every replay reuses); the tickets (b * n_kv) from
+    graph's pool, which every replay reuses); the tickets (b * units) from
     ops/tickets.py, which never frees a buffer a graph may hold and raises
     where one would be made during a capture."""
     b, _, n_q, hd = q.shape
     p = plan(b, n_kv, n_q // n_kv, hd, limit, _sm_count(q.device.index))
     part = torch.empty(p.scratch, dtype=torch.float32, device=q.device)
-    return p, part, tickets("decode attention", q.device, b * n_kv)
+    return p, part, tickets("decode attention", q.device, b * p.units)
 
 
 def fold_window(starts, lengths, window, window_flag):
@@ -189,13 +204,13 @@ def decode_attention(
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"decode_attention: cache shapes {k_cache.shape} / {v_cache.shape}")
     kb, n_kv, max_seq, khd = k_cache.shape
-    if kb != b or khd != hd or hd not in _HEAD_DIMS or n_q % n_kv:
+    if kb != b or khd != hd or n_q % n_kv:
         raise ValueError(
-            f"decode_attention: q {tuple(q.shape)} does not fit cache {tuple(k_cache.shape)} "
-            f"(head_dim must be one of {_HEAD_DIMS})"
+            f"decode_attention: q {tuple(q.shape)} does not fit cache {tuple(k_cache.shape)}"
         )
-    if n_q // n_kv > _MAX_GROUP:
-        raise ValueError(f"decode_attention: GQA group {n_q // n_kv} > {_MAX_GROUP}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: head_dim {hd} is not one of {HEAD_DIMS}; "
+                         f"{HEAD_DIM_TODO}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(
@@ -210,7 +225,7 @@ def decode_attention(
     err = lib.cake_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         lengths.data_ptr(), starts.data_ptr(), part.data_ptr(), ticket_buf.data_ptr(),
-        b, n_kv, n_q // n_kv, max_seq, hd,
+        b, n_kv, n_q // n_kv, p.heads, max_seq, hd,
         _build.dtype_code(q.dtype), _build.dtype_code(k_cache.dtype),
         float(hd**-0.5 if scale is None else scale),
         float(softcap or 0.0), p.n_split, p.z,

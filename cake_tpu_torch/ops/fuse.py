@@ -3,8 +3,11 @@ projections become one ``wqkv`` [in, (n_q + 2*n_kv) * hd] and gate/up one
 ``w_gu`` [in, 2*inter], concatenated along the output axis, so a layer runs
 one large product where it ran three and two. Each output column is the same
 dot product as before, so numerics do not change; quantized projections
-fuse their weights and scales alike (ops/quant.py). Single-device only (the
-tensor-parallel shard-major order waits for the distributed slice).
+fuse their weights and scales alike (ops/quant.py). MoE layer trees fuse the
+attention projections and the Qwen2-MoE shared expert's gate|up into
+``sh_gu``; the expert stacks keep their [E, in, out] layout for the
+dispatch of ops/moe.py. Single-device only (the tensor-parallel
+shard-major order waits for the distributed slice).
 
 Fusing a tree in memory holds the fused and the unfused projections at once
 until the caller drops the unfused tree; ``io/safetensors_io.load_params``
@@ -32,6 +35,7 @@ from cake_tpu_torch.ops.quant import QUANT_TYPES
 FUSED_QKV = "wqkv"
 FUSED_QKV_BIAS = "bqkv"
 FUSED_GU = "w_gu"
+FUSED_SHARED_GU = "sh_gu"
 
 FUSION_NAMES = ("norm", "ingest", "tail")
 
@@ -90,16 +94,15 @@ def fuse_layer_tree(layers: dict) -> dict:
     """Fuse a stacked layer tree ([n_layers, ...] leaves). Idempotent."""
     if FUSED_QKV in layers:
         return layers
-    if "router" in layers:
-        raise NotImplementedError(
-            "MoE layer trees are not ported yet (ROADMAP.md queue A, MoE and Phi-3)"
-        )
     out = dict(layers)
     if "wq" in out:
         out[FUSED_QKV] = concat_out([out.pop("wq"), out.pop("wk"), out.pop("wv")])
         if "bq" in out:
             out[FUSED_QKV_BIAS] = concat_out([out.pop("bq"), out.pop("bk"), out.pop("bv")])
-    if "w_gate" in out:
+    if "router" in out:
+        if "sh_gate" in out:
+            out[FUSED_SHARED_GU] = concat_out([out.pop("sh_gate"), out.pop("sh_up")])
+    elif "w_gate" in out:
         out[FUSED_GU] = concat_out([out.pop("w_gate"), out.pop("w_up")])
     return out
 

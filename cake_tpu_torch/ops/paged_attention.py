@@ -98,7 +98,7 @@ def paged_decode_attention(
             window=window, scale=scale, softcap=softcap,
         ).to(q.dtype)
     n_kv, page_size, n_p, stride = check_paged_operands(
-        "paged_decode_attention", q, k_pages, v_pages, block_tables, max_group=8
+        "paged_decode_attention", q, k_pages, v_pages, block_tables
     )
     if not q.is_contiguous() or q.data_ptr() % 16:
         raise ValueError("paged_decode_attention: q must be contiguous and 16-byte aligned")
@@ -112,7 +112,7 @@ def paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
         lengths.data_ptr(), starts.data_ptr(), block_tables.data_ptr(),
         part.data_ptr(), tickets.data_ptr(),
-        b, n_kv, n_q // n_kv, page_size, n_p, stride, hd,
+        b, n_kv, n_q // n_kv, p.heads, page_size, n_p, stride, hd,
         _build.dtype_code(q.dtype), _build.dtype_code(k_pages.dtype),
         float(hd**-0.5 if scale is None else scale),
         float(softcap or 0.0), p.n_split, p.z,

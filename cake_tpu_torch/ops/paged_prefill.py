@@ -36,10 +36,10 @@ import torch
 from cake_tpu_torch.models.llama.paged_cache import gather_pages
 from cake_tpu_torch.ops import _build
 from cake_tpu_torch.ops.chunk_prefill import as_rows, chunk_masked
+from cake_tpu_torch.ops.decode_attention import HEAD_DIM_TODO, HEAD_DIMS
 from cake_tpu_torch.ops.kv_dtype import F8, attention_dtype
 from cake_tpu_torch.ops.launches import count
 
-_HEAD_DIMS = (64, 128, 256)
 _PAGE_MULTIPLE = 128
 
 
@@ -49,7 +49,7 @@ def paged_kernel_supported(page_size: int) -> bool:
     return page_size > 0 and page_size % _PAGE_MULTIPLE == 0
 
 
-def check_paged_operands(name, q, k_pages, v_pages, block_tables, max_group=None):
+def check_paged_operands(name, q, k_pages, v_pages, block_tables):
     """Validate what the paged kernels take, for q already in the dtype
     they compute in (``ops/kv_dtype.attention_dtype``); returns (n_kv,
     page_size, n_p, table row stride). Raises ValueError for anything the
@@ -61,13 +61,11 @@ def check_paged_operands(name, q, k_pages, v_pages, block_tables, max_group=None
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"{name}: pool shapes {tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
     _, n_kv, page_size, khd = k_pages.shape
-    if khd != hd or hd not in _HEAD_DIMS or n_q % n_kv:
+    if khd != hd or hd not in HEAD_DIMS or n_q % n_kv:
         raise ValueError(
             f"{name}: q {tuple(q.shape)} does not fit pool {tuple(k_pages.shape)} "
-            f"(head_dim must be one of {_HEAD_DIMS})"
+            f"(head_dim must be one of {HEAD_DIMS}; {HEAD_DIM_TODO})"
         )
-    if max_group is not None and n_q // n_kv > max_group:
-        raise ValueError(f"{name}: GQA group {n_q // n_kv} > {max_group}")
     if not paged_kernel_supported(page_size):
         raise ValueError(
             f"{name}: page_size {page_size} is not a multiple of {_PAGE_MULTIPLE}"

@@ -34,8 +34,13 @@ scale and round-half-to-even (``torch.round``, as ``jnp.round``). Stacked
 leaves are quantized one layer slice at a time into preallocated outputs,
 so a full-depth model needs one layer's f32 temporary, not the stack's.
 
-Not ported (ROADMAP.md): the native-s4 representation
-(``QuantS4Weight``, ``CAKE_INT4_REPR=s4``) and the MoE mixed int4/int8 mode.
+MoE trees take the JAX package's mixed mode: the expert stacks go int8
+under both ``int8`` and ``int4`` (ops/moe.py reads their per-expert
+[E, 1, out] int8 scales), the shared expert goes with the mode, and the
+router and the shared expert's gate stay at full precision.
+
+Not ported (ROADMAP.md): the native-s4 representation (``QuantS4Weight``,
+``CAKE_INT4_REPR=s4``).
 """
 
 from __future__ import annotations
@@ -167,10 +172,14 @@ def qmat(x: torch.Tensor, w) -> torch.Tensor:
 
 
 # Linear layer weights to quantize (the embedding is a gather and the norms
-# are not products; both stay full precision). The fused projections
-# quantize like their parts: scales are per output column, so quantization
-# commutes with the output-axis concatenation of ops/fuse.py.
-_QUANT_LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "wqkv", "w_gu")
+# are not products; both stay full precision; so do the MoE router and the
+# shared expert's gate). The fused projections quantize like their parts:
+# scales are per output column, so quantization commutes with the
+# output-axis concatenation of ops/fuse.py.
+_QUANT_LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                     "sh_gate", "sh_up", "sh_down", "wqkv", "w_gu", "sh_gu")
+# MoE expert stacks: int8 under both modes.
+_MOE_EXPERT_KEYS = ("w_gate", "w_up", "w_down")
 
 
 def _quantize_one(w: torch.Tensor, mode: str):
@@ -205,11 +214,16 @@ def quantize_layer_tree(layers: dict, mode: str = "int8") -> dict:
             f"layer tree is already quantized ({tree_quantization(layers)}); re-quantizing "
             "would corrupt it"
         )
-    if "router" in layers:
-        raise NotImplementedError(
-            "MoE layer trees are not ported yet (ROADMAP.md queue A, MoE and Phi-3)"
-        )
-    return {k: _quantize_one(v, mode) if k in _QUANT_LAYER_KEYS else v for k, v in layers.items()}
+    moe = "router" in layers
+    out = {}
+    for k, v in layers.items():
+        if k not in _QUANT_LAYER_KEYS:
+            out[k] = v
+        elif moe and k in _MOE_EXPERT_KEYS:
+            out[k] = quantize_weight(v)
+        else:
+            out[k] = _quantize_one(v, mode)
+    return out
 
 
 def quantize_params(params: dict, mode: str = "int8") -> dict:

@@ -219,14 +219,34 @@ nonzero exit and no final result line:
  13. generate_int8  the same weights in int8, 16 greedy tokens: ms/token
                and device ms (no kernel of its own: each product converts
                the weight, multiplies and scales, three ops).
- 14. cli       ``python -m cake_tpu_torch.cli`` on a small checkpoint written
+ 14. shapes    the attention kernels at Phi-3-mini's head dim 96 (the
+               generator's and the engine's operands, bf16 and f8), the
+               decode kernels at Qwen3-235B-A22B's group of 16 and at groups
+               12 and 32, the ingest at head dim 96 (bitwise): each within
+               TOL of its plain version, timed beside its bound and SDPA.
+     moe       Mixtral-8x7B's widths at 8 layers (random bf16 weights): the
+               generator per step and in 8-token graph chunks (equal ids;
+               the prefill's rows an expert), logits against the plain path
+               (MoE routing teacher-forced, the flips counted), the paged
+               engine's cold wave equal to the dense engine's 8/8, a
+               ``--fusion all`` wave, ``--quantize int4`` (expert stacks
+               int8; int4_matmul launches as the attention products and the
+               head imply).
+     phi3      Phi-3-mini-4k at full size: a 4-layer checkpoint of fused
+               qkv_proj / gate_up_proj read back bitwise, the generator
+               over a 2300-token prompt (the 2047-key window masks), per
+               step and in graph chunks (equal ids), logits against the
+               plain path, the paged engine under none, ingest,tail (equal
+               8/8) and all, and the dense engine.
+ 15. cli       ``python -m cake_tpu_torch.cli`` on a small checkpoint written
                by the port's save_tiny_checkpoint: one prompt, the same with
                ``--fusion all --decode-chunk 4``, with ``--quantize int4``,
                a ``.q4`` checkpoint (save_tiny_checkpoint over an int4 tree)
-               with no flag, ``--kv-dtype f8``, then a ``--api-batch 4
+               with no flag, ``--kv-dtype f8``, a tiny Mixtral with
+               ``--fusion all --decode-chunk 4``, then a ``--api-batch 4
                --kv-mode paged`` server that answers a chat, and the same
                with ``--kv-dtype f8``.
- 15.           ``{"kernels": [...]}``: one entry per kernel with its launches
+ 16.           ``{"kernels": [...]}``: one entry per kernel with its launches
                on the main path (the fused and int4 phases for their
                kernels) and its timings at the main path's shapes; the
                redesigned kernels also carry "redesigned" (the PR) and the
@@ -235,8 +255,11 @@ nonzero exit and no final result line:
                kernels that read or write the cache ("<name>_f8", launches
                over f8 in the f8 phases), then threefry_noise (launches in
                engine_fused's sampled waves; "counterpart" says that the
-               JAX package has no Pallas kernel for it).
- 16.           ``{"ok": true, "device": {...}}`` as the last line.
+               JAX package has no Pallas kernel for it). The attention
+               kernels and the ingest carry "shapes": their cases of phase
+               14, each with the launches the model phase of its shape made
+               (phi3; None for the shapes no phase serves).
+ 17.           ``{"ok": true, "device": {...}}`` as the last line.
 
 On the card every decode chunk (the generator's ``decode_chunk`` and both
 engines' decode) replays a captured CUDA graph. A wrapper's launch counter
@@ -521,7 +544,8 @@ def _kv_case(torch, kv) -> tuple:
     return kv, 1, {"kv_dtype": "f8", "library": F8_LIBRARY}
 
 
-def _decode_case(torch, dev, g, case, lens, starts, kw, max_seq=MAX_SEQ, cold=False, kv=None):
+def _decode_case(torch, dev, g, case, lens, starts, kw, max_seq=MAX_SEQ, cold=False, kv=None,
+                 heads=None):
     """One decode_attention case over a [b, n_kv, max_seq, hd] cache (bf16,
     or ``kv``: f8); a cold case rotates over copies of its cache, one per
     call."""
@@ -529,14 +553,15 @@ def _decode_case(torch, dev, g, case, lens, starts, kw, max_seq=MAX_SEQ, cold=Fa
         decode_attention, decode_attention_plain, fold_window,
     )
 
+    n_q, n_kv, hd = heads or (N_Q, N_KV, HD)
     bf = torch.bfloat16
     kv_dt, esize, extra = _kv_case(torch, kv)
     b, kw = len(lens), dict(kw)
     live0 = sum(max(0, ln - s0) for ln, s0 in zip(lens, starts or [0] * b))
-    n_copy = copies_for(live0 * N_KV * HD * 2 * esize) if cold else 1
-    q = torch.randn(b, 1, N_Q, HD, generator=g, device=dev, dtype=bf)
-    k = torch.randn(b * n_copy, N_KV, max_seq, HD, generator=g, device=dev, dtype=bf).to(kv_dt)
-    v = torch.randn(b * n_copy, N_KV, max_seq, HD, generator=g, device=dev, dtype=bf).to(kv_dt)
+    n_copy = copies_for(live0 * n_kv * hd * 2 * esize) if cold else 1
+    q = torch.randn(b, 1, n_q, hd, generator=g, device=dev, dtype=bf)
+    k = torch.randn(b * n_copy, n_kv, max_seq, hd, generator=g, device=dev, dtype=bf).to(kv_dt)
+    v = torch.randn(b * n_copy, n_kv, max_seq, hd, generator=g, device=dev, dtype=bf).to(kv_dt)
     kvs = [(k[c * b : (c + 1) * b], v[c * b : (c + 1) * b]) for c in range(n_copy)]
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
@@ -550,8 +575,8 @@ def _decode_case(torch, dev, g, case, lens, starts, kw, max_seq=MAX_SEQ, cold=Fa
     st0 = torch.zeros_like(lengths) if st is None else st
     eff = fold_window(st0, lengths, kw.get("window"), window_flag)
     live = int((lengths - eff).clamp(min=0).sum().item())
-    nbytes = 2 * q.numel() * 2 + live * N_KV * HD * 2 * esize
-    flops = 4.0 * live * N_Q * HD
+    nbytes = 2 * q.numel() * 2 + live * n_kv * hd * 2 * esize
+    flops = 4.0 * live * n_q * hd
     library_ms = None
     if "softcap" not in kw:
         kpos = torch.arange(max_seq, device=dev)
@@ -588,19 +613,20 @@ def decode_cases(torch, dev):
 
 
 def _chunk_case(torch, dev, g, case, chunk, q_starts, k_starts, kw, max_seq=MAX_SEQ,
-                lens=None, kv=None):
+                lens=None, kv=None, heads=None):
     """One chunk_prefill_attention case over a [b, n_kv, max_seq, hd] cache
     (bf16, or ``kv``: f8); ``lens`` defaults to each row's chunk end."""
     from cake_tpu_torch.ops.chunk_prefill import (
         chunk_prefill_attention, chunk_prefill_attention_plain,
     )
 
+    n_q, n_kv, hd = heads or (N_Q, N_KV, HD)
     bf = torch.bfloat16
     kv_dt, esize, extra = _kv_case(torch, kv)
     b, kw = len(q_starts), dict(kw)
-    q = torch.randn(b, chunk, N_Q, HD, generator=g, device=dev, dtype=bf)
-    k = torch.randn(b, N_KV, max_seq, HD, generator=g, device=dev, dtype=bf).to(kv_dt)
-    v = torch.randn(b, N_KV, max_seq, HD, generator=g, device=dev, dtype=bf).to(kv_dt)
+    q = torch.randn(b, chunk, n_q, hd, generator=g, device=dev, dtype=bf)
+    k = torch.randn(b, n_kv, max_seq, hd, generator=g, device=dev, dtype=bf).to(kv_dt)
+    v = torch.randn(b, n_kv, max_seq, hd, generator=g, device=dev, dtype=bf).to(kv_dt)
     qs = torch.tensor(q_starts, dtype=torch.int32, device=dev)
     lengths = qs + chunk if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
     ks = None if k_starts is None else torch.tensor(k_starts, dtype=torch.int32, device=dev)
@@ -618,8 +644,8 @@ def _chunk_case(torch, dev, g, case, chunk, q_starts, k_starts, kw, max_seq=MAX_
         mask &= kpos > qpos[:, :, None] - kw["window"]
     pairs = int(mask.sum().item())
     keys = int(mask.any(dim=1).sum().item())
-    nbytes = 2 * q.numel() * 2 + keys * N_KV * HD * 2 * esize
-    flops = 4.0 * pairs * N_Q * HD
+    nbytes = 2 * q.numel() * 2 + keys * n_kv * hd * 2 * esize
+    flops = 4.0 * pairs * n_q * hd
     qh, kw_, vw = q.transpose(1, 2), k.to(bf), v.to(bf)  # no PyTorch call reads f8
     library_ms = cuda_ms(torch, lambda: _sdpa(torch, qh, kw_, vw, mask[:, None], kw.get("scale")),
                          5)
@@ -689,11 +715,12 @@ def warm_messages():
     return engine_messages(system=SYSTEM_PROMPT[::-1])
 
 
-def _paged_pool(torch, dev, g, seed, n_rows, n_p, kv=None):
+def _paged_pool(torch, dev, g, seed, n_rows, n_p, kv=None, heads=None):
     """A bf16 (or ``kv``: f8) pool of n_rows * n_p pages (+ the write sink)
     and block tables [n_rows, n_p] naming them in a shuffled order."""
+    _, n_kv, hd = heads or (N_Q, N_KV, HD)
     n_pages = n_rows * n_p
-    shape = (n_pages + 1, N_KV, ENGINE_PAGE, HD)
+    shape = (n_pages + 1, n_kv, ENGINE_PAGE, hd)
     kv_dt = kv or torch.bfloat16
     k = torch.randn(*shape, generator=g, device=dev, dtype=torch.bfloat16).to(kv_dt)
     v = torch.randn(*shape, generator=g, device=dev, dtype=torch.bfloat16).to(kv_dt)
@@ -707,7 +734,7 @@ def _table_bytes(starts, lengths) -> int:
 
 
 def _paged_decode_case(torch, dev, g, seed, case, lens, starts, npp, cold=False,
-                       unmapped=None, kv=None):
+                       unmapped=None, kv=None, heads=None):
     """One paged_decode_attention case over tables of ``npp`` pages a row
     (a bf16 pool, or ``kv``: f8). A cold case's pool holds disjoint page
     sets, one block table each, and each call reads the next set.
@@ -717,15 +744,16 @@ def _paged_decode_case(torch, dev, g, seed, case, lens, starts, npp, cold=False,
         paged_decode_attention, paged_decode_attention_plain,
     )
 
+    n_q, n_kv, hd = heads or (N_Q, N_KV, HD)
     b = len(lens)
     kv_dt, esize, extra = _kv_case(torch, kv)
     live = sum(max(0, ln - s0) for s0, ln in zip(starts, lens))
-    n_copy = copies_for(live * N_KV * HD * 2 * esize) if cold else 1
-    k, v, all_tables = _paged_pool(torch, dev, g, seed, b * n_copy, npp, kv)
+    n_copy = copies_for(live * n_kv * hd * 2 * esize) if cold else 1
+    k, v, all_tables = _paged_pool(torch, dev, g, seed, b * n_copy, npp, kv, heads)
     tables = [all_tables[c * b : (c + 1) * b] for c in range(n_copy)]
     if unmapped is not None:
         tables[0][unmapped] = -1
-    q = torch.randn(b, 1, N_Q, HD, generator=g, device=dev, dtype=torch.bfloat16)
+    q = torch.randn(b, 1, n_q, hd, generator=g, device=dev, dtype=torch.bfloat16)
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
     runs = [lambda t=t: paged_decode_attention(q, k, v, lengths, t, st) for t in tables]
@@ -733,8 +761,8 @@ def _paged_decode_case(torch, dev, g, seed, case, lens, starts, npp, cold=False,
               for t in tables]
     out, ref = runs[0](), plains[0]()
     torch.cuda.synchronize()
-    nbytes = 2 * q.numel() * 2 + live * N_KV * HD * 2 * esize + _table_bytes(starts, lens)
-    flops = 4.0 * live * N_Q * HD
+    nbytes = 2 * q.numel() * 2 + live * n_kv * hd * 2 * esize + _table_bytes(starts, lens)
+    flops = 4.0 * live * n_q * hd
     # The yardstick reads dense views gathered here (widened to bf16: no
     # PyTorch call reads f8), outside the timing.
     views = [(gather_pages(k, t).to(torch.bfloat16), gather_pages(v, t).to(torch.bfloat16))
@@ -849,7 +877,7 @@ def f8_bits(torch, dev, g, seed, decode: dict, chunk: dict) -> dict:
 
 
 def _paged_chunk_case(torch, dev, g, seed, case, chunk, q_starts, lens, k_starts, npp,
-                      kv=None):
+                      kv=None, heads=None):
     """One paged_chunk_attention case over tables of ``npp`` pages a row (a
     bf16 pool, or ``kv``: f8)."""
     from cake_tpu_torch.models.llama.paged_cache import gather_pages
@@ -857,10 +885,11 @@ def _paged_chunk_case(torch, dev, g, seed, case, chunk, q_starts, lens, k_starts
         paged_chunk_attention, paged_chunk_attention_plain,
     )
 
+    n_q, n_kv, hd = heads or (N_Q, N_KV, HD)
     b = len(lens)
     kv_dt, esize, extra = _kv_case(torch, kv)
-    k, v, tables = _paged_pool(torch, dev, g, seed, b, npp, kv)
-    q = torch.randn(b, chunk, N_Q, HD, generator=g, device=dev, dtype=torch.bfloat16)
+    k, v, tables = _paged_pool(torch, dev, g, seed, b, npp, kv, heads)
+    q = torch.randn(b, chunk, n_q, hd, generator=g, device=dev, dtype=torch.bfloat16)
     qs = torch.tensor(q_starts, dtype=torch.int32, device=dev)
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     ks = torch.tensor(k_starts, dtype=torch.int32, device=dev)
@@ -875,8 +904,8 @@ def _paged_chunk_case(torch, dev, g, seed, case, chunk, q_starts, lens, k_starts
     mask = (kpos <= qpos[:, :, None]) & (kpos >= ks[:, None, None]) & (kpos < lengths[:, None, None])
     pairs = int(mask.sum().item())
     keys = int(mask.any(dim=1).sum().item())
-    nbytes = 2 * q.numel() * 2 + keys * N_KV * HD * 2 * esize + _table_bytes(k_starts, lens)
-    flops = 4.0 * pairs * N_Q * HD
+    nbytes = 2 * q.numel() * 2 + keys * n_kv * hd * 2 * esize + _table_bytes(k_starts, lens)
+    flops = 4.0 * pairs * n_q * hd
     qh = q.transpose(1, 2)
     library_ms = cuda_ms(torch, lambda: _sdpa(torch, qh, dk, dv, mask[:, None]), 5)
     del dk, dv
@@ -989,7 +1018,7 @@ def norm_matmul_bits(torch, dev, sites=NORM_SITES) -> dict:
     return row
 
 
-def _ingest_case(torch, dev, g, case, b, slot, paged, unmapped=None, kv=None):
+def _ingest_case(torch, dev, g, case, b, slot, paged, unmapped=None, kv=None, heads=None):
     """One fused_qkv_ingest case at Llama-3-8B heads: the kernel and the
     plain version each write their own copy of the cache (bf16, or ``kv``:
     f8, with four k and two v values of row 0 past +-464, which must come
@@ -1003,25 +1032,26 @@ def _ingest_case(torch, dev, g, case, b, slot, paged, unmapped=None, kv=None):
     from cake_tpu_torch.ops.kv_dtype import kv_view
     from cake_tpu_torch.ops.rope import apply_rope
 
+    n_q, n_kv, hd = heads or (N_Q, N_KV, HD)
     bf = torch.bfloat16
     kv_dt, esize, extra = _kv_case(torch, kv)
     n_p = ENGINE_MAX_SEQ // ENGINE_PAGE
-    qkv = torch.randn(b, 1, (N_Q + 2 * N_KV) * HD, generator=g, device=dev, dtype=bf)
-    cos = torch.randn(b, 1, HD // 2, generator=g, device=dev)
-    sin = torch.randn(b, 1, HD // 2, generator=g, device=dev)
+    qkv = torch.randn(b, 1, (n_q + 2 * n_kv) * hd, generator=g, device=dev, dtype=bf)
+    cos = torch.randn(b, 1, hd // 2, generator=g, device=dev)
+    sin = torch.randn(b, 1, hd // 2, generator=g, device=dev)
     if kv is not None:  # row 0: four k values and two v values past +-464 (rope them as they are)
-        qkv[0, 0, N_Q * HD : N_Q * HD + 4] = torch.tensor([470.0, -470.0, 1000.0, -2000.0])
-        qkv[0, 0, (N_Q + N_KV) * HD : (N_Q + N_KV) * HD + 2] = torch.tensor([500.0, -465.5])
+        qkv[0, 0, n_q * hd : n_q * hd + 4] = torch.tensor([470.0, -470.0, 1000.0, -2000.0])
+        qkv[0, 0, (n_q + n_kv) * hd : (n_q + n_kv) * hd + 2] = torch.tensor([500.0, -465.5])
         cos[0, 0, :4], sin[0, 0, :4] = 1.0, 0.0
     tables = None
     if paged:
-        k0, v0, tables = _paged_pool(torch, dev, g, 40 + b, b, n_p, kv)
+        k0, v0, tables = _paged_pool(torch, dev, g, 40 + b, b, n_p, kv, heads)
         if unmapped is not None:
             tables[unmapped] = -1
     else:
-        k0 = torch.randn(b, N_KV, ENGINE_MAX_SEQ, HD, generator=g, device=dev, dtype=bf).to(kv_dt)
-        v0 = torch.randn(b, N_KV, ENGINE_MAX_SEQ, HD, generator=g, device=dev, dtype=bf).to(kv_dt)
-    kw = dict(n_q=N_Q, n_kv=N_KV, block_tables=tables)
+        k0 = torch.randn(b, n_kv, ENGINE_MAX_SEQ, hd, generator=g, device=dev, dtype=bf).to(kv_dt)
+        v0 = torch.randn(b, n_kv, ENGINE_MAX_SEQ, hd, generator=g, device=dev, dtype=bf).to(kv_dt)
+    kw = dict(n_q=n_q, n_kv=n_kv, block_tables=tables)
     k1, v1, k2, v2 = k0.clone(), v0.clone(), k0.clone(), v0.clone()
     at = torch.full((), slot, dtype=torch.int64, device=dev)  # read by the kernel on the card
     q1 = fused_qkv_ingest(qkv, cos, sin, at, k1, v1, **kw)
@@ -1043,10 +1073,10 @@ def _ingest_case(torch, dev, g, case, b, slot, paged, unmapped=None, kv=None):
     plan = write_plan(slot, 1, tables, k0.shape[0] - 1, ENGINE_PAGE) if paged else None
 
     def unfused():
-        qw, kw_ = N_Q * HD, N_KV * HD
-        q = apply_rope(qkv[..., :qw].reshape(b, 1, N_Q, HD), cos, sin, None)
-        k = apply_rope(qkv[..., qw : qw + kw_].reshape(b, 1, N_KV, HD), cos, sin, None)
-        v = qkv[..., qw + kw_ :].reshape(b, 1, N_KV, HD)
+        qw, kw_ = n_q * hd, n_kv * hd
+        q = apply_rope(qkv[..., :qw].reshape(b, 1, n_q, hd), cos, sin, None)
+        k = apply_rope(qkv[..., qw : qw + kw_].reshape(b, 1, n_kv, hd), cos, sin, None)
+        v = qkv[..., qw + kw_ :].reshape(b, 1, n_kv, hd)
         if paged:
             write_pages(k2, v2, k, v, plan)
         else:
@@ -1054,9 +1084,9 @@ def _ingest_case(torch, dev, g, case, b, slot, paged, unmapped=None, kv=None):
         return q
 
     n_written = 0 if paged and slot // ENGINE_PAGE >= n_p else b - (unmapped is not None)
-    nbytes = (b * (N_Q + 2 * N_KV) * HD * 2 + 2 * b * HD // 2 * 4 + b * N_Q * HD * 2
-              + n_written * 2 * N_KV * HD * esize + (4 * b if paged else 0))
-    flops = 6.0 * b * (N_Q + N_KV) * HD // 2
+    nbytes = (b * (n_q + 2 * n_kv) * hd * 2 + 2 * b * hd // 2 * 4 + b * n_q * hd * 2
+              + n_written * 2 * n_kv * hd * esize + (4 * b if paged else 0))
+    flops = 6.0 * b * (n_q + n_kv) * hd // 2
     run = lambda: fused_qkv_ingest(qkv, cos, sin, at, k1, v1, **kw)  # noqa: E731
     if kv is not None:  # the f8 case's yardstick: the same unfused step (narrow) into f8
         extra["library"] = "the unfused composition into the f8 cache"
@@ -1559,45 +1589,86 @@ def _plain_attention(M):
         yield
 
 
+@contextlib.contextmanager
+def _routing(routes: list, record: bool):
+    """MoE routing of a model check: record each router call's experts, or
+    make the reference run take the recorded ones. The experts are a
+    discrete choice: a router logit the attention kernels move by a bf16
+    rounding can pick another expert for a token, so the reference runs
+    the kernels' choices and the flips its own logits would make are
+    counted (yielded as [count]), not compared."""
+    from unittest import mock
+
+    from cake_tpu_torch.ops import moe
+
+    select = moe.route_topk_select
+    flips = [0]
+
+    def recorded(logits, top_k, norm_topk=True):
+        topv, topi = select(logits, top_k, norm_topk)
+        routes.append(topi)
+        return topv, topi
+
+    def replayed(logits, top_k, norm_topk=True):
+        topi = routes.pop(0)
+        flips[0] += int((select(logits, top_k, norm_topk)[1] != topi).any(-1).sum().item())
+        topv = logits.float().softmax(-1).gather(-1, topi)
+        if norm_topk:
+            topv = topv / topv.sum(-1, keepdim=True)
+        return topv, topi
+
+    with mock.patch.object(moe, "route_topk_select", recorded if record else replayed):
+        yield flips
+
+
 def _full_model_check(torch, M, config, params, dev, phase: str = "full_model_check",
-                      cache_dtype=None) -> dict:
+                      cache_dtype=None, chunks=(48, 32)) -> dict:
     """Full-width logits through the kernels against the same forward with
     the plain attention and int4 versions and, for a fused config, unfused
     (the composition each fused plain version is), on a short input
-    (prefill at 0, a continuation chunk, two decode steps), over a bf16
-    cache or one of ``cache_dtype``."""
+    (``chunks``: a prefill at 0 and continuation chunks, then two decode
+    steps), over a bf16 cache or one of ``cache_dtype``."""
     from cake_tpu_torch.models.llama.cache import init_cache
     from cake_tpu_torch.ops.rope import model_rope_tables
 
-    rope = model_rope_tables(config, 256, dev)
+    total = sum(chunks)
+    max_seq = max(256, -(-(total + 2) // 256) * 256)
+    rope = model_rope_tables(config, max_seq, dev)
     g = torch.Generator(device="cpu").manual_seed(5)
-    first = torch.randint(0, config.vocab_size, (1, 48), generator=g).to(dev)
-    cont = torch.randint(0, config.vocab_size, (1, 32), generator=g).to(dev)
+    inputs = [torch.randint(0, config.vocab_size, (1, n), generator=g).to(dev) for n in chunks]
 
     def run():
-        kv = init_cache(config.num_hidden_layers, 1, 256, config.num_key_value_heads,
+        kv = init_cache(config.num_hidden_layers, 1, max_seq, config.num_key_value_heads,
                         config.head_dim, cache_dtype or torch.bfloat16, dev)
         outs = []
+        pos = 0
         with torch.inference_mode():
-            logits, kv = M.forward(params, first, kv, 0, 48, config, rope=rope)
-            outs.append(logits)
-            logits, kv = M.forward(params, cont, kv, 48, 32, config, cached_prefill=True, rope=rope)
-            outs.append(logits)
-            for pos in (80, 81):
+            for toks in inputs:
+                n = toks.shape[1]
+                logits, kv = M.forward(params, toks, kv, pos, n, config, cached_prefill=pos > 0,
+                                       rope=rope)
+                outs.append(logits)
+                pos += n
+            for _ in range(2):
                 nxt = logits.argmax(-1)[:, None]
                 logits, kv = M.forward(params, nxt, kv, pos, 1, config, rope=rope)
                 outs.append(logits)
+                pos += 1
         return torch.stack(outs)
 
-    got = run()
+    routes: list = []
+    with _routing(routes, record=True):
+        got = run()
     config = dataclasses.replace(config, fusion_impl="none")
-    with _plain_attention(M):
+    with _plain_attention(M), _routing(routes, record=False) as flips:
         want = run()
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
     cos = torch.nn.functional.cosine_similarity(got.flatten(1), want.flatten(1), dim=-1).min().item()
     row = {"phase": phase, "max_abs_err": err, "ref_max_abs": scale,
            "min_cosine": cos, "tol_rel": 0.05, "tol_cosine": 0.999}
+    if config.num_local_experts:
+        row["routing_flips"] = flips[0]
     emit(row)
     if not (torch.isfinite(got).all().item() and err <= 0.05 * scale and cos >= 0.999):
         raise AssertionError(f"full-model logits: {row}")
@@ -2591,18 +2662,20 @@ def step_recorder(step_cls):
 
 
 # int4_matmul calls a forward makes: wqkv, wo, w_gu, w_down in each layer,
-# and lm_head once (the last position's rows).
-def _int4_per_forward(n_layers: int) -> int:
-    return 4 * n_layers + 1
+# and lm_head once (the last position's rows); a MoE layer (Mixtral) runs
+# only wqkv and wo on it, its expert stacks being int8.
+def _int4_per_forward(n_layers: int, moe: bool = False) -> int:
+    return (2 if moe else 4) * n_layers + 1
 
 
-def _int4_expected(expected: dict, forwards: int, n_layers: int, norm: bool, on_card: bool):
+def _int4_expected(expected: dict, forwards: int, n_layers: int, norm: bool, on_card: bool,
+                   moe: bool = False):
     """Add an int4 tree's counts for ``forwards`` forwards: every product on
     int4_matmul (its plain version off the card) and, with "norm", every
     norm site (2 a layer and the head) routed to qmat, none on
     fused_norm_matmul's own kernel or plain version."""
     expected["int4_matmul" if on_card else "int4_matmul_plain"] = \
-        _int4_per_forward(n_layers) * forwards
+        _int4_per_forward(n_layers, moe) * forwards
     if norm:
         for key in ("fused_norm_matmul", "fused_norm_matmul_plain", "fused_norm_matmul.unfused"):
             expected[key] = 0
@@ -2610,7 +2683,7 @@ def _int4_expected(expected: dict, forwards: int, n_layers: int, norm: bool, on_
 
 
 def _generator_expected(counters, rec, n_layers: int, on_card: bool, fused: bool = True,
-                        int4: bool = False, f8: bool = False):
+                        int4: bool = False, f8: bool = False, moe: bool = False):
     """(launches, expected) of a generator run recorded by
     ``step_recorder``: the attention kernels per forward as in phase
     generate; when ``fused`` ("all"), fused_norm_matmul per ``_norm_sites``
@@ -2646,7 +2719,7 @@ def _generator_expected(counters, rec, n_layers: int, on_card: bool, fused: bool
         })
     if int4:
         forwards = len(rec["calls"]) + sum(n for _, n in rec["chunks"])
-        _int4_expected(expected, forwards, n_layers, fused, on_card)
+        _int4_expected(expected, forwards, n_layers, fused, on_card, moe)
     return launches, expected
 
 
@@ -3689,7 +3762,7 @@ def _quantized_generate(torch, main_path: dict, step, chunk: int, n_tokens: int,
         _sync(torch, dev)
     launches, expected = _generator_expected(
         counters, rec, gen0.config.num_hidden_layers, dev.type == "cuda", fused=False, int4=int4,
-        f8=f8)
+        f8=f8, moe=bool(gen0.config.num_local_experts))
     ids = gen.generated_token_ids
     n_gen = len(ids)
     decode_s = stamps[-1] - stamps[0] if n_gen > 1 else float("nan")
@@ -4518,9 +4591,14 @@ def phase_cli(torch, extra_args=()) -> None:
         num_attention_heads=4, num_key_value_heads=1, max_position_embeddings=1024,
     )
     params = M.init_params(config, torch.Generator().manual_seed(3), torch.float32)
+    # A Mixtral of the same cut: 4 experts, top-2.
+    moe_config = dataclasses.replace(config, model_type="mixtral", num_local_experts=4)
+    moe_params = M.init_params(moe_config, torch.Generator().manual_seed(4), torch.float32)
     here = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory() as tmp, tempfile.TemporaryDirectory() as tmp_q4:
+    with tempfile.TemporaryDirectory() as tmp, tempfile.TemporaryDirectory() as tmp_q4, \
+            tempfile.TemporaryDirectory() as tmp_moe:
         save_tiny_checkpoint(tmp, params, config, dtype=torch.bfloat16)
+        save_tiny_checkpoint(tmp_moe, moe_params, moe_config, dtype=torch.bfloat16)
         # The same weights as a .q4 checkpoint: it loads quantized, no flag.
         save_tiny_checkpoint(tmp_q4, quantize_params(params, "int4"), config, dtype=torch.bfloat16)
         cli = [sys.executable, "-m", "cake_tpu_torch.cli", "--model", tmp]
@@ -4531,6 +4609,7 @@ def phase_cli(torch, extra_args=()) -> None:
             ("quantize_int4", tmp, ("--quantize", "int4")),
             ("q4_checkpoint", tmp_q4, ()),
             ("kv_f8", tmp, ("--kv-dtype", "f8")),
+            ("moe_fused", tmp_moe, ("--fusion", "all", "--decode-chunk", "4")),
         ):
             t0 = time.perf_counter()
             proc = subprocess.run(
@@ -4617,24 +4696,427 @@ def _cli_tcp(cli: list, tmp: str, here: str, extra_args, local_stdout: str) -> d
 # ---------------------------------------------------------------- phase 9
 
 
+# ---------------------------------------------------------------- phases moe, phi3
+
+# Phi-3-mini-4k-instruct's attention (microsoft/Phi-3-mini-4k-instruct
+# config.json): 32 query heads over 32 KV heads of 96, a 2047-key window.
+PHI3_HEADS = (32, 32, 96)
+PHI3_WINDOW = 2047
+PHI3_MAX_SEQ = 4096
+PHI3_PROMPT_TOKENS = 2300  # past the window: the chunk and decode kernels mask it
+# Qwen3-235B-A22B's (Qwen/Qwen3-235B-A22B config.json): 64 query heads over
+# 4 KV heads of 128, a GQA group of 16.
+QWEN3_235B_HEADS = (64, 4, 128)
+# Decode groups past 16 query heads a block take passes: 12 (one block of
+# 12) and 32 (two of 16), over 4 KV heads of 128.
+GROUP_HEADS = {"g12": (48, 4, 128), "g32": (128, 4, 128)}
+MOE_LAYERS = 8  # Mixtral-8x7B's 32 layers cut to 8: 93 GB of bf16 weights do not fit the card
+MOE_INT4_TOKENS = 16
+MOE_SEED, PHI3_SEED = 14, 15
+PHI3_CKPT_LAYERS = 4  # the checkpoint the fused-tensor loader reads
+
+
+def mixtral_config(n_layers: int = MOE_LAYERS):
+    """mistralai/Mixtral-8x7B-v0.1's config.json widths, ``n_layers`` deep."""
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+
+    return LlamaConfig(
+        model_type="mixtral", hidden_size=4096, intermediate_size=14336, vocab_size=32000,
+        num_hidden_layers=n_layers, num_attention_heads=32, num_key_value_heads=8,
+        rms_norm_eps=1e-5, rope_theta=1e6, max_position_embeddings=32768, bos_token_id=1,
+        eos_token_ids=(2,), num_local_experts=8, num_experts_per_tok=2,
+    )
+
+
+def phi3_config(n_layers: int = 32):
+    """microsoft/Phi-3-mini-4k-instruct's config.json (full depth: 32)."""
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+
+    n_q, n_kv, hd = PHI3_HEADS
+    return LlamaConfig(
+        model_type="phi3", hidden_size=n_q * hd, intermediate_size=8192, vocab_size=32064,
+        num_hidden_layers=n_layers, num_attention_heads=n_q, num_key_value_heads=n_kv,
+        rms_norm_eps=1e-5, rope_theta=10000.0, max_position_embeddings=4096,
+        sliding_window=PHI3_WINDOW, bos_token_id=1, eos_token_ids=(32000, 32007),
+    )
+
+
+def shape_cases(torch, dev) -> list:
+    """The attention kernels at the shapes the MoE and Phi-3 families bring,
+    each held to its plain version within TOL and timed beside its bound and
+    SDPA: Phi-3-mini's head dim 96 at the generator's operands (a 256-query
+    chunk at 2048 and a decode at 2332 keys, the window masking both) and
+    the paged engine's (a cold 8-row wave, its decode), bf16 and f8; the
+    decode kernels at Qwen3-235B-A22B's group of 16 and at groups 12 and 32;
+    the ingest at head dim 96, bitwise, dense and paged, bf16 and f8."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    f8 = torch.float8_e4m3fn
+    n_p = ENGINE_MAX_SEQ // ENGINE_PAGE
+    win = {"window": PHI3_WINDOW}
+    pads = [0, 3, 17, 40, 66, 12, 25, 5]
+    wave = [480] * ENGINE_BATCH
+    rows = []
+    for kv, sfx in ((None, ""), (f8, "_f8")):
+        rows += [
+            _decode_case(torch, dev, g, "phi3_generator" + sfx, [PHI3_PROMPT_TOKENS + 32], None,
+                         win, max_seq=PHI3_MAX_SEQ, cold=True, kv=kv, heads=PHI3_HEADS),
+            _chunk_case(torch, dev, g, "phi3_generator" + sfx, PREFILL_CHUNK, [2048], None, win,
+                        max_seq=PHI3_MAX_SEQ, kv=kv, heads=PHI3_HEADS),
+            _paged_decode_case(torch, dev, g, 50, "phi3_engine" + sfx, [w + 32 for w in wave],
+                               pads, n_p, cold=True, kv=kv, heads=PHI3_HEADS),
+            _paged_chunk_case(torch, dev, g, 51, "phi3_engine" + sfx, wave[0], [0] * 8, wave,
+                              pads, n_p, kv=kv, heads=PHI3_HEADS),
+        ]
+    torch.cuda.empty_cache()
+    rows += [
+        _decode_case(torch, dev, g, "qwen3_235b_g16", [733], None, {}, cold=True,
+                     heads=QWEN3_235B_HEADS),
+        _paged_decode_case(torch, dev, g, 52, "qwen3_235b_g16", [w + 32 for w in wave], pads,
+                           n_p, cold=True, heads=QWEN3_235B_HEADS),
+    ]
+    rows += [_decode_case(torch, dev, g, case, [733], None, {}, cold=True, heads=heads)
+             for case, heads in GROUP_HEADS.items()]
+    rows += [
+        _ingest_case(torch, dev, g, "phi3_dense_b1", 1, 733, paged=False, heads=PHI3_HEADS),
+        _ingest_case(torch, dev, g, "phi3_paged_b8", 8, 505, paged=True, unmapped=(5, 3),
+                     heads=PHI3_HEADS),
+        _ingest_case(torch, dev, g, "phi3_paged_b8_f8", 8, 505, paged=True, unmapped=(5, 3),
+                     kv=f8, heads=PHI3_HEADS),
+    ]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _prompt_text(tokenizer, config, n_tokens: int) -> str:
+    """A user turn whose dialog (the config's chat template) encodes to
+    ``n_tokens`` tokens."""
+    from cake_tpu_torch.models.llama.chat import Message, encode_dialog
+
+    frame = len(tokenizer.encode(encode_dialog([Message.user("")], config.dialog_template)))
+    sentence = "The quick brown fox jumps over the lazy dog while the cake cools. "
+    return (sentence * (n_tokens // len(sentence) + 1))[: n_tokens - frame]
+
+
+def _model_path(torch, config, params, card: str, text: str, dev) -> dict:
+    """A generator over ``params`` in the shape of phase generate's row
+    (what _quantized_generate and the engines read)."""
+    from cake_tpu_torch.models.llama.generator import (
+        LlamaGenerator, LocalForwardStep, SamplingConfig,
+    )
+    from cake_tpu_torch.models.llama.tokenizer import ByteTokenizer
+
+    max_seq = PHI3_MAX_SEQ if config.model_type == "phi3" else MAX_SEQ
+    step = LocalForwardStep(config, params, max_seq_len=max_seq, cache_dtype=torch.bfloat16,
+                            device=dev)
+    gen = LlamaGenerator(config, step, ByteTokenizer(),
+                         SamplingConfig(temperature=0.0, repeat_penalty=1.0),
+                         prefill_chunk=PREFILL_CHUNK)
+    return {"generator": gen, "text": text, "card": card}
+
+
+def _generate_runs(torch, path: dict, phase: str) -> dict:
+    """64 greedy tokens per step and in 8-token chunks (graphs on the card),
+    each gated on the launches its forwards imply; the ids must be equal.
+    The per-step run records the grouped dispatch's rows an expert."""
+    from cake_tpu_torch.ops import moe
+
+    runs, ids = [], []
+    for chunk in (1, FUSED_CHUNK):
+        sizes = []
+        moe.GROUP_SIZES = sizes
+        try:
+            gen, got, run = _quantized_generate(torch, path, path["generator"].step, chunk,
+                                                DECODE_TOKENS, False)
+        finally:
+            moe.GROUP_SIZES = None
+        run["prompt_tokens"] = gen.prompt_tokens
+        run["graph"] = chunk > 1 and path["generator"].step.device.type == "cuda"
+        run["decode_tok_s"] = 1e3 / run["decode_ms_per_token"] if run["decode_ms_per_token"] else None
+        if sizes:  # the warm-up's prefill, then the run's, of the same prompt
+            sizes = sizes[len(sizes) // 2:]
+            n_layers = path["generator"].config.num_hidden_layers
+            run["grouped_dispatches"] = len(sizes)
+            # Rows an expert took: the prompt's tokens and the last chunk's
+            # pads, top-k rows each (the grouped dispatch routes pads too).
+            run["rows_per_expert_layer0"] = [sum(col) for col in zip(*sizes[::n_layers])]
+            run["rows_per_expert"] = [sum(col) for col in zip(*sizes)]
+        runs.append(run)
+        ids.append(got)
+    if ids[0] != ids[1]:
+        emit({"phase": phase, "runs": runs, "ids": ids})
+        raise AssertionError(f"{phase}: graph chunks parted from the per-step ids")
+    return {"runs": runs, "ids": ids[0], "launches": _sum_launches(r["launches"] for r in runs)}
+
+
+def _sum_launches(tallies) -> dict:
+    out: dict = {}
+    for t in tallies:
+        for k, v in t.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _engine_waves(torch, path: dict, specs) -> dict:
+    """One greedy wave of 8 through the paged engine (prefix cache on,
+    8-token decode chunks) per fusion spec, then through the dense engine
+    (no fusion), each engine fresh: the cold wave (it captures its decode
+    chunks' graphs) under the launch gate, its streams compared across
+    engines; then the same wave again, its chunks replayed, for the ms a
+    step. The paged engine serves the second wave from the prefix cache:
+    whether it equals the cold wave is reported (a MoE model's grouped
+    dispatch gives other bits over other rows an expert)."""
+    from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+
+    gen = path["generator"]
+    dev, n_layers = gen.step.device, gen.config.num_hidden_layers
+    on_card = dev.type == "cuda"
+    out: dict = {"runs": [], "streams": {}}
+    for spec, kv_mode in [*((s, "paged") for s in specs), ("none", "dense")]:
+        config = dataclasses.replace(gen.config, fusion_impl=spec)
+        paged = kv_mode == "paged"
+        serve = ServeConfig(max_batch=ENGINE_BATCH, decode_chunk_size=8, fusion_impl=spec,
+                            **(dict(kv_mode="paged", page_size=ENGINE_PAGE, prefix_cache=True)
+                               if paged else {}))
+        eng = BatchEngine(config, gen.step.params, gen.tokenizer, max_seq_len=ENGINE_MAX_SEQ,
+                          cache_dtype=torch.bfloat16, serve=serve, device=dev)
+        try:
+            counters = _zero_counters()
+            cold = _wave(eng, ENGINE_TOKENS, together=True)
+            launches = _counts(counters)
+            again = _wave(eng, ENGINE_TOKENS, together=True)
+        finally:
+            eng.stop()
+        del eng
+        decode, chunk = (("paged_decode_attention", "paged_chunk_attention") if paged
+                         else ("decode_attention", "chunk_prefill_attention"))
+        suffix = "" if on_card else "_plain"
+        keep = ("ttft_p50_s", "decode_ms_per_step", "decode_tok_s", "prefix_hits", "batches",
+                "joins", "decode_steps", "finish_reasons")
+        run = {"spec": spec, "kv_mode": kv_mode, "cold": {k: cold[k] for k in keep},
+               "again": {k: again[k] for k in keep},
+               "again_equal_cold": _equal_streams(again["streams"], cold["streams"]),
+               "launches": launches}
+        want = {decode + suffix: n_layers * cold["decode_steps"],
+                chunk + suffix: n_layers * (cold["batches"] + cold["joins"])}
+        run["expected_launches"] = want
+        if any(launches[k] != v for k, v in want.items()):
+            emit({"phase": "engine_waves", **run})
+            raise AssertionError(f"{spec}/{kv_mode}: launches {launches} != {want}")
+        if on_card and "ingest" in spec and launches["fused_qkv_ingest"] == 0:
+            raise AssertionError(f"{spec}: the ingest kernel never launched")
+        out["runs"].append(run)
+        out["streams"][f"{spec}/{kv_mode}"] = cold["streams"]
+        if on_card:
+            torch.cuda.empty_cache()
+    out["launches"] = _sum_launches(r["launches"] for r in out["runs"])
+    return out
+
+
+def _equal_streams(a, b) -> int:
+    return sum(x == y for x, y in zip(a, b))
+
+
+def phase_moe(torch, main_path: dict, config=None) -> dict:
+    """Mixtral-8x7B's widths at MOE_LAYERS layers (``config``: a tiny one
+    off the card), random bf16 weights from a seed: the generator per step
+    and in graph chunks (equal ids; the prefill's tokens an expert),
+    full-width logits against the plain path, the paged engine against the
+    dense one (8/8 streams) and a ``--fusion all`` wave, and ``--quantize
+    int4`` (expert stacks int8, the attention products and the head on
+    int4_matmul by launch count)."""
+    from cake_tpu_torch.models.llama import model as M
+    from cake_tpu_torch.ops.fuse import fuse_params
+    from cake_tpu_torch.ops.quant import QuantWeight, quantize_params, quantized_bytes
+
+    dev = main_path["generator"].step.device
+    on_card = dev.type == "cuda"
+    config = config or mixtral_config()
+    n_layers = config.num_hidden_layers
+    t0 = time.perf_counter()
+    params = fuse_params(M.init_params(
+        config, torch.Generator(device=dev).manual_seed(MOE_SEED), torch.bfloat16, dev))
+    _sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    weight_bytes = M.count_params(params) * 2
+    # A decode step under the dense combine streams every weight but the embedding.
+    streamed = quantized_bytes({k: v for k, v in params.items() if k != "embed"})
+    from cake_tpu_torch.models.llama.tokenizer import ByteTokenizer
+
+    text = _prompt_text(ByteTokenizer(), config, PROMPT_TOKENS)
+    path = _model_path(torch, config, params, main_path["card"], text, dev)
+    gen_runs = _generate_runs(torch, path, "moe")
+    per_step = gen_runs["runs"][0]
+    row = {
+        "phase": "moe",
+        "card": main_path["card"],
+        "model": (f"Mixtral-8x7B widths (hidden {config.hidden_size}, {config.num_attention_heads}"
+                  f"/{config.num_key_value_heads} heads of {config.head_dim}, "
+                  f"{config.num_local_experts} experts top-{config.num_experts_per_tok}, expert "
+                  f"inter {config.intermediate_size}, vocab {config.vocab_size}, rope theta "
+                  f"{config.rope_theta:g}); random bf16 weights (seed {MOE_SEED})"),
+        "layers": n_layers, "full_depth_layers": 32,
+        "reduced": f"depth 32 -> {n_layers}: 93 GB of bf16 weights at full depth",
+        "weights_gb": weight_bytes / 1e9, "init_s": init_s,
+        "decode_streamed_gb": streamed / 1e9,
+        "decode_bound_ms_per_token": streamed / HBM_BYTES_PER_S * 1e3,
+        "prompt_tokens": per_step["prompt_tokens"],
+        "runs": gen_runs["runs"],
+    }
+    if on_card:
+        row["profile"] = _profile_main_path(torch, path["generator"], text,
+                                            per_step["decode_ms_per_token"], phase="moe_profile")
+    row["check"] = _full_model_check(torch, M, config, params, dev, phase="moe_model_check")
+    engines = _engine_waves(torch, path, ("none", "all"))
+    streams = engines["streams"]
+    row["engine_runs"] = engines["runs"]
+    row["paged_equal_dense"] = _equal_streams(streams["none/paged"], streams["none/dense"])
+    row["all_equal_none"] = _equal_streams(streams["all/paged"], streams["none/paged"])
+    # --quantize int4: the expert stacks int8 (the mixed mode), the
+    # attention products and the head through int4_matmul.
+    t0 = time.perf_counter()
+    qparams = quantize_params(params, "int4")
+    _sync(torch, dev)
+    experts_int8 = all(isinstance(qparams["layers"][k], QuantWeight)
+                       for k in ("w_gate", "w_up", "w_down"))
+    qpath = _model_path(torch, config, qparams, main_path["card"], text, dev)
+    _, _, int4_run = _quantized_generate(torch, qpath, qpath["generator"].step, FUSED_CHUNK,
+                                         MOE_INT4_TOKENS, True)
+    row["int4"] = {"quantize_s": time.perf_counter() - t0, "experts_int8": experts_int8,
+                   "streamed_gb": quantized_bytes(
+                       {k: v for k, v in qparams.items() if k != "embed"}) / 1e9,
+                   **{k: int4_run[k] for k in ("decode_chunk", "generated_tokens",
+                                               "decode_ms_per_token", "launches",
+                                               "expected_launches")}}
+    emit(row)
+    if not experts_int8:
+        raise AssertionError("moe: --quantize int4 left an expert stack that is not int8")
+    if row["paged_equal_dense"] != ENGINE_BATCH:
+        raise AssertionError(f"moe: paged engine streams equal dense {row['paged_equal_dense']}/8")
+    row["launches"] = _sum_launches([gen_runs["launches"], engines["launches"],
+                                     int4_run["launches"]])
+    del path, qpath, params, qparams
+    if on_card:
+        torch.cuda.empty_cache()
+    return row
+
+
+def phase_phi3(torch, main_path: dict, config=None, ckpt_layers: int = PHI3_CKPT_LAYERS,
+               prompt_tokens: int = PHI3_PROMPT_TOKENS) -> dict:
+    """Phi-3-mini-4k at full width and depth (``config``: a tiny one off
+    the card), random bf16 weights from a seed: the first ``ckpt_layers``
+    written as a checkpoint with Phi-3's fused qkv_proj / gate_up_proj and
+    read back by the loader, bitwise; the generator over a prompt past the
+    2047-key window, per step and in graph chunks (equal ids), its logits
+    against the plain path; the paged engine under none, ingest,tail (equal
+    streams, gated) and all, and the dense engine."""
+    from cake_tpu_torch.io.safetensors_io import load_params, save_tiny_checkpoint
+    from cake_tpu_torch.models.llama import model as M
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.models.llama.tokenizer import ByteTokenizer
+    from cake_tpu_torch.ops.fuse import fuse_params
+    from cake_tpu_torch.ops.quant import quantized_bytes
+
+    dev = main_path["generator"].step.device
+    on_card = dev.type == "cuda"
+    config = config or phi3_config()
+    n_layers = config.num_hidden_layers
+    t0 = time.perf_counter()
+    raw = M.init_params(config, torch.Generator(device=dev).manual_seed(PHI3_SEED),
+                        torch.bfloat16, dev)
+    params = fuse_params(raw)
+    _sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    # The fused-tensor loader: the first layers written and read back.
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(config, num_hidden_layers=ckpt_layers)
+    head = {k: v for k, v in raw.items() if k != "layers"}
+    with tempfile.TemporaryDirectory() as tmp:
+        save_tiny_checkpoint(tmp, {**head, "layers": {k: v[:ckpt_layers]
+                                                      for k, v in raw["layers"].items()}},
+                             cut, dtype=torch.bfloat16)
+        files = sorted(os.listdir(tmp))
+        loaded = load_params(tmp, LlamaConfig.from_model_dir(tmp), torch.bfloat16, dev)
+    del raw, head
+    want = {**{k: v for k, v in params.items() if k != "layers"},
+            "layers": {k: v[:ckpt_layers] for k, v in params["layers"].items()}}
+    loader_equal = {k: bool(torch.equal(loaded["layers"][k], want["layers"][k]))
+                    for k in want["layers"]}
+    loader_equal.update({k: bool(torch.equal(loaded[k], want[k])) for k in want if k != "layers"})
+    loader = {"layers": ckpt_layers, "files": files, "s": time.perf_counter() - t0,
+              "keys": sorted(loaded["layers"]), "equal": loader_equal}
+    del loaded, want
+    weight_bytes = M.count_params(params) * 2
+    streamed = quantized_bytes({k: v for k, v in params.items() if k != "embed"})
+    text = _prompt_text(ByteTokenizer(), config, prompt_tokens)
+    path = _model_path(torch, config, params, main_path["card"], text, dev)
+    gen_runs = _generate_runs(torch, path, "phi3")
+    per_step = gen_runs["runs"][0]
+    row = {
+        "phase": "phi3",
+        "card": main_path["card"],
+        "model": (f"Phi-3-mini-4k widths (hidden {config.hidden_size}, {n_layers} layers, "
+                  f"{config.num_attention_heads}/{config.num_key_value_heads} heads of "
+                  f"{config.head_dim}, inter {config.intermediate_size}, vocab "
+                  f"{config.vocab_size}, window {config.sliding_window}, untied head); "
+                  f"random bf16 weights (seed {PHI3_SEED})"),
+        "layers": n_layers, "weights_gb": weight_bytes / 1e9, "init_s": init_s,
+        "decode_streamed_gb": streamed / 1e9,
+        "decode_bound_ms_per_token": streamed / HBM_BYTES_PER_S * 1e3,
+        "loader": loader,
+        "prompt_tokens": per_step["prompt_tokens"],
+        "runs": gen_runs["runs"],
+    }
+    if on_card:
+        row["profile"] = _profile_main_path(torch, path["generator"], text,
+                                            per_step["decode_ms_per_token"], phase="phi3_profile")
+    # The windowed prompt through the kernels against the plain path.
+    n_chunks = -(-prompt_tokens // PREFILL_CHUNK)
+    row["check"] = _full_model_check(
+        torch, M, config, params, dev, phase="phi3_model_check",
+        chunks=[PREFILL_CHUNK] * (n_chunks - 1) + [prompt_tokens - PREFILL_CHUNK * (n_chunks - 1)])
+    engines = _engine_waves(torch, path, ("none", "ingest,tail", "all"))
+    streams = engines["streams"]
+    row["engine_runs"] = engines["runs"]
+    row["ingest_tail_equal_none"] = _equal_streams(streams["ingest,tail/paged"],
+                                                   streams["none/paged"])
+    row["all_equal_none"] = _equal_streams(streams["all/paged"], streams["none/paged"])
+    row["paged_equal_dense"] = _equal_streams(streams["none/paged"], streams["none/dense"])
+    emit(row)
+    if not all(loader_equal.values()) or "wqkv" not in loader["keys"]:
+        raise AssertionError(f"phi3: the fused-tensor checkpoint did not load bitwise: {loader}")
+    if row["ingest_tail_equal_none"] != ENGINE_BATCH:
+        raise AssertionError(f"phi3: ingest,tail streams equal none "
+                             f"{row['ingest_tail_equal_none']}/8")
+    row["launches"] = _sum_launches([gen_runs["launches"], engines["launches"]])
+    del path, params
+    if on_card:
+        torch.cuda.empty_cache()
+    return row
+
+
 def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(),
-                   int4_paths=(), f8_paths=(), continuous_path=None, distributed_path=None) -> dict:
+                   int4_paths=(), f8_paths=(), continuous_path=None, distributed_path=None,
+                   model_paths=()) -> dict:
     # The generate phase counted the dense kernels, the engine phase the paged
     # ones, the fused phases (generate_fused, engine_fused) the fused ones,
     # the int4 phases (generate_int4, engine_int4) int4_matmul, the f8 phases
     # (generate_f8, engine_f8) the five kernels' launches over an f8 cache;
     # engine_continuous adds its paged kernels' and noise kernel's launches,
-    # distributed its TCP runs' dense kernels' and noise kernel's.
+    # distributed its TCP runs' dense kernels' and noise kernel's, the model
+    # phases (moe, phi3) every kernel's they ran.
     launches = {**engine_path["launches"], **main_path["launches"]}
     extra = dict(continuous_path["launches"]) if continuous_path else {}
     for name, n in (distributed_path or {}).get("launches", {}).items():
         extra[name] = extra.get(name, 0) + n
+    model_launches = _sum_launches(p["launches"] for p in model_paths)
     for name in ("paged_decode_attention", "paged_chunk_attention", "decode_attention",
                  "chunk_prefill_attention"):
         launches[name] += extra.get(name, 0)
     for name in FUSED_MAIN:
         launches[name] = sum(p["fused_launches"][name] for p in fused_paths)
     launches["int4_matmul"] = sum(p["int4_launches"] for p in int4_paths)
+    for name in KERNEL_WRAPPERS:
+        launches[name] = launches.get(name, 0) + model_launches.get(name, 0)
     spec = [
         ("decode_attention", "cake_tpu_torch/ops/csrc/decode_attention.cu",
          "cake_tpu/ops/pallas/decode_attention.py:106", ("decode_attention",),
@@ -4667,6 +5149,7 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(
                 "fused_qkv_ingest": "paged_b8_f8"}
     for name in f8_cases:
         launches[f"{name}_f8"] = sum(p["f8_launches"].get(name, 0) for p in f8_paths)
+        launches[f"{name}_f8"] += model_launches.get(f"{name}.f8", 0)
     spec += [(f"{name}_f8", source.replace("decode_attention.cu", "decode_attention_f8.cu"),
               replaces, families, (name, f8_cases[name]))
              for name, source, replaces, families, _ in list(spec) if name in f8_cases]
@@ -4712,8 +5195,31 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(
                                             if k[0] in families and "route" in r})
             if name == "int4_matmul":
                 entry["wgmma_bits"] = bits
+        if model_paths and not f8:
+            entry["shapes"] = _shape_rows(rows, name, model_paths)
         out.append(entry)
     return {"kernels": out}
+
+
+# The shape cases a model phase runs: its launches stand beside them.
+_SHAPE_PHASE = {"phi3": "phi3"}
+
+
+def _shape_rows(rows: dict, name: str, model_paths) -> list:
+    """A kernel's cases at the MoE and Phi-3 shapes (shape_cases), each
+    with the launches the model phase of its shape made (Phi-3's head dim
+    96; None where no phase serves the shape)."""
+    by_phase = {p["phase"]: p["launches"] for p in model_paths}
+    out = []
+    for (kernel, case), r in rows.items():
+        if kernel != name or not case.startswith(("phi3_", "qwen3_235b", "g12", "g32")):
+            continue
+        phase = _SHAPE_PHASE.get(case.split("_")[0])
+        n = by_phase.get(phase, {}).get(kernel + (".f8" if case.endswith("_f8") else ""))
+        out.append({"case": case, "launches": n,
+                    **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")}})
+    return out
 
 
 # Kernels a later PR redesigned, with that PR.
@@ -4734,6 +5240,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     env = phase_env(torch)
+    dev = torch.device("cuda")
     phase_build()
     kernel_rows = phase_kernels(torch)
     main_path = phase_generate(torch, env["nvidia_smi"])
@@ -4756,9 +5263,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_generate_int8(torch, main_path)
     torch.cuda.empty_cache()
+    kernel_rows.update({(r["kernel"], r["case"]): r for r in shape_cases(torch, dev)})
+    model_paths = (phase_moe(torch, main_path), phase_phi3(torch, main_path))
+    torch.cuda.empty_cache()
     phase_cli(torch)
     emit(kernel_summary(kernel_rows, main_path, engine_path, fused_paths,
-                        (int4_path, int4_engine), f8_paths, continuous_path, distributed_path))
+                        (int4_path, int4_engine), f8_paths, continuous_path, distributed_path,
+                        model_paths))
     emit({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -45,8 +45,10 @@ def build_variant(split: int, warps: int, out_dir: Path) -> Path:
 
     src = out_dir / f"csrc_{split}_{warps}"
     src.mkdir()
-    for name in ("common.cuh", "kv_layout.cuh", "decode_attention.cu",
-                 "paged_decode_attention.cu"):
+    # Every unit of the decode body: the entry points, the wide head dims
+    # and the f8 caches.
+    units = sorted(p.name for p in _build.CSRC.glob("*decode_attention*.cu"))
+    for name in ("common.cuh", "kv_layout.cuh", *units):
         (src / name).write_text((_build.CSRC / name).read_text())
     header = (_build.CSRC / "decode_attention.cuh").read_text()
     for name, value in (("DEC_SPLIT", split), ("DEC_WARPS", warps)):
@@ -58,7 +60,7 @@ def build_variant(split: int, warps: int, out_dir: Path) -> Path:
     lib_path = out_dir / f"libdecode_{split}_{warps}.so"
     subprocess.run(
         [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib_path),
-         str(src / "decode_attention.cu"), str(src / "paged_decode_attention.cu")],
+         *(str(src / name) for name in units)],
         check=True,
     )
     return lib_path

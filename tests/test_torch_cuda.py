@@ -43,8 +43,10 @@ pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.float16: 1e-2, torch.bfloat16: 4e-2}
 DTYPES = list(TOL)
-HEAD_DIMS = [64, 128, 256]
-GROUPS = [1, 3, 8]
+HEAD_DIMS = [64, 96, 128, 256]
+# Past 16 query heads a KV head (8 at head_dim 256) the decode kernels take
+# the group in passes.
+GROUPS = [1, 3, 8, 12, 16, 32]
 
 
 @pytest.fixture(scope="module")
@@ -285,11 +287,14 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         decode_attention(q.float(), cache, cache, lengths)  # mixed dtypes
     with pytest.raises(ValueError):
-        decode_attention(torch.zeros(1, 1, 18, 128, device=dev, dtype=torch.bfloat16),
-                         cache, cache, lengths)  # group 9 > 8
-    with pytest.raises(ValueError):
-        decode_attention(q[..., :96].contiguous(), cache[..., :96].contiguous(),
-                         cache[..., :96].contiguous(), lengths)  # head_dim 96
+        decode_attention(torch.zeros(1, 1, 9, 128, device=dev, dtype=torch.bfloat16),
+                         cache, cache, lengths)  # 9 query heads over 2 KV heads
+    with pytest.raises(ValueError, match="ROADMAP"):
+        decode_attention(q[..., :80].contiguous(), cache[..., :80].contiguous(),
+                         cache[..., :80].contiguous(), lengths)  # head_dim 80
+    with pytest.raises(ValueError, match="ROADMAP"):
+        chunk_prefill_attention(q[..., :80].contiguous(), cache[..., :80].contiguous(),
+                                cache[..., :80].contiguous(), lengths - 1, lengths)
 
 
 # ------------------------------------------------------------- paged kernels
@@ -1691,7 +1696,7 @@ def test_a_wider_cache_upgrades_the_query(dev, kernel):
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 96, 128])
 @pytest.mark.parametrize("dtype,cache", [(d, c) for d in DTYPES for c in ("f8", "f32")
                                          if (d, c) != (torch.float32, "f32")],
                          ids=lambda x: str(x).removeprefix("torch."))
@@ -1796,3 +1801,54 @@ def test_threefry_noise_refuses_what_it_cannot_draw(dev):
         threefry_noise(prng_key([1, 2, 3], dev).t().contiguous().t()[:, :2], (8,))
     nxt, sub, noise = threefry_noise(torch.zeros((0, 2), dtype=torch.int64, device=dev), (8,))
     assert nxt.shape == sub.shape == (0, 2) and noise.shape == (0, 8)
+
+
+# ---------------------------------------------------------------- sparse MoE
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("t", [1, 3, 24], ids=["decode", "dense", "grouped"])
+def test_moe_swiglu_on_the_card_matches_the_cpu(dev, t, quant):
+    """The dense combine (t < 8) and the grouped dispatch (t >= 8) on the
+    card give the CPU's experts (the same routing) and its output within
+    bf16 rounding: one bf16 step of the output's magnitude."""
+    from cake_tpu_torch.ops import moe
+    from cake_tpu_torch.ops.quant import quantize_weight
+
+    gen = torch.Generator().manual_seed(t)
+    h, n_e, inter, b = 128, 8, 96, 2
+    x = torch.randn(b, t, h, generator=gen).to(torch.bfloat16)
+    ws = [torch.randn(*s, generator=gen).mul(s[-2] ** -0.5).to(torch.bfloat16)
+          for s in ((h, n_e), (n_e, h, inter), (n_e, h, inter), (n_e, inter, h))]
+    if quant:
+        ws[1:] = [quantize_weight(w) for w in ws[1:]]
+    cpu = moe.moe_swiglu(x, *ws, top_k=2)
+    on = [w.to(dev) if isinstance(w, torch.Tensor) else type(w)(w.w.to(dev), w.scale.to(dev))
+          for w in ws]
+    card = moe.moe_swiglu(x.to(dev), *on, top_k=2)
+    torch.cuda.synchronize()
+    assert card.shape == cpu.shape and card.dtype == torch.bfloat16
+    assert torch.isfinite(card).all()
+    step = 2.0 ** -7 * cpu.float().abs().max().item()
+    assert (card.cpu().float() - cpu.float()).abs().max().item() <= step
+    logits = x @ ws[0]
+    _, idx_cpu = moe.route_topk_select(logits, 2)
+    _, idx_card = moe.route_topk_select(logits.to(dev), 2)
+    assert torch.equal(idx_card.cpu(), idx_cpu)
+
+
+def test_moe_grouped_dispatch_refuses_a_capture(dev):
+    from cake_tpu_torch.ops import moe
+
+    h, n_e = 64, 4
+    x = torch.randn(1, 16, h, device=dev, dtype=torch.bfloat16)
+    w = torch.randn(n_e, h, h, device=dev, dtype=torch.bfloat16)
+    router = torch.randn(h, n_e, device=dev, dtype=torch.bfloat16)
+    moe.moe_swiglu(x, router, w, w, w, top_k=2)  # eager: fine
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(graph):
+            moe.moe_swiglu(x, router, w, w, w, top_k=2)
+    out = moe.moe_swiglu(x[:, :1], router, w, w, w, top_k=2)  # the dense combine still runs
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()

@@ -38,6 +38,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import cake_tpu_torch.runtime.proto, cake_tpu_torch.runtime.client\n"
         "import cake_tpu_torch.runtime.worker, cake_tpu_torch.runtime.master\n"
         "import cake_tpu_torch.runtime.router, cake_tpu_torch.parallel.topology\n"
+        "import cake_tpu_torch.ops.moe\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'cake_tpu' or m.startswith('cake_tpu.') or m == 'yaml')\n"
         "print(bad)\n"

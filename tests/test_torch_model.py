@@ -24,6 +24,7 @@ from cake_tpu_torch.models.llama import model as M
 from cake_tpu_torch.models.llama.cache import init_cache
 from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.ops.fuse import fuse_params
+from cake_tpu_torch.ops.moe import moe_swiglu
 
 LOGITS_ATOL = 1e-3
 
@@ -108,9 +109,15 @@ def test_forward_logits_match_jax(family):
 
 
 def test_unported_paths_raise_naming_the_roadmap():
+    """The rolling window cache and tensor-parallel MoE are not ported; MoE
+    models themselves are (tests/test_torch_moe*.py)."""
     cfg = LlamaConfig.tiny(num_local_experts=4)
+    moe_params = M.init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+    assert moe_params["layers"]["router"].shape == (cfg.num_hidden_layers, cfg.hidden_size, 4)
+    lp = {k: v[0] for k, v in moe_params["layers"].items()}
+    x = torch.zeros(1, 8, cfg.hidden_size)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+        moe_swiglu(x, lp["router"], lp["w_gate"], lp["w_up"], lp["w_down"], 2, tp_axis="tp")
     dense = dataclasses.replace(cfg, num_local_experts=0)
     params = M.init_params(dense, torch.Generator().manual_seed(0), torch.float32)
     kv = init_cache(dense.num_hidden_layers, 1, 32, dense.num_key_value_heads, dense.head_dim,
