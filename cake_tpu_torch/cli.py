@@ -99,8 +99,75 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--default-priority", type=int, choices=(0, 1, 2), default=1,
-        help="priority class of requests that carry none (0 low / 1 normal / 2 high): the "
-        "continuous scheduler preempts the lowest class first",
+        help="priority class of requests that carry none (0 low / 1 normal / 2 high): low "
+        "sheds first under overload and its 503 Retry-After doubles; high tolerates twice the "
+        "shed thresholds; the continuous scheduler preempts the lowest class first",
+    )
+    p.add_argument(
+        "--shed-queue-depth", type=int, default=0, metavar="N",
+        help="admission load shedding: refuse new requests (HTTP 503 + Retry-After) once the "
+        "engine queue is N deep; 0 = off",
+    )
+    p.add_argument(
+        "--shed-free-pages", type=int, default=0, metavar="N",
+        help="paged mode: shed new requests while fewer than N KV pages are free; 0 = off",
+    )
+    p.add_argument(
+        "--tenant-rate", type=float, default=0.0, metavar="TOK_S",
+        help="per-tenant token-bucket rate limit in work tokens (prompt + max_tokens) per "
+        "second; over it a submission is refused with HTTP 429 + Retry-After (the tenant "
+        "rides the request's 'tenant' field or X-Cake-Tenant header). 0 = unlimited "
+        "(--api-batch)",
+    )
+    p.add_argument(
+        "--tenant-burst", type=float, default=0.0, metavar="TOKENS",
+        help="per-tenant token-bucket capacity in work tokens; 0 = auto (2x --tenant-rate)",
+    )
+    p.add_argument(
+        "--tenant-streams", type=int, default=0, metavar="N",
+        help="per-tenant concurrent-stream cap (queued + live); over it a submission is "
+        "refused with HTTP 429. 0 = uncapped",
+    )
+    p.add_argument(
+        "--no-fair-queue", action="store_true",
+        help="disable the deficit-weighted round-robin fair queue across tenants and fall "
+        "back to one global FIFO (an abusive tenant can then starve everyone else)",
+    )
+    p.add_argument(
+        "--default-deadline", type=float, default=0.0, metavar="S",
+        help="end-to-end deadline applied to requests that carry no 'deadline_s' field: "
+        "queued past it a request expires before admission (no lane, no pages), running past "
+        "it the stream finishes with finish_reason=deadline at the next chunk boundary, and a "
+        "deadline the estimated queue wait already exceeds is shed immediately (503). 0 = none",
+    )
+    p.add_argument(
+        "--slo-ttft-ms", type=float, default=0.0, metavar="MS",
+        help="declared TTFT objective: --slo-ttft-target of accepted requests must see their "
+        "first token within MS milliseconds. Per-tenant burn rates (fast/slow windows) show "
+        "at GET /slo; a burning tenant's fair-queue quantum is boosted and its doomed-deadline "
+        "submissions shed earlier. 0 = no TTFT objective (--api-batch)",
+    )
+    p.add_argument(
+        "--slo-ttft-target", type=float, default=0.99, metavar="FRAC",
+        help="required fraction of requests meeting --slo-ttft-ms (error budget = 1 - FRAC)",
+    )
+    p.add_argument(
+        "--slo-deadline-rate", type=float, default=0.0, metavar="FRAC",
+        help="declared deadline objective: required hit rate over deadline-carrying "
+        "requests; burn tracked per tenant at GET /slo. 0 = off (--api-batch)",
+    )
+    p.add_argument(
+        "--epoch-stall", type=float, default=0.0, metavar="S",
+        help="stuck-epoch watchdog: a backend dispatch making no progress within S seconds "
+        "(10x S for an op's first call, which builds kernels and captures graphs) is "
+        "abandoned, its epoch's streams finish with finish_reason=error, and the backend "
+        "allocates its KV storage and decode graphs anew. 0 = off",
+    )
+    p.add_argument(
+        "--stream-buffer", type=int, default=8192, metavar="TOKENS",
+        help="streaming backpressure watermark: a client that stops reading its SSE stream "
+        "is cancelled (pages freed, lane recycled) once this many undelivered tokens buffer "
+        "up; 0 = unbounded (--api-batch)",
     )
     p.add_argument(
         "--kv-mode", choices=("dense", "paged"), default="dense",
@@ -126,6 +193,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--prefix-cache-pages", type=int, default=0, metavar="N",
         help="prefix-cache budget in KV pages; 0 = half the pool",
+    )
+    p.add_argument(
+        "--prefix-min-tokens", type=int, default=0, metavar="N",
+        help="do not cache or serve prefixes shorter than N tokens (churn guard); 0 = any "
+        "cached page's worth qualifies",
     )
     p.add_argument(
         "--decode-chunk", type=int, default=8,
@@ -251,7 +323,20 @@ def serve_config(args: argparse.Namespace):
         max_pages=args.max_pages,
         prefix_cache=args.kv_mode == "paged" and args.prefix_cache != "off",
         prefix_cache_pages=args.prefix_cache_pages,
+        prefix_min_tokens=args.prefix_min_tokens,
         fusion_impl=args.fusion,
+        shed_queue_depth=args.shed_queue_depth,
+        shed_min_free_pages=args.shed_free_pages,
+        stream_buffer_tokens=args.stream_buffer,
+        tenant_rate=args.tenant_rate,
+        tenant_burst=args.tenant_burst,
+        tenant_streams=args.tenant_streams,
+        fair_queue=not args.no_fair_queue,
+        default_deadline_s=args.default_deadline,
+        epoch_stall_s=args.epoch_stall,
+        slo_ttft_ms=args.slo_ttft_ms,
+        slo_ttft_target=args.slo_ttft_target,
+        slo_deadline_rate=args.slo_deadline_rate,
     )
 
 

@@ -56,29 +56,42 @@ from cake_tpu_torch.ops.sampling import sample_step
 # included), and the bytes the shared graph pool grew by.
 STATS = {"captures": 0, "warmup_s": 0.0, "capture_s": 0.0, "pool_bytes": 0}
 
-_pools: dict = {}
-_streams: dict = {}
+class CaptureScope:
+    """Where decode graphs are captured: per device, the side stream they
+    are warmed up and captured on (capture cannot use the default stream;
+    the warm-up on the same stream sets up what the capture will find,
+    cuBLAS's workspace for that stream included), and the one memory pool
+    every live graph of the scope shares (a replay's intermediates are dead
+    once it ends, and no two graphs of a scope run at once).
+
+    Every chunk captures in :data:`SHARED_SCOPE` unless its owner gives it
+    another. A batch backend that abandons a dispatch (runtime/
+    batch_backend.py) moves its later chunks to a scope of their own: the
+    abandoned dispatch, should it wake inside a capture, records onto its
+    own stream and allocates from its own pool, and never joins a live
+    capture of the next epoch."""
+
+    def __init__(self):
+        self._pools: dict = {}
+        self._streams: dict = {}
+
+    def pool(self, device: torch.device):
+        """(handle, users) of the scope's pool on ``device``. ``users`` holds
+        the chunks whose graphs were captured into it; a pool whose graphs
+        are all gone has been released, and a new one takes its place."""
+        handle, users = self._pools.get(device, (None, None))
+        if not users:
+            handle, users = self._pools[device] = (torch.cuda.graph_pool_handle(),
+                                                   weakref.WeakSet())
+        return handle, users
+
+    def stream(self, device: torch.device) -> torch.cuda.Stream:
+        if device not in self._streams:
+            self._streams[device] = torch.cuda.Stream(device)
+        return self._streams[device]
 
 
-def _graph_pool(device: torch.device):
-    """(handle, users) of the one memory pool a device that every live
-    decode graph shares: a replay's intermediates are dead once it ends,
-    and no two graphs run at once. ``users`` holds the chunks whose graphs
-    were captured into it; a pool whose graphs are all gone has been
-    released, and a new one takes its place."""
-    handle, users = _pools.get(device, (None, None))
-    if not users:
-        handle, users = _pools[device] = torch.cuda.graph_pool_handle(), weakref.WeakSet()
-    return handle, users
-
-
-def _capture_stream(device: torch.device) -> torch.cuda.Stream:
-    """The side stream graphs are warmed up and captured on (capture cannot
-    use the default stream; the warm-up on the same stream sets up what the
-    capture will find, cuBLAS's workspace for that stream included)."""
-    if device not in _streams:
-        _streams[device] = torch.cuda.Stream(device)
-    return _streams[device]
+SHARED_SCOPE = CaptureScope()
 
 
 def sampled_decode_loop(
@@ -131,16 +144,19 @@ class DecodeChunk:
     wrappers' lazy buffers and cuBLAS's workspace outside the capture; its
     KV writes are the ones the replay repeats, and the other buffers are
     restored after it), then it is captured into the shared pool and
-    replayed. A capture that fails raises: there is no eager fallback on
+    replayed (on the stream and into the pool of its ``scope``, see
+    :class:`CaptureScope`). A capture that fails raises: there is no eager fallback on
     the card. The wrappers' launch counts of the capture are added to their
     counters at every replay; the warm-up's are not counted
     (ops/launches.py)."""
 
     def __init__(self, forward_one, kv, *, batch: int, window: int, n_steps: int, s,
-                 fused_tail: bool, per_row: bool, device: torch.device, extra=None):
+                 fused_tail: bool, per_row: bool, device: torch.device, extra=None,
+                 scope: CaptureScope | None = None):
         i64 = dict(dtype=torch.int64, device=device)
         self.forward_one, self.kv, self.n_steps, self.s = forward_one, kv, n_steps, s
         self.fused_tail, self.device = fused_tail, device
+        self.scope = scope or SHARED_SCOPE
         self.tok = torch.zeros(batch, **i64)
         self.slot = torch.zeros((), **i64)
         self.ring = torch.full((batch, window), -1, **i64)
@@ -191,7 +207,7 @@ class DecodeChunk:
 
     def _capture(self) -> None:
         dev = self.device
-        stream = _capture_stream(dev)
+        stream = self.scope.stream(dev)
         carries = [self.tok, self.slot, self.ring, self.ring_idx, self.keys]
         t0 = time.perf_counter()
         stream.wait_stream(torch.cuda.current_stream(dev))
@@ -205,7 +221,7 @@ class DecodeChunk:
         t1 = time.perf_counter()
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
-        pool, users = _graph_pool(dev)
+        pool, users = self.scope.pool(dev)
         with torch.cuda.stream(stream), launches.diverted() as self.captured:
             graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:

@@ -3,14 +3,19 @@
 Routes: ``POST /api/v1/chat/completions`` (JSON, or SSE with
 ``"stream": true`` and ``stream_options.include_usage``; per-request
 temperature / top_k / top_p / seed / max_tokens overrides, and with an
-engine a ``priority`` class 0-2), ``GET /health``,
-``GET /api/v1/models`` and ``GET /stats``. Without an engine, requests run
-one at a time under a lock around the single generator, which is reset per
-request. With a batch engine (runtime/serving.py, ``--api-batch``) chat
-requests bypass that lock: they are submitted to the engine and decode
-concurrently as lockstep batches, and a client that disconnects mid-stream
-cancels its request. The other observability routes are not ported yet
-(ROADMAP.md).
+engine a ``priority`` class 0-2, a ``tenant`` (or the ``X-Cake-Tenant``
+header) and a ``deadline_s``), ``POST /api/v1/cancel`` (``{"id": ...}``, the
+engine only), ``GET /health``, ``GET /api/v1/models``, ``GET /stats`` (with
+an engine, its ``tenants`` and ``slo`` blocks) and ``GET /slo`` (the
+engine's per-tenant SLIs and burn rates, obs/slo.py). Without an engine,
+requests run one at a time under a lock around the single generator, which
+is reset per request. With a batch engine (runtime/serving.py,
+``--api-batch``) chat requests bypass that lock: they are submitted to the
+engine and decode concurrently as lockstep batches, and a client that
+disconnects mid-stream cancels its request. A tenant over its quota gets a
+429 and a saturated engine a 503, each with ``Retry-After``; a bad tenant,
+deadline or priority is a 400 before any streaming header. The other
+observability routes are not ported yet (ROADMAP.md).
 
 Built on http.server's ThreadingHTTPServer: no third-party server.
 """
@@ -20,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import math
 import threading
 import time
 import uuid
@@ -31,12 +37,18 @@ from cake_tpu_torch.models.llama.generator import LlamaGenerator, SamplingConfig
 log = logging.getLogger("cake_tpu_torch.api")
 
 CHAT_ROUTE = "/api/v1/chat/completions"
+CANCEL_ROUTE = "/api/v1/cancel"
+
+# Tenant ids key the quota buckets and the fair queue's subqueues: a longer
+# id is a 400, not a truncation (which would merge distinct tenants).
+MAX_TENANT_ID_LEN = 64
 
 
 class ApiError(Exception):
-    def __init__(self, code: int, message: str):
+    def __init__(self, code: int, message: str, headers: dict | None = None):
         super().__init__(message)
         self.code = code
+        self.headers = headers or {}
 
 
 @dataclasses.dataclass
@@ -108,7 +120,7 @@ class ApiServer:
         include_usage = bool((stream_options or {}).get("include_usage"))
         if self.engine is not None:
             return self._handle_chat_batched(
-                messages, max_tokens, stream, include_usage, opt, handler
+                body, messages, max_tokens, stream, include_usage, opt, handler
             )
 
         with self._lock:
@@ -152,21 +164,47 @@ class ApiServer:
                     gen.step.trace_id = None
 
     def _handle_chat_batched(
-        self, messages, max_tokens: int, stream: bool, include_usage: bool, opt, handler
+        self, body: dict, messages, max_tokens: int, stream: bool, include_usage: bool, opt,
+        handler,
     ) -> dict | None:
         """Engine path: no generator lock; submit and consume a stream. The
         response id is the engine's request id, so a client that goes away
         cancels exactly its own request."""
+        from cake_tpu_torch.runtime.admission import QuotaExceeded
+        from cake_tpu_torch.runtime.serving import EngineOverloaded
+
         sampling = self._sampling(opt, self.generator.sampling)
         # Priority class (0 low / 1 normal / 2 high; the engine's default
-        # otherwise): the continuous scheduler preempts the lowest first.
+        # otherwise): it scales the shed gates and the 503's Retry-After,
+        # and the continuous scheduler preempts the lowest first.
         priority = opt("priority", None, int)
         if priority is not None and priority not in (0, 1, 2):
             raise ApiError(400, f"priority must be 0, 1 or 2, got {priority}")
+        # The tenant: the body's field, else the X-Cake-Tenant header, else
+        # the engine's default tenant.
+        tenant = body.get("tenant")
+        if tenant is not None and (not isinstance(tenant, str) or not tenant.strip()):
+            raise ApiError(400, "tenant must be a non-empty string")
+        if tenant is None:
+            tenant = handler.headers.get("X-Cake-Tenant") or None
+        if tenant is not None and len(tenant) > MAX_TENANT_ID_LEN:
+            raise ApiError(400, f"tenant id longer than {MAX_TENANT_ID_LEN} characters")
+        # The end-to-end deadline in seconds (submit to last token).
+        deadline_s = opt("deadline_s", None, float)
+        if deadline_s is not None and not deadline_s > 0:
+            raise ApiError(400, f"deadline_s must be > 0 seconds, got {deadline_s}")
         rid = f"chatcmpl-{uuid.uuid4()}"
         try:
             h = self.engine.submit(messages, max_tokens, sampling, request_id=rid,
-                                   priority=priority)
+                                   priority=priority, tenant=tenant, deadline_s=deadline_s)
+        except QuotaExceeded as e:
+            # The caller is over its budget; the hint is its own bucket's.
+            raise ApiError(429, str(e), headers={
+                "Retry-After": str(max(1, math.ceil(e.retry_after_s)))}) from e
+        except EngineOverloaded as e:
+            # The server is saturated: anyone may retry.
+            raise ApiError(503, str(e), headers={
+                "Retry-After": str(max(1, int(e.retry_after_s)))}) from e
         except ValueError as e:  # a prompt the engine can never serve: 400 before any header
             raise ApiError(400, str(e)) from e
         created = int(time.time())
@@ -224,11 +262,13 @@ class ApiServer:
             def log_message(self, fmt, *args):
                 log.debug("%s " + fmt, self.client_address[0], *args)
 
-            def _json(self, code: int, obj: dict) -> None:
+            def _json(self, code: int, obj: dict, headers: dict | None = None) -> None:
                 data = json.dumps(obj).encode()
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(data)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(data)
 
@@ -237,8 +277,18 @@ class ApiServer:
                 if route == "/health":
                     self._json(200, {"status": "ok", "model": api.model_name})
                 elif route == "/stats":
-                    engine = api.engine.snapshot() if api.engine is not None else None
-                    self._json(200, {"model": api.model_name, "engine": engine})
+                    body = {"model": api.model_name, "engine": None}
+                    if api.engine is not None:
+                        body["engine"] = api.engine.snapshot()
+                        body["tenants"] = api.engine.tenant_stats()
+                        body["slo"] = api.engine.slo.snapshot()
+                    self._json(200, body)
+                elif route == "/slo":
+                    if api.engine is None:
+                        self._json(404, {"error": "SLO tracking needs the batch engine "
+                                                  "(--api-batch > 1)"})
+                    else:
+                        self._json(200, api.engine.slo.snapshot())
                 elif route == "/api/v1/models":
                     self._json(200, {
                         "object": "list",
@@ -253,7 +303,7 @@ class ApiServer:
                     self._json(404, {"error": "not found"})
 
             def do_POST(self):
-                if self.path != CHAT_ROUTE:
+                if self.path not in (CHAT_ROUTE, CANCEL_ROUTE):
                     self._json(404, {"error": "not found"})
                     return
                 try:
@@ -265,10 +315,22 @@ class ApiServer:
                 if not isinstance(body, dict):
                     self._json(400, {"error": "request body must be a JSON object"})
                     return
+                if self.path == CANCEL_ROUTE:
+                    # Frees the request's lane and pages at the next chunk
+                    # boundary; the id is the chat response's.
+                    rid = body.get("id") or body.get("request_id")
+                    if not isinstance(rid, str) or not rid:
+                        self._json(400, {"error": "body needs a request 'id'"})
+                    elif api.engine is None:
+                        self._json(400, {"error": "cancellation needs the batch engine "
+                                                  "(--api-batch > 1)"})
+                    else:
+                        self._json(200, {"id": rid, "cancelled": api.engine.cancel(rid)})
+                    return
                 try:
                     response = api.handle_chat(body, self)
                 except ApiError as e:
-                    self._json(e.code, {"error": str(e)})
+                    self._json(e.code, {"error": str(e)}, headers=e.headers)
                     return
                 except Exception as e:  # noqa: BLE001 - the server keeps serving; surface as 500
                     log.exception("chat handler failed")

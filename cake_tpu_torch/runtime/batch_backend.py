@@ -31,6 +31,21 @@ tensor-parallel and pipelined backends, speculative verify and the
 kernel-fallback flight event are not ported (ROADMAP.md): the port has no
 quiet fallback, and a page size the paged kernels do not take raises on the
 card.
+
+**Abandoned dispatches.** The engine's stall guard (runtime/admission.py
+``StallGuard``) may give up on a dispatch whose thread is still running it.
+Torch buffers are written in place, and the decode graphs hold the KV
+storage and their static buffers, so a dispatch that wakes later would
+write into whatever still shares them. ``abandon()`` therefore drops the
+storage and every decode chunk captured over it: the next ``init_kv``
+allocates anew and the next decode captures anew, and the abandoned thread
+holds the only references to the old buffers. Every dispatch first checks
+that its KV is the backend's live storage (``_check_live``), so one that
+wakes after the drop raises before it reads the allocator's tables. A
+decode binds the chunk cache before that check, so one that passed it and
+stalls further in keeps the abandoned cache: the chunks it builds or runs
+on waking, and their graphs, stay apart from the next epoch's, and it
+captures in a ``CaptureScope`` of its own (models/llama/fused.py).
 """
 
 from __future__ import annotations
@@ -45,7 +60,7 @@ from cake_tpu_torch.models.llama import batch as B
 from cake_tpu_torch.models.llama import model as M
 from cake_tpu_torch.models.llama.cache import SEQ_MULTIPLE, KVCache, init_cache
 from cake_tpu_torch.models.llama.config import LlamaConfig
-from cake_tpu_torch.models.llama.fused import DecodeChunk
+from cake_tpu_torch.models.llama.fused import CaptureScope, DecodeChunk
 from cake_tpu_torch.models.llama.paged_cache import (
     PageAllocator,
     PagedKVCache,
@@ -67,26 +82,54 @@ def _tokens(x, device) -> torch.Tensor:
     return upload(np.asarray(x, np.int64), device)
 
 
-def _decode_chunk(backend, kv, n: int, tok, ring, s, make_forward, **shapes) -> DecodeChunk:
-    """The backend's DecodeChunk for a chunk of ``n`` steps over ``tok``'s
-    lanes with knobs ``s``, built at its first use: ``make_forward(**extra)``
-    over the static int32 ``extra`` buffers of ``shapes`` (pads, block
-    tables), which the key holds too, as it holds the KV dtype: a graph
-    never replays over a cache of another dtype."""
-    key = (n, tok.shape[0], ring.shape[1], s.temperature, s.top_k, s.top_p, s.repeat_penalty,
-           kv.k.dtype, *sorted(shapes.items()))
-    chunk = backend._chunks.get(key)
+class _Chunks(dict):
+    """A backend's decode chunks over one KV storage, by key
+    (``_chunk_key``), and the ``CaptureScope`` they capture in: the shared
+    one, until ``abandon`` gives the next storage's chunks a scope of their
+    own."""
+
+    def __init__(self, scope: CaptureScope | None = None):
+        super().__init__()
+        self.scope = scope
+
+
+def _chunk_key(kv, n: int, tok, ring, s, shapes: dict) -> tuple:
+    """A decode chunk's key: its steps, lanes, ring window and knobs, the
+    shapes of its static int32 buffers (pads, block tables) and the KV dtype
+    (a graph never replays over a cache of another dtype)."""
+    return (n, tok.shape[0], ring.shape[1], s.temperature, s.top_k, s.top_p, s.repeat_penalty,
+            kv.k.dtype, *sorted(shapes.items()))
+
+
+def _decode_chunk(backend, chunks: _Chunks, kv, n: int, tok, ring, s, make_forward,
+                  **shapes) -> DecodeChunk:
+    """The DecodeChunk in ``chunks`` (the cache the dispatch bound, see
+    ``_check_live``) for a chunk of ``n`` steps over ``tok``'s lanes with
+    knobs ``s``, built at its first use: ``make_forward(**extra)`` over the
+    static int32 ``extra`` buffers of ``shapes``."""
+    key = _chunk_key(kv, n, tok, ring, s, shapes)
+    chunk = chunks.get(key)
     if chunk is None:
         extra = {name: torch.zeros(shape, dtype=torch.int32, device=backend.device)
                  for name, shape in shapes.items()}
-        chunk = backend._chunks[key] = DecodeChunk(
+        chunk = chunks[key] = DecodeChunk(
             make_forward(**extra), kv, batch=tok.shape[0], window=ring.shape[1], n_steps=n, s=s,
             fused_tail="tail" in resolve_fusion(backend.config), per_row=True,
-            device=backend.device, extra=extra,
+            device=backend.device, extra=extra, scope=chunks.scope,
         )
     elif chunk.kv.k.data_ptr() != kv.k.data_ptr():
         raise RuntimeError("decode: the KV storage moved under a captured decode chunk")
     return chunk
+
+
+def _check_live(kv, live, op: str) -> None:
+    """Raise unless ``kv`` lies on ``live``, the backend's current storage
+    (None after ``abandon``): a dispatch the stall guard abandoned must not
+    run on after the backend moved on. ``abandon`` drops the storage before
+    it replaces the chunk cache, so a decode that reads ``_chunks`` first
+    and then passes this check holds the cache of that storage."""
+    if live is None or kv.k.data_ptr() != live.k.data_ptr():
+        raise RuntimeError(f"{op}: the KV storage was abandoned after a stalled dispatch")
 
 
 class LocalBatchBackend:
@@ -111,7 +154,7 @@ class LocalBatchBackend:
         padded = -(-max_seq_len // SEQ_MULTIPLE) * SEQ_MULTIPLE  # the cache's length
         self.rope = model_rope_tables(config, padded, self.device)
         self._kv: KVCache | None = None
-        self._chunks: dict = {}  # DecodeChunk per key (_decode_chunk)
+        self._chunks = _Chunks()  # DecodeChunk per key (_decode_chunk)
 
     def init_kv(self, b: int) -> KVCache:
         """The epoch's zeroed cache of ``b`` lanes: the first ``b`` lanes of
@@ -131,9 +174,21 @@ class LocalBatchBackend:
         kv.v.zero_()
         return kv
 
+    def abandon(self) -> None:
+        """Drop the cache and the decode chunks captured over it (the module
+        docstring, abandoned dispatches); the storage first (``_check_live``)."""
+        self._kv = None
+        self._chunks = _Chunks(CaptureScope())
+
+    def decode_builds_chunk(self, kv, tok, ring, n: int, s) -> bool:
+        """Whether ``decode`` would build its chunk (on the card: capture its
+        graph), which the stall guard grants its first-call grace."""
+        return _chunk_key(kv, n, tok, ring, s, {"pads": (tok.shape[0],)}) not in self._chunks
+
     @torch.inference_mode()
     def prefill(self, tokens, kv, pads):
         """The whole left-padded batch at slots [0, width): (logits, kv)."""
+        _check_live(kv, self._kv, "prefill")
         return B.batched_prefill(
             self.params, _tokens(tokens, self.device), kv, _rows(pads, self.device),
             self.config, rope=self.rope,
@@ -149,9 +204,11 @@ class LocalBatchBackend:
         if slot < 0 or slot + n > kv.max_seq_len:
             raise ValueError(f"decode writes slots [{slot}, {slot + n}) outside the cache's "
                              f"{kv.max_seq_len}")
+        chunks = self._chunks  # before the check (_check_live)
+        _check_live(kv, self._kv, "decode")
         params, config, rope = self.params, self.config, self.rope
         chunk = _decode_chunk(
-            self, kv, n, tok, ring, s,
+            self, chunks, kv, n, tok, ring, s,
             lambda pads: B.batched_forward_one(params, pads, config, rope),
             pads=(tok.shape[0],),
         )
@@ -166,6 +223,7 @@ class LocalBatchBackend:
         ``[pad, end)`` stay, and no read reaches them: keys below the pad
         are masked by ``starts``, and decode writes each later slot before
         ``lengths`` admits it."""
+        _check_live(kv, self._kv, "join")
         lane_kv = KVCache(kv.k[:, lane : lane + 1], kv.v[:, lane : lane + 1])
         ends = _rows([end], self.device)
         logits, _ = B.batched_prefill(
@@ -237,7 +295,7 @@ class PagedLocalBackend:
         self._retained_kv = None
         self._cap_pages: int | None = None
         self._pool: PagedKVCache | None = None
-        self._chunks: dict = {}  # DecodeChunk per key (_decode_chunk)
+        self._chunks = _Chunks()  # DecodeChunk per key (_decode_chunk)
 
     # --------------------------------------------------- bounded capacity
 
@@ -316,12 +374,28 @@ class PagedLocalBackend:
             self._pool.v.zero_()
         return self._pool
 
+    def abandon(self) -> None:
+        """Drop the pool, the retained pool and the decode chunks captured
+        over it (the module docstring, abandoned dispatches); the storage
+        first (``_check_live``). The engine clears the prefix cache, whose
+        chains lived in the dropped pool."""
+        self._pool = None
+        self._retained_kv = None
+        self._chunks = _Chunks(CaptureScope())
+
+    def decode_builds_chunk(self, kv, tok, ring, n: int, s) -> bool:
+        """Whether ``decode`` would build its chunk (on the card: capture its
+        graph), which the stall guard grants its first-call grace."""
+        shapes = {"pads": (tok.shape[0],), "tables": self._host_tables().shape}
+        return _chunk_key(kv, n, tok, ring, s, shapes) not in self._chunks
+
     # --------------------------------------------------- dispatches
 
     @torch.inference_mode()
     def prefill(self, tokens, kv, pads):
         """The whole left-padded batch at slots [0, width) through the
         lanes' block tables (paged_chunk_attention with ``q_starts = 0``)."""
+        _check_live(kv, self._pool, "prefill")
         self._check_write_bound("prefill", int(np.shape(tokens)[1]))
         return B.paged_prefill(
             self.params, _tokens(tokens, self.device), kv, _rows(pads, self.device),
@@ -334,6 +408,7 @@ class PagedLocalBackend:
         live pool prefix, each row's writes below its threshold sunk. EVERY
         cache-enabled prefill goes here, cold epochs included, so warm and
         cold runs share one attention arithmetic."""
+        _check_live(kv, self._pool, "suffix_prefill")
         self._check_write_bound("suffix_prefill", int(start) + int(np.shape(tokens)[1]))
         return B.paged_suffix_prefill(
             self.params, _tokens(tokens, self.device), kv, _rows(pads, self.device),
@@ -345,6 +420,7 @@ class PagedLocalBackend:
     def suffix_join(self, kv, row_tokens, pad: int, write_start: int, lane: int, start: int):
         """A join on the prefix-cache arithmetic: one row's window
         [start, slot) over its lane's table, sliced to the same capacity."""
+        _check_live(kv, self._pool, "suffix_join")
         self._check_write_bound("suffix_join", int(start) + int(np.shape(row_tokens)[1]))
         return B.paged_suffix_prefill(
             self.params, _tokens(row_tokens, self.device), kv, _rows([pad], self.device),
@@ -355,6 +431,7 @@ class PagedLocalBackend:
     @torch.inference_mode()
     def cow_copy(self, kv, src: list[int], dst: list[int]):
         """Device half of the copy-on-write split (``copy_pages``)."""
+        _check_live(kv, self._pool, "cow_copy")
         return copy_pages(kv, src, dst)
 
     @torch.inference_mode()
@@ -364,11 +441,13 @@ class PagedLocalBackend:
         version), the table copied into its buffer every chunk. Returns as
         the dense backend's. The sampling tail follows the config's
         fusions."""
+        chunks = self._chunks  # before the check (_check_live)
+        _check_live(kv, self._pool, "decode")
         self._check_write_bound("decode", int(slot) + n)
         tables = self._host_tables()
         params, config, rope = self.params, self.config, self.rope
         chunk = _decode_chunk(
-            self, kv, n, tok, ring, s,
+            self, chunks, kv, n, tok, ring, s,
             lambda pads, tables: B.paged_forward_one(params, pads, tables, config, rope),
             pads=(tok.shape[0],), tables=tables.shape,
         )
@@ -380,6 +459,7 @@ class PagedLocalBackend:
     def join(self, kv, row_tokens, pad: int, end: int, lane: int):
         """A join without the prefix cache: the row prefills straight
         through its lane's freshly mapped pages."""
+        _check_live(kv, self._pool, "join")
         self._check_write_bound("join", end)
         logits, kv = B.paged_prefill(
             self.params, _tokens(row_tokens, self.device), kv, _rows([pad], self.device),
@@ -449,6 +529,7 @@ class DistributedBatchBackend:
         padded = -(-self.max_seq_len // SEQ_MULTIPLE) * SEQ_MULTIPLE
         rope = model_rope_tables(self.config, padded, self.device)
         self._prefill_op, self._decode_op, self._join_op = B.lockstep_range_ops(self.config, rope)
+        self._live: dict | None = None  # the current epoch's caches (init_kv)
 
     def init_kv(self, b: int) -> dict:
         """A new epoch: the router's next route, a fresh replay session on
@@ -466,11 +547,19 @@ class DistributedBatchBackend:
             if name in routed:
                 client.begin_session(sid)
         c = self.config
-        return {
+        self._live = {
             (lo, hi): init_cache(hi - lo, b, self.max_seq_len, c.num_key_value_heads, c.head_dim,
                                  self.cache_dtype, self.device)
             for (lo, hi) in self.step.local_params
         }
+        return self._live
+
+    def abandon(self) -> None:
+        """After a stalled dispatch: its caches are dropped (every epoch
+        makes its own) and ``_walk`` sends no further hop for it; the next
+        ``init_kv`` opens a new session. The round trip in flight when it
+        stalled stays bounded by the wire's ``op_deadline_s``."""
+        self._live = None
 
     def _walk(self, kind: str, x: torch.Tensor, pos: int, kv: dict, batch_hdr: dict, local):
         """``x`` through the whole plan: the master's ranges by
@@ -481,6 +570,8 @@ class DistributedBatchBackend:
         plan = step.plan
         i = 0
         while i < len(plan):
+            if kv is not self._live:
+                raise RuntimeError(f"{kind}: the epoch was abandoned after a stalled dispatch")
             s = plan[i]
             if s.node == self._master_node:
                 r = (s.lo, s.hi)

@@ -45,10 +45,24 @@ retries (``BackendWorkerError``) finishes the epoch's live streams with
 ``finish_reason="error"`` while the engine keeps serving; ``snapshot()``
 names the routed nodes.
 
-Not ported yet (ROADMAP.md): speculative verify, tenants and fair queueing
-(the queue is the single-tenant FIFO), shedding, deadlines, failover, the
-black box and the observability ledgers. Asking for a knob that is not
-ported raises.
+Admission (runtime/admission.py, obs/slo.py): each request carries a
+tenant and may carry a deadline. ``submit`` charges the tenant's quota
+(``QuotaExceeded``, HTTP 429) and then the shed gates (queue depth, free
+pages, a deadline the estimated queue wait already exceeds:
+``EngineOverloaded``, HTTP 503); the queue is a ``FairQueue``,
+deficit-weighted round-robin over the tenants' FIFOs. Past its deadline a
+queued request expires without a lane or a page, and a running or spilled
+stream finishes ``"deadline"`` at the next chunk boundary. An ``SloTracker``
+records each tenant's TTFT, deadline and error SLIs and feeds its burn back
+into the fair queue's weights, the shed estimate and the step budget. With
+``epoch_stall_s`` every backend dispatch but ``init_kv`` (``_dispatch``)
+runs under a ``StallGuard``: a dispatch that stalls is abandoned, the
+epoch's live streams finish ``"error"``, and the backend drops the storage
+the abandoned dispatch holds (``abandon``), so the next epoch shares no
+buffer with it.
+
+Not ported yet (ROADMAP.md): speculative verify, failover, the black box
+and the observability ledgers. Asking for a knob that is not ported raises.
 """
 
 from __future__ import annotations
@@ -74,9 +88,18 @@ from cake_tpu_torch.models.llama.paged_cache import PageExhausted
 from cake_tpu_torch.models.llama.tokenizer import Tokenizer
 from cake_tpu_torch.ops.fuse import parse_fusion_spec
 from cake_tpu_torch.ops.threefry import prng_key
-from cake_tpu_torch.runtime.admission import StepBudget
+from cake_tpu_torch.obs.slo import SloObjectives, SloTracker
+from cake_tpu_torch.runtime.admission import (
+    DEFAULT_TENANT,
+    FairQueue,
+    QuotaExceeded,
+    StallGuard,
+    StepBudget,
+    TenantMeter,
+    WaitEstimator,
+)
 
-__all__ = ["BatchEngine", "ServeConfig", "StreamHandle"]
+__all__ = ["BatchEngine", "EngineOverloaded", "QuotaExceeded", "ServeConfig", "StreamHandle"]
 
 log = logging.getLogger("cake_tpu_torch.serving")
 
@@ -87,6 +110,17 @@ _DONE = "__done__"
 _CAPACITY_BUCKET = 256
 # Join and suffix-prefill windows round up to this many slots.
 _WINDOW_BUCKET = 64
+
+
+class EngineOverloaded(RuntimeError):
+    """Admission refused by load shedding (queue depth, pool pressure, or a
+    deadline the estimated queue wait already exceeds): HTTP 503 with a
+    ``Retry-After``. Shedding a request early beats queueing it into a
+    timeout."""
+
+    def __init__(self, message: str, retry_after_s: float = 1.0):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +144,21 @@ class ServeConfig:
     join and restore prefill a step (0 = ``StepBudget.AUTO_TOKENS``), and
     ``default_priority`` the class (0 low, 1 normal, 2 high) of a request
     submitted without one: preemption spills the lowest class first.
+
+    Admission (0 turns each gate off): ``shed_queue_depth`` and
+    ``shed_min_free_pages`` (paged; cold prefix-cache pages count as free)
+    shed with a 503 hint of ``retry_after_s``, scaled by the priority class
+    (low sheds at half the depth or twice the page floor and waits twice as
+    long, high tolerates twice the depth). ``tenant_rate`` (work tokens,
+    prompt + max_tokens, a second), ``tenant_burst`` (0 = twice the rate)
+    and ``tenant_streams`` (queued + live) are each tenant's quota (429).
+    ``fair_queue`` drains the tenants' FIFOs by deficit-weighted
+    round-robin (False = one global FIFO). ``default_deadline_s`` is the
+    end-to-end deadline of a request that carries none. ``epoch_stall_s`` bounds each backend dispatch
+    (``StallGuard``). ``stream_buffer_tokens`` cancels a stream whose
+    consumer left that many tokens unread. The ``slo_*`` knobs declare the
+    objectives and windows of the ``SloTracker``; ``slo_feedback`` feeds
+    its burn back into admission.
     """
 
     max_batch: int = 8
@@ -127,6 +176,22 @@ class ServeConfig:
     prefix_min_tokens: int = 0
     fusion_impl: str = "none"
     default_priority: int = 1
+    shed_queue_depth: int = 0
+    shed_min_free_pages: int = 0
+    retry_after_s: float = 1.0
+    stream_buffer_tokens: int = 0
+    tenant_rate: float = 0.0
+    tenant_burst: float = 0.0
+    tenant_streams: int = 0
+    fair_queue: bool = True
+    default_deadline_s: float = 0.0
+    epoch_stall_s: float = 0.0
+    slo_ttft_ms: float = 0.0
+    slo_ttft_target: float = 0.99
+    slo_deadline_rate: float = 0.0
+    slo_fast_window_s: float = 60.0
+    slo_slow_window_s: float = 600.0
+    slo_feedback: bool = True
 
     def __post_init__(self):
         parse_fusion_spec(self.fusion_impl)
@@ -154,12 +219,41 @@ class ServeConfig:
             # more than ceil(prompt / page_size): the reserve is what makes
             # the admission charge an upper bound.
             raise ValueError(f"page_reserve must be >= 1, got {self.page_reserve}")
+        if self.shed_queue_depth < 0 or self.shed_min_free_pages < 0:
+            raise ValueError("shed thresholds must be >= 0 (0 = off)")
+        if self.stream_buffer_tokens < 0:
+            raise ValueError("stream_buffer_tokens must be >= 0")
+        if self.tenant_rate < 0 or self.tenant_burst < 0 or self.tenant_streams < 0:
+            raise ValueError("tenant_rate, tenant_burst and tenant_streams must be >= 0 (0 = gate off)")
+        if self.default_deadline_s < 0 or self.epoch_stall_s < 0:
+            raise ValueError("default_deadline_s and epoch_stall_s must be >= 0 (0 = off)")
+        if self.slo_fast_window_s <= 0 or self.slo_slow_window_s < self.slo_fast_window_s:
+            raise ValueError(f"slo windows need 0 < fast <= slow, got "
+                             f"{self.slo_fast_window_s}/{self.slo_slow_window_s}")
+        self.slo_objectives()  # raises on a bad objective
+
+    def slo_objectives(self) -> SloObjectives:
+        return SloObjectives(ttft_ms=self.slo_ttft_ms, ttft_target=self.slo_ttft_target,
+                             deadline_rate=self.slo_deadline_rate)
 
 
 def _knobs(s: SamplingConfig) -> tuple:
     """Batch compatibility: requests sharing these share one lockstep batch
     (the seed is per row)."""
     return (s.temperature, s.top_k, s.top_p, s.repeat_penalty, s.repeat_last_n)
+
+
+# Priority classes scale the shed gates and the cost a request charges its
+# tenant's deficit: low (0) sheds at half the depth or twice the page floor
+# and is told to retry twice as late; high (2) tolerates twice the depth and
+# costs half.
+_PRIORITY_FACTOR = {0: 0.5, 1: 1.0, 2: 2.0}
+
+
+def _request_cost(req: "_Request") -> float:
+    """A request's DRR cost in the fair queue: its requested work (prompt +
+    budget) over its priority factor."""
+    return (len(req.prompt_ids) + req.max_tokens) / _PRIORITY_FACTOR[req.priority]
 
 
 @dataclasses.dataclass
@@ -171,6 +265,9 @@ class _Request:
     rid: str = ""
     t_submit: float = 0.0
     priority: int = 1  # 0 low / 1 normal / 2 high: preemption spills the lowest first
+    tenant: str = DEFAULT_TENANT  # the fair queue's subqueue and the quota's account
+    # Absolute end-to-end deadline on the time.monotonic clock; 0.0 = none.
+    deadline: float = 0.0
 
     def knobs(self) -> tuple:
         return _knobs(self.sampling)
@@ -189,11 +286,26 @@ class StreamHandle:
         self.ttft_s: float | None = None  # submit to first token, engine clock
         self._events: deque = deque()
         self._cv = threading.Condition()
+        # Fired once when the stream ends (a _DONE or an exception): the
+        # one place every finish path goes through, where the tenant meter
+        # frees the stream's quota slot.
+        self._on_close = None
+
+    def buffered(self) -> int:
+        """Events produced and not yet consumed: the output buffer the
+        backpressure watermark bounds."""
+        with self._cv:
+            return len(self._events)
 
     def _emit(self, item) -> None:
+        cb = None
         with self._cv:
             self._events.append(item)
             self._cv.notify()
+            if item is _DONE or isinstance(item, Exception):
+                cb, self._on_close = self._on_close, None
+        if cb is not None:
+            cb()
 
     def tokens(self) -> Iterator[Token]:
         while True:
@@ -296,7 +408,34 @@ class BatchEngine:
         self._lane_leases: dict[int, object] = {}
         self._lane_info: dict[int, tuple[_Request, int]] = {}
         self._epoch_kv_retained = False
-        self._queue: deque[_Request] = deque()
+        # Admission (runtime/admission.py): the quota meter (429s), the fair
+        # queue (the global FIFO with fair_queue=False or one tenant), the
+        # queue-wait estimate of deadline-aware shedding, and the stall
+        # guard. The SLO tracker records every tenant's SLIs; its burn
+        # feeds the queue's weights and the shed scale about once a second.
+        self.shed_queue_depth = serve.shed_queue_depth
+        self.shed_min_free_pages = serve.shed_min_free_pages
+        self.retry_after_s = serve.retry_after_s
+        self.stream_buffer_tokens = serve.stream_buffer_tokens
+        self.default_deadline_s = serve.default_deadline_s
+        self.tenant_meter = TenantMeter(rate=serve.tenant_rate, burst=serve.tenant_burst,
+                                        max_streams=serve.tenant_streams)
+        self._queue = FairQueue(fair=serve.fair_queue, cost=_request_cost)
+        self._wait_est = WaitEstimator()
+        self.slo = SloTracker(serve.slo_objectives(), fast_window_s=serve.slo_fast_window_s,
+                              slow_window_s=serve.slo_slow_window_s)
+        self.slo_feedback = serve.slo_feedback
+        # tenant -> shed-estimate scale (> 1), rebound whole by
+        # _apply_slo_feedback and read without a lock in submit; the tenants
+        # holding a quantum weight > 1 (an evicted one is reset too).
+        self._slo_shed_scale: dict[str, float] = {}
+        self._slo_weighted: set[str] = set()
+        self._slo_next_feedback = 0.0
+        self.epoch_stall_s = serve.epoch_stall_s
+        # No callback into the engine from the guard, the queue or a stream
+        # handle: a reference cycle would keep a stopped engine (and its KV
+        # storage) alive until the garbage collector runs.
+        self._guard = StallGuard(self.epoch_stall_s) if self.epoch_stall_s > 0 else None
         self._cv = threading.Condition()
         self._stop = False
         self._running = False  # an epoch is in flight (under _cv)
@@ -308,14 +447,29 @@ class BatchEngine:
         # Under _cv: rid -> _SpilledLane, the lanes the continuous scheduler
         # preempted. A spilled lane holds no pages and no device state.
         self._spilled: dict[str, _SpilledLane] = {}
-        # Written by the engine thread; readers take a copy. budget_deferrals
-        # counts join and restore candidates a step's prefill grant put off.
+        # Written by the engine thread (and submit's refusals); readers take
+        # a copy. budget_deferrals counts join and restore candidates a
+        # step's prefill grant put off; shed, quota_refusals,
+        # deadline_expired (queued, running or spilled), epoch_stalls and
+        # backpressured count admission's refusals and finishes.
         self.stats = {
             "batches": 0, "rows": 0, "max_rows": 0, "joins": 0, "cancelled": 0,
             "page_truncations": 0, "prefix_hits": 0, "prefix_misses": 0,
             "prefill_s": 0.0, "decode_s": 0.0, "decode_chunks": 0, "decode_steps": 0,
             "preemptions": 0, "restores": 0, "budget_deferrals": 0, "stream_errors": 0,
+            "shed": 0, "quota_refusals": 0, "deadline_expired": 0, "epoch_stalls": 0,
+            "backpressured": 0,
         }
+
+    def tenant_stats(self) -> dict:
+        """Per-tenant view for ``/stats``: the quota accounting and the fair
+        queue's depths."""
+        out = self.tenant_meter.snapshot()
+        with self._cv:
+            queued = self._queue.queued_by_tenant()
+        for tenant, n in queued.items():
+            out.setdefault(tenant, {})["queued"] = n
+        return out
 
     # ------------------------------------------------------------ lifecycle
 
@@ -329,6 +483,10 @@ class BatchEngine:
         with self._cv:
             self._stop = True
             self._cv.notify_all()
+        if self._guard is not None:
+            # Before the join: the engine thread may wait on a stalled
+            # dispatch, and the guard's stop wakes it at once.
+            self._guard.stop()
         if self._thread is not None:
             self._thread.join(timeout=60)
             self._thread = None
@@ -370,13 +528,21 @@ class BatchEngine:
         sampling: SamplingConfig,
         request_id: str | None = None,
         priority: int | None = None,
+        tenant: str | None = None,
+        deadline_s: float | None = None,
     ) -> StreamHandle:
         """Queue one chat completion; returns its stream at once.
         ``priority`` (0 low, 1 normal, 2 high; ServeConfig's
-        ``default_priority`` when None) orders preemption under the
-        continuous scheduler. Raises ValueError for prompts that can never
-        be served (the API maps it to a 400 before any streaming headers go
-        out)."""
+        ``default_priority`` when None) scales the shed gates and orders
+        preemption under the continuous scheduler. ``tenant`` keys the quota
+        and the fair queue (``QuotaExceeded``: HTTP 429); ``deadline_s``
+        (ServeConfig's ``default_deadline_s`` when None; 0 = none) is the
+        end-to-end deadline: queued past it the request expires unadmitted,
+        running past it the stream finishes ``"deadline"`` at the next chunk
+        boundary, and a deadline the estimated queue wait already exceeds
+        is shed at once (``EngineOverloaded``: HTTP 503). Raises ValueError
+        for prompts that can never be served and for a bad deadline (the
+        API maps it to a 400 before any streaming headers go out)."""
         ids = self.tokenizer.encode(encode_dialog(messages, self.config.dialog_template))
         # The left-pad bucket can add slots ahead of the prompt: require room
         # for the bucket plus one generated token (the layout's own helper).
@@ -393,16 +559,75 @@ class BatchEngine:
                 )
         if priority is None:
             priority = self.default_priority
+        priority = max(0, min(2, int(priority)))
+        tenant = (str(tenant).strip() if tenant else "") or DEFAULT_TENANT
+        if deadline_s is None and self.default_deadline_s > 0:
+            deadline_s = self.default_deadline_s
+        if deadline_s is not None and (not isinstance(deadline_s, (int, float))
+                                       or isinstance(deadline_s, bool) or deadline_s <= 0):
+            raise ValueError(f"deadline_s must be a positive number, got {deadline_s!r}")
         rid = request_id or f"req-{uuid.uuid4()}"
+        # The quota first (a 429 the caller can fix by backing off beats a
+        # 503); admit() registers the stream, so a later refusal closes it.
+        try:
+            self.tenant_meter.admit(tenant, rid, len(ids) + int(max_tokens))
+        except QuotaExceeded:
+            self.stats["quota_refusals"] += 1
+            self.slo.observe_refusal(tenant, "quota")
+            raise
+        try:
+            self._maybe_shed(priority, deadline_s=deadline_s, tenant=tenant)
+        except EngineOverloaded:
+            # A shed is the server's saturation: the quota charge goes back.
+            self.tenant_meter.close(rid, refund=True)
+            raise
         handle = StreamHandle(n_prompt=len(ids), request_id=rid)
+        meter = self.tenant_meter
+        handle._on_close = lambda: meter.close(rid)
         req = _Request(ids, int(max_tokens), sampling, handle, rid=rid,
-                       t_submit=time.perf_counter(), priority=max(0, min(2, int(priority))))
+                       t_submit=time.perf_counter(), priority=priority, tenant=tenant,
+                       deadline=time.monotonic() + deadline_s if deadline_s else 0.0)
         with self._cv:
             if self._stop:
+                self.tenant_meter.close(rid, refund=True)
                 raise RuntimeError("engine is stopped")
             self._queue.append(req)
             self._cv.notify_all()
         return handle
+
+    def _maybe_shed(self, priority: int = 1, deadline_s: float | None = None,
+                    tenant: str = DEFAULT_TENANT) -> None:
+        """Load shedding: refuse now (503 + Retry-After at the API) rather
+        than queue into a timeout. Three gates: a deadline the estimated
+        queue wait (the EWMA of observed waits, scaled by the depth and the
+        tenant's SLO shed scale) already exceeds, the queue depth, and the
+        paged pool's free pages (cold prefix-cache pages count as free:
+        admission reclaims them before it maps). The last two are off at 0
+        and scale with the priority class."""
+        factor = _PRIORITY_FACTOR[priority]
+        with self._cv:
+            depth = len(self._queue)
+        est = (self._wait_est.estimate(depth, self.max_batch,
+                                       scale=self._slo_shed_scale.get(tenant, 1.0))
+               if deadline_s else 0.0)
+        reason = None
+        if deadline_s and est > deadline_s:
+            reason = (f"estimated queue wait {est:.2f}s already exceeds the request deadline "
+                      f"{deadline_s:.2f}s")
+        elif self.shed_queue_depth and depth >= self.shed_queue_depth * factor:
+            reason = f"queue depth {depth} >= {self.shed_queue_depth * factor:g} (priority {priority})"
+        elif self.shed_min_free_pages and self._alloc is not None:
+            free = self._alloc.pages_free + (
+                self._prefix.reclaimable() if self._prefix is not None else 0)
+            if free < self.shed_min_free_pages / factor:
+                reason = (f"{free} free+reclaimable KV pages < floor "
+                          f"{self.shed_min_free_pages / factor:g} (priority {priority})")
+        if reason is None:
+            return
+        self.stats["shed"] += 1
+        self.slo.observe_refusal(tenant, "shed")
+        raise EngineOverloaded(f"engine overloaded: {reason}",
+                               retry_after_s=self.retry_after_s / factor)
 
     def cancel(self, request_id: str) -> bool:
         """Cancel one request. Queued or spilled: finished at once as
@@ -450,6 +675,57 @@ class BatchEngine:
             sp.row.req.handle._emit(_DONE)
         self._spilled.clear()
 
+    def _expire_queued(self, req: _Request) -> None:
+        """Close a queued request whose deadline passed before admission (the
+        caller took it off the queue): it never held a lane or a page."""
+        req.handle.finish_reason = "deadline"
+        self.stats["deadline_expired"] += 1
+        self.slo.observe_finish(req.tenant, "deadline", had_deadline=True, got_first_token=False)
+        req.handle._emit(_DONE)
+
+    def _apply_deadlines(self, rows: list) -> None:
+        """Chunk-boundary deadline sweep: running streams past their
+        deadline finish ``"deadline"`` now (their lanes are free this round;
+        the caller's _release_finished returns their pages), spilled ones
+        are never restored, and queued ones expire unadmitted."""
+        now = time.monotonic()
+        for lane, row in enumerate(rows):
+            if row is not None and row.req.deadline and now > row.req.deadline:
+                self.stats["deadline_expired"] += 1
+                row.expire()
+                rows[lane] = None
+        expired_spills = []
+        with self._cv:
+            for rid, sp in list(self._spilled.items()):
+                if sp.row.req.deadline and now > sp.row.req.deadline:
+                    del self._spilled[rid]
+                    expired_spills.append(sp)
+        for sp in expired_spills:
+            # A spilled lane holds no pages; its delivered tokens stand.
+            self.stats["deadline_expired"] += 1
+            sp.row.expire()
+        if self._queue.deadline_count:
+            expired = []
+            with self._cv:
+                for r in self._queue:
+                    if r.deadline and now > r.deadline:
+                        self._queue.remove(r)
+                        expired.append(r)
+            for r in expired:
+                self._expire_queued(r)
+
+    def _shed_backpressure(self, row: "_RowState") -> None:
+        """A consumer that stopped reading has ``stream_buffer_tokens``
+        tokens parked in its stream: cancel the stream as a client that
+        left would be, at this chunk boundary, instead of growing the
+        buffer without bound."""
+        self.stats["backpressured"] += 1
+        log.warning("stream %s backpressured (%d tokens buffered >= %d); cancelling",
+                    row.req.rid, row.req.handle.buffered(), self.stream_buffer_tokens)
+        with self._cv:
+            if row.req.rid in self._live_rids:
+                self._cancel_ids.add(row.req.rid)
+
     def _row_finished(self, rid: str) -> None:
         with self._cv:
             self._live_rids.discard(rid)
@@ -492,6 +768,7 @@ class BatchEngine:
             # The continuous scheduler admits per step instead.
             if self.admission_window > 0 and self.scheduler != "continuous":
                 time.sleep(self.admission_window)
+            self._apply_slo_feedback()
             batch = [] if spill_seed else self._admit()
             if not batch and not spill_seed:
                 continue
@@ -502,6 +779,10 @@ class BatchEngine:
             except Exception as e:  # noqa: BLE001 - surface to every consumer, keep serving
                 log.exception("batch failed")
                 for r in batch:
+                    if r.handle._on_close is not None:
+                        # Not yet ended: its tenant's error SLI counts it once.
+                        self.slo.observe_finish(r.tenant, "error", had_deadline=bool(r.deadline),
+                                                got_first_token=r.handle.completion_tokens > 0)
                     r.handle._emit(e)
                     r.handle._emit(_DONE)
             finally:
@@ -513,6 +794,87 @@ class BatchEngine:
         self.stats["batches"] += 1
         self.stats["rows"] += n_rows
         self.stats["max_rows"] = max(self.stats["max_rows"], n_rows)
+
+    def _apply_slo_feedback(self, force: bool = False) -> None:
+        """Feed each tenant's burn back into admission (obs/slo.py
+        ``adjustments``): a burning tenant's fair-queue quantum is weighted
+        up and its shed estimate scaled up. At most about once a second:
+        the windows move on second granularity."""
+        if not self.slo_feedback:
+            return
+        now = time.monotonic()
+        if not force and now < self._slo_next_feedback:
+            return
+        self._slo_next_feedback = now + 1.0
+        adj = self.slo.adjustments()
+        if not adj and not self._slo_shed_scale and not self._slo_weighted:
+            return
+        self._slo_shed_scale = {t: a["shed_scale"] for t, a in adj.items()
+                                if a["shed_scale"] > 1.0}
+        with self._cv:
+            for t, a in adj.items():
+                self._queue.set_weight(t, a["quantum_weight"])
+            # A weighted tenant the tracker evicted is reset here, or its
+            # boosted share would outlive its burn.
+            for t in self._slo_weighted - set(adj):
+                self._queue.set_weight(t, 1.0)
+        self._slo_weighted = {t for t, a in adj.items() if a["quantum_weight"] > 1.0}
+
+    def _on_epoch_stall(self, op: str) -> None:
+        """The guard abandoned a dispatch: the backend drops every buffer
+        the abandoned dispatch may still write (its storage and the decode
+        graphs captured over it), so the next epoch allocates anew. The
+        epoch unwinds through the error isolation of _run_batch."""
+        self.stats["epoch_stalls"] += 1
+        log.warning("backend %s dispatch stalled past %.3gs: abandoned", op, self.epoch_stall_s)
+        abandon = getattr(self.backend, "abandon", None)
+        if abandon is not None:
+            abandon()
+
+    def _dispatch(self, op: str, fn, grace: bool = False):
+        """Run one backend dispatch, under the stall guard when
+        ``epoch_stall_s`` is on (inline, as it is, when it is off). Under the
+        guard ``fn`` runs on the watchdog thread with the engine thread's
+        device and current stream (both are per thread in torch) in
+        inference mode, and a CUDA event recorded after it on that stream is
+        waited for there: a device that took the launches and never
+        finishes them is caught too, without synchronizing the whole
+        device. A stalled dispatch is abandoned (``_on_epoch_stall``) and
+        surfaces as the ``BackendWorkerError`` a lost worker gives.
+        ``grace``: the call gets the first call's grace (a decode that
+        captures a new graph).
+
+        ``init_kv`` stays inline: it resets the allocator and publishes the
+        backend's storage, host state an abandoned thread must never write
+        after the next epoch has begun. Its device work (the allocation's
+        zeroing) is queued on the engine's stream, so the event of the
+        guarded dispatch that follows it waits for that work too."""
+        guard = self._guard
+        if guard is None:
+            return fn()
+        from cake_tpu_torch.runtime.batch_backend import BackendWorkerError
+
+        index = self._cuda_index
+        stream = torch.cuda.current_stream(index) if index is not None else None
+
+        def job():
+            with torch.inference_mode():
+                if stream is None:
+                    return fn()
+                with torch.cuda.device(index), torch.cuda.stream(stream):
+                    out = fn()
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                done.synchronize()
+                return out
+
+        stalls = guard.stalls
+        try:
+            return guard.call(job, op, grace=grace)
+        except BackendWorkerError:
+            if guard.stalls != stalls:
+                self._on_epoch_stall(op)
+            raise
 
     def _pages_for(self, req: _Request, end_slot: int | None = None) -> int:
         """Admission price: prompt pages + the reserve, less the cached-prefix
@@ -526,12 +888,16 @@ class BatchEngine:
         return self._alloc.pages_needed(n - served) + self._alloc.reserve_pages
 
     def _admit(self) -> list[_Request]:
-        """The queue's head plus every queued request with the same knobs, up
-        to max_batch, in FIFO order. Paged: each candidate charges its pages
-        against the pool; one that does not fit stays queued while a smaller
-        later one may land. With the prefix cache and ``cache_aware_order``,
-        only requests extending the head's cached chain join its epoch."""
-        head_knobs, ckey, avail = None, None, None
+        """The fair-order head plus every queued request with the same
+        knobs, up to max_batch, in the fair queue's order (per-tenant FIFO;
+        the global FIFO with one tenant). A request past its deadline is
+        dropped here, before it can hold a lane or a page. Paged: each
+        candidate charges its pages against the pool; one that does not fit
+        stays queued while a smaller later one may land. With the prefix
+        cache and ``cache_aware_order``, only requests extending the head's
+        cached chain join its epoch."""
+        now = time.monotonic()
+        state = {"knobs": None, "avail": None, "ckey": None}
 
         def radix_key(r: _Request):
             n = len(r.prompt_ids)
@@ -539,40 +905,54 @@ class BatchEngine:
             return self._prefix.radix_key(r.prompt_ids, align)
 
         def charge(r: _Request) -> bool:
-            nonlocal avail
             need = self._pages_for(r)
-            if need > avail and self._prefix is not None:
-                avail += self._prefix.reclaim(need - avail)
-            if need > avail:
+            if need > state["avail"] and self._prefix is not None:
+                state["avail"] += self._prefix.reclaim(need - state["avail"])
+            if need > state["avail"]:
                 return False
-            avail -= need
+            state["avail"] -= need
             return True
 
-        group: list[_Request] = []
+        def accept(r: _Request) -> str:
+            if r.deadline and now > r.deadline:
+                self._expire_queued(r)
+                return "drop"
+            if state["knobs"] is None:
+                # The head defines the epoch's knobs and is always taken
+                # (the pool is fresh; only cold cache pages may need a reclaim).
+                state["knobs"] = r.knobs()
+                if self._prefix is not None and self.cache_aware_order:
+                    state["ckey"] = radix_key(r)
+                if self._alloc is not None:
+                    need = self._pages_for(r)
+                    free = self._alloc.pages_free
+                    if need > free and self._prefix is not None:
+                        free += self._prefix.reclaim(need - free)
+                    state["avail"] = free - need
+                return "take"
+            if r.knobs() != state["knobs"]:
+                return "skip"
+            if state["ckey"] is not None and radix_key(r) != state["ckey"]:
+                return "skip"
+            if state["avail"] is not None and not charge(r):
+                return "skip"
+            return "take"
+
         with self._cv:
-            for r in list(self._queue):
-                if len(group) >= self.max_batch:
-                    break
-                if head_knobs is None:
-                    head_knobs = r.knobs()
-                    if self._prefix is not None and self.cache_aware_order:
-                        ckey = radix_key(r)
-                    if self._alloc is not None:
-                        avail = self._alloc.pages_free
-                        charge(r)  # the head is always taken (the pool is fresh)
-                elif r.knobs() != head_knobs:
-                    continue
-                elif ckey is not None and radix_key(r) != ckey:
-                    continue
-                elif avail is not None and not charge(r):
-                    continue
-                self._queue.remove(r)
-                group.append(r)
+            group = self._queue.take(self.max_batch, accept)
             # Live while still under the lock that dequeued them, so cancel()
             # always finds a request somewhere.
             self._live_rids.update(r.rid for r in group)
             self._running = bool(group)
+        self._record_admissions(group)
         return group
+
+    def _record_admissions(self, reqs: list[_Request]) -> None:
+        """Requests leaving the queue (epoch admissions and joins): their
+        waits feed the deadline-aware shed estimate."""
+        now = time.perf_counter()
+        for r in reqs:
+            self._wait_est.observe(now - r.t_submit)
 
     # ------------------------------------------------- prefix-cache wiring
 
@@ -642,7 +1022,7 @@ class BatchEngine:
                 cow_src.append(pair[0])
                 cow_dst.append(pair[1])
         if cow_src:  # one device copy for every lane's boundary split
-            kv = self.backend.cow_copy(kv, cow_src, cow_dst)
+            kv = self._dispatch("cow_copy", lambda: self.backend.cow_copy(kv, cow_src, cow_dst))
         return kv, ws
 
     # -------------------------------------------------- execution (epochs)
@@ -667,15 +1047,14 @@ class BatchEngine:
         try:
             self._run_epoch(batch, rows)
         except BackendWorkerError as e:
-            # Failure isolation: the epoch's LIVE streams finish "error" (the
+            # Failure isolation (a lost worker, or a dispatch the stall
+            # guard abandoned): the epoch's LIVE streams finish "error" (the
             # tokens they delivered are the fault-free run's); the engine
             # keeps serving.
             log.warning("epoch lost its worker: %s", e)
-            self.stats["stream_errors"] += sum(r is not None for r in rows)
             for lane, row in enumerate(rows):
                 if row is not None:
-                    row.req.handle.finish_reason = "error"
-                    row.finish()
+                    row.fail()
                     rows[lane] = None
         except Exception as e:
             for row in rows:
@@ -711,6 +1090,8 @@ class BatchEngine:
                         self._cancel_ids.discard(row.req.rid)
 
     def _run_epoch(self, batch: list[_Request], rows: list) -> None:
+        from cake_tpu_torch.runtime.batch_backend import BackendWorkerError
+
         seed_spills: list[_SpilledLane] = []
         if not batch:
             # Spill-seeded segment (continuous): the oldest spill's knob
@@ -782,11 +1163,10 @@ class BatchEngine:
             # window [start, bucket) covering every lane's uncached tail.
             fresh_width = bucket - int(write_starts.min())
             start = bucket - min(-(-fresh_width // _WINDOW_BUCKET) * _WINDOW_BUCKET, bucket)
-            logits, kv = self.backend.suffix_prefill(
-                tokens[:, start:], kv, pads, write_starts, start
-            )
+            logits, kv = self._dispatch("prefill", lambda: self.backend.suffix_prefill(
+                tokens[:, start:], kv, pads, write_starts, start))
         else:
-            logits, kv = self.backend.prefill(tokens, kv, pads)
+            logits, kv = self._dispatch("prefill", lambda: self.backend.prefill(tokens, kv, pads))
         ring, ring_idx = seed_rings(ids_list, window)
         if seed_spills:
             # Nothing is sampled: the pending token history[-1] was already
@@ -830,13 +1210,18 @@ class BatchEngine:
                         self._row_finished(row.req.rid)
                         rows[lane] = None
                 return
+            # Cancels, then deadlines: flagged or late rows finish now, and
+            # their lanes and pages are free for this round's joins.
             self._apply_cancels(rows)
+            self._apply_deadlines(rows)
             self._release_finished(rows)
             # Continuous: grant this step's prefill budget, restore spilled
             # lanes first (admitted work outranks new admissions), then
-            # join. Epoch: joins unbudgeted.
+            # join. Epoch: joins unbudgeted. A segment under sustained joins
+            # may never end, so the SLO feedback applies here too.
             budget = None
             if self.scheduler == "continuous":
+                self._apply_slo_feedback()
                 budget = {"left": self._grant_step_budget(rows)}
                 kv = self._take_restores(knobs, rows, slot, cap, budget, tok, kv, keys, ring_j,
                                          ring_idx_j, pads_j)
@@ -852,8 +1237,11 @@ class BatchEngine:
             except Exception as e:
                 for _, req in join_args:
                     if id(req) not in joined:
-                        req.handle._emit(e)
-                        req.handle._emit(_DONE)
+                        if isinstance(e, BackendWorkerError):
+                            _fail_request(req, self)  # the admitted rows' isolation
+                        else:
+                            req.handle._emit(e)
+                            req.handle._emit(_DONE)
                         self._row_finished(req.rid)
                 raise
             if not any(r is not None for r in rows):
@@ -864,10 +1252,15 @@ class BatchEngine:
             ):
                 break  # every remaining row was truncated or spilled
             t_chunk = time.perf_counter()
-            toks, kv, keys, ring_j, ring_idx_j = self.backend.decode(
-                kv, tok, slot, pads_j, keys, ring_j, ring_idx_j, n, s
-            )
-            toks_np = toks.cpu().numpy()  # the chunk's one readback
+
+            def chunk():
+                out = self.backend.decode(kv, tok, slot, pads_j, keys, ring_j, ring_idx_j, n, s)
+                return out, out[0].cpu().numpy()  # the chunk's one readback
+
+            builds = getattr(self.backend, "decode_builds_chunk", None)
+            (toks, kv, keys, ring_j, ring_idx_j), toks_np = self._dispatch(
+                "decode", chunk, grace=self._guard is not None and builds is not None
+                and builds(kv, tok, ring_j, n, s))
             dt_chunk = time.perf_counter() - t_chunk
             self._step_budget.observe_chunk(dt_chunk)
             self.stats["decode_s"] += dt_chunk
@@ -1054,9 +1447,21 @@ class BatchEngine:
         """Seed rows of a spill-seeded segment: the oldest spill's knob
         group, oldest first, as many as fit the lanes and the (fully free)
         pool. A spill whose history can never be served again (the window
-        or the whole pool is too small for it) finishes as "length"."""
+        or the whole pool is too small for it) finishes as "length", and one
+        past its deadline finishes "deadline" (the chunk-boundary sweep's
+        rule, so a late spill is never restored)."""
         doomed: list[_SpilledLane] = []
+        late: list[_SpilledLane] = []
         out: list[_SpilledLane] = []
+        now = time.monotonic()
+        with self._cv:
+            for rid, sp in list(self._spilled.items()):
+                if sp.row.req.deadline and now > sp.row.req.deadline:
+                    del self._spilled[rid]
+                    late.append(sp)
+        for sp in late:
+            self.stats["deadline_expired"] += 1
+            sp.row.expire()
         with self._cv:
             if not self._spilled:
                 return []
@@ -1185,20 +1590,23 @@ class BatchEngine:
         if self._prefix is not None:
             fresh, pair = self._fork_lane(lane, req, pad, slot, ids=hist)
             if pair is not None:
-                kv = self.backend.cow_copy(kv, [pair[0]], [pair[1]])
+                kv = self._dispatch("cow_copy", lambda: self.backend.cow_copy(
+                    kv, [pair[0]], [pair[1]]))
             width = min(-(-(slot - fresh) // _WINDOW_BUCKET) * _WINDOW_BUCKET, slot)
             start = slot - width
             row_tokens = np.zeros((1, width), np.int32)
             lo = max(pad, start)
             row_tokens[0, lo - start :] = hist[lo - pad :]
-            _, kv = self.backend.suffix_join(kv, row_tokens, pad, fresh, lane, start)
+            _, kv = self._dispatch("restore", lambda: self.backend.suffix_join(
+                kv, row_tokens, pad, fresh, lane, start))
         else:
             width = min(-(-slot // _WINDOW_BUCKET) * _WINDOW_BUCKET, self.max_seq_len)
             row_tokens = np.zeros((1, width), np.int32)
             row_tokens[0, pad:slot] = hist
             if self._alloc is not None:
                 self._alloc.map_range(lane, pad, slot)
-            _, kv = self.backend.join(kv, row_tokens, pad, slot, lane)
+            _, kv = self._dispatch("restore", lambda: self.backend.join(
+                kv, row_tokens, pad, slot, lane))
         self.stats["prefill_s"] += time.perf_counter() - t0
         dev = self.backend.device
         if sp.ring is not None and ring_j.ndim == 2 and ring_j.shape[1] > 0:
@@ -1214,53 +1622,74 @@ class BatchEngine:
         return kv
 
     def _grant_step_budget(self, rows: list) -> int:
-        """This step's prefill grant in prompt tokens (``StepBudget``). The
-        port has no SLO tracker and no deadlines yet (ROADMAP.md, the
-        admission item), so nothing burns and no live stream has slack."""
-        return self._step_budget.grant(burning=False, tightest_slack_s=None)
+        """This step's prefill grant in prompt tokens (``StepBudget``):
+        doubled while the SLO feedback says some tenant is burning, cut to a
+        quarter while a live stream's deadline slack is inside a few chunk
+        walls."""
+        now = time.monotonic()
+        slack = None
+        for row in rows:
+            if row is not None and row.req.deadline:
+                left = row.req.deadline - now
+                if slack is None or left < slack:
+                    slack = left
+        return self._step_budget.grant(burning=bool(self._slo_shed_scale),
+                                       tightest_slack_s=slack)
 
     # ------------------------------------------------------------ joins
 
     def _take_joins(self, knobs: tuple, rows: list, slot: int, cap: int,
                     budget: dict | None = None) -> list:
-        """Dequeue requests that can join NOW, in FIFO order: same knobs (a
-        request with other knobs stops the scan: it bounds this epoch), a
-        prompt that ends by the shared slot, a free lane, and enough budget
-        left in the epoch that joining delivers what waiting would.
-        ``budget`` (continuous) caps this step's join prefill in prompt
-        tokens; a candidate over it waits a step. Paged: joiners charge
-        their pages, reclaiming cold cache pages first."""
+        """Dequeue requests that can join NOW, in the fair queue's order: the
+        same knobs, a prompt that ends by the shared slot, a free lane, and
+        enough budget left in the epoch that joining delivers what waiting
+        would. Within a tenant the scan stops at its first request with
+        other knobs (per-tenant FIFO); while the oldest queued request has
+        other knobs nothing joins (it bounds this epoch, the global FIFO's
+        guarantee). ``budget`` (continuous) caps this step's join prefill in
+        prompt tokens; a candidate over it waits a step. Paged: joiners
+        charge their pages, reclaiming cold cache pages first. A request
+        past its deadline expires here."""
         free = [i for i, r in enumerate(rows) if r is None]
         if not free:
             return []
-        avail = self._alloc.pages_free if self._alloc is not None else None
-        out: list[tuple[int, _Request]] = []
+        now = time.monotonic()
+        state = {"avail": self._alloc.pages_free if self._alloc is not None else None}
+
+        def accept(req: _Request) -> str:
+            if req.deadline and now > req.deadline:
+                self._expire_queued(req)
+                return "drop"
+            if req.knobs() != knobs:
+                return "next"
+            n_ids = len(req.prompt_ids)
+            solo_budget = min(
+                req.max_tokens, self.max_seq_len - prompt_bucket(n_ids, self.max_seq_len)
+            )
+            if n_ids > slot or cap - slot < solo_budget:
+                return "skip"
+            if budget is not None and budget["left"] < n_ids:
+                self.stats["budget_deferrals"] += 1
+                return "skip"
+            avail = state["avail"]
+            if avail is not None:
+                need = self._pages_for(req, end_slot=slot)
+                if need > avail and self._prefix is not None:
+                    avail = state["avail"] = avail + self._prefix.reclaim(need - avail)
+                if need > avail:
+                    return "skip"
+                state["avail"] = avail - need
+            if budget is not None:
+                budget["left"] -= n_ids
+            return "take"
+
         with self._cv:
-            for req in list(self._queue):
-                if len(out) >= len(free):
-                    break
-                if req.knobs() != knobs:
-                    break
-                n_ids = len(req.prompt_ids)
-                solo_budget = min(
-                    req.max_tokens, self.max_seq_len - prompt_bucket(n_ids, self.max_seq_len)
-                )
-                if n_ids > slot or cap - slot < solo_budget:
-                    continue
-                if budget is not None and budget["left"] < n_ids:
-                    self.stats["budget_deferrals"] += 1
-                    continue
-                if avail is not None:
-                    need = self._pages_for(req, end_slot=slot)
-                    if need > avail and self._prefix is not None:
-                        avail += self._prefix.reclaim(need - avail)
-                    if need > avail:
-                        continue
-                    avail -= need
-                if budget is not None:
-                    budget["left"] -= n_ids
-                self._queue.remove(req)
-                out.append((free[len(out)], req))
+            head = self._queue.oldest_head()
+            if (head is not None and head.knobs() != knobs
+                    and not (head.deadline and now > head.deadline)):
+                return []
+            taken = self._queue.take(len(free), accept)
+            out = [(free[i], req) for i, req in enumerate(taken)]
             self._live_rids.update(req.rid for _, req in out)
         return out
 
@@ -1285,20 +1714,23 @@ class BatchEngine:
                 row.finish()
                 return tok, kv, keys, ring_j, ring_idx_j
             if pair is not None:
-                kv = self.backend.cow_copy(kv, [pair[0]], [pair[1]])
+                kv = self._dispatch("cow_copy", lambda: self.backend.cow_copy(
+                    kv, [pair[0]], [pair[1]]))
             width = min(-(-(slot - fresh) // _WINDOW_BUCKET) * _WINDOW_BUCKET, slot)
             start = slot - width
             row_tokens = np.zeros((1, width), np.int32)
             lo = max(pad, start)
             row_tokens[0, lo - start :] = ids[lo - pad :]
-            logits, kv = self.backend.suffix_join(kv, row_tokens, pad, fresh, lane, start)
+            logits, kv = self._dispatch("join", lambda: self.backend.suffix_join(
+                kv, row_tokens, pad, fresh, lane, start))
         else:
             width = min(-(-slot // _WINDOW_BUCKET) * _WINDOW_BUCKET, self.max_seq_len)
             row_tokens = np.zeros((1, width), np.int32)
             row_tokens[0, pad:slot] = ids
             if self._alloc is not None:
                 self._alloc.map_range(lane, pad, slot)  # _take_joins charged the pool
-            logits, kv = self.backend.join(kv, row_tokens, pad, slot, lane)
+            logits, kv = self._dispatch("join", lambda: self.backend.join(
+                kv, row_tokens, pad, slot, lane))
         # The same first-token arithmetic as the epoch start (batch.first_sample).
         window = s.repeat_last_n
         row_ring, row_ring_idx = seed_rings([ids], window)
@@ -1314,6 +1746,7 @@ class BatchEngine:
             ring_idx_j[lane] = int(row_ring_idx[0])
         keys[lane] = key_next[0]
         tok[lane] = first
+        self._record_admissions([req])
         row.push(first)
         rows[lane] = None if row.done else row
         self.stats["joins"] += 1
@@ -1356,6 +1789,7 @@ class _RowState:
         # lane that spills itself again at that count made no progress.
         self.t_open = time.perf_counter()
         self.n_at_restore = -1
+        self._backpressured = False
 
     def push(self, tid: int) -> None:
         """Accept one decoded id and emit it. The moment the row is done
@@ -1366,8 +1800,17 @@ class _RowState:
         self._ids.append(tid)
         self.history.append(tid)
         self.n += 1
+        eng = self._engine
         if self.n == 1:
             self.req.handle.ttft_s = time.perf_counter() - self.req.t_submit
+            eng.slo.observe_ttft(self.req.tenant, self.req.handle.ttft_s)
+        # The backpressure watermark, checked before this token's emit so a
+        # flagged stream still delivers it; it is cancelled at the next
+        # chunk boundary.
+        if (eng.stream_buffer_tokens and not self._backpressured
+                and self.req.handle.buffered() >= eng.stream_buffer_tokens):
+            self._backpressured = True
+            eng._shed_backpressure(self)
         is_eos = tid in self._eos
         if is_eos:
             self.req.handle.finish_reason = "stop"
@@ -1383,10 +1826,43 @@ class _RowState:
         if self.done:
             self.finish()
 
+    def fail(self) -> None:
+        """Failure isolation: finish ``"error"``; the consumer sees a clean
+        end of stream (the tokens it got are the fault-free run's prefix)."""
+        if self._finished:
+            return
+        self.req.handle.finish_reason = "error"
+        self._engine.stats["stream_errors"] += 1
+        self.finish()
+
+    def expire(self) -> None:
+        """The end-to-end deadline passed: finish ``"deadline"`` at this
+        chunk boundary; the tokens already streamed stand."""
+        if self._finished:
+            return
+        self.req.handle.finish_reason = "deadline"
+        self.finish()
+
     def finish(self) -> None:
         if self._finished:
             return
         self._finished = True
         self.done = True
+        # The tenant's SLIs: deadline hit or miss, errors, goodput; a
+        # tokenless deadline or error finish is also a TTFT miss.
+        self._engine.slo.observe_finish(
+            self.req.tenant, self.req.handle.finish_reason, tokens=self.n,
+            had_deadline=bool(self.req.deadline), got_first_token=self.n > 0,
+        )
         self.req.handle._emit(_DONE)
         self._engine._row_finished(self.req.rid)
+
+
+def _fail_request(req: _Request, engine: BatchEngine) -> None:
+    """Finish a request that never took its lane (a joiner stranded by a
+    lost worker or an abandoned dispatch) as ``"error"``, without raising
+    into the consumer."""
+    req.handle.finish_reason = "error"
+    engine.slo.observe_finish(req.tenant, "error", had_deadline=bool(req.deadline),
+                              got_first_token=False)
+    req.handle._emit(_DONE)

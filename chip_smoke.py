@@ -165,6 +165,29 @@ nonzero exit and no final result line:
                run on the small pool (submitted as one group, the prefix
                cache cleared) captures no new graph. Agreement
                between pools reported, with each stream's first difference.
+  9a'. engine_admission  admission on the paged engine (prefix cache on,
+               one engine at a time, 32 tokens out): wave 1 cold across 4
+               tenants with every gate armed (quotas, shed gates, a default
+               deadline, the stall watchdog, SLO objectives) and the same
+               requests in the order the fair queue admitted them with every
+               gate off: equal streams 8/8, ms a decode step, TTFT and ms a
+               decode dispatch side by side, the guard's cost a dispatch;
+               a flood of 24 from tenant A then 2 from B: B's admitted in the
+               first two rounds with the fair queue and after all of A's
+               without; a stream cap and a token bucket refusing (429), a
+               finished stream freeing its slot; the depth gate shedding low
+               priority at half the depth with the quota refunded, the page
+               gate not shedding over cold prefix-cache pages; a queued
+               request expiring unmapped, a running one at a chunk boundary,
+               spilled lanes past their deadline never restored (continuous
+               scheduler, the pool of one epoch's charges); a 429, a 503 and
+               a cancel over the API; a host-side stall in one decode
+               dispatch ending its epoch's streams "error" within the 2 s
+               bound, the stalled thread then writing NaN into every buffer
+               it held while the next wave runs, whose streams equal the
+               gates-off engine's bitwise; every page not cached free after
+               each wave; the paged kernels' launches = n_layers x the
+               dispatches. All gated.
   9b. generate_f8  the generate phase's weights over an f8 KV cache: the
                same prompt, 64 greedy tokens per token and in 8-token
                graph-replayed chunks (equal streams), every decode and
@@ -349,6 +372,11 @@ RAGGED_TURNS = [
 
 
 def emit(obj) -> None:
+    """Print one result line; a phase's line carries the seconds into the
+    run at which it was printed (``t_s``), so the phases' walls can be read
+    off any run."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - STARTED, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -2302,10 +2330,12 @@ def dispatch_shapes(seen: dict) -> dict:
             for name, rec in seen.items()}
 
 
-def _wave(engine, n_tokens, messages=None, samplings=None, together: bool = False) -> dict:
+def _wave(engine, n_tokens, messages=None, samplings=None, together: bool = False,
+          submit_kw=None) -> dict:
     """Submit one wave of concurrent requests (greedy, or one
-    ``samplings`` entry each; ``n_tokens`` out, or one entry each), read
-    every stream, and wait for the epoch to end. ``together``: the engine's
+    ``samplings`` entry each; ``n_tokens`` out, or one entry each; more
+    ``submit`` keywords, one dict each, in ``submit_kw``), read every
+    stream, and wait for the epoch to end. ``together``: the engine's
     lock is held while the wave is submitted, so a running engine admits it
     as one group, as one not yet started does (the continuous scheduler
     has no admission window to gather a burst). TTFT is the engine's submit-to-first-token time; decode tok/s
@@ -2318,8 +2348,10 @@ def _wave(engine, n_tokens, messages=None, samplings=None, together: bool = Fals
     before = dict(engine.stats)
     t0 = time.perf_counter()
     budgets = n_tokens if isinstance(n_tokens, list) else [n_tokens] * len(messages)
+    submit_kw = submit_kw or [{}] * len(messages)
     with engine._cv if together else contextlib.nullcontext():
-        handles = [engine.submit(m, n, s) for m, n, s in zip(messages, budgets, samplings)]
+        handles = [engine.submit(m, n, s, **kw)
+                   for m, n, s, kw in zip(messages, budgets, samplings, submit_kw)]
         engine.start()
     streams = [[t.id for t in h.tokens()] for h in handles]
     wall = time.perf_counter() - t0
@@ -2329,13 +2361,14 @@ def _wave(engine, n_tokens, messages=None, samplings=None, together: bool = Fals
     delta = {k: after[k] - before[k] for k in (
         "batches", "joins", "decode_s", "decode_steps", "decode_chunks", "prefill_s",
         "prefix_hits", "prefix_misses", "preemptions", "restores", "page_truncations",
-        "budget_deferrals",
+        "budget_deferrals", "deadline_expired", "stream_errors",
     )}
-    ttft = [h.ttft_s for h in handles]
-    decoded = sum(h.completion_tokens - 1 for h in handles)
+    ttft = [h.ttft_s for h in handles if h.ttft_s is not None]
+    decoded = sum(max(0, h.completion_tokens - 1) for h in handles)
     return {
         "streams": streams, "wall_s": wall,
-        "ttft_p50_s": statistics.median(ttft), "ttft_max_s": max(ttft),
+        "ttft_p50_s": statistics.median(ttft) if ttft else None,
+        "ttft_max_s": max(ttft, default=None),
         "completion_tokens": [h.completion_tokens for h in handles],
         "finish_reasons": [h.finish_reason for h in handles],
         "decode_tok_s": decoded / delta["decode_s"] if delta["decode_s"] else None,
@@ -2876,13 +2909,14 @@ def _engine_fused_expected(counters, rec, fusions, kv_mode: str, n_layers: int, 
 
 def _fused_engine_run(torch, make, spec: str, kv_mode: str, n_layers: int, on_card: bool,
                       sampled: bool, int4: bool = False, f8: bool = False,
-                      warm: bool = False) -> dict:
+                      warm: bool = False, first_together: bool = True) -> dict:
     """One engine with fusion ``spec``: warm-up waves (they capture the
     decode chunks' graphs), then wave 1 (and the sampled wave; with
     ``warm``, wave 1 again, served from the prefix cache) under the launch
     gate, then two warm profiled waves of 16 and 32 tokens: their
     difference gives the device ops and ms of 16 decode steps, the prefill
-    being the same in both."""
+    being the same in both. ``first_together=False`` submits wave 1 one
+    request at a time, for the admission window to gather."""
     from cake_tpu_torch.models.llama.generator import SamplingConfig
     from cake_tpu_torch.ops.fuse import parse_fusion_spec
 
@@ -2898,14 +2932,17 @@ def _fused_engine_run(torch, make, spec: str, kv_mode: str, n_layers: int, on_ca
             _wave(eng, ENGINE_TOKENS, warm_messages(), samplings=sampled_wave)
         counters = _zero_counters()
         sampled_rec = None
+        # A compared wave submitted as one group cannot be split by the
+        # admission window (a split wave joins other shapes and may give
+        # other bits); each wave's batches and joins are in its row.
         with dispatch_recorder(eng.backend) as rec:
-            waves = [_wave(eng, ENGINE_TOKENS)]
+            waves = [_wave(eng, ENGINE_TOKENS, together=first_together)]
             if sampled:
                 at = {k: len(v) for k, v in rec.items()}
-                waves.append(_wave(eng, ENGINE_TOKENS, samplings=sampled_wave))
+                waves.append(_wave(eng, ENGINE_TOKENS, samplings=sampled_wave, together=True))
                 sampled_rec = {k: v[at[k]:] for k, v in rec.items()}
             if warm:
-                waves.append(_wave(eng, ENGINE_TOKENS))
+                waves.append(_wave(eng, ENGINE_TOKENS, together=True))
         launches, expected = _engine_fused_expected(
             counters, rec, parse_fusion_spec(spec), kv_mode, n_layers, on_card, int4, f8,
             sampled_rec)
@@ -2963,8 +3000,9 @@ def phase_engine_fused(torch, main_path: dict) -> dict:
     runs = []
     for spec, kv_mode in (("none", "paged"), ("ingest,tail", "paged"), ("all", "paged"),
                           ("all", "dense")):
+        # Wave 1 gathered by the admission window, as a client's burst is.
         runs.append(_fused_engine_run(torch, make, spec, kv_mode, n_layers, on_card,
-                                      sampled=kv_mode == "paged"))
+                                      sampled=kv_mode == "paged", first_together=False))
         if on_card:
             torch.cuda.empty_cache()
     none, exact, fused, dense = runs
@@ -2981,7 +3019,8 @@ def phase_engine_fused(torch, main_path: dict) -> dict:
                "greedy_finish_reasons": w["finish_reasons"],
                "decode_tok_s": w["decode_tok_s"], "profile_wave_wall_ms": r["profile_wave_wall_ms"],
                "profile": r["profile"], "launches": r["launches"],
-               "expected_launches": r["expected_launches"]}
+               "expected_launches": r["expected_launches"],
+               "batches_joins": [[x["batches"], x["joins"]] for x in r["waves"]]}
         if len(r["waves"]) > 1:
             s = r["waves"][1]
             out.update(sampled_ttft_p50_s=s["ttft_p50_s"],
@@ -3392,6 +3431,683 @@ def phase_engine_continuous(torch, main_path: dict, tokens: int = CONTINUOUS_TOK
                        for name in ("paged_decode_attention", "paged_chunk_attention",
                                     "threefry_noise")}
     return row
+
+
+# ---------------------------------------------------------------- phase 9a'
+
+ADMISSION_TOKENS = 32  # tokens out of the admission phase's waves
+# The watchdog's bound: above a decode graph's capture at Llama-3-8B (a new
+# decode key captures under the 1x bound once its op has run).
+ADMISSION_STALL_S = 2.0
+ADMISSION_FLOOD = 24  # tenant A's requests in the fairness scenario
+# Every gate armed, none tripped by a wave of 8: the quota and the shed
+# gates far above it, a deadline far beyond it, the watchdog, the SLO
+# tracker with objectives and its feedback.
+ARMED = dict(tenant_rate=1e6, tenant_burst=1e7, tenant_streams=64, shed_queue_depth=256,
+             shed_min_free_pages=1, default_deadline_s=600.0, epoch_stall_s=ADMISSION_STALL_S,
+             slo_ttft_ms=10000.0, slo_deadline_rate=0.5, stream_buffer_tokens=8192)
+
+
+class _StalledDecode:
+    """Wraps an engine backend's ``decode``. Its first call stalls on the
+    host until the next wave's first decode; then, on its abandoned thread
+    (the guard's, under the engine's stream), it fills every buffer it
+    captured with garbage (its KV, its operands, every decode chunk's
+    static buffers and KV) and only then calls the real decode, which must
+    refuse (the backend abandoned that storage). Later calls release it and
+    wait for those writes first, so they are queued on the engine's stream
+    between the next epoch's prefill and its first decode."""
+
+    def __init__(self, torch, backend):
+        self.torch, self.backend, self.real = torch, backend, backend.decode
+        self.calls = 0
+        self.stalled, self.release, self.wrote = (threading.Event() for _ in range(3))
+        self.t_stalled = None
+        self.old_kv = None
+        self.late_error = None
+        backend.decode = self
+
+    def __call__(self, kv, *args):
+        torch = self.torch
+        self.calls += 1
+        if self.calls > 1:
+            self.release.set()
+            if not self.wrote.wait(600):
+                raise AssertionError("the stalled dispatch never wrote its garbage")
+            return self.real(kv, *args)
+        bufs = [kv.k, kv.v] + [a for a in args if isinstance(a, torch.Tensor)]
+        for c in list(self.backend._chunks.values()):
+            bufs += [c.tok, c.slot, c.ring, c.ring_idx, c.keys, c.ids, c.kv.k, c.kv.v,
+                     *c.extra.values()]
+        self.old_kv = kv
+        self.t_stalled = time.perf_counter()
+        self.stalled.set()
+        self.release.wait(600)
+        try:
+            for t in bufs:
+                t.fill_(float("nan") if t.is_floating_point() else 7)
+        finally:
+            self.wrote.set()
+        try:
+            return self.real(kv, *args)
+        except BaseException as e:  # noqa: BLE001 - kept for the gate
+            self.late_error = e
+            raise
+
+
+class _StalledInside:
+    """Stalls an engine backend's next decode INSIDE the real dispatch,
+    after its storage check passed: in ``DecodeChunk.run``, which for a new
+    key captures the chunk's graph and replays it on the card. The next
+    wave's first decode releases it without waiting, so on waking it
+    captures and replays over the abandoned storage while the next epoch
+    captures its own graphs. ``close()`` restores both wrapped calls."""
+
+    def __init__(self, fused, backend):
+        self.fused, self.backend, self.outer = fused, backend, backend.decode
+        self.inner = fused.DecodeChunk.run
+        self.calls, self.thread = 0, None
+        self.stalled, self.release, self.done = (threading.Event() for _ in range(3))
+        self.t_stalled = self.t_woke = self.t_done = None
+        self.late_error = None
+        inside = self
+
+        def run(chunk, **inputs):
+            if threading.current_thread() is not inside.thread:
+                return inside.inner(chunk, **inputs)
+            inside.t_stalled = time.perf_counter()
+            inside.stalled.set()
+            inside.release.wait(600)
+            inside.t_woke = time.perf_counter()
+            try:
+                return inside.inner(chunk, **inputs)
+            except BaseException as e:  # noqa: BLE001 - kept for the row
+                inside.late_error = e
+                raise
+            finally:
+                inside.t_done = time.perf_counter()
+                inside.done.set()
+
+        fused.DecodeChunk.run = run
+        backend.decode = self
+
+    def __call__(self, *args):
+        self.calls += 1
+        if self.calls == 1:
+            self.thread = threading.current_thread()  # the guard's, for this dispatch
+        else:
+            self.release.set()
+        return self.outer(*args)
+
+    def close(self) -> None:
+        self.release.set()
+        self.fused.DecodeChunk.run = self.inner
+        self.backend.__dict__.pop("decode", None)
+
+
+@contextlib.contextmanager
+def _take_order(engine):
+    """Record each non-empty ``take`` of the engine's fair queue (one
+    admission round: an epoch's admission or a chunk boundary's joins) as
+    the list of request ids it dequeued."""
+    rounds: list[list[str]] = []
+    real = engine._queue.take
+
+    def take(limit, accept):
+        out = real(limit, accept)
+        if out:
+            rounds.append([r.rid for r in out])
+        return out
+
+    engine._queue.take = take
+    try:
+        yield rounds
+    finally:
+        del engine._queue.take
+
+
+def _gated_wave(torch, engine, n_layers: int, on_card: bool, *args, **kw) -> dict:
+    """``_wave`` with the launch gate: the paged kernels' launches against
+    the backend's recorded dispatches (n_layers per decode step and per
+    prefill dispatch, every other kernel 0)."""
+    counters = _zero_counters()
+    with dispatch_recorder(engine.backend) as rec:
+        wave = _wave(engine, *args, **kw)
+    launches, expected = _engine_fused_expected(counters, rec, set(), "paged", n_layers, on_card)
+    wave["launches"], wave["expected_launches"] = launches, expected
+    return wave
+
+
+def _refusal(fn) -> dict | None:
+    """None if ``fn()`` was admitted, else the refusal's type, kind and
+    Retry-After."""
+    try:
+        fn()
+        return None
+    except Exception as e:  # noqa: BLE001 - the refusal is the result
+        return {"type": type(e).__name__, "kind": getattr(e, "kind", None),
+                "retry_after_s": getattr(e, "retry_after_s", None)}
+
+
+def _sse_cancel(port: int, body: dict) -> dict:
+    """Open an SSE chat, read its first event for the id, cancel it over
+    ``POST /api/v1/cancel`` and read the stream to its end."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", "/api/v1/chat/completions", json.dumps({**body, "stream": True}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"engine_admission: the chat to cancel got {resp.status}: "
+                                 f"{resp.read()[:300]!r}")
+        line = resp.readline().decode()
+        while line and not line.startswith("data: "):
+            line = resp.readline().decode()
+        if not line:
+            raise AssertionError("engine_admission: the chat to cancel sent no event")
+        rid = json.loads(line[6:])["id"]
+        c2 = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        c2.request("POST", "/api/v1/cancel", json.dumps({"id": rid}),
+                   {"Content-Type": "application/json"})
+        r2 = c2.getresponse()
+        cancel = (r2.status, json.loads(r2.read()))
+        c2.close()
+        rest = resp.read().decode()
+    finally:
+        conn.close()
+    events = [json.loads(x[6:]) for x in rest.splitlines() if x.startswith("data: {")]
+    finish = [e["choices"][0]["finish_reason"] for e in events
+              if e.get("choices") and e["choices"][0]["finish_reason"]]
+    return {"id": rid, "cancel_status": cancel[0], "cancel_body": cancel[1],
+            "finish_reason": finish[-1] if finish else None,
+            "chunks": sum(1 for e in events if e.get("choices"))}
+
+
+def _chat(port: int, body: dict, headers=None) -> tuple[int, dict, str]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", "/api/v1/chat/completions", json.dumps(body),
+                     {"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read().decode()
+    finally:
+        conn.close()
+
+
+def phase_engine_admission(torch, main_path: dict, tokens: int = ADMISSION_TOKENS,
+                           flood: int = ADMISSION_FLOOD,
+                           stall_s: float = ADMISSION_STALL_S) -> dict:
+    """Admission on the paged engine (page 128, max_seq 2048, 8 lanes,
+    prefix cache on, epoch scheduler unless named), over the generate
+    phase's Llama-3-8B weights, one engine at a time (``tokens`` out, 32):
+
+      * equal streams and timing: wave 1 cold (the prefix cache cleared)
+        on an engine with every gate armed (``ARMED``: quotas, shed gates,
+        default deadline, the watchdog, SLO objectives and feedback) across
+        4 tenants, and the same requests, in the order the fair queue
+        admitted them, on an engine with every gate off, each after a
+        warm-up wave of its shapes: equal streams 8/8 (gated); ms a decode
+        step, TTFT p50/max, ms a decode dispatch side by side, and the
+        guard's cost a dispatch (a no-op through ``_dispatch``, guarded
+        against inline);
+      * launches: the paged kernels' = n_layers x the recorded dispatches,
+        on every gated wave (gated);
+      * fair queueing: tenant A's ``flood`` requests then tenant B's 2, one
+        group, 8 tokens out: with the fair queue B's both leave the queue
+        within the first two admission rounds, with ``fair_queue=False``
+        after all of A's (gated);
+      * quota: a stream cap of 2 refuses a tenant's third submission, a
+        bucket of 1.5 long requests its second (429s); a finished stream
+        frees its slot (gated);
+      * shedding: the depth gate (4) sheds low priority at depth 2 and
+        normal at 4, keeps high, and refunds the quota charge; the page
+        gate with the prefix cache holding cold pages does not shed
+        (gated);
+      * deadlines: a queued request (other knobs than the running plug's)
+        expires with no page mapped; a running stream finishes
+        "deadline" at a chunk boundary beside an untouched one; under the
+        continuous scheduler on the pool of one epoch's charges, the
+        priority-0 lanes carry deadlines, each spilled lane's deadline is
+        moved to the moment it is parked, and none is restored; every page
+        not cached is free after each wave (gated);
+      * the API over the quota engine: a 429 and a 503 (the page gate),
+        each with Retry-After, and a stream cancelled over
+        ``/api/v1/cancel`` (gated);
+      * the watchdog: on the armed engine, a host-side stall in one decode
+        dispatch ends its epoch's 8 streams "error" within the bound
+        (``stall_s``); the stalled thread, released at the next wave's
+        first decode, fills every buffer it captured with NaN on the
+        engine's stream and is refused by the backend; that wave's greedy
+        streams equal the gates-off engine's cold wave 1 bitwise (gated);
+      * the watchdog inside the dispatch: a sampled wave's first decode (a
+        new key, so under the first call's grace) stalls in
+        ``DecodeChunk.run`` after its storage check passed; its epoch's
+        streams end "error" within the grace's bound; released at the next
+        wave's first decode, it captures and replays its graph over the
+        abandoned storage while that wave captures its own; that wave's
+        streams equal the gates-off engine's sampled wave 1 bitwise, with no
+        stream error (gated).
+    """
+    from cake_tpu_torch.models.llama import fused
+    from cake_tpu_torch.models.llama.chat import Message
+    from cake_tpu_torch.models.llama.generator import SamplingConfig
+    from cake_tpu_torch.runtime.api import ApiServer
+    from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+
+    gen = main_path["generator"]
+    config, params, dev = gen.config, gen.step.params, gen.step.device
+    n_layers = config.num_hidden_layers
+    on_card = dev.type == "cuda"
+    greedy = SamplingConfig(temperature=0.0, repeat_penalty=1.0)
+    t0 = time.perf_counter()
+
+    def make(**kw):
+        serve = ServeConfig(max_batch=ENGINE_BATCH, decode_chunk_size=8, kv_mode="paged",
+                            page_size=ENGINE_PAGE, prefix_cache=True, **kw)
+        return BatchEngine(config, params, gen.tokenizer, max_seq_len=ENGINE_MAX_SEQ,
+                           cache_dtype=torch.bfloat16, serve=serve, device=dev)
+
+    def free_card() -> None:
+        # Called with no engine referenced: its KV storage and graphs go first.
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def pool_whole(eng) -> bool:
+        snap = eng.snapshot()
+        return (snap["spilled"] == 0
+                and snap["pages_free"] == snap["pages_total"] - snap["prefix"]["pages"])
+
+    def strip(w):
+        return {k: v for k, v in w.items() if k not in ("streams", "launches",
+                                                         "expected_launches")}
+
+    def guard_us(eng, n: int = 200) -> float:
+        eng._dispatch("noop", lambda: None)  # the op's first call
+        t = time.perf_counter()
+        for _ in range(n):
+            eng._dispatch("noop", lambda: None)
+        return 1e6 * (time.perf_counter() - t) / n
+
+    gates: dict[str, bool] = {}
+    gated_waves = []
+    sampled = [SamplingConfig(seed=100 + i, **SAMPLED_KNOBS) for i in range(ENGINE_BATCH)]
+    real_run = fused.DecodeChunk.run
+    # Decode graphs captured by each engine's first wave: on the guard
+    # thread (armed) and on the engine thread (off).
+    warm_captures: dict[str, dict] = {}
+    wave1 = engine_messages()
+    tenants = [f"t{i % 4}" for i in range(ENGINE_BATCH)]
+
+    # -- equal streams and timing: armed, then off in the armed admission order
+    eng = make(**{**ARMED, "epoch_stall_s": stall_s})
+    try:
+        warm_captures["armed"] = _captures_of(
+            fused, lambda: _wave(eng, tokens, warm_messages(), together=True))[1]
+        eng._prefix.clear()
+        with _take_order(eng) as rounds:
+            armed = _gated_wave(torch, eng, n_layers, on_card, tokens, wave1, together=True,
+                                submit_kw=[{"tenant": t, "request_id": f"a{i}"}
+                                           for i, t in enumerate(tenants)])
+        gated_waves.append(armed)
+        order = [int(rid[1:]) for r in rounds for rid in r]
+        armed_guard_us = guard_us(eng)
+        # -- the watchdog on the same engine (its ops' first calls are spent)
+        eng._prefix.clear()
+        stall = _StalledDecode(torch, eng.backend)
+        stalled = _wave(eng, tokens, engine_messages(USER_TURNS[::-1]), together=True)
+        t_detected = time.perf_counter()
+        storage_dropped = eng.backend._pool is None
+        after, after_captures = _captures_of(fused, lambda: _gated_wave(
+            torch, eng, n_layers, on_card, tokens, wave1, together=True))
+        gated_waves.append(after)
+        old_nan = bool(torch.isnan(stall.old_kv.k[0, :2]).all())
+        late = repr(stall.late_error)
+        stall_row = {
+            "bound_s": stall_s,
+            "stalled_to_streams_ended_s": t_detected - stall.t_stalled,
+            "finish_reasons": stalled["finish_reasons"],
+            "completion_tokens": stalled["completion_tokens"],
+            "epoch_stalls": eng.stats["epoch_stalls"], "storage_dropped": storage_dropped,
+            "old_storage_nan": old_nan, "late_dispatch_refused": late,
+            "guard_resolved_late": eng._guard.resolved,
+            "after": strip(after), "after_captures": after_captures,
+        }
+        del stall
+        # -- the watchdog inside the dispatch: a capture wakes beside the
+        # next epoch's (released without waiting; the next wave is not
+        # launch-gated, the late replay adds to the counters)
+        eng._prefix.clear()
+        inside = _StalledInside(fused, eng.backend)
+        errors_before = eng.stats["stream_errors"]
+        stalled2 = _wave(eng, tokens, engine_messages(USER_TURNS[::-1]), samplings=sampled,
+                         together=True)
+        t_detected2 = time.perf_counter()
+        errors_stalled = eng.stats["stream_errors"]
+        t_next = time.perf_counter()
+        after2, after2_captures = _captures_of(
+            fused, lambda: _wave(eng, tokens, wave1, samplings=sampled, together=True))
+        t_next_end = time.perf_counter()
+        inside.release.set()  # already set by the next wave's first decode, if it ran
+        woke = inside.done.wait(120)
+        while eng._guard.resolved < 2 and time.perf_counter() - t_next_end < 60:
+            time.sleep(0.01)
+        inside_row = {
+            "bound_s": stall_s * eng._guard.FIRST_CALL_GRACE,
+            "stalled_to_streams_ended_s": t_detected2 - inside.t_stalled,
+            "finish_reasons": stalled2["finish_reasons"],
+            "stream_errors": [errors_stalled - errors_before,
+                              eng.stats["stream_errors"] - errors_stalled],
+            "epoch_stalls": eng.stats["epoch_stalls"],
+            "late_woke_after_next_wave_start_s": inside.t_woke - t_next,
+            "late_ran_s": inside.t_done - inside.t_woke if woke else None,
+            "next_wave_s": t_next_end - t_next,
+            "late_error": repr(inside.late_error), "guard_resolved_late": eng._guard.resolved,
+            "after": strip(after2), "after_captures": after2_captures,
+        }
+        inside.close()
+        del inside
+        armed_pool_whole = pool_whole(eng)
+    finally:
+        eng.backend.__dict__.pop("decode", None)  # the stall wrapper, if still there
+        fused.DecodeChunk.run = real_run
+        eng.stop()
+    eng = None
+    free_card()
+    eng = make()
+    try:
+        warm_captures["off"] = _captures_of(
+            fused, lambda: _wave(eng, tokens, warm_messages(), together=True))[1]
+        eng._prefix.clear()
+        cold1 = _gated_wave(torch, eng, n_layers, on_card, tokens, wave1, together=True)
+        eng._prefix.clear()
+        off = _gated_wave(torch, eng, n_layers, on_card, tokens, [wave1[i] for i in order],
+                          together=True)
+        gated_waves += [cold1, off]
+        off_guard_us = guard_us(eng)
+        small_pool = _pool_for_one_epoch(eng, wave1)
+        # -- deadlines: a queued request with other knobs expires unmapped
+        mapped = []
+        real_map = eng.backend.allocator.map_range
+
+        def map_range(lane, lo, hi):
+            mapped.append(lane)
+            return real_map(lane, lo, hi)
+
+        eng.backend.allocator.map_range = map_range
+        plug = eng.submit(wave1[0], 3 * tokens, greedy)
+        while not plug.completion_tokens:  # its epoch is running
+            time.sleep(0.001)
+        n_mapped = len(mapped)
+        doomed = eng.submit(wave1[1], tokens, SamplingConfig(seed=5, **SAMPLED_KNOBS),
+                            deadline_s=0.05)
+        doomed_ids = [t.id for t in doomed.tokens()]
+        plug_ids = [t.id for t in plug.tokens()]
+        queued_expiry = {
+            "finish_reason": doomed.finish_reason, "tokens": len(doomed_ids),
+            "lanes_mapped_while_queued": sorted(set(mapped[n_mapped:])),
+            "plug_tokens": len(plug_ids),
+        }
+        del eng.backend.allocator.map_range
+        if not eng.wait_idle(600):
+            raise AssertionError("engine_admission: the plug never finished")
+        queued_expiry["pool_whole"] = pool_whole(eng)
+        # -- a running stream past its deadline, beside one without
+        eng._prefix.clear()
+        running = _wave(eng, [8 * tokens, tokens], wave1[:2], together=True,
+                        submit_kw=[{"deadline_s": 0.3}, {}])
+        running["pool_whole"] = pool_whole(eng)
+        eng._prefix.clear()
+        off_sampled = _wave(eng, tokens, wave1, samplings=sampled, together=True)
+        off_pool_whole = pool_whole(eng)
+    finally:
+        eng.stop()
+    by_request = [None] * len(order)
+    for pos, i in enumerate(order):
+        by_request[i] = off["streams"][pos]
+    equal_streams = sum(x == y for x, y in zip(armed["streams"], by_request))
+    after_equal = sum(x == y for x, y in zip(after["streams"], cold1["streams"]))
+    inside_row["equal_streams_after"] = sum(
+        x == y for x, y in zip(after2["streams"], off_sampled["streams"]))
+    inside_row["finish_reasons_after"] = [after2["finish_reasons"], off_sampled["finish_reasons"]]
+
+    # -- fair queueing: tenant A's flood, then tenant B's 2, as one group
+    fairness = {}
+    flood_msgs = [engine_messages()[i % ENGINE_BATCH] for i in range(flood + 2)]
+    flood_kw = ([{"tenant": "A", "request_id": f"A{i}"} for i in range(flood)]
+                + [{"tenant": "B", "request_id": f"B{i}"} for i in range(2)])
+    for fair in (True, False):
+        eng = None
+        free_card()
+        eng = make(fair_queue=fair)
+        try:
+            with _take_order(eng) as rounds:
+                w = _gated_wave(torch, eng, n_layers, on_card, 8, flood_msgs, together=True,
+                                submit_kw=flood_kw)
+            gated_waves.append(w)
+            flat = [rid for r in rounds for rid in r]
+            fairness["fair" if fair else "fifo"] = {
+                "rounds": len(rounds), "round_sizes": [len(r) for r in rounds],
+                "b_rounds": [i for i, r in enumerate(rounds) if any(x[0] == "B" for x in r)],
+                "b_positions": [flat.index(f"B{i}") for i in range(2)],
+                "finish_reasons": sorted(set(w["finish_reasons"])),
+                "pool_whole": pool_whole(eng), **{k: w[k] for k in ("batches", "joins")},
+            }
+        finally:
+            eng.stop()
+
+    # -- quota, shedding and the API on one engine
+    short = [Message.user("hi")]
+    long_cost = len(gen.tokenizer.encode(_dialog_text(config, wave1[0]))) + 4
+    eng = None
+    free_card()
+    eng = make(tenant_streams=2, tenant_rate=1.0, tenant_burst=1.5 * long_cost,
+               shed_queue_depth=4)
+    api = server = thread = None
+    try:
+        quota = {
+            "streams": [_refusal(lambda: eng.submit(short, 4, greedy, tenant="s"))
+                        for _ in range(3)],
+            "rate": [_refusal(lambda: eng.submit(wave1[0], 4, greedy, tenant="r"))
+                     for _ in range(2)],
+        }
+        before = eng.tenant_meter.snapshot().get("sh")
+        shed = {"low": _refusal(lambda: eng.submit(short, 4, greedy, tenant="sh", priority=0)),
+                "normal_at_3": _refusal(lambda: eng.submit(short, 4, greedy, tenant="sh")),
+                "normal_at_4": _refusal(lambda: eng.submit(short, 4, greedy, tenant="sh")),
+                "high_at_4": _refusal(lambda: eng.submit(short, 4, greedy, tenant="sh",
+                                                         priority=2))}
+        snap_sh = eng.tenant_meter.snapshot()["sh"]
+        shed["refunded"] = (before is None and snap_sh["active_streams"] == 2
+                            and snap_sh["tokens"] == 2 * (len(gen.tokenizer.encode(
+                                _dialog_text(config, short))) + 4))
+        eng.start()
+        if not eng.wait_idle(600):
+            raise AssertionError("engine_admission: the quota engine did not drain")
+        quota["slot_freed"] = _refusal(lambda: eng.submit(short, 4, greedy, tenant="s")) is None
+        if not eng.wait_idle(600):
+            raise AssertionError("engine_admission: the quota engine did not drain")
+        alloc, cold = eng.backend.allocator, eng._prefix.reclaimable()
+        eng.shed_min_free_pages = alloc.pages_free + cold
+        shed["page_gate"] = {"pages_free": alloc.pages_free, "cold_pages": cold,
+                             "floor": eng.shed_min_free_pages,
+                             "refusal": _refusal(lambda: eng.submit(short, 2, greedy))}
+        if not eng.wait_idle(600):
+            raise AssertionError("engine_admission: the quota engine did not drain")
+        eng.shed_min_free_pages = 0
+        api = ApiServer(gen, default_max_tokens=4, engine=eng)
+        server = api.make_server("127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_port
+        body = {"messages": [m.to_dict() for m in wave1[0]], "max_tokens": 4}
+        api_row = {"first": _chat(port, {**body, "tenant": "api"})[0]}
+        status, headers, text = _chat(port, body, {"X-Cake-Tenant": "api"})
+        api_row["429"] = {"status": status, "retry_after": headers.get("Retry-After"),
+                          "error": text[:160]}
+        eng.shed_min_free_pages = alloc.pages_total + 1
+        status, headers, text = _chat(port, {**body, "tenant": "api503", "priority": 0})
+        eng.shed_min_free_pages = 0
+        api_row["503"] = {"status": status, "retry_after": headers.get("Retry-After"),
+                          "error": text[:160]}
+        api_row["cancel"] = _sse_cancel(port, {**body, "max_tokens": 1024, "tenant": "cancel"})
+        if not eng.wait_idle(600):
+            raise AssertionError("engine_admission: the API engine did not drain")
+        api_row["pool_whole"] = quota_pool_whole = pool_whole(eng)
+        counts = {k: eng.stats[k] for k in ("shed", "quota_refusals", "cancelled")}
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            thread.join(60)
+        eng.stop()
+
+    # -- continuous: a spilled lane past its deadline is never restored
+    api = server = thread = eng = None
+    free_card()
+    eng = make(scheduler="continuous", max_pages=small_pool)
+    spilled, restored = [], []
+    real_spill, real_restore, real_seed = eng._spill_lane, eng._restore_lane, eng._pop_spill_seed
+
+    def spill(rows, lane, *a, **kw):
+        req = rows[lane].req
+        real_spill(rows, lane, *a, **kw)
+        with eng._cv:
+            if req.rid in eng._spilled and req.deadline:
+                spilled.append(req.rid)
+                req.deadline = time.monotonic()  # its deadline passes while it is parked
+
+    def restore(sp, *a, **kw):
+        restored.append(sp.row.req.rid)
+        return real_restore(sp, *a, **kw)
+
+    def seed():
+        out = real_seed()
+        restored.extend(sp.row.req.rid for sp in out)
+        return out
+
+    eng._spill_lane, eng._restore_lane, eng._pop_spill_seed = spill, restore, seed
+    try:
+        pressure = _gated_wave(
+            torch, eng, n_layers, on_card, 6 * tokens, wave1, together=True,
+            submit_kw=[{"request_id": f"c{i}", "priority": 0 if i >= 6 else 1,
+                        **({"deadline_s": 600.0} if i >= 6 else {})}
+                       for i in range(ENGINE_BATCH)])
+        gated_waves.append(pressure)
+        spill_row = {
+            "small_pool": small_pool, "spilled_with_deadline": spilled,
+            "restored": restored, "finish_reasons": pressure["finish_reasons"],
+            "completion_tokens": pressure["completion_tokens"],
+            "preemptions": pressure["preemptions"], "restores": pressure["restores"],
+            "deadline_expired": pressure["deadline_expired"], "pool_whole": pool_whole(eng),
+        }
+    finally:
+        # The wrappers close over the engine: drop them so it goes with its
+        # last reference.
+        del eng._spill_lane, eng._restore_lane, eng._pop_spill_seed
+        eng.stop()
+
+    real_spill = real_restore = real_seed = eng = None
+    free_card()
+    launches_ok = all(w["launches"] == w["expected_launches"] for w in gated_waves)
+    row = {
+        "phase": "engine_admission",
+        "card": main_path["card"],
+        "config": {"kv_mode": "paged", "page_size": ENGINE_PAGE, "max_seq": ENGINE_MAX_SEQ,
+                   "max_batch": ENGINE_BATCH, "prefix_cache": True, "decode_chunk": 8,
+                   "tokens_out": tokens, "armed": ARMED, "layers": n_layers},
+        "timing": {
+            "armed": strip(armed), "off": strip(off),
+            "armed_ms_per_step": armed["decode_ms_per_step"],
+            "off_ms_per_step": off["decode_ms_per_step"],
+            "armed_ttft_p50_s": armed["ttft_p50_s"], "off_ttft_p50_s": off["ttft_p50_s"],
+            "armed_ttft_max_s": armed["ttft_max_s"], "off_ttft_max_s": off["ttft_max_s"],
+            "armed_ms_per_decode_dispatch": 1e3 * armed["decode_s"] / armed["decode_chunks"],
+            "off_ms_per_decode_dispatch": 1e3 * off["decode_s"] / off["decode_chunks"],
+            "guard_us_per_dispatch": armed_guard_us, "inline_us_per_dispatch": off_guard_us,
+            "warm_captures": warm_captures,
+        },
+        "admission_order": order,
+        "equal_streams": equal_streams,
+        "watchdog": {**stall_row, "equal_streams_after": after_equal},
+        "watchdog_inside": inside_row,
+        "fairness": fairness,
+        "quota": quota, "shed": shed, "api": api_row, "counts": counts,
+        "deadlines": {"queued": queued_expiry,
+                      "running": {k: running[k] for k in ("finish_reasons", "completion_tokens",
+                                                          "deadline_expired", "pool_whole")},
+                      "spilled": spill_row},
+        "pools_whole": {"armed": armed_pool_whole, "off": off_pool_whole,
+                        "quota": quota_pool_whole},
+        "launch_gate": launches_ok,
+        "seconds": time.perf_counter() - t0,
+    }
+    emit(row)
+    n = ENGINE_BATCH
+    gates["equal_streams"] = equal_streams == n
+    gates["launches"] = launches_ok
+    gates["fair"] = max(fairness["fair"]["b_rounds"]) <= 1
+    gates["fifo"] = min(fairness["fifo"]["b_positions"]) >= flood
+    gates["quota"] = ([r and r["kind"] for r in quota["streams"]] == [None, None, "streams"]
+                      and [r and r["kind"] for r in quota["rate"]] == [None, "rate"]
+                      and quota["rate"][1]["retry_after_s"] > 0 and quota["slot_freed"])
+    gates["shed"] = ([shed[k] and shed[k]["type"] for k in ("low", "normal_at_3", "normal_at_4",
+                                                             "high_at_4")]
+                     == ["EngineOverloaded", None, "EngineOverloaded", None]
+                     and shed["refunded"] and shed["page_gate"]["refusal"] is None
+                     and shed["page_gate"]["cold_pages"] > 0)
+    gates["queued_deadline"] = (queued_expiry["finish_reason"] == "deadline"
+                                and queued_expiry["tokens"] == 0
+                                and queued_expiry["lanes_mapped_while_queued"] in ([], [0])
+                                and queued_expiry["pool_whole"])
+    gates["running_deadline"] = (running["finish_reasons"][0] == "deadline"
+                                 and 0 < running["completion_tokens"][0] < 8 * tokens
+                                 and running["finish_reasons"][1] in ("stop", "length")
+                                 and running["pool_whole"])
+    gates["spilled_deadline"] = (len(spilled) >= 1 and not set(spilled) & set(restored)
+                                 and all(pressure["finish_reasons"][int(r[1:])] == "deadline"
+                                         for r in spilled)
+                                 and spill_row["pool_whole"])
+    gates["api"] = (api_row["first"] == 200 and api_row["429"]["status"] == 429
+                    and int(api_row["429"]["retry_after"]) >= 1
+                    and api_row["503"]["status"] == 503 and api_row["503"]["retry_after"] == "2"
+                    and api_row["cancel"]["cancel_body"].get("cancelled") is True
+                    and api_row["cancel"]["finish_reason"] == "cancelled")
+    gates["watchdog"] = (stall_row["finish_reasons"] == ["error"] * n
+                         and stall_row["stalled_to_streams_ended_s"] <= stall_s + 0.25
+                         and storage_dropped and old_nan and "abandoned" in late
+                         and after_equal == n)
+    gates["watchdog_inside"] = (
+        inside_row["finish_reasons"] == ["error"] * n
+        and inside_row["stalled_to_streams_ended_s"] <= inside_row["bound_s"] + 0.25
+        and inside_row["stream_errors"] == [n, 0] and inside_row["epoch_stalls"] == 2
+        and inside_row["late_ran_s"] is not None and inside_row["equal_streams_after"] == n
+        and inside_row["finish_reasons_after"][0] == inside_row["finish_reasons_after"][1])
+    gates["pools_whole"] = all(row["pools_whole"].values()) and all(
+        fairness[k]["pool_whole"] for k in fairness)
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"engine_admission gates failed: {failed}")
+    row["launches"] = {name: sum(w["launches"][name] for w in gated_waves)
+                       for name in ("paged_decode_attention", "paged_chunk_attention")}
+    return row
+
+
+def _captures_of(fused, run) -> tuple:
+    """(``run()``, the decode graphs it captured: count, warm-up and capture
+    seconds, from ``fused.STATS``)."""
+    before = dict(fused.STATS)
+    out = run()
+    return out, {k: fused.STATS[k] - before[k] for k in ("captures", "warmup_s", "capture_s")}
+
+
+def _dialog_text(config, messages) -> str:
+    from cake_tpu_torch.models.llama.chat import encode_dialog
+
+    return encode_dialog(messages, config.dialog_template)
 
 
 # ---------------------------------------------------------------- phase 9d
@@ -3928,7 +4644,8 @@ def phase_engine_f8(torch, main_path: dict, engine_path: dict) -> dict:
                "ttft_max_s": w["ttft_max_s"], "decode_ms_per_step": w["decode_ms_per_step"],
                "decode_tok_s": w["decode_tok_s"], "profile_wave_wall_ms": r["profile_wave_wall_ms"],
                "profile": r["profile"], "kv_bytes": r["kv_bytes"], "launches": r["launches"],
-               "expected_launches": r["expected_launches"]}
+               "expected_launches": r["expected_launches"],
+               "batches_joins": [[x["batches"], x["joins"]] for x in r["waves"]]}
         if len(r["waves"]) > 1:
             warm = r["waves"][1]
             out.update(warm_ttft_p50_s=warm["ttft_p50_s"], warm_prefix_hits=warm["prefix_hits"],
@@ -4017,7 +4734,8 @@ def phase_engine_int4(torch, main_path: dict, int4_path: dict) -> dict:
                 "ttft_max_s": w["ttft_max_s"], "decode_ms_per_step": w["decode_ms_per_step"],
                 "decode_tok_s": w["decode_tok_s"], "profile_wave_wall_ms": r["profile_wave_wall_ms"],
                 "profile": r["profile"], "prefills": r["prefills"][:4], "launches": r["launches"],
-                "expected_launches": r["expected_launches"]}
+                "expected_launches": r["expected_launches"],
+                "batches_joins": [[x["batches"], x["joins"]] for x in r["waves"]]}
 
     def equal(a, b):
         return sum(x == y for x, y in zip(a["waves"][0]["streams"], b["waves"][0]["streams"]))
@@ -4426,7 +5144,9 @@ def phase_decode_graph(torch, main_path: dict, int4_path: dict) -> dict:
                       for name, step in steps.items() for kind, knobs in GRAPH_KNOBS.items()}
     generator_timing = []
     for name, step in steps.items():
-        for eager in (False, True, False, True):
+        # One graph run and one eager run a step: the eager runs are
+        # host-bound traces of ~50 s each, and the smoke's wall limit binds.
+        for eager in (False, True):
             generator_timing.append(_generator_timing(torch, step, tok, text, eager, name))
     del steps
     if on_card:
@@ -5096,18 +5816,20 @@ def phase_phi3(torch, main_path: dict, config=None, ckpt_layers: int = PHI3_CKPT
 
 def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(),
                    int4_paths=(), f8_paths=(), continuous_path=None, distributed_path=None,
-                   model_paths=()) -> dict:
+                   model_paths=(), admission_path=None) -> dict:
     # The generate phase counted the dense kernels, the engine phase the paged
     # ones, the fused phases (generate_fused, engine_fused) the fused ones,
     # the int4 phases (generate_int4, engine_int4) int4_matmul, the f8 phases
     # (generate_f8, engine_f8) the five kernels' launches over an f8 cache;
     # engine_continuous adds its paged kernels' and noise kernel's launches,
-    # distributed its TCP runs' dense kernels' and noise kernel's, the model
-    # phases (moe, phi3) every kernel's they ran.
+    # engine_admission its gated waves' paged kernels', distributed its TCP
+    # runs' dense kernels' and noise kernel's, the model phases (moe, phi3)
+    # every kernel's they ran.
     launches = {**engine_path["launches"], **main_path["launches"]}
     extra = dict(continuous_path["launches"]) if continuous_path else {}
-    for name, n in (distributed_path or {}).get("launches", {}).items():
-        extra[name] = extra.get(name, 0) + n
+    for path in (distributed_path, admission_path):
+        for name, n in (path or {}).get("launches", {}).items():
+            extra[name] = extra.get(name, 0) + n
     model_launches = _sum_launches(p["launches"] for p in model_paths)
     for name in ("paged_decode_attention", "paged_chunk_attention", "decode_attention",
                  "chunk_prefill_attention"):
@@ -5251,6 +5973,8 @@ def main() -> int:
     fused_paths = (phase_generate_fused(torch, main_path), phase_engine_fused(torch, main_path))
     continuous_path = phase_engine_continuous(torch, main_path)
     torch.cuda.empty_cache()
+    admission_path = phase_engine_admission(torch, main_path)
+    torch.cuda.empty_cache()
     distributed_path = phase_distributed(torch, main_path)
     torch.cuda.empty_cache()
     f8_paths = (phase_generate_f8(torch, main_path), phase_engine_f8(torch, main_path, engine_path))
@@ -5269,7 +5993,7 @@ def main() -> int:
     phase_cli(torch)
     emit(kernel_summary(kernel_rows, main_path, engine_path, fused_paths,
                         (int4_path, int4_engine), f8_paths, continuous_path, distributed_path,
-                        model_paths))
+                        model_paths, admission_path))
     emit({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -367,7 +367,8 @@ def _forge_spill(eng, text: str):
     first token (the engine is not started)."""
     h = eng.submit([Message.user(text)], 8, SamplingConfig(**GREEDY))
     with eng._cv:
-        req = eng._queue.popleft()
+        req = next(iter(eng._queue))
+        eng._queue.remove(req)
     row = serving._RowState(req, set(), eng.tokenizer, eng)
     row.push(5)  # the pending token
     with eng._cv:

@@ -32,7 +32,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import cake_tpu_torch.models.llama.generator, cake_tpu_torch.io.safetensors_io\n"
         "import cake_tpu_torch.runtime.serving, cake_tpu_torch.runtime.batch_backend\n"
         "import cake_tpu_torch.models.llama.batch, cake_tpu_torch.runtime.prefix_cache\n"
-        "import cake_tpu_torch.runtime.admission\n"
+        "import cake_tpu_torch.runtime.admission, cake_tpu_torch.obs.slo\n"
         "import cake_tpu_torch.models.llama.fused, cake_tpu_torch.ops.fused_norm_matmul\n"
         "import cake_tpu_torch.ops.fused_ingest, cake_tpu_torch.ops.fused_sample_tail\n"
         "import cake_tpu_torch.runtime.proto, cake_tpu_torch.runtime.client\n"
