@@ -249,6 +249,52 @@ def build_parser() -> argparse.ArgumentParser:
         "--reconnect-backoff", type=float, default=0.5, metavar="S",
         help="base reconnect backoff in seconds (doubles per attempt)",
     )
+    p.add_argument(
+        "--blackbox-dir", default=None, metavar="DIR",
+        help="black-box anomaly capture (obs/blackbox.py): when a request breaches a declared "
+        "SLO objective, lands past --blackbox-p99-mult x the rolling p99, or dies to a "
+        "watchdog stall or a whole-epoch error, a diagnostic bundle (attribution, timeline "
+        "slice, flight tail, engine/pool/prefix snapshots) is written here. Unset = off "
+        "(--api-batch)",
+    )
+    p.add_argument("--blackbox-keep", type=int, default=16, metavar="N",
+                   help="bound the on-disk bundle ring to the newest N bundles")
+    p.add_argument(
+        "--blackbox-interval", type=float, default=5.0, metavar="S",
+        help="min seconds between bundle captures (an incident storm writes one bundle); "
+        "0 = no rate limit",
+    )
+    p.add_argument(
+        "--blackbox-p99-mult", type=float, default=0.0, metavar="K",
+        help="capture a bundle when a request finishes slower than K x the rolling "
+        "end-to-end p99 (needs a warm window); 0 = off",
+    )
+    p.add_argument(
+        "--peak-tflops", type=float, default=0.0, metavar="TF",
+        help="the card's peak dense TFLOP/s for the MFU estimate at GET /efficiency "
+        "(obs/efficiency.py); 0 = the built-in table by device name (none on the CPU)",
+    )
+    p.add_argument(
+        "--peak-hbm-gbps", type=float, default=0.0, metavar="GB",
+        help="the card's peak memory bandwidth (GB/s) for the bandwidth-utilization estimate "
+        "at GET /efficiency; 0 = the built-in table",
+    )
+    p.add_argument(
+        "--events-jsonl", default=None, metavar="PATH",
+        help="append every flight-recorder event to this JSONL file; the bounded ring stays "
+        "at GET /events either way (--api only)",
+    )
+    p.add_argument(
+        "--trace-jsonl", default=None, metavar="PATH",
+        help="stream every timeline event (spans, lane tracks, counters) to this JSONL file "
+        "(obs/timeline.load_jsonl + export_events make it a Perfetto trace); the bounded "
+        "ring stays at GET /trace (--api only)",
+    )
+    p.add_argument(
+        "--request-log", default=None, metavar="PATH",
+        help="append every per-request completion record (obs/requestlog.py) to this JSONL "
+        "file; the ring stays at GET /requests (--api with --api-batch > 1)",
+    )
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -337,6 +383,12 @@ def serve_config(args: argparse.Namespace):
         slo_ttft_ms=args.slo_ttft_ms,
         slo_ttft_target=args.slo_ttft_target,
         slo_deadline_rate=args.slo_deadline_rate,
+        blackbox_dir=args.blackbox_dir or None,
+        blackbox_keep=args.blackbox_keep,
+        blackbox_min_interval_s=args.blackbox_interval,
+        blackbox_p99_mult=args.blackbox_p99_mult,
+        peak_tflops=args.peak_tflops,
+        peak_hbm_gbps=args.peak_hbm_gbps,
     )
 
 
@@ -372,6 +424,9 @@ def main(argv: list[str] | None = None) -> int:
     topology = Topology.from_path(args.topology) if args.topology else None
     backend = _master_backend(args, topology)
     engine_serves = bool(args.api) and args.api_batch > 1
+    if args.request_log and not engine_serves:
+        raise SystemExit("--request-log records the batch engine's requests: it needs --api "
+                         "with --api-batch > 1")
     if engine_serves and backend == "tcp" and args.kv_mode == "paged":
         raise SystemExit(
             "--kv-mode paged runs on the local --api-batch master only (the tcp backend keeps "
@@ -429,7 +484,9 @@ def main(argv: list[str] | None = None) -> int:
                     serve=serve, device=step.device,
                 )
         host, port = _parse_address(args.api)
-        ApiServer(generator, engine=engine).serve_forever(host, port)
+        ApiServer(generator, engine=engine, events_jsonl=args.events_jsonl,
+                  trace_jsonl=args.trace_jsonl,
+                  request_log=args.request_log).serve_forever(host, port)
         return 0
     if args.system_prompt:
         generator.add_message(Message.system(args.system_prompt))

@@ -7,7 +7,10 @@ tokens per device dispatch, models/llama/fused.py), sampling with the repeat
 penalty, incremental detokenization, EOS detection, KV prefix reuse across
 ``reset()``, and recovery from a lost worker connection (a step raising
 ``StepConnectionError``: the step is reset and the token history replayed).
-Speculative decoding and the metrics calls are not ported yet (ROADMAP.md).
+Prefill and decode walls land in the ``cake_prefill_seconds`` and
+``cake_decode_step_seconds`` histograms (utils/metrics.py), each ending at
+the token's readback, so it holds the device work. Speculative decoding is
+not ported yet (ROADMAP.md).
 
 The seam is the same as the JAX package's: the generator needs a step
 ``(tokens, pos, seq_len) -> logits``; :class:`LocalForwardStep` runs the
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from pathlib import Path
 from typing import Callable, Protocol
 
@@ -37,6 +41,7 @@ from cake_tpu_torch.ops.quant import quantize_params
 from cake_tpu_torch.ops.rope import model_rope_tables
 from cake_tpu_torch.ops.sampling import DEFAULT_SEED, apply_repeat_penalty, draw, sample
 from cake_tpu_torch.ops.threefry import prng_key
+from cake_tpu_torch.utils import metrics
 
 
 class StepConnectionError(RuntimeError):
@@ -378,7 +383,11 @@ class LlamaGenerator:
         return logits
 
     def next_token(self) -> Token:
-        """Generate one token."""
+        """Generate one token. The wall from the dispatch to the sampled
+        token's readback lands in ``cake_prefill_seconds`` (the prompt's
+        prefill, all chunks) or ``cake_decode_step_seconds`` (mode "step")."""
+        t0 = time.perf_counter()
+        prefill = not self._started
         if not self._started:
             ids = self._encode_prompt()
             if len(ids) >= self.step.max_seq_len:
@@ -406,7 +415,18 @@ class LlamaGenerator:
                 )
             logits = self.step(np.array([[self._tokens[-1]]], np.int64), pos, 1)
             self._kv_high = max(self._kv_high, pos + 1)
-        return self._materialize(self._sample(logits))
+        tid = self._sample(logits)
+        if prefill:
+            metrics.registry.histogram(
+                "cake_prefill_seconds", "Prompt prefill wall time per request (all chunks).",
+            ).observe(time.perf_counter() - t0)
+        else:
+            metrics.registry.histogram(
+                "cake_decode_step_seconds",
+                "Decode dispatch wall time (mode: per-token step, fused "
+                "chunk, or speculative verify).",
+            ).observe(time.perf_counter() - t0, mode="step")
+        return self._materialize(tid)
 
     def _materialize(self, tid: int) -> Token:
         """Append one id and produce its Token (EOS, incremental text)."""
@@ -429,15 +449,22 @@ class LlamaGenerator:
         ring = self._penalty_window()
         ring_idx = min(len(self._tokens), window) % window if window > 0 else 0
         pos = len(self._tokens) - 1
+        t0 = time.perf_counter()
         toks, self._key = self.step.decode_chunk(
             np.asarray([self._tokens[-1]], np.int64), pos, n_steps, self.sampling,
             self._key, ring, ring_idx,
         )
+        ids = toks[0].tolist()
+        metrics.registry.histogram(
+            "cake_decode_step_seconds",
+            "Decode dispatch wall time (mode: per-token step, fused "
+            "chunk, or speculative verify).",
+        ).observe(time.perf_counter() - t0, mode="fused")
         # Every fed position was written; reset()'s len - 1 bound drops the
         # slots of tokens an EOS below discards.
         self._kv_high = max(self._kv_high, pos + n_steps)
         out: list[Token] = []
-        for tid in toks[0].tolist():
+        for tid in ids:
             tok = self._materialize(int(tid))
             out.append(tok)
             if tok.is_end_of_stream:

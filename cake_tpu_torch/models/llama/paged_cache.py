@@ -41,6 +41,13 @@ import numpy as np
 import torch
 
 from cake_tpu_torch.ops.kv_dtype import kv_view, narrow
+from cake_tpu_torch.utils import metrics
+
+
+_G_TOTAL = "cake_kv_pages_total"
+_G_FREE = "cake_kv_pages_free"
+_G_SHARED = "cake_kv_pages_shared"
+_C_FAIL = "cake_kv_page_alloc_failures_total"
 
 UNMAPPED = np.int32(-1)  # block-table sentinel: no physical page mapped
 
@@ -196,8 +203,9 @@ class PageAllocator:
     (``can_admit``), maps pages as sequences grow (``map_range``), and
     returns them when streams finish (``release``). ``fork_chain`` and
     ``make_private`` implement refcounted prefix sharing with copy-on-write
-    (the device-side byte copy is ``copy_pages``). The JAX package's metric
-    gauges are not ported; ``pages_free``/``pages_shared`` read the state.
+    (the device-side byte copy is ``copy_pages``). The ``cake_kv_pages_*``
+    gauges follow every change and ``cake_kv_page_alloc_failures_total``
+    counts the refusals (utils/metrics.py), as the reference's do.
     """
 
     def __init__(
@@ -218,6 +226,18 @@ class PageAllocator:
         # LIFO free list: recently-freed pages are re-used first.
         self._free: list[int] = list(range(n_pages - 1, -1, -1))
         self.block_tables = np.full((batch, max_pages_per_seq), UNMAPPED, np.int32)
+        self._update_gauges()
+
+    def _update_gauges(self) -> None:
+        reg = metrics.registry
+        reg.gauge(_G_TOTAL, "Physical KV pages in the pool.").set(self.pages_total)
+        reg.gauge(_G_FREE, "KV pages currently on the free list.").set(self.pages_free)
+        reg.gauge(_G_SHARED, "KV pages mapped by more than one lane (CoW-shared).").set(
+            self.pages_shared)
+
+    def _refused(self) -> None:
+        metrics.registry.counter(_C_FAIL, "Page allocations refused for an empty free list.").inc()
+        self._update_gauges()
 
     # ------------------------------------------------------------- accounting
 
@@ -247,6 +267,7 @@ class PageAllocator:
         self.refcount[:] = 0
         self._free = list(range(self.n_pages - 1, -1, -1))
         self.block_tables = np.full((batch, self.max_pages_per_seq), UNMAPPED, np.int32)
+        self._update_gauges()
 
     def release_lanes(self, batch: int) -> None:
         """Unmap every lane, KEEPING non-lane references (the prefix cache's
@@ -255,6 +276,7 @@ class PageAllocator:
             self.release(lane)
         if batch != self.block_tables.shape[0]:
             self.block_tables = np.full((batch, self.max_pages_per_seq), UNMAPPED, np.int32)
+        self._update_gauges()
 
     # ------------------------------------------------------------- allocation
 
@@ -285,6 +307,7 @@ class PageAllocator:
         row = self.block_tables[lane]
         need = [p for p in range(first, last) if row[p] < 0]
         if len(need) > len(self._free):
+            self._refused()
             raise PageExhausted(
                 f"lane {lane} needs {len(need)} page(s), "
                 f"{len(self._free)} free of {self.n_pages}"
@@ -293,6 +316,7 @@ class PageAllocator:
             phys = self._free.pop()
             self.refcount[phys] = 1
             row[p] = phys
+        self._update_gauges()
 
     def release(self, lane: int) -> None:
         """Drop every mapping of ``lane``; pages reaching refcount 0 go free."""
@@ -303,6 +327,7 @@ class PageAllocator:
             if self.refcount[phys] == 0:
                 self._free.append(phys)
         row[:] = UNMAPPED
+        self._update_gauges()
 
     # ----------------------------------------------- prefix sharing (CoW)
 
@@ -314,6 +339,7 @@ class PageAllocator:
             if self.refcount[phys] <= 0:
                 raise ValueError(f"page {phys} is free; cannot retain it")
             self.refcount[phys] += 1
+        self._update_gauges()
 
     def release_pages(self, pages: list[int]) -> None:
         """Drop one reference per page; pages reaching 0 go free."""
@@ -323,6 +349,7 @@ class PageAllocator:
             self.refcount[phys] -= 1
             if self.refcount[phys] == 0:
                 self._free.append(phys)
+        self._update_gauges()
 
     def fork_chain(self, lane: int, pages: list[int], first_logical: int) -> None:
         """Map a cached page chain into ``lane`` at logical pages
@@ -342,6 +369,7 @@ class PageAllocator:
                 )
             self.refcount[phys] += 1
             row[first_logical + i] = phys
+        self._update_gauges()
 
     def unmap_page(self, lane: int, logical_page: int) -> None:
         """Drop one logical-page mapping of ``lane`` (the degraded path when a
@@ -353,6 +381,7 @@ class PageAllocator:
         if self.refcount[phys] == 0:
             self._free.append(phys)
         self.block_tables[lane, logical_page] = UNMAPPED
+        self._update_gauges()
 
     def make_private(self, lane: int, logical_page: int) -> tuple[int, int] | None:
         """Copy-on-write split before ``lane`` writes ``logical_page``.
@@ -366,9 +395,11 @@ class PageAllocator:
         if self.refcount[phys] <= 1:
             return None
         if not self._free:
+            self._refused()
             raise PageExhausted("copy-on-write split needs a free page")
         fresh = self._free.pop()
         self.refcount[phys] -= 1
         self.refcount[fresh] = 1
         self.block_tables[lane, logical_page] = fresh
+        self._update_gauges()
         return phys, fresh

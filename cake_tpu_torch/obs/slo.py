@@ -1,6 +1,5 @@
 """Per-tenant SLO tracking: rolling multi-window SLIs and burn rates (port
-of ``cake_tpu/obs/slo.py``, without ``refresh_metrics``: the port has no
-metrics registry to publish to, ROADMAP.md queue A, observability).
+of ``cake_tpu/obs/slo.py``).
 
   * ``SloObjectives``: the server's declared objectives (``--slo-ttft-ms``
     with a target fraction, ``--slo-deadline-rate``). Objectives are
@@ -31,6 +30,10 @@ its FairQueue quantum weighted up and its WaitEstimator shed estimate
 scaled up (runtime/admission.py); the engine applies both about once a
 second (runtime/serving.py ``BatchEngine._apply_slo_feedback``).
 
+Observability: ``cake_slo_*`` gauges (``refresh_metrics``, at scrape
+time), the ``GET /slo`` endpoint (snapshot), and ``slo-burn`` flight events
+on every burning/recovered transition.
+
 Thread-safe and bounded (the least recently active tenants are evicted past
 ``max_tenants``).
 """
@@ -41,6 +44,8 @@ import dataclasses
 import threading
 import time
 from collections import OrderedDict, deque
+
+from cake_tpu_torch.utils import metrics
 
 __all__ = ["SloObjectives", "SloTracker"]
 
@@ -78,6 +83,9 @@ class SloObjectives:
                 f"{self.deadline_rate}"
             )
 
+    def declared(self) -> bool:
+        return self.ttft_ms > 0 or self.deadline_rate > 0
+
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 
@@ -106,10 +114,11 @@ class _TenantSeries:
     """One tenant's rolling buckets (width = fast_window / 12, deque spans
     the slow window)."""
 
-    __slots__ = ("buckets",)
+    __slots__ = ("buckets", "burning")
 
     def __init__(self) -> None:
         self.buckets: deque[_Bucket] = deque()
+        self.burning = False  # transition state for slo-burn events
 
 
 def _percentile(samples: list[float], q: float) -> float:
@@ -145,6 +154,11 @@ class SloTracker:
         self._time = time_fn
         self._lock = threading.Lock()
         self._tenants: OrderedDict[str, _TenantSeries] = OrderedDict()
+        # Tenants whose gauges the last refresh_metrics exported: an
+        # LRU-evicted tenant's series must be zeroed on the next refresh,
+        # or its last burn value would stand in /metrics forever (the
+        # registry keeps every series) — a permanent false alert.
+        self._exported: set[str] = set()
 
     # ------------------------------------------------------------ recording
 
@@ -199,9 +213,9 @@ class SloTracker:
                 "stop", "length", "deadline"
             ):
                 # The deadline SLI is hit-on-clean-finish vs miss-on-
-                # expiry. Other outcomes of deadline-carrying requests -
+                # expiry. Other outcomes of deadline-carrying requests —
                 # "error" (feeds the error-rate SLI) and "cancelled" (a
-                # client action) - are excluded rather than silently
+                # client action) — are excluded rather than silently
                 # counted as hits, which would report a 100% hit rate for
                 # a tenant whose deadline traffic all errored.
                 b.dl_n += 1
@@ -215,8 +229,8 @@ class SloTracker:
 
     def observe_refusal(self, tenant: str, kind: str) -> None:
         """A submission refused before acceptance. ``kind`` distinguishes
-        server saturation (``"shed"`` - 503) from the tenant's own quota
-        (``"quota"`` - 429): both feed the combined shed-rate SLI, and the
+        server saturation (``"shed"`` — 503) from the tenant's own quota
+        (``"quota"`` — 429): both feed the combined shed-rate SLI, and the
         quota slice surfaces separately in the window breakdown."""
         with self._lock:
             b = self._bucket(tenant)
@@ -319,12 +333,18 @@ class SloTracker:
     def adjustments(self) -> dict[str, dict]:
         """Admission feedback per tracked tenant (module docstring):
         ``quantum_weight`` for the FairQueue and ``shed_scale`` for the
-        WaitEstimator, both 1.0 when the tenant is inside budget."""
+        WaitEstimator, both 1.0 when the tenant is inside budget. Also
+        emits the burning/recovered transition events."""
+        transitions: list[tuple[str, bool, float]] = []
         out: dict[str, dict] = {}
         with self._lock:
             for name, series in self._tenants.items():
                 burn = self._burn_locked(series)
-                if burn >= 1.0:
+                burning = burn >= 1.0
+                if burning != series.burning:
+                    series.burning = burning
+                    transitions.append((name, burning, burn))
+                if burning:
                     w = min(_MAX_QUANTUM_WEIGHT, 1.0 + burn)
                     s = min(_MAX_SHED_SCALE, 1.0 + burn)
                 else:
@@ -334,4 +354,75 @@ class SloTracker:
                     "quantum_weight": round(w, 3),
                     "shed_scale": round(s, 3),
                 }
+        for name, burning, burn in transitions:
+            metrics.flight.record(
+                "slo-burn", tenant=name,
+                state="burning" if burning else "recovered",
+                burn=round(burn, 3),
+            )
+            metrics.registry.counter(
+                "cake_slo_burn_transitions_total",
+                "Tenant error-budget burn transitions "
+                "(state=burning|recovered).",
+            ).inc(tenant=name,
+                  state="burning" if burning else "recovered")
         return out
+
+    def refresh_metrics(self) -> None:
+        """Set the ``cake_slo_*`` gauges from the current windows — called
+        at scrape time (GET /metrics), so the exported series always
+        reflect the live windows without per-observation gauge churn."""
+        snap = self.snapshot()
+        p99 = metrics.registry.gauge(
+            "cake_slo_ttft_p99_seconds",
+            "Rolling TTFT p99 per tenant and window.",
+        )
+        hit = metrics.registry.gauge(
+            "cake_slo_deadline_hit_rate",
+            "Rolling deadline hit rate per tenant and window (-1 = no "
+            "deadline-carrying traffic in the window).",
+        )
+        good = metrics.registry.gauge(
+            "cake_slo_goodput_tokens_per_second",
+            "Rolling goodput (completion tokens of clean finishes) per "
+            "tenant and window.",
+        )
+        burn = metrics.registry.gauge(
+            "cake_slo_burn_rate",
+            "Error-budget burn rate per tenant, objective and window "
+            "(1.0 = consuming budget exactly at the sustainable rate).",
+        )
+        head = metrics.registry.gauge(
+            "cake_slo_tenant_burn",
+            "Headline burn per tenant: max over objectives of "
+            "min(fast, slow).",
+        )
+        for tenant, t in snap["tenants"].items():
+            for window in ("fast", "slow"):
+                w = t[window]
+                p99.set(w["ttft_p99_s"], tenant=tenant, window=window)
+                hit.set(
+                    -1.0 if w["deadline_hit_rate"] is None
+                    else w["deadline_hit_rate"],
+                    tenant=tenant, window=window,
+                )
+                good.set(w["goodput_tok_s"], tenant=tenant, window=window)
+                for obj, b in w["burn"].items():
+                    burn.set(
+                        b, tenant=tenant, objective=obj, window=window
+                    )
+            head.set(t["burn_rate"], tenant=tenant)
+        # Tenants evicted since the last refresh: zero their series (the
+        # registry keeps them) so a stale burn never stands as a false
+        # alert after the tenant aged out of tracking.
+        for tenant in self._exported - set(snap["tenants"]):
+            head.set(0.0, tenant=tenant)
+            for window in ("fast", "slow"):
+                p99.set(0.0, tenant=tenant, window=window)
+                hit.set(-1.0, tenant=tenant, window=window)
+                good.set(0.0, tenant=tenant, window=window)
+                for obj in ("ttft", "deadline"):
+                    burn.set(
+                        0.0, tenant=tenant, objective=obj, window=window
+                    )
+        self._exported = set(snap["tenants"])

@@ -109,6 +109,11 @@ _SIGNATURES = {
         _VOID, _VOID, _VOID, _VOID,                  # keys next sub (NULL: no split) out
         _INT, _LONG, _INT, _INT, _VOID,              # rows n per_row kind stream
     ),
+    "cake_moe_grouped": (
+        _VOID, _VOID, _VOID, _VOID,                  # x w offsets out
+        _INT, _INT, _INT, _INT,                      # M K N E
+        _INT, _INT, _INT, _VOID,                     # dtype quant tiles stream
+    ),
     "cake_empty_kernel": (_VOID,),                   # stream
 }
 

@@ -17,9 +17,15 @@ package's rule:
     selected or not (ROADMAP.md, parked speed items).
   * **Grouped dispatch** (chunks of :data:`GROUPED_MIN_TOKENS` or more):
     the token-expert assignments are sorted stably by expert and each
-    expert multiplies only its own contiguous row group, one ``torch``
-    product an expert (the JAX package's ``ragged_dot``, an XLA primitive,
-    not a Pallas kernel). The group sizes come back to the host, so this
+    expert multiplies only its own contiguous row group (the JAX package's
+    ``ragged_dot``, an XLA primitive, not a Pallas kernel). On the card
+    each product (gate, up, down) is one launch of the grouped expert GEMM
+    (:func:`grouped_matmul`, ``csrc/moe_grouped.cu``) over every expert,
+    the group offsets read from device memory; its rows are independent of
+    their neighbours, so a warm prefix wave gives the cold wave's bits. Its
+    plain version, one ``torch`` product an expert
+    (:func:`grouped_matmul_plain`), runs on the CPU. The group sizes still
+    come back to the host (:data:`GROUP_SIZES`, the capture guard), so this
     path never runs under a CUDA graph capture.
 
 The two reduce the experts' contributions in different orders, so a
@@ -45,9 +51,13 @@ expert-parallel ``tp_axis`` and the capacity dispatch it takes, and the
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
+from cake_tpu_torch.ops import _build
+from cake_tpu_torch.ops.launches import count
 from cake_tpu_torch.ops.quant import Quant4Weight, QuantWeight
 
 # Below this many tokens a row the dense combine runs; at or above it, the
@@ -100,17 +110,77 @@ def route_topk(logits: torch.Tensor, top_k: int, n_experts: int, norm_topk: bool
     return weights.scatter(-1, topi, topv)
 
 
-def _ragged(xs: torch.Tensor, w, sizes: list[int], eids: torch.Tensor) -> torch.Tensor:
-    """Rows sorted by expert, each group times its own expert's weight (the
-    JAX package's ``ragged_dot``): one product an expert with rows."""
-    quant = isinstance(w, QuantWeight)
-    mats = w.w if quant else w
+# The grouped GEMM's row tile (csrc/moe_grouped.cu BM): its grid has at
+# most ceil(rows / ROW_TILE) + E row tiles.
+ROW_TILE = 64
+
+
+def grouped_matmul_plain(xs: torch.Tensor, mats: torch.Tensor, sizes: list[int]) -> torch.Tensor:
+    """Plain PyTorch version of :func:`grouped_matmul`: one product an
+    expert with rows (an int8 stack widened to x's dtype)."""
+    count(grouped_matmul_plain)
     out = torch.empty((xs.shape[0], mats.shape[-1]), dtype=xs.dtype, device=xs.device)
     lo = 0
     for e, n in enumerate(sizes):
         if n:
-            out[lo : lo + n] = xs[lo : lo + n] @ (mats[e].to(xs.dtype) if quant else mats[e])
+            w = mats[e] if mats.dtype == xs.dtype else mats[e].to(xs.dtype)
+            out[lo : lo + n] = xs[lo : lo + n] @ w
         lo += n
+    return out
+
+
+grouped_matmul_plain.launches = 0
+
+
+def grouped_matmul(xs: torch.Tensor, mats: torch.Tensor, offsets: torch.Tensor,
+                   sizes: list[int]) -> torch.Tensor:
+    """Rows sorted by expert [M, K], each group times its own expert's
+    weight of ``mats`` [E, K, N] (x's dtype, or int8 widened in the kernel):
+    [M, N] in x's dtype. ``offsets`` [E + 1] int32 on x's device delimit the
+    groups (the kernel reads them there); ``sizes`` are the same groups on
+    the host, read by the plain version only. On the card one launch covers
+    every expert; an output row's bits depend on that row and its expert's
+    weights alone (a fixed row tile, K in one fixed order, f32 accumulation)."""
+    if xs.device.type == "cpu":
+        return grouped_matmul_plain(xs, mats, sizes)
+    if xs.device.type != "cuda":
+        raise ValueError(f"grouped_matmul: unsupported device {xs.device}")
+    quant = mats.dtype == torch.int8
+    if not quant and mats.dtype != xs.dtype:
+        raise TypeError(f"grouped_matmul: {mats.dtype} experts under {xs.dtype} rows")
+    m, k = xs.shape
+    e, k2, n = mats.shape
+    if k2 != k or offsets.shape != (e + 1,) or offsets.dtype != torch.int32:
+        raise ValueError(f"grouped_matmul: rows {tuple(xs.shape)}, experts {tuple(mats.shape)}, "
+                         f"offsets {tuple(offsets.shape)} {offsets.dtype}")
+    if k % 32 or n % (16 if quant else 8):
+        raise ValueError(f"grouped_matmul: K {k} must be a multiple of 32 and N {n} of "
+                         f"{16 if quant else 8}")
+    xs = xs.contiguous()
+    mats = mats.contiguous()
+    out = torch.empty((m, n), dtype=xs.dtype, device=xs.device)
+    if m:
+        tiles = -(-m // ROW_TILE) + e
+        err = _build.library().cake_moe_grouped(
+            xs.data_ptr(), mats.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+            m, k, n, e, _build.dtype_code(xs.dtype), int(quant), tiles,
+            ctypes.c_void_p(torch.cuda.current_stream(xs.device).cuda_stream),
+        )
+        _build.check(err, "grouped_matmul")
+        count(grouped_matmul)
+    return out
+
+
+grouped_matmul.launches = 0
+
+
+def _ragged(xs: torch.Tensor, w, sizes: list[int], offsets: torch.Tensor,
+            eids: torch.Tensor) -> torch.Tensor:
+    """Rows sorted by expert, each group times its own expert's weight (the
+    JAX package's ``ragged_dot``), an int8 stack's per-expert scale applied
+    after the product."""
+    quant = isinstance(w, QuantWeight)
+    out = grouped_matmul(xs, w.w if quant else w, offsets, sizes)
     if quant:
         out = out * _expert_scale(w, xs.dtype)[eids]
     return out
@@ -131,12 +201,15 @@ def _grouped(x, logits, w_gate, w_up, w_down, top_k: int, norm_topk: bool, e_loc
     eids_s, order = torch.sort(eids, stable=True)
     tok_s = order // top_k
     xs = x.reshape(n, h)[tok_s]  # [n*k, h], expert-sorted
-    sizes = torch.bincount(eids_s, minlength=e_local).tolist()
+    counts = torch.bincount(eids_s, minlength=e_local)
+    offsets = torch.zeros(e_local + 1, dtype=torch.int32, device=x.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    sizes = counts.tolist()
     if GROUP_SIZES is not None:
         GROUP_SIZES.append(sizes)
-    g = F.silu(_ragged(xs, w_gate, sizes, eids_s))
-    u = _ragged(xs, w_up, sizes, eids_s)
-    y = _ragged(g * u, w_down, sizes, eids_s)  # [n*k, h]
+    g = F.silu(_ragged(xs, w_gate, sizes, offsets, eids_s))
+    u = _ragged(xs, w_up, sizes, offsets, eids_s)
+    y = _ragged(g * u, w_down, sizes, offsets, eids_s)  # [n*k, h]
     y = y * wts[order][:, None].to(y.dtype)
     # A token's rows in the sorted list, in list order (ascending expert):
     # summed one after another, as a serial scatter-add over the list.

@@ -26,9 +26,12 @@ runtime/serving.py consumes each piece.
     dispatch from writing into the next epoch's buffers is the backend's
     part (runtime/batch_backend.py ``abandon``).
 
-The reference's metrics registry, flight events and timeline instants are
-not ported (ROADMAP.md queue A, observability): the engine's ``stats``
-counters, ``tenant_stats()`` and the guard's own counts stand in for them.
+Each records what the reference records: the ``cake_tenant_*``,
+``cake_quota_refusals_total`` and ``cake_epoch_stalls*`` metrics
+(utils/metrics.py), ``quota-refused`` and ``epoch-stall`` flight events, and
+an ``epoch-stall`` timeline instant on the engine track (obs/timeline.py),
+beside the engine's ``stats`` counters, ``tenant_stats()`` and the guard's
+own counts.
 """
 
 from __future__ import annotations
@@ -36,6 +39,9 @@ from __future__ import annotations
 import threading
 import time
 from collections import OrderedDict, deque
+
+from cake_tpu_torch.obs.timeline import timeline
+from cake_tpu_torch.utils import metrics
 
 __all__ = [
     "DEFAULT_TENANT", "FairQueue", "MAX_TENANTS", "QuotaExceeded", "StallGuard", "StepBudget",
@@ -149,7 +155,7 @@ class TenantMeter:
         with self._lock:
             t = self._tenant(tenant)
             if self.max_streams and len(t.open_rids) >= self.max_streams:
-                t.refusals += 1
+                self._refused(t, tenant, "streams")
                 raise QuotaExceeded(
                     f"tenant {tenant!r} has {len(t.open_rids)} concurrent streams "
                     f"(cap {self.max_streams})",
@@ -158,7 +164,7 @@ class TenantMeter:
             if t.bucket is not None:
                 wait = t.bucket.try_take(cost, self._time())
                 if wait > 0:
-                    t.refusals += 1
+                    self._refused(t, tenant, "rate")
                     raise QuotaExceeded(
                         f"tenant {tenant!r} over its token rate ({self.rate:g} tok/s, burst "
                         f"{self.burst:g}); {cost:g} tokens available in {wait:.2f}s",
@@ -168,6 +174,28 @@ class TenantMeter:
             self._rid_tenant[rid] = (tenant, float(cost))
             t.tokens += cost
             t.submitted += 1
+            metrics.registry.counter(
+                "cake_tenant_submitted_total",
+                "Submissions accepted past the per-tenant quota gates.",
+            ).inc(tenant=tenant)
+            metrics.registry.counter(
+                "cake_tenant_tokens_total",
+                "Work tokens (prompt + max_tokens) admitted per tenant.",
+            ).inc(cost, tenant=tenant)
+            metrics.registry.gauge(
+                "cake_tenant_active_streams",
+                "Queued + live streams per tenant (quota view).",
+            ).set(len(t.open_rids), tenant=tenant)
+
+    @staticmethod
+    def _refused(t: _Tenant, tenant: str, kind: str) -> None:
+        t.refusals += 1
+        metrics.registry.counter(
+            "cake_quota_refusals_total",
+            "Submissions refused by per-tenant quotas (HTTP 429 + "
+            "Retry-After; kind=rate|streams).",
+        ).inc(tenant=tenant, kind=kind)
+        metrics.flight.record("quota-refused", tenant=tenant, kind=kind)
 
     def close(self, rid: str, refund: bool = False) -> None:
         """A stream finished (any reason); idempotent. ``refund=True`` is for
@@ -185,6 +213,10 @@ class TenantMeter:
                     t.tokens -= cost
                     if t.bucket is not None:
                         t.bucket.refund(cost)
+                metrics.registry.gauge(
+                    "cake_tenant_active_streams",
+                    "Queued + live streams per tenant (quota view).",
+                ).set(len(t.open_rids), tenant=tenant)
 
     def snapshot(self) -> dict:
         """Per-tenant accounting for the ``/stats`` tenants block."""
@@ -256,6 +288,11 @@ class FairQueue:
             self._weights.pop(tenant, None)
         else:
             self._weights[tenant] = weight
+        metrics.registry.gauge(
+            "cake_tenant_quantum_weight",
+            "DRR quantum multiplier per tenant (SLO burn feedback; "
+            "1 = unweighted fair share).",
+        ).set(weight, tenant=tenant or DEFAULT_TENANT)
 
     def weight(self, tenant: str) -> float:
         return self._weights.get(tenant, 1.0)
@@ -278,6 +315,7 @@ class FairQueue:
         self._total += 1
         if getattr(req, "deadline", 0.0):
             self.deadline_count += 1
+        self._gauge(key)
 
     def extend(self, reqs) -> None:
         for req in reqs:
@@ -296,6 +334,9 @@ class FairQueue:
         return True
 
     def clear(self) -> None:
+        for key, dq in self._q.items():
+            dq.clear()
+            self._gauge(key)
         self._q.clear()
         self._rr.clear()
         self._deficit.clear()
@@ -306,6 +347,7 @@ class FairQueue:
         self._total -= 1
         if getattr(req, "deadline", 0.0):
             self.deadline_count -= 1
+        self._gauge(key)
         if not self._q[key]:
             # An emptied subqueue's entries are deleted (tenant-id churn
             # cannot grow them), which is also DRR's no-idle-credit rule: a
@@ -316,6 +358,11 @@ class FairQueue:
                 self._rr.remove(key)
             except ValueError:
                 pass
+
+    def _gauge(self, key: str) -> None:
+        metrics.registry.gauge(
+            "cake_tenant_queued", "Requests queued per tenant."
+        ).set(len(self._q.get(key, ())), tenant=key or DEFAULT_TENANT)
 
     # -------------------------------------------------------------- queries
 
@@ -513,7 +560,7 @@ class StallGuard:
 
     # ---- engine side -----------------------------------------------------
 
-    def call(self, fn, op: str, grace: bool = False):
+    def call(self, fn, op: str, grace: bool = False, rid: str = ""):
         from cake_tpu_torch.runtime.batch_backend import BackendWorkerError
 
         with self._cv:
@@ -549,6 +596,16 @@ class StallGuard:
             self._job = None
             self._seen_ops.discard(op)
             self.stalls += 1
+        metrics.registry.counter(
+            "cake_epoch_stalls_total",
+            "Backend dispatches abandoned by the stuck-epoch watchdog "
+            "(no progress within epoch_stall_s).",
+        ).inc()
+        metrics.flight.record("epoch-stall", rid, op=op, stall_s=bound)
+        timeline.instant(
+            "epoch-stall", rid=rid or None, track="engine",
+            args={"op": op, "stall_s": bound},
+        )
         raise BackendWorkerError(self.NODE, op)
 
     def stop(self) -> None:
@@ -583,6 +640,11 @@ class StallGuard:
                 if self._worker is not me:
                     # The engine gave up on this dispatch while it ran.
                     self.resolved += 1
+                    metrics.registry.counter(
+                        "cake_epoch_stalls_resolved_total",
+                        "Stalled dispatches that completed after the "
+                        "watchdog had already abandoned them.",
+                    ).inc()
                     return
                 self._done[gen] = result
                 result = None

@@ -7,15 +7,25 @@ engine a ``priority`` class 0-2, a ``tenant`` (or the ``X-Cake-Tenant``
 header) and a ``deadline_s``), ``POST /api/v1/cancel`` (``{"id": ...}``, the
 engine only), ``GET /health``, ``GET /api/v1/models``, ``GET /stats`` (with
 an engine, its ``tenants`` and ``slo`` blocks) and ``GET /slo`` (the
-engine's per-tenant SLIs and burn rates, obs/slo.py). Without an engine,
+engine's per-tenant SLIs and burn rates, obs/slo.py), and the
+observability routes: ``GET /metrics`` (the Prometheus exposition of the
+metrics registry, utils/metrics.py, with the engine's counters),
+``/events`` (the flight recorder's ring, ``?request_id=``), ``/trace`` (the
+timeline ring as Chrome trace JSON, ``?request_id=``), ``/explain``
+(``?request_id=``: a request's latency by phase, obs/critpath.py, with its
+scheduler decisions), ``/efficiency`` (the goodput and hardware-efficiency
+ledger and the decision ring), ``/requests`` (the request log's ring,
+``?tenant= &finish= &since= &limit=``) and ``/timeseries`` (the rolling
+SLIs); the last three and ``/slo`` need the engine. ``events_jsonl``,
+``trace_jsonl`` and ``request_log`` stream the flight events, the timeline
+events and the request records to JSONL files. Without an engine,
 requests run one at a time under a lock around the single generator, which
 is reset per request. With a batch engine (runtime/serving.py,
 ``--api-batch``) chat requests bypass that lock: they are submitted to the
 engine and decode concurrently as lockstep batches, and a client that
 disconnects mid-stream cancels its request. A tenant over its quota gets a
 429 and a saturated engine a 503, each with ``Retry-After``; a bad tenant,
-deadline or priority is a 400 before any streaming header. The other
-observability routes are not ported yet (ROADMAP.md).
+deadline or priority is a 400 before any streaming header.
 
 Built on http.server's ThreadingHTTPServer: no third-party server.
 """
@@ -33,10 +43,30 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from cake_tpu_torch.models.llama.chat import Message
 from cake_tpu_torch.models.llama.generator import LlamaGenerator, SamplingConfig, Token
+from cake_tpu_torch.obs import critpath
+from cake_tpu_torch.obs.timeline import timeline
+from cake_tpu_torch.utils import metrics
 
 log = logging.getLogger("cake_tpu_torch.api")
 
 CHAT_ROUTE = "/api/v1/chat/completions"
+
+# HELP text of the engine's stats on /metrics (others: "Engine counter.").
+_ENGINE_HELP = {
+    "batches": "Lockstep decode batches started.",
+    "rows": "Rows ever admitted (initial + joins).",
+    "max_rows": "High-water mark of rows per batch.",
+    "joins": "Continuous-batching joins.",
+    "page_truncations": "Streams force-finished at page exhaustion.",
+    "stream_errors": "Streams finished finish_reason=error (worker failure).",
+    "cancelled": "Requests cancelled.",
+    "shed": "Submissions refused by load shedding.",
+    "quota_refusals": "Submissions refused by per-tenant quotas (HTTP 429).",
+    "deadline_expired": "Requests past their end-to-end deadline (queued or running).",
+    "epoch_stalls": "Backend dispatches abandoned by the stuck-epoch watchdog.",
+    "prefix_hits": "Admissions/joins served a cached prefix chain (--prefix-cache).",
+    "prefix_misses": "Admissions/joins with no usable cached prefix (--prefix-cache).",
+}
 CANCEL_ROUTE = "/api/v1/cancel"
 
 # Tenant ids key the quota buckets and the fair queue's subqueues: a longer
@@ -62,10 +92,26 @@ class ApiServer:
     # Optional batch engine (runtime/serving.BatchEngine): chat requests go
     # to it instead of the generator.
     engine: "object | None" = None
+    # JSONL sinks: every flight event (--events-jsonl), every timeline event
+    # (--trace-jsonl; obs/timeline.load_jsonl + export_events make it a
+    # Perfetto trace) and every request record (--request-log, the engine's)
+    # is appended as one line; the bounded rings stay live either way.
+    events_jsonl: "str | None" = None
+    trace_jsonl: "str | None" = None
+    request_log: "str | None" = None
 
     def __post_init__(self) -> None:
         self._lock = threading.Lock()
         self._started = int(time.time())
+        if self.events_jsonl:
+            metrics.flight.attach_jsonl(self.events_jsonl)
+        if self.trace_jsonl:
+            timeline.attach_jsonl(self.trace_jsonl)
+        if self.request_log:
+            reqlog = getattr(self.engine, "requestlog", None)
+            if reqlog is None:
+                raise ValueError("request_log needs the batch engine (--api-batch > 1)")
+            reqlog.attach_jsonl(self.request_log)
         if self.engine is not None:
             self.engine.start()
 
@@ -142,6 +188,8 @@ class ApiServer:
                 created = int(time.time())
                 if hasattr(gen.step, "trace_id"):
                     gen.step.trace_id = rid  # rides every FORWARD header (TCP steps)
+                metrics.flight.record("submitted", rid, prompt_tokens=n_prompt,
+                                      path="serialized")
                 if stream:
 
                     def produce(on_token) -> str:
@@ -152,8 +200,12 @@ class ApiServer:
                     if include_usage:
                         usage_fn = lambda: (gen.prompt_tokens, gen.generated_count)  # noqa: E731
                     _SseStream(self, produce, rid, created, usage_fn).run(handler)
+                    metrics.flight.record("finished", rid, finish_reason=gen.last_finish_reason,
+                                          completion_tokens=gen.generated_count)
                     return None
                 text = gen.generate(max_tokens)
+                metrics.flight.record("finished", rid, finish_reason=gen.last_finish_reason,
+                                      completion_tokens=gen.generated_count)
                 return self._completion_response(
                     rid, created, text, gen.last_finish_reason,
                     gen.prompt_tokens, gen.generated_count,
@@ -227,9 +279,37 @@ class ApiServer:
 
     def _client_gone(self, rid: str) -> None:
         """A client left mid-stream: cancel its engine request so its lane
-        stops decoding and its pages return to the pool."""
-        if self.engine is not None and self.engine.cancel(rid):
+        stops decoding and its pages return to the pool; a flight event
+        either way."""
+        cancelled = self.engine is not None and bool(self.engine.cancel(rid))
+        if cancelled:
             log.info("cancelled %s: its client disconnected", rid)
+        metrics.flight.record("client-gone", rid, cancelled=cancelled)
+
+    def metrics_text(self) -> str:
+        """The ``/metrics`` body: the engine's stats as ``cake_engine_<k>``
+        series, then the registry's exposition, with the scrape-time gauges
+        (build info, uptime, the SLO and efficiency gauges) refreshed."""
+        from cake_tpu_torch import __version__
+
+        metrics.registry.gauge(
+            "cake_build_info", "Constant 1; the labels carry model and version.",
+        ).set(1, model=self.model_name, version=__version__)
+        if self.engine is not None:
+            self.engine.slo.refresh_metrics()
+            self.engine.efficiency.refresh_metrics()
+        metrics.registry.gauge(
+            "cake_uptime_seconds", "Seconds since the API server started.",
+        ).set(round(time.time() - self._started, 3))
+        lines: list[str] = []
+        if self.engine is not None:
+            # A high-water mark is a gauge: rate() over it means nothing.
+            for k, v in sorted(self.engine.stats.items()):
+                kind = "gauge" if k == "max_rows" else "counter"
+                lines.append(f"# HELP cake_engine_{k} {_ENGINE_HELP.get(k, 'Engine counter.')}")
+                lines.append(f"# TYPE cake_engine_{k} {kind}")
+                lines.append(f"cake_engine_{k} {v}")
+        return "\n".join(lines) + ("\n" if lines else "") + metrics.registry.expose()
 
     def _completion_response(
         self, rid, created, text, finish_reason, n_prompt, n_generated
@@ -272,17 +352,86 @@ class ApiServer:
                 self.end_headers()
                 self.wfile.write(data)
 
+            def _engine_route(self, name: str, what: str):
+                """The engine's ``name`` ledger, or a 404 without an engine."""
+                obj = getattr(api.engine, name, None)
+                if obj is None:
+                    self._json(404, {"error": f"{what} needs the batch engine (--api-batch > 1)"})
+                return obj
+
             def do_GET(self):
-                route = self.path.split("?", 1)[0]
+                from urllib.parse import parse_qs, urlparse
+
+                parsed = urlparse(self.path)
+                route, query = parsed.path, parse_qs(parsed.query)
+                rid = query.get("request_id", [None])[0]
                 if route == "/health":
                     self._json(200, {"status": "ok", "model": api.model_name})
                 elif route == "/stats":
-                    body = {"model": api.model_name, "engine": None}
+                    body = {"model": api.model_name, "engine": None,
+                            "uptime_s": round(time.time() - api._started, 3),
+                            "timeline": timeline.aggregate(),
+                            "metrics": metrics.registry.snapshot()}
                     if api.engine is not None:
                         body["engine"] = api.engine.snapshot()
+                        body["engine"]["scheduler"] = api.engine.scheduler
                         body["tenants"] = api.engine.tenant_stats()
                         body["slo"] = api.engine.slo.snapshot()
+                        body["phases"] = api.engine.phase_stats()
+                        body["efficiency"] = api.engine.efficiency.snapshot()
+                        if api.engine.blackbox is not None:
+                            body["blackbox"] = api.engine.blackbox.stats()
                     self._json(200, body)
+                elif route == "/metrics":
+                    data = api.metrics_text().encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "text/plain; version=0.0.4")
+                    self.send_header("Content-Length", str(len(data)))
+                    self.end_headers()
+                    self.wfile.write(data)
+                elif route == "/events":
+                    events = metrics.flight.snapshot(request_id=rid)
+                    self._json(200, {"events": events, "count": len(events),
+                                     "capacity": metrics.flight.capacity, "cluster": []})
+                elif route == "/trace":
+                    self._json(200, timeline.export(rid))
+                elif route == "/explain":
+                    if not rid:
+                        self._json(400, {"error": "explain needs a request_id query parameter "
+                                                  "(the chatcmpl-... response id)"})
+                        return
+                    res = critpath.explain(timeline.snapshot(), rid)
+                    if res is None:
+                        self._json(404, {"error": f"no timeline spans for request {rid!r}: "
+                                                  "evicted from the ring, refused before "
+                                                  "admission, or unknown"})
+                        return
+                    if api.engine is not None:
+                        res["decisions"] = api.engine.audit.for_request(rid)
+                    self._json(200, res)
+                elif route == "/efficiency":
+                    eff = self._engine_route("efficiency", "the efficiency ledger")
+                    if eff is not None:
+                        body = eff.snapshot()
+                        body["decision_ring"] = api.engine.audit.snapshot(limit=200)
+                        self._json(200, body)
+                elif route == "/requests":
+                    reqlog = self._engine_route("requestlog", "the request log")
+                    if reqlog is not None:
+                        def int_q(key):
+                            try:
+                                return int(query.get(key, [None])[0])
+                            except (TypeError, ValueError):
+                                return None
+
+                        recs = reqlog.snapshot(tenant=query.get("tenant", [None])[0],
+                                               finish=query.get("finish", [None])[0],
+                                               since=int_q("since"), limit=int_q("limit") or 0)
+                        self._json(200, {"requests": recs, "count": len(recs), **reqlog.stats()})
+                elif route == "/timeseries":
+                    ts = self._engine_route("timeseries", "the SLI time-series")
+                    if ts is not None:
+                        self._json(200, ts.series())
                 elif route == "/slo":
                     if api.engine is None:
                         self._json(404, {"error": "SLO tracking needs the batch engine "

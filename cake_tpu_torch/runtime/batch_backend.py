@@ -26,11 +26,16 @@ the pads are copied in at every chunk, the block table only when the
 allocator's changed (joins, page extensions), the slot when the previous
 chunk did not leave it there. The decode fusions ride the config
 (``LlamaConfig.fusion_impl``): each dispatch resolves them once, and the
-decode chunks sample through the fused tail when "tail" is on. The
-tensor-parallel and pipelined backends, speculative verify and the
-kernel-fallback flight event are not ported (ROADMAP.md): the port has no
-quiet fallback, and a page size the paged kernels do not take raises on the
-card.
+decode chunks sample through the fused tail when "tail" is on. Each decode
+leaves a ``kernel:fused_<name>`` timeline instant an enabled fusion, with
+the route its kernel takes ("cuda" on the card, "plain" on the CPU), and a
+sampled tail with ``top_p`` (which keeps the unfused composition) one
+``kernel-fallback`` flight event a backend; each paged dispatch leaves a
+``kernel:<op>`` instant. The TCP backend counts a hop it abandons
+(``cake_hop_failures_total``, a ``hop-failed`` flight event). The
+tensor-parallel and pipelined backends and speculative verify are not
+ported (ROADMAP.md); a page size the paged kernels do not take raises on
+the card.
 
 **Abandoned dispatches.** The engine's stall guard (runtime/admission.py
 ``StallGuard``) may give up on a dispatch whose thread is still running it.
@@ -71,6 +76,8 @@ from cake_tpu_torch.ops.fuse import fuse_params, resolve_fusion
 from cake_tpu_torch.ops.paged_prefill import paged_kernel_supported
 from cake_tpu_torch.ops.rope import model_rope_tables
 from cake_tpu_torch.ops.sampling import sample_step
+from cake_tpu_torch.obs.timeline import timeline
+from cake_tpu_torch.utils import metrics
 
 
 def _rows(x, device) -> torch.Tensor:
@@ -120,6 +127,41 @@ def _decode_chunk(backend, chunks: _Chunks, kv, n: int, tok, ring, s, make_forwa
     elif chunk.kv.k.data_ptr() != kv.k.data_ptr():
         raise RuntimeError("decode: the KV storage moved under a captured decode chunk")
     return chunk
+
+
+def _route(backend) -> str:
+    """The route the backend's kernels take: their CUDA kernels on the
+    card, their plain versions on the CPU."""
+    return "cuda" if backend.device.type == "cuda" else "plain"
+
+
+def _note_fusion_kernels(backend, s) -> None:
+    """Timeline breadcrumbs of the decode fusions: one ``kernel:fused_<name>``
+    instant an enabled fusion at every decode dispatch, with the route it
+    takes, and one ``kernel-fallback`` flight event a backend when a
+    sampled tail with ``top_p`` keeps the unfused composition."""
+    fusions = resolve_fusion(backend.config)
+    if not fusions:
+        return
+    lp = backend.params.get("layers", {}) if isinstance(backend.params, dict) else {}
+    route = _route(backend)
+    sampled = s.temperature is not None and s.temperature > 0.0
+    impls = {
+        "fused_norm_matmul": ("norm", route),
+        "fused_qkv_ingest": ("ingest", route if "wqkv" in lp and "q_norm" not in lp
+                             else "composition"),
+        "fused_sample_tail": ("tail", "composition" if sampled and s.top_p is not None
+                              else route),
+    }
+    for kernel, (name, impl) in impls.items():
+        if name not in fusions:
+            continue
+        if (kernel == "fused_sample_tail" and impl == "composition"
+                and not getattr(backend, "_fusion_fallback_noted", False)):
+            backend._fusion_fallback_noted = True
+            metrics.flight.record("kernel-fallback", op=kernel,
+                                  reason="top_p needs the full sort of the composition")
+        timeline.instant(f"kernel:{kernel}", track="engine", args={"impl": impl})
 
 
 def _check_live(kv, live, op: str) -> None:
@@ -213,6 +255,7 @@ class LocalBatchBackend:
             pads=(tok.shape[0],),
         )
         ids = chunk.run(tok=tok, slot=slot, ring=ring, ring_idx=ring_idx, keys=keys, pads=pads)
+        _note_fusion_kernels(self, s)
         return ids, kv, chunk.keys, chunk.ring, chunk.ring_idx
 
     @torch.inference_mode()
@@ -392,10 +435,15 @@ class PagedLocalBackend:
     # --------------------------------------------------- dispatches
 
     @torch.inference_mode()
+    def _kernel_note(self, op: str) -> None:
+        """A timeline breadcrumb a paged dispatch, with its kernels' route."""
+        timeline.instant(f"kernel:{op}", track="engine", args={"impl": _route(self)})
+
     def prefill(self, tokens, kv, pads):
         """The whole left-padded batch at slots [0, width) through the
         lanes' block tables (paged_chunk_attention with ``q_starts = 0``)."""
         _check_live(kv, self._pool, "prefill")
+        self._kernel_note("prefill")
         self._check_write_bound("prefill", int(np.shape(tokens)[1]))
         return B.paged_prefill(
             self.params, _tokens(tokens, self.device), kv, _rows(pads, self.device),
@@ -409,6 +457,7 @@ class PagedLocalBackend:
         cache-enabled prefill goes here, cold epochs included, so warm and
         cold runs share one attention arithmetic."""
         _check_live(kv, self._pool, "suffix_prefill")
+        self._kernel_note("suffix_prefill")
         self._check_write_bound("suffix_prefill", int(start) + int(np.shape(tokens)[1]))
         return B.paged_suffix_prefill(
             self.params, _tokens(tokens, self.device), kv, _rows(pads, self.device),
@@ -421,6 +470,7 @@ class PagedLocalBackend:
         """A join on the prefix-cache arithmetic: one row's window
         [start, slot) over its lane's table, sliced to the same capacity."""
         _check_live(kv, self._pool, "suffix_join")
+        self._kernel_note("suffix_join")
         self._check_write_bound("suffix_join", int(start) + int(np.shape(row_tokens)[1]))
         return B.paged_suffix_prefill(
             self.params, _tokens(row_tokens, self.device), kv, _rows([pad], self.device),
@@ -453,6 +503,8 @@ class PagedLocalBackend:
         )
         ids = chunk.run(tok=tok, slot=slot, ring=ring, ring_idx=ring_idx, keys=keys, pads=pads,
                         tables=tables)
+        self._kernel_note("decode")
+        _note_fusion_kernels(self, s)
         return ids, kv, chunk.keys, chunk.ring, chunk.ring_idx
 
     @torch.inference_mode()
@@ -461,6 +513,7 @@ class PagedLocalBackend:
         through its lane's freshly mapped pages."""
         _check_live(kv, self._pool, "join")
         self._check_write_bound("join", end)
+        self._kernel_note("join")
         logits, kv = B.paged_prefill(
             self.params, _tokens(row_tokens, self.device), kv, _rows([pad], self.device),
             self._lane_table(lane), self.config, ends=_rows([end], self.device), seq_len=end,
@@ -588,8 +641,18 @@ class DistributedBatchBackend:
                 out = step.clients[node].forward(torch_to_wire(x), ranges, pos, batch=batch_hdr,
                                                  trace=self.trace_id)
             except (ConnectionError, TimeoutError, OSError) as e:
-                # The epoch cannot continue: re-dial so the next epoch has a
-                # live socket, then the typed error the engine isolates.
+                # The epoch cannot continue: count the hop, re-dial so the
+                # next epoch has a live socket, then the typed error the
+                # engine isolates.
+                metrics.registry.counter(
+                    "cake_hop_failures_total",
+                    "Worker hops abandoned after deadline/retry "
+                    "exhaustion or session loss (each one either "
+                    "triggers history replay or fails its streams "
+                    "with finish_reason=error).",
+                ).inc(node=node)
+                metrics.flight.record("hop-failed", self.trace_id, node=node, pos=int(pos),
+                                      op=kind, error=str(e)[:200])
                 try:
                     step.clients[node].reconnect()
                 except (ConnectionError, TimeoutError, OSError):

@@ -25,9 +25,11 @@ page copy) before any write lands.
 
 The cache is bounded in pages: inserts evict least-recently-used unpinned
 leaves (a node a live lane forked is pinned by its lease), and the engine
-reclaims cold pages on demand before refusing work. The JAX package's
-metrics gauges, flight events and timeline counters are not ported; the
-``counters`` dict and ``stats()`` carry the same numbers.
+reclaims cold pages on demand before refusing work. The ``counters`` dict
+and ``stats()`` carry the numbers the reference's records do: the
+``cake_prefix_*`` counters and gauges (utils/metrics.py), ``prefix-hit``,
+``-insert``, ``-evict`` and ``-clear`` flight events, and a ``prefix_pages``
+counter track with ``prefix-hit``/``prefix-evict`` instants on the timeline.
 
 One RLock guards every tree, LRU and pin mutation; the allocator is touched
 only under it, from the engine thread.
@@ -39,6 +41,16 @@ import itertools
 import threading
 
 from cake_tpu_torch.models.llama.paged_cache import PageAllocator
+from cake_tpu_torch.obs.timeline import timeline
+from cake_tpu_torch.utils import metrics
+
+_C_HIT = "cake_prefix_hits_total"
+_C_MISS = "cake_prefix_misses_total"
+_C_TOK = "cake_prefix_hit_tokens_total"
+_C_INS = "cake_prefix_inserts_total"
+_C_EVICT = "cake_prefix_evictions_total"
+_G_PAGES = "cake_prefix_pages"
+_G_NODES = "cake_prefix_nodes"
 
 
 def _common_prefix(a, b) -> int:
@@ -235,7 +247,16 @@ class PrefixCache:
 
     # ------------------------------------------------------------------ fork
 
-    def fork(self, lane: int, ids: list[int], pad: int) -> ForkPlan | None:
+    def _update_gauges(self) -> None:
+        metrics.registry.gauge(_G_PAGES, "KV pages held by the persistent prefix cache.").set(
+            self._pages_held)
+        metrics.registry.gauge(_G_NODES, "Prefix-cache radix nodes (one page each).").set(
+            self._n_nodes)
+        timeline.counter("prefix_pages", {"held": float(self._pages_held),
+                                          "shared": float(self.allocator.pages_shared)},
+                         track="prefix")
+
+    def fork(self, lane: int, ids: list[int], pad: int, rid: str = "") -> ForkPlan | None:
         """Splice the longest cached chain matching ``ids`` into ``lane``'s
         block table (shared pages, +1 ref each) and pin it. None on a miss
         (nothing mapped). On a hit the suffix prefill starts at slot
@@ -246,6 +267,8 @@ class PrefixCache:
             served, matched = self._walk(self._roots.get(align), ids, align)
             if served < max(self.min_tokens, 1):
                 self.counters["misses"] += 1
+                metrics.registry.counter(
+                    _C_MISS, "Prompt admissions with no usable cached prefix.").inc()
                 return None
             first_logical = pad // self.page_size
             self.allocator.fork_chain(lane, [n.page for n in matched], first_logical)
@@ -256,6 +279,14 @@ class PrefixCache:
             self._bump(matched)
             self.counters["hits"] += 1
             self.counters["hit_tokens"] += served
+            metrics.registry.counter(_C_HIT, "Prompt admissions served a cached prefix chain.").inc()
+            metrics.registry.counter(_C_TOK, "Prompt tokens served from cached prefix pages.").inc(
+                served)
+            metrics.flight.record("prefix-hit", rid, lane=lane, tokens=served,
+                                  pages=len(matched), cow=bool(cow))
+            timeline.instant("prefix-hit", rid=rid, track="prefix",
+                             args={"tokens": served, "pages": len(matched)})
+            self._update_gauges()
             return ForkPlan(served, cow_logical, PrefixLease(matched, self._generation))
 
     def release(self, lease: PrefixLease | None) -> None:
@@ -271,7 +302,7 @@ class PrefixCache:
 
     # ---------------------------------------------------------------- insert
 
-    def insert(self, lane: int, ids: list[int], pad: int) -> int:
+    def insert(self, lane: int, ids: list[int], pad: int, rid: str = "") -> int:
         """Adopt a finished lane's prompt-prefix pages into the tree
         (zero-copy: +1 cache reference per newly adopted page; pages already
         cached refresh their LRU stamp). Returns pages newly retained. A
@@ -327,7 +358,12 @@ class PrefixCache:
                 return 0
             self._bump(path)
             self.counters["inserts"] += 1
+            metrics.registry.counter(
+                _C_INS, "Prompt-prefix chains inserted/refreshed on finish.").inc()
+            metrics.flight.record("prefix-insert", rid, lane=lane, pages=adopted,
+                                  chain_pages=len(path))
             self._evict_to_budget()
+            self._update_gauges()
             return adopted
 
     # -------------------------------------------------------------- eviction
@@ -349,6 +385,8 @@ class PrefixCache:
             self._n_nodes -= 1
             self._pages_held -= 1
             self.counters["evictions"] += 1
+            metrics.registry.counter(
+                _C_EVICT, "Prefix-cache nodes evicted (LRU or on-demand).").inc()
             return self.allocator.pages_free - free0
 
     def _evict_to_budget(self) -> None:
@@ -358,7 +396,7 @@ class PrefixCache:
                 return  # everything pinned: live lanes hold the budget
             self._evict_one(min(leaves, key=lambda n: n.last_used))
 
-    def reclaim(self, n_pages: int) -> int:
+    def reclaim(self, n_pages: int, rid: str = "") -> int:
         """Evict LRU-first until ``n_pages`` pages actually reach the free
         list (or nothing evictable remains). Returns pages freed."""
         if n_pages <= 0:
@@ -370,9 +408,13 @@ class PrefixCache:
                 if not leaves:
                     break
                 freed += self._evict_one(min(leaves, key=lambda n: n.last_used))
+            if freed:
+                metrics.flight.record("prefix-evict", rid, pages=freed, wanted=n_pages)
+                timeline.instant("prefix-evict", track="prefix", args={"pages": freed})
+            self._update_gauges()
             return freed
 
-    def clear(self) -> int:
+    def clear(self, reason: str = "") -> int:
         """Drop every chain (pool rebuild, failed epoch, tests). Pages still
         mapped by live lanes survive through their lane refs. Outstanding
         leases die with the generation. Returns pages freed."""
@@ -386,4 +428,8 @@ class PrefixCache:
             self._n_nodes = 0
             self._generation += 1
             self.counters["clears"] += 1
-            return self.allocator.pages_free - free0
+            freed = self.allocator.pages_free - free0
+            if pages:
+                metrics.flight.record("prefix-clear", pages=len(pages), freed=freed, reason=reason)
+            self._update_gauges()
+            return freed

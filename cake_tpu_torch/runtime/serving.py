@@ -61,8 +61,22 @@ epoch's live streams finish ``"error"``, and the backend drops the storage
 the abandoned dispatch holds (``abandon``), so the next epoch shares no
 buffer with it.
 
-Not ported yet (ROADMAP.md): speculative verify, failover, the black box
-and the observability ledgers. Asking for a knob that is not ported raises.
+Observability (utils/metrics.py, obs/): the engine records what the
+reference's records on the same events: the ``cake_*`` metrics and the
+flight recorder's lifecycle events, the timeline's span trees (an
+``epoch`` span, or under the continuous scheduler a ``segment`` span with
+one ``step`` span a scheduler iteration, around ``prefill``, ``join``,
+``restore``, ``prefix-fork``, ``decode-chunk`` and ``page-extend`` spans,
+and one ``request`` span a lane occupancy), the efficiency ledger (every
+dispatch's wall in one bucket, every emitted token in a goodput class), the
+decision audit (every admit, defer, join, preempt, spill, restore, budget
+and shed verdict with its cause), the request log, the SLI time-series, and
+with ``blackbox_dir`` the black box. A dispatch's wall includes its device
+work: each timed dispatch ends in a host readback or an event wait on the
+engine's stream, never a whole-device synchronize.
+
+Not ported yet (ROADMAP.md): speculative verify and failover. Asking for a
+knob that is not ported raises.
 """
 
 from __future__ import annotations
@@ -71,7 +85,6 @@ import dataclasses
 import logging
 import threading
 import time
-import uuid
 from collections import deque
 from typing import Iterator
 
@@ -88,7 +101,11 @@ from cake_tpu_torch.models.llama.paged_cache import PageExhausted
 from cake_tpu_torch.models.llama.tokenizer import Tokenizer
 from cake_tpu_torch.ops.fuse import parse_fusion_spec
 from cake_tpu_torch.ops.threefry import prng_key
+from cake_tpu_torch.obs.efficiency import DecisionAudit, EfficiencyLedger
+from cake_tpu_torch.obs.requestlog import RequestLog
 from cake_tpu_torch.obs.slo import SloObjectives, SloTracker
+from cake_tpu_torch.obs.timeline import timeline
+from cake_tpu_torch.obs.timeseries import SliTimeseries
 from cake_tpu_torch.runtime.admission import (
     DEFAULT_TENANT,
     FairQueue,
@@ -98,6 +115,7 @@ from cake_tpu_torch.runtime.admission import (
     TenantMeter,
     WaitEstimator,
 )
+from cake_tpu_torch.utils import metrics
 
 __all__ = ["BatchEngine", "EngineOverloaded", "QuotaExceeded", "ServeConfig", "StreamHandle"]
 
@@ -159,6 +177,13 @@ class ServeConfig:
     consumer left that many tokens unread. The ``slo_*`` knobs declare the
     objectives and windows of the ``SloTracker``; ``slo_feedback`` feeds
     its burn back into admission.
+
+    Observability: ``blackbox_dir`` (None = off) is where diagnostic
+    bundles land (obs/blackbox.py), at most ``blackbox_keep`` of them and
+    one every ``blackbox_min_interval_s``; ``blackbox_p99_mult`` (0 = off)
+    captures a request slower than that multiple of the rolling p99.
+    ``peak_tflops`` and ``peak_hbm_gbps`` (0 = the card's table entry, none
+    on the CPU) are the roofline's denominators (obs/efficiency.py).
     """
 
     max_batch: int = 8
@@ -192,6 +217,12 @@ class ServeConfig:
     slo_fast_window_s: float = 60.0
     slo_slow_window_s: float = 600.0
     slo_feedback: bool = True
+    blackbox_dir: str | None = None
+    blackbox_keep: int = 16
+    blackbox_min_interval_s: float = 5.0
+    blackbox_p99_mult: float = 0.0
+    peak_tflops: float = 0.0
+    peak_hbm_gbps: float = 0.0
 
     def __post_init__(self):
         parse_fusion_spec(self.fusion_impl)
@@ -231,6 +262,12 @@ class ServeConfig:
             raise ValueError(f"slo windows need 0 < fast <= slow, got "
                              f"{self.slo_fast_window_s}/{self.slo_slow_window_s}")
         self.slo_objectives()  # raises on a bad objective
+        if self.blackbox_keep < 1:
+            raise ValueError(f"blackbox_keep must be >= 1, got {self.blackbox_keep}")
+        if self.blackbox_min_interval_s < 0 or self.blackbox_p99_mult < 0:
+            raise ValueError("blackbox_min_interval_s and blackbox_p99_mult must be >= 0")
+        if self.peak_tflops < 0 or self.peak_hbm_gbps < 0:
+            raise ValueError("peak_tflops and peak_hbm_gbps must be >= 0 (0 = the device table)")
 
     def slo_objectives(self) -> SloObjectives:
         return SloObjectives(ttft_ms=self.slo_ttft_ms, ttft_target=self.slo_ttft_target,
@@ -264,6 +301,12 @@ class _Request:
     handle: "StreamHandle"
     rid: str = ""
     t_submit: float = 0.0
+    t_last_token: float = 0.0
+    # When the request left the queue (0 = not yet) and how long submit()'s
+    # tokenize and admission gates took: the queue and admission slices of
+    # the /explain decomposition (both ride the request span's args).
+    t_admit: float = 0.0
+    admit_s: float = 0.0
     priority: int = 1  # 0 low / 1 normal / 2 high: preemption spills the lowest first
     tenant: str = DEFAULT_TENANT  # the fair queue's subqueue and the quota's account
     # Absolute end-to-end deadline on the time.monotonic clock; 0.0 = none.
@@ -460,6 +503,33 @@ class BatchEngine:
             "shed": 0, "quota_refusals": 0, "deadline_expired": 0, "epoch_stalls": 0,
             "backpressured": 0,
         }
+        # Latency attribution (obs/critpath.py phases): aggregate phase
+        # seconds of finished requests and the per-epoch convoy meter, for
+        # /stats and the cake_phase_seconds / cake_convoy_* metrics.
+        self._phase_lock = threading.Lock()
+        self.phase_totals: dict[str, dict] = {}
+        self.convoy_stats = {"epochs": 0, "seconds_total": 0.0, "frac_last": 0.0,
+                             "frac_sum": 0.0}
+        # Per-epoch scratch (engine thread only; reset in _run_batch).
+        self._epoch_rows: list[_RowState] = []
+        self._epoch_t0 = 0.0
+        self._epoch_head_rid = ""
+        self._epoch_stalled = False
+        self.blackbox = None
+        if serve.blackbox_dir:
+            from cake_tpu_torch.obs.blackbox import BlackBox
+
+            self.blackbox = BlackBox(serve.blackbox_dir, keep=serve.blackbox_keep,
+                                     min_interval_s=serve.blackbox_min_interval_s,
+                                     p99_mult=serve.blackbox_p99_mult)
+        # The goodput and hardware-efficiency ledger with the decision
+        # audit, the request log (GET /requests, --request-log) and the SLI
+        # time-series (GET /timeseries).
+        self.audit = DecisionAudit()
+        self.efficiency = EfficiencyLedger(config=self.config, peak_tflops=serve.peak_tflops,
+                                           peak_hbm_gbps=serve.peak_hbm_gbps, audit=self.audit)
+        self.requestlog = RequestLog()
+        self.timeseries = SliTimeseries()
 
     def tenant_stats(self) -> dict:
         """Per-tenant view for ``/stats``: the quota accounting and the fair
@@ -470,6 +540,206 @@ class BatchEngine:
         for tenant, n in queued.items():
             out.setdefault(tenant, {})["queued"] = n
         return out
+
+    # ------------------------------------------- latency attribution plane
+
+    def phase_stats(self) -> dict:
+        """The ``/stats`` phases block: aggregate phase seconds over
+        finished requests and the per-epoch convoy meter."""
+        with self._phase_lock:
+            totals = {p: dict(d) for p, d in self.phase_totals.items()}
+            cv = dict(self.convoy_stats)
+        return {
+            "phases": {p: {"seconds": round(d["seconds"], 6), "requests": d["requests"]}
+                       for p, d in sorted(totals.items())},
+            "convoy": {
+                "epochs": cv["epochs"],
+                "seconds_total": round(cv["seconds_total"], 6),
+                "frac_last": round(cv["frac_last"], 4),
+                "frac_mean": round(cv["frac_sum"] / cv["epochs"], 4) if cv["epochs"] else 0.0,
+            },
+        }
+
+    def _phase_observe(self, phase: str, seconds: float) -> None:
+        if seconds <= 1e-9:
+            return
+        metrics.registry.histogram(
+            "cake_phase_seconds",
+            "Per-request latency attribution by canonical phase "
+            "(obs/critpath.py taxonomy; convoy = lockstep epoch tax).",
+        ).observe(seconds, phase=phase)
+        with self._phase_lock:
+            agg = self.phase_totals.setdefault(phase, {"seconds": 0.0, "requests": 0})
+            agg["seconds"] += seconds
+            agg["requests"] += 1
+
+    def _observe_request(self, row: "_RowState") -> None:
+        """Finish-time attribution for one stream: its measured phases into
+        the aggregate histograms, then the black box's triggers (an SLO
+        breach, a rolling-p99 outlier)."""
+        req = row.req
+        self._phase_observe("queue", max(0.0, (req.t_admit or row.t_open or req.t_submit)
+                                         - req.t_submit))
+        self._phase_observe("admission", req.admit_s)
+        for phase, v in row.phase.items():
+            self._phase_observe(phase, v)
+        bb = self.blackbox
+        if bb is None:
+            return
+        e2e = req.admit_s + max(0.0, (row.t_close or time.perf_counter()) - req.t_submit)
+        outlier = bb.observe_latency(e2e)
+        obj = self.slo.objectives
+        reason = None
+        if req.handle.finish_reason == "deadline" and obj.deadline_rate > 0:
+            reason = "slo-deadline"
+        elif obj.ttft_ms > 0 and row.ttft_s is not None and row.ttft_s * 1e3 > obj.ttft_ms:
+            reason = "slo-ttft"
+        elif outlier:
+            reason = "latency-outlier"
+        if reason is not None:
+            self._capture(reason, req.rid)
+
+    def _record_request(self, req: _Request, row: "_RowState | None" = None,
+                        finish: str | None = None) -> None:
+        """One completion record per terminated request (obs/requestlog.py):
+        every finish path (a row's finish, a queued cancel or expiry, a
+        stranded joiner, a failed batch) comes through here, so /requests,
+        the --request-log sink and the /timeseries outcomes agree with the
+        SLO tracker on what ended how."""
+        handle = req.handle
+        finish = finish or handle.finish_reason
+        now = time.perf_counter()
+        n = handle.completion_tokens
+        t_open = row.t_open if row is not None else None
+        queue_s = max(0.0, ((req.t_admit or t_open) or now) - req.t_submit)
+        phases = {"queue": queue_s, "admission": req.admit_s}
+        if row is not None:
+            phases.update(row.phase)
+        phases = {p: round(v, 6) for p, v in phases.items() if v > 1e-9}
+        ttft = row.ttft_s if row is not None else None
+        tpot = None
+        if ttft is not None and n >= 2 and req.t_last_token:
+            tpot = max(0.0, req.t_last_token - (req.t_submit + ttft)) / (n - 1)
+        t_close = (row.t_close if row is not None else None) or now
+        wall = req.admit_s + max(0.0, t_close - req.t_submit)
+        deadline_s = None
+        if req.deadline:
+            # The request's relative deadline again: the absolute monotonic
+            # deadline less the submit instant (both clocks tick at wall rate).
+            deadline_s = round(req.deadline - (time.monotonic() - (now - req.t_submit)), 3)
+        obj = self.slo.objectives
+        if finish == "deadline":
+            verdict = "deadline_miss"
+        elif obj.ttft_ms > 0 and (ttft is None or ttft * 1e3 > obj.ttft_ms):
+            verdict = "ttft_miss"
+        elif obj.ttft_ms > 0 or req.deadline:
+            verdict = "ok"
+        else:
+            verdict = "none"
+        decisions = [f"{d['action']}:{d['cause']}" for d in self.audit.for_request(req.rid)][:16]
+        try:
+            self.requestlog.record(
+                request_id=req.rid, tenant=req.tenant, priority=req.priority,
+                prompt_tokens=handle.prompt_tokens, max_tokens=int(req.max_tokens),
+                completion_tokens=n, queue_s=round(queue_s, 6), admit_s=round(req.admit_s, 6),
+                ttft_s=None if ttft is None else round(ttft, 6),
+                tpot_s=None if tpot is None else round(tpot, 6),
+                wall_s=round(wall, 6), finish_reason=finish, slo=verdict, phases=phases,
+                decisions=decisions, node=self.node_label(), deadline_s=deadline_s,
+                t_wall=round(time.time() - (now - req.t_submit) - req.admit_s, 3),
+            )
+        except ValueError:
+            # A finishing stream never dies to its own telemetry.
+            log.exception("request-log record failed for %s", req.rid)
+        self.timeseries.observe_finish(finish)
+
+    def _record_refusal(self, rid: str, tenant: str, priority: int, kind: str,
+                        prompt_tokens: int, max_tokens: int, deadline_s: float | None,
+                        admit_s: float) -> None:
+        """The record of a refusal (quota 429, shed 503): never admitted,
+        but offered traffic all the same."""
+        try:
+            self.requestlog.record(
+                request_id=rid, tenant=tenant, priority=priority, prompt_tokens=prompt_tokens,
+                max_tokens=int(max_tokens), completion_tokens=0, queue_s=0.0,
+                admit_s=round(admit_s, 6), ttft_s=None, tpot_s=None, wall_s=round(admit_s, 6),
+                finish_reason=kind, slo="refused",
+                phases={"admission": round(admit_s, 6)} if admit_s > 1e-9 else {},
+                decisions=[], node=self.node_label(), deadline_s=deadline_s,
+            )
+        except ValueError:
+            log.exception("request-log refusal record failed for %s", rid)
+        self.timeseries.observe_finish(kind)
+
+    def _capture(self, reason: str, rid: str | None) -> None:
+        """One diagnostic bundle (rate-limited inside BlackBox). Never
+        raises: diagnostics must not take the engine down."""
+        bb = self.blackbox
+        if bb is None:
+            return
+        try:
+            from cake_tpu_torch.obs import critpath
+
+            events = timeline.snapshot()
+            exp = critpath.explain(events, rid) if rid else None
+            extra: dict = {
+                "engine": dict(self.stats),
+                "phase_stats": self.phase_stats(),
+                "slo": self.slo.snapshot(),
+                "metrics": metrics.registry.snapshot(),
+                "efficiency": self.efficiency.snapshot(),
+                "decisions": self.audit.snapshot(limit=50),
+            }
+            if self._alloc is not None:
+                extra["pool"] = {"pages_total": self._alloc.pages_total,
+                                 "pages_free": self._alloc.pages_free}
+            if self._prefix is not None:
+                extra["prefix"] = self._prefix.stats()
+            bb.capture(reason, rid, explain=exp,
+                       timeline=timeline.snapshot(rid) if rid else events[-200:],
+                       events=metrics.flight.snapshot()[-200:], extra=extra)
+        except Exception:  # noqa: BLE001 - diagnostics never hurt serving
+            log.exception("blackbox capture failed")
+
+    def _finish_epoch_convoy(self) -> None:
+        """The per-epoch convoy meter, at the epoch's end: the rows' convoy
+        shares (padding, unconsumed chunk fractions) plus, under the epoch
+        scheduler, the time a lane sat finished or empty while the epoch
+        served others. ``cake_convoy_frac`` divides by the lane-seconds
+        served: 0 = no lockstep tax."""
+        rows = self._epoch_rows
+        if not rows or self._epoch_t0 <= 0.0:
+            return
+        now = time.perf_counter()
+        dur = max(1e-9, now - self._epoch_t0)
+        lane_occ: dict[int, float] = {}
+        convoy = 0.0
+        for row in rows:
+            if row.t_open:
+                occ = max(0.0, (row.t_close or now) - row.t_open)
+                lane_occ[row.lane] = lane_occ.get(row.lane, 0.0) + occ
+            convoy += row.phase.get("convoy", 0.0)
+        idle = 0.0
+        if self.scheduler != "continuous":
+            idle = sum(max(0.0, dur - min(occ, dur)) for occ in lane_occ.values())
+        total = convoy + idle
+        frac = min(1.0, total / (dur * max(1, len(lane_occ))))
+        metrics.registry.histogram(
+            "cake_convoy_seconds",
+            "Per-epoch lockstep convoy tax: lane-seconds spent on "
+            "co-batched streams' work + finished/idle lane time.",
+        ).observe(total)
+        metrics.registry.gauge(
+            "cake_convoy_frac",
+            "Last epoch's convoy fraction of served-lane-seconds "
+            "(0 = no lockstep tax).",
+        ).set(frac)
+        with self._phase_lock:
+            cv = self.convoy_stats
+            cv["epochs"] += 1
+            cv["seconds_total"] += total
+            cv["frac_last"] = frac
+            cv["frac_sum"] += frac
 
     # ------------------------------------------------------------ lifecycle
 
@@ -496,11 +766,13 @@ class BatchEngine:
             self._fail_spilled_locked("engine stopped")
 
     def node_label(self) -> str:
-        """The node(s) serving now: a TCP backend's routed workers ("w1+w2"),
+        """The node(s) serving now, for ``/stats`` and the request log: a TCP
+        backend's routed workers ("w1+w2"; "tcp" while it routes none),
         else "local"."""
         router = getattr(getattr(self.backend, "step", None), "router", None)
-        routes = sorted(set(router.snapshot()["routes"].values())) if router else []
-        return "+".join(routes) or "local"
+        if router is None:
+            return "local"
+        return "+".join(sorted(set(router.snapshot()["routes"].values()))) or "tcp"
 
     def snapshot(self) -> dict:
         """Counters for ``GET /stats``: engine stats, live lanes, the pool,
@@ -543,6 +815,7 @@ class BatchEngine:
         is shed at once (``EngineOverloaded``: HTTP 503). Raises ValueError
         for prompts that can never be served and for a bad deadline (the
         API maps it to a 400 before any streaming headers go out)."""
+        t_enter = time.perf_counter()
         ids = self.tokenizer.encode(encode_dialog(messages, self.config.dialog_template))
         # The left-pad bucket can add slots ahead of the prompt: require room
         # for the bucket plus one generated token (the layout's own helper).
@@ -566,7 +839,7 @@ class BatchEngine:
         if deadline_s is not None and (not isinstance(deadline_s, (int, float))
                                        or isinstance(deadline_s, bool) or deadline_s <= 0):
             raise ValueError(f"deadline_s must be a positive number, got {deadline_s!r}")
-        rid = request_id or f"req-{uuid.uuid4()}"
+        rid = request_id or metrics.new_request_id()
         # The quota first (a 429 the caller can fix by backing off beats a
         # 503); admit() registers the stream, so a later refusal closes it.
         try:
@@ -574,19 +847,31 @@ class BatchEngine:
         except QuotaExceeded:
             self.stats["quota_refusals"] += 1
             self.slo.observe_refusal(tenant, "quota")
+            self._record_refusal(rid, tenant, priority, "quota", len(ids), max_tokens,
+                                 deadline_s, time.perf_counter() - t_enter)
             raise
         try:
-            self._maybe_shed(priority, deadline_s=deadline_s, tenant=tenant)
+            self._maybe_shed(priority, deadline_s=deadline_s, tenant=tenant, n_prompt=len(ids))
         except EngineOverloaded:
             # A shed is the server's saturation: the quota charge goes back.
             self.tenant_meter.close(rid, refund=True)
+            self._record_refusal(rid, tenant, priority, "shed", len(ids), max_tokens,
+                                 deadline_s, time.perf_counter() - t_enter)
             raise
         handle = StreamHandle(n_prompt=len(ids), request_id=rid)
         meter = self.tenant_meter
         handle._on_close = lambda: meter.close(rid)
         req = _Request(ids, int(max_tokens), sampling, handle, rid=rid,
                        t_submit=time.perf_counter(), priority=priority, tenant=tenant,
-                       deadline=time.monotonic() + deadline_s if deadline_s else 0.0)
+                       deadline=time.monotonic() + deadline_s if deadline_s else 0.0,
+                       admit_s=time.perf_counter() - t_enter)
+        # Before the enqueue: once queued the scheduler may admit it at once,
+        # and an 'admitted' event must never precede its 'submitted'.
+        metrics.registry.counter(
+            "cake_engine_submitted_total", "Requests accepted into the queue."
+        ).inc()
+        metrics.flight.record("submitted", rid, prompt_tokens=len(ids),
+                              max_tokens=int(max_tokens))
         with self._cv:
             if self._stop:
                 self.tenant_meter.close(rid, refund=True)
@@ -596,7 +881,7 @@ class BatchEngine:
         return handle
 
     def _maybe_shed(self, priority: int = 1, deadline_s: float | None = None,
-                    tenant: str = DEFAULT_TENANT) -> None:
+                    tenant: str = DEFAULT_TENANT, n_prompt: int = 0) -> None:
         """Load shedding: refuse now (503 + Retry-After at the API) rather
         than queue into a timeout. Three gates: a deadline the estimated
         queue wait (the EWMA of observed waits, scaled by the depth and the
@@ -610,22 +895,32 @@ class BatchEngine:
         est = (self._wait_est.estimate(depth, self.max_batch,
                                        scale=self._slo_shed_scale.get(tenant, 1.0))
                if deadline_s else 0.0)
-        reason = None
+        reason = cause = None
         if deadline_s and est > deadline_s:
+            cause = "deadline_doomed"
             reason = (f"estimated queue wait {est:.2f}s already exceeds the request deadline "
                       f"{deadline_s:.2f}s")
         elif self.shed_queue_depth and depth >= self.shed_queue_depth * factor:
+            cause = "queue_depth"
             reason = f"queue depth {depth} >= {self.shed_queue_depth * factor:g} (priority {priority})"
         elif self.shed_min_free_pages and self._alloc is not None:
             free = self._alloc.pages_free + (
                 self._prefix.reclaimable() if self._prefix is not None else 0)
             if free < self.shed_min_free_pages / factor:
+                cause = "page_pressure"
                 reason = (f"{free} free+reclaimable KV pages < floor "
                           f"{self.shed_min_free_pages / factor:g} (priority {priority})")
         if reason is None:
             return
+        self.audit.record("shed", cause, tenant=tenant, detail=reason[:120])
         self.stats["shed"] += 1
         self.slo.observe_refusal(tenant, "shed")
+        metrics.registry.counter(
+            "cake_shed_total",
+            "Submissions refused by admission load shedding "
+            "(queue-depth / free-page gates; HTTP 503 + Retry-After).",
+        ).inc()
+        metrics.flight.record("shed", prompt_tokens=n_prompt, reason=reason, priority=priority)
         raise EngineOverloaded(f"engine overloaded: {reason}",
                                retry_after_s=self.retry_after_s / factor)
 
@@ -638,9 +933,7 @@ class BatchEngine:
             for r in self._queue:
                 if r.rid == request_id:
                     self._queue.remove(r)
-                    r.handle.finish_reason = "cancelled"
-                    self.stats["cancelled"] += 1
-                    r.handle._emit(_DONE)
+                    self._finish_cancelled_locked(r)
                     return True
             sp = self._spilled.pop(request_id, None)
             if sp is None and request_id in self._live_rids:
@@ -648,10 +941,33 @@ class BatchEngine:
                 return True
         if sp is None:
             return False
-        self.stats["cancelled"] += 1
-        sp.row.req.handle.finish_reason = "cancelled"
-        sp.row.finish()
+        # A spilled lane holds no pages and no device state: finished here.
+        self._note_cancelled(sp.row, "spilled")
+        sp.row.cancel()
         return True
+
+    def _finish_cancelled_locked(self, req: _Request) -> None:
+        """Close a request cancelled off the queue (never admitted)."""
+        req.handle.finish_reason = "cancelled"
+        self.stats["cancelled"] += 1
+        metrics.registry.counter(
+            "cake_cancelled_total", "Requests cancelled (queued or live)."
+        ).inc()
+        metrics.flight.record("cancelled", req.rid, where="queued")
+        metrics.flight.record("finished", req.rid, finish_reason="cancelled",
+                              completion_tokens=0)
+        self._record_request(req)
+        req.handle._emit(_DONE)
+
+    def _note_cancelled(self, row: "_RowState", where: str) -> None:
+        """The cancel bookkeeping of a running, spilled or preempted lane
+        (the stats, the counter, the flight event); the caller closes the
+        stream."""
+        self.stats["cancelled"] += 1
+        metrics.registry.counter(
+            "cake_cancelled_total", "Requests cancelled (queued or live)."
+        ).inc()
+        metrics.flight.record("cancelled", row.req.rid, where=where, completion_tokens=row.n)
 
     def wait_idle(self, timeout: float = 30.0) -> bool:
         """Wait until the queue and the spill table are empty and no epoch
@@ -673,6 +989,7 @@ class BatchEngine:
         for sp in self._spilled.values():
             sp.row.req.handle._emit(RuntimeError(error))
             sp.row.req.handle._emit(_DONE)
+            sp.row.close_span(error=error)
         self._spilled.clear()
 
     def _expire_queued(self, req: _Request) -> None:
@@ -680,7 +997,19 @@ class BatchEngine:
         caller took it off the queue): it never held a lane or a page."""
         req.handle.finish_reason = "deadline"
         self.stats["deadline_expired"] += 1
+        self.audit.record("expire", "deadline_expired", rid=req.rid, tenant=req.tenant,
+                          detail="queued")
+        metrics.registry.counter(
+            "cake_deadline_expired_total",
+            "Requests past their end-to-end deadline (where=queued expired "
+            "before admission; where=running at a chunk boundary).",
+        ).inc(where="queued")
+        metrics.flight.record("deadline-expired", req.rid, where="queued")
+        metrics.flight.record("finished", req.rid, finish_reason="deadline", completion_tokens=0)
+        timeline.instant("deadline-expired", rid=req.rid, track="engine",
+                         args={"where": "queued"})
         self.slo.observe_finish(req.tenant, "deadline", had_deadline=True, got_first_token=False)
+        self._record_request(req)
         req.handle._emit(_DONE)
 
     def _apply_deadlines(self, rows: list) -> None:
@@ -692,6 +1021,8 @@ class BatchEngine:
         for lane, row in enumerate(rows):
             if row is not None and row.req.deadline and now > row.req.deadline:
                 self.stats["deadline_expired"] += 1
+                self.audit.record("expire", "deadline_expired", rid=row.req.rid,
+                                  tenant=row.req.tenant, detail="running")
                 row.expire()
                 rows[lane] = None
         expired_spills = []
@@ -720,6 +1051,14 @@ class BatchEngine:
         left would be, at this chunk boundary, instead of growing the
         buffer without bound."""
         self.stats["backpressured"] += 1
+        metrics.registry.counter(
+            "cake_stream_backpressure_total",
+            "Streams cancelled at the output-buffer high watermark "
+            "(consumer stopped reading).",
+        ).inc()
+        metrics.flight.record("stream-backpressure", row.req.rid,
+                              buffered=row.req.handle.buffered(),
+                              watermark=self.stream_buffer_tokens)
         log.warning("stream %s backpressured (%d tokens buffered >= %d); cancelling",
                     row.req.rid, row.req.handle.buffered(), self.stream_buffer_tokens)
         with self._cv:
@@ -740,9 +1079,8 @@ class BatchEngine:
             pending = set(self._cancel_ids)
         for lane, row in enumerate(rows):
             if row is not None and row.req.rid in pending:
-                self.stats["cancelled"] += 1
-                row.req.handle.finish_reason = "cancelled"
-                row.finish()
+                self._note_cancelled(row, "epoch")
+                row.cancel()
                 rows[lane] = None
 
     # ------------------------------------------------------------ scheduler
@@ -783,6 +1121,7 @@ class BatchEngine:
                         # Not yet ended: its tenant's error SLI counts it once.
                         self.slo.observe_finish(r.tenant, "error", had_deadline=bool(r.deadline),
                                                 got_first_token=r.handle.completion_tokens > 0)
+                        self._record_request(r, finish="error")
                     r.handle._emit(e)
                     r.handle._emit(_DONE)
             finally:
@@ -794,6 +1133,11 @@ class BatchEngine:
         self.stats["batches"] += 1
         self.stats["rows"] += n_rows
         self.stats["max_rows"] = max(self.stats["max_rows"], n_rows)
+        metrics.registry.counter("cake_engine_batches_total", "Decode epochs started.").inc()
+        metrics.registry.histogram(
+            "cake_batch_rows", "Requests admitted per epoch at epoch start.",
+            buckets=(1, 2, 4, 8, 16, 32, 64),
+        ).observe(n_rows)
 
     def _apply_slo_feedback(self, force: bool = False) -> None:
         """Feed each tenant's burn back into admission (obs/slo.py
@@ -827,9 +1171,16 @@ class BatchEngine:
         epoch unwinds through the error isolation of _run_batch."""
         self.stats["epoch_stalls"] += 1
         log.warning("backend %s dispatch stalled past %.3gs: abandoned", op, self.epoch_stall_s)
+        # The abandoned dispatch's wall is the bound: the device produced
+        # nothing for it.
+        self.efficiency.note_stall(self.epoch_stall_s)
         abandon = getattr(self.backend, "abandon", None)
         if abandon is not None:
             abandon()
+        # The moment itself, while the timeline still holds the stalled
+        # chunk (the guard recorded the epoch-stall instant).
+        self._epoch_stalled = True
+        self._capture("stall", self._epoch_head_rid or None)
 
     def _dispatch(self, op: str, fn, grace: bool = False):
         """Run one backend dispatch, under the stall guard when
@@ -870,7 +1221,7 @@ class BatchEngine:
 
         stalls = guard.stalls
         try:
-            return guard.call(job, op, grace=grace)
+            return guard.call(job, op, grace=grace, rid=self._epoch_head_rid)
         except BackendWorkerError:
             if guard.stalls != stalls:
                 self._on_epoch_stall(op)
@@ -907,11 +1258,16 @@ class BatchEngine:
         def charge(r: _Request) -> bool:
             need = self._pages_for(r)
             if need > state["avail"] and self._prefix is not None:
-                state["avail"] += self._prefix.reclaim(need - state["avail"])
+                state["avail"] += self._prefix.reclaim(need - state["avail"], rid=r.rid)
             if need > state["avail"]:
                 return False
             state["avail"] -= need
             return True
+
+        def defer(r: _Request, cause: str) -> str:
+            # The verdict and its cause, so /explain says why it queued.
+            self.audit.record("defer", cause, rid=r.rid, tenant=r.tenant)
+            return "skip"
 
         def accept(r: _Request) -> str:
             if r.deadline and now > r.deadline:
@@ -927,15 +1283,17 @@ class BatchEngine:
                     need = self._pages_for(r)
                     free = self._alloc.pages_free
                     if need > free and self._prefix is not None:
-                        free += self._prefix.reclaim(need - free)
+                        free += self._prefix.reclaim(need - free, rid=r.rid)
                     state["avail"] = free - need
+                self.audit.record("admit", "fair_order", rid=r.rid, tenant=r.tenant)
                 return "take"
             if r.knobs() != state["knobs"]:
-                return "skip"
+                return defer(r, "knob_incompatible")
             if state["ckey"] is not None and radix_key(r) != state["ckey"]:
-                return "skip"
+                return defer(r, "cache_group")
             if state["avail"] is not None and not charge(r):
-                return "skip"
+                return defer(r, "page_pressure")
+            self.audit.record("admit", "fair_order", rid=r.rid, tenant=r.tenant)
             return "take"
 
         with self._cv:
@@ -944,15 +1302,28 @@ class BatchEngine:
             # always finds a request somewhere.
             self._live_rids.update(r.rid for r in group)
             self._running = bool(group)
-        self._record_admissions(group)
+        t_admit = time.perf_counter()
+        for r in group:
+            r.t_admit = t_admit  # the queue phase's end, for /explain
+        self._record_admissions(group, "admitted")
         return group
 
-    def _record_admissions(self, reqs: list[_Request]) -> None:
-        """Requests leaving the queue (epoch admissions and joins): their
-        waits feed the deadline-aware shed estimate."""
+    def _record_admissions(self, reqs: list[_Request], event: str, **fields) -> None:
+        """Requests leaving the queue (epoch admissions and joins): the
+        queue-wait histogram and lifecycle event; their waits feed the
+        deadline-aware shed estimate."""
         now = time.perf_counter()
+        wait_h = metrics.registry.histogram(
+            "cake_queue_wait_seconds", "Seconds a request waited in the queue before admission.")
+        counter = metrics.registry.counter(
+            "cake_engine_admitted_total",
+            "Requests admitted into a decode epoch (initial or join).")
         for r in reqs:
-            self._wait_est.observe(now - r.t_submit)
+            wait = now - r.t_submit
+            wait_h.observe(wait)
+            self._wait_est.observe(wait)
+            counter.inc()
+            metrics.flight.record(event, r.rid, queue_wait_s=round(wait, 6), **fields)
 
     # ------------------------------------------------- prefix-cache wiring
 
@@ -967,7 +1338,7 @@ class BatchEngine:
         write (None without a split). Raises PageExhausted when even
         reclaiming the cache cannot supply the tail's pages."""
         fresh, pair = pad, None
-        plan = self._prefix.fork(lane, req.prompt_ids if ids is None else ids, pad)
+        plan = self._prefix.fork(lane, req.prompt_ids if ids is None else ids, pad, rid=req.rid)
         if plan is None:
             self.stats["prefix_misses"] += 1
         else:
@@ -978,7 +1349,7 @@ class BatchEngine:
                 try:
                     pair = self._alloc.make_private(lane, plan.cow_logical)
                 except PageExhausted:
-                    if self._prefix.reclaim(1):
+                    if self._prefix.reclaim(1, rid=req.rid):
                         pair = self._alloc.make_private(lane, plan.cow_logical)
                     else:
                         # Give the shared page back and recompute its tokens
@@ -988,7 +1359,7 @@ class BatchEngine:
         try:
             self._alloc.map_range(lane, fresh, end)
         except PageExhausted:
-            self._prefix.reclaim(self._alloc.pages_needed(end - fresh) + 1)
+            self._prefix.reclaim(self._alloc.pages_needed(end - fresh) + 1, rid=req.rid)
             self._alloc.map_range(lane, fresh, end)
         self._lane_info[lane] = (req, pad)
         return fresh, pair
@@ -1003,24 +1374,33 @@ class BatchEngine:
         ws = np.asarray(pads, np.int32).copy()
         cow_src: list[int] = []
         cow_dst: list[int] = []
-        for lane, r in enumerate(reqs):
-            if r is None:
-                ws[lane] = bucket - 1
-                continue
-            try:
-                fresh, pair = self._fork_lane(lane, r, int(pads[lane]), bucket, ids_list[lane])
-            except PageExhausted:
-                self.stats["page_truncations"] += 1
-                rows[lane].req.handle.finish_reason = "length"
-                rows[lane].finish()
-                rows[lane] = reqs[lane] = None
-                self._lane_recycle(lane, insert=False)
-                ws[lane] = bucket - 1
-                continue
-            ws[lane] = fresh
-            if pair is not None:
-                cow_src.append(pair[0])
-                cow_dst.append(pair[1])
+        # The fork pass is a span of its own, so /explain reports the fork
+        # apart from the prefill around it.
+        fork_span = timeline.begin("prefix-fork", track="engine", args={"lanes": len(reqs)})
+        try:
+            for lane, r in enumerate(reqs):
+                if r is None:
+                    ws[lane] = bucket - 1
+                    continue
+                try:
+                    fresh, pair = self._fork_lane(lane, r, int(pads[lane]), bucket,
+                                                  ids_list[lane])
+                except PageExhausted:
+                    self.stats["page_truncations"] += 1
+                    metrics.flight.record("page-truncated", r.rid, slot=int(pads[lane]),
+                                          where="admission", completion_tokens=0)
+                    rows[lane].req.handle.finish_reason = "length"
+                    rows[lane].finish()
+                    rows[lane] = reqs[lane] = None
+                    self._lane_recycle(lane, insert=False)
+                    ws[lane] = bucket - 1
+                    continue
+                ws[lane] = fresh
+                if pair is not None:
+                    cow_src.append(pair[0])
+                    cow_dst.append(pair[1])
+        finally:
+            timeline.end(fork_span)
         if cow_src:  # one device copy for every lane's boundary split
             kv = self._dispatch("cow_copy", lambda: self.backend.cow_copy(kv, cow_src, cow_dst))
         return kv, ws
@@ -1039,28 +1419,49 @@ class BatchEngine:
 
         rows: list[_RowState | None] = []
         self._epoch_kv_retained = False
+        # Fresh attribution scratch: the convoy meter and the black box's
+        # stall and error captures are per epoch.
+        self._epoch_rows = []
+        self._epoch_t0 = time.perf_counter()
+        with self._cv:
+            head = batch[0].rid if batch else next(iter(self._spilled), "")
+        self._epoch_head_rid = head
+        self._epoch_stalled = False
         if hasattr(self.backend, "trace_id"):
             # The epoch's head request id rides every FORWARD header.
-            with self._cv:
-                head = batch[0].rid if batch else next(iter(self._spilled), None)
-            self.backend.trace_id = head
+            self.backend.trace_id = head or None
         try:
-            self._run_epoch(batch, rows)
+            # The epoch span roots this epoch's timeline tree (a segment's,
+            # under the continuous scheduler, with a step span a scheduler
+            # iteration); the head request's id keys it.
+            with timeline.span(
+                "epoch" if self.scheduler != "continuous" else "segment",
+                rid=head, track="engine",
+                args={"rows": len(batch), "kv_mode": self.kv_mode, "scheduler": self.scheduler,
+                      "attention_impl": "cuda" if self.backend.device.type == "cuda" else "plain",
+                      "fusion_impl": self.config.fusion_impl},
+            ):
+                self._run_epoch(batch, rows)
         except BackendWorkerError as e:
             # Failure isolation (a lost worker, or a dispatch the stall
             # guard abandoned): the epoch's LIVE streams finish "error" (the
             # tokens they delivered are the fault-free run's); the engine
             # keeps serving.
             log.warning("epoch lost its worker: %s", e)
+            if not self._epoch_stalled and not self._stop:
+                # A stall captured its own bundle already; a stop() is the
+                # operator's, not an anomaly.
+                self._capture("epoch-error", self._epoch_head_rid or None)
             for lane, row in enumerate(rows):
                 if row is not None:
-                    row.fail()
+                    row.fail(str(e))
                     rows[lane] = None
         except Exception as e:
             for row in rows:
                 if row is not None:
                     row.req.handle._emit(e)
                     row.req.handle._emit(_DONE)
+                    row.close_span(error=str(e))
                     self._row_finished(row.req.rid)
             # A spilled stream must not retry a deterministically failing
             # segment forever: it gets the error every other consumer sees.
@@ -1073,12 +1474,17 @@ class BatchEngine:
                     if self._alloc.lane_mapped(lane):
                         self._lane_recycle(lane, insert=self._epoch_kv_retained)
             if self._prefix is not None and not self._epoch_kv_retained:
-                self._prefix.clear()
+                self._prefix.clear(reason="epoch-failed")
                 self.backend.drop_retained_kv()
             self._lane_leases.clear()
             self._lane_info.clear()
             if hasattr(self.backend, "set_epoch_capacity"):
                 self.backend.set_epoch_capacity(None)
+            # The lockstep tax, measured (a failed epoch's tax is real too).
+            # The rows refer back to the engine: dropped here, so a stopped
+            # engine goes with its last reference.
+            self._finish_epoch_convoy()
+            self._epoch_rows = []
             # The spill table is left as it is: a lane spilled in this epoch
             # is no longer live, and the next segment restores it.
             with self._cv:
@@ -1122,17 +1528,23 @@ class BatchEngine:
             reqs: list[_Request | None] = [sp.row.req for sp in seed_spills] + [None] * spare
             ids_list = [sp.row.history[:-1] for sp in seed_spills] + [
                 [self.config.bos_token_id]] * spare
-            t_open = time.perf_counter()
-            for sp in seed_spills:
-                sp.row.t_open = t_open
+            for lane, sp in enumerate(seed_spills):
+                sp.row.lane = lane
+                sp.row.t_close = 0.0
             rows.extend([sp.row for sp in seed_spills] + [None] * spare)
         else:
             reqs = list(batch) + [None] * spare
             ids_list = [r.prompt_ids if r is not None else [self.config.bos_token_id]
                         for r in reqs]
             rows.extend(
-                _RowState(r, eos, self.tokenizer, self) if r is not None else None for r in reqs
+                _RowState(r, eos, self.tokenizer, self, lane=lane) if r is not None else None
+                for lane, r in enumerate(reqs)
             )
+        # One timeline track a lane: the request span opens at admission and
+        # closes at the finish (or the spill).
+        for row in rows:
+            if row is not None:
+                row.open_span(slot=None)
         tokens, pads, bucket = layout_prompts(ids_list, self.max_seq_len)
         # ONE bounded capacity for the whole epoch (paged): enough slots for
         # every admitted row's (remaining) budget, bucketed, capped at
@@ -1148,45 +1560,70 @@ class BatchEngine:
             cap = min(self.max_seq_len, self.backend.capacity_slots())
 
         t0 = time.perf_counter()
-        kv = self.backend.init_kv(n_lanes)  # paged: resets or releases the allocator
-        write_starts = None
-        if self._prefix is not None:
-            kv, write_starts = self._prefix_layout(reqs, rows, pads, bucket, kv, ids_list)
-        elif self._alloc is not None:
-            # Each real lane's pages over its live window [pad, bucket);
-            # dummy lanes hold none (their writes sink).
-            for lane, r in enumerate(reqs):
-                if r is not None:
-                    self._alloc.map_range(lane, int(pads[lane]), bucket)
-        if write_starts is not None:
-            # Prefix-cache path, cold epochs included: prefill only the
-            # window [start, bucket) covering every lane's uncached tail.
-            fresh_width = bucket - int(write_starts.min())
-            start = bucket - min(-(-fresh_width // _WINDOW_BUCKET) * _WINDOW_BUCKET, bucket)
-            logits, kv = self._dispatch("prefill", lambda: self.backend.suffix_prefill(
-                tokens[:, start:], kv, pads, write_starts, start))
-        else:
-            logits, kv = self._dispatch("prefill", lambda: self.backend.prefill(tokens, kv, pads))
-        ring, ring_idx = seed_rings(ids_list, window)
+        with timeline.span("prefill", rid=self._epoch_head_rid, track="engine",
+                           args={"bucket": int(bucket), "lanes": n_lanes,
+                                 "restored": len(seed_spills)}):
+            kv = self.backend.init_kv(n_lanes)  # paged: resets or releases the allocator
+            write_starts = None
+            if self._prefix is not None:
+                kv, write_starts = self._prefix_layout(reqs, rows, pads, bucket, kv, ids_list)
+            elif self._alloc is not None:
+                # Each real lane's pages over its live window [pad, bucket);
+                # dummy lanes hold none (their writes sink).
+                for lane, r in enumerate(reqs):
+                    if r is not None:
+                        self._alloc.map_range(lane, int(pads[lane]), bucket)
+            if write_starts is not None:
+                # Prefix-cache path, cold epochs included: prefill only the
+                # window [start, bucket) covering every lane's uncached tail.
+                fresh_width = bucket - int(write_starts.min())
+                start = bucket - min(-(-fresh_width // _WINDOW_BUCKET) * _WINDOW_BUCKET, bucket)
+                logits, kv = self._dispatch("prefill", lambda: self.backend.suffix_prefill(
+                    tokens[:, start:], kv, pads, write_starts, start))
+            else:
+                logits, kv = self._dispatch("prefill",
+                                            lambda: self.backend.prefill(tokens, kv, pads))
+            ring, ring_idx = seed_rings(ids_list, window)
+            if seed_spills:
+                # Nothing is sampled: the pending token history[-1] was
+                # already delivered, and the key and ring are the spill's
+                # copies. The event wait puts the device work in the wall.
+                self._settle()
+                for lane, sp in enumerate(seed_spills):
+                    if sp.ring is not None and window > 0:
+                        ring[lane] = sp.ring
+                        ring_idx[lane] = sp.ring_idx
+                host_keys = prng_key([0] * n_lanes).numpy()
+                for lane, sp in enumerate(seed_spills):
+                    host_keys[lane] = sp.key
+                keys = upload(host_keys, dev, torch.int64)
+                first = np.asarray([sp.row.history[-1] for sp in seed_spills] + [0] * spare,
+                                   np.int32)
+            else:
+                # The first samples' readback ends the wall with the device's.
+                keys = prng_key([r.sampling.seed if r is not None else 0 for r in reqs], dev)
+                first, keys, ring, ring_idx = first_sample(logits, s, ring, ring_idx, keys)
+        dt_prefill = time.perf_counter() - t0
+        self.stats["prefill_s"] += dt_prefill
+        # Attribution: the shared left-padded prefill computes the bucket for
+        # every lane; a lane's own share scales with its prompt (or restored
+        # history), the rest is convoy. The ledger books a spill-seeded
+        # segment's prefill as redone work.
+        own_tok = 0
+        for row in rows:
+            if row is not None:
+                if seed_spills:
+                    own_tok += len(row.history) - 1
+                    row.account_restore(dt_prefill, bucket)
+                else:
+                    own_tok += len(row.req.prompt_ids)
+                    row.account_prefill(dt_prefill, bucket)
+        self.efficiency.note_prefill(dt_prefill, n_lanes, bucket, own_tok,
+                                     restore=bool(seed_spills))
         if seed_spills:
-            # Nothing is sampled: the pending token history[-1] was already
-            # delivered, and the key and ring are the spill's copies.
-            for lane, sp in enumerate(seed_spills):
-                if sp.ring is not None and window > 0:
-                    ring[lane] = sp.ring
-                    ring_idx[lane] = sp.ring_idx
-            host_keys = prng_key([0] * n_lanes).numpy()
-            for lane, sp in enumerate(seed_spills):
-                host_keys[lane] = sp.key
-            keys = upload(host_keys, dev, torch.int64)
-            first = np.asarray([sp.row.history[-1] for sp in seed_spills] + [0] * spare, np.int32)
             for sp in seed_spills:
                 sp.row.n_at_restore = sp.row.n
-            self.stats["restores"] += len(seed_spills)
-        else:
-            keys = prng_key([r.sampling.seed if r is not None else 0 for r in reqs], dev)
-            first, keys, ring, ring_idx = first_sample(logits, s, ring, ring_idx, keys)
-        self.stats["prefill_s"] += time.perf_counter() - t0
+                self._note_restore(sp.row)
         if not seed_spills:
             for lane, row in enumerate(rows):
                 if row is not None:
@@ -1207,6 +1644,7 @@ class BatchEngine:
                     if row is not None:
                         row.req.handle._emit(err)
                         row.req.handle._emit(_DONE)
+                        row.close_span(error="engine stopped")
                         self._row_finished(row.req.rid)
                         rows[lane] = None
                 return
@@ -1220,31 +1658,47 @@ class BatchEngine:
             # join. Epoch: joins unbudgeted. A segment under sustained joins
             # may never end, so the SLO feedback applies here too.
             budget = None
+            step_span = None
+            join_args: list = []
             if self.scheduler == "continuous":
                 self._apply_slo_feedback()
                 budget = {"left": self._grant_step_budget(rows)}
-                kv = self._take_restores(knobs, rows, slot, cap, budget, tok, kv, keys, ring_j,
-                                         ring_idx_j, pads_j)
-            join_args = self._take_joins(knobs, rows, slot, cap, budget)
-            joined: set[int] = set()
+                step_span = timeline.begin(
+                    "step", track="engine",
+                    args={"slot": int(slot), "live": sum(r is not None for r in rows),
+                          "budget": budget["left"]},
+                )
             try:
-                for lane, req in join_args:
-                    tok, kv, keys, ring_j, ring_idx_j = self._join(
-                        req, lane, rows, slot, tok, kv, keys, ring_j, ring_idx_j, s
-                    )
-                    pads_j[lane] = slot - len(req.prompt_ids)
-                    joined.add(id(req))
-            except Exception as e:
-                for _, req in join_args:
-                    if id(req) not in joined:
-                        if isinstance(e, BackendWorkerError):
-                            _fail_request(req, self)  # the admitted rows' isolation
-                        else:
-                            req.handle._emit(e)
-                            req.handle._emit(_DONE)
-                        self._row_finished(req.rid)
-                raise
-            if not any(r is not None for r in rows):
+                if budget is not None:
+                    kv = self._take_restores(knobs, rows, slot, cap, budget, tok, kv, keys,
+                                             ring_j, ring_idx_j, pads_j)
+                join_args = self._take_joins(knobs, rows, slot, cap, budget)
+                joined: set[int] = set()
+                try:
+                    for lane, req in join_args:
+                        tok, kv, keys, ring_j, ring_idx_j = self._join(
+                            req, lane, rows, slot, tok, kv, keys, ring_j, ring_idx_j, s
+                        )
+                        pads_j[lane] = slot - len(req.prompt_ids)
+                        joined.add(id(req))
+                except Exception as e:
+                    for _, req in join_args:
+                        if id(req) not in joined:
+                            if isinstance(e, BackendWorkerError):
+                                _fail_request(req, self, str(e))  # the admitted rows' isolation
+                            else:
+                                req.handle._emit(e)
+                                req.handle._emit(_DONE)
+                            self._row_finished(req.rid)
+                    raise
+            finally:
+                if step_span is not None:
+                    timeline.end(step_span, args={"joins": len(join_args)})
+            live = sum(r is not None for r in rows)
+            metrics.registry.gauge(
+                "cake_batch_occupancy", "Live lockstep lanes at the current chunk boundary."
+            ).set(live)
+            if not live:
                 break
             n = min(self.decode_chunk_size, cap - 1 - slot)
             if self._alloc is not None and not self._extend_pages(
@@ -1258,17 +1712,28 @@ class BatchEngine:
                 return out, out[0].cpu().numpy()  # the chunk's one readback
 
             builds = getattr(self.backend, "decode_builds_chunk", None)
-            (toks, kv, keys, ring_j, ring_idx_j), toks_np = self._dispatch(
-                "decode", chunk, grace=self._guard is not None and builds is not None
-                and builds(kv, tok, ring_j, n, s))
+            # The readback inside the span waits for the device: the slice is
+            # the chunk's compute, not its launch.
+            with timeline.span("decode-chunk", track="engine",
+                               args={"slot": int(slot), "n": int(n), "live": live}):
+                (toks, kv, keys, ring_j, ring_idx_j), toks_np = self._dispatch(
+                    "decode", chunk, grace=self._guard is not None and builds is not None
+                    and builds(kv, tok, ring_j, n, s))
             dt_chunk = time.perf_counter() - t_chunk
             self._step_budget.observe_chunk(dt_chunk)
             self.stats["decode_s"] += dt_chunk
             self.stats["decode_chunks"] += 1
             self.stats["decode_steps"] += n
-            for lane, row in enumerate(rows):
-                if row is None:
-                    continue
+            live_rows = [(lane, row) for lane, row in enumerate(rows) if row is not None]
+            consumed = {lane: row.peek_consumed(toks_np[lane]) for lane, row in live_rows}
+            # The ledger: the chunk computed lanes x n positions; consumed
+            # ones are decode goodput, live unconsumed tails convoy, dead
+            # lanes pad. Before the pushes: a row that finishes mid-chunk
+            # flushes its attribution from inside push().
+            self.efficiency.note_decode(dt_chunk, len(rows), n, len(live_rows),
+                                        sum(consumed.values()), slot=slot)
+            for lane, row in live_rows:
+                row.account_decode(dt_chunk, n, consumed[lane])
                 for t in toks_np[lane]:
                     row.push(int(t))
                     if row.done:
@@ -1293,9 +1758,32 @@ class BatchEngine:
         in pages a later join may reuse."""
         if self._alloc is None:
             return
+        released = False
         for lane, row in enumerate(rows):
             if row is None and self._alloc.lane_mapped(lane):
                 self._lane_recycle(lane)
+                released = True
+        if released:
+            self._pool_counter()
+
+    def _pool_counter(self) -> None:
+        """The pool's occupancy on the timeline's counter track, on the span
+        clock, so page churn lines up with the spans that caused it."""
+        timeline.counter(
+            "kv_pages",
+            {"in_use": float(self._alloc.pages_total - self._alloc.pages_free),
+             "free": float(self._alloc.pages_free)},
+            track="mem",
+        )
+
+    def _settle(self) -> None:
+        """Wait for the engine stream's queued work (an event on the
+        stream, never the whole device): the wall of a dispatch that ends in
+        no readback then includes its device time. A no-op on the CPU."""
+        if self._cuda_index is not None:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self._cuda_index))
+            done.synchronize()
 
     def _lane_recycle(self, lane: int, insert: bool = True) -> None:
         """One lane's pages back to the pool, in prefix-cache order: adopt
@@ -1305,7 +1793,7 @@ class BatchEngine:
             info = self._lane_info.pop(lane, None)
             if insert and info is not None:
                 req, pad = info
-                self._prefix.insert(lane, req.prompt_ids, pad)
+                self._prefix.insert(lane, req.prompt_ids, pad, rid=req.rid)
             self._prefix.release(self._lane_leases.pop(lane, None))
         self._alloc.release(lane)
 
@@ -1317,36 +1805,47 @@ class BatchEngine:
         the chunk's keys, ring and ring index), preempts (``_preempt_for``);
         only then, or under the epoch scheduler, finishes the stream as
         "length". Returns False when no live row is left."""
-        any_live = False
-        for lane, row in enumerate(rows):
-            if row is None:
-                continue
-            try:
-                try:
-                    self._alloc.map_range(lane, slot, slot + n)
-                except PageExhausted:
-                    self._reclaim_and_map(lane, slot, n)
-                any_live = True
-            except PageExhausted:
-                if self.scheduler == "continuous" and spill_ctx is not None:
-                    if self._preempt_for(rows, lane, slot, n, spill_ctx):
-                        any_live = True
+        any_live = grew = False
+        free0 = self._alloc.pages_free
+        with timeline.span("page-extend", track="engine", args={"slot": int(slot), "n": int(n)}):
+            for lane, row in enumerate(rows):
+                if row is None:
                     continue
-                self.stats["page_truncations"] += 1
-                row.req.handle.finish_reason = "length"
-                row.finish()
-                rows[lane] = None
-                self._lane_recycle(lane)
+                try:
+                    try:
+                        self._alloc.map_range(lane, slot, slot + n)
+                    except PageExhausted:
+                        self._reclaim_and_map(lane, slot, n, row.req.rid)
+                    any_live = True
+                except PageExhausted:
+                    if self.scheduler == "continuous" and spill_ctx is not None:
+                        if self._preempt_for(rows, lane, slot, n, spill_ctx):
+                            any_live = True
+                        grew = True
+                        continue
+                    self.stats["page_truncations"] += 1
+                    row.req.handle.finish_reason = "length"
+                    metrics.flight.record("page-truncated", row.req.rid, slot=slot,
+                                          completion_tokens=row.n)
+                    timeline.instant("page-truncated", rid=row.req.rid, track=f"lane{lane}",
+                                     args={"slot": int(slot)})
+                    row.finish()
+                    rows[lane] = None
+                    self._lane_recycle(lane)
+                    grew = True
+            grew = grew or self._alloc.pages_free != free0
+        if grew:
+            self._pool_counter()
         return any_live
 
-    def _reclaim_and_map(self, lane: int, slot: int, n: int) -> None:
+    def _reclaim_and_map(self, lane: int, slot: int, n: int, rid: str = "") -> None:
         """Map [slot, slot + n) for ``lane``, evicting prefix-cache pages
         between attempts while eviction makes progress. Raises PageExhausted
         when there is no cache or a whole reclaim pass freed nothing."""
         if self._prefix is None:
             raise PageExhausted(f"lane {lane} needs pages for [{slot}, {slot + n})")
         while True:
-            freed = self._prefix.reclaim(self._alloc.pages_needed(n) + 1)
+            freed = self._prefix.reclaim(self._alloc.pages_needed(n) + 1, rid=rid)
             try:
                 self._alloc.map_range(lane, slot, slot + n)
                 return
@@ -1394,7 +1893,7 @@ class BatchEngine:
                 except PageExhausted:
                     # The victim's prompt pages went to the prefix cache on
                     # recycle: reclaim them before the next victim.
-                    self._reclaim_and_map(lane, slot, n)
+                    self._reclaim_and_map(lane, slot, n, rows[lane].req.rid)
                 return True
             except PageExhausted:
                 continue
@@ -1415,6 +1914,8 @@ class BatchEngine:
         if reason == "self" and row.n == row.n_at_restore:
             self.stats["page_truncations"] += 1
             row.req.handle.finish_reason = "length"
+            metrics.flight.record("page-truncated", rid, slot=int(slot), where="respill",
+                                  completion_tokens=row.n)
             rows[lane] = None
             row.finish()
             self._lane_recycle(lane)
@@ -1435,12 +1936,26 @@ class BatchEngine:
                 self._spilled[rid] = sp
                 self._live_rids.discard(rid)
         if cancelled:
-            self.stats["cancelled"] += 1
-            row.req.handle.finish_reason = "cancelled"
-            row.finish()
+            self._note_cancelled(row, "epoch")
+            row.cancel()
             self._lane_recycle(lane)
             return
         self.stats["preemptions"] += 1
+        # A victim spilled for another lane's pages is a preempt; a starving
+        # lane parking itself a spill; both for page pressure.
+        self.audit.record("preempt" if reason == "preempted" else "spill", "page_pressure",
+                          rid=rid, tenant=row.req.tenant, detail=reason)
+        metrics.registry.counter(
+            "cake_preemptions_total",
+            "Lanes preempted under page pressure (continuous scheduler): "
+            "page chain spilled host-side, stream parked for a "
+            "bit-identical restore.",
+        ).inc()
+        metrics.flight.record("preempted", rid, slot=int(slot), reason=reason,
+                              completion_tokens=row.n, priority=row.req.priority)
+        timeline.instant("preempted", rid=rid, track=f"lane{lane}",
+                         args={"slot": int(slot), "reason": reason})
+        row.close_span()
         self._lane_recycle(lane, insert=True)
 
     def _pop_spill_seed(self) -> list[_SpilledLane]:
@@ -1496,6 +2011,8 @@ class BatchEngine:
         for sp in doomed:
             self.stats["page_truncations"] += 1
             sp.row.req.handle.finish_reason = "length"
+            metrics.flight.record("page-truncated", sp.row.req.rid, where="spilled",
+                                  completion_tokens=sp.row.n)
             sp.row.finish()
         return out
 
@@ -1520,13 +2037,20 @@ class BatchEngine:
                 row, req = sp.row, sp.row.req
                 hist = len(row.history) - 1
                 if req.knobs() != knobs:
-                    continue  # another segment's knobs
+                    # another segment's knobs
+                    self.audit.record("defer", "knob_incompatible", rid=req.rid,
+                                      tenant=req.tenant, detail="spilled")
+                    continue
                 if hist > slot or cap - 1 - slot < req.max_tokens - row.n:
                     # It needs a taller segment, or restoring here would
                     # truncate it below what a segment of its own gives.
+                    self.audit.record("defer", "capacity", rid=req.rid, tenant=req.tenant,
+                                      detail="spilled")
                     continue
                 if budget["left"] < hist:
                     self.stats["budget_deferrals"] += 1
+                    self.audit.record("defer", "step_budget", rid=req.rid, tenant=req.tenant,
+                                      detail="spilled")
                     continue
                 if self._alloc is not None:
                     need = self._alloc.pages_needed(hist) + self._alloc.reserve_pages
@@ -1534,11 +2058,14 @@ class BatchEngine:
                         self._prefix.reclaimable() if self._prefix is not None else 0
                     )
                     if need > avail:
+                        self.audit.record("defer", "page_pressure", rid=req.rid,
+                                          tenant=req.tenant, detail="spilled")
                         continue
                     claimed += need
                 budget["left"] -= hist
                 del self._spilled[req.rid]
                 self._live_rids.add(req.rid)
+                self.audit.record("restore", "fair_order", rid=req.rid, tenant=req.tenant)
                 picks.append((free.pop(0), sp))
         for lane, sp in picks:
             try:
@@ -1557,6 +2084,8 @@ class BatchEngine:
         """Put a restore that failed back in the spill table (or finish it,
         when a cancel landed meanwhile) and return the lane's pages."""
         rid = sp.row.req.rid
+        sp.row.close_span()
+        sp.row.t_close = 0.0
         with self._cv:
             cancelled = rid in self._cancel_ids
             self._cancel_ids.discard(rid)
@@ -1569,9 +2098,8 @@ class BatchEngine:
             self._prefix.release(self._lane_leases.pop(lane, None))
             self._lane_info.pop(lane, None)
         if cancelled:
-            self.stats["cancelled"] += 1
-            sp.row.req.handle.finish_reason = "cancelled"
-            sp.row.finish()
+            self._note_cancelled(sp.row, "spilled")
+            sp.row.cancel()
 
     def _restore_lane(self, sp: _SpilledLane, lane: int, rows, slot, tok, kv, keys, ring_j,
                       ring_idx_j, pads_j):
@@ -1586,28 +2114,42 @@ class BatchEngine:
         row, req = sp.row, sp.row.req
         hist = row.history[:-1]
         pad = slot - len(hist)
+        row.lane = lane
+        row.t_close = 0.0
+        row.open_span(slot=slot)
         t0 = time.perf_counter()
-        if self._prefix is not None:
-            fresh, pair = self._fork_lane(lane, req, pad, slot, ids=hist)
-            if pair is not None:
-                kv = self._dispatch("cow_copy", lambda: self.backend.cow_copy(
-                    kv, [pair[0]], [pair[1]]))
-            width = min(-(-(slot - fresh) // _WINDOW_BUCKET) * _WINDOW_BUCKET, slot)
-            start = slot - width
-            row_tokens = np.zeros((1, width), np.int32)
-            lo = max(pad, start)
-            row_tokens[0, lo - start :] = hist[lo - pad :]
-            _, kv = self._dispatch("restore", lambda: self.backend.suffix_join(
-                kv, row_tokens, pad, fresh, lane, start))
-        else:
-            width = min(-(-slot // _WINDOW_BUCKET) * _WINDOW_BUCKET, self.max_seq_len)
-            row_tokens = np.zeros((1, width), np.int32)
-            row_tokens[0, pad:slot] = hist
-            if self._alloc is not None:
-                self._alloc.map_range(lane, pad, slot)
-            _, kv = self._dispatch("restore", lambda: self.backend.join(
-                kv, row_tokens, pad, slot, lane))
-        self.stats["prefill_s"] += time.perf_counter() - t0
+        try:
+            with timeline.span("restore", rid=req.rid, track="engine",
+                               args={"lane": lane, "slot": int(slot), "tokens": len(hist)}):
+                if self._prefix is not None:
+                    fresh, pair = self._fork_lane(lane, req, pad, slot, ids=hist)
+                    if pair is not None:
+                        kv = self._dispatch("cow_copy", lambda: self.backend.cow_copy(
+                            kv, [pair[0]], [pair[1]]))
+                    width = min(-(-(slot - fresh) // _WINDOW_BUCKET) * _WINDOW_BUCKET, slot)
+                    start = slot - width
+                    row_tokens = np.zeros((1, width), np.int32)
+                    lo = max(pad, start)
+                    row_tokens[0, lo - start :] = hist[lo - pad :]
+                    _, kv = self._dispatch("restore", lambda: self.backend.suffix_join(
+                        kv, row_tokens, pad, fresh, lane, start))
+                else:
+                    width = min(-(-slot // _WINDOW_BUCKET) * _WINDOW_BUCKET, self.max_seq_len)
+                    row_tokens = np.zeros((1, width), np.int32)
+                    row_tokens[0, pad:slot] = hist
+                    if self._alloc is not None:
+                        self._alloc.map_range(lane, pad, slot)
+                    _, kv = self._dispatch("restore", lambda: self.backend.join(
+                        kv, row_tokens, pad, slot, lane))
+                self._settle()  # nothing is read back: the event ends the wall
+        except BaseException as e:
+            row.close_span(error=str(e)[:200])
+            raise
+        dt_restore = time.perf_counter() - t0
+        self.stats["prefill_s"] += dt_restore
+        row.phase["restore"] += dt_restore
+        # A restore's re-prefill is redone work: the preemption's price.
+        self.efficiency.note_prefill(dt_restore, 1, width, min(len(hist), width), restore=True)
         dev = self.backend.device
         if sp.ring is not None and ring_j.ndim == 2 and ring_j.shape[1] > 0:
             ring_j[lane] = upload(sp.ring, dev, torch.int64)
@@ -1617,9 +2159,20 @@ class BatchEngine:
         pads_j[lane] = pad
         rows[lane] = row
         row.n_at_restore = row.n
-        row.t_open = time.perf_counter()
-        self.stats["restores"] += 1
+        if self._alloc is not None:
+            self._pool_counter()
+        self._note_restore(row)
         return kv
+
+    def _note_restore(self, row: "_RowState") -> None:
+        self.stats["restores"] += 1
+        metrics.registry.counter(
+            "cake_restores_total",
+            "Spilled lanes re-attached to a running segment "
+            "(bit-identical resume).",
+        ).inc()
+        metrics.flight.record("restored", row.req.rid, completion_tokens=row.n, lane=row.lane)
+        timeline.instant("restored", rid=row.req.rid, track=f"lane{row.lane}")
 
     def _grant_step_budget(self, rows: list) -> int:
         """This step's prefill grant in prompt tokens (``StepBudget``):
@@ -1633,8 +2186,14 @@ class BatchEngine:
                 left = row.req.deadline - now
                 if slack is None or left < slack:
                     slack = left
-        return self._step_budget.grant(burning=bool(self._slo_shed_scale),
-                                       tightest_slack_s=slack)
+        burning = bool(self._slo_shed_scale)
+        grant = self._step_budget.grant(burning=burning, tightest_slack_s=slack)
+        if burning or slack is not None:
+            # The SLO feedback moved this step's prefill share; the audit
+            # keeps one entry a run of identical verdicts.
+            self.audit.record("budget", "slo_feedback",
+                              detail="burning" if burning else "deadline_slack")
+        return grant
 
     # ------------------------------------------------------------ joins
 
@@ -1656,89 +2215,121 @@ class BatchEngine:
         now = time.monotonic()
         state = {"avail": self._alloc.pages_free if self._alloc is not None else None}
 
+        def defer(req: _Request, cause: str, verdict: str = "skip") -> str:
+            self.audit.record("defer", cause, rid=req.rid, tenant=req.tenant)
+            return verdict
+
         def accept(req: _Request) -> str:
             if req.deadline and now > req.deadline:
                 self._expire_queued(req)
                 return "drop"
             if req.knobs() != knobs:
-                return "next"
+                return defer(req, "knob_incompatible", verdict="next")
             n_ids = len(req.prompt_ids)
             solo_budget = min(
                 req.max_tokens, self.max_seq_len - prompt_bucket(n_ids, self.max_seq_len)
             )
             if n_ids > slot or cap - slot < solo_budget:
-                return "skip"
+                return defer(req, "capacity")
             if budget is not None and budget["left"] < n_ids:
                 self.stats["budget_deferrals"] += 1
-                return "skip"
+                return defer(req, "step_budget")
             avail = state["avail"]
             if avail is not None:
                 need = self._pages_for(req, end_slot=slot)
                 if need > avail and self._prefix is not None:
-                    avail = state["avail"] = avail + self._prefix.reclaim(need - avail)
+                    avail = state["avail"] = avail + self._prefix.reclaim(need - avail, rid=req.rid)
                 if need > avail:
-                    return "skip"
+                    return defer(req, "page_pressure")
                 state["avail"] = avail - need
             if budget is not None:
                 budget["left"] -= n_ids
+            self.audit.record("join", "fair_order", rid=req.rid, tenant=req.tenant)
             return "take"
 
         with self._cv:
             head = self._queue.oldest_head()
             if (head is not None and head.knobs() != knobs
                     and not (head.deadline and now > head.deadline)):
+                # The oldest queued request wants other knobs: this epoch
+                # stops growing so that it gets its own.
+                self.audit.record("defer", "fairness_skip", rid=head.rid, tenant=head.tenant,
+                                  detail="epoch_bound")
                 return []
             taken = self._queue.take(len(free), accept)
             out = [(free[i], req) for i, req in enumerate(taken)]
             self._live_rids.update(req.rid for _, req in out)
+        t_admit = time.perf_counter()
+        for _, req in out:
+            req.t_admit = t_admit  # the join prefill is lane time, not queue
         return out
 
     def _join(self, req, lane, rows, slot, tok, kv, keys, ring_j, ring_idx_j, s):
         """Prefill one request into a free lane of the RUNNING epoch: its
         prompt is left-padded to end at the shared slot, and its first token
         samples from its own fresh key, as a solo run would."""
-        row = _RowState(req, set(self.config.eos_token_ids), self.tokenizer, self)
+        row = _RowState(req, set(self.config.eos_token_ids), self.tokenizer, self, lane=lane)
+        # The lane span opens before the join prefill (the prefill is the
+        # joiner's lane time); every failure path below closes it.
+        row.open_span(slot=slot)
+        try:
+            return self._join_inner(req, row, lane, rows, slot, tok, kv, keys, ring_j,
+                                    ring_idx_j, s)
+        except BaseException as e:
+            row.close_span(error=str(e)[:200])
+            raise
+
+    def _join_inner(self, req, row, lane, rows, slot, tok, kv, keys, ring_j, ring_idx_j, s):
         ids = req.prompt_ids
         pad = slot - len(ids)
         t0 = time.perf_counter()
-        if self._prefix is not None:
-            # Fork the cached chain, map the tail, and prefill the window
-            # [start, slot) on the suffix arithmetic: a warm join equals a
-            # cold one because hit and miss walk one arithmetic.
-            try:
-                fresh, pair = self._fork_lane(lane, req, pad, slot)
-            except PageExhausted:
-                self.stats["page_truncations"] += 1
-                req.handle.finish_reason = "length"
-                self._lane_recycle(lane, insert=False)
-                row.finish()
-                return tok, kv, keys, ring_j, ring_idx_j
-            if pair is not None:
-                kv = self._dispatch("cow_copy", lambda: self.backend.cow_copy(
-                    kv, [pair[0]], [pair[1]]))
-            width = min(-(-(slot - fresh) // _WINDOW_BUCKET) * _WINDOW_BUCKET, slot)
-            start = slot - width
-            row_tokens = np.zeros((1, width), np.int32)
-            lo = max(pad, start)
-            row_tokens[0, lo - start :] = ids[lo - pad :]
-            logits, kv = self._dispatch("join", lambda: self.backend.suffix_join(
-                kv, row_tokens, pad, fresh, lane, start))
-        else:
-            width = min(-(-slot // _WINDOW_BUCKET) * _WINDOW_BUCKET, self.max_seq_len)
-            row_tokens = np.zeros((1, width), np.int32)
-            row_tokens[0, pad:slot] = ids
-            if self._alloc is not None:
-                self._alloc.map_range(lane, pad, slot)  # _take_joins charged the pool
-            logits, kv = self._dispatch("join", lambda: self.backend.join(
-                kv, row_tokens, pad, slot, lane))
-        # The same first-token arithmetic as the epoch start (batch.first_sample).
-        window = s.repeat_last_n
-        row_ring, row_ring_idx = seed_rings([ids], window)
-        key0 = prng_key([req.sampling.seed], self.backend.device)
-        first_arr, key_next, row_ring, row_ring_idx = first_sample(
-            logits, s, row_ring, row_ring_idx, key0
-        )
-        self.stats["prefill_s"] += time.perf_counter() - t0
+        with timeline.span("join", rid=req.rid, track="engine",
+                           args={"lane": lane, "slot": int(slot)}):
+            if self._prefix is not None:
+                # Fork the cached chain, map the tail, and prefill the window
+                # [start, slot) on the suffix arithmetic: a warm join equals
+                # a cold one because hit and miss walk one arithmetic.
+                try:
+                    with timeline.span("prefix-fork", track="engine",
+                                       args={"lane": lane, "slot": int(slot)}):
+                        fresh, pair = self._fork_lane(lane, req, pad, slot)
+                except PageExhausted:
+                    self.stats["page_truncations"] += 1
+                    req.handle.finish_reason = "length"
+                    metrics.flight.record("page-truncated", req.rid, slot=int(slot), where="join",
+                                          completion_tokens=0)
+                    self._lane_recycle(lane, insert=False)
+                    row.finish()
+                    self._pool_counter()
+                    return tok, kv, keys, ring_j, ring_idx_j
+                if pair is not None:
+                    kv = self._dispatch("cow_copy", lambda: self.backend.cow_copy(
+                        kv, [pair[0]], [pair[1]]))
+                width = min(-(-(slot - fresh) // _WINDOW_BUCKET) * _WINDOW_BUCKET, slot)
+                start = slot - width
+                row_tokens = np.zeros((1, width), np.int32)
+                lo = max(pad, start)
+                row_tokens[0, lo - start :] = ids[lo - pad :]
+                logits, kv = self._dispatch("join", lambda: self.backend.suffix_join(
+                    kv, row_tokens, pad, fresh, lane, start))
+            else:
+                width = min(-(-slot // _WINDOW_BUCKET) * _WINDOW_BUCKET, self.max_seq_len)
+                row_tokens = np.zeros((1, width), np.int32)
+                row_tokens[0, pad:slot] = ids
+                if self._alloc is not None:
+                    self._alloc.map_range(lane, pad, slot)  # _take_joins charged the pool
+                logits, kv = self._dispatch("join", lambda: self.backend.join(
+                    kv, row_tokens, pad, slot, lane))
+            # The same first-token arithmetic as the epoch start
+            # (batch.first_sample); its readback ends the wall.
+            window = s.repeat_last_n
+            row_ring, row_ring_idx = seed_rings([ids], window)
+            key0 = prng_key([req.sampling.seed], self.backend.device)
+            first_arr, key_next, row_ring, row_ring_idx = first_sample(
+                logits, s, row_ring, row_ring_idx, key0
+            )
+        dt_join = time.perf_counter() - t0
+        self.stats["prefill_s"] += dt_join
         first = int(first_arr[0])
         dev = self.backend.device
         if window > 0:
@@ -1746,7 +2337,14 @@ class BatchEngine:
             ring_idx_j[lane] = int(row_ring_idx[0])
         keys[lane] = key_next[0]
         tok[lane] = first
-        self._record_admissions([req])
+        row.account_join(dt_join)
+        # One lane x the window: the prompt's share is prefill, the pad pad.
+        self.efficiency.note_prefill(dt_join, 1, width, min(len(ids), width))
+        self._record_admissions([req], "joined", lane=lane, slot=slot)
+        metrics.registry.counter(
+            "cake_engine_joins_total",
+            "Requests that joined a RUNNING epoch at a chunk boundary.",
+        ).inc()
         row.push(first)
         rows[lane] = None if row.done else row
         self.stats["joins"] += 1
@@ -1770,9 +2368,11 @@ class _SpilledLane:
 
 
 class _RowState:
-    """Engine-side per-row bookkeeping: budget, EOS, incremental detok, events."""
+    """Engine-side per-row bookkeeping: budget, EOS, incremental detok,
+    events, the lane's timeline span and the row's latency attribution."""
 
-    def __init__(self, req: _Request, eos: set[int], tokenizer: Tokenizer, engine: BatchEngine):
+    def __init__(self, req: _Request, eos: set[int], tokenizer: Tokenizer, engine: BatchEngine,
+                 lane: int = 0):
         self.req = req
         self._eos = eos
         self._tokenizer = tokenizer
@@ -1784,12 +2384,96 @@ class _RowState:
         self.n = 0
         self.done = False
         self._finished = False
+        self.lane = lane
+        self._span: int | None = None
+        # Latency attribution (obs/critpath.py phases): wall seconds the
+        # engine's dispatch accounting gives this row; convoy is the
+        # lockstep tax, work the row rode along for and did not need.
+        self.phase: dict[str, float] = {
+            "prefill": 0.0, "decode": 0.0, "spec_accepted": 0.0,
+            "spec_wasted": 0.0, "convoy": 0.0, "restore": 0.0,
+        }
         # When the row took its lane (the victim choice spills the youngest
-        # first), and its token count at its last restore (-1: never): a
-        # lane that spills itself again at that count made no progress.
+        # first) and closed it, and its token count at its last restore (-1:
+        # never): a lane that spills itself again at that count made no
+        # progress.
         self.t_open = time.perf_counter()
+        self.t_close = 0.0
+        self.ttft_s: float | None = None
         self.n_at_restore = -1
         self._backpressured = False
+
+    # ---- the lane-track timeline span (admission to finish) --------------
+
+    def open_span(self, slot: int | None) -> None:
+        """Open the request's span on its lane's track; the queue and
+        admission stamps ride its args for /explain."""
+        self.t_open = time.perf_counter()
+        queue_wait = max(0.0, (self.req.t_admit or self.t_open) - self.req.t_submit)
+        args: dict = {"prompt_tokens": len(self.req.prompt_ids),
+                      "queue_wait_s": round(queue_wait, 6), "admit_s": round(self.req.admit_s, 6)}
+        if slot is not None:
+            args["join_slot"] = int(slot)
+        self._span = timeline.begin("request", rid=self.req.rid, track=f"lane{self.lane}",
+                                    args=args, parent=None)
+        if self not in self._engine._epoch_rows:
+            # The convoy meter's lane occupancy (a restored row re-opens its
+            # span in the same segment: one entry).
+            self._engine._epoch_rows.append(self)
+
+    def close_span(self, error: str | None = None) -> None:
+        if self.t_close == 0.0:
+            self.t_close = time.perf_counter()
+        if self._span is None:
+            return
+        args: dict = {"finish_reason": self.req.handle.finish_reason, "completion_tokens": self.n}
+        if error is not None:
+            args["error"] = error[:200]
+        timeline.end(self._span, args=args)
+        self._span = None
+
+    # ---- dispatch-time attribution (engine thread) -----------------------
+
+    def account_prefill(self, dt: float, bucket: int) -> None:
+        """The epoch's prefill: the own share scales with the prompt's part
+        of the shared bucket; the padding's compute is convoy."""
+        share = min(1.0, len(self.req.prompt_ids) / max(1, bucket))
+        self.phase["prefill"] += dt * share
+        self.phase["convoy"] += dt * (1.0 - share)
+
+    def account_join(self, dt: float) -> None:
+        """A join prefill computes this row's window alone."""
+        self.phase["prefill"] += dt
+
+    def account_restore(self, dt: float, bucket: int) -> None:
+        """A spill-seeded segment's prefill: redone work, split like a
+        prefill."""
+        share = min(1.0, (len(self.history) - 1) / max(1, bucket))
+        self.phase["restore"] += dt * share
+        self.phase["convoy"] += dt * (1.0 - share)
+
+    def account_decode(self, dt: float, n: int, used: int) -> None:
+        """One decode chunk of n tokens, ``used`` of them consumed; the
+        unconsumed tail is convoy."""
+        frac = min(1.0, used / max(1, n))
+        self.phase["decode"] += dt * frac
+        self.phase["convoy"] += dt * (1.0 - frac)
+
+    def peek_consumed(self, toks) -> int:
+        """How many of ``toks`` push() will take before the row finishes
+        (EOS, or the budget on a non-EOS token)."""
+        if self.done:
+            return 0
+        used = 0
+        n = self.n
+        for t in toks:
+            used += 1
+            if int(t) in self._eos:
+                break
+            n += 1
+            if n >= self.req.max_tokens:
+                break
+        return used
 
     def push(self, tid: int) -> None:
         """Accept one decoded id and emit it. The moment the row is done
@@ -1801,9 +2485,25 @@ class _RowState:
         self.history.append(tid)
         self.n += 1
         eng = self._engine
+        now = time.perf_counter()
         if self.n == 1:
-            self.req.handle.ttft_s = time.perf_counter() - self.req.t_submit
-            eng.slo.observe_ttft(self.req.tenant, self.req.handle.ttft_s)
+            ttft = now - self.req.t_submit
+            self.ttft_s = self.req.handle.ttft_s = ttft
+            metrics.registry.histogram(
+                "cake_ttft_seconds", "Submit-to-first-token latency (queue wait + prefill)."
+            ).observe(ttft)
+            metrics.flight.record("first-token", self.req.rid, ttft_s=round(ttft, 6))
+            timeline.instant("first-token", rid=self.req.rid, track=f"lane{self.lane}",
+                             args={"ttft_s": round(ttft, 6)})
+            eng.slo.observe_ttft(self.req.tenant, ttft)
+            eng.timeseries.observe_ttft(ttft)
+        else:
+            metrics.registry.histogram(
+                "cake_inter_token_seconds",
+                "Wall-clock gap between consecutive tokens of one stream.",
+            ).observe(now - self.req.t_last_token)
+        self.req.t_last_token = now
+        eng.timeseries.observe_tokens()
         # The backpressure watermark, checked before this token's emit so a
         # flagged stream still delivers it; it is cancelled at the next
         # chunk boundary.
@@ -1826,13 +2526,31 @@ class _RowState:
         if self.done:
             self.finish()
 
-    def fail(self) -> None:
+    def fail(self, error: str = "") -> None:
         """Failure isolation: finish ``"error"``; the consumer sees a clean
         end of stream (the tokens it got are the fault-free run's prefix)."""
         if self._finished:
             return
+        self.done = True
         self.req.handle.finish_reason = "error"
         self._engine.stats["stream_errors"] += 1
+        metrics.registry.counter(
+            "cake_stream_errors_total",
+            "Streams finished with finish_reason=error after a worker failure.",
+        ).inc()
+        metrics.flight.record("stream-error", self.req.rid, error=error[:200],
+                              completion_tokens=self.n)
+        timeline.instant("stream-error", rid=self.req.rid, track=f"lane{self.lane}")
+        self.close_span(error=error)
+        self.finish()
+
+    def cancel(self) -> None:
+        """A cancel at the chunk boundary: finish ``"cancelled"``."""
+        if self._finished:
+            return
+        self.done = True
+        self.req.handle.finish_reason = "cancelled"
+        timeline.instant("cancelled", rid=self.req.rid, track=f"lane{self.lane}")
         self.finish()
 
     def expire(self) -> None:
@@ -1840,7 +2558,16 @@ class _RowState:
         chunk boundary; the tokens already streamed stand."""
         if self._finished:
             return
+        self.done = True
         self.req.handle.finish_reason = "deadline"
+        metrics.registry.counter(
+            "cake_deadline_expired_total",
+            "Requests past their end-to-end deadline (where=queued expired "
+            "before admission; where=running at a chunk boundary).",
+        ).inc(where="running")
+        metrics.flight.record("deadline-expired", self.req.rid, where="running",
+                              completion_tokens=self.n)
+        timeline.instant("deadline-expired", rid=self.req.rid, track=f"lane{self.lane}")
         self.finish()
 
     def finish(self) -> None:
@@ -1848,21 +2575,42 @@ class _RowState:
             return
         self._finished = True
         self.done = True
+        metrics.registry.counter(
+            "cake_engine_completed_total", "Streams closed (any finish reason)."
+        ).inc()
+        metrics.flight.record("finished", self.req.rid,
+                              finish_reason=self.req.handle.finish_reason,
+                              completion_tokens=self.n)
+        self.close_span()
+        eng = self._engine
         # The tenant's SLIs: deadline hit or miss, errors, goodput; a
-        # tokenless deadline or error finish is also a TTFT miss.
-        self._engine.slo.observe_finish(
+        # tokenless deadline or error finish is also a TTFT miss. The
+        # ledger classes the same tokens, the attribution folds the row's
+        # phases, and the request log keeps the one record: one finish
+        # event, so the views agree.
+        eng.slo.observe_finish(
             self.req.tenant, self.req.handle.finish_reason, tokens=self.n,
             had_deadline=bool(self.req.deadline), got_first_token=self.n > 0,
         )
+        eng.efficiency.note_finish(self.req.tenant, self.req.handle.finish_reason, self.n)
+        eng._observe_request(self)
+        eng._record_request(self.req, row=self)
         self.req.handle._emit(_DONE)
-        self._engine._row_finished(self.req.rid)
+        eng._row_finished(self.req.rid)
 
 
-def _fail_request(req: _Request, engine: BatchEngine) -> None:
+def _fail_request(req: _Request, engine: BatchEngine, error: str = "") -> None:
     """Finish a request that never took its lane (a joiner stranded by a
     lost worker or an abandoned dispatch) as ``"error"``, without raising
     into the consumer."""
     req.handle.finish_reason = "error"
+    metrics.registry.counter(
+        "cake_stream_errors_total",
+        "Streams finished with finish_reason=error after a worker failure.",
+    ).inc()
+    metrics.flight.record("stream-error", req.rid, error=error[:200])
+    metrics.flight.record("finished", req.rid, finish_reason="error", completion_tokens=0)
     engine.slo.observe_finish(req.tenant, "error", had_deadline=bool(req.deadline),
                               got_first_token=False)
+    engine._record_request(req, finish="error")
     req.handle._emit(_DONE)

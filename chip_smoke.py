@@ -188,6 +188,20 @@ nonzero exit and no final result line:
                gates-off engine's bitwise; every page not cached free after
                each wave; the paged kernels' launches = n_layers x the
                dispatches. All gated.
+  9a''. obs    observability on the paged engine (continuous scheduler,
+               prefix cache, the pool of one epoch's charges) behind the
+               port's API with every recorder armed (request log, trace and
+               events JSONL, timeline, efficiency ledger and decision audit,
+               black box): a cold wave of 8 and wave 1's prompts with 384
+               tokens out (spills and restores), the same on an engine with
+               every recorder off: equal streams 8/8 each; /metrics parsed,
+               its counters equal to the engine's stats; /efficiency's
+               buckets >= 95% of its wall, MBU and MFU in (0, 1]; every
+               request's /explain adding up to its wall and its request-log
+               line, a restore phase in the pressured wave; /trace valid
+               Chrome JSON with segment and step spans; /events, /requests,
+               /timeseries answering; ms a decode step and TTFT armed
+               against off. All gated but the cost.
   9b. generate_f8  the generate phase's weights over an f8 KV cache: the
                same prompt, 64 greedy tokens per token and in 8-token
                graph-replayed chunks (equal streams), every decode and
@@ -251,10 +265,17 @@ nonzero exit and no final result line:
                generator per step and in 8-token graph chunks (equal ids;
                the prefill's rows an expert), logits against the plain path
                (MoE routing teacher-forced, the flips counted), the paged
-               engine's cold wave equal to the dense engine's 8/8, a
-               ``--fusion all`` wave, ``--quantize int4`` (expert stacks
-               int8; int4_matmul launches as the attention products and the
-               head imply).
+               engine's cold wave equal to the dense engine's 8/8, the warm
+               prefix waves (the same wave again over the cached chains)
+               equal to the cold ones 8/8 (none and all), a ``--fusion all``
+               wave, ``--quantize int4`` (expert stacks int8; int4_matmul
+               launches as the attention products and the head imply); the
+               grouped expert GEMM's launches, three a grouped dispatch.
+               Then the grouped GEMM's kernel cases (grouped_matmul,
+               csrc/moe_grouped.cu) at that engine prefill's rows an
+               expert: Mixtral's gate and down products, bf16 and int8
+               stacks, within one bf16 step of the cuBLAS loop it replaced,
+               and rows bitwise under other group sizes (gated).
      phi3      Phi-3-mini-4k at full size: a 4-layer checkpoint of fused
                qkv_proj / gate_up_proj read back bitwise, the generator
                over a 2300-token prompt (the 2047-key window masks), per
@@ -2234,14 +2255,15 @@ def _fused_counters():
 
 
 def _paged_counters():
-    from cake_tpu_torch.ops import int4_matmul, paged_attention, paged_prefill
+    from cake_tpu_torch.ops import int4_matmul, moe, paged_attention, paged_prefill
 
     return _counters() + (
         paged_attention.paged_decode_attention,
         paged_prefill.paged_chunk_attention,
         paged_attention.paged_decode_attention_plain,
         paged_prefill.paged_chunk_attention_plain,
-    ) + _fused_counters() + (int4_matmul.int4_matmul, int4_matmul.int4_matmul_plain)
+    ) + _fused_counters() + (int4_matmul.int4_matmul, int4_matmul.int4_matmul_plain,
+                             moe.grouped_matmul, moe.grouped_matmul_plain)
 
 
 # Side counts a wrapper keeps beside its launches: calls it left to the
@@ -2366,7 +2388,7 @@ def _wave(engine, n_tokens, messages=None, samplings=None, together: bool = Fals
     ttft = [h.ttft_s for h in handles if h.ttft_s is not None]
     decoded = sum(max(0, h.completion_tokens - 1) for h in handles)
     return {
-        "streams": streams, "wall_s": wall,
+        "streams": streams, "wall_s": wall, "request_ids": [h.request_id for h in handles],
         "ttft_p50_s": statistics.median(ttft) if ttft else None,
         "ttft_max_s": max(ttft, default=None),
         "completion_tokens": [h.completion_tokens for h in handles],
@@ -2753,6 +2775,13 @@ def _generator_expected(counters, rec, n_layers: int, on_card: bool, fused: bool
     if int4:
         forwards = len(rec["calls"]) + sum(n for _, n in rec["chunks"])
         _int4_expected(expected, forwards, n_layers, fused, on_card, moe)
+    if moe:
+        # Every window of GROUPED_MIN_TOKENS or more takes the grouped
+        # dispatch: its gate, up and down products, a launch each a layer.
+        from cake_tpu_torch.ops.moe import GROUPED_MIN_TOKENS
+
+        grouped = sum(1 for _, w, _ in rec["calls"] if w >= GROUPED_MIN_TOKENS)
+        expected["grouped_matmul" if on_card else "grouped_matmul_plain"] = 3 * n_layers * grouped
     return launches, expected
 
 
@@ -3434,6 +3463,247 @@ def phase_engine_continuous(torch, main_path: dict, tokens: int = CONTINUOUS_TOK
 
 
 # ---------------------------------------------------------------- phase 9a'
+
+OBS_ROUTES = ("/metrics", "/events", "/trace", "/efficiency", "/requests", "/timeseries")
+OBS_EXPLAIN_SLACK_S = 0.05  # the reference's slack on an explanation's phase sum
+
+
+def _get(port: int, route: str) -> tuple[int, str]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("GET", route)
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+def _exposition(text: str) -> dict:
+    """A Prometheus text exposition parsed to {series: value}; raises on a
+    line that is neither a HELP/TYPE comment nor ``series value``."""
+    out = {}
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("#"):
+            if not line.startswith(("# HELP ", "# TYPE ")):
+                raise AssertionError(f"obs: /metrics line {line!r}")
+            continue
+        series, value = line.rsplit(" ", 1)
+        out[series] = float(value)
+    return out
+
+
+def phase_obs(torch, main_path: dict, tokens: int = CONTINUOUS_TOKENS) -> dict:
+    """Observability on the paged ``--api-batch`` engine (the continuous
+    scheduler, page 128, max_seq 2048, 8 lanes, prefix cache on, the
+    smallest pool that admits wave 1 in one epoch) behind the port's API
+    with every recorder armed: the request log, the trace and events JSONL
+    sinks, the timeline, the efficiency ledger and decision audit, the black
+    box. After a warm-up wave (it captures the graphs), one cold wave of 8
+    (wave 1, ENGINE_TOKENS out) and one wave under page pressure (wave 1's
+    prompts, ``tokens`` out for half and half that for the others: spills
+    and restores into the running segment), each submitted as one
+    group; first the same waves on an engine with every recorder off (no
+    API, no sinks, no black box). Gates: the armed streams equal the off
+    ones 8/8 both waves; /metrics parses and its batches, requests, tokens,
+    prefix hits, preemptions and restores counters equal the engine's
+    stats; /efficiency's buckets sum to >= 95% of its device wall, its MBU
+    and MFU in (0, 1]; every finished request's /explain phases sum to its
+    end-to-end time (its request-log wall) within the reference's tolerance
+    (>= 95% less 50 ms, <= 50 ms over), and a pressured request shows a
+    restore phase; /trace is valid Chrome trace
+    JSON with segment and step spans; /events, /requests and /timeseries
+    answer; the request log has one line a finished request; the paged
+    kernels launched in the armed waves. Cost: ms a decode step and TTFT p50
+    armed against off. ``tokens``: what the CPU rehearsal cuts."""
+    from cake_tpu_torch.obs import critpath
+    from cake_tpu_torch.obs.timeline import load_jsonl, timeline, validate_export
+    from cake_tpu_torch.runtime.api import ApiServer
+    from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+    from cake_tpu_torch.utils import metrics
+
+    gen = main_path["generator"]
+    config, params, dev = gen.config, gen.step.params, gen.step.device
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+
+    def make(pool, **kw):
+        serve = ServeConfig(max_batch=ENGINE_BATCH, decode_chunk_size=8, kv_mode="paged",
+                            page_size=ENGINE_PAGE, prefix_cache=True, scheduler="continuous",
+                            max_pages=pool, step_prefill_tokens=ENGINE_MAX_SEQ, **kw)
+        return BatchEngine(config, params, gen.tokenizer, max_seq_len=ENGINE_MAX_SEQ,
+                           cache_dtype=torch.bfloat16, serve=serve, device=dev)
+
+    # The pressured wave: half the requests ask half the tokens, so their
+    # lanes free up mid-segment and the spills come back into the running
+    # segment (``_restore_lane``: /explain's restore phase; a spill that
+    # seeds a segment of its own is that segment's prefill).
+    pressured_tokens = [tokens // 2] * (ENGINE_BATCH // 2) + [tokens] * (ENGINE_BATCH // 2)
+    probe = make(None)
+    pool = _pool_for_one_epoch(probe, engine_messages())
+    del probe
+
+    def serve_waves(eng) -> dict:
+        _wave(eng, ENGINE_TOKENS, warm_messages(), together=True)
+        # Each measured wave cold: no chain cached (the chat template's
+        # bytes open every prompt), so every lane holds its own pages and
+        # the pressured wave runs the pool dry.
+        eng._prefix.clear()
+        cold = _wave(eng, ENGINE_TOKENS, together=True)
+        eng._prefix.clear()
+        pressured = _wave(eng, pressured_tokens, together=True)
+        return {"cold": cold, "pressured": pressured}
+
+    off_engine = make(pool)
+    try:
+        off = serve_waves(off_engine)
+    finally:
+        off_engine.stop()
+    del off_engine
+    if on_card:
+        torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    sinks = {name: os.path.join(tmp, f"{name}.jsonl") for name in ("requests", "trace", "events")}
+    # A fresh registry, flight ring and timeline for the armed engine (the
+    # ledgers resolve their counters at construction).
+    metrics.registry.clear()
+    metrics.flight.clear()
+    timeline.clear()
+    # Off the card no table entry: peaks of the CPU's own order, so the
+    # rehearsal's roofline gates run.
+    peaks = {} if on_card else {"peak_tflops": 1.0, "peak_hbm_gbps": 100.0}
+    armed_engine = make(pool, blackbox_dir=os.path.join(tmp, "blackbox"),
+                        blackbox_min_interval_s=0.0, blackbox_p99_mult=3.0, **peaks)
+    api = ApiServer(gen, engine=armed_engine, request_log=sinks["requests"],
+                    trace_jsonl=sinks["trace"], events_jsonl=sinks["events"])
+    server = api.make_server("127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_port
+    try:
+        counters = _zero_counters()
+        armed = serve_waves(armed_engine)
+        launches = _counts(counters)
+        answers = {route: _get(port, route) for route in OBS_ROUTES}
+        ids = [rid for w in armed.values() for rid in w["request_ids"]]
+        explains = {rid: _get(port, f"/explain?request_id={rid}") for rid in ids}
+        stats = dict(armed_engine.stats)
+        blackbox = armed_engine.blackbox.stats()
+    finally:
+        metrics.flight.attach_jsonl(None)
+        timeline.attach_jsonl(None)
+        server.shutdown()
+        server.server_close()
+        api.close()
+        thread.join(30)
+    del armed_engine, api
+    if on_card:
+        torch.cuda.empty_cache()
+
+    bad = {r: code for r, (code, _) in answers.items() if code != 200}
+    bad.update({f"/explain {rid}": code for rid, (code, _) in explains.items() if code != 200})
+    values = _exposition(answers["/metrics"][1]) if not bad else {}
+    eff = json.loads(answers["/efficiency"][1]) if not bad else {}
+    trace = json.loads(answers["/trace"][1]) if not bad else {"traceEvents": []}
+    log_lines = [json.loads(line) for line in open(sinks["requests"])]
+    wall_of = {r["request_id"]: r["wall_s"] for r in log_lines}
+    explained = {rid: json.loads(body) for rid, (code, body) in explains.items() if code == 200}
+    sums = {rid: {"wall_s": e["wall_s"], "phase_sum_s": sum(e["phases"].values()),
+                  "coverage": e["coverage"], "log_wall_s": wall_of.get(rid),
+                  "restore_s": e["phases"].get("restore", 0.0), "dominant": e["dominant"]}
+            for rid, e in explained.items()}
+    finished = len(ids) + ENGINE_BATCH  # the warm-up wave's too
+    completed = sum(r["completion_tokens"] for r in log_lines if r["finish_reason"] in
+                    ("stop", "length"))
+    counted = {
+        "batches": (values.get("cake_engine_batches_total"), stats["batches"]),
+        "requests": (values.get("cake_engine_completed_total"), finished),
+        "submitted": (values.get("cake_engine_submitted_total"), finished),
+        "tokens": (values.get('cake_goodput_tokens_total{class="completed"}'), completed),
+        "prefix_hits": (values.get("cake_prefix_hits_total", 0.0), stats["prefix_hits"]),
+        "preemptions": (values.get("cake_preemptions_total", 0.0), stats["preemptions"]),
+        "restores": (values.get("cake_restores_total", 0.0), stats["restores"]),
+    }
+    roof = eff.get("roofline", {})
+    names = {e.get("name") for e in trace["traceEvents"]}
+    suffix = "" if on_card else "_plain"
+
+    def cost(w):
+        return {k: w[k] for k in ("ttft_p50_s", "ttft_max_s", "decode_ms_per_step", "wall_s",
+                                  "batches", "joins", "preemptions", "restores", "prefix_hits")}
+
+    row = {
+        "phase": "obs",
+        "card": main_path["card"],
+        "config": {"kv_mode": "paged", "scheduler": "continuous", "page_size": ENGINE_PAGE,
+                   "max_seq": ENGINE_MAX_SEQ, "max_batch": ENGINE_BATCH, "pool_pages": pool,
+                   "decode_chunk": 8, "tokens_out": ENGINE_TOKENS,
+                   "pressure_tokens_out": pressured_tokens, "step_prefill": ENGINE_MAX_SEQ,
+                   "layers": config.num_hidden_layers},
+        "armed": {k: cost(w) for k, w in armed.items()},
+        "off": {k: cost(w) for k, w in off.items()},
+        "armed_equal_off": {k: _equal_streams(armed[k]["streams"], off[k]["streams"])
+                            for k in armed},
+        "routes": {r: code for r, (code, _) in answers.items()},
+        "counters": {k: {"metrics": a, "engine": b} for k, (a, b) in counted.items()},
+        "efficiency": {k: eff.get(k) for k in ("wall_s", "accounted_s", "device_s", "dispatches",
+                                              "buckets", "goodput_frac", "tokens")},
+        "roofline": roof, "model": eff.get("model"),
+        # The weights a decode step streams over the cold wave's ms a step,
+        # against the card's memory rate: the decode's own bandwidth share.
+        "decode_weight_stream_frac": (
+            main_path["weights_gb"] * 1e9 / (armed["cold"]["decode_ms_per_step"] / 1e3)
+            / HBM_BYTES_PER_S if main_path.get("weights_gb") else None),
+        "accounted_frac": eff["accounted_s"] / eff["wall_s"] if eff.get("wall_s") else None,
+        "explain": sums,
+        "explain_restore": sum(v["restore_s"] > 0 for v in sums.values()),
+        "trace_errors": validate_export(trace)[:5],
+        "trace_events": len(trace["traceEvents"]),
+        "request_log_lines": len(log_lines),
+        "events_jsonl_lines": sum(1 for _ in open(sinks["events"])),
+        "trace_jsonl_events": len(load_jsonl(sinks["trace"])),
+        "blackbox": blackbox,
+        "launches": launches,
+        "seconds": time.perf_counter() - t0,
+    }
+    emit(row)
+    if bad:
+        raise AssertionError(f"obs: routes answered {bad}")
+    if any(n != ENGINE_BATCH for n in row["armed_equal_off"].values()):
+        raise AssertionError(f"obs: armed streams equal off {row['armed_equal_off']} (8/8 each)")
+    if any(a != b for a, b in counted.values()):
+        raise AssertionError(f"obs: /metrics counters differ from the engine's: {row['counters']}")
+    if not row["accounted_frac"] or row["accounted_frac"] < 0.95:
+        raise AssertionError(f"obs: /efficiency buckets cover {row['accounted_frac']} of the wall")
+    for key in ("mfu", "mbu"):
+        if not 0.0 < roof.get(key, 0.0) <= 1.0:
+            raise AssertionError(f"obs: /efficiency {key} {roof.get(key)} outside (0, 1]")
+    for rid in ids:
+        v = sums.get(rid)
+        if v is None or v["log_wall_s"] is None:
+            raise AssertionError(f"obs: request {rid} has no explanation or no request-log line")
+        # The reference's tolerance (tests/test_critpath.py): the phases sum
+        # to at least 95% of the end-to-end time less 50 ms and at most 50
+        # ms over it; the end-to-end time is the request log's.
+        e2e = v["log_wall_s"]
+        if not 0.95 * e2e - OBS_EXPLAIN_SLACK_S <= v["phase_sum_s"] <= e2e + OBS_EXPLAIN_SLACK_S:
+            raise AssertionError(f"obs: /explain of {rid} does not add up: {v}")
+    if row["explain_restore"] < 1 or armed["pressured"]["restores"] < 1:
+        raise AssertionError("obs: the pressured wave shows no restore phase")
+    if row["trace_errors"] or not {"segment", "step"} <= names:
+        raise AssertionError(f"obs: /trace invalid or without segment/step spans "
+                             f"{row['trace_errors']}")
+    if len(log_lines) != finished or not set(ids) <= set(wall_of):
+        raise AssertionError(f"obs: {len(log_lines)} request-log lines for {finished} requests")
+    for name in ("paged_decode_attention", "paged_chunk_attention"):
+        if not launches[name + suffix]:
+            raise AssertionError(f"obs: {name}{suffix} never launched in the armed waves")
+    return row
+
 
 ADMISSION_TOKENS = 32  # tokens out of the admission phase's waves
 # The watchdog's bound: above a decode graph's capture at Llama-3-8B (a new
@@ -4703,8 +4973,11 @@ def phase_engine_f8(torch, main_path: dict, engine_path: dict) -> dict:
 
 def phase_engine_int4(torch, main_path: dict, int4_path: dict) -> dict:
     """Wave 1 over the int4 weights through the paged engine, the dense
-    engine and the paged engine with every fusion, one engine at a time;
-    then int4_matmul timed at the engine's first prefill window into w_gu
+    engine and the paged engine with every fusion, one engine at a time,
+    each wave submitted one request at a time (the admission window
+    gathers it; each run's batches and joins are in its row, so a wave the
+    window splits shows as more than one batch or as joins); then
+    int4_matmul timed at the engine's first prefill window into w_gu
     (layer 0's quantized weight)."""
     from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
 
@@ -4723,7 +4996,7 @@ def phase_engine_int4(torch, main_path: dict, int4_path: dict) -> dict:
     runs = []
     for spec, kv_mode in (("none", "paged"), ("none", "dense"), ("all", "paged")):
         runs.append(_fused_engine_run(torch, make, spec, kv_mode, n_layers, on_card,
-                                      sampled=False, int4=True))
+                                      sampled=False, int4=True, first_together=False))
         if on_card:
             torch.cuda.empty_cache()
     paged, dense, fused = runs
@@ -4746,6 +5019,7 @@ def phase_engine_int4(torch, main_path: dict, int4_path: dict) -> dict:
         "config": {"page_size": ENGINE_PAGE, "max_seq": ENGINE_MAX_SEQ, "max_batch": ENGINE_BATCH,
                    "decode_chunk": 8, "tokens_out": ENGINE_TOKENS, "layers": n_layers},
         "runs": [summary(r) for r in runs],
+        "wave_submitted": "one request at a time",
         "dense_equal_paged": equal(dense, paged),
         "all_equal_none": equal(fused, paged),
     }
@@ -5507,6 +5781,90 @@ def shape_cases(torch, dev) -> list:
     return rows
 
 
+GROUPED_SITES = (("w_gate", "hidden", "inter"), ("w_down", "inter", "hidden"))
+
+
+def moe_grouped_cases(torch, dev, sizes: list[int], config=None) -> dict:
+    """The grouped expert GEMM (ops/moe.grouped_matmul, csrc/moe_grouped.cu;
+    no Pallas counterpart: the JAX package's grouped dispatch is XLA's
+    ``ragged_dot``) at the rows an expert that phase moe's engine prefill
+    gave its first layer (``sizes``), Mixtral's gate (4096 -> 14336) and
+    down (14336 -> 4096) products over 8 random experts, bf16 and int8
+    stacks: within one bf16 rounding step of its plain version (one cuBLAS
+    product an expert: the cuBLAS loop the kernel replaced). Its library
+    call is ``torch._grouped_mm`` where this torch has it (bf16 only).
+    Then row independence (gated): a probe's rows give the same bits among
+    other group sizes, as a warm prefix wave needs. ``config``: a tiny one
+    off the card."""
+    from cake_tpu_torch.ops import moe
+    from cake_tpu_torch.ops.quant import quantize_weight
+
+    cfg = config or mixtral_config()
+    width = {"hidden": cfg.hidden_size, "inter": cfg.intermediate_size}
+    n_exp = cfg.num_local_experts
+    g = torch.Generator(device=dev).manual_seed(16)
+    m = sum(sizes)
+    offsets = torch.zeros(n_exp + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(torch.tensor(sizes, device=dev), 0)
+    used = sum(1 for n in sizes if n)
+    out: dict = {}
+    for site, k_name, n_name in GROUPED_SITES:
+        k, n = width[k_name], width[n_name]
+        xs = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn(n_exp, k, n, generator=g, device=dev).mul_(k ** -0.5)
+        for quant in (False, True):
+            mats = quantize_weight(w).w if quant else w.to(torch.bfloat16)
+            run = lambda mats=mats: moe.grouped_matmul(xs, mats, offsets, sizes)  # noqa: E731
+            plain = lambda mats=mats: moe.grouped_matmul_plain(xs, mats, sizes)  # noqa: E731
+            got, ref = run(), plain()
+            torch.cuda.synchronize()
+            library_ms, library = None, None
+            if not quant and hasattr(torch, "_grouped_mm"):
+                try:
+                    lib = lambda mats=mats: torch._grouped_mm(xs, mats, offs=offsets[1:])  # noqa: E731
+                    lib_out = lib()
+                    torch.cuda.synchronize()
+                    library = {"call": "torch._grouped_mm",
+                               "max_abs_err": (lib_out.float() - ref.float()).abs().max().item()}
+                    library_ms = cuda_ms(torch, lib, 10)
+                except (RuntimeError, TypeError) as e:
+                    library = {"call": "torch._grouped_mm", "error": str(e)[:200]}
+            # Each used expert's weights read once, the rows and the outputs once.
+            nbytes = (used * k * n * mats.element_size()
+                      + m * k * xs.element_size() + m * n * 2)
+            case = f"mixtral_{site}" + ("_int8" if quant else "")
+            out[("grouped_matmul", case)] = _check(
+                torch, "grouped_matmul", case, got, ref, cuda_ms(torch, run, 10),
+                cuda_ms(torch, plain, 5), nbytes, 2.0 * m * k * n, library_ms,
+                tol=bf16_ulp(ref), extra={"rows": m, "rows_per_expert": sizes,
+                                          "library": library})
+            del got, ref, mats
+        # Row independence: 7 probe rows of expert 1 among other rows.
+        probe = xs[:7]
+
+        def rows_of(n_e0: int, before: int, after: int, w_=w.to(torch.bfloat16), xs_=xs):
+            rows = torch.cat([xs_[-n_e0:] if n_e0 else xs_[:0], xs_[7 : 7 + before], probe,
+                              xs_[100 : 100 + after]])
+            grp = [n_e0, before + 7 + after] + [0] * (n_exp - 2)
+            off = torch.zeros(n_exp + 1, dtype=torch.int32, device=dev)
+            off[1:] = torch.cumsum(torch.tensor(grp, device=dev), 0)
+            return moe.grouped_matmul(rows, w_, off, grp)[n_e0 + before : n_e0 + before + 7]
+
+        want = rows_of(0, 0, 0)
+        equal = {f"e0_{a}_before_{b}_after_{c}": bool(torch.equal(rows_of(a, b, c), want))
+                 for a, b, c in ((0, 0, 9), (5, 0, 300), (0, 64, 0), (61, 130, 250),
+                                 (64, 57, 7))}
+        row = {"phase": "kernels", "kernel": "grouped_matmul",
+               "case": f"mixtral_{site}_row_independence", "equal": equal}
+        emit(row)
+        out[("grouped_matmul", row["case"])] = row
+        if not all(equal.values()):
+            raise AssertionError(f"grouped_matmul rows depend on the group sizes: {row}")
+        del xs, w
+        torch.cuda.empty_cache()
+    return out
+
+
 def _prompt_text(tokenizer, config, n_tokens: int) -> str:
     """A user turn whose dialog (the config's chat template) encodes to
     ``n_tokens`` tokens."""
@@ -5583,8 +5941,11 @@ def _engine_waves(torch, path: dict, specs) -> dict:
     chunks' graphs) under the launch gate, its streams compared across
     engines; then the same wave again, its chunks replayed, for the ms a
     step. The paged engine serves the second wave from the prefix cache:
-    whether it equals the cold wave is reported (a MoE model's grouped
-    dispatch gives other bits over other rows an expert)."""
+    whether it equals the cold wave is reported (the caller gates it). A
+    MoE model's cold wave records its grouped dispatches' rows an expert
+    (``group_sizes``: the first paged run's first) and gates the grouped
+    GEMM's launches, three a dispatch."""
+    from cake_tpu_torch.ops import moe
     from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
 
     gen = path["generator"]
@@ -5599,14 +5960,21 @@ def _engine_waves(torch, path: dict, specs) -> dict:
                                if paged else {}))
         eng = BatchEngine(config, gen.step.params, gen.tokenizer, max_seq_len=ENGINE_MAX_SEQ,
                           cache_dtype=torch.bfloat16, serve=serve, device=dev)
+        sizes: list = []
         try:
             counters = _zero_counters()
-            cold = _wave(eng, ENGINE_TOKENS, together=True)
+            moe.GROUP_SIZES = sizes
+            try:
+                cold = _wave(eng, ENGINE_TOKENS, together=True)
+            finally:
+                moe.GROUP_SIZES = None
             launches = _counts(counters)
             again = _wave(eng, ENGINE_TOKENS, together=True)
         finally:
             eng.stop()
         del eng
+        if paged and sizes and "group_sizes" not in out:
+            out["group_sizes"] = sizes[0]  # the epoch prefill's first layer
         decode, chunk = (("paged_decode_attention", "paged_chunk_attention") if paged
                          else ("decode_attention", "chunk_prefill_attention"))
         suffix = "" if on_card else "_plain"
@@ -5618,6 +5986,9 @@ def _engine_waves(torch, path: dict, specs) -> dict:
                "launches": launches}
         want = {decode + suffix: n_layers * cold["decode_steps"],
                 chunk + suffix: n_layers * (cold["batches"] + cold["joins"])}
+        if gen.config.num_local_experts:
+            want["grouped_matmul" + suffix] = 3 * len(sizes)
+            run["grouped_dispatches"] = len(sizes)
         run["expected_launches"] = want
         if any(launches[k] != v for k, v in want.items()):
             emit({"phase": "engine_waves", **run})
@@ -5691,6 +6062,14 @@ def phase_moe(torch, main_path: dict, config=None) -> dict:
     row["engine_runs"] = engines["runs"]
     row["paged_equal_dense"] = _equal_streams(streams["none/paged"], streams["none/dense"])
     row["all_equal_none"] = _equal_streams(streams["all/paged"], streams["none/paged"])
+    # The warm prefix waves (the paged engines' second waves, served from the
+    # cached chains) against the cold ones: the grouped GEMM's rows do not
+    # depend on their neighbours, so they must be equal.
+    row["warm_equal_cold"] = {r["spec"]: r["again_equal_cold"] for r in engines["runs"]
+                              if r["kv_mode"] == "paged"}
+    row["warm_prefix_hits"] = {r["spec"]: r["again"]["prefix_hits"] for r in engines["runs"]
+                               if r["kv_mode"] == "paged"}
+    row["group_sizes"] = engines.get("group_sizes")
     # --quantize int4: the expert stacks int8 (the mixed mode), the
     # attention products and the head through int4_matmul.
     t0 = time.perf_counter()
@@ -5712,6 +6091,10 @@ def phase_moe(torch, main_path: dict, config=None) -> dict:
         raise AssertionError("moe: --quantize int4 left an expert stack that is not int8")
     if row["paged_equal_dense"] != ENGINE_BATCH:
         raise AssertionError(f"moe: paged engine streams equal dense {row['paged_equal_dense']}/8")
+    if any(n != ENGINE_BATCH for n in row["warm_equal_cold"].values()) or not all(
+            row["warm_prefix_hits"].values()):
+        raise AssertionError(f"moe: warm prefix waves {row['warm_equal_cold']} (prefix hits "
+                             f"{row['warm_prefix_hits']}) are not the cold waves 8/8")
     row["launches"] = _sum_launches([gen_runs["launches"], engines["launches"],
                                      int4_run["launches"]])
     del path, qpath, params, qparams
@@ -5816,18 +6199,19 @@ def phase_phi3(torch, main_path: dict, config=None, ckpt_layers: int = PHI3_CKPT
 
 def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(),
                    int4_paths=(), f8_paths=(), continuous_path=None, distributed_path=None,
-                   model_paths=(), admission_path=None) -> dict:
+                   model_paths=(), admission_path=None, obs_path=None) -> dict:
     # The generate phase counted the dense kernels, the engine phase the paged
     # ones, the fused phases (generate_fused, engine_fused) the fused ones,
     # the int4 phases (generate_int4, engine_int4) int4_matmul, the f8 phases
     # (generate_f8, engine_f8) the five kernels' launches over an f8 cache;
     # engine_continuous adds its paged kernels' and noise kernel's launches,
-    # engine_admission its gated waves' paged kernels', distributed its TCP
+    # engine_admission its gated waves' paged kernels', obs its armed waves',
+    # distributed its TCP
     # runs' dense kernels' and noise kernel's, the model phases (moe, phi3)
     # every kernel's they ran.
     launches = {**engine_path["launches"], **main_path["launches"]}
     extra = dict(continuous_path["launches"]) if continuous_path else {}
-    for path in (distributed_path, admission_path):
+    for path in (distributed_path, admission_path, obs_path):
         for name, n in (path or {}).get("launches", {}).items():
             extra[name] = extra.get(name, 0) + n
     model_launches = _sum_launches(p["launches"] for p in model_paths)
@@ -5882,6 +6266,14 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(
     spec.append(("threefry_noise", "cake_tpu_torch/ops/csrc/threefry.cu",
                  "cake_tpu/ops/pallas/fused_sample_tail.py:62", ("threefry_noise",),
                  ("threefry_noise", "per_row_b8")))
+    # The grouped expert GEMM replaces no Pallas kernel either: the JAX
+    # package's grouped MoE dispatch is XLA's ragged_dot. Its launches: the
+    # moe phase's prefills (generator and engines).
+    launches["grouped_matmul"] = model_launches.get("grouped_matmul", 0)
+    if ("grouped_matmul", "mixtral_w_gate") in rows:
+        spec.append(("grouped_matmul", "cake_tpu_torch/ops/csrc/moe_grouped.cu",
+                     "cake_tpu/ops/moe.py:95", ("grouped_matmul",),
+                     ("grouped_matmul", "mixtral_w_gate")))
     bits = rows.get(("int4_matmul", "wgmma_bits"), {}).get("answer")
     out = []
     for name, source, replaces, families, timed in spec:
@@ -5900,6 +6292,12 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(
                     "threefry_noise"):
             # An empty kernel's time: these kernels' bytes bound lies below it.
             entry["launch_floor_ms"] = rows[("launch_floor", "empty_kernel")]["ms"]
+        if name == "grouped_matmul":
+            entry["counterpart"] = ("no Pallas kernel: the JAX package's grouped MoE dispatch "
+                                    "is XLA's ragged_dot (_ragged)")
+            entry["library"] = t.get("library")
+            entry["row_independence"] = all(all(r["equal"].values()) for k, r in rows.items()
+                                            if k[0] == name and "row_independence" in k[1])
         if name == "threefry_noise":
             entry["counterpart"] = ("no Pallas kernel: the JAX package draws this noise with "
                                     "XLA (gumbel_noise, jax.random.gumbel)")
@@ -5975,6 +6373,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     admission_path = phase_engine_admission(torch, main_path)
     torch.cuda.empty_cache()
+    obs_path = phase_obs(torch, main_path)
+    torch.cuda.empty_cache()
     distributed_path = phase_distributed(torch, main_path)
     torch.cuda.empty_cache()
     f8_paths = (phase_generate_f8(torch, main_path), phase_engine_f8(torch, main_path, engine_path))
@@ -5988,12 +6388,14 @@ def main() -> int:
     phase_generate_int8(torch, main_path)
     torch.cuda.empty_cache()
     kernel_rows.update({(r["kernel"], r["case"]): r for r in shape_cases(torch, dev)})
-    model_paths = (phase_moe(torch, main_path), phase_phi3(torch, main_path))
+    moe_path = phase_moe(torch, main_path)
+    kernel_rows.update(moe_grouped_cases(torch, dev, moe_path["group_sizes"]))
+    model_paths = (moe_path, phase_phi3(torch, main_path))
     torch.cuda.empty_cache()
     phase_cli(torch)
     emit(kernel_summary(kernel_rows, main_path, engine_path, fused_paths,
                         (int4_path, int4_engine), f8_paths, continuous_path, distributed_path,
-                        model_paths, admission_path))
+                        model_paths, admission_path, obs_path))
     emit({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

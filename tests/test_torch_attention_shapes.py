@@ -28,6 +28,7 @@ from cake_tpu_torch.ops.flash_attention import flash_attention
 from cake_tpu_torch.ops.fused_ingest import fused_qkv_ingest
 from cake_tpu_torch.ops.paged_attention import paged_decode_attention
 from cake_tpu_torch.ops.paged_prefill import paged_chunk_attention
+from _continuous_pair import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 2e-5
 # (head_dim, query heads, KV heads): Phi-3-mini's head dim, then groups 12,

@@ -29,6 +29,7 @@ from cake_tpu_torch.models.llama.generator import SamplingConfig
 from cake_tpu_torch.models.llama.paged_cache import PageAllocator, gather_pages, init_paged_cache
 from cake_tpu_torch.ops.rope import model_rope_tables
 from cake_tpu_torch.ops.threefry import prng_key
+from _continuous_pair import one_torch_thread  # noqa: F401  (autouse)
 
 MAX_SEQ = 256
 PAGE = 16

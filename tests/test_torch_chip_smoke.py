@@ -1,15 +1,15 @@
-"""``chip_smoke.py`` rehearsed on the CPU at a tiny size.
+"""``chip_smoke.py``'s helpers rehearsed on the CPU at a tiny size.
 
-On the card the script drives the port at Llama-3-8B width. Here its phases
-run at a tiny config with CPU tensors, so every attention call takes the
-plain version: this checks the control flow, the launch-count bookkeeping
-of the generator and of the batch engine, the API (serialized and engine)
-and CLI drives and the shape of the kernels line. Without CUDA, or outside
-a checkout of the repo, the script must fail and print no result.
+The phases rehearse in files of their own, one a phase
+(tests/test_torch_chip_smoke_<phase>.py: generate, engine, fused, f8,
+int4, decode_graph, cli, kernels_line, continuous, admission, distributed,
+moe, obs). Here: the operands the kernel cases are timed at against a real
+engine dispatch's, the f8 and noise cases and the bits gates at small
+sizes, the trace readers and the bound. Without CUDA, or outside a
+checkout of the repo, the script must fail and print no result.
 """
 
 import importlib.util
-import json
 import shutil
 import subprocess
 import sys
@@ -19,191 +19,15 @@ import pytest
 import torch
 
 from cake_tpu_torch.models.llama.config import LlamaConfig
+from _continuous_pair import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
-KERNEL_KEYS = {
-    "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-    "bound_ms", "bound_by", "library_ms",
-}
-
-
 @pytest.fixture(scope="module")
 def smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
-
-
-def test_phases_rehearse_on_the_cpu(smoke, capsys):
-    config = LlamaConfig.tiny(num_hidden_layers=2)
-    row = smoke.phase_generate(torch, "cpu", dev=torch.device("cpu"), config=config)
-    assert row["launches"] == row["expected_launches"]
-    assert row["launches"]["decode_attention_plain"] == 2 * (smoke.DECODE_TOKENS - 1)
-    assert row["launches"]["flash_attention_plain"] == 2
-    assert row["prompt_tokens"] == smoke.PROMPT_TOKENS
-    assert row["check"]["max_abs_err"] == 0.0  # on the CPU both runs are the plain path
-    smoke.phase_api(row)
-    engine = smoke.phase_engine(torch, row)
-    assert engine["launches"] == engine["expected_launches"]
-    assert engine["launches"]["paged_decode_attention_plain"] > 0
-    assert engine["launches"]["paged_chunk_attention_plain"] > 0
-    assert engine["dense_launches"] == engine["dense_expected_launches"]
-    assert engine["dense_launches"]["decode_attention_plain"] > 0
-    assert engine["dense_launches"]["chunk_prefill_attention_plain"] > 0
-    assert engine["prefix_hits_wave2"] > 0
-    assert engine["wave2_equal_streams"] == smoke.ENGINE_BATCH  # warm == cold, gated
-    assert engine["waves"][2]["joins"] > 0 and engine["dense_waves"][1]["joins"] > 0
-    # Both runs of each check are the plain path here.
-    assert engine["check"]["max_abs_err"] == 0.0
-    assert engine["dense_check"]["max_abs_err"] == 0.0
-    # On the CPU every path is the plain arithmetic: paged equals dense.
-    assert engine["dense_equal_streams"] == smoke.ENGINE_BATCH
-    assert engine["ragged_dense_equal_streams"] == len(smoke.RAGGED_TURNS)
-    for mode, names in (("paged", ("paged_decode_attention", "paged_chunk_attention")),
-                        ("dense", ("decode_attention", "chunk_prefill_attention"))):
-        assert set(engine["dispatches"][mode]) == set(names)
-    smoke.phase_api_engine(row, engine)
-    fused_gen = smoke.phase_generate_fused(torch, row)
-    assert fused_gen["launches"] == fused_gen["expected_launches"]
-    assert fused_gen["launches"]["fused_sample_tail_plain"] > 0
-    assert fused_gen["launches"]["fused_norm_matmul_plain"] > 0
-    assert fused_gen["check"]["max_abs_err"] == 0.0  # on the CPU both runs are plain
-    fused_engine = smoke.phase_engine_fused(torch, row)
-    assert [r["spec"] for r in fused_engine["runs"]] == ["none", "ingest,tail", "all", "all"]
-    for r in fused_engine["runs"]:
-        assert r["launches"] == r["expected_launches"]
-    all_paged = fused_engine["runs"][2]["launches"]
-    assert all_paged["fused_qkv_ingest_plain"] > 0 and all_paged["fused_sample_tail_plain"] > 0
-    # On the CPU every fusion is the plain arithmetic: all streams agree.
-    assert fused_engine["ingest_tail_equal_streams"] == [smoke.ENGINE_BATCH] * 2
-    assert fused_engine["all_equal_streams"] == [smoke.ENGINE_BATCH] * 2
-    assert fused_engine["check"]["max_abs_err"] == fused_engine["dense_check"]["max_abs_err"] == 0.0
-    # The sampled waves drew their noise through the plain twin here, once a
-    # first sample and once a decode step (gated), and never the kernel.
-    for r in fused_engine["runs"][:3]:
-        assert r["launches"]["threefry_noise_plain"] > 0
-        assert r["launches"]["threefry_noise_plain"] == r["expected_launches"]["threefry_noise_plain"]
-    assert fused_engine["runs"][3]["launches"]["threefry_noise_plain"] == 0  # dense: greedy only
-    assert fused_engine["noise_launches"] == 0
-    # The f8 phases: on the CPU the plain versions take every call and no
-    # launch counts as over f8 (the side counts are the kernels').
-    f8_gen = smoke.phase_generate_f8(torch, row)
-    for r in f8_gen["runs"]:
-        assert r["launches"] == r["expected_launches"]
-        assert r["launches"]["decode_attention_plain"] > 0 and r["launches"]["decode_attention.f8"] == 0
-    assert f8_gen["chunked_equal_tokens"] == smoke.DECODE_TOKENS
-    assert set(f8_gen["graph_bits"]) == set(smoke.GRAPH_KNOBS)
-    assert f8_gen["kv_bytes"] * 2 == f8_gen["bf16_kv_bytes"]
-    assert f8_gen["check"]["max_abs_err"] == 0.0
-    f8_engine = smoke.phase_engine_f8(torch, row, engine)
-    assert [(r["spec"], r["kv_mode"]) for r in f8_engine["runs"]] == [
-        ("none", "paged"), ("none", "dense"), ("all", "paged"), ("all", "dense")]
-    for r in f8_engine["runs"]:
-        assert r["launches"] == r["expected_launches"]
-    assert f8_engine["runs"][0]["warm_prefix_hits"] > 0
-    assert f8_engine["dense_equal_paged"] == f8_engine["warm_equal_cold"] == {
-        "none": smoke.ENGINE_BATCH, "all": smoke.ENGINE_BATCH}
-    assert 2 * f8_engine["pool_bytes"] == f8_engine["bf16_pool_bytes"]
-    int4 = smoke.phase_generate_int4(torch, row)
-    for r in int4["runs"]:
-        assert r["launches"] == r["expected_launches"]
-        assert r["launches"]["int4_matmul_plain"] > 0 and r["launches"]["int4_matmul"] == 0
-    assert int4["chunked_equal_tokens"] == smoke.DECODE_TOKENS
-    assert int4["check"]["max_abs_err"] == 0.0  # on the CPU both runs are plain
-    int4_engine = smoke.phase_engine_int4(torch, row, int4)
-    assert [(r["spec"], r["kv_mode"]) for r in int4_engine["runs"]] == [
-        ("none", "paged"), ("none", "dense"), ("all", "paged")]
-    for r in int4_engine["runs"]:
-        assert r["launches"] == r["expected_launches"]
-        assert r["launches"]["int4_matmul_plain"] > 0
-    fused_int4 = int4_engine["runs"][2]["launches"]
-    assert fused_int4["fused_norm_matmul.quantized"] > 0
-    assert fused_int4["fused_norm_matmul_plain"] == fused_int4["fused_norm_matmul"] == 0
-    assert int4_engine["dense_equal_paged"] == int4_engine["all_equal_none"] == smoke.ENGINE_BATCH
-    # The decode chunk's graph against its eager plain version: on the CPU
-    # a DecodeChunk runs its loop uncaptured, so this rehearses the bits
-    # checks' and the timings' bookkeeping (the card gates skip here).
-    graph = smoke.phase_decode_graph(torch, row, int4)
-    assert set(graph["generator_bits"]) == {
-        f"{c}_{k}" for c in ("bf16_none", "bf16_all", "int4_none") for k in ("greedy", "sampled")}
-    for r in graph["generator_bits"].values():
-        assert r["chunks_equal"] == [True] * smoke.GRAPH_CHUNKS and r["kv_equal"] and r["key_equal"]
-        assert r["per_step_equal"]
-    assert [(r["spec"], r["kv_mode"], r["int4"]) for r in graph["engine_bits"]] == [
-        ("none", "paged", False), ("all", "paged", False), ("none", "paged", True),
-        ("all", "dense", False)]
-    for r in graph["engine_bits"]:
-        assert r["dispatches"] > 0 and r["equal"] == r["dispatches"]
-        if r["kv_mode"] == "paged":
-            assert r["short_chunks"] > 0 and r["table_changes"] > 0
-    assert graph["engine_bits"][1]["pads_changes"] > 0  # the ragged wave's joins
-    assert [t["mode"] for t in graph["generator_timing"]] == ["graph", "eager"] * 3
-    assert [t["mode"] for t in graph["engine_timing"]] == ["graph", "eager"] * 2
-    assert graph["captures"]["captures"] == 0  # nothing is captured on the CPU
-    int8 = smoke.phase_generate_int8(torch, row)
-    assert int8["run"]["launches"] == int8["run"]["expected_launches"]
-    assert int8["run"]["launches"]["int4_matmul_plain"] == 0
-    smoke.phase_cli(torch, ("--device", "cpu"))
-    # The int4 bodies' bits probe at a small width (on the CPU every body is
-    # the plain version, so they agree).
-    bits = smoke.int4_wgmma_bits(torch, torch.device("cpu"), sites=(("w", 256, 128),), n_rows=40)
-    assert bits["answer"] == smoke.WGMMA_AGREE
-    assert set(bits["equal"]) == {f"w_wgmma{n}" for n in smoke.WGMMA_WIDTHS} | {
-        f"w_wgmma{n}_fold" for n in (32, 64, 128)}
-    timed = {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5,
-             "bound_by": "bytes", "library_ms": None, "route": "mma.sync"}
-    names = ["decode_attention", "chunk_prefill_attention", "paged_decode_attention",
-             "paged_chunk_attention", "fused_norm_matmul", "fused_qkv_ingest",
-             "fused_sample_tail", "int4_matmul"]
-    rows = {(name, "main_path"): timed for name in names[:4]}
-    rows.update({(name, case): timed for name, case in smoke.FUSED_MAIN.items()})
-    rows[("int4_matmul", smoke.INT4_MAIN)] = timed
-    rows[("int4_matmul", "w_gu_row_independence")] = {"equal": {"row0": True}}
-    rows[("int4_matmul", "wgmma_bits")] = bits
-    rows[("int4_matmul", "w_gu_rows3840")] = dict(timed, route="wgmma")
-    rows[("launch_floor", "empty_kernel")] = {"ms": 0.25}
-    f8_names = ["decode_attention", "chunk_prefill_attention", "paged_decode_attention",
-                "paged_chunk_attention", "fused_qkv_ingest"]
-    rows.update({(name, "main_path_f8"): dict(timed, library="sdpa") for name in f8_names[:4]})
-    rows[("fused_qkv_ingest", "paged_b8_f8")] = dict(timed, library="unfused")
-    rows[("threefry_noise", "per_row_b8")] = dict(timed, library="torch.rand", gumbel_bitwise=True)
-    # engine_continuous's launches (tests/test_torch_chip_smoke_continuous.py
-    # rehearses the phase) add to the paged kernels' and the noise kernel's.
-    cont = {"launches": {"paged_decode_attention": 3, "paged_chunk_attention": 5,
-                         "threefry_noise": 7}}
-    summary = smoke.kernel_summary(rows, row, engine, (fused_gen, fused_engine),
-                                   (int4, int4_engine), (f8_gen, f8_engine), cont)
-    assert [k["name"] for k in summary["kernels"]] == (
-        names + [f"{n}_f8" for n in f8_names] + ["threefry_noise"])
-    for k in summary["kernels"]:
-        extra = {"redesigned", "instructions"} if k["name"] in smoke.REDESIGNED else set()
-        if k["name"] in ("fused_qkv_ingest", "fused_sample_tail", "fused_qkv_ingest_f8",
-                         "threefry_noise"):
-            assert k["launch_floor_ms"] == 0.25
-            extra |= {"launch_floor_ms"}
-        if k["name"] == "threefry_noise":
-            extra |= {"counterpart", "library", "gumbel_bitwise"}
-        if k["name"].endswith("_f8"):
-            extra |= {"kv_dtype", "library"}
-        assert set(k) == KERNEL_KEYS | extra | ({"wgmma_bits"} if k["name"] == "int4_matmul" else set())
-    by_name = {k["name"]: k for k in summary["kernels"]}
-    assert by_name["int4_matmul"]["instructions"] == ["mma.sync", "wgmma"]
-    assert all(by_name[n]["redesigned"] == pr for n, pr in smoke.REDESIGNED.items())
-    assert by_name["int4_matmul"]["wgmma_bits"] == smoke.WGMMA_AGREE
-    assert by_name["int4_matmul"]["launches"] == int4["int4_launches"] + int4_engine["int4_launches"]
-    assert by_name["threefry_noise"]["launches"] == fused_engine["noise_launches"] + 7
-    for name, n in (("paged_decode_attention", 3), ("paged_chunk_attention", 5)):
-        assert by_name[name]["launches"] == engine["launches"][name] + n
-    phases = [json.loads(line)["phase"] for line in capsys.readouterr().out.splitlines()]
-    assert phases == ["generate", "full_model_check", "api", "engine", "paged_model_check",
-                      "dense_model_check", "api_engine", "generate_fused", "fused_model_check",
-                      "engine_fused", "paged_fused_model_check", "dense_fused_model_check",
-                      "generate_f8", "f8_model_check", "engine_f8", "paged_none_f8_model_check",
-                      "dense_none_f8_model_check", "paged_all_f8_model_check",
-                      "dense_all_f8_model_check",
-                      "generate_int4", "int4_model_check", "engine_int4", "decode_graph",
-                      "generate_int8", "cli", "kernels"]
 
 
 @pytest.mark.parametrize("kv_mode", ["paged", "dense"])

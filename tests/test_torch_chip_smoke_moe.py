@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from cake_tpu_torch.models.llama.config import LlamaConfig
+from _continuous_pair import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -76,6 +77,26 @@ def test_moe_phase_rehearses_on_the_cpu(smoke, main_path, monkeypatch, capsys):
     phases = [line for line in capsys.readouterr().out.splitlines() if '"phase"' in line]
     assert any('"phase": "moe_model_check"' in p for p in phases)
     assert row["launches"]["paged_decode_attention_plain"] > 0
+    # The warm prefix waves equal the cold ones (gated), and the grouped
+    # dispatch's products took the grouped GEMM's plain version, three a
+    # dispatch, in every run.
+    assert row["warm_equal_cold"] == {"none": smoke.ENGINE_BATCH, "all": smoke.ENGINE_BATCH}
+    assert all(row["warm_prefix_hits"].values())
+    assert per_step["launches"]["grouped_matmul_plain"] == 3 * per_step["grouped_dispatches"]
+    assert all(r["launches"]["grouped_matmul_plain"] == 3 * r["grouped_dispatches"] > 0
+               for r in row["engine_runs"])
+    assert sum(row["group_sizes"]) > 0 and len(row["group_sizes"]) == 4
+    # The grouped GEMM's kernel cases at that group (plain versions here).
+    monkeypatch.setattr(smoke, "cuda_ms", lambda torch, fn, iters, warmup=2: (fn(), 0.5)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    cases = smoke.moe_grouped_cases(torch, torch.device("cpu"), row["group_sizes"], config)
+    assert {c for _, c in cases} == {"mixtral_w_gate", "mixtral_w_gate_int8", "mixtral_w_down",
+                                     "mixtral_w_down_int8", "mixtral_w_gate_row_independence",
+                                     "mixtral_w_down_row_independence"}
+    gate = cases[("grouped_matmul", "mixtral_w_gate")]
+    assert gate["max_abs_err"] == 0.0 and gate["rows"] == sum(row["group_sizes"])
+    assert gate["flops"] == 2.0 * gate["rows"] * 128 * 192
 
 
 def test_phi3_phase_rehearses_on_the_cpu(smoke, main_path, monkeypatch, capsys):

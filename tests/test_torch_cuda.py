@@ -1852,3 +1852,76 @@ def test_moe_grouped_dispatch_refuses_a_capture(dev):
     out = moe.moe_swiglu(x[:, :1], router, w, w, w, top_k=2)  # the dense combine still runs
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
+
+
+def _grouped_case(dev, dtype, sizes, k, n, quant, seed):
+    from cake_tpu_torch.ops.quant import quantize_weight
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    m = sum(sizes)
+    xs = _randn(gen, dev, dtype, m, k)
+    w = _randn(gen, dev, torch.float32, len(sizes), k, n).mul(k ** -0.5)
+    mats = quantize_weight(w).w if quant else w.to(dtype)
+    offsets = torch.zeros(len(sizes) + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(torch.tensor(sizes, device=dev), 0)
+    return xs, mats, offsets
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["plain", "int8"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("sizes,k,n", [([3, 0, 70, 1], 128, 96), ([130, 64, 0, 5, 17, 1, 0, 9], 256, 384),
+                                       ([0, 0, 1], 96, 48)],
+                         ids=["4e", "8e", "one_row"])
+def test_moe_grouped_kernel_matches_plain(dev, dtype, sizes, k, n, quant):
+    """The grouped expert GEMM equals its plain version (one product an
+    expert) within one rounding step of the output's magnitude (f32: 1e-4
+    relative), empty groups included."""
+    from cake_tpu_torch.ops.moe import grouped_matmul, grouped_matmul_plain
+
+    if quant and n % 16:
+        pytest.skip("int8 stacks need a multiple of 16 columns")
+    xs, mats, offsets = _grouped_case(dev, dtype, sizes, k, n, quant, 5)
+    out = grouped_matmul(xs, mats, offsets, sizes)
+    ref = grouped_matmul_plain(xs, mats, sizes)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == dtype and torch.isfinite(out).all()
+    mag = ref.float().abs().max().item()
+    step = {torch.float32: 1e-4, torch.float16: 2.0 ** -10, torch.bfloat16: 2.0 ** -7}[dtype]
+    assert (out.float() - ref.float()).abs().max().item() <= step * mag
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_moe_grouped_rows_are_independent_of_the_group_sizes(dev, quant):
+    """The same rows give the same bits whatever shares their expert's
+    group: expert 1's rows alone, among 9 others, among 300 others, and
+    split across tiles at another offset."""
+    from cake_tpu_torch.ops.moe import grouped_matmul
+
+    xs, mats, _ = _grouped_case(dev, torch.bfloat16, [400, 400], 4096, 1024, quant, 9)
+    probe = xs[:7]
+
+    def run(n_e0, before, after):
+        # expert 0 takes n_e0 rows; expert 1 the probe between its neighbours
+        rows = torch.cat([xs[700 : 700 + n_e0], xs[400 : 400 + before], probe,
+                          xs[100 : 100 + after]])
+        sizes = [n_e0, before + 7 + after]
+        offsets = torch.tensor([0, sizes[0], sum(sizes)], dtype=torch.int32, device=dev)
+        out = grouped_matmul(rows, mats, offsets, sizes)
+        return out[n_e0 + before : n_e0 + before + 7]
+
+    ref = run(0, 0, 0)
+    for n_e0, before, after in [(0, 0, 9), (3, 0, 300), (0, 64, 0), (5, 61, 250), (64, 130, 5)]:
+        assert torch.equal(run(n_e0, before, after), ref), (n_e0, before, after)
+
+
+def test_moe_grouped_kernel_refuses_what_it_does_not_take(dev):
+    from cake_tpu_torch.ops.moe import grouped_matmul
+
+    xs, mats, offsets = _grouped_case(dev, torch.bfloat16, [4, 4], 48, 64, False, 1)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        grouped_matmul(xs, mats, offsets, [4, 4])
+    xs, mats, offsets = _grouped_case(dev, torch.bfloat16, [4, 4], 64, 64, False, 1)
+    with pytest.raises(TypeError):
+        grouped_matmul(xs, mats.half(), offsets, [4, 4])
+    with pytest.raises(ValueError, match="offsets"):
+        grouped_matmul(xs, mats, offsets.long(), [4, 4])

@@ -54,6 +54,7 @@ from cake_tpu_torch.ops.fused_ingest import fused_qkv_ingest_plain
 from cake_tpu_torch.ops.quant import quantize_params
 from cake_tpu_torch.ops.threefry import prng_key
 from cake_tpu_torch.runtime.batch_backend import LocalBatchBackend, PagedLocalBackend
+from _continuous_pair import one_torch_thread  # noqa: F401  (autouse)
 
 MAX_SEQ = 128
 PAGE = 8

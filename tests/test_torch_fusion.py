@@ -40,6 +40,7 @@ from cake_tpu_torch.ops.fused_norm_matmul import fused_norm_matmul, fused_norm_m
 from cake_tpu_torch.ops.fused_sample_tail import fused_sample_tail, fused_sample_tail_plain
 from cake_tpu_torch.ops.sampling import sample, sample_step
 from cake_tpu_torch.ops.threefry import TINY, gumbel, prng_key, split, uniform_from_bits
+from _continuous_pair import one_torch_thread  # noqa: F401  (autouse)
 
 SPECS = [
     "none", "", "all", "norm", "ingest", "tail", "norm,tail", " ingest , tail ",

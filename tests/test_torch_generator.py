@@ -38,6 +38,7 @@ from cake_tpu_torch.models.llama.chat import Message
 from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.generator import LlamaGenerator, SamplingConfig
 from cake_tpu_torch.runtime.api import ApiServer
+from _continuous_pair import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 PROMPT = "a prompt long enough to span several prefill chunks of the tiny model"

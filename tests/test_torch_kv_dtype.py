@@ -64,6 +64,7 @@ from cake_tpu_torch.ops.kv_dtype import (
 from cake_tpu_torch.ops.paged_attention import paged_decode_attention
 from cake_tpu_torch.ops.paged_prefill import paged_chunk_attention
 from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+from _continuous_pair import one_torch_thread  # noqa: F401  (autouse)
 
 JF8 = jnp.float8_e4m3fn
 F32_TOL = 1e-4  # f32 queries: XLA and torch reduce in different orders

@@ -26,6 +26,7 @@ from cake_tpu_torch.models.llama import model as M
 from cake_tpu_torch.ops import moe
 from cake_tpu_torch.ops.fuse import fuse_params
 from cake_tpu_torch.ops.quant import Quant4Weight, QuantWeight, quantize_params, quantize_weight
+from _continuous_pair import one_torch_thread  # noqa: F401  (autouse)
 
 E, H, INTER = 8, 64, 96
 

@@ -3,6 +3,7 @@ and against transformers, on the CPU.
 
 Each family's checkpoint is written by transformers' ``save_pretrained``
 from a local config (Mixtral; Qwen2-MoE with its shared expert and
+from _continuous_pair import one_torch_thread  # noqa: F401  (autouse)
 ``norm_topk_prob=False``; Qwen3-MoE with q/k norm; Phi-3 with and without
 ``sliding_window``), random weights from a seed, f32, never downloaded.
 Then:

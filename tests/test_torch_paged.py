@@ -38,6 +38,7 @@ from cake_tpu_torch.ops.paged_prefill import (
     paged_kernel_supported,
 )
 from cake_tpu_torch.runtime.prefix_cache import PrefixCache
+from _continuous_pair import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4  # f32 attention: the port's plain arithmetic vs the JAX package's
 SENTINEL = 2**30  # the JAX package's pad-key position

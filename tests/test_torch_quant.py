@@ -58,6 +58,7 @@ from cake_tpu_torch.ops.fuse import fuse_params
 from cake_tpu_torch.ops.fused_norm_matmul import fused_norm_matmul
 from cake_tpu_torch.ops.norm import rms_norm
 from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+from _continuous_pair import one_torch_thread  # noqa: F401  (autouse)
 
 GREEDY = dict(temperature=0.0, repeat_penalty=1.0)
 PROMPT = "a prompt long enough to span several prefill chunks of the tiny model"

@@ -40,6 +40,7 @@ from cake_tpu_torch.models.llama.generator import LlamaGenerator, SamplingConfig
 from cake_tpu_torch.models.llama.tokenizer import load_tokenizer
 from cake_tpu_torch.runtime.api import ApiServer
 from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+from _continuous_pair import one_torch_thread  # noqa: F401  (autouse)
 
 MAX_SEQ = 256
 PAGE = 16

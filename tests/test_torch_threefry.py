@@ -53,6 +53,7 @@ from cake_tpu_torch.models.llama.tokenizer import load_tokenizer
 from cake_tpu_torch.ops import sampling
 from cake_tpu_torch.ops import threefry as T
 from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+from _continuous_pair import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 GUMBEL_ATOL = 2e-6  # XLA:CPU's log and torch's differ in the last bit (~1e-6 at most)
