@@ -41,6 +41,7 @@ graph is held against.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 import weakref
 
@@ -69,7 +70,8 @@ class CaptureScope:
     batch_backend.py) moves its later chunks to a scope of their own: the
     abandoned dispatch, should it wake inside a capture, records onto its
     own stream and allocates from its own pool, and never joins a live
-    capture of the next epoch."""
+    capture of the next epoch; :data:`CARD_RUN_LOCK` keeps it from running
+    beside one."""
 
     def __init__(self):
         self._pools: dict = {}
@@ -92,6 +94,14 @@ class CaptureScope:
 
 
 SHARED_SCOPE = CaptureScope()
+
+# On the card one chunk runs at a time in a process: its input copies, its
+# warm-up and capture, and its replay's launch. A stream capture is
+# invalidated by what another thread does to the context meanwhile (a
+# context-wide synchronization, a kernel's first load), even in scopes of
+# their own, and a dispatch the engine abandoned may wake inside a chunk
+# while the next epoch captures its own (runtime/batch_backend.py).
+CARD_RUN_LOCK = threading.Lock()
 
 
 def sampled_decode_loop(
@@ -193,15 +203,18 @@ class DecodeChunk:
     def run(self, **inputs) -> torch.Tensor:
         """One chunk from ``inputs`` (see :meth:`load`): a replay of the
         graph on the card (captured at the first run), the loop itself on
-        the CPU. Returns the ids buffer [B, n]."""
-        self.load(**inputs)
+        the CPU. Returns the ids buffer [B, n]. On the card it holds
+        :data:`CARD_RUN_LOCK` throughout."""
         if self.device.type == "cuda":
-            if self.graph is None:
-                self._capture()
-            self.graph.replay()
+            with CARD_RUN_LOCK:
+                self.load(**inputs)
+                if self.graph is None:
+                    self._capture()
+                self.graph.replay()
             launches.replayed(self.captured)
             self.replays += 1
         else:
+            self.load(**inputs)
             self.body()
         return self.ids
 

@@ -112,7 +112,7 @@ _SIGNATURES = {
     "cake_moe_grouped": (
         _VOID, _VOID, _VOID, _VOID,                  # x w offsets out
         _INT, _INT, _INT, _INT,                      # M K N E
-        _INT, _INT, _INT, _VOID,                     # dtype quant tiles stream
+        _INT, _INT, _INT, _INT, _INT, _VOID,         # dtype quant body tile stages stream
     ),
     "cake_empty_kernel": (_VOID,),                   # stream
 }

@@ -21,12 +21,28 @@ package's rule:
     ``ragged_dot``, an XLA primitive, not a Pallas kernel). On the card
     each product (gate, up, down) is one launch of the grouped expert GEMM
     (:func:`grouped_matmul`, ``csrc/moe_grouped.cu``) over every expert,
-    the group offsets read from device memory; its rows are independent of
-    their neighbours, so a warm prefix wave gives the cold wave's bits. Its
-    plain version, one ``torch`` product an expert
-    (:func:`grouped_matmul_plain`), runs on the CPU. The group sizes still
-    come back to the host (:data:`GROUP_SIZES`, the capture guard), so this
-    path never runs under a CUDA graph capture.
+    the group offsets read from device memory. For f16/bf16 rows it is a
+    persistent Hopper kernel: blocks walk work items (expert, 256-row pair
+    of its group, column strip), numbered expert by expert with a strip's
+    row pairs side by side so each strip of W streams from device memory
+    about once; each block scans the groups' pair counts from ``offsets``
+    once and finds an item's expert by a binary search (:func:`tile_items`
+    is the same arithmetic on the host). TMA brings the x rows (a 2-D map
+    over [M, K]) and the W strip (a 3-D map over the stack, so a ragged
+    last K step reads zeros, never the next expert) into a ring a producer
+    warpgroup keeps full, and two consumer warpgroups run ``wgmma`` and
+    store only the rows below their group's end. A 16-bit stack runs on a
+    cluster of two blocks, 128 rows each, that multicast halves of the W
+    strip into both; an int8 stack runs "swap AB", W's columns the
+    product's M, widened from int8 straight into wgmma's register operand,
+    the item's 256 rows its N. Its rows are independent of their
+    neighbours, bitwise: the body, tile and instruction come from (K, N,
+    dtype, quant) alone (:func:`plan`), K runs in one fixed order, f32
+    accumulation, so a warm prefix wave gives the cold wave's bits. f32
+    rows take a CUDA-core loop. Its plain version, one ``torch`` product an
+    expert (:func:`grouped_matmul_plain`), runs on the CPU. The group sizes
+    still come back to the host (:data:`GROUP_SIZES`, the
+    capture guard), so this path never runs under a CUDA graph capture.
 
 The two reduce the experts' contributions in different orders, so a
 sequence's low-precision stream depends on the chunk width, as in the JAX
@@ -52,6 +68,7 @@ expert-parallel ``tp_axis`` and the capacity dispatch it takes, and the
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -110,9 +127,122 @@ def route_topk(logits: torch.Tensor, top_k: int, n_experts: int, norm_topk: bool
     return weights.scatter(-1, topi, topv)
 
 
-# The grouped GEMM's row tile (csrc/moe_grouped.cu BM): its grid has at
-# most ceil(rows / ROW_TILE) + E row tiles.
-ROW_TILE = 64
+# Geometry shared with csrc/moe_grouped.cu.
+ROW_TILE = 128  # rows a block of the warp-specialized body covers: two warpgroups of 64
+CLUSTER = 2  # its blocks of an item, one row tile each, sharing the W strip by multicast
+PAIR_ROWS = CLUSTER * ROW_TILE  # rows a work item covers (swap AB: one block)
+BLOCK_K = 64  # K a step covers
+X_STAGE = ROW_TILE * 128  # a step's x tile, 16 KB
+W_BOX = BLOCK_K * 128  # 64 k x 64 16-bit columns, or 64 k x 128 int8 columns, 8 KB
+SA_COLS = 128  # W columns a swap-AB item covers (int8 stacks)
+MAX_STAGES = 8
+SMEM_CAP = 227 * 1024  # dynamic shared memory a block may take
+BODIES = {"f32": 0, "warp_specialized": 1, "swap_ab": 2}  # the C entry point's codes
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one grouped product runs: the body, its column tile, the ring."""
+
+    body: str  # "f32" (CUDA cores), "warp_specialized" or "swap_ab" (wgmma)
+    tile: int  # output columns an item covers
+    stages: int  # the ring's depth (0: the f32 body has none)
+
+    @property
+    def instruction(self) -> str:
+        """The product instruction every output element accumulates on."""
+        if self.body == "warp_specialized":
+            return f"wgmma m64n{self.tile}k16 (x and W from shared memory)"
+        if self.body == "swap_ab":
+            return f"wgmma m64n{PAIR_ROWS}k16 (W^T from registers, x^T from shared memory)"
+        return "fmaf"
+
+    @property
+    def route(self) -> str:
+        return "CUDA cores" if self.body == "f32" else "wgmma"
+
+
+def stage_bytes(tile: int, quant: bool) -> int:
+    """A TMA stage of a wgmma body: the x tile and the W strip as stored
+    (16-bit, or the raw int8 strip the swap-AB body widens in registers)."""
+    return (PAIR_ROWS * 128 + W_BOX) if quant else X_STAGE + tile // 64 * W_BOX
+
+
+def plan(k: int, n: int, dtype: torch.dtype, quant: bool, experts: int) -> Plan:
+    """The body and geometry of a product into an [experts, k, n] stack.
+
+    The body, the column tile and so the instruction are a function of (k,
+    n, dtype, quant) alone, never of the rows or the group sizes, so a
+    row's sum runs over the same K steps in the same order whatever its
+    group holds: f32 rows the CUDA-core loop, 16-bit stacks the
+    warp-specialized body (m64n{tile}k16, 256 columns an item where the
+    strips stay mostly full, else 128), int8 stacks swap AB (m64n256k16
+    over an item's 256 rows, 128 columns). ``experts`` sets only the ring's
+    depth (the group offsets and their prefix share the block's shared
+    memory; the ring is a pipeline, not arithmetic). Raises for what the
+    kernel does not take."""
+    if dtype not in (torch.float32, torch.float16, torch.bfloat16):
+        raise TypeError(f"grouped_matmul: rows of {dtype}")
+    if k < 32 or k % 32 or n < 8 or n % (16 if quant else 8) or experts < 1:
+        raise ValueError(f"grouped_matmul: K {k} must be a multiple of 32 and N {n} of "
+                         f"{16 if quant else 8}")
+    if dtype == torch.float32:
+        return Plan("f32", 128, 0)
+    body, tile = ("swap_ab", SA_COLS) if quant else ("warp_specialized", 256 if n >= 512 else 128)
+    # The ring, the 1024-byte alignment, the offsets and their prefix, and
+    # room for the kernel's static mbarriers.
+    stages = min(MAX_STAGES, (SMEM_CAP - 2048 - 8 * (experts + 1)) // stage_bytes(tile, quant))
+    if stages < 2:
+        raise ValueError(f"grouped_matmul: {experts} experts leave no room for the ring")
+    return Plan(body, tile, stages)
+
+
+def item_prefix(offsets) -> list[int]:
+    """The work items a strip of the groups before each expert, [E + 1]
+    (the kernel's ``tpre``: a scan of ceil(rows / PAIR_ROWS) a group)."""
+    offs = [int(v) for v in offsets]
+    pre = [0]
+    for lo, hi in zip(offs, offs[1:]):
+        pre.append(pre[-1] + -(-(hi - lo) // PAIR_ROWS))
+    return pre
+
+
+def tile_items(offsets, n: int, p: Plan) -> list[tuple[int, int, int, int, int, int]]:
+    """The wgmma bodies' work in order, one entry a block of an item:
+    (item, expert, the block's first row, its rows, the group's row end,
+    first column), by the kernels' arithmetic. Item t's expert is the last
+    whose first item is at or before t (a binary search of the prefix),
+    then its strip and row pair (the pair fastest). The warp-specialized
+    body runs an item on a cluster of two blocks of 128 rows, swap AB on
+    one block of 256; a block computes all its rows and stores those below
+    the group's end. ``offsets``: [E + 1] group bounds (a list or a CPU
+    tensor)."""
+    offs = [int(v) for v in offsets]
+    pre = item_prefix(offs)
+    n_e, strips = len(offs) - 1, -(-n // p.tile)
+    blocks = CLUSTER if p.body == "warp_specialized" else 1
+    rows = PAIR_ROWS // blocks
+    out = []
+    for t in range(strips * pre[-1]):
+        lo, hi = 0, n_e
+        while hi - lo > 1:
+            mid = (lo + hi) >> 1
+            if strips * pre[mid] <= t:
+                lo = mid
+            else:
+                hi = mid
+        pairs, local = pre[lo + 1] - pre[lo], t - strips * pre[lo]
+        for rank in range(blocks):
+            out.append((t, lo, offs[lo] + local % pairs * PAIR_ROWS + rank * rows, rows,
+                        offs[lo + 1], local // pairs * p.tile))
+    return out
+
+
+def item_bound(m: int, n: int, experts: int, p: Plan) -> int:
+    """The host's bound on the items (the persistent grid's item slots
+    before the card's cap): each group wastes at most one row pair a
+    strip."""
+    return -(-n // p.tile) * (-(-m // PAIR_ROWS) + experts)
 
 
 def grouped_matmul_plain(xs: torch.Tensor, mats: torch.Tensor, sizes: list[int]) -> torch.Tensor:
@@ -132,6 +262,12 @@ def grouped_matmul_plain(xs: torch.Tensor, mats: torch.Tensor, sizes: list[int])
 grouped_matmul_plain.launches = 0
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (TMA's requirement)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def grouped_matmul(xs: torch.Tensor, mats: torch.Tensor, offsets: torch.Tensor,
                    sizes: list[int]) -> torch.Tensor:
     """Rows sorted by expert [M, K], each group times its own expert's
@@ -139,8 +275,9 @@ def grouped_matmul(xs: torch.Tensor, mats: torch.Tensor, offsets: torch.Tensor,
     [M, N] in x's dtype. ``offsets`` [E + 1] int32 on x's device delimit the
     groups (the kernel reads them there); ``sizes`` are the same groups on
     the host, read by the plain version only. On the card one launch covers
-    every expert; an output row's bits depend on that row and its expert's
-    weights alone (a fixed row tile, K in one fixed order, f32 accumulation)."""
+    every expert, in the geometry :func:`plan` gives; an output row's bits
+    depend on that row and its expert's weights alone (a fixed tile and
+    instruction, K in one fixed order, f32 accumulation)."""
     if xs.device.type == "cpu":
         return grouped_matmul_plain(xs, mats, sizes)
     if xs.device.type != "cuda":
@@ -153,18 +290,15 @@ def grouped_matmul(xs: torch.Tensor, mats: torch.Tensor, offsets: torch.Tensor,
     if k2 != k or offsets.shape != (e + 1,) or offsets.dtype != torch.int32:
         raise ValueError(f"grouped_matmul: rows {tuple(xs.shape)}, experts {tuple(mats.shape)}, "
                          f"offsets {tuple(offsets.shape)} {offsets.dtype}")
-    if k % 32 or n % (16 if quant else 8):
-        raise ValueError(f"grouped_matmul: K {k} must be a multiple of 32 and N {n} of "
-                         f"{16 if quant else 8}")
-    xs = xs.contiguous()
-    mats = mats.contiguous()
+    p = plan(k, n, xs.dtype, quant, e)
+    xs = _aligned(xs)
+    mats = _aligned(mats)
     out = torch.empty((m, n), dtype=xs.dtype, device=xs.device)
     if m:
-        tiles = -(-m // ROW_TILE) + e
         err = _build.library().cake_moe_grouped(
             xs.data_ptr(), mats.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-            m, k, n, e, _build.dtype_code(xs.dtype), int(quant), tiles,
-            ctypes.c_void_p(torch.cuda.current_stream(xs.device).cuda_stream),
+            m, k, n, e, _build.dtype_code(xs.dtype), int(quant), BODIES[p.body], p.tile,
+            p.stages, ctypes.c_void_p(torch.cuda.current_stream(xs.device).cuda_stream),
         )
         _build.check(err, "grouped_matmul")
         count(grouped_matmul)

@@ -50,7 +50,10 @@ wakes after the drop raises before it reads the allocator's tables. A
 decode binds the chunk cache before that check, so one that passed it and
 stalls further in keeps the abandoned cache: the chunks it builds or runs
 on waking, and their graphs, stay apart from the next epoch's, and it
-captures in a ``CaptureScope`` of its own (models/llama/fused.py).
+captures in a ``CaptureScope`` of its own (models/llama/fused.py). On the
+card its chunk runs take turns with the next epoch's (``CARD_RUN_LOCK``):
+a capture is invalidated by what another thread does to the context
+meanwhile.
 """
 
 from __future__ import annotations

@@ -1842,7 +1842,8 @@ BODY_ROUTES = (("int4_wgmma_kernel", "wgmma"), ("int4_mma_kernel", "mma.sync"),
                ("chunk_kernel", "CUDA cores"), ("split_decode_kernel", "CUDA cores"),
                ("norm_matmul_swap_ab_kernel", "wgmma"), ("norm_matmul_ws_kernel", "wgmma"),
                ("norm_matmul_kernel", "CUDA cores"), ("ingest_kernel", "CUDA cores"),
-               ("tail_kernel", "CUDA cores"))
+               ("tail_kernel", "CUDA cores"), ("grouped_ws_kernel", "wgmma"),
+               ("grouped_swap_kernel", "wgmma"))
 
 
 def kernel_route(names) -> str | None:
@@ -2938,14 +2939,14 @@ def _engine_fused_expected(counters, rec, fusions, kv_mode: str, n_layers: int, 
 
 def _fused_engine_run(torch, make, spec: str, kv_mode: str, n_layers: int, on_card: bool,
                       sampled: bool, int4: bool = False, f8: bool = False,
-                      warm: bool = False, first_together: bool = True) -> dict:
+                      warm: bool = False, together: bool = True) -> dict:
     """One engine with fusion ``spec``: warm-up waves (they capture the
     decode chunks' graphs), then wave 1 (and the sampled wave; with
     ``warm``, wave 1 again, served from the prefix cache) under the launch
     gate, then two warm profiled waves of 16 and 32 tokens: their
     difference gives the device ops and ms of 16 decode steps, the prefill
-    being the same in both. ``first_together=False`` submits wave 1 one
-    request at a time, for the admission window to gather."""
+    being the same in both. ``together=False`` submits wave 1 and the warm
+    wave one request at a time, for the admission window to gather."""
     from cake_tpu_torch.models.llama.generator import SamplingConfig
     from cake_tpu_torch.ops.fuse import parse_fusion_spec
 
@@ -2965,13 +2966,13 @@ def _fused_engine_run(torch, make, spec: str, kv_mode: str, n_layers: int, on_ca
         # admission window (a split wave joins other shapes and may give
         # other bits); each wave's batches and joins are in its row.
         with dispatch_recorder(eng.backend) as rec:
-            waves = [_wave(eng, ENGINE_TOKENS, together=first_together)]
+            waves = [_wave(eng, ENGINE_TOKENS, together=together)]
             if sampled:
                 at = {k: len(v) for k, v in rec.items()}
                 waves.append(_wave(eng, ENGINE_TOKENS, samplings=sampled_wave, together=True))
                 sampled_rec = {k: v[at[k]:] for k, v in rec.items()}
             if warm:
-                waves.append(_wave(eng, ENGINE_TOKENS, together=True))
+                waves.append(_wave(eng, ENGINE_TOKENS, together=together))
         launches, expected = _engine_fused_expected(
             counters, rec, parse_fusion_spec(spec), kv_mode, n_layers, on_card, int4, f8,
             sampled_rec)
@@ -3031,7 +3032,7 @@ def phase_engine_fused(torch, main_path: dict) -> dict:
                           ("all", "dense")):
         # Wave 1 gathered by the admission window, as a client's burst is.
         runs.append(_fused_engine_run(torch, make, spec, kv_mode, n_layers, on_card,
-                                      sampled=kv_mode == "paged", first_together=False))
+                                      sampled=kv_mode == "paged", together=False))
         if on_card:
             torch.cuda.empty_cache()
     none, exact, fused, dense = runs
@@ -3771,7 +3772,8 @@ class _StalledInside:
     key captures the chunk's graph and replays it on the card. The next
     wave's first decode releases it without waiting, so on waking it
     captures and replays over the abandoned storage while the next epoch
-    captures its own graphs. ``close()`` restores both wrapped calls."""
+    captures its own graphs: the two take turns at their chunk runs
+    (``fused.CARD_RUN_LOCK``). ``close()`` restores both wrapped calls."""
 
     def __init__(self, fused, backend):
         self.fused, self.backend, self.outer = fused, backend, backend.decode
@@ -3958,9 +3960,10 @@ def phase_engine_admission(torch, main_path: dict, tokens: int = ADMISSION_TOKEN
         ``DecodeChunk.run`` after its storage check passed; its epoch's
         streams end "error" within the grace's bound; released at the next
         wave's first decode, it captures and replays its graph over the
-        abandoned storage while that wave captures its own; that wave's
-        streams equal the gates-off engine's sampled wave 1 bitwise, with no
-        stream error (gated).
+        abandoned storage while that wave captures its own (the two chunk
+        runs take turns, ``fused.CARD_RUN_LOCK``); that wave's streams
+        equal the gates-off engine's sampled wave 1 bitwise, with no stream
+        error (gated).
     """
     from cake_tpu_torch.models.llama import fused
     from cake_tpu_torch.models.llama.chat import Message
@@ -4900,8 +4903,11 @@ def phase_engine_f8(torch, main_path: dict, engine_path: dict) -> dict:
     runs = {}
     for spec, kv_mode in (("none", "paged"), ("none", "dense"), ("all", "paged"),
                           ("all", "dense")):
+        # The compared waves one request at a time, as engine_int4's: a
+        # wave the admission window splits shows in its batches and joins.
         runs[spec, kv_mode] = _fused_engine_run(torch, make, spec, kv_mode, n_layers, on_card,
-                                                sampled=False, f8=True, warm=kv_mode == "paged")
+                                                sampled=False, f8=True, warm=kv_mode == "paged",
+                                                together=False)
         if on_card:
             torch.cuda.empty_cache()
 
@@ -4929,6 +4935,7 @@ def phase_engine_f8(torch, main_path: dict, engine_path: dict) -> dict:
         "config": {"page_size": ENGINE_PAGE, "max_seq": ENGINE_MAX_SEQ, "max_batch": ENGINE_BATCH,
                    "decode_chunk": 8, "tokens_out": ENGINE_TOKENS, "layers": n_layers},
         "runs": [summary(r) for r in runs.values()],
+        "wave_submitted": "one request at a time",
         "pool_bytes": runs["none", "paged"]["kv_bytes"],
         "bf16_pool_bytes": engine_path["pool_bytes"],
         "dense_equal_paged": {spec: equal(runs[spec, "dense"]["waves"][0],
@@ -4996,7 +5003,7 @@ def phase_engine_int4(torch, main_path: dict, int4_path: dict) -> dict:
     runs = []
     for spec, kv_mode in (("none", "paged"), ("none", "dense"), ("all", "paged")):
         runs.append(_fused_engine_run(torch, make, spec, kv_mode, n_layers, on_card,
-                                      sampled=False, int4=True, first_together=False))
+                                      sampled=False, int4=True, together=False))
         if on_card:
             torch.cuda.empty_cache()
     paged, dense, fused = runs
@@ -5792,10 +5799,12 @@ def moe_grouped_cases(torch, dev, sizes: list[int], config=None) -> dict:
     down (14336 -> 4096) products over 8 random experts, bf16 and int8
     stacks: within one bf16 rounding step of its plain version (one cuBLAS
     product an expert: the cuBLAS loop the kernel replaced). Its library
-    call is ``torch._grouped_mm`` where this torch has it (bf16 only).
+    call is ``torch._grouped_mm`` where this torch has it (bf16 only); on
+    the card each case's instructions come from a trace of its kernels.
     Then row independence (gated): a probe's rows give the same bits among
-    other group sizes, as a warm prefix wave needs. ``config``: a tiny one
-    off the card."""
+    other group sizes, as a warm prefix wave needs, the probe also
+    straddling a warpgroup's 64 rows, a block's 128 and an item's 256 and
+    384. ``config``: a tiny one off the card."""
     from cake_tpu_torch.ops import moe
     from cake_tpu_torch.ops.quant import quantize_weight
 
@@ -5833,16 +5842,19 @@ def moe_grouped_cases(torch, dev, sizes: list[int], config=None) -> dict:
             nbytes = (used * k * n * mats.element_size()
                       + m * k * xs.element_size() + m * n * 2)
             case = f"mixtral_{site}" + ("_int8" if quant else "")
+            route = traced_route(torch, run) if dev.type == "cuda" else None
             out[("grouped_matmul", case)] = _check(
                 torch, "grouped_matmul", case, got, ref, cuda_ms(torch, run, 10),
                 cuda_ms(torch, plain, 5), nbytes, 2.0 * m * k * n, library_ms,
-                tol=bf16_ulp(ref), extra={"rows": m, "rows_per_expert": sizes,
-                                          "library": library})
+                tol=bf16_ulp(ref), route=route,
+                extra={"rows": m, "rows_per_expert": sizes, "library": library,
+                       "plan": dataclasses.asdict(moe.plan(k, n, xs.dtype, quant, n_exp))})
             del got, ref, mats
         # Row independence: 7 probe rows of expert 1 among other rows.
         probe = xs[:7]
+        pool = xs.repeat(-(-800 // m), 1)  # rows enough for every layout
 
-        def rows_of(n_e0: int, before: int, after: int, w_=w.to(torch.bfloat16), xs_=xs):
+        def rows_of(n_e0: int, before: int, after: int, w_=w.to(torch.bfloat16), xs_=pool):
             rows = torch.cat([xs_[-n_e0:] if n_e0 else xs_[:0], xs_[7 : 7 + before], probe,
                               xs_[100 : 100 + after]])
             grp = [n_e0, before + 7 + after] + [0] * (n_exp - 2)
@@ -5853,13 +5865,83 @@ def moe_grouped_cases(torch, dev, sizes: list[int], config=None) -> dict:
         want = rows_of(0, 0, 0)
         equal = {f"e0_{a}_before_{b}_after_{c}": bool(torch.equal(rows_of(a, b, c), want))
                  for a, b, c in ((0, 0, 9), (5, 0, 300), (0, 64, 0), (61, 130, 250),
-                                 (64, 57, 7))}
+                                 (64, 57, 7), (3, 60, 200), (0, 124, 5), (97, 253, 40),
+                                 (1, 381, 2))}
         row = {"phase": "kernels", "kernel": "grouped_matmul",
                "case": f"mixtral_{site}_row_independence", "equal": equal}
         emit(row)
         out[("grouped_matmul", row["case"])] = row
         if not all(equal.values()):
             raise AssertionError(f"grouped_matmul rows depend on the group sizes: {row}")
+        del xs, w, pool
+        torch.cuda.empty_cache()
+    return out
+
+
+# Qwen/Qwen3-30B-A3B's config.json: hidden 2048, moe_intermediate_size 768,
+# 128 experts, top 8.
+QWEN3_MOE = {"hidden": 2048, "inter": 768, "experts": 128, "top_k": 8}
+QWEN3_TOKENS = 512  # a prefill chunk's tokens: 4096 rows over the experts
+
+
+def qwen3_moe_sizes(torch, tokens: int = QWEN3_TOKENS, experts: int = QWEN3_MOE["experts"],
+                    top_k: int = QWEN3_MOE["top_k"]) -> list[int]:
+    """A seeded routing of ``tokens`` tokens to ``top_k`` of ``experts``
+    experts each, skewed (log-normal preferences), as rows an expert: many
+    experts get a handful of rows, some none."""
+    gen = torch.Generator().manual_seed(3)
+    pref = torch.randn(experts, generator=gen).mul(1.5).exp()
+    picks = torch.multinomial(pref.expand(tokens, experts), top_k, generator=gen)
+    return torch.bincount(picks.flatten(), minlength=experts).tolist()
+
+
+def moe_grouped_qwen3_cases(torch, dev, widths=None) -> dict:
+    """The grouped expert GEMM at Qwen3-30B-A3B's expert widths (gate 2048
+    -> 768, down 768 -> 2048, 128 experts, bf16 and int8 stacks) over a
+    seeded routing of a 512-token chunk (``qwen3_moe_sizes``): within one
+    bf16 rounding step of its plain version, beside ``torch._grouped_mm``
+    (bf16). ``widths``: tiny ones off the card."""
+    from cake_tpu_torch.ops import moe
+    from cake_tpu_torch.ops.quant import quantize_weight
+
+    cfg = widths or QWEN3_MOE
+    sizes = qwen3_moe_sizes(torch, experts=cfg["experts"], top_k=cfg["top_k"])
+    n_exp, m = cfg["experts"], sum(sizes)
+    offsets = torch.zeros(n_exp + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(torch.tensor(sizes, device=dev), 0)
+    used = sum(1 for n in sizes if n)
+    g = torch.Generator(device=dev).manual_seed(17)
+    out: dict = {}
+    for site, k_name, n_name in GROUPED_SITES:
+        k, n = cfg[k_name], cfg[n_name]
+        xs = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn(n_exp, k, n, generator=g, device=dev).mul_(k ** -0.5)
+        for quant in (False, True):
+            mats = quantize_weight(w).w if quant else w.to(torch.bfloat16)
+            run = lambda mats=mats: moe.grouped_matmul(xs, mats, offsets, sizes)  # noqa: E731
+            plain = lambda mats=mats: moe.grouped_matmul_plain(xs, mats, sizes)  # noqa: E731
+            got, ref = run(), plain()
+            torch.cuda.synchronize()
+            library_ms = None
+            if not quant and hasattr(torch, "_grouped_mm"):
+                try:
+                    lib = lambda mats=mats: torch._grouped_mm(xs, mats, offs=offsets[1:])  # noqa: E731
+                    lib()
+                    library_ms = cuda_ms(torch, lib, 10)
+                except (RuntimeError, TypeError):
+                    library_ms = None
+            nbytes = (used * k * n * mats.element_size()
+                      + m * k * xs.element_size() + m * n * 2)
+            case = f"qwen3_30b_a3b_{site}" + ("_int8" if quant else "")
+            out[("grouped_matmul", case)] = _check(
+                torch, "grouped_matmul", case, got, ref, cuda_ms(torch, run, 10),
+                cuda_ms(torch, plain, 5), nbytes, 2.0 * m * k * n, library_ms,
+                tol=bf16_ulp(ref),
+                extra={"rows": m, "experts": n_exp, "experts_used": used,
+                       "rows_per_expert_max": max(sizes),
+                       "plan": dataclasses.asdict(moe.plan(k, n, xs.dtype, quant, n_exp)),
+                       "library": {"call": "torch._grouped_mm"} if library_ms else None})
+            del got, ref, mats
         del xs, w
         torch.cuda.empty_cache()
     return out
@@ -6007,6 +6089,67 @@ def _equal_streams(a, b) -> int:
     return sum(x == y for x, y in zip(a, b))
 
 
+AB_TOKENS = 2  # tokens out a prefill A/B wave: the first token and one decode step
+
+
+def _moe_prefill_ab(torch, path: dict) -> dict:
+    """One cold engine prefill of wave 1 (the paged engine's, whose first
+    layer's rows an expert the grouped GEMM's kernel cases take), timed
+    with the grouped GEMM's kernel and with its plain version (one cuBLAS
+    product an expert) patched in, alternately (kernel, plain, kernel,
+    plain), the prefix cache cleared before each. Reports the engine's
+    prefill seconds and TTFT p50 per wave and the launches each took; the
+    plain waves' streams need not equal the kernel's (cuBLAS sums in
+    another order)."""
+    from unittest import mock
+
+    from cake_tpu_torch.ops import moe
+    from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+
+    gen = path["generator"]
+    dev = gen.step.device
+    serve = ServeConfig(max_batch=ENGINE_BATCH, decode_chunk_size=8, kv_mode="paged",
+                        page_size=ENGINE_PAGE, prefix_cache=True)
+    eng = BatchEngine(gen.config, gen.step.params, gen.tokenizer, max_seq_len=ENGINE_MAX_SEQ,
+                      cache_dtype=torch.bfloat16, serve=serve, device=dev)
+
+    def plain(xs, mats, offsets, sizes):
+        return moe.grouped_matmul_plain(xs, mats, sizes)
+
+    out: dict = {"kernel": [], "plain": []}
+    try:
+        _wave(eng, AB_TOKENS, warm_messages(), together=True)  # captures the decode chunk
+        for variant in ("kernel", "plain", "kernel", "plain"):
+            eng._prefix.clear()
+            sizes: list = []
+            counters = _zero_counters()
+            moe.GROUP_SIZES = sizes
+            try:
+                with (mock.patch.object(moe, "grouped_matmul", plain) if variant == "plain"
+                      else contextlib.nullcontext()):
+                    wave = _wave(eng, AB_TOKENS, together=True)
+            finally:
+                moe.GROUP_SIZES = None
+            launches = _counts(counters)
+            out[variant].append({
+                "prefill_s": wave["prefill_s"], "ttft_p50_s": wave["ttft_p50_s"],
+                "batches": wave["batches"], "prefix_hits": wave["prefix_hits"],
+                "grouped_dispatches": len(sizes),
+                "grouped_launches": launches.get("grouped_matmul", 0),
+                "plain_launches": launches.get("grouped_matmul_plain", 0),
+                "rows_per_expert_layer0": sizes[0] if sizes else None,
+                "streams": wave["streams"]})
+    finally:
+        eng.stop()
+    del eng
+    first = out["kernel"][0]
+    out["streams_equal"] = [_equal_streams(r["streams"], first["streams"])
+                            for r in out["kernel"] + out["plain"]]
+    for r in out["kernel"] + out["plain"]:
+        del r["streams"]
+    return out
+
+
 def phase_moe(torch, main_path: dict, config=None) -> dict:
     """Mixtral-8x7B's widths at MOE_LAYERS layers (``config``: a tiny one
     off the card), random bf16 weights from a seed: the generator per step
@@ -6070,6 +6213,9 @@ def phase_moe(torch, main_path: dict, config=None) -> dict:
     row["warm_prefix_hits"] = {r["spec"]: r["again"]["prefix_hits"] for r in engines["runs"]
                                if r["kv_mode"] == "paged"}
     row["group_sizes"] = engines.get("group_sizes")
+    # The grouped GEMM's share of a cold prefill: the kernel against its
+    # plain version patched in, on the same wave.
+    row["prefill_ab"] = _moe_prefill_ab(torch, path)
     # --quantize int4: the expert stacks int8 (the mixed mode), the
     # attention products and the head through int4_matmul.
     t0 = time.perf_counter()
@@ -6332,7 +6478,8 @@ def _shape_rows(rows: dict, name: str, model_paths) -> list:
     by_phase = {p["phase"]: p["launches"] for p in model_paths}
     out = []
     for (kernel, case), r in rows.items():
-        if kernel != name or not case.startswith(("phi3_", "qwen3_235b", "g12", "g32")):
+        if kernel != name or not case.startswith(("phi3_", "qwen3_235b", "qwen3_30b", "g12",
+                                                   "g32")):
             continue
         phase = _SHAPE_PHASE.get(case.split("_")[0])
         n = by_phase.get(phase, {}).get(kernel + (".f8" if case.endswith("_f8") else ""))
@@ -6390,6 +6537,7 @@ def main() -> int:
     kernel_rows.update({(r["kernel"], r["case"]): r for r in shape_cases(torch, dev)})
     moe_path = phase_moe(torch, main_path)
     kernel_rows.update(moe_grouped_cases(torch, dev, moe_path["group_sizes"]))
+    kernel_rows.update(moe_grouped_qwen3_cases(torch, dev))
     model_paths = (moe_path, phase_phi3(torch, main_path))
     torch.cuda.empty_cache()
     phase_cli(torch)

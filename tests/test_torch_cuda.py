@@ -479,6 +479,69 @@ def test_engine_on_the_card_serves_through_the_paged_kernels(dev):
     assert all(len(s) == 12 for s in streams["paged"])
 
 
+def test_two_engines_capture_their_decode_graphs_by_turns(dev, monkeypatch):
+    """Two engines, each capturing in a scope of its own, decode at once on
+    two threads: their chunk runs take turns (fused.CARD_RUN_LOCK), so no
+    capture overlaps another, and both give the same sampled streams."""
+    import threading
+    import time
+
+    from cake_tpu_torch.models.llama import fused
+    from cake_tpu_torch.models.llama import model as M
+    from cake_tpu_torch.models.llama.chat import Message
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.models.llama.generator import SamplingConfig
+    from cake_tpu_torch.models.llama.tokenizer import ByteTokenizer
+    from cake_tpu_torch.runtime import batch_backend
+    from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                           num_attention_heads=4, num_key_value_heads=2)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.bfloat16, dev)
+    spans = []
+    real = fused.DecodeChunk._capture
+
+    def capture(chunk):
+        t0 = time.perf_counter()
+        real(chunk)
+        spans.append((t0, time.perf_counter()))
+
+    monkeypatch.setattr(fused.DecodeChunk, "_capture", capture)
+    engines = [BatchEngine(cfg, params, ByteTokenizer(), max_seq_len=256,
+                           cache_dtype=torch.bfloat16,
+                           serve=ServeConfig(max_batch=4, kv_mode="paged"),
+                           device=dev) for _ in range(2)]
+    for eng in engines:
+        eng.backend._chunks = batch_backend._Chunks(fused.CaptureScope())
+    sampled = SamplingConfig(temperature=0.7, top_k=40, seed=3)
+    prompts = [[Message.user(f"question {i}")] for i in range(4)]
+    streams, reasons = [None, None], [None, None]
+    barrier = threading.Barrier(2)
+
+    def wave(i):
+        barrier.wait()
+        handles = [engines[i].submit(m, 16, sampled) for m in prompts]
+        engines[i].start()
+        streams[i] = [[t.id for t in h.tokens()] for h in handles]
+        reasons[i] = [h.finish_reason for h in handles]
+
+    threads = [threading.Thread(target=wave, args=(i,)) for i in range(2)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        for eng in engines:
+            eng.stop()
+    assert len(spans) >= 2
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert streams[0] == streams[1] and reasons[0] == reasons[1]
+    assert set(reasons[0]) <= {"length", "stop"}  # a sampled stream may draw EOS
+    assert all(0 < len(s) <= 16 for s in streams[0])
+
+
 def test_paged_backend_refuses_a_page_the_kernels_do_not_take(dev):
     from cake_tpu_torch.models.llama import model as M
     from cake_tpu_torch.models.llama.config import LlamaConfig
@@ -1925,3 +1988,81 @@ def test_moe_grouped_kernel_refuses_what_it_does_not_take(dev):
         grouped_matmul(xs, mats.half(), offsets, [4, 4])
     with pytest.raises(ValueError, match="offsets"):
         grouped_matmul(xs, mats, offsets.long(), [4, 4])
+
+
+# The engine prefill's rows an expert at Mixtral's widths (phase moe of
+# chip_smoke.py), and a seeded layout at Qwen3-30B-A3B's: 512 tokens, top 8
+# of 128 experts, skewed, so many experts get a handful of rows and some none.
+MIXTRAL_SIZES = [3162, 48, 759, 0, 8, 80, 2273, 1094]
+
+
+def _qwen3_sizes():
+    gen = torch.Generator().manual_seed(3)
+    pref = torch.randn(128, generator=gen).mul(1.5).exp()
+    picks = torch.multinomial(pref.expand(512, 128), 8, generator=gen)
+    return torch.bincount(picks.flatten(), minlength=128).tolist()
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("model,k,n", [("mixtral", 4096, 14336), ("mixtral", 14336, 4096),
+                                       ("qwen3", 2048, 768), ("qwen3", 768, 2048)],
+                         ids=["mixtral_gate", "mixtral_down", "qwen3_gate", "qwen3_down"])
+def test_moe_grouped_kernel_matches_plain_at_model_widths(dev, model, k, n, quant):
+    """The kernel at the widths its models run it, against its plain
+    version: within one bf16 rounding step of the output's magnitude."""
+    from cake_tpu_torch.ops.moe import grouped_matmul, grouped_matmul_plain
+
+    sizes = MIXTRAL_SIZES if model == "mixtral" else _qwen3_sizes()
+    xs, mats, offsets = _grouped_case(dev, torch.bfloat16, sizes, k, n, quant, 11)
+    out = grouped_matmul(xs, mats, offsets, sizes)
+    ref = grouped_matmul_plain(xs, mats, sizes)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    step = 2.0 ** -7 * ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= step
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["plain", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_moe_grouped_rows_straddling_tiles_are_independent(dev, dtype, quant):
+    """Probe rows that straddle a warpgroup's 64 rows, a block's 128, an
+    item's 256 and 384 give the bits they give alone at the top of the
+    group."""
+    from cake_tpu_torch.ops.moe import grouped_matmul
+
+    xs, mats, _ = _grouped_case(dev, dtype, [700, 700], 1024, 512, quant, 12)
+    probe = xs[:7]
+
+    def run(n_e0, before, after):
+        rows = torch.cat([xs[1000 : 1000 + n_e0], xs[300 : 300 + before], probe,
+                          xs[100 : 100 + after]])
+        sizes = [n_e0, before + 7 + after]
+        offsets = torch.tensor([0, sizes[0], sum(sizes)], dtype=torch.int32, device=dev)
+        return grouped_matmul(rows, mats, offsets, sizes)[n_e0 + before : n_e0 + before + 7]
+
+    ref = run(0, 0, 0)
+    for n_e0, before, after in [(3, 60, 200), (0, 124, 5), (97, 253, 40), (1, 381, 2),
+                                (255, 122, 0), (256, 250, 300)]:
+        assert torch.equal(run(n_e0, before, after), ref), (n_e0, before, after)
+
+
+def test_moe_grouped_kernels_run_the_tensor_cores(dev):
+    """The grouped GEMM's SASS: HGMMA in both wgmma bodies (16-bit stacks
+    and swap AB for int8 stacks), f16 and bf16."""
+    import os
+    import subprocess
+
+    from cake_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True,
+                          check=True).stdout
+    bodies = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0]
+        for body in ("grouped_ws_kernel", "grouped_swap_kernel"):
+            if body in name:
+                bodies.setdefault(body, []).append(fn)
+    assert len(bodies.get("grouped_ws_kernel", [])) == 4  # f16/bf16 x 128/256 columns
+    assert len(bodies.get("grouped_swap_kernel", [])) == 2
+    assert all("HGMMA" in fn for fns in bodies.values() for fn in fns)
