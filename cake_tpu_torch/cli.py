@@ -10,16 +10,18 @@
         --topology topology.yml --address 0.0.0.0:10128
     python -m cake_tpu_torch.cli --model DIR --topology topology.yml --prompt "..."
     python -m cake_tpu_torch.cli --model DIR --topology topology.yml --api 127.0.0.1:8080 \
-        --api-batch 8
+        --api-batch 8 --heartbeat-interval 0.5 --faults 'kill@client.send:node=w2:after=30:count=0'
+    python -m cake_tpu_torch.cli --model MISTRAL_DIR --prompt "..." --prefill-chunk 512
 
 Generation on one CUDA device (``--device cpu`` runs the plain PyTorch
 versions of the kernels on the CPU instead; without a CUDA device and
 without ``--device cpu`` it exits with an error), or Cake's master/worker
 pipeline over TCP: ``--mode worker`` serves the layer ranges its node owns
 in the topology file, and a master given ``--topology`` walks the plan,
-running the embedding, the head, sampling and the layers no node owns. The
-flags are the subset of ``cake_tpu/cli.py`` that the port has; others are
-refused by the parser.
+running the embedding, the head, sampling and the layers no node owns. A
+model with one sliding window under ``--prefill-chunk`` decodes over the
+rolling window cache (``rolling_budget``). The flags are the subset of
+``cake_tpu/cli.py`` that the port has; others are refused by the parser.
 """
 
 from __future__ import annotations
@@ -250,6 +252,44 @@ def build_parser() -> argparse.ArgumentParser:
         help="base reconnect backoff in seconds (doubles per attempt)",
     )
     p.add_argument(
+        "--heartbeat-interval", type=float, default=0.0, metavar="S",
+        help="ping every worker over a dedicated connection at this cadence "
+        "(cake_worker_healthy gauge + cake_worker_unhealthy_total); 0 = no heartbeat "
+        "threads. TCP masters only",
+    )
+    p.add_argument(
+        "--heartbeat-deadline", type=float, default=2.0, metavar="S",
+        help="a heartbeat PING unanswered for this long marks the worker unhealthy",
+    )
+    p.add_argument(
+        "--failover-max", type=int, default=2, metavar="N",
+        help="replica failover: at most N live-stream migrations per epoch after a worker "
+        "death before degrading to finish_reason=error; 0 disables migration (error "
+        "isolation only) (--api-batch)",
+    )
+    p.add_argument(
+        "--failover-budget", type=float, default=30.0, metavar="S",
+        help="replica failover: cumulative migration wall-time budget per epoch; past it the "
+        "epoch degrades to finish_reason=error",
+    )
+    p.add_argument(
+        "--failover-cooldown", type=float, default=5.0, metavar="S",
+        help="standby rejoin probation: an ejected replica re-enters the routing rotation "
+        "after this long (and, with heartbeats on, only once the monitor sees it healthy "
+        "again)",
+    )
+    p.add_argument(
+        "--failover-local", action="store_true",
+        help="opt the local backends into migration in place: a transient backend fault "
+        "rebuilds the live streams' KV instead of finishing them with finish_reason=error",
+    )
+    p.add_argument(
+        "--faults", default=None, metavar="PLAN",
+        help="install a deterministic fault plan (runtime/faults.py DSL, e.g. "
+        "'seed=7;kill@worker.op:after=5'): chaos testing; also settable via the "
+        "CAKE_FAULTS environment variable",
+    )
+    p.add_argument(
         "--blackbox-dir", default=None, metavar="DIR",
         help="black-box anomaly capture (obs/blackbox.py): when a request breaches a declared "
         "SLO objective, lands past --blackbox-p99-mult x the rolling p99, or dies to a "
@@ -389,7 +429,30 @@ def serve_config(args: argparse.Namespace):
         blackbox_p99_mult=args.blackbox_p99_mult,
         peak_tflops=args.peak_tflops,
         peak_hbm_gbps=args.peak_hbm_gbps,
+        heartbeat_interval_s=args.heartbeat_interval,
+        heartbeat_deadline_s=args.heartbeat_deadline,
+        max_failovers=args.failover_max,
+        failover_budget_s=args.failover_budget,
+        failover_cooldown_s=args.failover_cooldown,
+        failover_local=args.failover_local,
     )
+
+
+def rolling_budget(config, args) -> int | None:
+    """The reference's rule for the generator's rolling window cache: a
+    model with ONE sliding window (not Gemma-2/3's alternating patterns,
+    whose full-attention layers need every key) under chunked prefill gets
+    a ring of ``window + max(--prefill-chunk, --decode-chunk)`` slots
+    (LocalForwardStep decides whether that is smaller than the full
+    cache). The engine keeps the full cache."""
+    if (
+        config.sliding_window is not None
+        and not config.alt_sliding_window
+        and config.sliding_pattern is None
+        and args.prefill_chunk
+    ):
+        return max(args.prefill_chunk, args.decode_chunk)
+    return None
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -405,7 +468,18 @@ def main(argv: list[str] | None = None) -> int:
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="[%(asctime)s %(levelname)s %(name)s] %(message)s",
     )
+    if args.faults:
+        # Chaos mode: the plan is installed before any socket or engine
+        # exists (CAKE_FAULTS does the same at import).
+        from cake_tpu_torch.runtime import faults
+
+        try:
+            faults.install(faults.parse(args.faults))
+        except ValueError as e:
+            print(f"--faults: {e}", file=sys.stderr)
+            return 2
     from cake_tpu_torch.models.llama.chat import Message
+    from cake_tpu_torch.models.llama.config import LlamaConfig
     from cake_tpu_torch.models.llama.generator import LlamaGenerator, SamplingConfig
 
     sampling = SamplingConfig(
@@ -457,6 +531,7 @@ def main(argv: list[str] | None = None) -> int:
             decode_chunk_size=args.decode_chunk,
             fusion_impl=args.fusion,  # on the config before any step or engine is built
             quantize=args.quantize,
+            rolling_budget=rolling_budget(LlamaConfig.from_model_dir(args.model), args),
         )
     if args.api:
         from cake_tpu_torch.runtime.api import ApiServer
@@ -483,6 +558,18 @@ def main(argv: list[str] | None = None) -> int:
                     max_seq_len=step.max_seq_len, cache_dtype=kv_dtype,
                     serve=serve, device=step.device,
                 )
+        if args.heartbeat_interval > 0 and engine is None and backend == "tcp":
+            # Liveness probing of the serialized path's workers (daemon
+            # threads; they die with the server). The batch engine starts
+            # its own monitor from its ServeConfig.
+            from cake_tpu_torch.runtime.client import HeartbeatMonitor
+
+            step = generator.step
+            if step.clients:
+                HeartbeatMonitor(
+                    {n: c.host for n, c in step.clients.items()},
+                    interval_s=args.heartbeat_interval, deadline_s=args.heartbeat_deadline,
+                ).start()
         host, port = _parse_address(args.api)
         ApiServer(generator, engine=engine, events_jsonl=args.events_jsonl,
                   trace_jsonl=args.trace_jsonl,

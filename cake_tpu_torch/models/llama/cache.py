@@ -12,8 +12,11 @@ dtype than the activations (``--kv-dtype``) takes each chunk through
 not torch's saturation); an f8 cache is written through its byte view
 (``kv_view``), since ``index_copy_`` has no Float8 kernel.
 
-The rolling ring cache for sliding-window models is not ported yet
-(ROADMAP.md).
+The rolling window cache (``write_layer_rolling``, ``rolling_kv_positions``)
+serves single-window models: the cache holds the last ``window + chunk
+budget`` positions, position p in slot ``p % L`` (L, the ring's length, a
+multiple of SEQ_MULTIPLE), and the attention kernels read it through their
+ring layout (ops/csrc/kv_layout.cuh ``RingLayout``).
 """
 
 from __future__ import annotations
@@ -103,3 +106,63 @@ def write_layer(
     kv_view(k_cache)[:, :, pos : pos + chunk] = k_rows
     kv_view(v_cache)[:, :, pos : pos + chunk] = v_rows
     return k_cache, v_cache
+
+
+# ------------------------------------------------------------- rolling cache
+#
+# Sliding-window models (the Mistral family) never attend past ``window``
+# keys, so the cache need only hold the last ``window + chunk_budget``
+# positions: position p lives in slot p % L. A chunk write can only evict
+# keys already outside every live query's window, because L exceeds the
+# window plus the largest chunk written in one dispatch. This bounds KV
+# memory by the window, not the sequence length: a 32K-context Mistral-7B
+# with window 4096 stores 4608 slots instead of 32768.
+
+ROLLING_DEAD = 2**30  # sentinel position of a slot never written (masked out)
+
+
+def write_layer_rolling(
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    pos: int | torch.Tensor,
+    valid_len: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write a [batch, chunk, n_kv, hd] chunk at slots ``(pos + j) % L`` for
+    j < ``valid_len`` into one layer's ring [batch, n_kv, L, hd], in place;
+    the padded tail (j >= valid_len) is DROPPED: in a ring a write past the
+    valid tokens would evict live keys. ``pos`` is a host int or, for a
+    decode step, the 0-d int64 device slot of ``write_layer``: the ring slot
+    is then computed from it on the device, so a captured graph writes
+    where the position says at every replay."""
+    ring = k_cache.shape[2]
+    chunk = k_new.shape[1]
+    n = min(int(valid_len), chunk)
+    if n > ring:
+        raise ValueError(f"a rolling write of {n} tokens exceeds the ring's {ring} slots")
+    k_rows = kv_view(narrow(k_new[:, :n].transpose(1, 2), k_cache.dtype))
+    v_rows = kv_view(narrow(v_new[:, :n].transpose(1, 2), v_cache.dtype))
+    if isinstance(pos, torch.Tensor):
+        idx = pos.reshape(1) if n == 1 else pos + torch.arange(n, device=pos.device)
+        idx = idx % ring
+    else:
+        idx = torch.arange(pos, pos + n, device=k_cache.device) % ring
+    kv_view(k_cache).index_copy_(2, idx, k_rows)
+    kv_view(v_cache).index_copy_(2, idx, v_rows)
+    return k_cache, v_cache
+
+
+def rolling_kv_positions(cache_len: int, pos, valid_len) -> torch.Tensor:
+    """Absolute position of each ring slot, int64: [cache_len] for a scalar
+    ``pos``, [b, cache_len] for a [b] tensor of them.
+
+    Slot s holds the unique position q = s (mod cache_len) in
+    (p_max - cache_len, p_max], where p_max = pos + valid_len - 1 is the
+    newest position just written. Slots never written (q < 0) get
+    ROLLING_DEAD so the causal mask excludes them."""
+    p_max = torch.as_tensor(pos, dtype=torch.int64) + valid_len - 1
+    s = torch.arange(cache_len, dtype=torch.int64, device=p_max.device)
+    p = p_max[..., None]
+    q = p - ((p - s) % cache_len)
+    return torch.where(q >= 0, q, torch.full_like(q, ROLLING_DEAD))

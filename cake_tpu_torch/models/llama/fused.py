@@ -21,8 +21,12 @@ key, over static device buffers, and each chunk copies its few inputs into
 those buffers, replays the graph and reads the ids back once. The slot is a
 0-d device tensor that the forward reads on the device (cache writes,
 lengths, rope rows, the ingest kernel's slot) and that each step advances in
-place, so no position is baked into the graph. On the CPU the same loop runs
-over the same buffers, uncaptured. A MoE layer's one-token step takes the
+place, so no position is baked into the graph. Over the rolling window
+cache (models/llama/cache.py) the forward computes each step's ring slot,
+the slot modulo the ring's length, from the same tensor, so a graph
+replays across the ring's wrap; the generator keys its chunks by whether
+the cache rolls. On the CPU the same loop runs over the same buffers,
+uncaptured. A MoE layer's one-token step takes the
 dense combine, static in shape; the grouped dispatch reads its group sizes
 back to the host and raises under a capture (ops/moe.py).
 

@@ -9,8 +9,10 @@ penalty, incremental detokenization, EOS detection, KV prefix reuse across
 ``StepConnectionError``: the step is reset and the token history replayed).
 Prefill and decode walls land in the ``cake_prefill_seconds`` and
 ``cake_decode_step_seconds`` histograms (utils/metrics.py), each ending at
-the token's readback, so it holds the device work. Speculative decoding is
-not ported yet (ROADMAP.md).
+the token's readback, so it holds the device work. A single-window model
+may decode over the rolling window cache (``LocalForwardStep(rolling_budget=)``,
+models/llama/cache.py). Speculative decoding is not ported yet
+(ROADMAP.md).
 
 The seam is the same as the JAX package's: the generator needs a step
 ``(tokens, pos, seq_len) -> logits``; :class:`LocalForwardStep` runs the
@@ -31,7 +33,7 @@ import torch
 
 from cake_tpu_torch.device import resolve_device
 from cake_tpu_torch.models.llama import model as M
-from cake_tpu_torch.models.llama.cache import init_cache
+from cake_tpu_torch.models.llama.cache import SEQ_MULTIPLE, init_cache
 from cake_tpu_torch.models.llama.chat import Message, encode_dialog
 from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.fused import DecodeChunk
@@ -101,7 +103,16 @@ class ForwardStep(Protocol):
 class LocalForwardStep:
     """Single-device step: fused weights resident on ``device``, a dense KV
     cache written in place, rope tables built once; ``decode_chunk`` runs
-    multi-token decode on the device (a CUDA graph replay on the card)."""
+    multi-token decode on the device (a CUDA graph replay on the card).
+
+    ``rolling_budget`` (the reference's): the caller's promise about the
+    largest chunk it will ever feed (its ``--prefill-chunk``). For a model
+    with one sliding window the cache is then a ring of ``window + budget``
+    slots rounded up to SEQ_MULTIPLE (models/llama/cache.py), but only
+    where that is smaller than the full cache; the alternating-window
+    patterns (Gemma-2, Gemma-3) never take it, since their full-attention
+    layers need every key. ``max_seq_len`` stays the logical bound: the rope
+    tables and the ring kernels' limit are built at it."""
 
     def __init__(
         self,
@@ -112,6 +123,7 @@ class LocalForwardStep:
         batch_size: int = 1,
         cache_dtype: torch.dtype = torch.bfloat16,
         device: torch.device | str = "cuda",
+        rolling_budget: int | None = None,
     ):
         self.config = config
         self.device = resolve_device(device)
@@ -119,10 +131,25 @@ class LocalForwardStep:
         self._max_seq = int(max_seq_len or config.max_position_embeddings)
         self._batch = batch_size
         self._cache_dtype = cache_dtype
+        # The logical bound, padded as the full cache pads it: the rope
+        # tables' length and, under rolling, the ring kernels' limit.
+        self._bound = -(-self._max_seq // SEQ_MULTIPLE) * SEQ_MULTIPLE
+        self.rolling = False
+        self._cache_len = self._max_seq
+        win = config.sliding_window
+        if config.alt_sliding_window or config.sliding_pattern is not None:
+            win = None
+        if rolling_budget is not None and win is not None:
+            budget = max(int(rolling_budget), 1)
+            s_roll = -(-(win + budget) // SEQ_MULTIPLE) * SEQ_MULTIPLE
+            if s_roll < self._bound:
+                self.rolling = True
+                self._cache_len = s_roll
         self._kv = None
         self.reset()
-        self._rope = model_rope_tables(config, self._kv.max_seq_len, self.device)
-        self._chunks: dict = {}  # DecodeChunk per (n_steps, batch, sampling knobs, KV dtype)
+        self._rope = model_rope_tables(config, self._bound, self.device)
+        # DecodeChunk per (n_steps, batch, sampling knobs, KV dtype, rolling)
+        self._chunks: dict = {}
 
     @property
     def max_seq_len(self) -> int:
@@ -131,7 +158,7 @@ class LocalForwardStep:
     def reset(self) -> None:
         if self._kv is None:
             self._kv = init_cache(
-                self.config.num_hidden_layers, self._batch, self._max_seq,
+                self.config.num_hidden_layers, self._batch, self._cache_len,
                 self.config.num_key_value_heads, self.config.head_dim,
                 self._cache_dtype, self.device,
             )
@@ -140,10 +167,18 @@ class LocalForwardStep:
 
     @torch.inference_mode()
     def __call__(self, tokens: np.ndarray, pos: int, seq_len: int) -> torch.Tensor:
+        if self.rolling:
+            room = self._kv.max_seq_len - self.config.sliding_window
+            if np.shape(tokens)[1] > room:
+                raise ValueError(
+                    f"chunk of {np.shape(tokens)[1]} tokens exceeds the rolling cache budget "
+                    f"{room}; lower --prefill-chunk or raise rolling_budget"
+                )
         toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int64).to(self.device)
         logits, self._kv = M.forward(
             self.params, toks, self._kv, int(pos), int(seq_len), self.config,
             cached_prefill=M.is_cached_prefill(pos, toks.shape[1]), rope=self._rope,
+            rolling=self.rolling, rope_len=self._bound if self.rolling else None,
         )
         return logits
 
@@ -173,22 +208,27 @@ class LocalForwardStep:
         The chunk runs as a ``DecodeChunk`` (models/llama/fused.py), one a
         (n_steps, batch, sampling knobs): on the card a replay of its CUDA
         graph, captured at its first chunk; on the CPU the loop over the
-        same buffers. The cache bound is checked here, on the host ints."""
-        if pos < 0 or pos + n_steps > self._kv.max_seq_len:
+        same buffers. The cache bound is checked here, on the host ints.
+        Under rolling each step's ring slot is the device position modulo
+        the ring (``write_layer_rolling``), so a graph replays across the
+        wrap."""
+        if pos < 0 or pos + n_steps > self._bound:
             raise ValueError(
-                f"decode chunk writes slots [{pos}, {pos + n_steps}) outside the cache's "
-                f"{self._kv.max_seq_len}"
+                f"decode chunk writes positions [{pos}, {pos + n_steps}) outside the cache's "
+                f"{self._bound}"
             )
         b, window = int(np.size(last_token)), np.shape(ring)[1]
         s = sampling
         ckey = (n_steps, b, window, s.temperature, s.top_k, s.top_p, s.repeat_penalty,
-                self._kv.k.dtype)
+                self._kv.k.dtype, self.rolling)
         chunk = self._chunks.get(ckey)
         if chunk is None:
             params, config, rope = self.params, self.config, self._rope
+            rolling, rope_len = self.rolling, self._bound if self.rolling else None
 
             def forward_one(tok, kv, p):
-                return M.forward(params, tok, kv, p, 1, config, rope=rope)
+                return M.forward(params, tok, kv, p, 1, config, rope=rope, rolling=rolling,
+                                 rope_len=rope_len)
 
             chunk = self._chunks[ckey] = DecodeChunk(
                 forward_one, self._kv, batch=b, window=window, n_steps=n_steps, s=s,
@@ -254,6 +294,7 @@ class LlamaGenerator:
         fusion_impl: str = "none",
         quantize: str | None = None,
         kv_dtype: torch.dtype | None = None,
+        rolling_budget: int | None = None,
     ) -> "LlamaGenerator":
         """Config, weights and tokenizer from a checkpoint directory, on
         ``device`` (default CUDA; raises when there is none). ``fusion_impl``
@@ -262,7 +303,8 @@ class LlamaGenerator:
         layer slice at a time, before the step is built; a quantized
         checkpoint loads quantized without it. ``kv_dtype``: the KV cache's
         dtype (``--kv-dtype``; None = ``dtype``), e.g. ``torch.float8_e4m3fn``,
-        which halves the cache against bf16."""
+        which halves the cache against bf16. ``rolling_budget``: the
+        step's (``LocalForwardStep``), the rolling window cache."""
         from cake_tpu_torch.io.safetensors_io import load_params
 
         if quantize not in (None, "int8", "int4"):
@@ -276,7 +318,8 @@ class LlamaGenerator:
         if quantize is not None:
             params = quantize_params(params, quantize)
         step = LocalForwardStep(
-            config, params, max_seq_len=max_seq_len, cache_dtype=kv_dtype or dtype, device=dev
+            config, params, max_seq_len=max_seq_len, cache_dtype=kv_dtype or dtype, device=dev,
+            rolling_budget=rolling_budget,
         )
         return cls(
             config, step, load_tokenizer(model_dir), sampling,
@@ -291,7 +334,14 @@ class LlamaGenerator:
         survives as a snapshot of the tokens it is valid for, bounded by the
         last sampled token (never fed back) and by ``_kv_high``, the
         high-water mark of successful step calls."""
-        if self.prefix_cache and getattr(self, "_started", False):
+        if (
+            self.prefix_cache
+            and getattr(self, "_started", False)
+            # A ring cannot offer prefix reuse: truncating it to a common
+            # prefix would leave slots whose reconstructed positions lie
+            # about data written past the prefix.
+            and not getattr(self.step, "rolling", False)
+        ):
             bound = min(self._kv_high, max(0, len(self._tokens) - 1))
             self._reusable = self._tokens[:bound]
         else:

@@ -4,8 +4,11 @@ Port of ``cake_tpu/models/llama/model.py``: Llama, Qwen2 (QKV bias), Qwen3
 (q/k RMSNorm), Mistral (window, decoupled head_dim), Phi-3, the Gemma family
 (scaled embeddings, (1+w) norms, GeGLU, score scale and soft-caps, per-layer
 window flags, Gemma-3's dual rope) and the sparse-MoE families (Mixtral,
-Qwen2-MoE with its gated shared expert, Qwen3-MoE; ops/moe.py). The rolling
-window cache raises NotImplementedError (ROADMAP.md).
+Qwen2-MoE with its gated shared expert, Qwen3-MoE; ops/moe.py). A
+single-window model may run over the rolling window cache
+(models/llama/cache.py): ``rolling`` writes each chunk into the ring and
+attends through the kernels' ring instantiations, ``rope_len`` giving the
+logical bound of positions.
 
 The param tree keeps the JAX package's layout so the two can be compared
 leaf for leaf: linear weights are [in, out] and applied as ``x @ w``, and
@@ -38,7 +41,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from cake_tpu_torch.models.llama.cache import KVCache, write_layer
+from cake_tpu_torch.models.llama.cache import SEQ_MULTIPLE, KVCache, write_layer, write_layer_rolling
 from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.ops.chunk_prefill import chunk_prefill_attention
 from cake_tpu_torch.ops.decode_attention import decode_attention
@@ -52,11 +55,6 @@ from cake_tpu_torch.ops.quant import QUANT_TYPES, Quant4Weight, QuantWeight, qma
 from cake_tpu_torch.ops.rope import apply_rope, model_rope_tables
 
 Params = dict[str, Any]
-
-_ROLLING_TODO = (
-    "the rolling window cache is not ported yet (ROADMAP.md queue A, the rolling window cache)"
-)
-
 
 def init_params(
     config: LlamaConfig,
@@ -268,18 +266,33 @@ def attention_rows(b: int, pos, chunk: int, device) -> dict[str, torch.Tensor]:
 def block_forward(
     lp, x, k_cache, v_cache, cos, sin, positions, pos, config: LlamaConfig,
     cached_prefill: bool = False, rolling: bool = False, rows=None, fusion=None,
+    valid_len: int | None = None, ring_limit: int | None = None,
 ):
     """One decoder block over a token chunk; writes this chunk's K/V into the
     layer's cache in place. ``pos``: a host int, or for a one-token step a
     0-d int64 device tensor (``blocks_forward``). Returns (x_out, k_cache,
-    v_cache)."""
-    if rolling:
-        raise NotImplementedError(_ROLLING_TODO)
+    v_cache).
+
+    ``rolling``: the cache is a ring of L slots (models/llama/cache.py;
+    needs ``config.sliding_window``): the chunk's first ``valid_len`` tokens
+    are written at slots (pos + j) % L and the padded tail is dropped, then
+    continuation chunks and decode steps attend through the kernels' ring
+    instantiations up to ``ring_limit``, the logical bound of positions; a
+    position-0 chunk attends within itself, as on the full cache. The
+    reference computes the rolling path's attention as ``gqa_attention_hm``
+    over ``rolling_kv_positions``, the ring kernels' plain version."""
     if fusion is None:
         fusion = resolve_fusion(config)
     b, chunk, _ = x.shape
     q, k, v = block_qkv(lp, x, cos, sin, positions, config, fusion)
-    write_layer(k_cache, v_cache, k, v, pos)
+    ring = {}  # the attention calls' ring argument (none over the full cache)
+    if rolling:
+        if config.sliding_window is None or ring_limit is None:
+            raise ValueError("the rolling cache needs a sliding-window model and ring_limit")
+        write_layer_rolling(k_cache, v_cache, k, v, pos, chunk if valid_len is None else valid_len)
+        ring = {"ring_limit": ring_limit}
+    else:
+        write_layer(k_cache, v_cache, k, v, pos)
     if rows is None:
         rows = attention_rows(b, pos, chunk, x.device)
     kw = dict(
@@ -292,19 +305,20 @@ def block_forward(
         # Continuation chunk: attend the live cache prefix, which already
         # holds this chunk's keys.
         attn = chunk_prefill_attention(
-            q, k_cache, v_cache, rows["q_starts"], rows["lengths"], **kw
+            q, k_cache, v_cache, rows["q_starts"], rows["lengths"], **kw, **ring
         )
     elif chunk > 1:
         # Prefill from offset 0: the chunk attends only within itself.
         attn = flash_attention(q, k, v, **kw)
     else:
-        attn = decode_attention(q, k_cache, v_cache, rows["lengths"], None, **kw)
+        attn = decode_attention(q, k_cache, v_cache, rows["lengths"], None, **kw, **ring)
     return block_finish(lp, x, attn, config, fusion), k_cache, v_cache
 
 
 def blocks_forward(
     layers: Params, x, kv: KVCache, cos, sin, pos, config: LlamaConfig,
-    cached_prefill: bool = False, fusion=None,
+    cached_prefill: bool = False, fusion=None, rolling: bool = False,
+    valid_len: int | None = None, ring_limit: int | None = None,
 ):
     """Run the stacked layers in order (the JAX package's ``lax.scan``).
 
@@ -312,7 +326,10 @@ def blocks_forward(
     decode step, a 0-d int64 tensor on the device (the captured decode chunk
     of models/llama/fused.py): the positions, the rope rows, the lengths and
     the cache writes then all derive from it on the device, so the step
-    reads nothing back and bakes no position into a captured graph."""
+    reads nothing back and bakes no position into a captured graph.
+    ``rolling``, ``valid_len`` and ``ring_limit`` select the rolling window
+    cache (``block_forward``); the rope rows stay at the absolute
+    positions."""
     if fusion is None:
         fusion = resolve_fusion(config)
     b, chunk, _ = x.shape
@@ -327,7 +344,8 @@ def blocks_forward(
         lp = {name: w[i] for name, w in layers.items()}
         x, _, _ = block_forward(
             lp, x, kv.k[i], kv.v[i], cos, sin, positions, pos, config,
-            cached_prefill=cached_prefill, rows=rows, fusion=fusion,
+            cached_prefill=cached_prefill, rows=rows, fusion=fusion, rolling=rolling,
+            valid_len=valid_len, ring_limit=ring_limit,
         )
     return x, kv
 
@@ -358,6 +376,7 @@ def head_forward(params: Params, x, seq_len: int, config: LlamaConfig, fusion=No
 def forward(
     params: Params, tokens, kv: KVCache, pos, seq_len: int, config: LlamaConfig,
     cached_prefill: bool = False, rolling: bool = False, rope=None,
+    rope_len: int | None = None,
 ):
     """embed -> blocks -> ln_f -> lm_head at position seq_len - 1.
 
@@ -368,20 +387,28 @@ def forward(
         0-d int64 device tensor (``blocks_forward``); seq_len: count of
         valid tokens.
       cached_prefill: chunk > 1 at pos > 0 attends the cache prefix.
-      rope: precomputed (cos, sin) tables (default: built for kv's length).
+      rolling: kv is a rolling ring smaller than the logical bound of
+        positions (a single-window model, models/llama/cache.py).
+      rope: precomputed (cos, sin) tables (default: built for ``rope_len``,
+        else kv's length).
+      rope_len: the logical bound of positions, REQUIRED when rolling:
+        positions run past the ring's length, which would otherwise size the
+        rope table, and the ring kernels take it (rounded up to
+        SEQ_MULTIPLE, the full cache's length) as their limit.
 
     Returns (logits [b, vocab] f32, kv).
     """
-    if rolling:
-        raise NotImplementedError(_ROLLING_TODO)
+    if rolling and rope_len is None:
+        raise ValueError("forward: the rolling cache needs rope_len, the logical bound")
     if rope is None:
-        rope = model_rope_tables(config, kv.max_seq_len, tokens.device)
+        rope = model_rope_tables(config, rope_len or kv.max_seq_len, tokens.device)
     cos, sin = rope
     fusion = resolve_fusion(config)
     x = embed_tokens(params, tokens, config)
+    ring_limit = -(-rope_len // SEQ_MULTIPLE) * SEQ_MULTIPLE if rolling else None
     x, kv = blocks_forward(
         params["layers"], x, kv, cos, sin, pos, config, cached_prefill=cached_prefill,
-        fusion=fusion,
+        fusion=fusion, rolling=rolling, valid_len=seq_len, ring_limit=ring_limit,
     )
     return head_forward(params, x, seq_len, config, fusion), kv
 

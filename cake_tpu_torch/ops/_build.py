@@ -59,6 +59,21 @@ _SIGNATURES = {
         ctypes.POINTER(ctypes.c_longlong),           # strides[12]
         _INT, _FLOAT, _FLOAT, _VOID,                 # window scale softcap stream
     ),
+    "cake_ring_decode_attention": (
+        _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,   # q k v out lengths starts
+        _VOID, _VOID,                                # part tickets
+        _INT, _INT, _INT, _INT,                      # b n_kv group heads
+        _INT, _INT, _INT, _INT, _INT,                # ring max_seq hd dtype kv_dtype
+        _FLOAT, _FLOAT, _INT, _INT, _VOID,           # scale softcap n_split z stream
+    ),
+    "cake_ring_chunk_attention": (
+        _VOID, _VOID, _VOID, _VOID,                  # q k v out
+        _VOID, _VOID, _VOID, _VOID,                  # q_starts lengths k_starts flag
+        _INT, _INT, _INT, _INT, _INT, _INT, _INT,    # b chunk n_q n_kv ring max_seq hd
+        _INT, _INT,                                  # dtype kv_dtype
+        _LONG, _LONG, _LONG, _LONG, _LONG, _LONG,    # qsb qss qsh osb oss osh
+        _INT, _FLOAT, _FLOAT, _VOID,                 # window scale softcap stream
+    ),
     "cake_paged_decode_attention": (
         _VOID, _VOID, _VOID, _VOID,                  # q k v out
         _VOID, _VOID, _VOID,                         # lengths starts tables

@@ -24,6 +24,17 @@ cache reaches shared memory narrow (cp.async, half the bytes) and each tile
 is widened there, exactly, into the layout the products read; the products
 stay in q's dtype, as the reference widens f8 before its dots.
 
+A rolling window cache (models/llama/cache.py: a ring of L slots,
+position p in slot p % L) is read through the ring instantiations of the
+same body (``csrc/ring_chunk_attention*.cu``, ``RingLayout``) when the call
+gives ``ring_limit``, the logical bound of positions: a 64-key tile of
+logical positions is contiguous in the ring (L is a multiple of 128) and
+the loop bounds are the dense kernel's, so a ring call gives the full
+cache's bits on the same keys. Its plain version is
+:func:`chunk_ring_plain`, the reference's ``gqa_attention_hm`` over
+``rolling_kv_positions``. Ring launches also count in
+``chunk_prefill_attention.ring``.
+
 For a tensor on the CPU the wrapper runs :func:`chunk_prefill_attention_plain`;
 for a CUDA tensor it launches the kernel or raises.
 """
@@ -36,7 +47,7 @@ import torch
 
 from cake_tpu_torch.ops import _build
 from cake_tpu_torch.ops.attention import causal_mask, masked_gqa_attention_hm
-from cake_tpu_torch.ops.decode_attention import HEAD_DIM_TODO, HEAD_DIMS
+from cake_tpu_torch.ops.decode_attention import HEAD_DIM_TODO, HEAD_DIMS, check_ring, ring_mask
 from cake_tpu_torch.ops.kv_dtype import F8, attention_dtype
 from cake_tpu_torch.ops.launches import count
 
@@ -83,6 +94,26 @@ def chunk_prefill_attention_plain(
 chunk_prefill_attention_plain.launches = 0
 
 
+def chunk_ring_plain(
+    q, k_cache, v_cache, q_starts, lengths, window_flag=None, k_starts=None, *,
+    window=None, scale=None, softcap=None,
+):
+    """Plain PyTorch version over a ring [b, n_kv, L, hd] whose newest
+    written position is lengths - 1: the reference's rolling attention
+    (``gqa_attention_hm`` over ``rolling_kv_positions``)."""
+    count(chunk_ring_plain)
+    b, chunk = q.shape[:2]
+    dev = q.device
+    q_starts = as_rows(q_starts, b, dev)
+    qpos = q_starts[:, None] + torch.arange(chunk, device=dev, dtype=torch.int32)[None]
+    mask = ring_mask(qpos, as_rows(lengths, b, dev), as_rows(k_starts, b, dev),
+                     k_cache.shape[2], window, window_flag)
+    return masked_gqa_attention_hm(q, k_cache, v_cache, mask, scale=scale, softcap=softcap)
+
+
+chunk_ring_plain.launches = 0
+
+
 def _check_operand(name, t, dtype, device):
     if t.device != device or t.dtype != dtype:
         raise ValueError(f"chunk_prefill_attention: {name} must be {dtype} on {device}")
@@ -97,11 +128,12 @@ def _check_operand(name, t, dtype, device):
 
 def launch_chunk_kernel(
     q, k, v, k_layout, q_starts, lengths, k_starts, window_flag, *,
-    window, scale, softcap,
+    window, scale, softcap, ring_limit=None,
 ):
     """Launch the CUDA kernel. ``k_layout`` names the K/V axes: "bhsd" for
     the head-major cache, "bshd" for fresh seq-major projections (read
-    through strides, never copied)."""
+    through strides, never copied). ``ring_limit``: the cache is a
+    contiguous rolling ring [b, n_kv, L, hd] (the module docstring)."""
     b, chunk, n_q, hd = q.shape
     if k_layout == "bhsd":
         _, n_kv, kv_len, _ = k.shape
@@ -115,7 +147,7 @@ def launch_chunk_kernel(
     if wide != q.dtype:  # a wider cache: the query upcast exactly, the output cast back
         return launch_chunk_kernel(
             q.to(wide), k, v, k_layout, q_starts, lengths, k_starts, window_flag,
-            window=window, scale=scale, softcap=softcap,
+            window=window, scale=scale, softcap=softcap, ring_limit=ring_limit,
         ).to(q.dtype)
     if hd not in HEAD_DIMS or k.shape[-1] != hd or n_q % n_kv or k.shape != v.shape:
         raise ValueError(
@@ -141,6 +173,25 @@ def launch_chunk_kernel(
         out.stride(0), out.stride(1), out.stride(2),
     )
     lib = _build.library()
+    if ring_limit is not None:
+        if not (k.is_contiguous() and v.is_contiguous()):
+            raise ValueError("chunk_prefill_attention: a ring cache must be contiguous")
+        err = lib.cake_ring_chunk_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q_starts.data_ptr(), lengths.data_ptr(), k_starts.data_ptr(),
+            None if flag is None else flag.data_ptr(),
+            b, chunk, n_q, n_kv, kv_len, ring_limit, hd,
+            _build.dtype_code(q.dtype), _build.dtype_code(k.dtype),
+            q.stride(0), q.stride(1), q.stride(2), out.stride(0), out.stride(1), out.stride(2),
+            int(window or 0), float(hd**-0.5 if scale is None else scale), float(softcap or 0.0),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        )
+        _build.check(err, "chunk_prefill_attention")
+        count(chunk_prefill_attention)
+        count(chunk_prefill_attention, "ring")
+        if k.dtype == F8:
+            count(chunk_prefill_attention, "f8")
+        return out
     err = lib.cake_chunk_prefill_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q_starts.data_ptr(), lengths.data_ptr(), k_starts.data_ptr(),
@@ -162,7 +213,7 @@ def launch_chunk_kernel(
 
 def chunk_prefill_attention(
     q, k_cache, v_cache, q_starts, lengths, window_flag=None, k_starts=None, *,
-    window=None, scale=None, softcap=None,
+    window=None, scale=None, softcap=None, ring_limit=None,
 ):
     """Chunk-of-queries GQA attention against the live cache prefix.
 
@@ -175,9 +226,21 @@ def chunk_prefill_attention(
       window_flag: optional bool / 0-dim bool tensor gating ``window``.
       k_starts: optional [b] int32 first live key slot (left-padded rows).
       window/scale/softcap: attention knobs (see decode_attention).
+      ring_limit: None for the dense cache; for a rolling ring of L =
+        max_seq slots whose newest written position is lengths - 1, the
+        logical bound of positions. The window must be on, and the window
+        plus the chunk fit the ring.
 
     Returns [b, chunk, n_q, hd] in q's dtype.
     """
+    if ring_limit is not None:
+        check_ring("chunk_prefill_attention", k_cache.shape[2], ring_limit, window, window_flag,
+                   q.shape[1])
+        if q.device.type == "cpu":
+            return chunk_ring_plain(
+                q, k_cache, v_cache, q_starts, lengths, window_flag, k_starts,
+                window=window, scale=scale, softcap=softcap,
+            )
     if q.device.type == "cpu":
         return chunk_prefill_attention_plain(
             q, k_cache, v_cache, q_starts, lengths, window_flag, k_starts,
@@ -189,9 +252,10 @@ def chunk_prefill_attention(
         raise ValueError("chunk_prefill_attention: q and the cache must be 4-D")
     return launch_chunk_kernel(
         q, k_cache, v_cache, "bhsd", q_starts, lengths, k_starts, window_flag,
-        window=window, scale=scale, softcap=softcap,
+        window=window, scale=scale, softcap=softcap, ring_limit=ring_limit,
     )
 
 
 chunk_prefill_attention.launches = 0
 chunk_prefill_attention.f8 = 0  # launches over an f8 cache
+chunk_prefill_attention.ring = 0  # launches over a rolling ring (ring_limit)

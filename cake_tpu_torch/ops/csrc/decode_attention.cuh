@@ -417,13 +417,18 @@ static cudaError_t decode_by_dtype(int dtype, int head_dim, const DecodeArgs<Lay
 // compile in parallel with the rest: the wide head dims
 // (decode_attention_wide.cu, paged_decode_attention_wide.cu) and the e4m3
 // caches, narrow and wide (decode_attention_f8.cu, ..._f8_wide.cu and
-// their paged twins).
+// their paged twins); the rolling ring's the same four
+// (ring_decode_attention*.cu).
 cudaError_t decode_wide(int dtype, int head_dim, const DecodeArgs<DenseLayout>& a);
 cudaError_t decode_wide(int dtype, int head_dim, const DecodeArgs<PagedLayout>& a);
 cudaError_t decode_f8(int dtype, int head_dim, const DecodeArgs<DenseLayout>& a);
 cudaError_t decode_f8(int dtype, int head_dim, const DecodeArgs<PagedLayout>& a);
 cudaError_t decode_f8_wide(int dtype, int head_dim, const DecodeArgs<DenseLayout>& a);
 cudaError_t decode_f8_wide(int dtype, int head_dim, const DecodeArgs<PagedLayout>& a);
+// The rolling ring (ring_decode_attention*.cu).
+cudaError_t decode_wide(int dtype, int head_dim, const DecodeArgs<RingLayout>& a);
+cudaError_t decode_f8(int dtype, int head_dim, const DecodeArgs<RingLayout>& a);
+cudaError_t decode_f8_wide(int dtype, int head_dim, const DecodeArgs<RingLayout>& a);
 
 // The C entry points' common tail: validate, then dispatch on the dtype of
 // q and out (dtype) and of the cache (kv_dtype: dtype, or kF8).

@@ -60,6 +60,51 @@ struct StridedLayout {
   }
 };
 
+// The rolling window cache [b, n_kv, L, D], contiguous (models/llama/
+// cache.py write_layer_rolling): logical position j lives in ring slot
+// j mod L. L is a multiple of 128 (the wrappers check it, and so do the C
+// entry points), so a decode split of DEC_SPLIT positions and a 64-key chunk
+// tile, both starting at multiples of their size, lie contiguous in the
+// ring: split<D>(j0) takes one modulo and the split's keys follow D
+// elements apart, as in DenseCursor. limit() is the LOGICAL bound (the
+// full cache's length), never L: clamping walks at L would drop every key
+// past the first wrap, and the decode grid (ops/decode_attention.plan) at
+// the logical bound is the full cache's, which gives its bits. Which
+// positions are live is the callers' (the window, always on over a ring:
+// L holds the window plus the chunk being written).
+//
+// The chunk body resolves a slot for every 16-byte copy, so the modulo is
+// taken without a division: the quotient from j times 1/L in f32 (exact to
+// within one for positions below 2^24, far past any cache), then one
+// correction each way. An integer `%` there cost the chunk kernel 26% of
+// its time at Mistral-7B's operands (PERF.md, the ring rows).
+struct RingCursor {
+  size_t row0;    // first ring slot of (row, kv head)
+  int ring;       // L
+  float inv_ring; // 1 / L
+  __device__ __forceinline__ int slot(int j) const {
+    int r = j - __float2int_rz(__int2float_rn(j) * inv_ring) * ring;
+    r += r < 0 ? ring : 0;
+    r -= r >= ring ? ring : 0;
+    return r;
+  }
+  template <int D>
+  __device__ __forceinline__ size_t k(int j) const { return (row0 + (size_t)slot(j)) * D; }
+  template <int D>
+  __device__ __forceinline__ size_t v(int j) const { return k<D>(j); }
+  template <int D>
+  __device__ __forceinline__ size_t split(int j0) const { return k<D>(j0); }
+};
+
+struct RingLayout {
+  int n_kv, ring, max_seq;  // max_seq: the logical bound of positions
+  float inv_ring;           // 1 / ring, computed by the C entry points
+  __device__ __forceinline__ int limit() const { return max_seq; }
+  __device__ __forceinline__ RingCursor cursor(int row, int kvh) const {
+    return {((size_t)row * n_kv + kvh) * (size_t)ring, ring, inv_ring};
+  }
+};
+
 // One layer's page pool [n_pages + 1, n_kv, page_size, D] through a block
 // table: slot j sits on physical page tables[row][j / page_size] at offset
 // j % page_size. An unmapped entry (< 0) reads page 0, finite garbage that no

@@ -1,0 +1,12 @@
+// The e4m3 (f8) cache instantiations of the ring decode kernel
+// (ring_decode_attention.cu) at head dims 128 and 256, in a translation
+// unit of their own. Body, bound and design: decode_attention.cuh.
+#include "decode_attention.cuh"
+
+namespace cake {
+
+cudaError_t decode_f8_wide(int dtype, int head_dim, const DecodeArgs<RingLayout>& a) {
+  return decode_by_dtype<f8, true>(dtype, head_dim, a);
+}
+
+}  // namespace cake

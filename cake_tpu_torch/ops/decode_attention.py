@@ -27,6 +27,17 @@ atomic ticket, merges the partials in ascending split order. The tickets
 (ops/tickets.py) are a zeroed buffer that every call leaves at zero; they
 assume the calls run on one stream at a time, as the port's callers do.
 
+The rolling window cache (models/llama/cache.py) is a ring of L slots,
+position p in slot p % L. ``ring_limit`` (the logical bound of positions,
+the full cache's padded length) routes a call to the ring instantiations
+of the same body (``csrc/ring_decode_attention*.cu``, ``RingLayout``): L is
+a multiple of SPLIT, so each split of logical positions is contiguous in
+the ring, and the grid comes from ``plan()`` at ``ring_limit``, the full
+cache's, so a ring call gives the full cache's bits on the same keys. Its
+plain version is :func:`decode_ring_plain`, the reference's
+``gqa_attention_hm`` over ``rolling_kv_positions``. Ring launches also
+count in ``decode_attention.ring``.
+
 For a tensor on the CPU the wrapper runs :func:`decode_attention_plain`
 (the tests' path); for a CUDA tensor it launches the kernel or raises.
 """
@@ -40,7 +51,7 @@ from dataclasses import dataclass
 import torch
 
 from cake_tpu_torch.ops import _build
-from cake_tpu_torch.ops.attention import masked_gqa_attention_hm
+from cake_tpu_torch.ops.attention import causal_mask, masked_gqa_attention_hm
 from cake_tpu_torch.ops.kv_dtype import F8, attention_dtype
 from cake_tpu_torch.ops.launches import count
 from cake_tpu_torch.ops.tickets import tickets
@@ -166,9 +177,50 @@ def decode_attention_plain(
 decode_attention_plain.launches = 0
 
 
-def decode_attention(
+def ring_mask(q_pos, lengths, starts, ring: int, window, window_flag):
+    """[b, q_len, L] mask over a ring of ``ring`` slots: each slot's
+    position from ``rolling_kv_positions`` (the newest written position of a
+    row is lengths - 1), then the causal and window mask of the reference's
+    ``gqa_attention_hm`` and the left pad (``starts``)."""
+    from cake_tpu_torch.models.llama.cache import rolling_kv_positions
+
+    kpos = rolling_kv_positions(ring, lengths.long() - 1, 1)
+    mask = causal_mask(q_pos.long(), kpos, window, window_flag)
+    return mask & (kpos >= starts.long()[:, None])[:, None, :]
+
+
+def check_ring(name: str, ring: int, ring_limit: int, window, window_flag, span: int) -> None:
+    """What a ring call needs: L a multiple of SPLIT (a split of logical
+    positions is then contiguous in the ring), a logical bound past it, and
+    a window always on that fits the ring with ``span`` - 1 newer keys."""
+    if ring % SPLIT or ring < SPLIT or ring_limit < ring:
+        raise ValueError(f"{name}: a ring of {ring} slots needs a multiple of {SPLIT} and a "
+                         f"logical bound >= it (got {ring_limit})")
+    if window is None or window_flag is not None or window + span - 1 > ring:
+        raise ValueError(f"{name}: a ring of {ring} slots needs a window always on of at most "
+                         f"{ring - span + 1} (got window={window}, flag={window_flag})")
+
+
+def decode_ring_plain(
     q, k_cache, v_cache, lengths, starts=None, window_flag=None, *,
     window=None, scale=None, softcap=None,
+):
+    """Plain PyTorch version over a ring [b, n_kv, L, hd]: the reference's
+    rolling attention (``gqa_attention_hm`` over ``rolling_kv_positions``),
+    the query at position lengths - 1."""
+    count(decode_ring_plain)
+    lengths, starts = row_bounds(q, lengths, starts, None, None)
+    mask = ring_mask((lengths - 1)[:, None], lengths, starts, k_cache.shape[2], window,
+                     window_flag)
+    return masked_gqa_attention_hm(q, k_cache, v_cache, mask, scale=scale, softcap=softcap)
+
+
+decode_ring_plain.launches = 0
+
+
+def decode_attention(
+    q, k_cache, v_cache, lengths, starts=None, window_flag=None, *,
+    window=None, scale=None, softcap=None, ring_limit=None,
 ):
     """Single-position GQA attention against the cache.
 
@@ -182,9 +234,17 @@ def decode_attention(
       window_flag: optional bool / 0-dim bool tensor gating ``window``.
       window: sliding window (folded into ``starts``); scale: score scale
         (None = hd**-0.5); softcap: tanh soft-cap of the scores.
+      ring_limit: None for the dense cache; for a rolling ring of L =
+        max_seq slots, the logical bound of positions (the module
+        docstring). The window must then be on and fit the ring.
 
     Returns [b, 1, n_q, hd] in q's dtype.
     """
+    if ring_limit is not None:
+        check_ring("decode_attention", k_cache.shape[2], ring_limit, window, window_flag, 1)
+        if q.device.type == "cpu":
+            return decode_ring_plain(q, k_cache, v_cache, lengths, starts, window_flag,
+                                     window=window, scale=scale, softcap=softcap)
     if q.device.type == "cpu":
         return decode_attention_plain(
             q, k_cache, v_cache, lengths, starts, window_flag,
@@ -199,7 +259,7 @@ def decode_attention(
     if wide != q.dtype:  # a wider cache: the query upcast exactly, the output cast back
         return decode_attention(
             q.to(wide), k_cache, v_cache, lengths, starts, window_flag,
-            window=window, scale=scale, softcap=softcap,
+            window=window, scale=scale, softcap=softcap, ring_limit=ring_limit,
         ).to(q.dtype)
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"decode_attention: cache shapes {k_cache.shape} / {v_cache.shape}")
@@ -221,18 +281,29 @@ def decode_attention(
     if b == 0:
         return out
     lib = _build.library()
-    p, part, ticket_buf = split_launch(q, n_kv, max_seq)
-    err = lib.cake_decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        lengths.data_ptr(), starts.data_ptr(), part.data_ptr(), ticket_buf.data_ptr(),
-        b, n_kv, n_q // n_kv, p.heads, max_seq, hd,
-        _build.dtype_code(q.dtype), _build.dtype_code(k_cache.dtype),
-        float(hd**-0.5 if scale is None else scale),
-        float(softcap or 0.0), p.n_split, p.z,
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
-    )
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    scale = float(hd**-0.5 if scale is None else scale)
+    codes = _build.dtype_code(q.dtype), _build.dtype_code(k_cache.dtype)
+    if ring_limit is None:
+        p, part, ticket_buf = split_launch(q, n_kv, max_seq)
+        err = lib.cake_decode_attention(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+            lengths.data_ptr(), starts.data_ptr(), part.data_ptr(), ticket_buf.data_ptr(),
+            b, n_kv, n_q // n_kv, p.heads, max_seq, hd, *codes, scale,
+            float(softcap or 0.0), p.n_split, p.z, stream,
+        )
+    else:  # max_seq is the ring's L; the grid is the logical bound's
+        p, part, ticket_buf = split_launch(q, n_kv, ring_limit)
+        err = lib.cake_ring_decode_attention(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+            lengths.data_ptr(), starts.data_ptr(), part.data_ptr(), ticket_buf.data_ptr(),
+            b, n_kv, n_q // n_kv, p.heads, max_seq, ring_limit, hd, *codes, scale,
+            float(softcap or 0.0), p.n_split, p.z, stream,
+        )
     _build.check(err, "decode_attention")
     count(decode_attention)
+    if ring_limit is not None:
+        count(decode_attention, "ring")
     if k_cache.dtype == F8:
         count(decode_attention, "f8")
     return out
@@ -240,3 +311,4 @@ def decode_attention(
 
 decode_attention.launches = 0
 decode_attention.f8 = 0  # launches over an f8 cache
+decode_attention.ring = 0  # launches over a rolling ring (ring_limit)

@@ -45,6 +45,7 @@ from cake_tpu_torch.models.llama.chat import Message
 from cake_tpu_torch.models.llama.generator import LlamaGenerator, SamplingConfig, Token
 from cake_tpu_torch.obs import critpath
 from cake_tpu_torch.obs.timeline import timeline
+from cake_tpu_torch.runtime import faults
 from cake_tpu_torch.utils import metrics
 
 log = logging.getLogger("cake_tpu_torch.api")
@@ -548,6 +549,9 @@ class _SseStream:
         handler.end_headers()
 
         def write(data: bytes) -> None:
+            spec = faults.check("api.stream")
+            if spec is not None and spec.kind == "stall":
+                faults.sleep(spec)  # a consumer that stopped reading
             handler.wfile.write(f"{len(data):X}\r\n".encode() + data + b"\r\n")
 
         try:

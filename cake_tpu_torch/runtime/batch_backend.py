@@ -32,7 +32,12 @@ the route its kernel takes ("cuda" on the card, "plain" on the CPU), and a
 sampled tail with ``top_p`` (which keeps the unfused composition) one
 ``kernel-fallback`` flight event a backend; each paged dispatch leaves a
 ``kernel:<op>`` instant. The TCP backend counts a hop it abandons
-(``cake_hop_failures_total``, a ``hop-failed`` flight event). The
+(``cake_hop_failures_total``, a ``hop-failed`` flight event), and its
+``failover(node)`` ejects a dead worker and re-routes its replica group.
+Every backend's ``replay_decode`` runs a decode chunk's one-token steps fed
+tokens the engine already holds, without sampling: the engine's failover
+migration re-issues an epoch's dispatches through it
+(runtime/serving.py ``_migrate_kv``). The
 tensor-parallel and pipelined backends and speculative verify are not
 ported (ROADMAP.md); a page size the paged kernels do not take raises on
 the card.
@@ -130,6 +135,17 @@ def _decode_chunk(backend, chunks: _Chunks, kv, n: int, tok, ring, s, make_forwa
     elif chunk.kv.k.data_ptr() != kv.k.data_ptr():
         raise RuntimeError("decode: the KV storage moved under a captured decode chunk")
     return chunk
+
+
+def _replay_steps(forward_one, kv, toks: torch.Tensor, slot: int):
+    """``forward_one`` over the columns of ``toks`` at slots slot, slot + 1,
+    ...; the slot is a 0-d device tensor advanced in place, as in a decode
+    chunk (models/llama/fused.py ``sampled_decode_loop``)."""
+    slot_t = torch.full((), int(slot), dtype=torch.int64, device=toks.device)
+    for i in range(toks.shape[1]):
+        _, kv = forward_one(toks[:, i : i + 1], kv, slot_t)
+        slot_t.add_(1)
+    return kv
 
 
 def _route(backend) -> str:
@@ -260,6 +276,16 @@ class LocalBatchBackend:
         ids = chunk.run(tok=tok, slot=slot, ring=ring, ring_idx=ring_idx, keys=keys, pads=pads)
         _note_fusion_kernels(self, s)
         return ids, kv, chunk.keys, chunk.ring, chunk.ring_idx
+
+    @torch.inference_mode()
+    def replay_decode(self, kv, toks, slot: int, pads):
+        """A decode chunk's KV writes again: one-token steps over [slot,
+        slot + n) fed ``toks`` [B, n], with the chunk's own forward and a
+        device slot, as its graph runs them; nothing is sampled."""
+        _check_live(kv, self._kv, "replay_decode")
+        fwd = B.batched_forward_one(self.params, _rows(pads, self.device), self.config,
+                                    self.rope)
+        return _replay_steps(fwd, kv, _tokens(toks, self.device), slot)
 
     @torch.inference_mode()
     def join(self, kv, row_tokens, pad: int, end: int, lane: int):
@@ -511,6 +537,16 @@ class PagedLocalBackend:
         return ids, kv, chunk.keys, chunk.ring, chunk.ring_idx
 
     @torch.inference_mode()
+    def replay_decode(self, kv, toks, slot: int, pads):
+        """A decode chunk's KV writes again through the lanes' current
+        tables (the dense backend's ``replay_decode``)."""
+        _check_live(kv, self._pool, "replay_decode")
+        self._check_write_bound("replay_decode", int(slot) + int(np.shape(toks)[1]))
+        fwd = B.paged_forward_one(self.params, _rows(pads, self.device), self._tables(),
+                                  self.config, self.rope)
+        return _replay_steps(fwd, kv, _tokens(toks, self.device), slot)
+
+    @torch.inference_mode()
     def join(self, kv, row_tokens, pad: int, end: int, lane: int):
         """A join without the prefix cache: the row prefills straight
         through its lane's freshly mapped pages."""
@@ -665,6 +701,13 @@ class DistributedBatchBackend:
             x = wire_to_torch(out, step.dtype, self.device)
         return x, kv
 
+    def failover(self, node: str) -> bool:
+        """Eject ``node`` and re-route its replica group for the rest of the
+        epoch (runtime/router.py). True iff a healthy replica took over:
+        the engine then migrates the live streams onto the new route
+        (runtime/serving.py); False degrades to the error isolation."""
+        return self.step.router.failover(node) is not None
+
     @torch.inference_mode()
     def prefill(self, tokens, kv, pads):
         """The whole left-padded batch at slots [0, width): (logits, kv)."""
@@ -687,6 +730,9 @@ class DistributedBatchBackend:
                              f"{self.max_seq_len}")
         hdr = {"kind": "decode", "pads": [int(p) for p in pads.tolist()]}
         fused_tail = "tail" in resolve_fusion(self.config)
+        # The steps update the ring in place: a chunk that loses its worker
+        # leaves the caller's ring as it was, for the migrated redo.
+        ring = ring.clone()
         out = []
         for i in range(n):
             pos = int(slot) + i
@@ -700,6 +746,22 @@ class DistributedBatchBackend:
             )
             out.append(tok)
         return torch.stack(out, dim=1), kv, keys, ring, ring_idx
+
+    @torch.inference_mode()
+    def replay_decode(self, kv, toks, slot: int, pads):
+        """A decode chunk's KV writes again: one walk of the plan a step,
+        fed ``toks`` [B, n]; no head and no sampling."""
+        pads_np = np.asarray(pads, np.int32).reshape(-1)
+        pads_t = _rows(pads_np, self.device)
+        hdr = {"kind": "decode", "pads": pads_np.tolist()}
+        toks_t = _tokens(toks, self.device)
+        for i in range(toks_t.shape[1]):
+            pos = int(slot) + i
+            x = M.embed_tokens(self.step.head, toks_t[:, i : i + 1], self.config)
+            _, kv = self._walk("decode", x, pos, kv, hdr,
+                               lambda layers, x, kv_r: self._decode_op(layers, x, kv_r, pads_t,
+                                                                       pos))
+        return kv
 
     @torch.inference_mode()
     def join(self, kv, row_tokens, pad: int, end: int, lane: int):

@@ -10,17 +10,26 @@ idempotently (runtime/worker.py sessions). Without a session a resend would
 apply KV writes twice, so the first failure raises.
 
 ``round_trips``, ``tx_bytes`` and ``rx_bytes`` count the client's forwards
-and their payload bytes (frame prefix and header excluded). The heartbeat
-monitor and the metrics calls are not ported (ROADMAP.md queue A).
+and their payload bytes (frame prefix and header excluded). The fault plan's
+``client.send`` and ``client.recv`` checkpoints (runtime/faults.py) sit in
+front of each FORWARD's send and its reply's read.
+
+``HeartbeatMonitor`` probes every worker's liveness over connections of its
+own (the reference's, liveness only: the STATS pull and the clock-offset
+feed of the cluster observer wait for the worker's STATS, ROADMAP.md queue
+A, and the port's workers advertise ``stats_ops=False``).
 """
 
 from __future__ import annotations
 
 import logging
 import socket
+import threading
 import time
 
-from cake_tpu_torch.runtime import proto
+from cake_tpu_torch.obs.timeline import timeline
+from cake_tpu_torch.runtime import faults, proto
+from cake_tpu_torch.utils import metrics
 
 log = logging.getLogger("cake_tpu_torch.client")
 
@@ -173,6 +182,13 @@ class StageClient:
                     raise
                 log.warning("op to %s failed (attempt %d/%d, seq=%s): %s; reconnecting for an "
                             "idempotent resend", self.node_name, attempt + 1, retries + 1, seq, e)
+                metrics.registry.counter(
+                    "cake_op_retries_total",
+                    "FORWARD round trips resent after a deadline or connection failure "
+                    "(session replay path).",
+                ).inc(node=self.node_name)
+                metrics.flight.record("op-retry", trace, node=self.node_name, seq=seq,
+                                      error=str(e)[:200])
                 # Never reuse the socket: a late reply to the timed-out op
                 # would desync the request/reply stream.
                 self.reconnect()
@@ -183,7 +199,28 @@ class StageClient:
             x, ranges, pos, batch=batch, trace=trace,
             sid=self.sid if seq is not None else None, seq=seq,
         )
-        proto.write_frame(self._sock, frame)
+        spec = faults.check("client.send", node=self.node_name)
+        if spec is not None and spec.kind == "drop":
+            pass  # the frame is "lost on the wire": the reply read times out
+        elif spec is not None and spec.kind == "kill":
+            # The worker is unreachable from this client: the op never
+            # leaves and the socket is torn down. With ``count=0`` and a
+            # node the worker stays dead through every retry and reconnect,
+            # the deterministic stand-in for a vanished host that drives
+            # replica failover (runtime/router.py).
+            self.close()
+            raise ConnectionError("fault: connection killed pre-send")
+        elif spec is not None and spec.kind == "truncate":
+            data = proto.encode_frame(frame)
+            self._sock.sendall(data[: max(1, int(len(data) * spec.frac))])
+            raise ConnectionError("fault: frame truncated mid-send")
+        else:
+            if spec is not None and spec.kind == "delay":
+                faults.sleep(spec)
+            proto.write_frame(self._sock, frame)
+        spec = faults.check("client.recv", node=self.node_name)
+        if spec is not None and spec.kind == "delay":
+            faults.sleep(spec)
         reply = proto.read_frame(self._sock)
         self.round_trips += 1
         self.tx_bytes += len(x.data)
@@ -215,3 +252,121 @@ class StageClient:
             self._sock.close()
         except OSError:
             pass
+
+
+class HeartbeatMonitor:
+    """Per-worker liveness probing over dedicated PING connections (the
+    reference's ``HeartbeatMonitor``, liveness only).
+
+    One daemon thread a worker dials its OWN connection (the op socket is
+    strictly request-reply: a concurrent PING would interleave frames) and
+    pings every ``interval_s`` under a ``deadline_s`` socket timeout. A
+    probe that fails or times out marks the node unhealthy within
+    ``interval_s + deadline_s`` of the stall's start:
+
+      * gauge ``cake_worker_healthy{node}``: 1/0 liveness
+      * counter ``cake_worker_unhealthy_total{node}``: transitions to down
+      * histogram ``cake_worker_ping_seconds{node}``: probe round trip
+      * flight events ``worker-unhealthy`` / ``worker-healthy`` and a
+        timeline instant a transition.
+
+    The monitor only observes: routing and failover decisions belong to the
+    caller (``healthy()``, ``snapshot()``; runtime/router.py)."""
+
+    def __init__(self, hosts: dict[str, str], *, interval_s: float = 2.0,
+                 deadline_s: float = 2.0):
+        self.hosts = dict(hosts)
+        self.interval_s = interval_s
+        self.deadline_s = deadline_s
+        self._lock = threading.Lock()
+        self._healthy: dict[str, bool | None] = {n: None for n in self.hosts}
+        self._stop = threading.Event()
+        self._threads: list[threading.Thread] = []
+
+    def start(self) -> "HeartbeatMonitor":
+        for node, host in self.hosts.items():
+            t = threading.Thread(target=self._probe_loop, args=(node, host),
+                                 name=f"heartbeat-{node}", daemon=True)
+            t.start()
+            self._threads.append(t)
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=self.deadline_s + 1.0)
+        self._threads = []
+
+    def healthy(self, node: str) -> bool:
+        """True until a probe has FAILED: an unprobed worker is presumed
+        live (the monitor exists to notice deaths, not to gate startup)."""
+        with self._lock:
+            return self._healthy.get(node) is not False
+
+    def snapshot(self) -> dict[str, bool | None]:
+        with self._lock:
+            return dict(self._healthy)
+
+    def _dial(self, host: str, node: str) -> socket.socket:
+        addr_host, addr_port = parse_address(host, what=f"heartbeat host for node {node!r}")
+        sock = socket.create_connection((addr_host, addr_port), timeout=self.deadline_s)
+        try:
+            proto.write_frame(sock, proto.hello_frame())
+            reply = proto.read_frame(sock)
+            if reply.type != proto.MsgType.WORKER_INFO:
+                raise ConnectionError(f"heartbeat handshake to {node} got {reply.type.name}")
+        except BaseException:
+            sock.close()
+            raise
+        return sock
+
+    def _probe_loop(self, node: str, host: str) -> None:
+        sock: socket.socket | None = None
+        while not self._stop.is_set():
+            try:
+                if sock is None:
+                    sock = self._dial(host, node)
+                t0 = time.perf_counter()
+                proto.write_frame(sock, proto.ping_frame())
+                reply = proto.read_frame(sock)
+                if reply.type != proto.MsgType.PING:
+                    raise ConnectionError(f"heartbeat reply {reply.type.name}")
+                metrics.registry.histogram(
+                    "cake_worker_ping_seconds", "Heartbeat PING round-trip time per worker.",
+                ).observe(time.perf_counter() - t0, node=node)
+                self._mark(node, True)
+            except (ConnectionError, TimeoutError, OSError, ValueError):
+                if sock is not None:
+                    try:
+                        sock.close()
+                    except OSError:
+                        pass
+                    sock = None
+                self._mark(node, False)
+            self._stop.wait(self.interval_s)
+        if sock is not None:
+            try:
+                sock.close()
+            except OSError:
+                pass
+
+    def _mark(self, node: str, ok: bool) -> None:
+        with self._lock:
+            prev = self._healthy.get(node)
+            self._healthy[node] = ok
+        metrics.registry.gauge(
+            "cake_worker_healthy", "Heartbeat liveness per worker (1 = answering PING in time).",
+        ).set(1 if ok else 0, node=node)
+        # Only transitions get counters and events (the gauge tracks the
+        # level), so the flight ring is not flooded at probe cadence.
+        if not ok and prev is not False:
+            metrics.registry.counter(
+                "cake_worker_unhealthy_total", "Heartbeat transitions to unhealthy per worker.",
+            ).inc(node=node)
+            metrics.flight.record("worker-unhealthy", node=node)
+            timeline.instant("worker-unhealthy", track="health", args={"node": node})
+            log.warning("worker %s marked UNHEALTHY (heartbeat)", node)
+        elif ok and prev is False:
+            metrics.flight.record("worker-healthy", node=node)
+            timeline.instant("worker-healthy", track="health", args={"node": node})
+            log.info("worker %s healthy again (heartbeat)", node)

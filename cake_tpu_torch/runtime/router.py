@@ -18,8 +18,13 @@ member serves each group for an epoch:
     ``cooldown_s`` has passed (and the heartbeat monitor, when one is
     attached, reports it healthy); ``report_success`` readmits it early.
 
-The port attaches no monitor yet (the heartbeat monitor is a later item of
-ROADMAP.md queue A) and keeps no metrics registry: ``events`` holds the
+The engine attaches its heartbeat monitor (runtime/client.py
+``HeartbeatMonitor``) late, at its start (``attach_monitor``): with one, a
+member the monitor sees down leaves the rotation at the next refresh and
+rejoins only on a live heartbeat after its cooldown. A failover counts in
+``cake_failover_total{node}`` (the FAILED node) with a ``failover`` flight
+event and timeline instant; a rejoin in ``cake_replica_rejoin_total``, and
+each epoch's routes in ``cake_replica_routed_total``. ``events`` keeps the
 failover and rejoin records, ``routed`` the picks per node.
 """
 
@@ -29,6 +34,9 @@ import collections
 import logging
 import threading
 import time
+
+from cake_tpu_torch.obs.timeline import timeline
+from cake_tpu_torch.utils import metrics
 
 log = logging.getLogger("cake_tpu_torch.router")
 
@@ -54,7 +62,20 @@ class ReplicaRouter:
         self.events: collections.deque = collections.deque(maxlen=256)
         self.routed: collections.Counter = collections.Counter()
 
+    def attach_monitor(self, monitor) -> None:
+        """Late-bind the heartbeat monitor (the engine builds it at start())."""
+        self.monitor = monitor
+
     # ------------------------------------------------------------- health
+
+    def healthy(self, node: str) -> bool:
+        """Routable now: not under ejection probation, and not marked down
+        by the heartbeat monitor."""
+        with self._lock:
+            ok, rejoined = self._healthy_locked(node)
+        if rejoined:
+            self._record("rejoin", node=node)
+        return ok
 
     def _healthy_locked(self, node: str) -> tuple[bool, bool]:
         """(healthy, rejoined); clears an expired ejection."""
@@ -90,6 +111,11 @@ class ReplicaRouter:
             self.routed.update(routes.values())
         for node in rejoins:
             self._record("rejoin", node=node)
+        for node in routes.values():
+            metrics.registry.counter(
+                "cake_replica_routed_total",
+                "Epoch routes handed out per worker by the replica router.",
+            ).inc(node=node)
         return routes
 
     def _pick_locked(self, primary: str, members: list[str], rejoins: list[str]) -> str | None:
@@ -152,6 +178,21 @@ class ReplicaRouter:
     def _record(self, event: str, **fields) -> None:
         self.events.append({"event": event, "t": time.time(), **fields})
         log.info("router %s %s", event, fields)
+        if event == "failover":
+            metrics.registry.counter(
+                "cake_failover_total",
+                "Failovers away from a worker (labelled by the FAILED node).",
+            ).inc(node=fields["node"])
+            metrics.flight.record("failover", node=fields["node"], to=fields["to"])
+            timeline.instant("failover", track="router",
+                             args={"from": fields["node"], "to": fields["to"]})
+        else:
+            metrics.registry.counter(
+                "cake_replica_rejoin_total",
+                "Ejected replicas readmitted to rotation (standby rejoin).",
+            ).inc(node=fields["node"])
+            metrics.flight.record("rejoin", node=fields["node"])
+            timeline.instant("rejoin", track="router", args={"node": fields["node"]})
 
     def snapshot(self) -> dict:
         with self._lock:

@@ -75,8 +75,27 @@ with ``blackbox_dir`` the black box. A dispatch's wall includes its device
 work: each timed dispatch ends in a host readback or an event wait on the
 engine's stream, never a whole-device synchronize.
 
-Not ported yet (ROADMAP.md): speculative verify and failover. Asking for a
-knob that is not ported raises.
+Failover (runtime/router.py, runtime/faults.py): when a worker dies
+mid-epoch (``BackendWorkerError``) and a healthy replica exists, or on a
+local backend with ``failover_local``, the epoch's live streams MIGRATE
+instead of finishing ``"error"``: ``_migrate_kv`` rebuilds their KV on the
+new route and decode resumes at the same slot with the same sampling state.
+Without the prefix cache the rebuild re-issues the epoch's own dispatches
+(its prefill, its joins and restores, and each decode chunk as one-token
+steps fed the tokens the streams already hold), the same kernels at the
+same shapes, so the rebuilt KV holds the lost KV's bits and greedy streams
+equal a fault-free run on the card too; under the prefix cache (whose
+chains' bytes die with the pool) it is the reference's one windowed
+re-prefill through the cached-chunk arithmetic. At most ``max_failovers``
+migrations an epoch within ``failover_budget_s`` of migration wall time;
+past either, or with no healthy replica, the epoch falls back to the error
+isolation. With ``heartbeat_interval_s`` the engine starts a
+``HeartbeatMonitor`` over the TCP backend's workers and attaches it to the
+router. Every backend dispatch passes the fault plan's ``backend.<op>``
+checkpoint first (``_backend_guard``).
+
+Not ported yet (ROADMAP.md): speculative verify. Asking for a knob that is
+not ported raises.
 """
 
 from __future__ import annotations
@@ -106,6 +125,7 @@ from cake_tpu_torch.obs.requestlog import RequestLog
 from cake_tpu_torch.obs.slo import SloObjectives, SloTracker
 from cake_tpu_torch.obs.timeline import timeline
 from cake_tpu_torch.obs.timeseries import SliTimeseries
+from cake_tpu_torch.runtime import faults
 from cake_tpu_torch.runtime.admission import (
     DEFAULT_TENANT,
     FairQueue,
@@ -184,6 +204,13 @@ class ServeConfig:
     captures a request slower than that multiple of the rolling p99.
     ``peak_tflops`` and ``peak_hbm_gbps`` (0 = the card's table entry, none
     on the CPU) are the roofline's denominators (obs/efficiency.py).
+
+    Failover (the module docstring): ``heartbeat_interval_s`` (0 = off)
+    and ``heartbeat_deadline_s`` probe a TCP backend's workers;
+    ``max_failovers`` migrations an epoch (0 = error isolation only) within
+    ``failover_budget_s`` of migration wall time; ``failover_local`` opts
+    the local backends into migration in place; ``failover_cooldown_s`` is
+    the router's standby rejoin probation.
     """
 
     max_batch: int = 8
@@ -223,6 +250,12 @@ class ServeConfig:
     blackbox_p99_mult: float = 0.0
     peak_tflops: float = 0.0
     peak_hbm_gbps: float = 0.0
+    heartbeat_interval_s: float = 0.0
+    heartbeat_deadline_s: float = 2.0
+    max_failovers: int = 2
+    failover_budget_s: float = 30.0
+    failover_local: bool = False
+    failover_cooldown_s: float = 5.0
 
     def __post_init__(self):
         parse_fusion_spec(self.fusion_impl)
@@ -268,6 +301,15 @@ class ServeConfig:
             raise ValueError("blackbox_min_interval_s and blackbox_p99_mult must be >= 0")
         if self.peak_tflops < 0 or self.peak_hbm_gbps < 0:
             raise ValueError("peak_tflops and peak_hbm_gbps must be >= 0 (0 = the device table)")
+        if self.max_failovers < 0 or self.failover_budget_s <= 0:
+            raise ValueError(
+                "max_failovers must be >= 0 and failover_budget_s positive, "
+                f"got {self.max_failovers}/{self.failover_budget_s}"
+            )
+        if self.failover_cooldown_s < 0:
+            raise ValueError("failover_cooldown_s must be >= 0")
+        if self.heartbeat_interval_s < 0 or self.heartbeat_deadline_s <= 0:
+            raise ValueError("heartbeat_interval_s must be >= 0 and heartbeat_deadline_s positive")
 
     def slo_objectives(self) -> SloObjectives:
         return SloObjectives(ttft_ms=self.slo_ttft_ms, ttft_target=self.slo_ttft_target,
@@ -501,8 +543,30 @@ class BatchEngine:
             "prefill_s": 0.0, "decode_s": 0.0, "decode_chunks": 0, "decode_steps": 0,
             "preemptions": 0, "restores": 0, "budget_deferrals": 0, "stream_errors": 0,
             "shed": 0, "quota_refusals": 0, "deadline_expired": 0, "epoch_stalls": 0,
-            "backpressured": 0,
+            "backpressured": 0, "failovers": 0, "recovered": 0,
         }
+        # Failover (the module docstring): the knobs, the epoch's budget
+        # (count and migration seconds, reset per epoch), the TCP backend's
+        # clients the heartbeat probes and its router, which takes the
+        # cooldown and, at start(), the monitor. ``_replay`` is the
+        # epoch's dispatch log a migration re-issues (None when the epoch
+        # cannot migrate, or migrates by re-prefill under the prefix
+        # cache); ``_pads_host`` the host copy of the lanes' pads.
+        self.max_failovers = serve.max_failovers
+        self.failover_budget_s = serve.failover_budget_s
+        self.failover_local = serve.failover_local
+        self._fo_count = 0
+        self._fo_spent_s = 0.0
+        self._replay: list | None = None
+        self._pads_host: np.ndarray | None = None
+        step = getattr(backend, "step", None)
+        self._hb_clients = getattr(step, "clients", {})
+        self.heartbeat_interval_s = serve.heartbeat_interval_s
+        self.heartbeat_deadline_s = serve.heartbeat_deadline_s
+        self.monitor = None  # HeartbeatMonitor, started with the engine
+        self._router = getattr(step, "router", None)
+        if self._router is not None:
+            self._router.cooldown_s = serve.failover_cooldown_s
         # Latency attribution (obs/critpath.py phases): aggregate phase
         # seconds of finished requests and the per-epoch convoy meter, for
         # /stats and the cake_phase_seconds / cake_convoy_* metrics.
@@ -746,6 +810,19 @@ class BatchEngine:
     def start(self) -> None:
         if self._thread is not None:
             return
+        if self.heartbeat_interval_s > 0 and self._hb_clients:
+            # Worker liveness: one PING prober a worker of the TCP backend.
+            # Routing reads it: a member the monitor sees down leaves the
+            # rotation at the next refresh, and its recovery (after the
+            # cooldown) readmits it.
+            from cake_tpu_torch.runtime.client import HeartbeatMonitor
+
+            self.monitor = HeartbeatMonitor(
+                {n: c.host for n, c in self._hb_clients.items()},
+                interval_s=self.heartbeat_interval_s, deadline_s=self.heartbeat_deadline_s,
+            ).start()
+            if self._router is not None:
+                self._router.attach_monitor(self.monitor)
         self._thread = threading.Thread(target=self._loop, name="batch-engine", daemon=True)
         self._thread.start()
 
@@ -760,6 +837,9 @@ class BatchEngine:
         if self._thread is not None:
             self._thread.join(timeout=60)
             self._thread = None
+        if self.monitor is not None:
+            self.monitor.stop()
+            self.monitor = None
         with self._cv:
             # The engine thread closes them on its way out; an engine that
             # never started has none to do it.
@@ -1182,6 +1262,27 @@ class BatchEngine:
         self._epoch_stalled = True
         self._capture("stall", self._epoch_head_rid or None)
 
+    # The reference's checkpoint site of each dispatch op (a restore is a
+    # join there; a copy-on-write split is no dispatch of its own).
+    _FAULT_SITES = {"prefill": "prefill", "decode": "decode", "join": "join", "restore": "join"}
+
+    def _backend_guard(self, op: str) -> None:
+        """The fault plan's checkpoint in front of a backend dispatch
+        (runtime/faults.py ``backend.*`` sites): ``stall`` sleeps, ``kill``
+        and ``crash`` raise the ``BackendWorkerError`` a dead worker
+        produces, so failover and the error isolation are testable on any
+        backend."""
+        site = self._FAULT_SITES.get(op)
+        spec = faults.check(f"backend.{site}") if site is not None else None
+        if spec is None:
+            return
+        if spec.kind == "stall":
+            faults.sleep(spec)
+        elif spec.kind in ("kill", "crash"):
+            from cake_tpu_torch.runtime.batch_backend import BackendWorkerError
+
+            raise BackendWorkerError("<fault-plan>", site)
+
     def _dispatch(self, op: str, fn, grace: bool = False):
         """Run one backend dispatch, under the stall guard when
         ``epoch_stall_s`` is on (inline, as it is, when it is off). Under the
@@ -1202,6 +1303,7 @@ class BatchEngine:
         guarded dispatch that follows it waits for that work too."""
         guard = self._guard
         if guard is None:
+            self._backend_guard(op)
             return fn()
         from cake_tpu_torch.runtime.batch_backend import BackendWorkerError
 
@@ -1209,6 +1311,7 @@ class BatchEngine:
         stream = torch.cuda.current_stream(index) if index is not None else None
 
         def job():
+            self._backend_guard(op)
             with torch.inference_mode():
                 if stream is None:
                     return fn()
@@ -1226,6 +1329,131 @@ class BatchEngine:
             if guard.stalls != stalls:
                 self._on_epoch_stall(op)
             raise
+
+    # ------------------------------------------------------ replica failover
+
+    def _can_migrate(self) -> bool:
+        """Whether an epoch may migrate at all: a TCP backend with a router
+        (``failover``), or a local one with ``failover_local``."""
+        return self.max_failovers > 0 and (
+            hasattr(self.backend, "failover") or self.failover_local
+        )
+
+    def _log_join(self, row_tokens, pad: int, end: int, lane: int) -> None:
+        """Log a join's (or a restore's) prefill for a migration's replay."""
+        if self._replay is not None:
+            backend = self.backend
+            self._replay.append(
+                ("call", lambda kv: backend.join(kv, row_tokens, pad, end, lane)[1])
+            )
+
+    def _failover_or_raise(self, e) -> None:
+        """Gate one failover attempt; re-raises ``e`` when migration is not
+        possible (no healthy replica, the budget burned, or too many
+        attempts this epoch), so the caller degrades to error isolation."""
+        if self._fo_count >= self.max_failovers:
+            log.warning("failover limit reached (%d); degrading", self._fo_count)
+            raise e
+        if self._fo_spent_s >= self.failover_budget_s:
+            log.warning("failover budget burned (%.2fs >= %.2fs); degrading",
+                        self._fo_spent_s, self.failover_budget_s)
+            raise e
+        failover = getattr(self.backend, "failover", None)
+        if failover is not None:
+            # TCP: eject the dead member and re-route its replica group
+            # (runtime/router.py records cake_failover_total and the event).
+            if not failover(e.node):
+                raise e  # no healthy replica left for that span
+        elif not self.failover_local:
+            raise e  # a backend without replicas and without the opt-in
+        else:
+            # In place on a local backend (a transient fault): the router's
+            # records for the TCP path.
+            metrics.registry.counter(
+                "cake_failover_total",
+                "Failovers away from a worker (labelled by the FAILED node).",
+            ).inc(node=e.node)
+            metrics.flight.record("failover", node=e.node, to=e.node)
+        self._fo_count += 1
+        self.stats["failovers"] += 1
+        # A bundle at the migration decision (rate-limited): the flight
+        # tail still holds the worker's death.
+        self._capture("failover", self._epoch_head_rid or None)
+
+    def _migrate_kv(self, rows: list, n_lanes: int, slot: int):
+        """Rebuild every live stream's KV on the (re-routed) backend at the
+        chunk boundary ``slot``, where ``row.history`` holds the prompt and
+        every emitted token, the KV covers ``history[:-1]`` and
+        ``history[-1]`` is the pending token at ``slot``. A fresh
+        ``init_kv`` (new replay sessions on the new route; paged: the pool
+        reset and each live lane's window [pad, slot) mapped again), then:
+
+          * without the prefix cache, the epoch's dispatch log again
+            (``_replay_kv``): its prefill, joins and restores as they ran,
+            and each decode chunk as one-token steps fed the tokens the
+            live rows hold, so the rebuilt rows are the lost rows' bits;
+          * under the prefix cache (its chains' bytes die with the pool:
+            the chains, their pins and the retained pool go first), the
+            reference's one batched re-prefill of each live row's
+            ``history[:-1]`` into a window ending at ``slot``, through the
+            cached-chunk arithmetic with every row's threshold at its pad.
+
+        Sampling state (keys, rings) is the engine's and rides through."""
+        t0 = time.perf_counter()
+        live = [(lane, row) for lane, row in enumerate(rows) if row is not None]
+        backend = self.backend
+        with timeline.span("failover-migrate", track="router",
+                           args={"slot": int(slot), "live": len(live)}):
+            if self._prefix is not None:
+                cap = min(self.max_seq_len, backend.capacity_slots())
+                width = min(-(-slot // _WINDOW_BUCKET) * _WINDOW_BUCKET, cap)
+                tokens = np.zeros((n_lanes, width), np.int32)
+                pads = np.full((n_lanes,), slot - 1, np.int32)
+                tokens[:, slot - 1] = self.config.bos_token_id  # dead lanes: one bos
+                for lane, row in live:
+                    hist = row.history[:-1]
+                    tokens[lane, slot - len(hist) : slot] = hist
+                    pads[lane] = slot - len(hist)
+                self._prefix.clear(reason="failover-migrate")
+                backend.drop_retained_kv()
+                self._lane_leases.clear()
+                kv = backend.init_kv(n_lanes)
+                for lane, _ in live:
+                    self._alloc.map_range(lane, int(pads[lane]), slot)
+                self._pool_counter()
+                _, kv = self._dispatch("prefill", lambda: backend.suffix_prefill(
+                    tokens, kv, pads, pads.copy(), 0))
+            else:
+                kv = backend.init_kv(n_lanes)
+                pads = self._pads_host
+                if self._alloc is not None:
+                    for lane, _ in live:
+                        self._alloc.map_range(lane, int(pads[lane]), slot)
+                    self._pool_counter()
+                fed = {lane: (int(pads[lane]), list(row.history)) for lane, row in live}
+                log_ = list(self._replay)
+                kv = self._dispatch("prefill", lambda: _replay_kv(
+                    backend, kv, log_, fed, n_lanes))
+            self._settle()
+        dt = time.perf_counter() - t0
+        self._fo_spent_s += dt
+        # The migration's rebuild is redone work a worker's death cost.
+        self.efficiency.note_failover(dt)
+        self.stats["recovered"] += len(live)
+        metrics.registry.histogram(
+            "cake_failover_seconds",
+            "Wall seconds per live-stream migration (re-prefill through the failed-over route).",
+        ).observe(dt)
+        metrics.registry.counter(
+            "cake_streams_recovered_total",
+            "Live streams carried through a failover migration (vs cake_stream_errors_total "
+            "when no replica could take over).",
+        ).inc(len(live))
+        metrics.flight.record("failover-migrated", live=len(live), slot=int(slot),
+                              seconds=round(dt, 6))
+        log.warning("failover migration: %d live stream(s) rebuilt at slot %d in %.3fs",
+                    len(live), slot, dt)
+        return kv
 
     def _pages_for(self, req: _Request, end_slot: int | None = None) -> int:
         """Admission price: prompt pages + the reserve, less the cached-prefix
@@ -1419,6 +1647,11 @@ class BatchEngine:
 
         rows: list[_RowState | None] = []
         self._epoch_kv_retained = False
+        # A fresh failover budget an epoch (count and migration seconds),
+        # and the epoch's dispatch log where a migration re-issues it.
+        self._fo_count = 0
+        self._fo_spent_s = 0.0
+        self._replay = [] if self._can_migrate() and self._prefix is None else None
         # Fresh attribution scratch: the convoy meter and the black box's
         # stall and error captures are per epoch.
         self._epoch_rows = []
@@ -1478,6 +1711,8 @@ class BatchEngine:
                 self.backend.drop_retained_kv()
             self._lane_leases.clear()
             self._lane_info.clear()
+            self._replay = None  # its closures hold the epoch's tokens
+            self._pads_host = None
             if hasattr(self.backend, "set_epoch_capacity"):
                 self.backend.set_epoch_capacity(None)
             # The lockstep tax, measured (a failed epoch's tax is real too).
@@ -1563,26 +1798,49 @@ class BatchEngine:
         with timeline.span("prefill", rid=self._epoch_head_rid, track="engine",
                            args={"bucket": int(bucket), "lanes": n_lanes,
                                  "restored": len(seed_spills)}):
-            kv = self.backend.init_kv(n_lanes)  # paged: resets or releases the allocator
-            write_starts = None
-            if self._prefix is not None:
-                kv, write_starts = self._prefix_layout(reqs, rows, pads, bucket, kv, ids_list)
-            elif self._alloc is not None:
-                # Each real lane's pages over its live window [pad, bucket);
-                # dummy lanes hold none (their writes sink).
-                for lane, r in enumerate(reqs):
-                    if r is not None:
-                        self._alloc.map_range(lane, int(pads[lane]), bucket)
-            if write_starts is not None:
-                # Prefix-cache path, cold epochs included: prefill only the
-                # window [start, bucket) covering every lane's uncached tail.
-                fresh_width = bucket - int(write_starts.min())
-                start = bucket - min(-(-fresh_width // _WINDOW_BUCKET) * _WINDOW_BUCKET, bucket)
-                logits, kv = self._dispatch("prefill", lambda: self.backend.suffix_prefill(
-                    tokens[:, start:], kv, pads, write_starts, start))
-            else:
-                logits, kv = self._dispatch("prefill",
-                                            lambda: self.backend.prefill(tokens, kv, pads))
+            while True:
+                # The epoch-start prefill has no generated state to migrate:
+                # a worker's death here retries it through the failed-over
+                # route (init_kv opens new sessions and resets the pool).
+                try:
+                    kv = self.backend.init_kv(n_lanes)  # paged: resets or releases the allocator
+                    write_starts = None
+                    if self._prefix is not None:
+                        kv, write_starts = self._prefix_layout(reqs, rows, pads, bucket, kv,
+                                                               ids_list)
+                    elif self._alloc is not None:
+                        # Each real lane's pages over its live window [pad,
+                        # bucket); dummy lanes hold none (their writes sink).
+                        for lane, r in enumerate(reqs):
+                            if r is not None:
+                                self._alloc.map_range(lane, int(pads[lane]), bucket)
+                    if write_starts is not None:
+                        # Prefix-cache path, cold epochs included: prefill
+                        # only the window [start, bucket) covering every
+                        # lane's uncached tail.
+                        fresh_width = bucket - int(write_starts.min())
+                        start = bucket - min(-(-fresh_width // _WINDOW_BUCKET) * _WINDOW_BUCKET,
+                                             bucket)
+                        logits, kv = self._dispatch("prefill", lambda: self.backend.suffix_prefill(
+                            tokens[:, start:], kv, pads, write_starts, start))
+                    else:
+                        logits, kv = self._dispatch(
+                            "prefill", lambda: self.backend.prefill(tokens, kv, pads))
+                    break
+                except BackendWorkerError as e:
+                    self._failover_or_raise(e)
+                    if self._prefix is not None:
+                        # The retry rebuilds the pool from zero: cached
+                        # chains would outlive their bytes.
+                        self._prefix.clear(reason="prefill-retry")
+                        self.backend.drop_retained_kv()
+                        self._lane_leases.clear()
+                        self._lane_info.clear()
+            self._pads_host = np.array(pads, np.int32)
+            if self._replay is not None:
+                backend = self.backend
+                self._replay.append(
+                    ("call", lambda kv, t=tokens, p=pads: backend.prefill(t, kv, p)[1]))
             ring, ring_idx = seed_rings(ids_list, window)
             if seed_spills:
                 # Nothing is sampled: the pending token history[-1] was
@@ -1676,10 +1934,21 @@ class BatchEngine:
                 joined: set[int] = set()
                 try:
                     for lane, req in join_args:
-                        tok, kv, keys, ring_j, ring_idx_j = self._join(
-                            req, lane, rows, slot, tok, kv, keys, ring_j, ring_idx_j, s
-                        )
+                        while True:
+                            try:
+                                tok, kv, keys, ring_j, ring_idx_j = self._join(
+                                    req, lane, rows, slot, tok, kv, keys, ring_j, ring_idx_j, s
+                                )
+                                break
+                            except BackendWorkerError as e:
+                                # A join's prefill lost its worker: migrate
+                                # the live rows to the new route, then retry
+                                # the join there (its first token samples
+                                # only after the join's prefill returns).
+                                self._failover_or_raise(e)
+                                kv = self._migrate_kv(rows, n_lanes, slot)
                         pads_j[lane] = slot - len(req.prompt_ids)
+                        self._pads_host[lane] = slot - len(req.prompt_ids)
                         joined.add(id(req))
                 except Exception as e:
                     for _, req in join_args:
@@ -1714,11 +1983,23 @@ class BatchEngine:
             builds = getattr(self.backend, "decode_builds_chunk", None)
             # The readback inside the span waits for the device: the slice is
             # the chunk's compute, not its launch.
-            with timeline.span("decode-chunk", track="engine",
-                               args={"slot": int(slot), "n": int(n), "live": live}):
-                (toks, kv, keys, ring_j, ring_idx_j), toks_np = self._dispatch(
-                    "decode", chunk, grace=self._guard is not None and builds is not None
-                    and builds(kv, tok, ring_j, n, s))
+            try:
+                with timeline.span("decode-chunk", track="engine",
+                                   args={"slot": int(slot), "n": int(n), "live": live}):
+                    (toks, kv, keys, ring_j, ring_idx_j), toks_np = self._dispatch(
+                        "decode", chunk, grace=self._guard is not None and builds is not None
+                        and builds(kv, tok, ring_j, n, s))
+            except BackendWorkerError as e:
+                # Migration: a worker died and a healthy route exists (or a
+                # local backend opted in): rebuild every live stream's KV
+                # there and REDO this chunk. tok, keys and the rings still
+                # hold the state before the chunk, so the redone chunk
+                # samples the tokens the lost one would have.
+                self._failover_or_raise(e)
+                kv = self._migrate_kv(rows, n_lanes, slot)
+                continue
+            if self._replay is not None:
+                self._replay.append(("decode", slot, n, self._pads_host.copy()))
             dt_chunk = time.perf_counter() - t_chunk
             self._step_budget.observe_chunk(dt_chunk)
             self.stats["decode_s"] += dt_chunk
@@ -2141,6 +2422,7 @@ class BatchEngine:
                         self._alloc.map_range(lane, pad, slot)
                     _, kv = self._dispatch("restore", lambda: self.backend.join(
                         kv, row_tokens, pad, slot, lane))
+                    self._log_join(row_tokens, pad, slot, lane)
                 self._settle()  # nothing is read back: the event ends the wall
         except BaseException as e:
             row.close_span(error=str(e)[:200])
@@ -2157,6 +2439,7 @@ class BatchEngine:
         keys[lane] = upload(sp.key, dev, torch.int64)
         tok[lane] = int(row.history[-1])
         pads_j[lane] = pad
+        self._pads_host[lane] = pad
         rows[lane] = row
         row.n_at_restore = row.n
         if self._alloc is not None:
@@ -2320,6 +2603,7 @@ class BatchEngine:
                     self._alloc.map_range(lane, pad, slot)  # _take_joins charged the pool
                 logits, kv = self._dispatch("join", lambda: self.backend.join(
                     kv, row_tokens, pad, slot, lane))
+                self._log_join(row_tokens, pad, slot, lane)
             # The same first-token arithmetic as the epoch start
             # (batch.first_sample); its readback ends the wall.
             window = s.repeat_last_n
@@ -2597,6 +2881,30 @@ class _RowState:
         eng._record_request(self.req, row=self)
         self.req.handle._emit(_DONE)
         eng._row_finished(self.req.rid)
+
+
+def _replay_kv(backend, kv, log_: list, fed: dict, n_lanes: int):
+    """Re-issue an epoch's logged dispatches over a fresh ``kv``
+    (``BatchEngine._migrate_kv``): ``("call", fn)`` entries run ``fn(kv)``
+    (the prefill, a join or a restore, with their own tokens); a
+    ``("decode", slot, n, pads)`` entry runs ``backend.replay_decode`` over
+    [slot, slot + n), each lane fed ``history[p - pad]`` at position p from
+    ``fed`` ({lane: (pad, history)} of the live rows). A position before a
+    lane's current row joined gets that history's token or 0: garbage the
+    join logged later rewrites, as a dead lane's garbage is never read."""
+    for entry in log_:
+        if entry[0] == "call":
+            kv = entry[1](kv)
+            continue
+        _, slot, n, pads = entry
+        toks = np.zeros((n_lanes, n), np.int64)
+        for lane, (pad, hist) in fed.items():
+            for i in range(n):
+                j = slot + i - pad
+                if 0 <= j < len(hist):
+                    toks[lane, i] = hist[j]
+        kv = backend.replay_decode(kv, toks, slot, pads)
+    return kv
 
 
 def _fail_request(req: _Request, engine: BatchEngine, error: str = "") -> None:

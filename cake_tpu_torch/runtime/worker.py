@@ -23,8 +23,14 @@ instead of spending retries. A sid-less FORWARD uses per-connection caches.
 Activations cross the wire as raw bytes: bf16 as its 16-bit words (numpy
 has no bf16), one device-to-host copy per direction (``torch_to_wire`` /
 ``wire_to_torch``). A STATS pull is answered with an ERROR frame: cluster
-observability is a later item of ROADMAP.md queue A, as are the chaos
-plan's fault checkpoints.
+observability is a later item of ROADMAP.md queue A.
+
+The fault plan's worker checkpoints (runtime/faults.py): ``worker.ping``
+before a PING's answer (stall: a wedged worker, as the heartbeat monitor
+sees one), ``worker.op`` before a FORWARD runs (stall; kill tears the
+connection down mid-op and the sessions survive; crash drops every session
+too, a process's death) and ``worker.reply`` before a reply's send (drop:
+the op applied but the reply is lost; truncate; delay).
 """
 
 from __future__ import annotations
@@ -52,7 +58,8 @@ from cake_tpu_torch.ops.fuse import fuse_layer_tree, parse_fusion_spec
 from cake_tpu_torch.ops.quant import QUANT_TYPES, quantize_layer_tree
 from cake_tpu_torch.ops.rope import model_rope_tables
 from cake_tpu_torch.parallel.topology import Topology
-from cake_tpu_torch.runtime import proto
+from cake_tpu_torch.runtime import faults, proto
+from cake_tpu_torch.utils import metrics
 
 log = logging.getLogger("cake_tpu_torch.worker")
 
@@ -116,6 +123,11 @@ def range_layers(layers: dict, lo: int, hi: int) -> dict:
         else:
             out[name] = leaf[lo:hi]
     return out
+
+
+class _ConnectionTorn(Exception):
+    """The fault plan tore this connection down (``worker.op`` kill/crash,
+    ``worker.reply`` truncate): close it without a reply."""
 
 
 class _Session:
@@ -383,7 +395,13 @@ class Worker:
                             self._drop_session(sid)
                         continue
                     if frame.type == proto.MsgType.PING:
-                        proto.write_frame(conn, proto.ping_frame(t=time.time()))
+                        spec = faults.check("worker.ping", node=self.name)
+                        if spec is not None and spec.kind == "stall":
+                            faults.sleep(spec)
+                        try:
+                            proto.write_frame(conn, proto.ping_frame(t=time.time()))
+                        except OSError:
+                            break  # the prober gave up on a stalled answer and left
                         continue
                     if frame.type == proto.MsgType.STATS:
                         proto.write_frame(conn, proto.error_frame(STATS_NOT_PORTED))
@@ -394,7 +412,20 @@ class Worker:
                         continue
                     read_bytes += len(frame.payload)
                     try:
+                        spec = faults.check("worker.op", node=self.name)
+                        if spec is not None:
+                            if spec.kind == "stall":
+                                faults.sleep(spec)
+                            elif spec.kind in ("kill", "crash"):
+                                if spec.kind == "crash":
+                                    # A process's death: the replay state is
+                                    # gone too, not just the transport.
+                                    with self._sessions_lock:
+                                        self._sessions.clear()
+                                raise _ConnectionTorn()
                         caches, out_bytes, served = self._serve_forward(frame, caches, conn)
+                    except _ConnectionTorn:
+                        break  # the fault plan: die mid-op, no reply
                     except (ConnectionError, OSError):
                         break  # the peer went away while we replied
                     except Exception as e:  # a structured error; the connection stays
@@ -425,8 +456,7 @@ class Worker:
         if sid is None:
             out, caches = self._execute(frame, caches)
             data = proto.encode_frame(proto.tensor_frame(out, trace=frame.header.get("trace")))
-            conn.sendall(data)
-            return caches, len(data), True
+            return caches, self._send_reply(conn, data), True
         seq = int(frame.header.get("seq", 0))
         sess = self._session(sid, seq)
         if sess is None:
@@ -440,6 +470,11 @@ class Worker:
                 # The op already applied and only its reply was lost: answer
                 # from the cache; the KV writes must not happen twice.
                 self.replays += 1
+                metrics.registry.counter(
+                    "cake_worker_replays_total",
+                    "FORWARD ops answered from the session replay cache (duplicate sid/seq "
+                    "after a reconnect).",
+                ).inc(node=self.name)
                 conn.sendall(sess.last_reply)
                 return caches, len(sess.last_reply), False
             if seq != sess.last_seq + 1:
@@ -452,8 +487,23 @@ class Worker:
             data = proto.encode_frame(proto.tensor_frame(out, trace=frame.header.get("trace")))
             # Commit replay state BEFORE the send: a resend must find it.
             sess.last_seq, sess.last_reply = seq, data
+        return caches, self._send_reply(conn, data), True
+
+    def _send_reply(self, conn: socket.socket, data: bytes) -> int:
+        """Send an encoded reply frame through the ``worker.reply`` fault
+        checkpoint (drop: never sent, the op applied and the reply lost;
+        truncate: part of the frame, then the connection torn; delay)."""
+        spec = faults.check("worker.reply", node=self.name)
+        if spec is not None:
+            if spec.kind == "drop":
+                return 0
+            if spec.kind == "truncate":
+                conn.sendall(data[: max(1, int(len(data) * spec.frac))])
+                raise _ConnectionTorn()
+            if spec.kind == "delay":
+                faults.sleep(spec)
         conn.sendall(data)
-        return caches, len(data), True
+        return len(data)
 
     def _execute(self, frame, caches):
         """Run one FORWARD op; returns (out WireTensor, caches)."""

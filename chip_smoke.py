@@ -282,6 +282,39 @@ nonzero exit and no final result line:
                step and in graph chunks (equal ids), logits against the
                plain path, the paged engine under none, ingest,tail (equal
                8/8) and all, and the dense engine.
+     phi3 (rolling)  then the rolling window cache at head dim 96: a prompt
+               300 tokens longer over a ring of window + chunk slots (2304)
+               against the full cache, per step and in graph chunks: equal
+               ids (gated).
+     ring      the ring instantiations of the two dense attention kernels
+               (``ring_limit``, csrc/ring_*.cu, RingLayout) at the rolling
+               paths' operands: Mistral-7B's decode (about 6000 logical
+               positions through 4608 slots, window 4096) and a 512-query
+               continuation chunk whose keys straddle the wrap, bf16 and
+               f8; Phi-3-mini's at head dim 96. Each within TOL of its plain
+               version and bitwise the dense kernel over the same keys in
+               the full cache (gated), timed beside its bytes bound and SDPA
+               over the gathered window.
+     rolling   Mistral-7B-v0.1 at full width and depth (random bf16 weights,
+               seed 18, ~14.5 GB, freed after) over the rolling window cache
+               (4608 slots) and over the full cache (8192): a ~6000-token
+               prompt in 512-token chunks, then 64 greedy tokens per step
+               and in 8-token graph chunks: equal ids 64/64, the first
+               decode step's logits (per step) and one step's after the
+               chunks bitwise, the launches gated; KV bytes, prefill
+               seconds, wall and device ms a token of each; an f8 pass (16
+               tokens, the same gates).
+  Failover (runtime/faults.py plans): phase engine adds ``failover_local``
+               on the paged local engine, crash@backend.decode at the fourth
+               chunk of wave 1: streams equal the fault-free wave 8/8, one
+               failover, 8 recovered, the pool whole (gated). Phase
+               distributed adds topology B with heartbeats on and w2 killed
+               for good from mid-decode of wave 1 (kill@client.send:node=w2:
+               after=30:count=0): the streams migrate to w2b and equal the
+               local dense engine's wave 1 8/8, one failover, 8 recovered,
+               cake_failover_total{w2} 1; and topology A with w1 killed: the
+               streams end "error", every lane back, the next wave served
+               (gated).
  15. cli       ``python -m cake_tpu_torch.cli`` on a small checkpoint written
                by the port's save_tiny_checkpoint: one prompt, the same with
                ``--fusion all --decode-chunk 4``, with ``--quantize int4``,
@@ -302,7 +335,9 @@ nonzero exit and no final result line:
                JAX package has no Pallas kernel for it). The attention
                kernels and the ingest carry "shapes": their cases of phase
                14, each with the launches the model phase of its shape made
-               (phi3; None for the shapes no phase serves).
+               (phi3; None for the shapes no phase serves). The ring
+               instantiations ("<name>_ring", "<name>_ring_f8": launches in
+               phase rolling and phi3's rolling pass, "dense_bitwise").
  17.           ``{"ok": true, "device": {...}}`` as the last line.
 
 On the card every decode chunk (the generator's ``decode_chunk`` and both
@@ -1613,6 +1648,8 @@ def _counters():
         decode_attention.decode_attention_plain,
         chunk_prefill.chunk_prefill_attention_plain,
         flash_attention.flash_attention_plain,
+        decode_attention.decode_ring_plain,
+        chunk_prefill.chunk_ring_plain,
     )
 
 
@@ -2088,6 +2125,8 @@ def phase_generate(torch, card: str, dev=None, config=None) -> dict:
             "decode_attention_plain": 0,
             "chunk_prefill_attention_plain": 0,
             "flash_attention_plain": 0,
+            "decode_ring_plain": 0,
+            "chunk_ring_plain": 0,
         }
     else:  # a CPU rehearsal: every call takes the plain version
         expected = {
@@ -2096,6 +2135,8 @@ def phase_generate(torch, card: str, dev=None, config=None) -> dict:
             "decode_attention_plain": n_layers * (n_gen - 1),
             "chunk_prefill_attention_plain": n_layers * (n_chunks - 1),
             "flash_attention_plain": n_layers,
+            "decode_ring_plain": 0,
+            "chunk_ring_plain": 0,
         }
     ids = gen.generated_token_ids
     prefill_s = stamps[0] - t_start
@@ -2269,8 +2310,8 @@ def _paged_counters():
 
 # Side counts a wrapper keeps beside its launches: calls it left to the
 # unfused composition, calls it routed to qmat for a quantized weight,
-# launches over an f8 cache.
-_SIDE_COUNTS = ("unfused", "quantized", "f8")
+# launches over an f8 cache, launches over a rolling ring.
+_SIDE_COUNTS = ("unfused", "quantized", "f8", "ring")
 
 
 def _zero_counters():
@@ -2609,6 +2650,7 @@ def phase_engine(torch, main_path: dict) -> dict:
             raise AssertionError(f"engine streams out of range: {w['completion_tokens']}")
     row["check"] = _batch_model_check(torch, config, params, dev, "paged")
     row["dense_check"] = _batch_model_check(torch, config, params, dev, "dense")
+    row["failover"] = _engine_failover_local(torch, main_path)
     row["engine"] = engine
     return row
 
@@ -2739,14 +2781,17 @@ def _int4_expected(expected: dict, forwards: int, n_layers: int, norm: bool, on_
 
 
 def _generator_expected(counters, rec, n_layers: int, on_card: bool, fused: bool = True,
-                        int4: bool = False, f8: bool = False, moe: bool = False):
+                        int4: bool = False, f8: bool = False, moe: bool = False,
+                        rolling: bool = False):
     """(launches, expected) of a generator run recorded by
     ``step_recorder``: the attention kernels per forward as in phase
     generate; when ``fused`` ("all"), fused_norm_matmul per ``_norm_sites``
     and fused_sample_tail once per chunked step; for an ``int4`` tree,
     ``_int4_expected``; over an ``f8`` cache, every decode and continuation
-    launch over f8 (the position-0 chunk attends its own fresh K/V); off the
-    card the plain versions take every call."""
+    launch over f8 (the position-0 chunk attends its own fresh K/V); over a
+    ``rolling`` ring, every decode and continuation launch on the ring
+    instantiations (``ring`` side counts); off the card the plain versions
+    take every call (the ring's plain versions under ``rolling``)."""
     launches = _counts(counters)
     expected = dict.fromkeys(launches, 0)
     decode = sum(n for _, n in rec["chunks"]) + sum(1 for _, w, _ in rec["calls"] if w == 1)
@@ -2765,10 +2810,14 @@ def _generator_expected(counters, rec, n_layers: int, on_card: bool, fused: bool
         if f8:
             expected["decode_attention.f8"] = n_layers * decode
             expected["chunk_prefill_attention.f8"] = n_layers * cont
+        if rolling:
+            expected["decode_attention.ring"] = n_layers * decode
+            expected["chunk_prefill_attention.ring"] = n_layers * cont
     else:
+        ring = "ring" if rolling else None
         expected.update({
-            "decode_attention_plain": n_layers * decode,
-            "chunk_prefill_attention_plain": n_layers * cont,
+            "decode_ring_plain" if ring else "decode_attention_plain": n_layers * decode,
+            "chunk_ring_plain" if ring else "chunk_prefill_attention_plain": n_layers * cont,
             "flash_attention_plain": n_layers * first,
             "fused_norm_matmul_plain": kernel + unfused,
             "fused_sample_tail_plain": tail,
@@ -4674,6 +4723,31 @@ def phase_distributed(torch, main_path: dict) -> dict:
             "launches_equal": runs["tcp"]["launches"] == runs["local"]["launches"],
             "launches": {k: v for k, v in runs["tcp"]["launches"].items() if v},
         }
+        for w in workers.values():
+            w.stop()
+        workers.clear()
+        # -- Failover: topology B with heartbeats on, w2 unreachable for good
+        # from mid-decode of wave 1: the live streams migrate to w2b. Then
+        # topology A, w1 killed: no replica, the streams end "error".
+        local_wave1 = runs["local"]["waves"][0]["streams"]
+        topo_f = Topology.from_dict({
+            "w1": {"host": "placeholder", "layers": span(0, half)},
+            "w2": {"host": "placeholder", "layers": span(half, n_layers)},
+            "w2b": {"host": "placeholder", "layers": span(half, n_layers)},
+        })
+        fo = _tcp_failover(torch, config, params, gen0.tokenizer, dev, topo_f, ENGINE_MAX_SEQ,
+                           f"kill@client.send:node=w2:after={FAILOVER_AFTER}:count=0",
+                           heartbeat=True, prefer="w2")
+        fo["equal_streams"] = _equal_streams(fo["streams"], local_wave1)
+        fo["next_wave_equal_streams"] = _equal_streams(fo["next_wave_streams"], local_wave1)
+        topo_n = Topology.from_dict({"w1": {"host": "placeholder",
+                                            "layers": span(half, n_layers)}})
+        nr = _tcp_failover(torch, config, params, gen0.tokenizer, dev, topo_n, ENGINE_MAX_SEQ,
+                           f"kill@client.send:node=w1:after={FAILOVER_AFTER}:count=0",
+                           heartbeat=False, prefer="w1")
+        nr["next_wave_equal_streams"] = _equal_streams(nr["next_wave_streams"], local_wave1)
+        row["failover"] = {k: v for k, v in fo.items() if "streams" not in k or "equal" in k}
+        row["no_replica"] = {k: v for k, v in nr.items() if "streams" not in k or "equal" in k}
     finally:
         for w in workers.values():
             w.stop()
@@ -4690,6 +4764,15 @@ def phase_distributed(torch, main_path: dict) -> dict:
         "recovery one replay": row["recovery"]["replays"] == 1,
         "engine streams equal 8/8": equal == [ENGINE_BATCH, ENGINE_BATCH],
         "engine launches equal": row["engine"]["launches_equal"],
+        "failover streams equal the local wave 8/8": fo["equal_streams"] == ENGINE_BATCH,
+        "failover one failover, 8 recovered": (fo["failovers"], fo["recovered"]) == (
+            1, ENGINE_BATCH),
+        "failover cake_failover_total{w2} 1": fo["failover_total"]["w2"] == 1,
+        "failover no error": fo["stream_errors"] == 0,
+        "no replica streams end error": nr["finish_reasons"] == ["error"] * ENGINE_BATCH,
+        "no replica every lane back": nr["live_after"] == 0,
+        "no replica next wave served": all(
+            f in ("stop", "length") for f in nr["next_wave_finish_reasons"]),
     }
     failed = [k for k, ok in gates.items() if not ok]
     if failed:
@@ -4751,7 +4834,7 @@ def _quantized_generate(torch, main_path: dict, step, chunk: int, n_tokens: int,
         _sync(torch, dev)
     launches, expected = _generator_expected(
         counters, rec, gen0.config.num_hidden_layers, dev.type == "cuda", fused=False, int4=int4,
-        f8=f8, moe=bool(gen0.config.num_local_experts))
+        f8=f8, moe=bool(gen0.config.num_local_experts), rolling=getattr(step, "rolling", False))
     ids = gen.generated_token_ids
     n_gen = len(ids)
     decode_s = stamps[-1] - stamps[0] if n_gen > 1 else float("nan")
@@ -6257,7 +6340,10 @@ def phase_phi3(torch, main_path: dict, config=None, ckpt_layers: int = PHI3_CKPT
     read back by the loader, bitwise; the generator over a prompt past the
     2047-key window, per step and in graph chunks (equal ids), its logits
     against the plain path; the paged engine under none, ingest,tail (equal
-    streams, gated) and all, and the dense engine."""
+    streams, gated) and all, and the dense engine. Then the rolling window
+    cache at head dim 96: a prompt PHI3_ROLL_EXTRA tokens longer (past the
+    2304-slot ring: it wraps during the prefill), per step and in graph
+    chunks, the ring's ids equal to the full cache's (gated)."""
     from cake_tpu_torch.io.safetensors_io import load_params, save_tiny_checkpoint
     from cake_tpu_torch.models.llama import model as M
     from cake_tpu_torch.models.llama.config import LlamaConfig
@@ -6336,16 +6422,486 @@ def phase_phi3(torch, main_path: dict, config=None, ckpt_layers: int = PHI3_CKPT
     if row["ingest_tail_equal_none"] != ENGINE_BATCH:
         raise AssertionError(f"phi3: ingest,tail streams equal none "
                              f"{row['ingest_tail_equal_none']}/8")
-    row["launches"] = _sum_launches([gen_runs["launches"], engines["launches"]])
+    row["rolling"] = _phi3_rolling(torch, config, params, path, prompt_tokens + PHI3_ROLL_EXTRA)
+    emit({"phase": "phi3_rolling", **row["rolling"]})
+    if not row["rolling"]["equal"]:
+        raise AssertionError(f"phi3: the rolling cache's ids parted from the full cache's: "
+                             f"{row['rolling']['equal_tokens']}")
+    row["launches"] = _sum_launches([gen_runs["launches"], engines["launches"],
+                                     row["rolling"]["launches"]])
     del path, params
     if on_card:
         torch.cuda.empty_cache()
     return row
 
 
+# ------------------------------------------------------- rolling window cache
+
+# mistralai/Mistral-7B-v0.1's config.json; the rolling phase's traffic.
+MISTRAL_SEED = 18
+ROLL_MAX_SEQ = 8192
+ROLL_CHUNK = 512  # --prefill-chunk: the ring holds window + this (4608 slots)
+ROLL_PROMPT_TOKENS = 6000  # past the ring's 4608: it wraps during the prefill
+ROLL_F8_TOKENS = 16  # tokens out of the f8 rolling pass
+PHI3_ROLL_EXTRA = 300  # the phi3 rolling pass's prompt: the phase's prompt plus this
+
+
+def mistral_config(n_layers: int = 32):
+    """mistralai/Mistral-7B-v0.1's config.json (full depth: 32)."""
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+
+    return LlamaConfig(
+        model_type="mistral", hidden_size=4096, intermediate_size=14336, vocab_size=32000,
+        num_hidden_layers=n_layers, num_attention_heads=32, num_key_value_heads=8,
+        rms_norm_eps=1e-5, rope_theta=10000.0, max_position_embeddings=32768,
+        sliding_window=4096, bos_token_id=1, eos_token_ids=(2,),
+    )
+
+
+def _ring_of(torch, full, ring: int, newest):
+    """The ring of ``ring`` slots a rolling cache holds for rows whose newest
+    written position is ``newest`` ([b] int tensor): slot s holds the full
+    cache's position rolling_kv_positions gives it (an f8 cache is gathered
+    through its byte view)."""
+    from cake_tpu_torch.models.llama.cache import rolling_kv_positions
+    from cake_tpu_torch.ops.kv_dtype import kv_view
+
+    kpos = rolling_kv_positions(ring, newest.long(), 1).clamp(min=0, max=full.shape[2] - 1)
+    rows = [kv_view(full[r : r + 1])[:, :, kpos[r]] for r in range(full.shape[0])]
+    return torch.cat(rows).view(full.dtype).contiguous()
+
+
+def _ring_against_dense(torch, ring_run, dense_run, iters: int) -> dict:
+    """The ring call and the dense call over the same keys, warm, timed in
+    turns (ring, dense, dense, ring, ring, dense), each side's median: what
+    the ring's addressing costs (one turn in a dev run read 8x its
+    others)."""
+    t = [cuda_ms(torch, f, iters)
+         for f in (ring_run, dense_run, dense_run, ring_run, ring_run, dense_run)]
+    return {"ring_warm_ms": statistics.median(t[0::3] + t[4:5]),
+            "dense_warm_ms": statistics.median(t[1:3] + t[5:6]), "turns_ms": t}
+
+
+def _ring_decode_case(torch, dev, g, case, heads, ring, limit, window, lens, kv=None):
+    """decode_attention over a ring (``ring_limit``): held to its plain
+    version within TOL and to the dense-layout kernel over the same keys in
+    the full cache to the bit; timed over rotating copies of the ring,
+    beside its bytes bound and SDPA over the gathered window."""
+    from cake_tpu_torch.ops.decode_attention import decode_attention, decode_ring_plain
+
+    n_q, n_kv, hd = heads
+    bf = torch.bfloat16
+    kv_dt, esize, extra = _kv_case(torch, kv)
+    b = len(lens)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    live = sum(min(ln, window) for ln in lens)
+    n_copy = copies_for(live * n_kv * hd * 2 * esize)
+    q = torch.randn(b, 1, n_q, hd, generator=g, device=dev, dtype=bf)
+    full_k = torch.randn(b, n_kv, limit, hd, generator=g, device=dev, dtype=bf).to(kv_dt)
+    full_v = torch.randn(b, n_kv, limit, hd, generator=g, device=dev, dtype=bf).to(kv_dt)
+    rk, rv = _ring_of(torch, full_k, ring, lengths - 1), _ring_of(torch, full_v, ring, lengths - 1)
+    rings = [(rk, rv)] + [(rk.clone(), rv.clone()) for _ in range(n_copy - 1)]
+    runs = [lambda kc=kc, vc=vc: decode_attention(q, kc, vc, lengths, window=window,
+                                                  ring_limit=limit) for kc, vc in rings]
+    plain = lambda: decode_ring_plain(q, rk, rv, lengths, window=window)  # noqa: E731
+    out, ref = runs[0](), plain()
+    dense_run = lambda: decode_attention(q, full_k, full_v, lengths, window=window)  # noqa: E731
+    dense = dense_run()
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(out, dense))
+    pair = _ring_against_dense(torch, runs[0], dense_run, 50)
+    nbytes = 2 * q.numel() * 2 + live * n_kv * hd * 2 * esize
+    flops = 4.0 * live * n_q * hd
+    wins = [(full_k[r : r + 1, :, max(0, ln - window) : ln].to(bf),
+             full_v[r : r + 1, :, max(0, ln - window) : ln].to(bf)) for r, ln in enumerate(lens)]
+    libs = [lambda r=r, kw=kw, vw=vw: _sdpa(torch, q[r : r + 1].transpose(1, 2), kw, vw)
+            for r, (kw, vw) in enumerate(wins)]
+    library_ms = cuda_ms(torch, lambda: [f() for f in libs], 10)
+    del wins, libs, full_k, full_v
+    row = _check(torch, "decode_attention_ring", case, out, ref,
+                 cuda_ms(torch, rotating(runs), 50 * n_copy), cuda_ms(torch, plain, 3),
+                 nbytes, flops, library_ms, copies=n_copy,
+                 extra={**extra, **pair, "ring": ring, "limit": limit, "window": window,
+                        "lengths": lens, "dense_bitwise": bitwise,
+                        "library": "scaled_dot_product_attention over the gathered window"})
+    if not bitwise:
+        raise AssertionError(f"decode_attention_ring/{case}: not the dense kernel's bits")
+    return row
+
+
+def _ring_chunk_case(torch, dev, g, case, heads, ring, limit, window, chunk, q_start, kv=None):
+    """chunk_prefill_attention over a ring (a continuation chunk whose keys
+    straddle the wrap): within TOL of its plain version, bitwise the dense
+    kernel's over the full cache; timed beside its bound and SDPA over the
+    gathered window."""
+    from cake_tpu_torch.ops.chunk_prefill import chunk_prefill_attention, chunk_ring_plain
+
+    n_q, n_kv, hd = heads
+    bf = torch.bfloat16
+    kv_dt, esize, extra = _kv_case(torch, kv)
+    end = q_start + chunk
+    q = torch.randn(1, chunk, n_q, hd, generator=g, device=dev, dtype=bf)
+    full_k = torch.randn(1, n_kv, limit, hd, generator=g, device=dev, dtype=bf).to(kv_dt)
+    full_v = torch.randn(1, n_kv, limit, hd, generator=g, device=dev, dtype=bf).to(kv_dt)
+    qs = torch.tensor([q_start], dtype=torch.int32, device=dev)
+    lengths = qs + chunk
+    rk, rv = _ring_of(torch, full_k, ring, lengths - 1), _ring_of(torch, full_v, ring, lengths - 1)
+    run = lambda: chunk_prefill_attention(q, rk, rv, qs, lengths, window=window,  # noqa: E731
+                                          ring_limit=limit)
+    plain = lambda: chunk_ring_plain(q, rk, rv, qs, lengths, window=window)  # noqa: E731
+    out, ref = run(), plain()
+    dense_run = lambda: chunk_prefill_attention(  # noqa: E731
+        q, full_k, full_v, qs, lengths, window=window)
+    dense = dense_run()
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(out, dense))
+    pair = _ring_against_dense(torch, run, dense_run, 20)
+    k0 = max(0, q_start - window + 1)
+    qpos = torch.arange(q_start, end, device=dev)[:, None]
+    kpos = torch.arange(k0, end, device=dev)[None]
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+    pairs = int(mask.sum().item())
+    nbytes = 2 * q.numel() * 2 + (end - k0) * n_kv * hd * 2 * esize
+    flops = 4.0 * pairs * n_q * hd
+    kw_, vw = full_k[:, :, k0:end].to(bf), full_v[:, :, k0:end].to(bf)
+    qh = q.transpose(1, 2)
+    library_ms = cuda_ms(torch, lambda: _sdpa(torch, qh, kw_, vw, mask[None, None]), 5)
+    del kw_, vw, full_k, full_v
+    row = _check(torch, "chunk_prefill_attention_ring", case, out, ref, cuda_ms(torch, run, 20),
+                 cuda_ms(torch, plain, 3), nbytes, flops, library_ms,
+                 extra={**extra, **pair, "ring": ring, "limit": limit, "window": window,
+                        "chunk": chunk, "q_start": q_start, "dense_bitwise": bitwise,
+                        "library": "scaled_dot_product_attention over the gathered window"})
+    if not bitwise:
+        raise AssertionError(f"chunk_prefill_attention_ring/{case}: not the dense kernel's bits")
+    return row
+
+
+def ring_cases(torch, dev) -> list:
+    """The ring instantiations at the rolling paths' operands: Mistral-7B's
+    decode (about 6000 logical positions through 4608 slots, window 4096)
+    and a 512-query continuation chunk whose keys straddle the wrap, bf16
+    and f8; Phi-3-mini's at head dim 96 (2304 slots, window 2047)."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    f8 = torch.float8_e4m3fn
+    mistral = ((N_Q, N_KV, HD), 4608, ROLL_MAX_SEQ, 4096)
+    phi3 = (PHI3_HEADS, 2304, PHI3_MAX_SEQ, PHI3_WINDOW)
+    rows = [_ring_decode_case(torch, dev, g, "mistral", *mistral, [ROLL_PROMPT_TOKENS + 32]),
+            _ring_decode_case(torch, dev, g, "mistral_f8", *mistral, [ROLL_PROMPT_TOKENS + 32],
+                              kv=f8),
+            _ring_decode_case(torch, dev, g, "phi3_hd96", *phi3, [2640]),
+            _ring_chunk_case(torch, dev, g, "mistral", *mistral, ROLL_CHUNK, 5120),
+            _ring_chunk_case(torch, dev, g, "mistral_f8", *mistral, ROLL_CHUNK, 5120, kv=f8),
+            _ring_chunk_case(torch, dev, g, "phi3_hd96", *phi3, PREFILL_CHUNK, 2304)]
+    return rows
+
+
+def _ring_counts() -> dict:
+    """The ring side counts of the two attention wrappers."""
+    from cake_tpu_torch.ops import chunk_prefill, decode_attention
+
+    return {"decode_attention": decode_attention.decode_attention.ring,
+            "chunk_prefill_attention": chunk_prefill.chunk_prefill_attention.ring}
+
+
+def _rolling_generation(torch, config, step, text: str, chunk: int, n_tokens: int) -> dict:
+    """One warmed-up greedy generation over ``step`` (``chunk``-token decode;
+    prefill in ROLL_CHUNK-token chunks): ids, the first decode step's
+    logits (per step) or the logits of one step after the chunks, prefill
+    seconds, wall ms a token, the launches its forwards imply (gated) and
+    the ring launches."""
+    from cake_tpu_torch.models.llama.chat import Message
+    from cake_tpu_torch.models.llama.generator import (
+        LlamaGenerator, LocalForwardStep, SamplingConfig,
+    )
+    from cake_tpu_torch.models.llama.tokenizer import ByteTokenizer
+
+    import numpy as np
+
+    dev = step.device
+    tap = _LogitsTap(step)
+    # Through the class at each call: step_recorder patches it there.
+    tap.decode_chunk = lambda *a, **kw: step.decode_chunk(*a, **kw)
+    gen = LlamaGenerator(config, tap, ByteTokenizer(),
+                         SamplingConfig(temperature=0.0, repeat_penalty=1.0),
+                         prefill_chunk=ROLL_CHUNK, decode_chunk_size=chunk)
+    gen.add_message(Message.user(text))
+    gen.generate(chunk + 2)  # warm-up: captures the chunk's graph
+    _sync(torch, dev)
+    gen.reset()
+    gen.add_message(Message.user(text))
+    counters = _zero_counters()
+    stamps = []
+    with step_recorder(LocalForwardStep) as rec:
+        t0 = time.perf_counter()
+        gen.generate(n_tokens, on_token=lambda tok: stamps.append(time.perf_counter()))
+        _sync(torch, dev)
+    launches, expected = _generator_expected(
+        counters, rec, config.num_hidden_layers, dev.type == "cuda", fused=False,
+        f8=step._cache_dtype == torch.float8_e4m3fn, rolling=step.rolling)
+    ring = _ring_counts()
+    logits = tap.first_decode
+    if chunk > 1:  # one step at the next position, over the KV the graphs wrote
+        toks = gen._tokens
+        logits = step(np.asarray([[toks[-1]]], np.int64), len(toks) - 1, 1)
+    ids = gen.generated_token_ids
+    run = {"decode_chunk": chunk, "generated_tokens": len(ids), "prefill_s": stamps[0] - t0,
+           "decode_ms_per_token": 1e3 * (stamps[-1] - stamps[0]) / max(1, len(ids) - 1),
+           "kv_bytes": 2 * step._kv.k.numel() * step._kv.k.element_size(),
+           "cache_slots": step._kv.max_seq_len, "rolling": step.rolling,
+           "launches": launches, "expected_launches": expected, "ring_launches": ring}
+    if launches != expected:
+        emit({"phase": "rolling_generation", **run})
+        raise AssertionError(f"rolling generation launch counts {launches} != {expected}")
+    return {"run": run, "ids": ids, "logits": logits, "gen": gen}
+
+
+def phase_rolling(torch, main_path: dict, config=None, prompt_tokens: int = ROLL_PROMPT_TOKENS,
+                  max_seq: int = ROLL_MAX_SEQ) -> dict:
+    """Mistral-7B-v0.1 at full width and depth (``config``: a tiny one off
+    the card), random bf16 weights from a seed of its own, over the rolling
+    window cache (window + ROLL_CHUNK slots, 4608) and over the full cache
+    (``max_seq``, 8192): a ~6000-token prompt in ROLL_CHUNK-token chunks, so
+    the ring wraps during the prefill, then 64 greedy tokens per step and in
+    8-token graph chunks. Gated: the ring and the full cache give the same
+    ids 64/64, the first decode step's logits (per step) and one step's
+    after the graph chunks equal to the bit, the launches their forwards
+    imply with every decode and continuation launch on the ring
+    instantiations. Recorded: KV bytes, prefill seconds, wall and device ms
+    a token of each. Then an f8 pass (ROLL_F8_TOKENS per step, ring against
+    full cache, the same gates). The weights are freed at the end."""
+    from cake_tpu_torch.models.llama import model as M
+    from cake_tpu_torch.models.llama.generator import LocalForwardStep
+    from cake_tpu_torch.models.llama.tokenizer import ByteTokenizer
+    from cake_tpu_torch.ops.fuse import fuse_params
+
+    dev = main_path["generator"].step.device
+    on_card = dev.type == "cuda"
+    config = config or mistral_config()
+    t0 = time.perf_counter()
+    params = fuse_params(M.init_params(config, torch.Generator(device=dev).manual_seed(
+        MISTRAL_SEED), torch.bfloat16, dev))
+    _sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    text = _prompt_text(ByteTokenizer(), config, prompt_tokens)
+
+    def steps(kv_dtype):
+        return {name: LocalForwardStep(config, params, max_seq_len=max_seq, cache_dtype=kv_dtype,
+                                       device=dev, rolling_budget=budget)
+                for name, budget in (("full", None), ("rolling", ROLL_CHUNK))}
+
+    bf16 = steps(torch.bfloat16)
+    runs, gates, ring_launches = {}, {}, {"bf16": {}, "f8": {}}
+    for chunk in (1, FUSED_CHUNK):
+        got = {name: _rolling_generation(torch, config, step, text, chunk, DECODE_TOKENS)
+               for name, step in bf16.items()}
+        key = "per_step" if chunk == 1 else "graph_chunks"
+        runs[key] = {name: g["run"] for name, g in got.items()}
+        equal = sum(x == y for x, y in zip(got["rolling"]["ids"], got["full"]["ids"]))
+        runs[key]["equal_tokens"] = equal
+        runs[key]["logits_bitwise"] = bool(torch.equal(got["rolling"]["logits"],
+                                                       got["full"]["logits"]))
+        gates[f"{key} ids equal"] = equal == len(got["full"]["ids"]) == DECODE_TOKENS
+        gates[f"{key} logits bitwise"] = runs[key]["logits_bitwise"]
+        if on_card:  # off the card the plain versions take the ring (the launch gate)
+            gates[f"{key} ring launches"] = (
+                got["rolling"]["run"]["ring_launches"]["decode_attention"] > 0
+                and got["full"]["run"]["ring_launches"]["decode_attention"] == 0)
+        for k, n in got["rolling"]["run"]["ring_launches"].items():
+            ring_launches["bf16"][k] = ring_launches["bf16"].get(k, 0) + n
+        if on_card and chunk > 1:
+            for name, g in got.items():
+                prof = _profile_main_path(torch, g["gen"], text,
+                                          g["run"]["decode_ms_per_token"],
+                                          phase=f"rolling_profile_{name}")
+                runs[key][name]["decode_device_ms_per_token"] = prof["decode_device_ms_per_token"]
+                runs[key][name]["decode_device_idle_share"] = prof["decode_device_idle_share"]
+                runs[key][name]["prefill_device_ms"] = prof["prefill_device_ms"]
+        del got
+    del bf16
+    if on_card:
+        torch.cuda.empty_cache()
+    f8 = steps(torch.float8_e4m3fn)
+    got = {name: _rolling_generation(torch, config, step, text, 1, ROLL_F8_TOKENS)
+           for name, step in f8.items()}
+    runs["f8_per_step"] = {name: g["run"] for name, g in got.items()}
+    f8_equal = sum(x == y for x, y in zip(got["rolling"]["ids"], got["full"]["ids"]))
+    runs["f8_per_step"]["equal_tokens"] = f8_equal
+    runs["f8_per_step"]["logits_bitwise"] = bool(torch.equal(got["rolling"]["logits"],
+                                                             got["full"]["logits"]))
+    gates["f8 ids equal"] = f8_equal == len(got["full"]["ids"]) == ROLL_F8_TOKENS
+    gates["f8 logits bitwise"] = runs["f8_per_step"]["logits_bitwise"]
+    ring_launches["f8"] = got["rolling"]["run"]["ring_launches"]
+    del got, f8
+    row = {
+        "phase": "rolling", "card": main_path["card"],
+        "model": (f"Mistral-7B-v0.1 widths (hidden {config.hidden_size}, "
+                  f"{config.num_hidden_layers} layers, {config.num_attention_heads}/"
+                  f"{config.num_key_value_heads} heads of {config.head_dim}, inter "
+                  f"{config.intermediate_size}, vocab {config.vocab_size}, window "
+                  f"{config.sliding_window}); random bf16 weights (seed {MISTRAL_SEED})"),
+        "weights_gb": M.count_params(params) * 2 / 1e9, "init_s": init_s,
+        "max_seq_len": max_seq, "prefill_chunk": ROLL_CHUNK, "prompt_tokens": prompt_tokens,
+        "runs": runs, "ring_launches": ring_launches, "gates": gates,
+    }
+    emit(row)
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"rolling phase gates failed: {failed}")
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    row["launches"] = {"decode_attention_ring": ring_launches["bf16"]["decode_attention"],
+                       "chunk_prefill_attention_ring": ring_launches["bf16"]
+                       ["chunk_prefill_attention"],
+                       "decode_attention_ring_f8": ring_launches["f8"]["decode_attention"],
+                       "chunk_prefill_attention_ring_f8": ring_launches["f8"]
+                       ["chunk_prefill_attention"]}
+    return row
+
+
+# ------------------------------------------------------------------ failover
+
+FAILOVER_AFTER = 30  # sends to the killed worker before the kill: wave 1's prefill + 29 steps
+
+
+def _tcp_failover(torch, config, params, tokenizer, dev, topo, max_seq: int, plan: str, *,
+                  heartbeat: bool, prefer: str) -> dict:
+    """Wave 1 through a DistributedBatchBackend over ``topo`` (workers in
+    this process; the wave routes ``prefer`` in its replica group) with the
+    fault ``plan`` installed for the wave: its streams, finishes and the
+    engine's failover records, then, with the plan cleared, wave 1 again
+    (the engine still serves)."""
+    from cake_tpu_torch.runtime import faults
+    from cake_tpu_torch.runtime.batch_backend import DistributedBatchBackend
+    from cake_tpu_torch.runtime.master import DistributedForwardStep
+    from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+    from cake_tpu_torch.utils import metrics
+
+    workers = _start_workers(torch, config, params, topo, max_seq, dev)
+    step = DistributedForwardStep(config, None, topo, dtype=torch.bfloat16, max_seq_len=max_seq,
+                                  device=dev, params=params)
+    serve = ServeConfig(max_batch=ENGINE_BATCH, decode_chunk_size=8,
+                        heartbeat_interval_s=0.5 if heartbeat else 0.0)
+    metrics.registry.clear()
+    metrics.flight.clear()
+    eng = BatchEngine(config, None, tokenizer, max_seq_len=max_seq,
+                      cache_dtype=torch.bfloat16, serve=serve,
+                      backend=DistributedBatchBackend(step))
+    try:
+        step.router.prefer(prefer)
+        faults.install(faults.parse(plan))
+        t0 = time.perf_counter()
+        wave = _wave(eng, ENGINE_TOKENS, together=True)
+        wall = time.perf_counter() - t0
+        faults.clear()
+        out = {
+            "plan": plan, "streams": wave["streams"], "finish_reasons": wave["finish_reasons"],
+            "wall_s": wall, "failovers": eng.stats["failovers"],
+            "recovered": eng.stats["recovered"], "stream_errors": eng.stats["stream_errors"],
+            "failover_total": {n: metrics.registry.counter("cake_failover_total").value(node=n)
+                               for n in topo.nodes},
+            "failover_seconds": [e.get("seconds") for e in metrics.flight.snapshot()
+                                 if e["event"] == "failover-migrated"],
+            "router": step.router.snapshot(),
+            "heartbeat": None if eng.monitor is None else eng.monitor.snapshot(),
+            "live_after": eng.snapshot()["live"],
+        }
+        again = _wave(eng, ENGINE_TOKENS, together=True)
+        out["next_wave_streams"] = again["streams"]
+        out["next_wave_finish_reasons"] = again["finish_reasons"]
+    finally:
+        faults.clear()
+        eng.stop()
+        step.close()
+        for w in workers.values():
+            w.stop()
+    return out
+
+
+def _engine_failover_local(torch, main_path: dict) -> dict:
+    """``--failover-local`` on the paged local engine (no prefix cache):
+    after a warm-up wave, wave 1 fault-free, then wave 1 with
+    crash@backend.decode firing at its fourth decode chunk: the migration
+    rebuilds the live lanes' KV by re-issuing the epoch's dispatches and
+    the streams equal the fault-free ones 8/8, one failover, 8 recovered,
+    the pool whole after (gated)."""
+    from cake_tpu_torch.runtime import faults
+    from cake_tpu_torch.runtime.serving import BatchEngine, ServeConfig
+
+    gen = main_path["generator"]
+    config, params, dev = gen.config, gen.step.params, gen.step.device
+    serve = ServeConfig(max_batch=ENGINE_BATCH, decode_chunk_size=8, kv_mode="paged",
+                        page_size=ENGINE_PAGE, failover_local=True)
+    eng = BatchEngine(config, params, gen.tokenizer, max_seq_len=ENGINE_MAX_SEQ,
+                      cache_dtype=torch.bfloat16, serve=serve, device=dev)
+    try:
+        _wave(eng, ENGINE_TOKENS, warm_messages(), together=True)
+        want = _wave(eng, ENGINE_TOKENS, together=True)
+        faults.install(faults.parse("crash@backend.decode:after=3:count=1"))
+        t0 = time.perf_counter()
+        got = _wave(eng, ENGINE_TOKENS, together=True)
+        wall = time.perf_counter() - t0
+        faults.clear()
+        alloc = eng.backend.allocator
+        row = {"phase": "engine_failover", "card": main_path["card"],
+               "plan": "crash@backend.decode:after=3:count=1",
+               "equal_streams": _equal_streams(got["streams"], want["streams"]),
+               "finish_reasons": got["finish_reasons"], "failovers": eng.stats["failovers"],
+               "recovered": eng.stats["recovered"], "stream_errors": eng.stats["stream_errors"],
+               "wall_s": wall, "fault_free_wall_s": want["wall_s"],
+               "pool_whole": alloc.pages_free == alloc.pages_total}
+    finally:
+        faults.clear()
+        eng.stop()
+    emit(row)
+    gates = {"streams equal 8/8": row["equal_streams"] == ENGINE_BATCH,
+             "one failover": row["failovers"] == 1,
+             "recovered 8": row["recovered"] == ENGINE_BATCH,
+             "no error": row["stream_errors"] == 0, "pool whole": row["pool_whole"]}
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"engine failover gates failed: {failed}")
+    return row
+
+
+def _phi3_rolling(torch, config, params, path: dict, n_tokens: int) -> dict:
+    """Phi-3's rolling pass: the full cache (the phase's step) and a ring of
+    window + PREFILL_CHUNK slots over an ``n_tokens`` prompt, 64 greedy
+    tokens per step and in graph chunks (``_quantized_generate``: warmed
+    up, launches gated, every decode and continuation on the ring)."""
+    from cake_tpu_torch.models.llama.generator import LocalForwardStep
+    from cake_tpu_torch.models.llama.tokenizer import ByteTokenizer
+
+    full = path["generator"].step
+    roll = LocalForwardStep(config, params, max_seq_len=PHI3_MAX_SEQ, cache_dtype=torch.bfloat16,
+                            device=full.device, rolling_budget=PREFILL_CHUNK)
+    rpath = {**path, "text": _prompt_text(ByteTokenizer(), config, n_tokens)}
+    runs, equal, launches = [], [], {}
+    for chunk in (1, FUSED_CHUNK):
+        ids = {}
+        for name, step in (("full", full), ("rolling", roll)):
+            _, ids[name], run = _quantized_generate(torch, rpath, step, chunk, DECODE_TOKENS,
+                                                    False)
+            run.update(cache=name, ring_launches=_ring_counts(),
+                       cache_slots=step._kv.max_seq_len,
+                       kv_bytes=2 * step._kv.k.numel() * step._kv.k.element_size())
+            runs.append(run)
+            if name == "rolling":
+                for k, n in run["ring_launches"].items():
+                    launches[f"{k}_ring"] = launches.get(f"{k}_ring", 0) + n
+        equal.append(sum(x == y for x, y in zip(ids["rolling"], ids["full"])))
+    out = {"prompt_tokens": n_tokens, "ring_slots": roll._kv.max_seq_len, "runs": runs,
+           "equal_tokens": equal, "launches": launches,
+           "equal": equal == [DECODE_TOKENS, DECODE_TOKENS] and roll.rolling}
+    del roll
+    return out
+
+
 def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(),
                    int4_paths=(), f8_paths=(), continuous_path=None, distributed_path=None,
-                   model_paths=(), admission_path=None, obs_path=None) -> dict:
+                   model_paths=(), admission_path=None, obs_path=None,
+                   rolling_path=None) -> dict:
     # The generate phase counted the dense kernels, the engine phase the paged
     # ones, the fused phases (generate_fused, engine_fused) the fused ones,
     # the int4 phases (generate_int4, engine_int4) int4_matmul, the f8 phases
@@ -6420,6 +6976,22 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(
         spec.append(("grouped_matmul", "cake_tpu_torch/ops/csrc/moe_grouped.cu",
                      "cake_tpu/ops/moe.py:95", ("grouped_matmul",),
                      ("grouped_matmul", "mixtral_w_gate")))
+    # The ring instantiations of the two dense attention kernels (the rolling
+    # window cache): launches in phase rolling (Mistral-7B, bf16 and f8) and
+    # phi3's rolling pass (head dim 96, among its shapes).
+    for name, source in (("decode_attention_ring", "ring_decode_attention.cu"),
+                         ("decode_attention_ring_f8", "ring_decode_attention_f8_wide.cu"),
+                         ("chunk_prefill_attention_ring", "ring_chunk_attention.cu"),
+                         ("chunk_prefill_attention_ring_f8", "ring_chunk_attention_f8.cu")):
+        base = name.removesuffix("_f8")
+        if (base, "mistral") not in rows:
+            continue
+        launches[name] = ((rolling_path or {}).get("launches", {}).get(name, 0)
+                          + model_launches.get(name, 0))
+        dense = "decode_attention" if name.startswith("decode") else "chunk_prefill_attention"
+        replaces = next(r for n, _, r, _, _ in spec if n == dense)
+        spec.append((name, f"cake_tpu_torch/ops/csrc/{source}", replaces, (base,),
+                     (base, "mistral_f8" if name.endswith("_f8") else "mistral")))
     bits = rows.get(("int4_matmul", "wgmma_bits"), {}).get("answer")
     out = []
     for name, source, replaces, families, timed in spec:
@@ -6450,6 +7022,12 @@ def kernel_summary(rows: dict, main_path: dict, engine_path: dict, fused_paths=(
             entry["library"] = t.get("library")
             entry["gumbel_bitwise"] = all(r["gumbel_bitwise"] for k, r in rows.items()
                                           if k[0] == name and "gumbel_bitwise" in r)
+        if "_ring" in name:
+            entry["layout"] = ("RingLayout: the rolling window cache, logical position j in "
+                               "slot j mod L; bitwise the dense-layout kernel on the same keys")
+            entry["dense_bitwise"] = all(r["dense_bitwise"] for k, r in rows.items()
+                                         if k[0] == families[0])
+            entry["library"] = t.get("library")
         if f8:
             entry["kv_dtype"] = "f8"
             entry["library"] = t.get("library")
@@ -6540,10 +7118,14 @@ def main() -> int:
     kernel_rows.update(moe_grouped_qwen3_cases(torch, dev))
     model_paths = (moe_path, phase_phi3(torch, main_path))
     torch.cuda.empty_cache()
+    kernel_rows.update({(r["kernel"], r["case"]): r for r in ring_cases(torch, dev)})
+    torch.cuda.empty_cache()
+    rolling_path = phase_rolling(torch, main_path)
+    torch.cuda.empty_cache()
     phase_cli(torch)
     emit(kernel_summary(kernel_rows, main_path, engine_path, fused_paths,
                         (int4_path, int4_engine), f8_paths, continuous_path, distributed_path,
-                        model_paths, admission_path, obs_path))
+                        model_paths, admission_path, obs_path, rolling_path))
     emit({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

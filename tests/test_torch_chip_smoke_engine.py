@@ -43,5 +43,9 @@ def test_engine_and_api_engine_rehearse_on_the_cpu(smoke, main_path, capsys):
     smoke.phase_api_engine(main_path, engine)
     # The kernels line reads the row's launches and the f8 phase its pool.
     assert engine["pool_bytes"] > 0
+    # The failover-local wave (the crash mid-decode) migrates 8/8.
+    assert engine["failover"]["equal_streams"] == smoke.ENGINE_BATCH
+    assert engine["failover"]["failovers"] == 1
     assert R.phases(capsys.readouterr().out) == ["engine", "paged_model_check",
-                                                 "dense_model_check", "api_engine"]
+                                                 "dense_model_check", "engine_failover",
+                                                 "api_engine"]

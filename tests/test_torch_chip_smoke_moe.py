@@ -123,6 +123,9 @@ def test_phi3_phase_rehearses_on_the_cpu(smoke, main_path, monkeypatch, capsys):
     assert [r["spec"] for r in row["engine_runs"]] == ["none", "ingest,tail", "all", "none"]
     assert row["ingest_tail_equal_none"] == smoke.ENGINE_BATCH
     assert row["engine_runs"][1]["launches"]["fused_qkv_ingest_plain"] > 0
+    # The rolling pass at head dim 96: ring ≡ full cache, per step and in chunks.
+    assert row["rolling"]["equal"] and row["rolling"]["ring_slots"] == 256
+    assert row["rolling"]["equal_tokens"] == [20, 20]
 
 
 def test_kernels_line_carries_the_shape_rows(smoke):

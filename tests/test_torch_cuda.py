@@ -2066,3 +2066,135 @@ def test_moe_grouped_kernels_run_the_tensor_cores(dev):
     assert len(bodies.get("grouped_ws_kernel", [])) == 4  # f16/bf16 x 128/256 columns
     assert len(bodies.get("grouped_swap_kernel", [])) == 2
     assert all("HGMMA" in fn for fns in bodies.values() for fn in fns)
+
+
+# ------------------------------------------------- the rolling ring layout
+
+
+def _ring_from_full(full, ring, newest):
+    """The ring a rolling cache of ``ring`` slots holds for rows whose newest
+    written position is ``newest`` (a list): slot s holds the full cache's
+    position rolling_kv_positions gives it (f8 gathered by bytes)."""
+    from cake_tpu_torch.models.llama.cache import rolling_kv_positions
+
+    rows = []
+    for r, p in enumerate(newest):
+        kpos = rolling_kv_positions(ring, p, 1).clamp(min=0, max=full.shape[2] - 1).to(full.device)
+        rows.append(kv_view(full[r : r + 1])[:, :, kpos])
+    return torch.cat(rows).view(full.dtype).contiguous()
+
+
+RING_KV = [torch.bfloat16, torch.float16, torch.float32, torch.float8_e4m3fn]
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("kv", RING_KV, ids=str)
+@pytest.mark.parametrize("group", [1, 4, 16])
+def test_ring_decode_matches_plain_and_dense_bits(dev, kv, hd, group):
+    """The ring decode instantiation (ring_limit) within TOL of the ring's
+    plain version and bitwise the dense kernel over the same keys in the
+    full cache, rows before, at and past several wraps."""
+    from cake_tpu_torch.ops.decode_attention import decode_ring_plain
+
+    dtype = torch.bfloat16 if kv == torch.float8_e4m3fn else kv
+    gen = torch.Generator(device=dev).manual_seed(hd + group)
+    b, n_kv, ring, limit, window = 4, 2, 256, 1152, 200
+    q = _randn(gen, dev, dtype, b, 1, n_kv * group, hd)
+    full_k = _randn(gen, dev, dtype, b, n_kv, limit, hd).to(kv)
+    full_v = _randn(gen, dev, dtype, b, n_kv, limit, hd).to(kv)
+    lens = [1, 256, 700, 1152]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    rk = _ring_from_full(full_k, ring, [n - 1 for n in lens])
+    rv = _ring_from_full(full_v, ring, [n - 1 for n in lens])
+    out = decode_attention(q, rk, rv, lengths, window=window, ring_limit=limit)
+    _assert_close(out, decode_ring_plain(q, rk, rv, lengths, window=window), dtype)
+    dense = decode_attention(q, full_k, full_v, lengths, window=window)
+    assert torch.equal(out, dense)
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("kv", RING_KV, ids=str)
+@pytest.mark.parametrize("group", [1, 4])
+def test_ring_chunk_matches_plain_and_dense_bits(dev, kv, hd, group):
+    """The ring chunk instantiation: a continuation chunk whose keys
+    straddle the ring's wrap, within TOL of its plain version and bitwise
+    the dense kernel's over the full cache."""
+    from cake_tpu_torch.ops.chunk_prefill import chunk_ring_plain
+
+    dtype = torch.bfloat16 if kv == torch.float8_e4m3fn else kv
+    gen = torch.Generator(device=dev).manual_seed(hd * group)
+    b, n_kv, ring, limit, window, chunk = 2, 2, 256, 1024, 150, 96
+    q_starts = [300, 650]
+    q = _randn(gen, dev, dtype, b, chunk, n_kv * group, hd)
+    full_k = _randn(gen, dev, dtype, b, n_kv, limit, hd).to(kv)
+    full_v = _randn(gen, dev, dtype, b, n_kv, limit, hd).to(kv)
+    qs = torch.tensor(q_starts, dtype=torch.int32, device=dev)
+    lengths = qs + chunk
+    newest = [s + chunk - 1 for s in q_starts]
+    rk, rv = _ring_from_full(full_k, ring, newest), _ring_from_full(full_v, ring, newest)
+    out = chunk_prefill_attention(q, rk, rv, qs, lengths, window=window, ring_limit=limit)
+    _assert_close(out, chunk_ring_plain(q, rk, rv, qs, lengths, window=window), dtype)
+    dense = chunk_prefill_attention(q, full_k, full_v, qs, lengths, window=window)
+    assert torch.equal(out, dense)
+
+
+def test_ring_wrappers_count_and_refuse(dev):
+    """Ring launches count in the wrappers' ``ring`` side counts; a ring of
+    a length the layout cannot take, or a window that does not fit it, is
+    refused before a launch."""
+    from cake_tpu_torch.ops import chunk_prefill, decode_attention as D
+
+    q = torch.zeros(1, 1, 4, 128, device=dev, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 2, 256, 128, device=dev, dtype=torch.bfloat16)
+    lengths = torch.tensor([300], dtype=torch.int32, device=dev)
+    before = D.decode_attention.ring, chunk_prefill.chunk_prefill_attention.ring
+    decode_attention(q, kv, kv, lengths, window=100, ring_limit=512)
+    chunk_prefill_attention(q.expand(1, 8, 4, 128).contiguous(), kv, kv,
+                            torch.tensor([292], dtype=torch.int32, device=dev), lengths,
+                            window=100, ring_limit=512)
+    assert (D.decode_attention.ring, chunk_prefill.chunk_prefill_attention.ring) == (
+        before[0] + 1, before[1] + 1)
+    bad = torch.zeros(1, 2, 192, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ring"):
+        decode_attention(q, bad, bad, lengths, window=100, ring_limit=512)
+    with pytest.raises(ValueError, match="ring"):
+        decode_attention(q, kv, kv, lengths, window=300, ring_limit=512)
+
+
+def test_rolling_generator_equals_the_full_cache_on_the_card(dev):
+    """A tiny Mistral on the card over the ring (ring kernels) and over the
+    full cache (dense kernels): the same greedy ids past several wraps, and
+    the first decode step's logits to the bit."""
+    import numpy as np
+
+    from cake_tpu_torch.models.llama import model as M
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.models.llama.generator import LocalForwardStep
+
+    cfg = LlamaConfig.tiny(model_type="mistral", sliding_window=100, num_hidden_layers=2,
+                           hidden_size=256, num_attention_heads=2, num_key_value_heads=1)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(3), torch.bfloat16, dev)
+    rng = np.random.default_rng(0)
+    prompt = [int(t) for t in rng.integers(0, 256, 400)]
+    out = {}
+    for name, budget in (("full", None), ("rolling", 64)):
+        step = LocalForwardStep(cfg, params, max_seq_len=1024, cache_dtype=torch.bfloat16,
+                                device=dev, rolling_budget=budget)
+        assert step.rolling == (budget is not None)
+        pos, logits, firsts = 0, None, []
+        while pos < len(prompt):
+            part = prompt[pos : pos + 64]
+            buf = np.zeros((1, 64), np.int64)
+            buf[0, : len(part)] = part
+            logits = step(buf, pos, len(part))
+            pos += len(part)
+        ids = []
+        for _ in range(200):
+            nxt = int(torch.argmax(logits[0]))
+            ids.append(nxt)
+            logits = step(np.asarray([[nxt]]), pos, 1)
+            firsts.append(logits)
+            pos += 1
+        out[name] = (ids, firsts[0])
+    assert out["rolling"][0] == out["full"][0]
+    assert torch.equal(out["rolling"][1], out["full"][1])

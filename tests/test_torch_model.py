@@ -109,8 +109,9 @@ def test_forward_logits_match_jax(family):
 
 
 def test_unported_paths_raise_naming_the_roadmap():
-    """The rolling window cache and tensor-parallel MoE are not ported; MoE
-    models themselves are (tests/test_torch_moe*.py)."""
+    """Tensor-parallel MoE is not ported; MoE models themselves are
+    (tests/test_torch_moe*.py). The rolling window cache is ported
+    (tests/test_torch_rolling.py) and refuses a model without a window."""
     cfg = LlamaConfig.tiny(num_local_experts=4)
     moe_params = M.init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
     assert moe_params["layers"]["router"].shape == (cfg.num_hidden_layers, cfg.hidden_size, 4)
@@ -122,8 +123,9 @@ def test_unported_paths_raise_naming_the_roadmap():
     params = M.init_params(dense, torch.Generator().manual_seed(0), torch.float32)
     kv = init_cache(dense.num_hidden_layers, 1, 32, dense.num_key_value_heads, dense.head_dim,
                     torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.forward(params, torch.zeros((1, 1), dtype=torch.long), kv, 0, 1, dense, rolling=True)
+    with pytest.raises(ValueError, match="rolling"):
+        M.forward(params, torch.zeros((1, 1), dtype=torch.long), kv, 0, 1, dense, rolling=True,
+                  rope_len=64)
 
 
 def test_init_params_is_seeded_and_shaped_like_jax():
