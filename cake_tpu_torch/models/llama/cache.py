@@ -16,7 +16,9 @@ The rolling window cache (``write_layer_rolling``, ``rolling_kv_positions``)
 serves single-window models: the cache holds the last ``window + chunk
 budget`` positions, position p in slot ``p % L`` (L, the ring's length, a
 multiple of SEQ_MULTIPLE), and the attention kernels read it through their
-ring layout (ops/csrc/kv_layout.cuh ``RingLayout``).
+ring layout (ops/csrc/kv_layout.cuh ``RingLayout``); the slot arithmetic
+the kernels' plain versions share lives beside ``causal_mask`` in
+ops/attention.py and is re-exported here.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from cake_tpu_torch.ops.attention import ROLLING_DEAD, rolling_kv_positions  # noqa: F401
 from cake_tpu_torch.ops.kv_dtype import kv_view, narrow
 
 
@@ -118,8 +121,6 @@ def write_layer(
 # memory by the window, not the sequence length: a 32K-context Mistral-7B
 # with window 4096 stores 4608 slots instead of 32768.
 
-ROLLING_DEAD = 2**30  # sentinel position of a slot never written (masked out)
-
 
 def write_layer_rolling(
     k_cache: torch.Tensor,
@@ -151,18 +152,3 @@ def write_layer_rolling(
     kv_view(k_cache).index_copy_(2, idx, k_rows)
     kv_view(v_cache).index_copy_(2, idx, v_rows)
     return k_cache, v_cache
-
-
-def rolling_kv_positions(cache_len: int, pos, valid_len) -> torch.Tensor:
-    """Absolute position of each ring slot, int64: [cache_len] for a scalar
-    ``pos``, [b, cache_len] for a [b] tensor of them.
-
-    Slot s holds the unique position q = s (mod cache_len) in
-    (p_max - cache_len, p_max], where p_max = pos + valid_len - 1 is the
-    newest position just written. Slots never written (q < 0) get
-    ROLLING_DEAD so the causal mask excludes them."""
-    p_max = torch.as_tensor(pos, dtype=torch.int64) + valid_len - 1
-    s = torch.arange(cache_len, dtype=torch.int64, device=p_max.device)
-    p = p_max[..., None]
-    q = p - ((p - s) % cache_len)
-    return torch.where(q >= 0, q, torch.full_like(q, ROLLING_DEAD))

@@ -351,7 +351,10 @@ def explain(events: list[dict], request_id: str) -> dict | None:
     out = {
         "request_id": request_id,
         "in_flight": in_flight,
-        "wall_s": round(wall, 6),
+        # The phases partition the wall: reported as the sum of the rounded
+        # phases, so they add up to it exactly (round(wall, 6) differs from
+        # that sum by up to a rounding step a phase).
+        "wall_s": round(sum(phases.values()), 6),
         "span_s": round(span_s, 6),
         "prompt_tokens": prompt_tokens,
         "completion_tokens": completion,

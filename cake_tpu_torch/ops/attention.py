@@ -79,6 +79,24 @@ def causal_mask(
     return mask
 
 
+ROLLING_DEAD = 2**30  # sentinel position of a slot never written (masked out)
+
+
+def rolling_kv_positions(cache_len: int, pos, valid_len) -> torch.Tensor:
+    """Absolute position of each ring slot, int64: [cache_len] for a scalar
+    ``pos``, [b, cache_len] for a [b] tensor of them.
+
+    Slot s holds the unique position q = s (mod cache_len) in
+    (p_max - cache_len, p_max], where p_max = pos + valid_len - 1 is the
+    newest position just written. Slots never written (q < 0) get
+    ROLLING_DEAD so the causal mask excludes them."""
+    p_max = torch.as_tensor(pos, dtype=torch.int64) + valid_len - 1
+    s = torch.arange(cache_len, dtype=torch.int64, device=p_max.device)
+    p = p_max[..., None]
+    q = p - ((p - s) % cache_len)
+    return torch.where(q >= 0, q, torch.full_like(q, ROLLING_DEAD))
+
+
 def gqa_attention_hm(
     q: torch.Tensor,
     k: torch.Tensor,

@@ -51,7 +51,7 @@ from dataclasses import dataclass
 import torch
 
 from cake_tpu_torch.ops import _build
-from cake_tpu_torch.ops.attention import causal_mask, masked_gqa_attention_hm
+from cake_tpu_torch.ops.attention import causal_mask, masked_gqa_attention_hm, rolling_kv_positions
 from cake_tpu_torch.ops.kv_dtype import F8, attention_dtype
 from cake_tpu_torch.ops.launches import count
 from cake_tpu_torch.ops.tickets import tickets
@@ -182,8 +182,6 @@ def ring_mask(q_pos, lengths, starts, ring: int, window, window_flag):
     position from ``rolling_kv_positions`` (the newest written position of a
     row is lengths - 1), then the causal and window mask of the reference's
     ``gqa_attention_hm`` and the left pad (``starts``)."""
-    from cake_tpu_torch.models.llama.cache import rolling_kv_positions
-
     kpos = rolling_kv_positions(ring, lengths.long() - 1, 1)
     mask = causal_mask(q_pos.long(), kpos, window, window_flag)
     return mask & (kpos >= starts.long()[:, None])[:, None, :]

@@ -723,16 +723,15 @@ class DistributedBatchBackend:
     @torch.inference_mode()
     def decode(self, kv, tok, slot, pads, keys, ring, ring_idx, n, s):
         """``n`` lockstep steps, one walk of the plan each; sampling on the
-        master (``sample_step``, the fused tail when "tail" is on). Returns
-        (ids [B, n], kv, keys, ring, ring_idx)."""
+        master (``sample_step``, the fused tail when "tail" is on), which
+        pushes into ``ring`` in place (a chunk redone after a migration
+        starts from rings the engine rebuilds). Returns (ids [B, n], kv,
+        keys, ring, ring_idx)."""
         if slot < 0 or slot + n > self.max_seq_len:
             raise ValueError(f"decode writes slots [{slot}, {slot + n}) outside the cache's "
                              f"{self.max_seq_len}")
         hdr = {"kind": "decode", "pads": [int(p) for p in pads.tolist()]}
         fused_tail = "tail" in resolve_fusion(self.config)
-        # The steps update the ring in place: a chunk that loses its worker
-        # leaves the caller's ring as it was, for the migrated redo.
-        ring = ring.clone()
         out = []
         for i in range(n):
             pos = int(slot) + i

@@ -84,14 +84,18 @@ Without the prefix cache the rebuild re-issues the epoch's own dispatches
 (its prefill, its joins and restores, and each decode chunk as one-token
 steps fed the tokens the streams already hold), the same kernels at the
 same shapes, so the rebuilt KV holds the lost KV's bits and greedy streams
-equal a fault-free run on the card too; under the prefix cache (whose
-chains' bytes die with the pool) it is the reference's one windowed
-re-prefill through the cached-chunk arithmetic. At most ``max_failovers``
-migrations an epoch within ``failover_budget_s`` of migration wall time;
-past either, or with no healthy replica, the epoch falls back to the error
-isolation. With ``heartbeat_interval_s`` the engine starts a
-``HeartbeatMonitor`` over the TCP backend's workers and attaches it to the
-router. Every backend dispatch passes the fault plan's ``backend.<op>``
+equal a fault-free run on the card too. That replay costs a step a
+position decoded since the epoch began; where its price, measured as it
+runs, would overrun ``failover_budget_s``, it stops and the migration takes
+the reference's one windowed re-prefill, which costs one prefill but
+rounds the generated tokens' K/V otherwise on the card. Under the prefix
+cache (whose chains' bytes die with the pool) the rebuild is always that
+re-prefill, through the cached-chunk arithmetic. At most
+``max_failovers`` migrations an epoch within ``failover_budget_s`` of
+migration wall time; past either, or with no healthy replica, the epoch
+falls back to the error isolation. With ``heartbeat_interval_s`` the
+engine starts a ``HeartbeatMonitor`` over the TCP backend's workers and
+attaches it to the router. Every backend dispatch passes the fault plan's ``backend.<op>``
 checkpoint first (``_backend_guard``).
 
 Not ported yet (ROADMAP.md): speculative verify. Asking for a knob that is
@@ -543,7 +547,7 @@ class BatchEngine:
             "prefill_s": 0.0, "decode_s": 0.0, "decode_chunks": 0, "decode_steps": 0,
             "preemptions": 0, "restores": 0, "budget_deferrals": 0, "stream_errors": 0,
             "shed": 0, "quota_refusals": 0, "deadline_expired": 0, "epoch_stalls": 0,
-            "backpressured": 0, "failovers": 0, "recovered": 0,
+            "backpressured": 0, "failovers": 0, "recovered": 0, "failover_reprefills": 0,
         }
         # Failover (the module docstring): the knobs, the epoch's budget
         # (count and migration seconds, reset per epoch), the TCP backend's
@@ -551,7 +555,9 @@ class BatchEngine:
         # cooldown and, at start(), the monitor. ``_replay`` is the
         # epoch's dispatch log a migration re-issues (None when the epoch
         # cannot migrate, or migrates by re-prefill under the prefix
-        # cache); ``_pads_host`` the host copy of the lanes' pads.
+        # cache); ``_pads_host`` the host copy of the lanes' pads;
+        # ``_replay_s_per_pos`` the last replay's seconds a position, which
+        # prices the next (``_replay_log``).
         self.max_failovers = serve.max_failovers
         self.failover_budget_s = serve.failover_budget_s
         self.failover_local = serve.failover_local
@@ -559,6 +565,7 @@ class BatchEngine:
         self._fo_spent_s = 0.0
         self._replay: list | None = None
         self._pads_host: np.ndarray | None = None
+        self._replay_s_per_pos: float | None = None
         step = getattr(backend, "step", None)
         self._hb_clients = getattr(step, "clients", {})
         self.heartbeat_interval_s = serve.heartbeat_interval_s
@@ -1389,14 +1396,15 @@ class BatchEngine:
         reset and each live lane's window [pad, slot) mapped again), then:
 
           * without the prefix cache, the epoch's dispatch log again
-            (``_replay_kv``): its prefill, joins and restores as they ran,
-            and each decode chunk as one-token steps fed the tokens the
-            live rows hold, so the rebuilt rows are the lost rows' bits;
+            (``_replay_log``), so the rebuilt rows are the lost rows' bits,
+            unless replaying it would overrun what is left of
+            ``failover_budget_s``: then the reference's one windowed
+            re-prefill of each live row's ``history[:-1]``
+            (``_reprefill_window``);
           * under the prefix cache (its chains' bytes die with the pool:
-            the chains, their pins and the retained pool go first), the
-            reference's one batched re-prefill of each live row's
-            ``history[:-1]`` into a window ending at ``slot``, through the
-            cached-chunk arithmetic with every row's threshold at its pad.
+            the chains, their pins and the retained pool go first), that
+            re-prefill through the cached-chunk arithmetic with every row's
+            threshold at its pad.
 
         Sampling state (keys, rings) is the engine's and rides through."""
         t0 = time.perf_counter()
@@ -1405,15 +1413,7 @@ class BatchEngine:
         with timeline.span("failover-migrate", track="router",
                            args={"slot": int(slot), "live": len(live)}):
             if self._prefix is not None:
-                cap = min(self.max_seq_len, backend.capacity_slots())
-                width = min(-(-slot // _WINDOW_BUCKET) * _WINDOW_BUCKET, cap)
-                tokens = np.zeros((n_lanes, width), np.int32)
-                pads = np.full((n_lanes,), slot - 1, np.int32)
-                tokens[:, slot - 1] = self.config.bos_token_id  # dead lanes: one bos
-                for lane, row in live:
-                    hist = row.history[:-1]
-                    tokens[lane, slot - len(hist) : slot] = hist
-                    pads[lane] = slot - len(hist)
+                tokens, pads = self._reprefill_window(live, n_lanes, slot)
                 self._prefix.clear(reason="failover-migrate")
                 backend.drop_retained_kv()
                 self._lane_leases.clear()
@@ -1423,18 +1423,22 @@ class BatchEngine:
                 self._pool_counter()
                 _, kv = self._dispatch("prefill", lambda: backend.suffix_prefill(
                     tokens, kv, pads, pads.copy(), 0))
+                how = "reprefill"
             else:
                 kv = backend.init_kv(n_lanes)
-                pads = self._pads_host
                 if self._alloc is not None:
                     for lane, _ in live:
-                        self._alloc.map_range(lane, int(pads[lane]), slot)
+                        self._alloc.map_range(lane, int(self._pads_host[lane]), slot)
                     self._pool_counter()
-                fed = {lane: (int(pads[lane]), list(row.history)) for lane, row in live}
-                log_ = list(self._replay)
-                kv = self._dispatch("prefill", lambda: _replay_kv(
-                    backend, kv, log_, fed, n_lanes))
+                kv, how = self._replay_log(kv, live, n_lanes, slot, t0)
             self._settle()
+        if how == "reprefill" and self._prefix is None:
+            metrics.registry.counter(
+                "cake_failover_reprefills_total",
+                "Migrations that re-prefilled instead of replaying the epoch, whose replay "
+                "would have overrun the failover budget.",
+            ).inc()
+            self.stats["failover_reprefills"] += 1
         dt = time.perf_counter() - t0
         self._fo_spent_s += dt
         # The migration's rebuild is redone work a worker's death cost.
@@ -1450,10 +1454,73 @@ class BatchEngine:
             "when no replica could take over).",
         ).inc(len(live))
         metrics.flight.record("failover-migrated", live=len(live), slot=int(slot),
-                              seconds=round(dt, 6))
-        log.warning("failover migration: %d live stream(s) rebuilt at slot %d in %.3fs",
-                    len(live), slot, dt)
+                              seconds=round(dt, 6), how=how)
+        log.warning("failover migration (%s): %d live stream(s) rebuilt at slot %d in %.3fs",
+                    how, len(live), slot, dt)
         return kv
+
+    def _reprefill_window(self, live: list, n_lanes: int, slot: int):
+        """The reference's migration window: each live row's ``history[:-1]``
+        left-padded to end at ``slot``, a dead lane one bos at ``slot - 1``,
+        ``slot`` rounded up to ``_WINDOW_BUCKET`` within the capacity.
+        Returns (tokens [n_lanes, W], pads [n_lanes])."""
+        cap = self.max_seq_len
+        if hasattr(self.backend, "capacity_slots"):
+            cap = min(cap, self.backend.capacity_slots())
+        width = min(-(-slot // _WINDOW_BUCKET) * _WINDOW_BUCKET, cap)
+        tokens = np.zeros((n_lanes, width), np.int32)
+        pads = np.full((n_lanes,), slot - 1, np.int32)
+        tokens[:, slot - 1] = self.config.bos_token_id
+        for lane, row in live:
+            hist = row.history[:-1]
+            tokens[lane, slot - len(hist) : slot] = hist
+            pads[lane] = slot - len(hist)
+        return tokens, pads
+
+    def _replay_log(self, kv, live: list, n_lanes: int, slot: int, t0: float):
+        """Re-issue the epoch's dispatch log over the fresh ``kv``: its
+        prefill, joins and restores with their own tokens, and each decode
+        chunk as one-token steps fed the tokens the live rows hold
+        (``_replay_tokens``). Each entry is a dispatch of its own, so the
+        stall guard bounds an entry as it bounds a decode chunk, never the
+        whole replay; the first passes the ``backend.prefill`` checkpoint,
+        as the reference's one migration prefill does.
+
+        A replay costs a step for every position decoded since the epoch
+        began. Before the first entry and each decode chunk the positions
+        left are priced at the seconds a position measured so far (this
+        migration's, else the last one's); when the price would take the migration past
+        ``failover_budget_s`` the replay stops there and the reference's
+        windowed re-prefill (``_reprefill_window``) rewrites every live row
+        over the KV as it is. So a migration takes at most about its budget
+        plus one prefill. Returns (kv, "replay" or "reprefill")."""
+        backend = self.backend
+        fed = {lane: (int(self._pads_host[lane]), list(row.history)) for lane, row in live}
+        log_ = list(self._replay)
+        left = sum(e[2] for e in log_ if e[0] == "decode")
+        budget = self.failover_budget_s - self._fo_spent_s
+        rate, done_s, done_n = self._replay_s_per_pos, 0.0, 0
+        for i, entry in enumerate(log_):
+            op = "prefill" if i == 0 else "migrate"
+            priced = rate is not None and (i == 0 or entry[0] == "decode")
+            if priced and time.perf_counter() - t0 + rate * left > budget:
+                tokens, pads = self._reprefill_window(live, n_lanes, slot)
+                _, kv = self._dispatch(op, lambda kv=kv: backend.prefill(tokens, kv, pads))
+                return kv, "reprefill"
+            if entry[0] == "call":
+                kv = self._dispatch(op, lambda fn=entry[1], kv=kv: fn(kv))
+                continue
+            _, at, n, pads = entry
+            toks = _replay_tokens(fed, at, n, n_lanes)
+            t = time.perf_counter()
+            kv = self._dispatch(op, lambda kv=kv, toks=toks, at=at, pads=pads:
+                                backend.replay_decode(kv, toks, at, pads))
+            self._settle()
+            done_s += time.perf_counter() - t
+            done_n += n
+            left -= n
+            rate = self._replay_s_per_pos = done_s / done_n
+        return kv, "replay"
 
     def _pages_for(self, req: _Request, end_slot: int | None = None) -> int:
         """Admission price: prompt pages + the reserve, less the cached-prefix
@@ -1992,11 +2059,14 @@ class BatchEngine:
             except BackendWorkerError as e:
                 # Migration: a worker died and a healthy route exists (or a
                 # local backend opted in): rebuild every live stream's KV
-                # there and REDO this chunk. tok, keys and the rings still
-                # hold the state before the chunk, so the redone chunk
-                # samples the tokens the lost one would have.
+                # there and REDO this chunk. tok and keys still hold the
+                # state before the chunk; a chunk's steps may have pushed
+                # into the rings in place (the TCP backend's), so each live
+                # row's ring is rebuilt from its history, and the redone
+                # chunk samples the tokens the lost one would have.
                 self._failover_or_raise(e)
                 kv = self._migrate_kv(rows, n_lanes, slot)
+                _rings_from_history(rows, ring_j, ring_idx_j, window)
                 continue
             if self._replay is not None:
                 self._replay.append(("decode", slot, n, self._pads_host.copy()))
@@ -2883,28 +2953,35 @@ class _RowState:
         eng._row_finished(self.req.rid)
 
 
-def _replay_kv(backend, kv, log_: list, fed: dict, n_lanes: int):
-    """Re-issue an epoch's logged dispatches over a fresh ``kv``
-    (``BatchEngine._migrate_kv``): ``("call", fn)`` entries run ``fn(kv)``
-    (the prefill, a join or a restore, with their own tokens); a
-    ``("decode", slot, n, pads)`` entry runs ``backend.replay_decode`` over
-    [slot, slot + n), each lane fed ``history[p - pad]`` at position p from
-    ``fed`` ({lane: (pad, history)} of the live rows). A position before a
-    lane's current row joined gets that history's token or 0: garbage the
-    join logged later rewrites, as a dead lane's garbage is never read."""
-    for entry in log_:
-        if entry[0] == "call":
-            kv = entry[1](kv)
-            continue
-        _, slot, n, pads = entry
-        toks = np.zeros((n_lanes, n), np.int64)
-        for lane, (pad, hist) in fed.items():
-            for i in range(n):
-                j = slot + i - pad
-                if 0 <= j < len(hist):
-                    toks[lane, i] = hist[j]
-        kv = backend.replay_decode(kv, toks, slot, pads)
-    return kv
+def _rings_from_history(rows: list, ring: torch.Tensor, ring_idx: torch.Tensor,
+                        window: int) -> None:
+    """Write each live row's repeat-penalty ring as its history gives it
+    (``seed_rings``: the last ``window`` ids, the next push evicting the
+    oldest), in place. The penalty reads the ring's ids and a push evicts
+    the oldest wherever the ring's rotation starts, so this equals the ring
+    the row's pushes built."""
+    live = [(lane, row) for lane, row in enumerate(rows) if row is not None]
+    if window <= 0 or not live:
+        return
+    r, idx = seed_rings([row.history for _, row in live], window)
+    lanes = torch.tensor([lane for lane, _ in live], device=ring.device)
+    ring[lanes] = torch.as_tensor(r, device=ring.device).to(ring.dtype)
+    ring_idx[lanes] = torch.as_tensor(idx, device=ring.device).to(ring_idx.dtype)
+
+
+def _replay_tokens(fed: dict, slot: int, n: int, n_lanes: int) -> np.ndarray:
+    """The tokens a logged decode chunk over [slot, slot + n) fed each lane:
+    ``history[p - pad]`` at position p from ``fed`` ({lane: (pad, history)}
+    of the live rows). A position before a lane's current row joined gets
+    that history's token or 0: garbage the join logged later rewrites, as a
+    dead lane's garbage is never read."""
+    toks = np.zeros((n_lanes, n), np.int64)
+    for lane, (pad, hist) in fed.items():
+        for i in range(n):
+            j = slot + i - pad
+            if 0 <= j < len(hist):
+                toks[lane, i] = hist[j]
+    return toks
 
 
 def _fail_request(req: _Request, engine: BatchEngine, error: str = "") -> None:

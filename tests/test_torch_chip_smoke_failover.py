@@ -36,11 +36,20 @@ def _no_plan():
 
 
 def test_engine_failover_local_rehearses_on_the_cpu(smoke, main_path, capsys):
+    """The early replay 8/8; the late fault under a budget far below the
+    replay's price re-prefills (1 ms on the CPU, where the tiny model's
+    replay is cheap); the prefix-cache engine re-prefills; on the CPU every
+    rebuild keeps the streams."""
     row = smoke._engine_failover_local(torch, main_path)
+    assert row["late"]["budget_s"] == 1e-3
     assert row["equal_streams"] == smoke.ENGINE_BATCH
     assert (row["failovers"], row["recovered"], row["stream_errors"]) == (
         1, smoke.ENGINE_BATCH, 0)
     assert row["pool_whole"] and row["plan"].startswith("crash@backend.decode")
+    assert [m["how"] for m in row["migrations"]] == ["replay"]
+    assert [m["how"] for m in row["late"]["migrations"]] == ["reprefill"]
+    assert row["late"]["equal_streams"] == smoke.ENGINE_BATCH
+    assert row["prefix_cache"]["equal_streams"] == smoke.ENGINE_BATCH
     assert R.phases(capsys.readouterr().out) == ["engine_failover"]
 
 
@@ -86,3 +95,34 @@ def test_tcp_failover_and_no_replica_rehearse_on_the_cpu(smoke, main_path):
     assert nr["next_wave_streams"] == want
     # Each stream ended with a prefix of its fault-free stream.
     assert all(s == w[: len(s)] and len(s) < len(w) for s, w in zip(nr["streams"], want))
+
+
+def test_failover_times_script_rehearses_on_the_cpu(capsys):
+    """scripts/failover_times.py's sections at a 2-layer tiny config: the
+    K/V bits of a decode against a prefill (f32 on the CPU: equal), the
+    local engine's replay and re-prefill migrations late and early, the
+    prefix-cache engine's, and the TCP ones; every migrated wave finishes
+    without an error, each run rebuilds as its budget says."""
+    import importlib.util
+    import json
+
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+
+    spec = importlib.util.spec_from_file_location("failover_times",
+                                                  R.REPO / "scripts" / "failover_times.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    script.run(dev="cpu", config=LlamaConfig.tiny(num_hidden_layers=2), tokens=48, after=4)
+    rows = {r["section"]: r for r in map(json.loads, capsys.readouterr().out.splitlines())}
+    assert set(rows) == {"setup", "kv_bits", "local", "tcp"}
+    assert len(rows["kv_bits"]["layers"]) == 2
+    runs = {f"{s}.{k}": v for s in ("local", "tcp") for k, v in rows[s].items()
+            if isinstance(v, dict)}
+    assert sorted(runs) == ["local.early_replay", "local.early_reprefill", "local.late_replay",
+                            "local.late_reprefill", "local.prefix_early", "tcp.early_reprefill",
+                            "tcp.late_replay", "tcp.late_reprefill"]
+    for name, run in runs.items():
+        assert run["stream_errors"] == 0 and len(run["migrations"]) == 1, name
+        how = run["migrations"][0]["how"]
+        assert how == ("replay" if name.endswith("replay") else "reprefill"), name
+        assert run["equal_streams"] == 8 and set(run["first_differences"]) == {None}, name

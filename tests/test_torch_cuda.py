@@ -2085,14 +2085,22 @@ def _ring_from_full(full, ring, newest):
 
 
 RING_KV = [torch.bfloat16, torch.float16, torch.float32, torch.float8_e4m3fn]
+# A relative L2 error beside the max-abs TOL: a ring output averages many
+# keys, and a dropped or misplaced split moves it by far more than this.
+RING_REL_TOL = {torch.float32: 1e-4, torch.float16: 1e-2, torch.bfloat16: 1e-2}
+
+
+def _assert_rel_l2(out, ref, dtype):
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel <= RING_REL_TOL[dtype], f"relative L2 {rel} > {RING_REL_TOL[dtype]}"
 
 
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("kv", RING_KV, ids=str)
 @pytest.mark.parametrize("group", [1, 4, 16])
 def test_ring_decode_matches_plain_and_dense_bits(dev, kv, hd, group):
-    """The ring decode instantiation (ring_limit) within TOL of the ring's
-    plain version and bitwise the dense kernel over the same keys in the
+    """The ring decode instantiation (ring_limit) within TOL and RING_REL_TOL
+    of the ring's plain version and bitwise the dense kernel over the same keys in the
     full cache, rows before, at and past several wraps."""
     from cake_tpu_torch.ops.decode_attention import decode_ring_plain
 
@@ -2107,7 +2115,9 @@ def test_ring_decode_matches_plain_and_dense_bits(dev, kv, hd, group):
     rk = _ring_from_full(full_k, ring, [n - 1 for n in lens])
     rv = _ring_from_full(full_v, ring, [n - 1 for n in lens])
     out = decode_attention(q, rk, rv, lengths, window=window, ring_limit=limit)
-    _assert_close(out, decode_ring_plain(q, rk, rv, lengths, window=window), dtype)
+    ref = decode_ring_plain(q, rk, rv, lengths, window=window)
+    _assert_close(out, ref, dtype)
+    _assert_rel_l2(out, ref, dtype)
     dense = decode_attention(q, full_k, full_v, lengths, window=window)
     assert torch.equal(out, dense)
 
@@ -2117,7 +2127,8 @@ def test_ring_decode_matches_plain_and_dense_bits(dev, kv, hd, group):
 @pytest.mark.parametrize("group", [1, 4])
 def test_ring_chunk_matches_plain_and_dense_bits(dev, kv, hd, group):
     """The ring chunk instantiation: a continuation chunk whose keys
-    straddle the ring's wrap, within TOL of its plain version and bitwise
+    straddle the ring's wrap, within TOL and RING_REL_TOL of its plain
+    version and bitwise
     the dense kernel's over the full cache."""
     from cake_tpu_torch.ops.chunk_prefill import chunk_ring_plain
 
@@ -2133,7 +2144,9 @@ def test_ring_chunk_matches_plain_and_dense_bits(dev, kv, hd, group):
     newest = [s + chunk - 1 for s in q_starts]
     rk, rv = _ring_from_full(full_k, ring, newest), _ring_from_full(full_v, ring, newest)
     out = chunk_prefill_attention(q, rk, rv, qs, lengths, window=window, ring_limit=limit)
-    _assert_close(out, chunk_ring_plain(q, rk, rv, qs, lengths, window=window), dtype)
+    ref = chunk_ring_plain(q, rk, rv, qs, lengths, window=window)
+    _assert_close(out, ref, dtype)
+    _assert_rel_l2(out, ref, dtype)
     dense = chunk_prefill_attention(q, full_k, full_v, qs, lengths, window=window)
     assert torch.equal(out, dense)
 

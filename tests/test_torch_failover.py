@@ -462,3 +462,104 @@ def test_failover_config_validation():
         if "heartbeat_interval_s" not in bad:
             with pytest.raises(ValueError):
                 JaxServe(**bad)
+
+
+# ------------------------------------------- the migration's price and rings
+
+
+@pytest.mark.parametrize("kv_mode", ["dense", "paged"])
+def test_migration_past_its_budget_reprefills(ckpt, kv_mode):
+    """A budget the replay's measured price overruns: after the first
+    replayed decode chunk the migration takes the reference's windowed
+    re-prefill (the JAX engine's only migration), so the port's record is
+    the JAX engine's, the streams equal the fault-free run, and the port
+    counts the re-prefill."""
+    wave = [("short survivor", 3), ("the long victim stream", 24)]
+    kw = dict(kv_mode=kv_mode, page_size=16) if kv_mode == "paged" else {}
+    want = local_records(ckpt, wave, None, **kw)
+    got = local_records(ckpt, wave, "crash@backend.decode:after=3:count=1",
+                        failover_local=True, failover_budget_s=1e-9, **kw)
+    assert got[0] == got[1]
+    assert got[0]["ids"] == want[0]["ids"]
+    assert got[0]["failovers"] == 1 and got[0]["stream_errors"] == 0
+    migrated = [e for e in metrics.flight.snapshot() if e["event"] == "failover-migrated"]
+    assert [e["how"] for e in migrated] == ["reprefill"]
+    assert metrics.registry.counter("cake_failover_reprefills_total").value() == 1
+
+
+def _migration_dispatches(ckpt, monkeypatch, s_per_pos):
+    """The ops the port engine's one local migration dispatches (a paged
+    wave crashed at its fourth decode chunk), with the replay priced at
+    ``s_per_pos`` before it (None: unpriced), and the wave's ids."""
+    ops, seen = [], {"migrating": False}
+    real_dispatch, real_migrate = BatchEngine._dispatch, BatchEngine._migrate_kv
+
+    def dispatch(self, op, fn, grace=False):
+        if seen["migrating"]:
+            ops.append(op)
+        return real_dispatch(self, op, fn, grace)
+
+    def migrate(self, *a):
+        seen["migrating"] = True
+        try:
+            return real_migrate(self, *a)
+        finally:
+            seen["migrating"] = False
+
+    monkeypatch.setattr(BatchEngine, "_dispatch", dispatch)
+    monkeypatch.setattr(BatchEngine, "_migrate_kv", migrate)
+    cfg = LlamaConfig.from_model_dir(ckpt)
+    eng = BatchEngine(cfg, load_params(ckpt, cfg, torch.float32), ByteTokenizer(),
+                      max_seq_len=MAX_SEQ, cache_dtype=torch.float32,
+                      serve=ServeConfig(max_batch=4, decode_chunk_size=4, admission_window=0.05,
+                                        kv_mode="paged", page_size=16, failover_local=True),
+                      device="cpu")
+    eng._replay_s_per_pos = s_per_pos
+    eng.start()
+    try:
+        install("crash@backend.decode:after=3:count=1")
+        ids, _ = run_wave(eng, False, [("the long victim stream", 24)])
+    finally:
+        eng.stop()
+    return ops, ids
+
+
+def test_migration_replays_an_entry_a_dispatch(ckpt, monkeypatch):
+    """Unpriced, the replay runs the epoch's log entry by entry, each a
+    guarded dispatch of its own (the prefill's passes the backend.prefill
+    checkpoint, the decode chunks' are "migrate"); priced far past the
+    budget, the migration is one re-prefill dispatch; both streams equal."""
+    ops, ids = _migration_dispatches(ckpt, monkeypatch, None)
+    assert ops == ["prefill", "migrate", "migrate", "migrate"]
+    priced, priced_ids = _migration_dispatches(ckpt, monkeypatch, 1e3)
+    assert priced == ["prefill"]
+    assert priced_ids == ids
+
+
+def test_tcp_redo_rebuilds_the_rings_pushed_mid_chunk(ckpt, replicas):
+    """A worker killed in the middle of a TCP decode chunk, under a repeat
+    penalty: the steps before the kill pushed into the rings in place, and
+    the redone chunk starts from rings rebuilt from the histories, so the
+    streams equal the fault-free run's and the JAX engine's."""
+    topo, jtopo = replicas
+    knobs = dict(temperature=0.0, repeat_penalty=1.3, repeat_last_n=8)
+    wave = [("survivor", 3), ("the long victim stream", 16)]
+    runs = []
+    for plan in (None, "kill@client.send:node=w0:after=3:count=0"):
+        clear_records()
+        if plan is not None:
+            install(plan)
+        for side in ("port", "jax"):
+            eng, step = (port_tcp_engine(ckpt, topo) if side == "port"
+                         else jax_tcp_engine(ckpt, jtopo))
+            msg, samp = (Message, SamplingConfig) if side == "port" else (JaxMessage, JaxSampling)
+            try:
+                hs = [eng.submit([msg.user(p)], n, samp(**knobs)) for p, n in wave]
+                runs.append(([[t.id for t in h.tokens()] for h in hs], eng.stats["failovers"]))
+            finally:
+                eng.stop()
+                step.close()
+    (want, _), (jwant, _), (got, fo), (jgot, jfo) = runs
+    assert want == jwant
+    assert got == want and jgot == jwant
+    assert fo == jfo == 1
